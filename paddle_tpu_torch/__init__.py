@@ -1,0 +1,18 @@
+"""PyTorch/CUDA port of ``paddle_tpu`` for one NVIDIA H100.
+
+The JAX package ``paddle_tpu`` is the reference this package is held
+against; it is never imported here.  The port goes slice by slice: this
+package holds the paged-KV serving path — ``GPTForCausalLM``'s paged
+prefill/decode entry points under ``LLMEngine(model, kv_layout="paged")``
+— with the paged decode attention as a hand-written CUDA kernel
+(``kernels/csrc/paged_attention.cu``).
+
+Every entry point runs on ``cuda`` unless the caller passes
+``device="cpu"``; without a GPU and without an explicit device the model
+raises instead of landing on the CPU.
+"""
+
+from .models import GPTConfig, GPTForCausalLM
+from .serving import LLMEngine
+
+__all__ = ["GPTConfig", "GPTForCausalLM", "LLMEngine"]

@@ -1,0 +1,56 @@
+"""Process-global counter/gauge registry (the subset of
+``paddle_tpu/profiler/counters.py`` the serving path ticks).
+
+The engine bumps the same ``serving.*`` names as the JAX engine —
+``serving.decode_steps``, ``serving.decode_tokens``,
+``serving.kv.prefill_chunks``, ``serving.kv.prefix_hits``,
+``serving.kv.prefix_hit_tokens``, ``serving.kv.cow_copies``,
+``serving.kv.blocks_evicted``, ``serving.kv.pool_exhausted`` — so a test
+can diff both registries around the same traffic.
+"""
+
+from __future__ import annotations
+
+import threading
+
+_LOCK = threading.Lock()
+_COUNTERS: dict[str, float] = {}
+_GAUGES: dict[str, float] = {}
+
+
+def inc(name: str, value=1):
+    """Bump a monotonic counter (thread-safe)."""
+    with _LOCK:
+        _COUNTERS[name] = _COUNTERS.get(name, 0) + value
+
+
+def set_gauge(name: str, value):
+    """Set a point-in-time gauge (last-write-wins)."""
+    with _LOCK:
+        _GAUGES[name] = value
+
+
+def get(name: str, default=0):
+    with _LOCK:
+        return _COUNTERS.get(name, _GAUGES.get(name, default))
+
+
+def snapshot() -> dict:
+    """Copy of every counter and gauge — the unit of delta accounting."""
+    with _LOCK:
+        out = dict(_COUNTERS)
+        out.update(_GAUGES)
+        return out
+
+
+def delta(before: dict, after: dict | None = None) -> dict:
+    """Per-name movement between two snapshots (``after`` defaults to now).
+    Names absent from ``before`` count from 0; zero deltas are dropped."""
+    if after is None:
+        after = snapshot()
+    out = {}
+    for k, v in after.items():
+        d = v - before.get(k, 0)
+        if d != 0:
+            out[k] = d
+    return out

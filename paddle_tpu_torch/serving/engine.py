@@ -1,0 +1,412 @@
+"""Continuous-batching LLM engine base (port of
+``paddle_tpu/serving/engine.py``).
+
+Iteration-level scheduling (Orca, OSDI '22): requests are admitted from a
+bounded queue into free slots, decoded together one token per step
+regardless of arrival time, and evicted on EOS / ``max_new_tokens`` /
+deadline / cancellation with the slot immediately re-handed out.
+
+This slice ports the paged layout only: ``LLMEngine(model,
+kv_layout="paged")`` constructs :class:`serving.paged.PagedLLMEngine`,
+which owns the KV pools, admission, chunked prefill and the decode step.
+The class here holds what every layout shares — request intake and
+backpressure, the finish/sweep/emit transitions, and the blocking
+``generate``/``drain`` loops.  Knobs of later slices raise
+``NotImplementedError`` naming their ROADMAP item.
+
+The engine follows the model's device.  Each request carries its own
+``torch.Generator``, seeded from the request's ``seed``, for sampling.
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+import time
+from collections import deque
+
+import numpy as np
+
+from ..profiler import counters
+
+_TODO = {
+    "slots": "ROADMAP.md A2 (slot layout, generate)",
+    "kv_dtype": "ROADMAP.md A3 (quantized KV, kernel K4q)",
+    "weight_dtype": "ROADMAP.md A3 (int8 weight-only decode)",
+    "draft_model": "ROADMAP.md A6 (speculative decoding)",
+    "adapter_slots": "ROADMAP.md A6 (LoRA adapter serving)",
+    "host_kv_blocks": "ROADMAP.md A6 (host-RAM KV tier)",
+    "mesh": "ROADMAP.md A7 (tensor-parallel serving)",
+}
+
+
+def _not_ported(knob):
+    return NotImplementedError(
+        f"{knob} is not ported to paddle_tpu_torch yet: {_TODO[knob]}")
+
+
+class EngineBackpressure(RuntimeError):
+    """add_request refused: the bounded request queue is full.  Carries
+    the structured retry info clients need to back off:
+
+    * ``queue_depth`` — requests waiting at refusal time.
+    * ``retry_after_hint`` — estimated seconds until the backlog drains
+      (``outstanding_tokens / decode tokens/s EMA``), or None when the
+      engine has produced no throughput estimate yet.
+    """
+
+    def __init__(self, msg="", queue_depth=0, retry_after_hint=None):
+        super().__init__(msg)
+        self.queue_depth = int(queue_depth)
+        self.retry_after_hint = retry_after_hint
+
+
+class EngineClosed(RuntimeError):
+    """add_request refused: the engine is draining or drained."""
+
+
+class Request:
+    """One generation request and its live state (also the user handle:
+    ``add_request`` returns it; iterate it to stream tokens)."""
+
+    __slots__ = ("rid", "prompt", "max_new_tokens", "do_sample",
+                 "temperature", "top_k", "top_p", "eos_token_id", "seed",
+                 "state", "finish_reason", "tokens", "slot", "arrival_ns",
+                 "deadline", "_cancel", "_engine", "error", "generator")
+
+    def __init__(self, rid, prompt, max_new_tokens, do_sample, temperature,
+                 top_k, top_p, eos_token_id, seed, deadline, engine):
+        self.rid = rid
+        self.prompt = prompt                    # np.int32 [T]
+        self.max_new_tokens = max_new_tokens
+        self.do_sample = do_sample
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+        self.eos_token_id = eos_token_id
+        self.seed = seed
+        self.state = "queued"     # queued | prefilling | running | finished
+        # eos | length | deadline | cancelled | error
+        self.finish_reason = None
+        self.error = None         # the exception, when finish_reason="error"
+        self.tokens = []          # generated tokens (includes eos if hit)
+        self.slot = None
+        self.arrival_ns = time.monotonic_ns()
+        self.deadline = deadline  # absolute time.monotonic() or None
+        self._cancel = False
+        self._engine = engine
+        self.generator = None     # torch.Generator, made at admission
+
+    @property
+    def is_finished(self):
+        return self.state == "finished"
+
+    def cancel(self):
+        """Request cancellation; the engine evicts the request (or drops
+        it from the queue) on its next step.  Safe from any thread, any
+        number of times, including after the request finished."""
+        self._cancel = True
+
+    def output_ids(self):
+        """prompt + generated tokens, as one np.int32 array."""
+        return np.concatenate([self.prompt,
+                               np.asarray(self.tokens, np.int32)])
+
+    def __iter__(self):
+        """Stream generated tokens, pumping the engine while this request
+        is live (single-threaded serving loop)."""
+        i = 0
+        while True:
+            while i < len(self.tokens):
+                yield self.tokens[i]
+                i += 1
+            if self.is_finished:
+                return
+            self._engine.step()
+
+    def __repr__(self):
+        return (f"Request(id={self.rid}, state={self.state!r}, "
+                f"reason={self.finish_reason!r}, "
+                f"generated={len(self.tokens)})")
+
+
+def bucket_length(n, min_bucket=8, max_len=None):
+    """Smallest power-of-two >= n (floored at ``min_bucket``, clamped to
+    ``max_len``): the padded length of an n-token prefill chunk."""
+    b = max(int(min_bucket), 1)
+    while b < n:
+        b *= 2
+    return min(b, max_len) if max_len is not None else b
+
+
+class LLMEngine:
+    """Continuous-batching engine over one ``GPTForCausalLM``.
+
+    ``add_request()`` enqueues (bounded queue, optional blocking
+    backpressure); ``step()`` admits, prefills, runs one decode launch
+    for every active slot, and evicts finished rows; ``generate()`` is
+    the blocking convenience loop; iterating a returned ``Request``
+    streams its tokens.  ``drain()`` stops admission and finishes all
+    outstanding work.
+    """
+
+    def __new__(cls, *args, **kw):
+        # kv_layout="paged" routes construction to the paged subclass so
+        # `LLMEngine(model, kv_layout="paged")` is the one public spelling
+        if cls is LLMEngine and kw.get("kv_layout", "slots") == "paged":
+            from .paged import PagedLLMEngine
+            return super().__new__(PagedLLMEngine)
+        return super().__new__(cls)
+
+    def __init__(self, model, max_slots=8, max_seq_len=None, queue_size=64,
+                 min_bucket=8, eos_token_id=None, kv_layout="slots",
+                 block_size=16, n_blocks=None, prefill_chunk=None,
+                 prefix_cache=True, kv_dtype=None, weight_dtype=None,
+                 host_kv_blocks=0, mesh=None, adapter_slots=0,
+                 draft_model=None):
+        if kv_layout not in ("slots", "paged"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}; "
+                             "want 'slots' or 'paged'")
+        for knob, value in (("kv_dtype", kv_dtype),
+                            ("weight_dtype", weight_dtype),
+                            ("host_kv_blocks", host_kv_blocks),
+                            ("mesh", mesh), ("adapter_slots", adapter_slots),
+                            ("draft_model", draft_model)):
+            if value is not None and value != 0:
+                raise _not_ported(knob)
+        self.kv_layout = kv_layout
+        # paged-pool knobs (read by PagedLLMEngine._init_kv)
+        self.block_size = int(block_size)
+        self.n_blocks = n_blocks
+        self.prefill_chunk = prefill_chunk
+        self.prefix_caching = bool(prefix_cache)
+        c = model.config
+        self.model = model
+        self.config = c
+        self.device = model.device
+        self.max_slots = int(max_slots)
+        self.max_seq_len = int(max_seq_len or c.max_seq_len)
+        if not c.use_rope and self.max_seq_len > c.max_seq_len:
+            raise ValueError(
+                f"max_seq_len {self.max_seq_len} exceeds the model's "
+                f"learned-position table ({c.max_seq_len})")
+        self.queue_size = int(queue_size)
+        self.min_bucket = int(min_bucket)
+        self.eos_token_id = eos_token_id  # default for requests
+        self._w = model.decode_state()
+
+        B, S = self.max_slots, self.max_seq_len
+        nh = c.num_heads
+        self._init_kv(c, B, S, nh, c.hidden_size // nh)
+
+        # host mirrors of the per-slot decode inputs
+        self._tok = np.zeros(B, np.int32)
+        self._pos = np.zeros(B, np.int32)
+
+        self._slots: list = [None] * B
+        self._free = list(range(B - 1, -1, -1))  # slot 0 handed out first
+        self._queue: deque = deque()
+        # ONE engine lock: the Condition's (re-entrant) lock guards the
+        # queue, slot bookkeeping, the finish CAS, and the stats()
+        # aggregates below
+        self._cond = threading.Condition(threading.RLock())
+        self._closed = False
+        self._rid = itertools.count()
+        self._outstanding = 0     # undelivered tokens across queued+active
+        self._tps_ema = 0.0       # decode tokens/s, EMA over launches
+        self._ema_alpha = 0.25
+
+    def _init_kv(self, c, B, S, nh, hd):
+        """Allocate the device KV storage: the slot arena in the
+        reference, a block pool in the PagedLLMEngine override."""
+        raise _not_ported("slots")
+
+    # -- request intake ------------------------------------------------------
+    def add_request(self, prompt, max_new_tokens=32, do_sample=False,
+                    temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
+                    seed=None, deadline_s=None, block=True, timeout=None):
+        """Enqueue one prompt; returns the live ``Request`` handle.
+
+        Backpressure: when the bounded queue is full, ``block=False``
+        raises ``EngineBackpressure`` immediately; ``block=True`` waits up
+        to ``timeout`` seconds (forever if None) for another thread's
+        ``step()`` to make room, then raises.  ``deadline_s`` is a
+        per-request wall-clock budget (queue wait included); on expiry the
+        request finishes with ``finish_reason='deadline'`` and whatever
+        tokens it produced."""
+        if self._closed:
+            raise EngineClosed("engine is drained; no new requests")
+        ids = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        T = int(ids.shape[0])
+        if T < 1:
+            raise ValueError("empty prompt")
+        if T + int(max_new_tokens) > self.max_seq_len:
+            raise ValueError(
+                f"prompt ({T}) + max_new_tokens ({max_new_tokens}) exceeds "
+                f"the engine's max_seq_len ({self.max_seq_len})")
+        eos = eos_token_id if eos_token_id is not None else self.eos_token_id
+        if seed is None:
+            seed = int(np.random.randint(0, 2**31 - 1))
+        deadline = (time.monotonic() + float(deadline_s)
+                    if deadline_s is not None else None)
+        req = Request(next(self._rid), ids, int(max_new_tokens),
+                      bool(do_sample), float(temperature), int(top_k),
+                      float(top_p), (None if eos is None else int(eos)),
+                      int(seed), deadline, self)
+        with self._cond:
+            while len(self._queue) >= self.queue_size:
+                if not block:
+                    raise EngineBackpressure(
+                        f"request queue full ({self.queue_size})",
+                        queue_depth=len(self._queue),
+                        retry_after_hint=self._retry_hint_locked())
+                if not self._cond.wait(timeout):
+                    raise EngineBackpressure(
+                        f"request queue full ({self.queue_size}); timed "
+                        f"out after {timeout}s",
+                        queue_depth=len(self._queue),
+                        retry_after_hint=self._retry_hint_locked())
+                if self._closed:
+                    raise EngineClosed("engine drained while waiting")
+            self._queue.append(req)
+            self._outstanding += req.max_new_tokens
+        counters.inc("serving.requests")
+        return req
+
+    def _note_decode(self, emitted, elapsed_s):
+        """Fold one decode launch into the tokens/s EMA (``emitted`` is
+        the number of tokens the launch delivered)."""
+        inst = emitted / max(elapsed_s, 1e-9)
+        with self._cond:
+            self._tps_ema = (inst if self._tps_ema <= 0 else
+                             self._ema_alpha * inst
+                             + (1 - self._ema_alpha) * self._tps_ema)
+
+    def _retry_hint_locked(self):
+        """Seconds until the current backlog drains at the EMA decode
+        rate; None before the first decode launch.  Caller holds _cond."""
+        if self._tps_ema <= 0:
+            return None
+        return self._outstanding / self._tps_ema
+
+    # -- scheduling ----------------------------------------------------------
+    def _finish(self, req, reason, events):
+        """Terminal transition: a compare-and-set on the request state
+        under the engine lock, so a cancel from another thread and the
+        scheduler can never both finish it or release its slot twice."""
+        with self._cond:
+            if req.state == "finished":
+                return False
+            req.state = "finished"
+            req.finish_reason = reason
+            self._outstanding -= max(
+                0, req.max_new_tokens - len(req.tokens))
+            if req.slot is not None:
+                s = req.slot
+                self._slots[s] = None
+                self._free.append(s)
+                self._tok[s] = 0
+                self._pos[s] = 0
+                req.slot = None
+        counters.inc("serving.evictions")
+        counters.inc(f"serving.evictions.{reason}")
+        events.append({"type": "finished", "request": req, "reason": reason})
+        return True
+
+    def _sweep(self, events):
+        """Evict cancelled / past-deadline requests — active slots AND the
+        admission queue, so a request whose deadline lapsed while queued
+        never spends a prefill launch."""
+        now = time.monotonic()
+        for req in list(self._slots):
+            if req is None:
+                continue
+            if req._cancel:
+                self._finish(req, "cancelled", events)
+            elif req.deadline is not None and now > req.deadline:
+                self._finish(req, "deadline", events)
+        with self._cond:
+            dead = [r for r in self._queue
+                    if r._cancel or (r.deadline is not None
+                                     and now > r.deadline)]
+            for r in dead:
+                self._queue.remove(r)
+            if dead:
+                self._cond.notify_all()
+        for req in dead:
+            if req._cancel:
+                self._finish(req, "cancelled", events)
+            else:
+                counters.inc("serving.deadline_expired")
+                self._finish(req, "deadline", events)
+
+    def _emit(self, req, tok, events):
+        """Record one generated token; finish on EOS / length."""
+        req.tokens.append(int(tok))
+        with self._cond:
+            self._outstanding -= 1
+        events.append({"type": "token", "request": req, "token": int(tok),
+                       "index": len(req.tokens) - 1})
+        if req.eos_token_id is not None and int(tok) == req.eos_token_id:
+            self._finish(req, "eos", events)
+        elif len(req.tokens) >= req.max_new_tokens:
+            self._finish(req, "length", events)
+
+    # -- conveniences --------------------------------------------------------
+    def has_work(self):
+        with self._cond:
+            queued = len(self._queue)
+        return queued > 0 or any(r is not None for r in self._slots)
+
+    def generate(self, prompts, **kw):
+        """Blocking batch API: submit every prompt, step until all finish,
+        return their full sequences (prompt + generated) as np.int32
+        arrays.  Oversubscription beyond the queue bound is handled by
+        stepping the engine between submissions."""
+        pending = deque(prompts)
+        handles = []
+        while pending or not all(h.is_finished for h in handles):
+            while pending:
+                try:
+                    handles.append(self.add_request(pending[0], block=False,
+                                                    **kw))
+                    pending.popleft()
+                except EngineBackpressure:
+                    break
+            self.step()
+        return [h.output_ids() for h in handles]
+
+    def drain(self):
+        """Graceful shutdown: stop admitting (``add_request`` raises
+        ``EngineClosed``), finish every queued + active request, return
+        them.  Idempotent."""
+        self._closed = True
+        with self._cond:
+            self._cond.notify_all()
+        events = []
+        self._sweep(events)
+        done = [ev["request"] for ev in events if ev["type"] == "finished"]
+        while self.has_work():
+            for ev in self.step():
+                if ev["type"] == "finished":
+                    done.append(ev["request"])
+        return done
+
+    def stats(self):
+        """Atomic snapshot under ONE lock acquisition.
+
+        ``outstanding_tokens`` is the undelivered-token backlog (sum of
+        remaining ``max_new_tokens`` over queued + active requests);
+        ``decode_tps_ema`` is the decode tokens/s EMA over launches
+        (0.0 before the first decode)."""
+        with self._cond:
+            return {
+                "kv_layout": self.kv_layout,
+                "active": sum(r is not None for r in self._slots),
+                "queued": len(self._queue),
+                "free_slots": len(self._free),
+                "max_slots": self.max_slots,
+                "closed": self._closed,
+                "outstanding_tokens": self._outstanding,
+                "decode_tps_ema": self._tps_ema,
+            }

@@ -1,0 +1,43 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, and it never lands on the CPU unless asked to."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import paddle_tpu_torch
+for m in pkgutil.walk_packages(paddle_tpu_torch.__path__, "paddle_tpu_torch."):
+    importlib.import_module(m.name)
+print("\\n".join(sorted(sys.modules)))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    mods = out.stdout.split()
+    assert "paddle_tpu_torch.serving.paged" in mods
+    assert "paddle_tpu_torch.kernels._build" in mods
+    leaked = [m for m in mods
+              if m == "jax" or m.startswith(("jax.", "jaxlib"))
+              or m == "paddle_tpu" or m.startswith("paddle_tpu.")]
+    assert leaked == []
+
+
+def test_model_without_gpu_raises_instead_of_using_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is cuda")
+    from paddle_tpu_torch import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
+                    num_heads=4, max_seq_len=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GPTForCausalLM(cfg)

@@ -1,0 +1,125 @@
+"""Paged decode attention in the PyTorch port against the JAX reference.
+
+The port's plain version (the CPU path of its CUDA kernel's wrapper) is
+held against the JAX ``paged_decode_attention`` Pallas kernel run in
+interpret mode, on the same numpy inputs.  The CUDA kernel itself runs
+only on the card: ``chip_smoke.py`` holds it against this plain version.
+
+Tolerance: atol 1e-5 for fp32 and for bf16.  Both sides compute in fp32
+(bf16 q and pools are widened exactly to fp32 before any arithmetic), so
+they differ only in the order of fp32 sums over at most 20 keys of unit
+scale.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from paddle_tpu.kernels import paged_attention as jpa
+from paddle_tpu_torch.kernels import paged_attention as tpa
+
+ATOL = 1e-5
+
+
+@pytest.fixture()
+def interpret_mode():
+    jpa._INTERPRET[0] = True
+    yield
+    jpa._INTERPRET[0] = False
+
+
+def _random_case(rng, B=3, nh=2, hd=8, n_blocks=16, bs=4, max_blocks=5):
+    q = rng.standard_normal((B, nh, hd)).astype(np.float32)
+    pool_k = rng.standard_normal((n_blocks, bs, nh, hd)).astype(np.float32)
+    pool_v = rng.standard_normal((n_blocks, bs, nh, hd)).astype(np.float32)
+    # distinct physical blocks per row, deliberately out of order
+    perm = rng.permutation(n_blocks)[:B * max_blocks]
+    bt = perm.reshape(B, max_blocks).astype(np.int32)
+    pos = rng.integers(0, max_blocks * bs, size=B).astype(np.int32)
+    return q, pool_k, pool_v, bt, pos
+
+
+def _case(kind, rng):
+    q, pk, pv, bt, pos = _random_case(rng)
+    bs, max_blocks = pk.shape[1], bt.shape[1]
+    if kind == "pos0":
+        pos[:] = 0
+    elif kind == "block_boundaries":
+        # last slot of a block, first slot of the next, the very last slot
+        pos[:] = [bs - 1, bs, max_blocks * bs - 1]
+    elif kind == "shared_blocks":
+        # rows 1 and 2 share row 0's first two physical blocks (a prefix)
+        bt[1:, :2] = bt[0, :2]
+        pos[:] = [2 * bs + 1, 3 * bs - 1, bs + 2]
+    elif kind == "trash_row":
+        # an idle row tabled to the trash block 0 at position 0
+        bt[2] = 0
+        pos[2] = 0
+    return q, pk, pv, bt, pos
+
+
+_KINDS = ["random", "pos0", "block_boundaries", "shared_blocks",
+          "trash_row"]
+
+
+def _as_bf16(x):
+    return np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", _KINDS)
+def test_plain_version_matches_jax_kernel(interpret_mode, kind, dtype):
+    rng = np.random.default_rng(_KINDS.index(kind))
+    q, pk, pv, bt, pos = _case(kind, rng)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    ref = np.asarray(jpa.paged_decode_attention(
+        jnp.asarray(q, jdt), jnp.asarray(pk, jdt), jnp.asarray(pv, jdt),
+        jnp.asarray(bt), jnp.asarray(pos), scale=scale))
+    if dtype == "bfloat16":
+        q, pk, pv = _as_bf16(q), _as_bf16(pk), _as_bf16(pv)
+    args = (torch.from_numpy(q).to(tdt), torch.from_numpy(pk).to(tdt),
+            torch.from_numpy(pv).to(tdt), torch.from_numpy(bt),
+            torch.from_numpy(pos))
+    out = tpa.paged_decode_attention_reference(*args, scale=scale)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    assert np.isfinite(out.numpy()).all()
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=ATOL)
+    # the wrapper takes the plain version on CPU tensors
+    np.testing.assert_array_equal(
+        tpa.paged_decode_attention(*args, scale=scale).numpy(), out.numpy())
+
+
+def test_pos0_returns_first_value():
+    rng = np.random.default_rng(11)
+    q, pk, pv, bt, pos = _random_case(rng, B=2)
+    pos[:] = 0
+    out = tpa.paged_decode_attention_reference(
+        *map(torch.from_numpy, (q, pk, pv, bt, pos)), scale=0.5)
+    np.testing.assert_allclose(out.numpy(), pv[bt[:, 0], 0], atol=1e-6)
+
+
+def test_cpu_tensors_never_launch_the_kernel():
+    rng = np.random.default_rng(12)
+    args = [torch.from_numpy(a) for a in _random_case(rng)]
+    before = tpa.paged_decode_attention.launches
+    tpa.paged_decode_attention(*args, scale=0.3)
+    assert tpa.paged_decode_attention.launches == before == 0
+
+
+def test_quantized_pools_not_ported():
+    rng = np.random.default_rng(13)
+    q, pk, pv, bt, pos = (torch.from_numpy(a) for a in _random_case(rng))
+    sk = torch.ones(pk.shape[:2])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpa.paged_decode_attention(q, pk, pv, bt, pos, sk, sk, scale=1.0)
+
+
+def test_shape_mismatch_names_the_dim():
+    rng = np.random.default_rng(14)
+    q, pk, pv, bt, pos = (torch.from_numpy(a) for a in _random_case(rng))
+    with pytest.raises(ValueError, match="table_rows"):
+        tpa.paged_decode_attention(q, pk, pv, bt[:2], pos, scale=1.0)
