@@ -1,18 +1,27 @@
 """PyTorch/CUDA port of ``paddle_tpu`` for one NVIDIA H100.
 
 The JAX package ``paddle_tpu`` is the reference this package is held
-against; it is never imported here.  The port goes slice by slice: this
-package holds the paged-KV serving path — ``GPTForCausalLM``'s paged
-prefill/decode entry points under ``LLMEngine(model, kv_layout="paged")``
-— with the paged decode attention as a hand-written CUDA kernel
-(``kernels/csrc/paged_attention.cu``).
+against; it is never imported here.  The port goes slice by slice.  So
+far it holds:
+
+* paged-KV serving — ``GPTForCausalLM``'s paged prefill/decode entry
+  points under ``LLMEngine(model, kv_layout="paged")``, with the paged
+  decode attention as a hand-written CUDA kernel
+  (``kernels/csrc/paged_attention.cu``);
+* GPT training — ``CompiledTrainStep(model, loss_fn, AdamW(...))`` over
+  ``GPTForCausalLM.forward`` and ``GPTPretrainingCriterion``, with the
+  flash-attention forward, dQ and dK/dV as hand-written CUDA kernels
+  (``kernels/csrc/flash_attention.cu``).
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a GPU and without an explicit device the model
 raises instead of landing on the CPU.
 """
 
-from .models import GPTConfig, GPTForCausalLM
+from .jit import CompiledTrainStep
+from .models import GPTConfig, GPTForCausalLM, GPTPretrainingCriterion
+from .optimizer import Adam, AdamW
 from .serving import LLMEngine
 
-__all__ = ["GPTConfig", "GPTForCausalLM", "LLMEngine"]
+__all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
+           "LLMEngine", "CompiledTrainStep", "Adam", "AdamW"]

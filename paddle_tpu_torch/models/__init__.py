@@ -1,3 +1,3 @@
-from .gpt import GPTConfig, GPTForCausalLM
+from .gpt import GPTConfig, GPTForCausalLM, GPTPretrainingCriterion
 
-__all__ = ["GPTConfig", "GPTForCausalLM"]
+__all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion"]

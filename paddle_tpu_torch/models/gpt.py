@@ -1,14 +1,20 @@
-"""GPT causal LM — the serving entry points (port of
-``paddle_tpu/models/gpt.py``).
+"""GPT causal LM — the training forward and the serving entry points
+(port of ``paddle_tpu/models/gpt.py``).
 
 The parameters keep the reference's stacked ``[L, ...]`` layout and
 names (``wte``, ``wpe``, ``ln1_w``, ``qkv_w [L, H, 3H]``, ...), so a JAX
 ``state_dict`` loads one to one (:meth:`GPTForCausalLM.load_numpy_state`).
 A plain Python loop over layers replaces ``lax.scan``.
 
-The paged KV pools ``[L, n_blocks, bs, nh, hd]`` are updated **in
-place** (``index_put_``) by :meth:`GPTForCausalLM.prefill_paged` and
-:meth:`GPTForCausalLM.decode_paged`; this replaces the JAX package's
+Training: :meth:`GPTForCausalLM.forward` returns logits in the model
+dtype; attention goes through ``kernels.flash_attention`` (the CUDA
+kernels K1–K3 on a CUDA device), recompute through
+``torch.utils.checkpoint``.  :class:`GPTPretrainingCriterion` is the
+fp32 causal-LM loss.
+
+Serving: the paged KV pools ``[L, n_blocks, bs, nh, hd]`` are updated
+**in place** (``index_put_``) by :meth:`GPTForCausalLM.prefill_paged`
+and :meth:`GPTForCausalLM.decode_paged`; this replaces the JAX package's
 donation of the pools through every program.  Decode attention goes
 through the CUDA kernel ``kernels/paged_attention`` on a CUDA device.
 """
@@ -21,9 +27,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import paged_attention as _pa
 from ..kernels._shapes import NEG_INF
+from ..kernels.flash_attention import flash_attention_fwd, reference_attention
 from ..kernels.rope import apply_rope
 
 
@@ -103,6 +111,21 @@ def _norm(x, w, b, eps):
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
 
 
+def _dropout(x, p, seed):
+    """Inverted dropout with the keep mask drawn from a generator seeded
+    with ``seed``: a recomputed segment draws the same mask again.  (The
+    JAX package draws from ``jax.random`` keys: the streams differ, the
+    distribution is the same.)"""
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1 - p
+    return torch.where(keep, x / (1 - p), 0.0).to(x.dtype)
+
+
+#: recompute modes (JAX ``_sel_policy``): which block activations survive
+#: to the backward; everything else replays from them.
+_RECOMPUTE = (False, True, "selective", "selective_lean")
+
+
 def _lm_logits(c, wte, lnf_w, lnf_b, head, h_last):
     """Final norm + LM head in the model dtype, then fp32 logits."""
     h_last = _norm(h_last, lnf_w, lnf_b, c.layer_norm_epsilon)
@@ -158,6 +181,18 @@ class GPTForCausalLM(nn.Module):
             raise NotImplementedError(
                 "MoE GPT (num_experts > 0) is not ported yet: ROADMAP.md "
                 "A7 (distributed and MoE)")
+        for flag, on in (("sequence_parallel", c.sequence_parallel),
+                         ("context_parallel", c.context_parallel),
+                         ("pipeline parallel (pp_schedule/virtual_pp_degree)",
+                          c.pp_schedule != "gpipe"
+                          or c.virtual_pp_degree != 1)):
+            if on:
+                raise NotImplementedError(
+                    f"{flag} is not ported yet: ROADMAP.md A7 (distributed "
+                    "and MoE)")
+        if c.recompute not in _RECOMPUTE:
+            raise ValueError(f"GPTConfig.recompute {c.recompute!r}: expected "
+                             f"one of {_RECOMPUTE}")
         if c.dtype not in _DTYPES:
             raise ValueError(f"GPTConfig.dtype {c.dtype!r}: the port takes "
                              f"{sorted(_DTYPES)}")
@@ -202,6 +237,9 @@ class GPTForCausalLM(nn.Module):
         self.lnf_b = const((H,), 0.0)
         if not c.tie_word_embeddings:
             self.lm_head = normal((H, V))
+        #: host generator the training forward draws dropout seeds from
+        #: when the caller passes none
+        self.dropout_generator = torch.Generator().manual_seed(0)
 
     @property
     def device(self):
@@ -239,6 +277,106 @@ class GPTForCausalLM(nn.Module):
             p = start + torch.arange(ids.shape[1], device=ids.device)
             h = h + wpe[p.clamp(max=wpe.shape[0] - 1)]
         return h
+
+    # -- training forward ---------------------------------------------------
+    def forward(self, input_ids, *, generator=None, kernel=True):
+        """Logits ``[B, S, V]`` in the model dtype for ``input_ids [B, S]``
+        (positions ``0..S-1``), through the tied head.
+
+        Each block: LayerNorm, qkv, causal flash attention (or
+        ``reference_attention`` when ``use_flash_attention=False``),
+        projection, GELU-tanh FFN, with residuals.  In training mode with
+        ``dropout > 0`` the masks come from seeds drawn from
+        ``generator`` (a CPU ``torch.Generator``; default
+        ``self.dropout_generator``).  ``config.recompute`` replays
+        activations in the backward through ``torch.utils.checkpoint``:
+        ``True`` keeps only each block's input, ``"selective"`` also
+        keeps qkv, the attention output and the FFN up-projection,
+        ``"selective_lean"`` keeps qkv and the attention output.
+        ``kernel=False`` swaps the flash kernels K1–K3 for their plain
+        versions (used to hold the kernels against them in the model)."""
+        c = self.config
+        L = c.num_layers
+        h = self.wte[input_ids]
+        if not c.use_rope:
+            h = h + self.wpe[:input_ids.shape[1]]
+        seeds = [None] * L
+        if self.training and c.dropout > 0:
+            gen = self.dropout_generator if generator is None else generator
+            seeds = torch.randint(0, 2 ** 62, (L, 2), generator=gen).tolist()
+        layers = {n: getattr(self, n).unbind(0) for n in _STACKED}
+        for l in range(L):
+            lw = {n: t[l] for n, t in layers.items()}
+            h = self._block(h, lw, seeds[l], kernel)
+        h = _norm(h, self.lnf_w, self.lnf_b, c.layer_norm_epsilon)
+        w = self.wte.T if c.tie_word_embeddings else self.lm_head
+        return torch.matmul(h, w)
+
+    def _block(self, h, lw, seeds, kernel):
+        """One transformer block, cut into stages at the activations that
+        recompute keeps: ``qkv``, ``attn_out`` and ``ffn_up`` (JAX
+        ``checkpoint_name``s).  A checkpointed stage saves only its
+        inputs and replays the rest in the backward."""
+        c = self.config
+        eps = c.layer_norm_epsilon
+        drop = (None if seeds is None else
+                lambda x, i: _dropout(x, c.dropout, seeds[i]))
+
+        def qkv_of(h):
+            x = _norm(h, lw["ln1_w"], lw["ln1_b"], eps)
+            return torch.matmul(x, lw["qkv_w"]) + lw["qkv_b"]
+
+        def attend(qkv):
+            b, s, H3 = qkv.shape
+            nh = c.num_heads
+            hd = H3 // 3 // nh
+            q, k, v = (t.reshape(b, s, nh, hd) for t in qkv.split(H3 // 3, -1))
+            if c.use_rope:
+                q, k = apply_rope(q), apply_rope(k)
+            if c.use_flash_attention:
+                o = flash_attention_fwd(q, k, v, causal=True, kernel=kernel)
+            else:
+                o = reference_attention(q, k, v, causal=True)
+            return o.reshape(b, s, H3 // 3)
+
+        def post_attn(h, o):
+            a = torch.matmul(o, lw["proj_w"]) + lw["proj_b"]
+            return h + (a if drop is None else drop(a, 0))
+
+        def up_of(h2):
+            x = _norm(h2, lw["ln2_w"], lw["ln2_b"], eps)
+            return torch.matmul(x, lw["fc1_w"]) + lw["fc1_b"]
+
+        def ffn(h2, up):
+            f = (torch.matmul(F.gelu(up, approximate="tanh"), lw["fc2_w"])
+                 + lw["fc2_b"])
+            return h2 + (f if drop is None else drop(f, 1))
+
+        def after_attn(h, o):
+            h2 = post_attn(h, o)
+            return ffn(h2, up_of(h2))
+
+        def whole(h):
+            return after_attn(h, attend(qkv_of(h)))
+
+        mode = c.recompute if self.training and torch.is_grad_enabled() \
+            else False
+        if not mode:
+            return whole(h)
+
+        def ckpt(fn, *args):
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+
+        if mode is True:
+            return ckpt(whole, h)
+        o = ckpt(attend, ckpt(qkv_of, h))
+        if mode == "selective_lean":
+            return ckpt(after_attn, h, o)
+        # keeping ffn_up but not the residual stream between the two
+        # stages, so each stage replays the projection from attn_out
+        up = ckpt(lambda h, o: up_of(post_attn(h, o)), h, o)
+        return ckpt(lambda h, o, up: ffn(post_attn(h, o), up), h, o, up)
 
     # -- serving entry points (paddle_tpu_torch.serving.LLMEngine) ----------
     def decode_state(self):
@@ -381,3 +519,21 @@ class GPTForCausalLM(nn.Module):
             h = self._ffn(h, lw)
         return _lm_logits(c, w["wte"], w["lnf_w"], w["lnf_b"], w["head"],
                           h[:, 0])
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Causal-LM loss over ``logits [B, S, V]`` and ``labels [B, S]``: fp32
+    ``logsumexp - picked`` per token, averaged, or averaged over
+    ``loss_mask`` (at least one token) when it is given."""
+
+    def __init__(self, config=None):
+        super().__init__()
+
+    def forward(self, logits, labels, loss_mask=None):
+        lg = logits.float()
+        picked = lg.gather(-1, labels.long()[..., None])[..., 0]
+        loss = torch.logsumexp(lg, -1) - picked
+        if loss_mask is None:
+            return loss.mean()
+        m = loss_mask.float()
+        return (loss * m).sum() / m.sum().clamp_min(1.0)

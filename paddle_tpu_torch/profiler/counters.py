@@ -1,5 +1,5 @@
 """Process-global counter/gauge registry (the subset of
-``paddle_tpu/profiler/counters.py`` the serving path ticks).
+``paddle_tpu/profiler/counters.py`` the ported paths tick).
 
 The engine bumps the same ``serving.*`` names as the JAX engine —
 ``serving.decode_steps``, ``serving.decode_tokens``,
@@ -7,6 +7,12 @@ The engine bumps the same ``serving.*`` names as the JAX engine —
 ``serving.kv.prefix_hit_tokens``, ``serving.kv.cow_copies``,
 ``serving.kv.blocks_evicted``, ``serving.kv.pool_exhausted`` — so a test
 can diff both registries around the same traffic.
+
+Training ticks ``jit.steps`` and ``jit.host.dispatches`` (one each per
+``CompiledTrainStep`` call) and ``optimizer.steps`` (one per
+``Optimizer.step``), under the JAX names, and
+``kernels.flash.reference_fallbacks`` (one per ``flash_attention_fwd``
+call that takes ``reference_attention`` because S % 128 != 0).
 """
 
 from __future__ import annotations
