@@ -11,38 +11,56 @@ script exits non-zero:
 2. build — builds every CUDA kernel of the port from the sources in the
    checkout (``paddle_tpu_torch/kernels/csrc``), one ``nvcc`` per source,
    all started together; prints registers, shared memory and spills per
-   variant.
-3. kernel_vs_plain — the paged decode kernel K4 against its plain
-   PyTorch version on the card, over a grid of shapes and at the
-   engine's shapes.
-4. flash_vs_plain — the flash-attention kernels K1 (forward), K2 (dQ)
+   variant (K4/K4q, K1–K3, K5).
+3. kernel_vs_plain — the paged decode kernel against its plain PyTorch
+   version on the card: K4 over fp32/bf16 pools and K4q over int8/fp8
+   pools (quantized by the port's ``quantize_kv``), over a grid of
+   shapes and at the engine's shapes.
+4. rms_norm_vs_plain — K5 against its plain version over (x, w) dtypes
+   (fp32, fp32), (bf16, bf16), (fp32, bf16), rows {1, 7, 8192}, widths
+   {33, 64, 1000, 1536, 2048, 4096}, and [8, 1024, 2048] bf16.
+5. flash_vs_plain — the flash-attention kernels K1 (forward), K2 (dQ)
    and K3 (dK/dV) against their plain versions over S in {128, 256,
    1024, 2048}, head dims {64, 96, 128}, causal and not, bf16 and fp32,
    with and without an LSE cotangent.
-5. small_reference — a small fp32 model's paged prefill/decode on the
-   card against the same model on the CPU (where the kernel's plain
-   version runs).
-6. engine — GPT-3 1.3B in bf16 at full width and depth, random weights
+6. small_reference — a small fp32 model's paged prefill/decode on the
+   card against the same model on the CPU (where the kernels' plain
+   versions run), over fp32, int8 and fp8 pools.
+7. engine — GPT-3 1.3B in bf16 at full width and depth, random weights
    from seed 0, serving 16 greedy requests through
-   ``LLMEngine(model, kv_layout="paged")``; K4 launch counts are set to
-   0 just before and read just after.  Then one decode step on clones of
+   ``LLMEngine(model, kv_layout="paged")``; the paged-attention launch
+   counts are set to 0 just before and read just after (K4 launches ==
+   decode_steps x 24, no K4q launch).  Then one decode step on clones of
    the engine's pools, once through the kernel and once through the
-   plain attention, compared in bf16; and ``torch.profiler`` over four
-   decode-only engine steps (the device's busy share, the top device ops).
-7. times (K4) — K4's time per launch at the engine's shapes beside its
-   plain version's, a PyTorch library call's and its bound.
-8. train — GPT-3 760M in bf16 at full width and depth, batch 8 x 1024,
-   through ``CompiledTrainStep`` + ``AdamW(1e-4)``: 2 warm-up and 8 timed
-   steps on one repeated batch.  K1–K3 launch counts are set to 0 just
-   before and must each equal 24 x steps; losses must be finite and fall.
-9. train_profile — ``torch.profiler`` over one more step of that run
-   (busy share, top device ops, device time by kind of op), and CUDA
-   events around the forward, backward and AdamW update of another.
-10. train_in_model — the 760M width at 2 layers: one forward and
+   plain attention, compared in bf16 (in_model); and ``torch.profiler``
+   over four decode-only engine steps (profile).
+8. engine_quant — the same model and the same 16 requests through
+   ``LLMEngine(..., kv_dtype="int8", weight_dtype="int8")`` (K4q-int8
+   launches == decode_steps x 24, no K4 launch; the quant counters move),
+   its in-model comparison (in_model_quant) and profile (profile_quant);
+   then 4 requests through ``kv_dtype="fp8"`` (engine_fp8: K4q-fp8
+   launches == decode_steps x 24).
+9. int8_epilogue — one decode step's 96 layer matmuls with bf16 weights
+   against int8 weights widened per call.
+10. times (K4, K4q) — µs per launch at the engine's mid-run shape: K4
+    over the bf16 pools, K4q over the same pools quantized, beside the
+    plain versions, the bounds and (K4) SDPA over gathered K/V.
+11. times (K5) — K5's main path (``rms_norm`` once at [8, 1024, 2048]
+    bf16, counted), then µs per launch beside the plain version, the
+    bound and ``torch.nn.functional.rms_norm``.
+12. train — GPT-3 760M in bf16 at full width and depth, batch 8 x 1024,
+    through ``CompiledTrainStep`` + ``AdamW(1e-4)``: 2 warm-up and 8
+    timed steps on one repeated batch.  K1–K3 launch counts are set to 0
+    just before and must each equal 24 x steps; losses must be finite and
+    fall.
+13. train_profile — ``torch.profiler`` over one more step of that run
+    (busy share, top device ops, device time by kind of op), and CUDA
+    events around the forward, backward and AdamW update of another.
+14. train_in_model — the 760M width at 2 layers: one forward and
     backward through the kernels, then through their plain versions,
     then through the kernels with ``recompute="selective"`` (the same
     grads; K1 replayed in the backward).
-11. times (K1–K3) — µs per launch at the training shape beside the
+15. times (K1–K3) — µs per launch at the training shape beside the
     plain versions, the bounds and ``scaled_dot_product_attention``'s
     flash forward and backward (yardsticks the port never calls).
 
@@ -71,7 +89,10 @@ from paddle_tpu_torch import (AdamW, CompiledTrainStep, GPTConfig,
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import paged_attention as pa
+from paddle_tpu_torch.kernels import rms_norm as rn
+from paddle_tpu_torch.models.gpt import _mm
 from paddle_tpu_torch.profiler import counters
+from paddle_tpu_torch.quantization import PTQ_WEIGHTS, ptq_int8_decode_state
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor)
 #: FLOP/s (the type the paged decode kernel computes in) and dense bf16
@@ -129,7 +150,7 @@ def _ptxas(log):
 def build_phase():
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    names = ("paged_attention", "flash_attention")
+    names = ("paged_attention", "flash_attention", "rms_norm")
     with ThreadPoolExecutor(len(names)) as ex:
         list(ex.map(_build.build, names))
     for name in names:
@@ -147,13 +168,15 @@ def build_phase():
 
 def _paged_case(gen, B, nh, hd, bs, max_blocks, q_dtype, kv_dtype,
                 trash_row):
+    """q, pools, tables and positions on the card; a ``kv_dtype`` of
+    "int8" or "fp8" quantizes unit-normal pools with the port's
+    ``quantize_kv`` and appends the two scale pools."""
     dev = "cuda"
     n_blocks = B * max_blocks + 1
+    quant = kv_dtype in pa.KV_DTYPES
     q = torch.randn(B, nh, hd, generator=gen, device=dev).to(q_dtype)
-    pk = torch.randn(n_blocks, bs, nh, hd, generator=gen,
-                     device=dev).to(kv_dtype)
-    pv = torch.randn(n_blocks, bs, nh, hd, generator=gen,
-                     device=dev).to(kv_dtype)
+    pk, pv = (torch.randn(n_blocks, bs, nh, hd, generator=gen, device=dev)
+              .to(torch.float32 if quant else kv_dtype) for _ in range(2))
     bt = (torch.randperm(n_blocks - 1, generator=gen, device=dev)[
         :B * max_blocks] + 1).reshape(B, max_blocks).to(torch.int32)
     last = max_blocks * bs - 1
@@ -164,7 +187,10 @@ def _paged_case(gen, B, nh, hd, bs, max_blocks, q_dtype, kv_dtype,
     if trash_row and B > 1:
         bt[-1] = 0
         pos[-1] = 0
-    return q, pk, pv, bt, pos
+    if not quant:
+        return q, pk, pv, bt, pos
+    (pk, sk), (pv, sv) = (pa.quantize_kv(t, kv_dtype) for t in (pk, pv))
+    return q, pk, pv, bt, pos, sk, sv
 
 
 def kernel_phase():
@@ -184,12 +210,29 @@ def kernel_phase():
     # the engine's shape: 8 rows, GPT-3 1.3B heads, 1024 tokens in 16s
     cases.append(dict(B=8, nh=16, hd=128, bs=16, max_blocks=64,
                       q_dtype=bf16, kv_dtype=bf16, trash_row=True))
-    worst = 0.0
+    # K4q: int8 and fp8 pools with per-token scales, the same grid less
+    # hd 8, one head dim off it, and the engine's shape
+    quant = ("int8", "fp8")
+    cases += [dict(B=B, nh=3, hd=hd, bs=bs, max_blocks=6, q_dtype=dt,
+                   kv_dtype=kv, trash_row=True)
+              for kv in quant for hd in (64, 96, 128) for bs in (4, 16)
+              for dt in (fp32, bf16) for B in (1, 7, 16)]
+    cases += [dict(B=7, nh=2, hd=33, bs=16, max_blocks=5, q_dtype=dt,
+                   kv_dtype=kv, trash_row=True)
+              for kv in quant for dt in (fp32, bf16)]
+    cases += [dict(B=8, nh=16, hd=128, bs=16, max_blocks=64, q_dtype=bf16,
+                   kv_dtype=kv, trash_row=True) for kv in quant]
+    # the same atol for K4q: both sides widen identical bytes exactly and
+    # sum in fp32, the kernel scaling logits and probabilities where the
+    # plain version scales the widened values
+    worst = dict.fromkeys(("paged_decode_attention", *quant), 0.0)
+    counts = dict.fromkeys(worst, 0)
     for case in cases:
-        q, pk, pv, bt, pos = _paged_case(gen, **case)
-        out = pa.paged_decode_attention(q, pk, pv, bt, pos, scale=0.3)
+        q, pk, pv, bt, pos, *scales = _paged_case(gen, **case)
+        out = pa.paged_decode_attention(q, pk, pv, bt, pos, *scales,
+                                        scale=0.3)
         ref = pa.paged_decode_attention_reference(q, pk, pv, bt, pos,
-                                                  scale=0.3)
+                                                  *scales, scale=0.3)
         torch.cuda.synchronize()
         if out.dtype != torch.float32 or out.shape != ref.shape:
             raise AssertionError(f"paged_decode_attention: {out.dtype} "
@@ -198,18 +241,21 @@ def kernel_phase():
             raise AssertionError(f"paged_decode_attention: non-finite "
                                  f"output for {case}")
         err = float((out - ref).abs().max())
-        worst = max(worst, err)
+        key = case["kv_dtype"] if scales else "paged_decode_attention"
+        worst[key] = max(worst[key], err)
+        counts[key] += 1
         if err > KERNEL_ATOL:
             raise AssertionError(f"paged_decode_attention: max abs err "
                                  f"{err} > {KERNEL_ATOL} for {case}")
     emit({"phase": "kernel_vs_plain", "kernel": "paged_decode_attention",
-          "cases": len(cases), "max_abs_err": worst, "atol": KERNEL_ATOL})
+          "cases": counts, "max_abs_err": worst, "atol": KERNEL_ATOL})
     return worst
 
 
 def small_reference_phase():
     """A small fp32 model's paged prefill + decode on the card (through
-    the kernel) against the same weights on the CPU (plain version)."""
+    the kernels) against the same weights on the CPU (plain versions),
+    over fp32 pools and over int8 and fp8 pools."""
     cfg = GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
                     num_heads=4, max_seq_len=128, initializer_range=0.1)
     models = {d: GPTForCausalLM(cfg, device=d,
@@ -224,47 +270,71 @@ def small_reference_phase():
     bt[1, :2] = [2, 4]
     tok = np.array([prompt[-1], 7, 0], np.int32)
     pos = np.array([45, 20, 0], np.int32)     # row 2 idle on the trash block
-    out = {}
-    for d, m in models.items():
-        w = m.decode_state()
-        shape = (cfg.num_layers, n_blocks, bs, cfg.num_heads,
-                 cfg.hidden_size // cfg.num_heads)
-        pk = torch.zeros(shape, device=d)
-        pv = torch.zeros(shape, device=d)
-        logits = []
-        for start, length in ((0, 32), (32, 13)):
-            ids = np.zeros((1, 32), np.int64)
-            ids[0, :length] = prompt[start:start + length]
-            logits.append(m.prefill_paged(
-                w, torch.from_numpy(ids).to(d), start, length,
-                torch.from_numpy(table).to(d), pk, pv))
-        logits.append(m.decode_paged(
-            w, *(torch.from_numpy(a).to(d) for a in (tok, pos, bt)), pk, pv))
-        out[d] = [t.cpu() for t in logits] + [pk.cpu(), pv.cpu()]
+    shape = (cfg.num_layers, n_blocks, bs, cfg.num_heads,
+             cfg.hidden_size // cfg.num_heads)
+    for kv in (None, *pa.KV_DTYPES):
+        out = {}
+        for d, m in models.items():
+            w = m.decode_state()
+            dt = pa.KV_DTYPES.get(kv, torch.float32)
+            pools = [torch.zeros(shape, dtype=dt, device=d) for _ in "kv"]
+            if kv:
+                pools += [torch.zeros(shape[:3], device=d) for _ in "kv"]
+            logits = []
+            for start, length in ((0, 32), (32, 13)):
+                ids = np.zeros((1, 32), np.int64)
+                ids[0, :length] = prompt[start:start + length]
+                logits.append(m.prefill_paged(
+                    w, torch.from_numpy(ids).to(d), start, length,
+                    torch.from_numpy(table).to(d), *pools))
+            logits.append(m.decode_paged(
+                w, *(torch.from_numpy(a).to(d) for a in (tok, pos, bt)),
+                *pools))
+            out[d] = [t.cpu() for t in logits] + [
+                t.cpu() for t in pools[:2]]
+            if kv:   # compare K/V as the values the pools stand for
+                out[d][3:] = [pa.dequantize_kv(t.cpu(), s.cpu())
+                              for t, s in zip(pools[:2], pools[2:])]
+        _small_reference_check(kv, out)
+
+
+def _small_reference_check(kv, out):
     torch.cuda.synchronize()
-    errs = [float((a - b).abs().max()) for a, b in zip(out["cuda"],
-                                                       out["cpu"])]
-    scale = max(float(t.abs().max()) for t in out["cpu"][:3])
-    tol = 1e-4 * max(1.0, scale)   # fp32 on both sides; sums reordered
-    emit({"phase": "small_reference", "max_abs_err": max(errs),
-          "atol": tol, "logit_scale": scale})
-    if not all(bool(torch.isfinite(t).all()) for t in out["cuda"]):
-        raise AssertionError("small_reference: non-finite values on the card")
-    if max(errs) > tol:
-        raise AssertionError(f"small_reference: card vs CPU {errs} > {tol}")
+    card, cpu = out["cuda"], out["cpu"]
+    if not all(bool(torch.isfinite(t).all()) for t in card):
+        raise AssertionError(f"small_reference {kv}: non-finite values on "
+                             "the card")
+    scale = max(float(t.abs().max()) for t in cpu[:3])
+    logit_err = max(float((a - b).abs().max())
+                    for a, b in zip(card[:3], cpu[:3]))
+    pool_err = max(float((a - b).abs().max())
+                   for a, b in zip(card[3:], cpu[3:]))
+    if kv is None:
+        # fp32 on both sides; sums reordered
+        tol = pool_tol = 1e-4 * max(1.0, scale)
+        rel = None
+    else:
+        # Both sides quantize the same K/V up to fp32 rounding, so a value
+        # on a rounding boundary lands one quantum apart: one step of the
+        # token's scale (amax/qmax) in int8, one e4m3 step (2**-3 of the
+        # value) in fp8.  The pools are held to one step of the largest
+        # value; the logits to one step relative to their own scale.
+        rel = 1.0 / pa.KV_QMAX["int8"] if kv == "int8" else 2.0 ** -3
+        pool_tol = rel * max(float(t.abs().max()) for t in cpu[3:]) * 1.001
+        tol = rel * max(1.0, scale)
+    emit({"phase": "small_reference", "kv_dtype": kv,
+          "max_abs_err": logit_err, "atol": tol, "logit_scale": scale,
+          "pool_max_abs_err": pool_err, "pool_atol": pool_tol,
+          "tolerance_step": rel})
+    if logit_err > tol or pool_err > pool_tol:
+        raise AssertionError(f"small_reference {kv}: card vs CPU logits "
+                             f"{logit_err} > {tol} or pools {pool_err} > "
+                             f"{pool_tol}")
 
 
-def engine_phase():
-    cfg = GPTConfig.gpt3_1_3b(dtype="bfloat16")
-    t0 = time.perf_counter()
-    model = GPTForCausalLM(cfg, device="cuda",
-                           generator=torch.Generator().manual_seed(0))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    eng = LLMEngine(model, kv_layout="paged", max_slots=8, max_seq_len=1024,
-                    block_size=16, prefill_chunk=128)
-    V, L = cfg.vocab_size, cfg.num_layers
-
+def _engine_prompts(V):
+    """The 16 requests of the serving phases: prompts of 64-700 tokens,
+    half sharing a 256-token system prompt."""
     rng = np.random.default_rng(0)
     system = rng.integers(0, V, 256)
     prompts = []
@@ -275,15 +345,19 @@ def engine_phase():
                 [system, rng.integers(0, V, n - 256)]))
         else:
             prompts.append(rng.integers(0, V, int(rng.integers(64, 701))))
-    # warm-up: cuBLAS handles, kernel load, allocator (not counted)
-    eng.generate([rng.integers(0, V, 64)], max_new_tokens=2)
-    torch.cuda.synchronize()
+    return rng, prompts
 
-    # -- the counted main-path run ------------------------------------------
-    pa.paged_decode_attention.launches = 0
+
+def _serve_counted(eng, prompts, max_new, phase):
+    """The counted main-path run: every paged-attention launch count set to
+    0 just before, read just after.  Returns the phase record, the
+    handles and a snapshot of the fullest decode batch (tables and clones
+    of the pools) for the in-model comparison."""
+    L = eng.config.num_layers
+    pa.reset_launch_counts()
     before = counters.snapshot()
     t_run = time.perf_counter()
-    handles = [eng.add_request(p, max_new_tokens=32) for p in prompts]
+    handles = [eng.add_request(p, max_new_tokens=max_new) for p in prompts]
     first = {}
     decode_only = []          # (seconds, tokens) of steps with no prefill
     snap, best = None, 0
@@ -307,33 +381,43 @@ def engine_phase():
             snap = dict(
                 bt=np.where(eng._running[:, None], eng._bt, 0),
                 pos=np.where(eng._running, eng._pos, 0),
-                tok=eng._tok.copy(), pk=eng.pool_k.clone(),
-                pv=eng.pool_v.clone())
+                tok=eng._tok.copy(), rows=running,
+                pools=[t.clone() for t in (eng.pool_k, eng.pool_v,
+                                           *eng.scales)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_run
-    launches = pa.paged_decode_attention.launches
+    launches = {"paged_decode_attention": pa.paged_decode_attention.launches,
+                **{f"paged_decode_attention_{k}": n for k, n in
+                   pa.paged_decode_attention.quant_launches.items()}}
     moved = counters.delta(before)
 
     reasons = {h.finish_reason for h in handles}
+    V = eng.config.vocab_size
     for h in handles:
         if h.finish_reason not in ("length", "eos") or not (
-                len(h.tokens) == 32 or h.finish_reason == "eos"):
-            raise AssertionError(f"engine: {h} finished badly: {h.error!r}")
+                len(h.tokens) == max_new or h.finish_reason == "eos"):
+            raise AssertionError(f"{phase}: {h} finished badly: {h.error!r}")
         if not all(0 <= t < V for t in h.tokens):
-            raise AssertionError(f"engine: token out of range in {h}")
+            raise AssertionError(f"{phase}: token out of range in {h}")
     steps = moved.get("serving.decode_steps", 0)
-    if moved.get("serving.kv.prefix_hits", 0) <= 0:
-        raise AssertionError(f"engine: no prefix hits ({moved})")
-    if launches <= 0 or launches != steps * L:
-        raise AssertionError(f"engine: kernel launches {launches} != "
-                             f"decode_steps {steps} x {L} layers")
+    # the one paged-attention variant the pools' dtype selects runs once
+    # per layer per decode step; the others never run
+    kv = eng.kv_dtype
+    want_name = ("paged_decode_attention" if kv is None
+                 else f"paged_decode_attention_{kv}")
+    for name, n in launches.items():
+        want = steps * L if name == want_name else 0
+        if (name == want_name and n <= 0) or n != want:
+            raise AssertionError(f"{phase}: {name} launched {n} times, want "
+                                 f"{want} (decode_steps {steps} x {L} "
+                                 "layers)")
 
     ttft = np.array(sorted(first.values())) / 1e6
     d_s = sum(s for s, _ in decode_only)
     d_tok = sum(n for _, n in decode_only)
     record = {
-        "phase": "engine", "model": "gpt3_1_3b bf16", "layers": L,
-        "init_s": init_s, "requests": len(handles),
+        "phase": phase, "kv_dtype": kv, "weight_dtype": eng.weight_dtype,
+        "layers": L, "requests": len(handles),
         "prompt_tokens": int(sum(len(p) for p in prompts)),
         "generated_tokens": int(sum(len(h.tokens) for h in handles)),
         "finish_reasons": sorted(reasons), "wall_s": wall,
@@ -344,30 +428,35 @@ def engine_phase():
         "decode_step_ms_p50": (float(np.median([s for s, _ in decode_only]))
                                * 1e3 if decode_only else None),
         "output_tokens_per_s": sum(len(h.tokens) for h in handles) / wall,
-        "kernel_launches": launches, "decode_steps": steps,
+        "kernel_launches": launches[want_name], "launches": launches,
+        "decode_steps": steps,
+        "kv_pool_bytes": eng.stats()["kv_pool_bytes"],
         "counters": {k: v for k, v in moved.items()
                      if k.startswith(("serving.kv.prefix", "serving.kv.cow",
                                       "serving.kv.prefill", "serving.decode",
-                                      "serving.kv.blocks_evicted"))},
+                                      "serving.kv.blocks_evicted",
+                                      "serving.kv.quant"))},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    emit(record)
+    return record, handles, snap
 
-    # -- kernel against plain inside the model ------------------------------
-    w = eng._w
+
+def _in_model(model, w, snap, phase):
+    """One decode step on clones of the snapshot's pools, once through the
+    kernel and once through its plain version, compared in bf16."""
     dev = "cuda"
     args = [torch.from_numpy(np.ascontiguousarray(snap[k]).astype(
         np.int32)).to(dev) for k in ("tok", "pos", "bt")]
     logits = {}
     for kernel in (True, False):
-        pk, pv = snap["pk"].clone(), snap["pv"].clone()
-        logits[kernel] = model.decode_paged(w, *args, pk, pv, kernel=kernel)
-        del pk, pv
+        pools = [t.clone() for t in snap["pools"]]
+        logits[kernel] = model.decode_paged(w, *args, *pools, kernel=kernel)
+        del pools
     torch.cuda.synchronize()
     ref = logits[False]
     if not (bool(torch.isfinite(logits[True]).all())
             and bool(torch.isfinite(ref).all())):
-        raise AssertionError("in-model decode: non-finite logits")
+        raise AssertionError(f"{phase}: non-finite logits")
     err = float((logits[True] - ref).abs().max())
     scale = float(ref.abs().max())
     # the kernel's and the plain attention outputs agree to fp32 rounding
@@ -376,15 +465,90 @@ def engine_phase():
     # such flips to the logits: allow 8 bf16 ulps of the logit scale
     tol = 8 * 2.0 ** -8 * max(1.0, scale)
     agree = float((logits[True].argmax(-1) == ref.argmax(-1)).float().mean())
-    emit({"phase": "in_model", "rows_running": best, "max_abs_err": err,
+    emit({"phase": phase, "rows_running": snap["rows"], "max_abs_err": err,
           "atol": tol, "logit_scale": scale, "argmax_agreement": agree})
     if err > tol:
-        raise AssertionError(f"in-model decode: kernel vs plain {err} > {tol}")
-    profile_phase(eng, rng)
-    return record, snap
+        raise AssertionError(f"{phase}: kernel vs plain {err} > {tol}")
 
 
-def profile_phase(eng, rng):
+def engine_phase():
+    cfg = GPTConfig.gpt3_1_3b(dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = LLMEngine(model, kv_layout="paged", max_slots=8, max_seq_len=1024,
+                    block_size=16, prefill_chunk=128)
+    rng, prompts = _engine_prompts(cfg.vocab_size)
+    # warm-up: cuBLAS handles, kernel load, allocator (not counted)
+    eng.generate([rng.integers(0, cfg.vocab_size, 64)], max_new_tokens=2)
+    torch.cuda.synchronize()
+
+    record, handles, snap = _serve_counted(eng, prompts, 32, "engine")
+    record.update(model="gpt3_1_3b bf16", init_s=init_s)
+    if record["counters"].get("serving.kv.prefix_hits", 0) <= 0:
+        raise AssertionError(f"engine: no prefix hits ({record})")
+    emit(record)
+    _in_model(model, eng._w, snap, "in_model")
+    profile_phase(eng, rng, "profile")
+    tokens = [h.tokens for h in handles]
+    return model, prompts, tokens, record, snap
+
+
+def _agreement(handles, tokens):
+    """Share of greedy tokens equal to the bf16 engine's, position by
+    position."""
+    return float(np.mean([x == y for h, b in zip(handles, tokens)
+                          for x, y in zip(h.tokens, b)]))
+
+
+def engine_quant_phase(model, prompts, tokens, bf16_record):
+    """The same 16 requests through int8 KV + int8 weights, then 4 of them
+    through fp8 KV alone, on the engine phase's model."""
+    eng = LLMEngine(model, kv_layout="paged", kv_dtype="int8",
+                    weight_dtype="int8", max_slots=8, max_seq_len=1024,
+                    block_size=16, prefill_chunk=128)
+    rng = np.random.default_rng(1)
+    V = model.config.vocab_size
+    eng.generate([rng.integers(0, V, 64)], max_new_tokens=2)   # warm-up
+    torch.cuda.synchronize()
+    record, handles, snap = _serve_counted(eng, prompts, 32, "engine_quant")
+    quant = {k: v for k, v in record["counters"].items()
+             if k.startswith("serving.kv.quant")}
+    gauges = {k: counters.get(k) for k in ("serving.kv.quant.arena_bytes",
+                                           "serving.kv.quant.bytes_saved")}
+    if len(quant) != 2 or not all(
+            v > 0 for v in (*quant.values(), *gauges.values())):
+        raise AssertionError(f"engine_quant: quant counters {quant} "
+                             f"gauges {gauges}")
+    # printed, not gated: random weights and int8 rounding flip near-ties
+    record.update(
+        model="gpt3_1_3b bf16, int8 KV + int8 weights", gauges=gauges,
+        greedy_requests_equal_to_bf16=sum(
+            h.tokens == b for h, b in zip(handles, tokens)),
+        greedy_token_agreement_with_bf16=_agreement(handles, tokens),
+        bf16_kv_pool_bytes=bf16_record["kv_pool_bytes"],
+        bf16_decode_step_ms_p50=bf16_record["decode_step_ms_p50"],
+        bf16_ttft_ms_p50=bf16_record["ttft_ms_p50"])
+    emit(record)
+    _in_model(model, eng._w, snap, "in_model_quant")
+    profile_phase(eng, rng, "profile_quant")
+    del eng
+    _free_cuda()
+
+    eng = LLMEngine(model, kv_layout="paged", kv_dtype="fp8", max_slots=8,
+                    max_seq_len=1024, block_size=16, prefill_chunk=128)
+    fp8, fp8_handles, _ = _serve_counted(eng, prompts[:4], 32, "engine_fp8")
+    fp8["greedy_token_agreement_with_bf16"] = _agreement(fp8_handles,
+                                                         tokens)
+    emit(fp8)
+    del eng
+    _free_cuda()
+    return record, fp8, snap
+
+
+def profile_phase(eng, rng, phase):
     """Where a decode step's time goes: ``torch.profiler`` over four
     engine steps that only decode (8 rows), the device's busy share of
     their wall time and the device ops that take it."""
@@ -414,7 +578,7 @@ def profile_phase(eng, rng):
                   if e.device_type == torch.autograd.DeviceType.CUDA),
                  key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in ops)
-    emit({"phase": "profile", "steps": 4, "rows": eng.max_slots,
+    emit({"phase": phase, "steps": 4, "rows": eng.max_slots,
           "wall_us": wall_us, "device_us": busy,
           "device_busy_share": busy / wall_us if busy else None,
           "top_device_ops": [{"name": e.key[:80], "us": dev_us(e),
@@ -436,11 +600,35 @@ def _time_ms(fn, n, warmup=3):
     return start.elapsed_time(end) / n
 
 
+def _device_ms(fn, n, event_ms):
+    """Device time per call: CUDA events around ``n`` calls queued behind
+    a spin kernel (``torch.cuda._sleep``) long enough for the host to
+    enqueue them all, so the card runs them back to back.  Plain events
+    around back-to-back calls time the host instead when a wrapper's
+    Python costs more than its kernel of a few tens of µs (a one-chip
+    machine shares its host's cores).  ``event_ms``, the plain events'
+    time per call, bounds the host's time per call and sizes the spin
+    (about 2e6 cycles a ms at the H100's clock)."""
+    fn(0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6 * (2 * n * event_ms + 5)))
+    start.record()
+    for i in range(n):
+        fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def times_phase(snap, max_err, launches):
-    """Per-launch times at the engine's decode shapes.  Launches rotate
-    over the 24 layers' pools, as decode does, so the K/V read does not
-    sit in the 50 MB L2 between launches."""
-    pk_all, pv_all = snap["pk"], snap["pv"]
+    """Per-launch times at the engine's decode shapes: K4 over the bf16
+    engine's pools, and K4q over the same pools quantized to int8 and to
+    fp8 with the port's ``quantize_kv`` (the same rows, tables and live
+    keys).  Launches rotate over the 24 layers' pools, as decode does, so
+    the K/V read does not sit in the 50 MB L2 between launches."""
+    pk_all, pv_all = snap["pools"]
     L, n_blocks, bs, nh, hd = pk_all.shape
     bt = torch.from_numpy(snap["bt"].astype(np.int32)).cuda()
     pos = torch.from_numpy(snap["pos"].astype(np.int32)).cuda()
@@ -449,18 +637,19 @@ def times_phase(snap, max_err, launches):
     gen = torch.Generator(device="cuda").manual_seed(3)
     q = (torch.randn(B, nh, hd, generator=gen, device="cuda")
          / math.sqrt(hd)).to(pk_all.dtype)
+    pools = {None: (pk_all, pv_all)}
+    for kv in pa.KV_DTYPES:
+        (qk, sk), (qv, sv) = (pa.quantize_kv(t, kv) for t in (pk_all,
+                                                               pv_all))
+        pools[kv] = (qk, qv, sk, sv)
 
-    def kernel(i):
-        l = i % L
-        pa.paged_decode_attention(q, pk_all[l], pv_all[l], bt, pos,
-                                  scale=1.0)
+    def per_layer(fn, kv):
+        return lambda i: fn(q, *(t[i % L] for t in pools[kv][:2]), bt, pos,
+                            *(t[i % L] for t in pools[kv][2:]), scale=1.0)
 
-    def plain(i):
-        l = i % L
-        pa.paged_decode_attention_reference(q, pk_all[l], pv_all[l], bt,
-                                            pos, scale=1.0)
-
-    # library yardstick: SDPA over pre-gathered contiguous K/V, boolean mask
+    # library yardstick for K4: SDPA over pre-gathered contiguous K/V with
+    # a boolean mask.  No PyTorch call attends over int8/fp8 pools with
+    # per-token scales, so K4q has none.
     idx = bt.long()
     gk = [pk_all[l][idx].reshape(B, S, nh, hd).transpose(1, 2).contiguous()
           for l in range(L)]
@@ -475,43 +664,237 @@ def times_phase(snap, max_err, launches):
         F.scaled_dot_product_attention(q4, gk[l], gv[l], attn_mask=mask,
                                        scale=1.0)
 
-    # in turns within this one call: plain, kernel, library, kernel, plain
-    runs = {"plain": [], "kernel": [], "library": []}
-    for name, fn, n in (("plain", plain, 48), ("kernel", kernel, 480),
-                        ("library", library, 240), ("kernel", kernel, 480),
-                        ("plain", plain, 48), ("library", library, 240)):
-        runs[name].append(_time_ms(fn, n))
-    ms = {k: float(np.mean(v)) for k, v in runs.items()}
+    fns = {}
+    for kv in pools:
+        fns[(kv, "kernel")] = (per_layer(pa.paged_decode_attention, kv), 480)
+        fns[(kv, "plain")] = (
+            per_layer(pa.paged_decode_attention_reference, kv), 48)
+    fns[(None, "library")] = (library, 240)
+    # in turns within this one call: every function once, then again;
+    # then each one's device time
+    runs = {k: [] for k in fns}
+    for _ in range(2):
+        for k, (fn, n) in fns.items():
+            runs[k].append(_time_ms(fn, n))
+    event_ms = {k: float(np.mean(v)) for k, v in runs.items()}
+    ms = {k: _device_ms(fn, n // 4, event_ms[k])
+          for k, (fn, n) in fns.items()}
 
-    live = (pos.long() + 1)
-    keys = int(live.sum())
+    keys = int((pos.long() + 1).sum())
     nblk = int((pos.long() // bs + 1).sum())
-    itemsize = pk_all.element_size()
-    bytes_moved = (q.numel() * q.element_size()      # q
-                   + 2 * keys * nh * hd * itemsize    # live K and V
-                   + nblk * 4 + B * 4                 # table entries, pos
-                   + B * nh * hd * 4)                 # fp32 output
-    flops = 4 * keys * nh * hd                        # q.k and p.v
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    rows = []
+    for kv, (pk, *_rest) in pools.items():
+        name = ("paged_decode_attention" if kv is None
+                else f"paged_decode_attention_{kv}")
+        bytes_moved = (q.numel() * q.element_size()      # q
+                       + 2 * keys * nh * hd * pk.element_size()  # K and V
+                       + (2 * keys * 4 if kv else 0)     # their scales
+                       + nblk * 4 + B * 4                # table entries, pos
+                       + B * nh * hd * 4)                # fp32 output
+        flops = 4 * keys * nh * hd                       # q.k and p.v
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / FP32_FLOPS * 1e3
+        bound = max(bytes_ms, ops_ms)
+        by = "bytes" if bytes_ms >= ops_ms else "operations"
+        lib = ms[(None, "library")] if kv is None else None
+        emit({"phase": "times", "kernel": name,
+              "shape": {"B": B, "nh": nh, "hd": hd, "bs": bs,
+                        "max_blocks": max_blocks, "live_keys": keys,
+                        "dtype": str(pk.dtype)},
+              "kernel_us": ms[(kv, "kernel")] * 1e3,
+              "plain_us": ms[(kv, "plain")] * 1e3,
+              "library_us": None if lib is None else lib * 1e3,
+              "library": ("sdpa over pre-gathered K/V" if kv is None else
+                          "none: no PyTorch call attends over int8/fp8 "
+                          "pools with per-token scales"),
+              "times": "device time per call (queued CUDA events)",
+              "event_us": {k[1]: v * 1e3 for k, v in event_ms.items()
+                           if k[0] == kv or k[1] == "library"},
+              "runs_ms": {k[1]: v for k, v in runs.items()
+                          if k[0] == kv or k[1] == "library"},
+              "bytes": bytes_moved, "flops": flops, "bound_us": bound * 1e3,
+              "bound_by": by,
+              "kernel_gb_per_s": bytes_moved / (ms[(kv, "kernel")] * 1e-3)
+              / 1e9})
+        rows.append({"name": name, "route": "cuda",
+                     "source": "paddle_tpu_torch/kernels/csrc/"
+                               "paged_attention.cu",
+                     "replaces": "paddle_tpu/kernels/paged_attention.py:132",
+                     "launches": launches[name],
+                     "max_abs_err": max_err[kv or name],
+                     "ms": ms[(kv, "kernel")], "plain_ms": ms[(kv, "plain")],
+                     "bound_ms": bound, "bound_by": by, "library_ms": lib,
+                     "event_ms": event_ms[(kv, "kernel")]})
+    return rows
+
+
+def int8_epilogue_phase(model):
+    """The cost of ``_mm``'s eager int8 epilogue at one decode step (8
+    rows, 24 layers x 4 layer matmuls): bf16 weights against int8
+    weights widened to bf16 per call.  CUDA events around the step, in
+    turns, and the device time of one step under ``torch.profiler``
+    (the events also see the host's launch gaps; the profiler's sum
+    does not)."""
+    c = model.config
+    per_layer = {
+        name: [{k: t[l] for k, t in lws.items()}
+               for l in range(c.num_layers)]
+        for name, lws in (("bf16", model.decode_state()["lws"]),
+                          ("int8", ptq_int8_decode_state(model)["lws"]))}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    xs = {n: torch.randn(8, 1, per_layer["bf16"][0][n].shape[0],
+                         generator=gen, device="cuda").to(torch.bfloat16)
+          for n in PTQ_WEIGHTS}
+
+    def step(name):
+        def run(i):
+            with torch.no_grad():
+                for lw in per_layer[name]:
+                    for n in PTQ_WEIGHTS:
+                        _mm(xs[n], lw, n)
+        return run
+
+    runs = {name: [] for name in per_layer}
+    for _ in range(2):
+        for name in per_layer:
+            runs[name].append(_time_ms(step(name), 5, warmup=1))
+    device_ms = {}
+    for name in per_layer:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            step(name)(0)
+            torch.cuda.synchronize()
+        device_ms[name] = sum(_dev_us(e) for e in prof.key_averages()
+                              if e.device_type
+                              == torch.autograd.DeviceType.CUDA) / 1e3
+    n_w = sum(per_layer["bf16"][0][n].numel() for n in PTQ_WEIGHTS) \
+        * c.num_layers
+    emit({"phase": "int8_epilogue", "layers": c.num_layers, "rows": 8,
+          "event_ms_per_decode_step": {k: float(np.mean(v))
+                                       for k, v in runs.items()},
+          "device_ms_per_decode_step": device_ms, "runs_ms": runs,
+          "weight_elements": n_w,
+          # bytes a step must move: bf16 weights once; int8 weights once
+          # plus the bf16 copy written and read again; a fused W8A16
+          # product would read the int8 weights once
+          "bytes_bf16": 2 * n_w, "bytes_int8_eager": 5 * n_w,
+          "bound_ms_bf16": 2 * n_w / HBM_BYTES_PER_S * 1e3,
+          "bound_ms_int8_eager": 5 * n_w / HBM_BYTES_PER_S * 1e3,
+          "bound_ms_int8_fused": n_w / HBM_BYTES_PER_S * 1e3})
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm (K5)
+# ---------------------------------------------------------------------------
+#: K5's main path: its own entry point at the 1.3B width, 8 x 1024 tokens
+RMS_SHAPE = (8, 1024, 2048)
+
+
+def _rms_tol(ref, out):
+    """Per-element tolerance of K5 against its plain version.  fp32: 1e-6
+    relative (both sum squares in fp32 in another order, rsqrt to an ulp
+    or two).  bf16: the normalized value is rounded to bf16 before the
+    weight product, and a reordered sum moves that rounding by at most
+    one step; one bf16 step of n times w is one to two bf16 steps of the
+    product, rounded again: 2 bf16 ulps of the element (the larger of
+    the two values)."""
+    if ref.dtype == torch.float32:
+        return 1e-6 * ref.abs()
+    return 2 * _bf16_ulp(torch.maximum(ref.abs(), out.abs()).float())
+
+
+def rms_phase():
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    pairs = ((fp32, fp32), (bf16, bf16), (fp32, bf16))
+    cases = [((rows, H), xd, wd) for xd, wd in pairs for rows in (1, 7, 8192)
+             for H in (33, 64, 1000, 1536, 2048, 4096)]
+    cases.append((RMS_SHAPE, bf16, bf16))
+    worst = {"max_abs_err": 0.0, "err_over_tol": 0.0, "bf16_ulps": 0.0}
+    for shape, xd, wd in cases:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(xd)
+        w = torch.randn(shape[-1], generator=gen, device="cuda").to(wd)
+        out = rn.rms_norm(x, w)
+        ref = rn.rms_norm_reference(x, w).to(xd)
+        torch.cuda.synchronize()
+        where = f"{shape} x {xd} w {wd}"
+        if out.dtype != xd or out.shape != x.shape:
+            raise AssertionError(f"rms_norm: {out.dtype} {tuple(out.shape)} "
+                                 f"at {where}")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"rms_norm: non-finite output at {where}")
+        err = (out.float() - ref.float()).abs()
+        tol = _rms_tol(ref, out)
+        over = float((err / tol).nan_to_num(nan=0.0).max())
+        worst["max_abs_err"] = max(worst["max_abs_err"], float(err.max()))
+        worst["err_over_tol"] = max(worst["err_over_tol"], over)
+        if xd == bf16:
+            ulps = float((err / _bf16_ulp(ref.float().abs()))
+                         .nan_to_num(nan=0.0, posinf=0.0).max())
+            worst["bf16_ulps"] = max(worst["bf16_ulps"], ulps)
+        if over > 1.0:
+            i = int((err - tol).argmax())
+            raise AssertionError(
+                f"rms_norm: err {float(err.reshape(-1)[i])} > tol "
+                f"{float(tol.reshape(-1)[i])} at flat index {i}, {where}")
+    emit({"phase": "rms_norm_vs_plain", "cases": len(cases), **worst,
+          "tolerance": "per element: fp32 1e-6 relative; bf16 2 bf16 ulps "
+                       "of the element"})
+    return worst["max_abs_err"]
+
+
+def rms_times_phase(max_err):
+    """K5's main path (its own entry point, once, counted), then its time
+    per launch at that shape beside the plain version, the bound and
+    ``torch.nn.functional.rms_norm`` (a yardstick the port never calls),
+    in turns."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(RMS_SHAPE, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = torch.randn(RMS_SHAPE[-1], generator=gen, device="cuda").to(
+        torch.bfloat16)
+    rn.rms_norm.launches = 0
+    y = rn.rms_norm(x, w)
+    torch.cuda.synchronize()
+    launches = rn.rms_norm.launches
+    if launches != 1 or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"rms_norm main path: {launches} launches")
+    fns = {"kernel": (lambda i: rn.rms_norm(x, w), 200),
+           "plain": (lambda i: rn.rms_norm_reference(x, w), 50),
+           "library": (lambda i: F.rms_norm(x, (RMS_SHAPE[-1],), w,
+                                            eps=1e-6), 200)}
+    runs = {k: [] for k in fns}
+    for _ in range(2):
+        for k, (fn, n) in fns.items():
+            runs[k].append(_time_ms(fn, n))
+    event_ms = {k: float(np.mean(v)) for k, v in runs.items()}
+    ms = {k: _device_ms(fn, n // 4, event_ms[k])
+          for k, (fn, n) in fns.items()}
+    nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+    flops = 4 * x.numel()        # square-add, scale, weight product
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP32_FLOPS * 1e3
     bound = max(bytes_ms, ops_ms)
-    emit({"phase": "times", "kernel": "paged_decode_attention",
-          "shape": {"B": B, "nh": nh, "hd": hd, "bs": bs,
-                    "max_blocks": max_blocks, "live_keys": keys,
-                    "dtype": str(pk_all.dtype)},
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    emit({"phase": "times", "kernel": "rms_norm",
+          "shape": {"x": list(RMS_SHAPE), "dtype": "bfloat16"},
           "kernel_us": ms["kernel"] * 1e3, "plain_us": ms["plain"] * 1e3,
-          "library_us": ms["library"] * 1e3, "runs_ms": runs,
-          "bytes": bytes_moved, "flops": flops, "bound_us": bound * 1e3,
-          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-          "kernel_gb_per_s": bytes_moved / (ms["kernel"] * 1e-3) / 1e9})
-    return {"name": "paged_decode_attention", "route": "cuda",
-            "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
-            "replaces": "paddle_tpu/kernels/paged_attention.py:132",
+          "library_us": ms["library"] * 1e3,
+          "library": "torch.nn.functional.rms_norm",
+          "times": "device time per call (queued CUDA events)",
+          "event_us": {k: v * 1e3 for k, v in event_ms.items()},
+          "runs_ms": runs,
+          "bytes": nbytes, "flops": flops, "bound_us": bound * 1e3,
+          "bound_by": by,
+          "kernel_gb_per_s": nbytes / (ms["kernel"] * 1e-3) / 1e9})
+    return {"name": "rms_norm", "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/rms_norm.cu",
+            "replaces": "paddle_tpu/kernels/rms_norm.py:29",
             "launches": launches, "max_abs_err": max_err,
-            "max_err": max_err, "ms": ms["kernel"],
-            "plain_ms": ms["plain"], "bound_ms": bound,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": ms["library"]}
+            "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,
+            "bound_by": by, "library_ms": ms["library"],
+            "event_ms": event_ms["kernel"]}
 
 
 # ---------------------------------------------------------------------------
@@ -885,9 +1268,15 @@ def flash_times_phase(max_err, launches):
                 runs[n]["kernel"].append(_time_ms(kern, 40))
             lib_runs["fwd"].append(_time_ms(lib_fwd, 40))
             lib_runs["bwd"].append(_time_ms(lib_bwd, 40))
-    ms = {n: {k: float(np.mean(v)) for k, v in r.items()}
-          for n, r in runs.items()}
-    lib_ms = {k: float(np.mean(v)) for k, v in lib_runs.items()}
+        event_ms = {n: {k: float(np.mean(v)) for k, v in r.items()}
+                    for n, r in runs.items()}
+        lib_event_ms = {k: float(np.mean(v)) for k, v in lib_runs.items()}
+        # then each one's device time
+        ms = {n: {"kernel": _device_ms(kern, 10, event_ms[n]["kernel"]),
+                  "plain": _device_ms(plain, 2, event_ms[n]["plain"])}
+              for n, (kern, plain) in fns.items()}
+        lib_ms = {k: _device_ms(f, 10, lib_event_ms[k])
+                  for k, f in (("fwd", lib_fwd), ("bwd", lib_bwd))}
 
     pairs = B * H * S * (S + 1) // 2          # causal (q, k) pairs
     elem = B * S * H * D                       # elements of one operand
@@ -918,6 +1307,8 @@ def flash_times_phase(max_err, launches):
               "plain_us": ms[n]["plain"] * 1e3, "library_us": lib * 1e3,
               "library": ("sdpa flash forward" if n == "flash_fwd" else
                           "sdpa flash backward (dQ, dK, dV: K2 + K3)"),
+              "times": "device time per call (queued CUDA events)",
+              "event_us": {k: v * 1e3 for k, v in event_ms[n].items()},
               "runs_ms": runs[n], "flops": flops, "bytes": nbytes,
               "bound_us": bound * 1e3, "bound_by": by,
               "kernel_tflops": flops / (ms[n]["kernel"] * 1e-3) / 1e12})
@@ -927,13 +1318,15 @@ def flash_times_phase(max_err, launches):
             "replaces": replaces[n], "launches": launches[n],
             "max_abs_err": errs[n], "ms": ms[n]["kernel"],
             "plain_ms": ms[n]["plain"], "bound_ms": bound, "bound_by": by,
-            "library_ms": lib,
+            "library_ms": lib, "event_ms": event_ms[n]["kernel"],
             "library_covers": ("forward" if n == "flash_fwd"
                                else "the whole backward, K2 + K3")})
     emit({"phase": "times", "kernel": "flash_bwd_dq+flash_bwd_dkv",
           "kernel_us": (ms["flash_bwd_dq"]["kernel"]
                         + ms["flash_bwd_dkv"]["kernel"]) * 1e3,
-          "library_us": lib_ms["bwd"] * 1e3, "library_runs_ms": lib_runs})
+          "library_us": lib_ms["bwd"] * 1e3,
+          "library_event_us": {k: v * 1e3 for k, v in lib_event_ms.items()},
+          "library_runs_ms": lib_runs})
     return rows
 
 
@@ -946,11 +1339,23 @@ def main():
     name, _card = device_phase()
     build_phase()
     max_err = kernel_phase()
+    rms_err = rms_phase()
     flash_err = flash_phase()
     small_reference_phase()
-    record, snap = engine_phase()
-    k4_row = times_phase(snap, max_err, record["kernel_launches"])
+    model, prompts, tokens, record, snap = engine_phase()
+    quant, fp8, _ = engine_quant_phase(model, prompts, tokens, record)
+    int8_epilogue_phase(model)
+    del model
+    _free_cuda()
+    launches = {**record["launches"],
+                "paged_decode_attention_int8":
+                    quant["launches"]["paged_decode_attention_int8"],
+                "paged_decode_attention_fp8":
+                    fp8["launches"]["paged_decode_attention_fp8"]}
+    paged_rows = times_phase(snap, max_err, launches)
     del snap          # the serving phase's pools, before training
+    _free_cuda()
+    rms_row = rms_times_phase(rms_err)
     _free_cuda()
     train = train_phase()
     _free_cuda()
@@ -958,7 +1363,8 @@ def main():
     _free_cuda()
     flash_rows = flash_times_phase(flash_err, train["launches"])
     torch.cuda.synchronize()
-    print(json.dumps({"kernels": [k4_row, *flash_rows]}), flush=True)
+    print(json.dumps({"kernels": [*paged_rows, *flash_rows, rms_row]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

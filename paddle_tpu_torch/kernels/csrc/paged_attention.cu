@@ -1,18 +1,26 @@
 // Paged decode attention for Hopper (sm_90a).
 //
-// Replaces paddle_tpu/kernels/paged_attention.py::_decode_kernel (the
-// Pallas kernel behind paged_decode_attention, unquantized pools).
+// Replaces paddle_tpu/kernels/paged_attention.py::_decode_kernel, the
+// Pallas kernel behind paged_decode_attention: K4 over fp32/bf16 pools
+// (quant=False) and K4q over int8 or fp8-e4m3 pools (quant=True).
 //
 // What it computes: for every row b and head h, the single query
 // q[b, h, :] attends over the row's logical sequence, which lives in
 // physical blocks bt[b, 0..pos[b]/bs] of the pool [n_blocks, bs, nh, hd];
 // keys past pos[b] are masked.  Output is fp32 [B, nh, hd]:
 //   out = sum_t softmax_t(scale * q.k_t) v_t   over t <= pos[b].
+// K4q: the pools hold 1-byte values with one fp32 scale per (block,
+// position), sk and sv [n_blocks, bs], so k_t = sk_t * kq_t and v_t =
+// sv_t * vq_t.  A per-token scale commutes with both contractions: the
+// logit is (scale * q.kq_t) * sk_t, the running sum l takes the
+// unscaled probability p_t, and the accumulator takes p_t * sv_t * vq_t,
+// exactly as _decode_kernel scales its logit and probability rows.
 //
 // What bounds it on this card: memory bandwidth.  A row reads
 // (pos + 1) * nh * hd * 2 * itemsize bytes of K/V and does one
 // multiply-add per K/V element it reads (one flop per byte in bf16), far
-// below the ~295 flops/byte at which an H100 becomes compute bound.  To
+// below the ~295 flops/byte at which an H100 becomes compute bound
+// (two flops per byte over 1-byte pools).  To
 // reach the bandwidth, enough loads must be in flight: about 3 MB across
 // the card (3.35 TB/s times ~1 us of memory latency).
 //
@@ -27,8 +35,13 @@
 // * Lanes split the head dims: lane l holds dims [l*DPL, (l+1)*DPL) of q
 //   (pre-scaled, in registers), of the running acc and of each loaded key,
 //   so neighbouring lanes read neighbouring addresses, DPL elements at a
-//   time (one vector load when hd is a multiple of DPL).  A butterfly
-//   shuffle sums each key's dot product.
+//   time (one vector load when hd is a multiple of DPL: 4-8 bytes a lane
+//   over 1-byte pools at hd 128-256).  A butterfly shuffle sums each
+//   key's dot product.
+// * K4q: every lane reads the key's two scales (one broadcast load each)
+//   and widens its int8 or fp8 values to fp32 in registers; the 1-byte
+//   tiles are never expanded in device memory.  K4q keeps 8 keys in
+//   flight a warp at every head dim, as its loads are half K4's in bf16.
 // * Each key's block is read from bt[b, t / bs] by the CTA itself (this
 //   replaces the TPU kernel's scalar prefetch).
 // * Keys past pos[b] are never loaded and get probability 0; the running
@@ -40,8 +53,8 @@
 //   finite key and stay finite.
 //
 // Later PRs: split long rows across CTAs (flash-decoding) when there are
-// fewer (row, head) pairs than SMs, stage blocks with cp.async or TMA,
-// and add fp8 pools.
+// fewer (row, head) pairs than SMs, and stage blocks with cp.async or
+// TMA.
 //
 // Built by paddle_tpu_torch/kernels/_build.py with nvcc into a shared
 // library with a plain C interface, called through ctypes.
@@ -50,6 +63,7 @@
 #include <cstdint>
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -62,9 +76,16 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
 
-// Unsigned type of N bytes, N in {2, 4, 8, 16}.
+// Unsigned type of N bytes, N in {1, 2, 4, 8, 16}.
 template <int N> struct Raw;
+template <> struct Raw<1> { using type = unsigned char; };
 template <> struct Raw<2> { using type = unsigned short; };
 template <> struct Raw<4> { using type = unsigned int; };
 template <> struct Raw<8> { using type = uint2; };
@@ -98,10 +119,14 @@ template <typename TQ, typename TKV, int DPL>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
                     const TKV* __restrict__ pool_v,
+                    const float* __restrict__ scale_k,
+                    const float* __restrict__ scale_v,
                     const int32_t* __restrict__ bt,
                     const int32_t* __restrict__ pos, float* __restrict__ out,
                     int nh, int hd, int bs, int max_blocks, float scale) {
-  constexpr int kUnroll = DPL >= 8 ? 4 : 8;
+  // 1-byte pools are quantized (K4q) and come with per-token scales
+  constexpr bool kQuant = sizeof(TKV) == 1;
+  constexpr int kUnroll = kQuant ? 8 : (DPL >= 8 ? 4 : 8);
   __shared__ float m_sh[kWarps];
   __shared__ float l_sh[kWarps];
   __shared__ float acc_sh[kWarps][kMaxHeadDim];
@@ -131,16 +156,25 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
 
   for (int t0 = warp * kUnroll; t0 < n; t0 += kWarps * kUnroll) {
     float kr[kUnroll][DPL], vr[kUnroll][DPL];
+    float sk[kUnroll], sv[kUnroll];  // K4q's per-token scales
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int t = t0 + u;
 #pragma unroll
       for (int i = 0; i < DPL; ++i) kr[u][i] = vr[u][i] = 0.f;
-      if (t < n && active) {
+      sk[u] = sv[u] = 0.f;
+      if (t < n) {
         const int64_t blk = row_bt[t / bs];
-        const int64_t off = ((blk * bs + t % bs) * nh + h) * hd + d0;
-        load_dims<TKV, DPL>(pool_k + off, vec, d0, hd, kr[u]);
-        load_dims<TKV, DPL>(pool_v + off, vec, d0, hd, vr[u]);
+        const int64_t slot = blk * bs + t % bs;
+        if constexpr (kQuant) {
+          sk[u] = scale_k[slot];
+          sv[u] = scale_v[slot];
+        }
+        if (active) {
+          const int64_t off = (slot * nh + h) * hd + d0;
+          load_dims<TKV, DPL>(pool_k + off, vec, d0, hd, kr[u]);
+          load_dims<TKV, DPL>(pool_v + off, vec, d0, hd, vr[u]);
+        }
       }
     }
     float s[kUnroll];
@@ -156,6 +190,10 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
       for (int u = 0; u < kUnroll; ++u)
         s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
     }
+    if constexpr (kQuant) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) s[u] *= sk[u];
+    }
     float m_new = m;
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
@@ -168,8 +206,10 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
     for (int u = 0; u < kUnroll; ++u) {
       const float p = t0 + u < n ? expf(s[u] - m_new) : 0.f;
       l += p;
+      float pv = p;
+      if constexpr (kQuant) pv = p * sv[u];
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[i] += p * vr[u][i];
+      for (int i = 0; i < DPL; ++i) acc[i] += pv * vr[u][i];
     }
     m = m_new;
   }
@@ -204,63 +244,81 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ pool_k,
   }
 }
 
+// The launch's operands, passed through the dispatch below unchanged.
+struct Args {
+  const void *q, *pool_k, *pool_v;
+  const float *scale_k, *scale_v;
+  const int32_t *bt, *pos;
+  float* out;
+  int B, nh, hd, bs, max_blocks;
+  float scale;
+  cudaStream_t stream;
+};
+
 template <typename TQ, typename TKV, int DPL>
-cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
-                   const void* bt, const void* pos, void* out, int B, int nh,
-                   int hd, int bs, int max_blocks, float scale,
-                   cudaStream_t stream) {
-  paged_decode_kernel<TQ, TKV, DPL><<<dim3(nh, B), kThreads, 0, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(pool_k),
-      static_cast<const TKV*>(pool_v), static_cast<const int32_t*>(bt),
-      static_cast<const int32_t*>(pos), static_cast<float*>(out), nh, hd, bs,
-      max_blocks, scale);
+cudaError_t launch(const Args& a) {
+  paged_decode_kernel<TQ, TKV, DPL>
+      <<<dim3(a.nh, a.B), kThreads, 0, a.stream>>>(
+          static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.pool_k),
+          static_cast<const TKV*>(a.pool_v), a.scale_k, a.scale_v, a.bt,
+          a.pos, a.out, a.nh, a.hd, a.bs, a.max_blocks, a.scale);
   return cudaGetLastError();
 }
 
 template <typename TQ, typename TKV>
-cudaError_t launch_dims(const void* q, const void* pool_k, const void* pool_v,
-                        const void* bt, const void* pos, void* out, int B,
-                        int nh, int hd, int bs, int max_blocks, float scale,
-                        cudaStream_t stream) {
+cudaError_t launch_dims(const Args& a) {
   // dims per lane: the smallest power of two with 32 * DPL >= hd
-  if (hd <= 32)
-    return launch<TQ, TKV, 1>(q, pool_k, pool_v, bt, pos, out, B, nh, hd, bs,
-                              max_blocks, scale, stream);
-  if (hd <= 64)
-    return launch<TQ, TKV, 2>(q, pool_k, pool_v, bt, pos, out, B, nh, hd, bs,
-                              max_blocks, scale, stream);
-  if (hd <= 128)
-    return launch<TQ, TKV, 4>(q, pool_k, pool_v, bt, pos, out, B, nh, hd, bs,
-                              max_blocks, scale, stream);
-  return launch<TQ, TKV, 8>(q, pool_k, pool_v, bt, pos, out, B, nh, hd, bs,
-                            max_blocks, scale, stream);
+  if (a.hd <= 32) return launch<TQ, TKV, 1>(a);
+  if (a.hd <= 64) return launch<TQ, TKV, 2>(a);
+  if (a.hd <= 128) return launch<TQ, TKV, 4>(a);
+  return launch<TQ, TKV, 8>(a);
+}
+
+template <typename TQ>
+cudaError_t launch_pool(const Args& a, int kv_type) {
+  switch (kv_type) {
+    case 0: return launch_dims<TQ, float>(a);
+    case 1: return launch_dims<TQ, __nv_bfloat16>(a);
+    case 2: return launch_dims<TQ, int8_t>(a);
+    case 3: return launch_dims<TQ, __nv_fp8_e4m3>(a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// q_bf16 / kv_bf16: 0 for float32 operands, 1 for bfloat16.  Returns the
-// cudaError_t of the launch (0 on success).  The caller guarantees every
-// bt value is below n_blocks, 1 <= hd <= 256, bs >= 1, B <= 65535, and
-// 16-byte aligned, contiguous operands.
+// q_bf16: 0 for float32 q, 1 for bfloat16.  kv_type: the pools' type,
+// 0 float32, 1 bfloat16 (K4; scale_k and scale_v are ignored), 2 int8,
+// 3 fp8 e4m3 (K4q; scale_k and scale_v are fp32 [n_blocks, bs]).  Returns
+// the cudaError_t of the launch (0 on success).  The caller guarantees
+// every bt value is below n_blocks, 1 <= hd <= 256, bs >= 1, B <= 65535,
+// and 16-byte aligned, contiguous operands.
 int paged_decode_attention_launch(const void* q, int q_bf16,
                                   const void* pool_k, const void* pool_v,
-                                  int kv_bf16, const void* bt, const void* pos,
-                                  void* out, int B, int nh, int hd, int bs,
-                                  int max_blocks, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_bf16 && kv_bf16)
-    return launch_dims<__nv_bfloat16, __nv_bfloat16>(
-        q, pool_k, pool_v, bt, pos, out, B, nh, hd, bs, max_blocks, scale, s);
-  if (q_bf16)
-    return launch_dims<__nv_bfloat16, float>(
-        q, pool_k, pool_v, bt, pos, out, B, nh, hd, bs, max_blocks, scale, s);
-  if (kv_bf16)
-    return launch_dims<float, __nv_bfloat16>(
-        q, pool_k, pool_v, bt, pos, out, B, nh, hd, bs, max_blocks, scale, s);
-  return launch_dims<float, float>(q, pool_k, pool_v, bt, pos, out, B, nh, hd,
-                                   bs, max_blocks, scale, s);
+                                  int kv_type, const void* scale_k,
+                                  const void* scale_v, const void* bt,
+                                  const void* pos, void* out, int B, int nh,
+                                  int hd, int bs, int max_blocks, float scale,
+                                  void* stream) {
+  const Args a{q,
+               pool_k,
+               pool_v,
+               static_cast<const float*>(scale_k),
+               static_cast<const float*>(scale_v),
+               static_cast<const int32_t*>(bt),
+               static_cast<const int32_t*>(pos),
+               static_cast<float*>(out),
+               B,
+               nh,
+               hd,
+               bs,
+               max_blocks,
+               scale,
+               static_cast<cudaStream_t>(stream)};
+  return q_bf16 ? launch_pool<__nv_bfloat16>(a, kv_type)
+                : launch_pool<float>(a, kv_type);
 }
 
 const char* paged_attention_error_string(int err) {

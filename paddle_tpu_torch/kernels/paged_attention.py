@@ -15,9 +15,17 @@ versions of the same function live here:
   so the ``[B, S]`` gathered view is never materialized.  On a CPU
   tensor it calls the plain version; on a CUDA tensor it launches the
   kernel or raises.  ``paged_decode_attention.launches`` counts the
-  kernel launches.
+  kernel launches on float pools (K4),
+  ``paged_decode_attention.quant_launches[kv_dtype]`` those on int8/fp8
+  pools (K4q).
 
-Quantized pools (``scale_k``/``scale_v``) are a later slice.
+Quantized KV (``kv_dtype`` "int8" or "fp8" e4m3) stores the pools one
+byte a value with one fp32 scale per (block, position): per-token
+symmetric absmax, quantized on insert by the model
+(:func:`quantize_kv`).  The scale is a scalar per key token, so it
+commutes with both attention contractions: the kernel multiplies each
+key's logit by its K scale and each probability by its V scale in
+registers, and the 1-byte tiles are never widened in device memory.
 """
 
 from __future__ import annotations
@@ -31,24 +39,73 @@ from ._shapes import NEG_INF, check_divides, check_equal
 
 _FLOATS = (torch.float32, torch.bfloat16)
 _MAX_HEAD_DIM = 256
-_QUANT_TODO = ("quantized KV pools (scale_k/scale_v) are not ported yet: "
-               "ROADMAP.md A3 (quantized KV, kernel K4q)")
+
+#: serving ``kv_dtype`` string -> pool storage dtype.
+KV_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+#: symmetric quantization range per kv_dtype (int8 integer grid; fp8
+#: e4m3 max finite value).
+KV_QMAX = {"int8": 127.0, "fp8": 448.0}
+
+#: pool-type code of the C entry point, by pool dtype
+_POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float8_e4m3fn: 3}
 
 
-def paged_decode_attention_reference(q, pool_k, pool_v, bt, pos, *, scale):
+def quantize_kv(x, kv_dtype):
+    """Per-token symmetric quantization of ``x[..., nh, hd]``: returns
+    ``(q[..., nh, hd] in KV_DTYPES[kv_dtype], scale[...] fp32)`` where
+    ``scale`` is one absmax-derived scalar per leading index (token).
+    All-zero tokens (padded prefill tail) quantize to zeros with a unit
+    epsilon scale.  int8 rounds half to even, as ``jnp.round``."""
+    qmax = KV_QMAX[kv_dtype]
+    xf = x.float()
+    amax = xf.abs().amax(dim=(-2, -1))
+    scale = amax.clamp_min(1e-8) / qmax
+    y = xf / scale[..., None, None]
+    if kv_dtype == "int8":
+        y = torch.round(y)
+    return y.clamp(-qmax, qmax).to(KV_DTYPES[kv_dtype]), scale
+
+
+def kv_dtype_of(dtype):
+    """Map a pool storage dtype back to its ``kv_dtype`` name (None for
+    unquantized full/half-precision pools)."""
+    for name, d in KV_DTYPES.items():
+        if d == dtype:
+            return name
+    return None
+
+
+def dequantize_kv(q, scale):
+    """Inverse of :func:`quantize_kv`: fp32 values from quantized tiles
+    ``q[..., nh, hd]`` and per-token scales ``scale[...]``."""
+    return q.float() * scale[..., None, None]
+
+
+def paged_decode_attention_reference(q, pool_k, pool_v, bt, pos,
+                                     scale_k=None, scale_v=None, *, scale):
     """Plain gather-mask-softmax decode attention.
 
     q ``[B, nh, hd]``, pool_k/pool_v ``[n_blocks, bs, nh, hd]``, bt ``[B,
-    max_blocks]`` and pos ``[B]`` integer.  Returns fp32 ``[B, nh, hd]``:
-    row ``b`` attends over keys ``kpos <= pos[b]`` of its gathered
-    sequence.  The math of ``GPT.decode_paged``'s gather twin, with the
+    max_blocks]`` and pos ``[B]`` integer; with int8/fp8 pools,
+    scale_k/scale_v ``[n_blocks, bs]`` fp32 per-token scales.  Returns
+    fp32 ``[B, nh, hd]``: row ``b`` attends over keys ``kpos <= pos[b]``
+    of its gathered sequence.  The math of ``GPT.decode_paged``'s gather
+    twin (quantized pools gathered and dequantized to fp32), with the
     probabilities kept in fp32 for the value sum, as the kernel does."""
     B, nh, hd = q.shape
     bs = pool_k.shape[1]
     S = bt.shape[1] * bs
     idx = bt.long()
-    gk = pool_k[idx].reshape(B, S, nh, hd).float()
-    gv = pool_v[idx].reshape(B, S, nh, hd).float()
+    if scale_k is None:
+        gk = pool_k[idx].float()
+        gv = pool_v[idx].float()
+    else:
+        gk = dequantize_kv(pool_k[idx], scale_k[idx])
+        gv = dequantize_kv(pool_v[idx], scale_v[idx])
+    gk = gk.reshape(B, S, nh, hd)
+    gv = gv.reshape(B, S, nh, hd)
     logits = torch.einsum("bhd,bshd->bhs", q.float(), gk) * scale
     kpos = torch.arange(S, device=q.device)
     live = kpos[None, :] <= pos.long()[:, None]                  # [B, S]
@@ -63,7 +120,7 @@ def _lib():
     fn = lib.paged_decode_attention_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, I, P, P, I, P, P, P, I, I, I, I, I,
+        fn.argtypes = [P, I, P, P, I, P, P, P, P, P, I, I, I, I, I,
                        ctypes.c_float, P]
         fn.restype = ctypes.c_int
         lib.paged_attention_error_string.argtypes = [ctypes.c_int]
@@ -76,9 +133,11 @@ def paged_decode_attention(q, pool_k, pool_v, bt, pos, scale_k=None,
     """Paged decode attention for B rows over the shared pool.
 
     q ``[B, nh, hd]`` fp32/bf16 (the rows' single query tokens),
-    pool_k/pool_v ``[n_blocks, bs, nh, hd]`` fp32/bf16 (one layer's pool,
-    already holding each row's new K/V at ``pos``), bt ``[B, max_blocks]``
-    int32, pos ``[B]`` int32.  Returns fp32 ``[B, nh, hd]``.
+    pool_k/pool_v ``[n_blocks, bs, nh, hd]`` (one layer's pool, already
+    holding each row's new K/V at ``pos``): fp32/bf16, or int8/fp8 with
+    their per-token fp32 scales scale_k/scale_v ``[n_blocks, bs]``.  bt
+    ``[B, max_blocks]`` int32, pos ``[B]`` int32.  Returns fp32 ``[B,
+    nh, hd]``.
 
     The caller guarantees that every ``bt`` value is below ``n_blocks``
     and that ``pos[b] < max_blocks * bs``: the wrapper checks shapes,
@@ -86,11 +145,18 @@ def paged_decode_attention(q, pool_k, pool_v, bt, pos, scale_k=None,
     the host.  Rows with nothing to attend are tabled to the trash block
     0 at position 0.
     """
-    if scale_k is not None or scale_v is not None:
-        raise NotImplementedError(_QUANT_TODO)
     B, nh, hd = q.shape
     n_blocks, bs = pool_k.shape[0], pool_k.shape[1]
     max_blocks = bt.shape[1]
+    kv_dtype = kv_dtype_of(pool_k.dtype)
+    scales = tuple(t for t in (scale_k, scale_v) if t is not None)
+    if len(scales) != (0 if kv_dtype is None else 2):
+        raise ValueError(f"paged_attention: {pool_k.dtype} pools take "
+                         + ("no scales" if kv_dtype is None
+                            else "both scale_k and scale_v"))
+    if any(t.dim() != 2 for t in scales):
+        raise ValueError("paged_attention: scale_k/scale_v must be "
+                         "[n_blocks, block_size]")
     check_equal(
         "paged_attention",
         pool_v_blocks=(pool_v.shape[0], n_blocks),
@@ -100,35 +166,43 @@ def paged_decode_attention(q, pool_k, pool_v, bt, pos, scale_k=None,
         pool_k_head_dim=(pool_k.shape[3], hd),
         pool_v_head_dim=(pool_v.shape[3], hd),
         table_rows=(bt.shape[0], B),
-        pos_rows=(pos.shape[0], B))
+        pos_rows=(pos.shape[0], B),
+        **({"scale_k_blocks": (scale_k.shape[0], n_blocks),
+            "scale_k_positions": (scale_k.shape[1], bs),
+            "scale_v_blocks": (scale_v.shape[0], n_blocks),
+            "scale_v_positions": (scale_v.shape[1], bs)} if scales else {}))
     check_divides("paged_attention", block_size=(bs, 1))
-    devices = {t.device for t in (q, pool_k, pool_v, bt, pos)}
+    devices = {t.device for t in (q, pool_k, pool_v, bt, pos, *scales)}
     if len(devices) != 1:
         raise ValueError(f"paged_attention: operands on several devices "
                          f"{sorted(map(str, devices))}")
     dev = q.device
     if dev.type == "cpu":
         return paged_decode_attention_reference(q, pool_k, pool_v, bt, pos,
-                                                scale=scale)
+                                                scale_k, scale_v, scale=scale)
     if dev.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {dev}")
-    if q.dtype not in _FLOATS or pool_k.dtype not in _FLOATS:
-        raise TypeError(f"paged_attention: q {q.dtype} / pools "
-                        f"{pool_k.dtype} must be float32 or bfloat16")
+    if q.dtype not in _FLOATS or pool_k.dtype not in _POOL_CODES:
+        raise TypeError(f"paged_attention: q {q.dtype} must be float32 or "
+                        f"bfloat16, pools {pool_k.dtype} float32, bfloat16, "
+                        "int8 or float8_e4m3fn")
     if pool_v.dtype != pool_k.dtype:
         raise TypeError(f"paged_attention: pool_v {pool_v.dtype} != "
                         f"pool_k {pool_k.dtype}")
     if bt.dtype != torch.int32 or pos.dtype != torch.int32:
         raise TypeError(f"paged_attention: bt {bt.dtype} / pos "
                         f"{pos.dtype} must be int32")
+    if any(t.dtype != torch.float32 for t in scales):
+        raise TypeError("paged_attention: scale_k/scale_v must be float32")
     if not 1 <= hd <= _MAX_HEAD_DIM:
         raise ValueError(f"paged_attention: head dim {hd} outside "
                          f"[1, {_MAX_HEAD_DIM}]")
     if not 1 <= B <= 65535:
         raise ValueError(f"paged_attention: {B} rows outside the kernel's "
                          "grid range [1, 65535]")
-    for name, t in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v),
-                    ("bt", bt), ("pos", pos)):
+    named = (("q", q), ("pool_k", pool_k), ("pool_v", pool_v), ("bt", bt),
+             ("pos", pos)) + tuple(zip(("scale_k", "scale_v"), scales))
+    for name, t in named:
         if not t.is_contiguous():
             raise ValueError(f"paged_attention: {name} is not contiguous")
         if name in ("q", "pool_k", "pool_v") and t.data_ptr() % 16:
@@ -141,18 +215,31 @@ def paged_decode_attention(q, pool_k, pool_v, bt, pos, scale_k=None,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.paged_decode_attention_launch(
             q.data_ptr(), int(q.dtype == torch.bfloat16),
-            pool_k.data_ptr(), pool_v.data_ptr(),
-            int(pool_k.dtype == torch.bfloat16), bt.data_ptr(),
+            pool_k.data_ptr(), pool_v.data_ptr(), _POOL_CODES[pool_k.dtype],
+            scale_k.data_ptr() if scales else None,
+            scale_v.data_ptr() if scales else None, bt.data_ptr(),
             pos.data_ptr(), out.data_ptr(), B, nh, hd, bs, max_blocks,
             float(scale), stream)
     if err != 0:
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"paged_decode_attention launch failed: "
                            f"CUDA error {err} ({msg})")
-    paged_decode_attention.launches += 1
+    if kv_dtype is None:
+        paged_decode_attention.launches += 1
+    else:
+        paged_decode_attention.quant_launches[kv_dtype] += 1
     return out
 
 
-#: kernel launches since the counter was last set to 0 (CUDA tensors
-#: only; the CPU path never moves it).
+#: kernel launches since the counters were last set to 0 (CUDA tensors
+#: only; the CPU path never moves them): ``launches`` over fp32/bf16
+#: pools (K4), ``quant_launches[kv_dtype]`` over int8/fp8 pools (K4q).
 paged_decode_attention.launches = 0
+paged_decode_attention.quant_launches = dict.fromkeys(KV_DTYPES, 0)
+
+
+def reset_launch_counts():
+    """Set K4's and K4q's launch counters to 0."""
+    paged_decode_attention.launches = 0
+    for k in paged_decode_attention.quant_launches:
+        paged_decode_attention.quant_launches[k] = 0

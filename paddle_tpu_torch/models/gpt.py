@@ -17,6 +17,9 @@ Serving: the paged KV pools ``[L, n_blocks, bs, nh, hd]`` are updated
 and :meth:`GPTForCausalLM.decode_paged`; this replaces the JAX package's
 donation of the pools through every program.  Decode attention goes
 through the CUDA kernel ``kernels/paged_attention`` on a CUDA device.
+Quantized KV (int8/fp8 pools with per-token fp32 scale pools ``[L,
+n_blocks, bs]``) quantizes on insert; decode attends through the
+kernel's quantized variant, prefill over the dequantized gather.
 """
 
 from __future__ import annotations
@@ -149,9 +152,20 @@ def _rope_rows(x, pos, base=10000.0):
 
 
 def _mm(x, lw, name):
-    """Layer matmul against a decode-state weight (full precision; the
-    int8 weight-only epilogue is a later slice)."""
-    return torch.matmul(x, lw[name])
+    """Layer matmul against a decode-state weight that may be int8
+    weight-only quantized (``quantization.ptq_int8_decode_state`` stores
+    ``name`` as int8 plus ``name + "__scale"`` fp32 per-output-channel).
+    Per-output-channel scales commute with the contraction, so dequant is
+    one row-vector multiply after the product, promoted to fp32 and cast
+    back to ``x``'s dtype, as the reference does.  The int8 weight is
+    widened to ``x``'s dtype exactly (|q| <= 127), but eagerly: a
+    full-precision copy per call, which XLA fuses into the dot on the
+    TPU (see PERF.md)."""
+    w = lw[name]
+    s = lw.get(name + "__scale")
+    if s is None:
+        return torch.matmul(x, w)
+    return (torch.matmul(x, w.to(x.dtype)) * s).to(x.dtype)
 
 
 def _resolve_device(device):
@@ -399,7 +413,8 @@ class GPTForCausalLM(nn.Module):
                     + lw["fc2_b"])
 
     @torch.no_grad()
-    def prefill_paged(self, w, ids, start, length, bt, pool_k, pool_v):
+    def prefill_paged(self, w, ids, start, length, bt, pool_k, pool_v,
+                      scale_k=None, scale_v=None):
         """One chunked-prefill step over the paged pools.
 
         ``ids[1, C]`` is one right-padded prompt chunk of true length
@@ -413,7 +428,13 @@ class GPTForCausalLM(nn.Module):
         logical sequence after the write, so one masked ``kpos <= qpos``
         attention covers the cached prefix, earlier chunks and the chunk
         itself.  Returns the fp32 logits ``[1, V]`` at the chunk's last
-        valid token."""
+        valid token.
+
+        Quantized KV: with int8/fp8 pools, ``scale_k``/``scale_v [L,
+        n_blocks, bs]`` fp32 are the per-token scale pools.  Each token's
+        K/V is quantized on insert (``quantize_kv``; padded tokens get
+        zero tiles and zero scales in the trash block) and attention runs
+        over the gathered view dequantized to fp32."""
         c = self.config
         nh, H = c.num_heads, c.hidden_size
         hd = H // nh
@@ -436,6 +457,7 @@ class GPTForCausalLM(nn.Module):
         kpos = torch.arange(S, device=dev)
         mask = kpos[None, :] <= tokpos[:, None]                    # [C, S]
         vm = valid[:, None, None]
+        kv_dt = None if scale_k is None else _pa.kv_dtype_of(pool_k.dtype)
         for l in range(c.num_layers):
             lw = {n: t[l] for n, t in w["lws"].items()}
             ck, cv = pool_k[l], pool_v[l]
@@ -448,11 +470,26 @@ class GPTForCausalLM(nn.Module):
             if c.use_rope:
                 q = apply_rope(q, offset=start)
                 k = apply_rope(k, offset=start)
-            zero = torch.zeros((), dtype=ck.dtype, device=dev)
-            ck.index_put_((blk, off), torch.where(vm, k[0].to(ck.dtype), zero))
-            cv.index_put_((blk, off), torch.where(vm, v[0].to(cv.dtype), zero))
-            gk = ck[bt_l].reshape(S, nh, hd)[None]
-            gv = cv[bt_l].reshape(S, nh, hd)[None]
+            if kv_dt is None:
+                zero = torch.zeros((), dtype=ck.dtype, device=dev)
+                ck.index_put_((blk, off),
+                              torch.where(vm, k[0].to(ck.dtype), zero))
+                cv.index_put_((blk, off),
+                              torch.where(vm, v[0].to(cv.dtype), zero))
+                gk = ck[bt_l].reshape(S, nh, hd)[None]
+                gv = cv[bt_l].reshape(S, nh, hd)[None]
+            else:
+                # quantize on insert; a zeroed padded token quantizes to a
+                # zero tile, and its scale is zeroed as the reference does
+                sk, sv = scale_k[l], scale_v[l]
+                for pool, spool, new in ((ck, sk, k[0]), (cv, sv, v[0])):
+                    xq, xs = _pa.quantize_kv(torch.where(vm, new, 0), kv_dt)
+                    pool.index_put_((blk, off), xq)
+                    spool.index_put_((blk, off), torch.where(valid, xs, 0.0))
+                gk = _pa.dequantize_kv(ck[bt_l], sk[bt_l]).reshape(
+                    S, nh, hd)[None]
+                gv = _pa.dequantize_kv(cv[bt_l], sv[bt_l]).reshape(
+                    S, nh, hd)[None]
             logits = torch.einsum("bqhd,bkhd->bhqk", (q * scale).float(),
                                   gk.float())
             logits = torch.where(mask[None, None], logits,
@@ -466,7 +503,8 @@ class GPTForCausalLM(nn.Module):
                           h[:, length - 1])
 
     @torch.no_grad()
-    def decode_paged(self, w, tok, pos, bt, pool_k, pool_v, kernel=True):
+    def decode_paged(self, w, tok, pos, bt, pool_k, pool_v, scale_k=None,
+                     scale_v=None, kernel=True):
         """One decode step for B rows over the paged pools.
 
         tok ``[B]`` and pos ``[B]`` int32, bt ``[B, max_blocks]`` int32,
@@ -480,7 +518,13 @@ class GPTForCausalLM(nn.Module):
         paged_decode_attention` — the CUDA kernel on a CUDA device — with
         the query pre-scaled in the model dtype and ``scale=1.0``.
         ``kernel=False`` calls the kernel's plain version instead (used to
-        hold the kernel against it inside the model)."""
+        hold the kernel against it inside the model).
+
+        Quantized KV: with int8/fp8 pools and ``scale_k``/``scale_v [L,
+        n_blocks, bs]``, each row's new K/V is quantized on insert and
+        its scales written at the same ``(block, offset)``; attention
+        runs the kernel's quantized variant (K4q), or its plain
+        dequantizing version with ``kernel=False``."""
         c = self.config
         nh, H = c.num_heads, c.hidden_size
         hd = H // nh
@@ -496,9 +540,11 @@ class GPTForCausalLM(nn.Module):
         rows = torch.arange(B, device=tok.device)
         blk = bt.long()[rows, pos_l // bs]                          # [B]
         off = pos_l % bs
+        kv_dt = None if scale_k is None else _pa.kv_dtype_of(pool_k.dtype)
         for l in range(c.num_layers):
             lw = {n: t[l] for n, t in w["lws"].items()}
             ck, cv = pool_k[l], pool_v[l]
+            scales = () if kv_dt is None else (scale_k[l], scale_v[l])
             x = _norm(h, lw["ln1_w"], lw["ln1_b"], c.layer_norm_epsilon)
             qkv = _mm(x, lw, "qkv_w") + lw["qkv_b"]
             q, k, v = qkv.split(H, dim=-1)
@@ -510,10 +556,16 @@ class GPTForCausalLM(nn.Module):
                 k = _rope_rows(k, pos)
             # idle rows all write the trash slot (0, 0); nothing live
             # reads it, so the duplicate indices are harmless
-            ck.index_put_((blk, off), k[:, 0].to(ck.dtype))
-            cv.index_put_((blk, off), v[:, 0].to(cv.dtype))
+            if kv_dt is None:
+                ck.index_put_((blk, off), k[:, 0].to(ck.dtype))
+                cv.index_put_((blk, off), v[:, 0].to(cv.dtype))
+            else:
+                for pool, spool, new in zip((ck, cv), scales, (k, v)):
+                    xq, xs = _pa.quantize_kv(new[:, 0], kv_dt)
+                    pool.index_put_((blk, off), xq)
+                    spool.index_put_((blk, off), xs)
             o = attend((q[:, 0] * scale).contiguous(), ck, cv, bt, pos,
-                       scale=1.0)
+                       *scales, scale=1.0)
             o = o.reshape(B, 1, H).to(h.dtype)
             h = h + (_mm(o, lw, "proj_w") + lw["proj_b"])
             h = self._ffn(h, lw)

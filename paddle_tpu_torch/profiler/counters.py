@@ -5,8 +5,11 @@ The engine bumps the same ``serving.*`` names as the JAX engine —
 ``serving.decode_steps``, ``serving.decode_tokens``,
 ``serving.kv.prefill_chunks``, ``serving.kv.prefix_hits``,
 ``serving.kv.prefix_hit_tokens``, ``serving.kv.cow_copies``,
-``serving.kv.blocks_evicted``, ``serving.kv.pool_exhausted`` — so a test
-can diff both registries around the same traffic.
+``serving.kv.blocks_evicted``, ``serving.kv.pool_exhausted``, and with
+quantized KV the counters ``serving.kv.quant.prefill_tokens`` and
+``.decode_tokens`` and the gauges ``serving.kv.quant.arena_bytes`` and
+``.bytes_saved`` — so a test can diff both registries around the same
+traffic.
 
 Training ticks ``jit.steps`` and ``jit.host.dispatches`` (one each per
 ``CompiledTrainStep`` call) and ``optimizer.steps`` (one per

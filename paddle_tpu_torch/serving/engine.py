@@ -11,8 +11,10 @@ kv_layout="paged")`` constructs :class:`serving.paged.PagedLLMEngine`,
 which owns the KV pools, admission, chunked prefill and the decode step.
 The class here holds what every layout shares — request intake and
 backpressure, the finish/sweep/emit transitions, and the blocking
-``generate``/``drain`` loops.  Knobs of later slices raise
-``NotImplementedError`` naming their ROADMAP item.
+``generate``/``drain`` loops.  ``kv_dtype="int8"|"fp8"`` quantizes the
+paged KV pools; ``weight_dtype="int8"`` serves int8 weight-only layer
+matmuls (``quantization.ptq_int8_decode_state``).  Knobs of later slices
+raise ``NotImplementedError`` naming their ROADMAP item.
 
 The engine follows the model's device.  Each request carries its own
 ``torch.Generator``, seeded from the request's ``seed``, for sampling.
@@ -28,11 +30,10 @@ from collections import deque
 import numpy as np
 
 from ..profiler import counters
+from ..quantization import ptq_int8_decode_state
 
 _TODO = {
     "slots": "ROADMAP.md A2 (slot layout, generate)",
-    "kv_dtype": "ROADMAP.md A3 (quantized KV, kernel K4q)",
-    "weight_dtype": "ROADMAP.md A3 (int8 weight-only decode)",
     "draft_model": "ROADMAP.md A6 (speculative decoding)",
     "adapter_slots": "ROADMAP.md A6 (LoRA adapter serving)",
     "host_kv_blocks": "ROADMAP.md A6 (host-RAM KV tier)",
@@ -167,9 +168,16 @@ class LLMEngine:
         if kv_layout not in ("slots", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; "
                              "want 'slots' or 'paged'")
-        for knob, value in (("kv_dtype", kv_dtype),
-                            ("weight_dtype", weight_dtype),
-                            ("host_kv_blocks", host_kv_blocks),
+        if kv_dtype not in (None, "int8", "fp8"):
+            raise ValueError(f"kv_dtype must be None, 'int8' or 'fp8', "
+                             f"got {kv_dtype!r}")
+        if kv_dtype is not None and kv_layout != "paged":
+            raise ValueError("kv_dtype requires kv_layout='paged' (the "
+                             "slot arena is not quantized)")
+        if weight_dtype not in (None, "int8"):
+            raise ValueError(f"weight_dtype must be None or 'int8', "
+                             f"got {weight_dtype!r}")
+        for knob, value in (("host_kv_blocks", host_kv_blocks),
                             ("mesh", mesh), ("adapter_slots", adapter_slots),
                             ("draft_model", draft_model)):
             if value is not None and value != 0:
@@ -180,6 +188,8 @@ class LLMEngine:
         self.n_blocks = n_blocks
         self.prefill_chunk = prefill_chunk
         self.prefix_caching = bool(prefix_cache)
+        self.kv_dtype = kv_dtype
+        self.weight_dtype = weight_dtype
         c = model.config
         self.model = model
         self.config = c
@@ -193,7 +203,10 @@ class LLMEngine:
         self.queue_size = int(queue_size)
         self.min_bucket = int(min_bucket)
         self.eos_token_id = eos_token_id  # default for requests
-        self._w = model.decode_state()
+        if weight_dtype == "int8":
+            self._w = ptq_int8_decode_state(model)
+        else:
+            self._w = model.decode_state()
 
         B, S = self.max_slots, self.max_seq_len
         nh = c.num_heads

@@ -66,15 +66,22 @@ class BlockPool:
     returns to the free list when the count reaches zero.
     """
 
-    def __init__(self, n_blocks, block_size):
+    def __init__(self, n_blocks, block_size, kv_dtype=None):
         if int(n_blocks) < 2:
             raise ValueError(
                 f"n_blocks must be >= 2 (one trash block + one usable), "
                 f"got {n_blocks}")
         if int(block_size) < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
+        if kv_dtype not in (None, "int8", "fp8"):
+            raise ValueError(
+                f"kv_dtype must be None, 'int8' or 'fp8', got {kv_dtype!r}")
         self.n_blocks = int(n_blocks)
         self.block_size = int(block_size)
+        #: pool storage precision: None keeps the model dtype; "int8"/
+        #: "fp8" store 1 byte/value + one fp32 scale per (block, position)
+        #: (the device tensors live in the engine; this is metadata).
+        self.kv_dtype = kv_dtype
         # LIFO free list, lowest ids handed out first (determinism)
         self._free = list(range(self.n_blocks - 1, 0, -1))
         self._ref = [0] * self.n_blocks

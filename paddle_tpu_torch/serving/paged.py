@@ -21,6 +21,10 @@ mapping its logical block index to a physical pool block:
   the decode launch, so a long prompt never starves another request's
   inter-token latency.
 
+* **Quantized KV** — ``kv_dtype="int8"|"fp8"`` stores the pools one byte
+  a value with fp32 per-token scale pools ``[L, n_blocks, bs]`` beside
+  them (``serving.kv.quant.*`` gauges and counters).
+
 The pools are updated in place by the model's ``prefill_paged`` /
 ``decode_paged`` and by the COW copy; this replaces the reference's
 donation of the pools through every program.  Each decode step copies
@@ -30,11 +34,13 @@ and reads the next tokens back once.
 
 from __future__ import annotations
 
+import math
 import time
 
 import numpy as np
 import torch
 
+from ..kernels.paged_attention import KV_DTYPES
 from ..profiler import counters
 from .engine import LLMEngine, bucket_length
 from .kvcache import (TRASH_BLOCK, BlockPool, PrefixCache,
@@ -56,6 +62,7 @@ class PagedLLMEngine(LLMEngine):
       (default ``min(S_max, 128)``); chunks are padded to power-of-two
       buckets up to this.
     * ``prefix_cache`` — enable the COW prefix tree (default True).
+    * ``kv_dtype`` — ``None`` (the model dtype), ``"int8"`` or ``"fp8"``.
     """
 
     def _init_kv(self, c, B, S, nh, hd):
@@ -69,12 +76,25 @@ class PagedLLMEngine(LLMEngine):
         if self.prefill_chunk is None:
             self.prefill_chunk = min(S, 128)
         self.prefill_chunk = max(int(self.prefill_chunk), self.min_bucket)
-        self.pool = BlockPool(self.n_blocks, bs)
+        self.pool = BlockPool(self.n_blocks, bs, kv_dtype=self.kv_dtype)
         self.prefix = PrefixCache(self.pool) if self.prefix_caching else None
         shape = (c.num_layers, self.n_blocks, bs, nh, hd)
         dt = self.model.wte.dtype
-        self.pool_k = torch.zeros(shape, dtype=dt, device=self.device)
-        self.pool_v = torch.zeros(shape, dtype=dt, device=self.device)
+        adt = KV_DTYPES[self.kv_dtype] if self.kv_dtype else dt
+        self.pool_k = torch.zeros(shape, dtype=adt, device=self.device)
+        self.pool_v = torch.zeros(shape, dtype=adt, device=self.device)
+        # per-token fp32 scales at the same (layer, block, position) as the
+        # quantized tiles; empty tuple for unquantized pools
+        self.scales = ()
+        if self.kv_dtype:
+            self.scales = tuple(
+                torch.zeros(shape[:3], dtype=torch.float32,
+                            device=self.device) for _ in range(2))
+            raw = 2 * math.prod(shape) * dt.itemsize
+            quant = self._pool_bytes()
+            counters.set_gauge("serving.kv.quant.arena_bytes", quant)
+            counters.set_gauge("serving.kv.quant.bytes_saved",
+                               max(raw - quant, 0))
         # per-slot block tables (host mirror; copied to the device per step)
         self._bt = np.zeros((B, self.max_blocks), np.int32)
         self._running = np.zeros(B, np.bool_)
@@ -107,10 +127,15 @@ class PagedLLMEngine(LLMEngine):
         with self._cond:
             return self.prefix.probe(ids.tolist(), int(ids.shape[0]) - 1)
 
+    def _pool_bytes(self):
+        return sum(t.nbytes for t in (self.pool_k, self.pool_v,
+                                      *self.scales))
+
     def _copy_block(self, src, dst, nvalid):
         """Copy-on-write block clone: ``dst[:nvalid] = src[:nvalid]``,
-        zeros beyond, in every layer of both pools."""
-        for pool in (self.pool_k, self.pool_v):
+        zeros beyond, in every layer of both pools and of the scale
+        pools."""
+        for pool in (self.pool_k, self.pool_v, *self.scales):
             pool[:, dst, :nvalid] = pool[:, src, :nvalid]
             pool[:, dst, nvalid:] = 0
 
@@ -227,8 +252,10 @@ class PagedLLMEngine(LLMEngine):
         logits = self.model.prefill_paged(
             self._w, torch.from_numpy(ids).to(dev), start, take_n,
             torch.from_numpy(self._bt[slot]).to(dev), self.pool_k,
-            self.pool_v)
+            self.pool_v, *self.scales)
         counters.inc("serving.kv.prefill_chunks")
+        if self.kv_dtype:
+            counters.inc("serving.kv.quant.prefill_tokens", take_n)
         st["done"] = start + take_n
         if last:
             # only the final chunk's logits are sampled: the first token
@@ -280,7 +307,8 @@ class PagedLLMEngine(LLMEngine):
         logits = self.model.decode_paged(
             self._w, torch.from_numpy(self._tok).to(dev),
             torch.from_numpy(pos_eff).to(dev),
-            torch.from_numpy(bt_eff).to(dev), self.pool_k, self.pool_v)
+            torch.from_numpy(bt_eff).to(dev), self.pool_k, self.pool_v,
+            *self.scales)
         nxt = torch.argmax(logits, dim=-1)
         for s, req in active:
             if req.do_sample:
@@ -292,6 +320,8 @@ class PagedLLMEngine(LLMEngine):
         self._note_decode(len(active), time.perf_counter() - t0)
         counters.inc("serving.decode_steps")
         counters.inc("serving.decode_tokens", len(active))
+        if self.kv_dtype:
+            counters.inc("serving.kv.quant.decode_tokens", len(active))
         for s, req in active:
             self._tok[s] = nxt[s]
             self._pos[s] += 1
@@ -356,6 +386,8 @@ class PagedLLMEngine(LLMEngine):
             st = super().stats()
             st.update({
                 "kv_layout": "paged",
+                "kv_dtype": self.kv_dtype,
+                "weight_dtype": self.weight_dtype,
                 "block_size": self.pool.block_size,
                 "blocks_total": self.pool.capacity,
                 "blocks_free": self.pool.free_blocks,
@@ -371,6 +403,6 @@ class PagedLLMEngine(LLMEngine):
                 "prefix_nodes": (0 if self.prefix is None
                                  else self.prefix.nodes),
                 "prefilling": len(self._prefill_state),
-                "kv_pool_bytes": (self.pool_k.nbytes + self.pool_v.nbytes),
+                "kv_pool_bytes": self._pool_bytes(),
             })
         return st

@@ -189,14 +189,33 @@ def test_sample_tokens_follow_filtered_softmax():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(kv_layout="slots"), dict(kv_dtype="int8"), dict(weight_dtype="int8"),
-    dict(adapter_slots=2), dict(host_kv_blocks=8), dict(mesh=object()),
-    dict(draft_model=object())])
+    dict(kv_layout="slots"), dict(adapter_slots=2), dict(host_kv_blocks=8),
+    dict(mesh=object()), dict(draft_model=object())])
 def test_later_slices_raise_not_implemented(models, knob):
     _, tm = models
     kw = dict(ENGINE, **knob)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LLMEngine(tm, **kw)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(kv_dtype="int8"), dict(kv_dtype="fp8"), dict(weight_dtype="int8"),
+    dict(kv_dtype="int8", weight_dtype="int8")])
+def test_quant_knobs_construct(models, knob):
+    _, tm = models
+    st = LLMEngine(tm, **dict(ENGINE, **knob)).stats()
+    assert (st["kv_dtype"], st["weight_dtype"]) == (
+        knob.get("kv_dtype"), knob.get("weight_dtype"))
+
+
+@pytest.mark.parametrize("knob,match", [
+    (dict(kv_dtype="int4"), "kv_dtype"),
+    (dict(weight_dtype="fp4"), "weight_dtype"),
+    (dict(kv_dtype="int8", kv_layout="slots"), "kv_layout='paged'")])
+def test_quant_knobs_validate(models, knob, match):
+    _, tm = models
+    with pytest.raises(ValueError, match=match):
+        LLMEngine(tm, **dict(ENGINE, **knob))
 
 
 def test_pool_exhaustion_and_eviction_match_jax(models):

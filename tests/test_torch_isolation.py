@@ -28,7 +28,9 @@ def test_port_imports_no_jax_and_no_reference_package():
     for mod in ("paddle_tpu_torch.serving.paged",
                 "paddle_tpu_torch.kernels._build",
                 "paddle_tpu_torch.kernels.flash_attention",
-                "paddle_tpu_torch.optimizer", "paddle_tpu_torch.jit"):
+                "paddle_tpu_torch.optimizer", "paddle_tpu_torch.jit",
+                "paddle_tpu_torch.quantization",
+                "paddle_tpu_torch.kernels.rms_norm"):
         assert mod in mods, mod
     leaked = [m for m in mods
               if m == "jax" or m.startswith(("jax.", "jaxlib"))

@@ -5,10 +5,12 @@ held against the JAX ``paged_decode_attention`` Pallas kernel run in
 interpret mode, on the same numpy inputs.  The CUDA kernel itself runs
 only on the card: ``chip_smoke.py`` holds it against this plain version.
 
-Tolerance: atol 1e-5 for fp32 and for bf16.  Both sides compute in fp32
-(bf16 q and pools are widened exactly to fp32 before any arithmetic), so
+Tolerance: atol 1e-5 for fp32, bf16, int8 and fp8 pools.  Both sides
+compute in fp32 (bf16 q and pools, and the 1-byte values times their
+per-token scales, are widened exactly to fp32 before any arithmetic), so
 they differ only in the order of fp32 sums over at most 20 keys of unit
-scale.
+scale.  The int8/fp8 pools are quantized by each package's own
+``quantize_kv`` (bit-equal: ``tests/test_torch_quant_serving.py``).
 """
 
 import numpy as np
@@ -68,22 +70,33 @@ def _as_bf16(x):
     return np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "fp8"])
 @pytest.mark.parametrize("kind", _KINDS)
 def test_plain_version_matches_jax_kernel(interpret_mode, kind, dtype):
     rng = np.random.default_rng(_KINDS.index(kind))
     q, pk, pv, bt, pos = _case(kind, rng)
     scale = 1.0 / np.sqrt(q.shape[-1])
-    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
-    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
-    ref = np.asarray(jpa.paged_decode_attention(
-        jnp.asarray(q, jdt), jnp.asarray(pk, jdt), jnp.asarray(pv, jdt),
-        jnp.asarray(bt), jnp.asarray(pos), scale=scale))
-    if dtype == "bfloat16":
-        q, pk, pv = _as_bf16(q), _as_bf16(pk), _as_bf16(pv)
-    args = (torch.from_numpy(q).to(tdt), torch.from_numpy(pk).to(tdt),
-            torch.from_numpy(pv).to(tdt), torch.from_numpy(bt),
-            torch.from_numpy(pos))
+    if dtype in tpa.KV_DTYPES:   # fp32 q over quantized pools and scales
+        jpools = [jpa.quantize_kv(jnp.asarray(p), dtype) for p in (pk, pv)]
+        tpools = [tpa.quantize_kv(torch.from_numpy(p), dtype)
+                  for p in (pk, pv)]
+        ref = np.asarray(jpa.paged_decode_attention(
+            jnp.asarray(q), jpools[0][0], jpools[1][0], jnp.asarray(bt),
+            jnp.asarray(pos), jpools[0][1], jpools[1][1], scale=scale))
+        args = (torch.from_numpy(q), tpools[0][0], tpools[1][0],
+                torch.from_numpy(bt), torch.from_numpy(pos), tpools[0][1],
+                tpools[1][1])
+    else:
+        jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+        tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+        ref = np.asarray(jpa.paged_decode_attention(
+            jnp.asarray(q, jdt), jnp.asarray(pk, jdt), jnp.asarray(pv, jdt),
+            jnp.asarray(bt), jnp.asarray(pos), scale=scale))
+        if dtype == "bfloat16":
+            q, pk, pv = _as_bf16(q), _as_bf16(pk), _as_bf16(pv)
+        args = (torch.from_numpy(q).to(tdt), torch.from_numpy(pk).to(tdt),
+                torch.from_numpy(pv).to(tdt), torch.from_numpy(bt),
+                torch.from_numpy(pos))
     out = tpa.paged_decode_attention_reference(*args, scale=scale)
     assert out.dtype == torch.float32 and out.shape == q.shape
     assert np.isfinite(out.numpy()).all()
@@ -104,18 +117,27 @@ def test_pos0_returns_first_value():
 
 def test_cpu_tensors_never_launch_the_kernel():
     rng = np.random.default_rng(12)
-    args = [torch.from_numpy(a) for a in _random_case(rng)]
-    before = tpa.paged_decode_attention.launches
-    tpa.paged_decode_attention(*args, scale=0.3)
-    assert tpa.paged_decode_attention.launches == before == 0
+    q, pk, pv, bt, pos = (torch.from_numpy(a) for a in _random_case(rng))
+    tpa.paged_decode_attention(q, pk, pv, bt, pos, scale=0.3)
+    (qk, sk), (qv, sv) = (tpa.quantize_kv(p, "fp8") for p in (pk, pv))
+    tpa.paged_decode_attention(q, qk, qv, bt, pos, sk, sv, scale=0.3)
+    assert tpa.paged_decode_attention.launches == 0
+    assert tpa.paged_decode_attention.quant_launches == {"int8": 0,
+                                                         "fp8": 0}
 
 
-def test_quantized_pools_not_ported():
+def test_quantized_pools_need_matching_scales():
     rng = np.random.default_rng(13)
     q, pk, pv, bt, pos = (torch.from_numpy(a) for a in _random_case(rng))
-    sk = torch.ones(pk.shape[:2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpa.paged_decode_attention(q, pk, pv, bt, pos, sk, sk, scale=1.0)
+    qk, sk = tpa.quantize_kv(pk, "int8")
+    qv, sv = tpa.quantize_kv(pv, "int8")
+    with pytest.raises(ValueError, match="no scales"):
+        tpa.paged_decode_attention(q, pk, pv, bt, pos, sk, sv, scale=1.0)
+    with pytest.raises(ValueError, match="scale_k and scale_v"):
+        tpa.paged_decode_attention(q, qk, qv, bt, pos, scale=1.0)
+    with pytest.raises(ValueError, match="scale_v_positions"):
+        tpa.paged_decode_attention(q, qk, qv, bt, pos, sk, sv[:, :-1],
+                                   scale=1.0)
 
 
 def test_shape_mismatch_names_the_dim():
