@@ -15,14 +15,18 @@ script exits non-zero:
 3. kernel_vs_plain — the paged decode kernel against its plain PyTorch
    version on the card: K4 over fp32/bf16 pools and K4q over int8/fp8
    pools (quantized by the port's ``quantize_kv``), over a grid of
-   shapes and at the engine's shapes.
+   shapes, at the engine's shapes, and at shapes that hit its split-K
+   design (pos on and beside split boundaries, rows whose later splits
+   are all masked, one row at 64 blocks, one 8192-key table); every case
+   runs twice and must give the same bits.
 4. rms_norm_vs_plain — K5 against its plain version over (x, w) dtypes
    (fp32, fp32), (bf16, bf16), (fp32, bf16), rows {1, 7, 8192}, widths
    {33, 64, 1000, 1536, 2048, 4096}, and [8, 1024, 2048] bf16.
 5. flash_vs_plain — the flash-attention kernels K1 (forward), K2 (dQ)
    and K3 (dK/dV) against their plain versions over S in {128, 256,
    1024, 2048}, head dims {64, 96, 128}, causal and not, bf16 and fp32,
-   with and without an LSE cotangent.
+   with and without an LSE cotangent; plus one-tile (S 128, one head),
+   two-tile (S 256) and non-causal D 96 cases for K1's Hopper kernel.
 6. small_reference — a small fp32 model's paged prefill/decode on the
    card against the same model on the CPU (where the kernels' plain
    versions run), over fp32, int8 and fp8 pools.
@@ -42,9 +46,11 @@ script exits non-zero:
    launches == decode_steps x 24).
 9. int8_epilogue — one decode step's 96 layer matmuls with bf16 weights
    against int8 weights widened per call.
-10. times (K4, K4q) — µs per launch at the engine's mid-run shape: K4
-    over the bf16 pools, K4q over the same pools quantized, beside the
-    plain versions, the bounds and (K4) SDPA over gathered K/V.
+10. times (K4, K4q) — µs per wrapper call at the engine's mid-run
+    shape: K4 over the bf16 pools, K4q over the same pools quantized,
+    beside the plain versions, the bounds and (K4) SDPA over gathered
+    K/V; then the same at one row of 1024 keys (the engine's last
+    request), with its own bounds and yardstick.
 11. times (K5) — K5's main path (``rms_norm`` once at [8, 1024, 2048]
     bf16, counted), then µs per launch beside the plain version, the
     bound and ``torch.nn.functional.rms_norm``.
@@ -102,7 +108,7 @@ FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 FLASH_KERNELS = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
 #: kernel vs plain version: both compute in fp32 from the same inputs and
-#: differ only in the order of their fp32 sums (<= 1024 keys, <= 128
+#: differ only in the order of their fp32 sums (<= 8192 keys, <= 256
 #: dims, unit-scale values)
 KERNEL_ATOL = 1e-4
 
@@ -131,19 +137,28 @@ def device_phase():
 
 
 def _ptxas(log):
-    """Registers and spills per kernel variant from ``nvcc -Xptxas=-v``."""
-    out, name = {}, None
+    """Registers, spills, static shared memory and ptxas's wgmma
+    serialization notes (C7512) per kernel variant, from ``nvcc
+    -Xptxas=-v``."""
+    out, name, serialized = {}, None, set()
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
+        c = re.search(r"C7512.*for the function '(\S+)'", line)
         if m:
             name = m.group(1)
             out[name] = {}
+        elif c:
+            serialized.add(c.group(1))
         elif name and "spill stores" in line:
             nums = re.findall(r"(\d+) bytes spill (stores|loads)", line)
             out[name].update({f"spill_{k}": int(n) for n, k in nums})
-        elif name and "registers" in line:
+        elif name and re.search(r"Used \d+ registers", line):
             out[name]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem"] = int(smem.group(1)) if smem else 0
+    for name in serialized & out.keys():
+        out[name]["wgmma_serialized"] = True
     return out
 
 
@@ -167,10 +182,11 @@ def build_phase():
 
 
 def _paged_case(gen, B, nh, hd, bs, max_blocks, q_dtype, kv_dtype,
-                trash_row):
+                trash_row, pos=None):
     """q, pools, tables and positions on the card; a ``kv_dtype`` of
     "int8" or "fp8" quantizes unit-normal pools with the port's
-    ``quantize_kv`` and appends the two scale pools."""
+    ``quantize_kv`` and appends the two scale pools.  ``pos``, a list of
+    B positions, replaces the drawn ones."""
     dev = "cuda"
     n_blocks = B * max_blocks + 1
     quant = kv_dtype in pa.KV_DTYPES
@@ -179,11 +195,14 @@ def _paged_case(gen, B, nh, hd, bs, max_blocks, q_dtype, kv_dtype,
               .to(torch.float32 if quant else kv_dtype) for _ in range(2))
     bt = (torch.randperm(n_blocks - 1, generator=gen, device=dev)[
         :B * max_blocks] + 1).reshape(B, max_blocks).to(torch.int32)
+    given = pos
     last = max_blocks * bs - 1
     choices = torch.tensor([0, bs - 1, bs, last], device=dev)
     pos = torch.randint(0, last + 1, (B,), generator=gen, device=dev)
     pos[:min(B, 4)] = choices[:min(B, 4)]
     pos = pos.to(torch.int32)
+    if given is not None:
+        pos = torch.tensor(given, dtype=torch.int32, device=dev)
     if trash_row and B > 1:
         bt[-1] = 0
         pos[-1] = 0
@@ -222,6 +241,26 @@ def kernel_phase():
               for kv in quant for dt in (fp32, bf16)]
     cases += [dict(B=8, nh=16, hd=128, bs=16, max_blocks=64, q_dtype=bf16,
                    kv_dtype=kv, trash_row=True) for kv in quant]
+    # the split design (pa.SPLIT_KEYS = 64 keys a split at bs 4 and 16):
+    # pos on and beside split boundaries, rows whose later splits are all
+    # masked, one row at 64 blocks, and one long table (512 blocks of 16,
+    # 8192 keys, 128 splits) to stress the merge
+    k = pa.SPLIT_KEYS
+    for kv in (bf16, fp32, *quant):
+        qd = fp32 if kv == fp32 else bf16
+        split = dict(q_dtype=qd, kv_dtype=kv, trash_row=True)
+        for bs in (4, 16):
+            cases.append(dict(B=8, nh=4, hd=128, bs=bs, max_blocks=1024 // bs,
+                              pos=[k - 1, k, k + 1, 2 * k - 1, 2 * k,
+                                   2 * k + 1, 1023, 0], **split))
+        cases.append(dict(B=5, nh=4, hd=96, bs=16, max_blocks=64,
+                          pos=[0, 1, 17, 40, 0], **split))
+        cases += [dict(B=1, nh=16, hd=128, bs=16, max_blocks=64, pos=[p],
+                       **split) for p in (1023, 500)]
+        cases.append(dict(B=3, nh=16, hd=128, bs=16, max_blocks=512,
+                          pos=[8191, 4000, 0], **split))
+        cases.append(dict(B=3, nh=2, hd=33, bs=16, max_blocks=64,
+                          pos=[1023, 64, 0], **split))
     # the same atol for K4q: both sides widen identical bytes exactly and
     # sum in fp32, the kernel scaling logits and probabilities where the
     # plain version scales the widened values
@@ -247,6 +286,11 @@ def kernel_phase():
         if err > KERNEL_ATOL:
             raise AssertionError(f"paged_decode_attention: max abs err "
                                  f"{err} > {KERNEL_ATOL} for {case}")
+        again = pa.paged_decode_attention(q, pk, pv, bt, pos, *scales,
+                                          scale=0.3)
+        if not torch.equal(again, out):
+            raise AssertionError(f"paged_decode_attention: two runs differ "
+                                 f"for {case} (the merge is fixed-order)")
     emit({"phase": "kernel_vs_plain", "kernel": "paged_decode_attention",
           "cases": counts, "max_abs_err": worst, "atol": KERNEL_ATOL})
     return worst
@@ -622,26 +666,16 @@ def _device_ms(fn, n, event_ms):
     return start.elapsed_time(end) / n
 
 
-def times_phase(snap, max_err, launches):
-    """Per-launch times at the engine's decode shapes: K4 over the bf16
-    engine's pools, and K4q over the same pools quantized to int8 and to
-    fp8 with the port's ``quantize_kv`` (the same rows, tables and live
-    keys).  Launches rotate over the 24 layers' pools, as decode does, so
-    the K/V read does not sit in the 50 MB L2 between launches."""
-    pk_all, pv_all = snap["pools"]
+def _paged_times(q, pools, bt, pos, n_rounds):
+    """Device µs per call of K4 (float pools), K4q (int8, fp8), their
+    plain versions and, for K4, SDPA over pre-gathered K/V, at one shape;
+    launches rotate over the L layers' pools, as decode does, so the K/V
+    read does not sit in the 50 MB L2 between launches.  Returns
+    ``{kv: record}`` with the bound of each pool type."""
+    pk_all, pv_all = pools[None]
     L, n_blocks, bs, nh, hd = pk_all.shape
-    bt = torch.from_numpy(snap["bt"].astype(np.int32)).cuda()
-    pos = torch.from_numpy(snap["pos"].astype(np.int32)).cuda()
     B, max_blocks = bt.shape
     S = max_blocks * bs
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    q = (torch.randn(B, nh, hd, generator=gen, device="cuda")
-         / math.sqrt(hd)).to(pk_all.dtype)
-    pools = {None: (pk_all, pv_all)}
-    for kv in pa.KV_DTYPES:
-        (qk, sk), (qv, sv) = (pa.quantize_kv(t, kv) for t in (pk_all,
-                                                               pv_all))
-        pools[kv] = (qk, qv, sk, sv)
 
     def per_layer(fn, kv):
         return lambda i: fn(q, *(t[i % L] for t in pools[kv][:2]), bt, pos,
@@ -666,10 +700,11 @@ def times_phase(snap, max_err, launches):
 
     fns = {}
     for kv in pools:
-        fns[(kv, "kernel")] = (per_layer(pa.paged_decode_attention, kv), 480)
+        fns[(kv, "kernel")] = (per_layer(pa.paged_decode_attention, kv),
+                               n_rounds * 10)
         fns[(kv, "plain")] = (
-            per_layer(pa.paged_decode_attention_reference, kv), 48)
-    fns[(None, "library")] = (library, 240)
+            per_layer(pa.paged_decode_attention_reference, kv), n_rounds)
+    fns[(None, "library")] = (library, n_rounds * 5)
     # in turns within this one call: every function once, then again;
     # then each one's device time
     runs = {k: [] for k in fns}
@@ -677,15 +712,14 @@ def times_phase(snap, max_err, launches):
         for k, (fn, n) in fns.items():
             runs[k].append(_time_ms(fn, n))
     event_ms = {k: float(np.mean(v)) for k, v in runs.items()}
-    ms = {k: _device_ms(fn, n // 4, event_ms[k])
+    ms = {k: _device_ms(fn, max(2, n // 4), event_ms[k])
           for k, (fn, n) in fns.items()}
 
     keys = int((pos.long() + 1).sum())
     nblk = int((pos.long() // bs + 1).sum())
-    rows = []
+    bps, n_split = pa.split_count(bs, max_blocks)
+    out = {}
     for kv, (pk, *_rest) in pools.items():
-        name = ("paged_decode_attention" if kv is None
-                else f"paged_decode_attention_{kv}")
         bytes_moved = (q.numel() * q.element_size()      # q
                        + 2 * keys * nh * hd * pk.element_size()  # K and V
                        + (2 * keys * 4 if kv else 0)     # their scales
@@ -695,36 +729,82 @@ def times_phase(snap, max_err, launches):
         bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / FP32_FLOPS * 1e3
         bound = max(bytes_ms, ops_ms)
-        by = "bytes" if bytes_ms >= ops_ms else "operations"
-        lib = ms[(None, "library")] if kv is None else None
-        emit({"phase": "times", "kernel": name,
-              "shape": {"B": B, "nh": nh, "hd": hd, "bs": bs,
-                        "max_blocks": max_blocks, "live_keys": keys,
-                        "dtype": str(pk.dtype)},
-              "kernel_us": ms[(kv, "kernel")] * 1e3,
-              "plain_us": ms[(kv, "plain")] * 1e3,
-              "library_us": None if lib is None else lib * 1e3,
-              "library": ("sdpa over pre-gathered K/V" if kv is None else
-                          "none: no PyTorch call attends over int8/fp8 "
-                          "pools with per-token scales"),
-              "times": "device time per call (queued CUDA events)",
-              "event_us": {k[1]: v * 1e3 for k, v in event_ms.items()
-                           if k[0] == kv or k[1] == "library"},
-              "runs_ms": {k[1]: v for k, v in runs.items()
-                          if k[0] == kv or k[1] == "library"},
-              "bytes": bytes_moved, "flops": flops, "bound_us": bound * 1e3,
-              "bound_by": by,
-              "kernel_gb_per_s": bytes_moved / (ms[(kv, "kernel")] * 1e-3)
-              / 1e9})
+        out[kv] = {
+            "shape": {"B": B, "nh": nh, "hd": hd, "bs": bs,
+                      "max_blocks": max_blocks, "live_keys": keys,
+                      "blocks_per_split": bps, "n_split": n_split,
+                      "grid_ctas": nh * B * n_split,
+                      "dtype": str(pk.dtype)},
+            "ms": ms[(kv, "kernel")], "plain_ms": ms[(kv, "plain")],
+            "library_ms": ms[(None, "library")] if kv is None else None,
+            "event_ms": {k[1]: v for k, v in event_ms.items()
+                         if k[0] == kv or k[1] == "library"},
+            "runs_ms": {k[1]: v for k, v in runs.items()
+                        if k[0] == kv or k[1] == "library"},
+            "bytes": bytes_moved, "flops": flops, "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    return out
+
+
+def times_phase(snap, max_err, launches):
+    """Per-launch times of the whole wrapper call (split kernel and merge)
+    at the engine's decode shapes: K4 over the bf16 engine's pools, and
+    K4q over the same pools quantized to int8 and to fp8 with the port's
+    ``quantize_kv`` (the same rows, tables and live keys).  Then a second
+    shape, on a line of its own: one row at pos 1023 over 64 distinct
+    blocks of the same pools, the engine when its last request is left."""
+    pk_all, pv_all = snap["pools"]
+    L, n_blocks, bs, nh, hd = pk_all.shape
+    bt = torch.from_numpy(snap["bt"].astype(np.int32)).cuda()
+    pos = torch.from_numpy(snap["pos"].astype(np.int32)).cuda()
+    B, max_blocks = bt.shape
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = (torch.randn(B, nh, hd, generator=gen, device="cuda")
+         / math.sqrt(hd)).to(pk_all.dtype)
+    pools = {None: (pk_all, pv_all)}
+    for kv in pa.KV_DTYPES:
+        (qk, sk), (qv, sv) = (pa.quantize_kv(t, kv) for t in (pk_all,
+                                                               pv_all))
+        pools[kv] = (qk, qv, sk, sv)
+    main = _paged_times(q, pools, bt, pos, 48)
+    bt1 = (torch.randperm(n_blocks - 1, generator=gen, device="cuda")[
+        :max_blocks] + 1).to(torch.int32)[None]
+    pos1 = torch.tensor([max_blocks * bs - 1], dtype=torch.int32,
+                        device="cuda")
+    one = _paged_times(q[:1].contiguous(), pools, bt1, pos1, 48)
+
+    rows = []
+    for kv, rec in main.items():
+        name = ("paged_decode_attention" if kv is None
+                else f"paged_decode_attention_{kv}")
+        library = ("sdpa over pre-gathered K/V" if kv is None else
+                   "none: no PyTorch call attends over int8/fp8 pools "
+                   "with per-token scales")
+        for label, r in (("engine mid-run", rec), ("one row left", one[kv])):
+            emit({"phase": "times", "kernel": name, "case": label,
+                  "shape": r["shape"],
+                  "kernel_us": r["ms"] * 1e3, "plain_us": r["plain_ms"] * 1e3,
+                  "library_us": (None if r["library_ms"] is None
+                                 else r["library_ms"] * 1e3),
+                  "library": library,
+                  "times": "device time per wrapper call, split kernel and "
+                           "merge (queued CUDA events)",
+                  "event_us": {k: v * 1e3 for k, v in r["event_ms"].items()},
+                  "runs_ms": r["runs_ms"], "bytes": r["bytes"],
+                  "flops": r["flops"], "bound_us": r["bound_ms"] * 1e3,
+                  "bound_by": r["bound_by"],
+                  "share_of_bound": r["bound_ms"] / r["ms"],
+                  "kernel_gb_per_s": r["bytes"] / (r["ms"] * 1e-3) / 1e9})
         rows.append({"name": name, "route": "cuda",
                      "source": "paddle_tpu_torch/kernels/csrc/"
                                "paged_attention.cu",
                      "replaces": "paddle_tpu/kernels/paged_attention.py:132",
                      "launches": launches[name],
                      "max_abs_err": max_err[kv or name],
-                     "ms": ms[(kv, "kernel")], "plain_ms": ms[(kv, "plain")],
-                     "bound_ms": bound, "bound_by": by, "library_ms": lib,
-                     "event_ms": event_ms[(kv, "kernel")]})
+                     "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                     "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                     "library_ms": rec["library_ms"],
+                     "event_ms": rec["event_ms"]["kernel"]})
     return rows
 
 
@@ -952,6 +1032,14 @@ def flash_phase():
              for dtype in (torch.bfloat16, torch.float32)
              for causal in (False, True)]
     cases.append((TRAIN_B, 16, TRAIN_S, 96, torch.bfloat16, True))
+    # K1's Hopper kernel takes 128-row query tiles: one tile (S 128, one
+    # head), two (S 256), and a non-causal D 96 case over the strided
+    # projection views
+    cases += [(1, 1, 128, D, torch.bfloat16, causal)
+              for D in fa.KERNEL_HEAD_DIMS for causal in (False, True)]
+    cases += [(3, 5, 256, 96, torch.bfloat16, causal)
+              for causal in (False, True)]
+    cases.append((4, 16, TRAIN_S, 96, torch.bfloat16, False))
     for B, H, S, D, dtype, causal in cases:
         q, k, v = _qkv_views(gen, B, S, H, D, dtype)
         do = torch.randn(B, S, H, D, generator=gen,
@@ -1311,6 +1399,7 @@ def flash_times_phase(max_err, launches):
               "event_us": {k: v * 1e3 for k, v in event_ms[n].items()},
               "runs_ms": runs[n], "flops": flops, "bytes": nbytes,
               "bound_us": bound * 1e3, "bound_by": by,
+              "share_of_bound": bound / ms[n]["kernel"],
               "kernel_tflops": flops / (ms[n]["kernel"] * 1e-3) / 1e12})
         rows.append({
             "name": n, "route": "cuda",

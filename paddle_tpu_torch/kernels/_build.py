@@ -23,8 +23,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
 
-#: sm_90a keeps Hopper's wgmma/setmaxnreg available to later kernels;
-#: -Xptxas=-v reports registers, shared memory and spills per kernel.
+#: sm_90a: Hopper's wgmma and setmaxnreg (the bf16 flash forward) exist
+#: only for that target; -Xptxas=-v reports registers, shared memory and
+#: spills per kernel.  No -lcuda: the one driver call, TMA's
+#: cuTensorMapEncodeTiled, is reached through the runtime's entry point.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,13 +1,15 @@
 // Flash attention forward, dQ and dK/dV for Hopper (sm_90a).
 //
 // Replaces the Pallas kernels of paddle_tpu/kernels/flash_attention.py:
-//   K1 _fwd_kernel     (via _flash_fwd)  -> flash_fwd_kernel
+//   K1 _fwd_kernel     (via _flash_fwd)  -> hopper::flash_fwd_wgmma_kernel
+//                                           (bf16), flash_fwd_kernel (fp32)
 //   K2 _bwd_dq_kernel  (via _flash_bwd)  -> flash_bwd_dq_kernel
 //   K3 _bwd_dkv_kernel (via _flash_bwd)  -> flash_bwd_dkv_kernel
 //
 // What they compute, per (batch b, head h), over q/k/v rows of length S
-// (S % 64 == 0 here; the wrapper asks S % 128 == 0, the TPU kernel's rule):
-//   K1: O = softmax(scale * Q K^T) V with an online softmax over 64-key
+// (S % 64 == 0 here, S % 128 == 0 for K1 in bf16; the wrapper asks
+// S % 128 == 0, the TPU kernel's rule):
+//   K1: O = softmax(scale * Q K^T) V with an online softmax over key
 //       tiles, and LSE = m + log(max(l, 1e-30)); O = acc / max(l, 1e-30).
 //   K2: dQ = scale * sum_k [P o (dO V^T - delta)] K, P = exp(scale*QK^T - LSE)
 //   K3: dV = sum_q P^T dO, dK = scale * sum_q dS^T Q, dS = P o (dP - delta)
@@ -21,11 +23,49 @@
 // What bounds them on this card: at training shapes (S = 1024, D = 96)
 // the tensor-core work, ~4*S*S*D flops per (b, h) for K1 (halved by
 // causal) against ~4*S*D*2 bytes of q/k/v/o: hundreds of flops per byte,
-// above the H100's ~295 flops/byte ridge.  So the design keeps Q, K, V
+// near the H100's ~295 flops/byte ridge.  So every design keeps Q, K, V
 // tiles in shared memory and every score tile in registers, and never
 // writes the S x S matrix to device memory.
 //
-// Design (FA2-style, simple first):
+// K1 in bf16 (FA3-style; the `hopper` namespace below):
+// * A persistent CTA of three warpgroups, one a card SM, walks work items
+//   (128-row query tile, b, h) heaviest causal tiles first.  Warpgroup 0
+//   is the producer: one thread issues TMA loads (cp.async.bulk.tensor)
+//   of the Q tile and of 128-key K and V tiles into a ring of 2 stages,
+//   completing on mbarriers; each consumer warp frees a stage (and the Q
+//   tile) on another mbarrier, so the next item's loads overlap this
+//   item's last tiles and epilogue.  Warpgroups 1 and 2 each own 64 query
+//   rows; setmaxnreg moves registers from the producer (24) to them (240).
+// * Both products are wgmma: S = Q K^T with A and B from shared memory
+//   (K-major), O += P V with P from registers and V as a transposed
+//   (MN-major) B.  P is rounded to bf16 in registers; sums are fp32.  The
+//   online softmax runs on the accumulator registers in base 2, with
+//   scale * log2(e) folded into one FMA; LSE is turned back to natural
+//   log at the end.  Key tiles run from the diagonal down, so only the
+//   first is masked and tiles past the diagonal are never loaded.
+// * Tensor maps (D, S, H, B) over the strided q/k/v views (the [B, S,
+//   3*H*D] projection output, read in place), encoded per launch with
+//   cuTensorMapEncodeTiled from the runtime's driver entry point (no
+//   -lcuda).  D = 96 rows are 192 bytes, which no 128-byte swizzle box
+//   covers, so every operand is cut into 32-dim (64-byte) slabs with the
+//   64-byte swizzle: 2, 3 or 4 slabs for D 64, 96, 128, one layout for
+//   all three.  K-major descriptors step 32 bytes within a slab row and a
+//   slab (128 rows x 64 bytes) between 16-dim steps; the transposed V
+//   descriptor steps 1024 bytes (16 keys) a k-step, its leading offset
+//   one slab (the next 32 dims).  No zero-filled tail: D = 96 does no
+//   more Q K^T work than it needs.
+// * The epilogue stages each warpgroup's 64 output rows in shared memory
+//   (rows padded by 16 bytes) and writes them in whole 16-byte vectors;
+//   the accumulator layout alone would store 4-byte pieces 8 rows apart.
+// * Measured alternatives that lost at the 760M shape, and so are not
+//   here: a non-persistent grid (one CTA a query tile; each paid ~4.8 us
+//   of start-up and epilogue that nothing overlapped), 64-key tiles, 3
+//   stages, the two warpgroups taking turns on the tensor cores through
+//   named barriers, the next tile's Q K^T issued before this tile's
+//   softmax, and 64-dim slabs with the 128-byte swizzle at D 64 and 128
+//   (no faster than the one 64-byte layout) (PERF.md, PR 4).
+//
+// K1 in fp32, K2 and K3 (FA2-style, simple first):
 // * 4 warps per CTA, each warp owning 16 rows; a CTA owns 64 query rows
 //   (K1, K2) or 64 key rows (K3).  Grid (S/64, B*H).  The TPU kernels'
 //   sequential grid dimension becomes the loop inside the CTA; nothing
@@ -49,8 +89,10 @@
 //   and 1.3B (96 = 6 x 16 along the mma depth, 12 x 8 along its width:
 //   nothing assumes a power of two).
 //
-// Later PRs: cp.async / TMA double buffering, ldmatrix, wgmma with warp
-// specialisation (FA3), exp2 with a folded log2(e).
+// Later PRs: K2 and K3 on the Hopper design (TMA ring, wgmma, persistent
+// CTAs); for K1, find why two warpgroups' wgmma groups leave the tensor
+// cores idle (the products alone, without softmax or loads, take 59 of
+// its 95 us) before overlapping the softmax with them.
 //
 // Built by paddle_tpu_torch/kernels/_build.py with nvcc into a shared
 // library with a plain C interface, called through ctypes.
@@ -59,6 +101,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include <cuda.h>  // CUtensorMap types; the encoder is reached at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -386,6 +429,564 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// K1, bf16: the Hopper forward (TMA, mbarriers, wgmma, warp-specialised)
+// ---------------------------------------------------------------------------
+namespace hopper {
+
+constexpr int kBlockM = 128;  // query rows a CTA owns: two warpgroups of 64
+constexpr int kBlockN = 128;  // keys a K/V tile holds
+constexpr int kSlab = 32;     // head dims of one 64-byte swizzled slab
+constexpr int kQSlabBytes = kBlockM * kSlab * 2;   // 128 rows x 64 bytes
+constexpr int kKVSlabBytes = kBlockN * kSlab * 2;
+constexpr int kStages = 2;    // K/V tiles in flight
+constexpr int kThreads = 384; // producer warpgroup + two consumer warpgroups
+constexpr int kConsumerWarps = 8;  // each frees a stage once it is done
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Smem {
+  static constexpr int kQBytes = D / kSlab * kQSlabBytes;    // 128 x D
+  static constexpr int kKVBytes = D / kSlab * kKVSlabBytes;  // kBlockN x D
+  // the output tile's staging rows: D bf16 and 16 bytes of padding, so
+  // the 8 rows a quad-strided store touches sit in distinct banks
+  static constexpr int kOPitch = 2 * D + 16;
+  // Q, then K and V of each stage, each tile 1024-byte aligned, then the
+  // output staging; plus the slack to align the dynamic base
+  static constexpr int kBytes =
+      kQBytes + 2 * kStages * kKVBytes + kBlockM * kOPitch + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` of `bar` has completed.  A wait
+// that outlasts 2^24 polls (seconds; a real one lasts microseconds) traps,
+// so a broken pipeline fails its launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done, polls = 0;
+  do {
+    if (++polls == (1u << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA box of a (D, S, H, B) tensor map into shared memory at dst,
+// completing on bar's transaction count.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* tm,
+                                         uint64_t* bar, int d, int s, int h,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(smem_u32(bar)), "r"(d),
+      "r"(s), "r"(h), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// A wgmma shared-memory descriptor over a 64-byte-swizzled layout (type 2
+// in bits 62-63): start address, leading and stride byte offsets, all in
+// 16-byte units.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 2ull << 62;
+}
+
+// d[64 x 128] (+)= A . B^T: A and B K-major in shared memory, named by
+// their descriptors; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 64] += A . B: A in registers (bf16 pairs, the mma.sync A
+// layout per warp), B MN-major in shared memory (transposed B).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 96] += A . B: A in registers (bf16 pairs, the mma.sync A
+// layout per warp), B MN-major in shared memory (transposed B).
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 128] += A . B: A in registers (bf16 pairs, the mma.sync A
+// layout per warp), B MN-major in shared memory (transposed B).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (D == 96) wgmma_rs_n96(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+// Work item i of a launch: query tile qi of (batch, head) bh.  Items run
+// heaviest first: every (b, h)'s last query tile, then the one before...
+struct Item {
+  int qi, b, h;
+};
+
+__device__ __forceinline__ Item item_of(int i, const Params& p) {
+  const int n_bh = p.B * p.H;
+  const int qi = p.S / kBlockM - 1 - i / n_bh;
+  const int bh = i % n_bh;
+  return {qi, bh / p.H, bh % p.H};
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, Params p) {
+  constexpr int kSlabs = D / kSlab;
+  constexpr int kQBytes = Smem<D>::kQBytes;
+  constexpr int kKV = Smem<D>::kKVBytes;
+  constexpr int kN = kBlockN / 8;  // 8-key column blocks of a score tile
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, bar_q_free;
+  __shared__ __align__(8) uint64_t bar_k[kStages], bar_v[kStages];
+  __shared__ __align__(8) uint64_t bar_free[kStages];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const int n_items = p.S / kBlockM * p.B * p.H;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
+    mbar_init(&bar_q_free, kConsumerWarps);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&bar_k[st], 1);
+      mbar_init(&bar_v[st], 1);
+      mbar_init(&bar_free[st], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // producer: one thread issues every TMA load, for item after item;
+    // an item's tiles go from the diagonal (the only masked one) down to
+    // key 0.  `ring` counts K/V tiles over the CTA's whole life.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int ring = 0, round = 0;
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++round) {
+        const Item w = item_of(i, p);
+        const int q0 = w.qi * kBlockM;
+        const int n_tiles = (p.causal ? q0 + kBlockM : p.S) / kBlockN;
+        mbar_wait(&bar_q_free, (round & 1) ^ 1);
+        mbar_expect_tx(&bar_q, kQBytes);
+#pragma unroll
+        for (int s = 0; s < kSlabs; ++s)
+          tma_load(base + s * kQSlabBytes, &tm_q, &bar_q, s * kSlab, q0,
+                   w.h, w.b);
+        for (int it = 0; it < n_tiles; ++it, ++ring) {
+          const int st = ring % kStages;
+          const int k0 = (n_tiles - 1 - it) * kBlockN;
+          mbar_wait(&bar_free[st], ((ring / kStages) & 1) ^ 1);
+          const uint32_t sk = base + kQBytes + 2 * st * kKV, sv = sk + kKV;
+          mbar_expect_tx(&bar_k[st], kKV);
+#pragma unroll
+          for (int s = 0; s < kSlabs; ++s)
+            tma_load(sk + s * kKVSlabBytes, &tm_k, &bar_k[st], s * kSlab, k0,
+                     w.h, w.b);
+          mbar_expect_tx(&bar_v[st], kKV);
+#pragma unroll
+          for (int s = 0; s < kSlabs; ++s)
+            tma_load(sv + s * kKVSlabBytes, &tm_v, &bar_v[st], s * kSlab, k0,
+                     w.h, w.b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns query rows 64*cw .. 64*cw + 63 of the
+  // item's tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int tid = threadIdx.x - 128;
+  const int cw = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 64 * cw + 16 * warp + g;  // rows r0 and r0 + 8 of the tile
+  const float sl2 = p.scale * kLog2e;
+  const uint32_t sq = base + cw * 64 * 64;  // 64 rows of 64 bytes a slab
+
+  int ring = 0, round = 0;
+  for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++round) {
+    const Item w = item_of(i, p);
+    const int q0 = w.qi * kBlockM;
+    const int n_tiles = (p.causal ? q0 + kBlockM : p.S) / kBlockN;
+    float o[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};
+
+    mbar_wait(&bar_q, round & 1);
+    for (int it = 0; it < n_tiles; ++it, ++ring) {
+      const int st = ring % kStages;
+      const int par = (ring / kStages) & 1;
+      const uint32_t sk = base + kQBytes + 2 * st * kKV, sv = sk + kKV;
+      const int k0 = (n_tiles - 1 - it) * kBlockN;
+
+      // S = Q K^T: D/16 steps of 16 dims, two per 64-byte slab row
+      float s[kBlockN / 2];
+      mbar_wait(&bar_k[st], par);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t kb = (kk & 1) * 32;
+        wgmma_ss_n128(s, desc_sw64(sq + (kk >> 1) * kQSlabBytes + kb, 16, 512),
+                      desc_sw64(sk + (kk >> 1) * kKVSlabBytes + kb, 16, 512),
+                      kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      if (it == n_tiles - 1 && lane == 0) mbar_arrive(&bar_q_free);  // Q read
+
+      if (p.causal && k0 + kBlockN > q0) {  // the tile on the diagonal
+#pragma unroll
+        for (int j = 0; j < kN; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = q0 + r0 + (e >= 2 ? 8 : 0);
+            const int c = k0 + 8 * j + 2 * t + (e & 1);
+            if (c > r) s[4 * j + e] = kNegInf;
+          }
+      }
+      // online softmax on raw scores, in base 2: p = 2^(s*sl2 - m*sl2)
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      float alpha[2], ms[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        alpha[r] = exp2f((m[r] - mx[r]) * sl2);
+        m[r] = mx[r];
+        ms[r] = mx[r] * sl2;
+      }
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * j + e] = exp2f(fmaf(s[4 * j + e], sl2, -ms[e >> 1]));
+          sum[e >> 1] += s[4 * j + e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+      // P in bf16 as the A operand of P V: 16 keys a step
+      uint32_t pa[kBlockN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+        pa[kk][0] = pack_f32(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_f32(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_f32(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_f32(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e >> 1];
+
+      // O += P V: V MN-major, 16 keys (1024 bytes) a step; the next
+      // 32-dim slab is kKVSlabBytes on
+      mbar_wait(&bar_v[st], par);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk)
+        wgmma_rs<D>(o, pa[kk], desc_sw64(sv + kk * 1024, kKVSlabBytes, 512));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(&bar_free[st]);
+    }
+
+    // epilogue, while the producer already loads the next item: the
+    // warpgroup's 64 output rows go through shared memory, so that they
+    // leave in whole 16-byte vectors a thread rather than as the
+    // accumulator layout's 4-byte pieces
+    const float l0 = fmaxf(l[0], 1e-30f), l1 = fmaxf(l[1], 1e-30f);
+    constexpr int kPitch = Smem<D>::kOPitch;
+    unsigned char* stage = smem_raw + (base - smem_u32(smem_raw)) + kQBytes +
+                           2 * kStages * kKV + cw * 64 * kPitch;
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+    {
+      bf16* lo = reinterpret_cast<bf16*>(stage + (r0 - 64 * cw) * kPitch) +
+                 2 * t;
+      bf16* hi = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(
+                                             lo) + 8 * kPitch);
+      // acc / l as the TPU kernel divides (not a multiply by 1/l)
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        store2(lo + 8 * j, o[4 * j] / l0, o[4 * j + 1] / l0);
+        store2(hi + 8 * j, o[4 * j + 2] / l1, o[4 * j + 3] / l1);
+      }
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+    {
+      bf16* out = static_cast<bf16*>(p.out) + w.b * p.o_sb + w.h * p.o_sh +
+                  (q0 + 64 * cw) * p.o_ss;
+      constexpr int kChunks = 2 * D / 16;  // 16-byte vectors a row
+      for (int i = tid & 127; i < 64 * kChunks; i += 128) {
+        const int row = i / kChunks, c = i % kChunks;
+        *reinterpret_cast<uint4*>(out + row * p.o_ss + 8 * c) =
+            *reinterpret_cast<const uint4*>(stage + row * kPitch + 16 * c);
+      }
+    }
+    if (t == 0) {
+      float* lse = p.lse_out + (static_cast<int64_t>(w.b) * p.H + w.h) * p.S;
+      lse[q0 + r0] = m[0] * p.scale + logf(l0);
+      lse[q0 + r0 + 8] = m[1] * p.scale + logf(l1);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry
+// point so that the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                            cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A (D, S, H, B) tensor map over a strided [B, H, S, D] bf16 view with a
+// contiguous head dim, boxes of 32 dims x 128 rows, 64-byte swizzle.
+bool encode_view(CUtensorMap* tm, const void* ptr, int64_t sb, int64_t sh,
+                 int64_t ss, const Params& p, int D, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(p.S),
+                              static_cast<cuuint64_t>(p.H),
+                              static_cast<cuuint64_t>(p.B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {kSlab, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
+  if (p.S % kBlockM != 0) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!encode_view(&tq, p.q, p.q_sb, p.q_sh, p.q_ss, p, D, kBlockM) ||
+      !encode_view(&tk, p.k, p.k_sb, p.k_sh, p.k_ss, p, D, kBlockN) ||
+      !encode_view(&tv, p.v, p.v_sb, p.v_sh, p.v_ss, p, D, kBlockN))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_wgmma_kernel<D>;
+  constexpr int kSmem = Smem<D>::kBytes;
+  // once per instantiation and process (one card a process)
+  static int sms = 0;
+  if (sms == 0) {
+    int device = 0, count = 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err == cudaSuccess) err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err != cudaSuccess) return err;
+    sms = count;
+  }
+  // persistent: one CTA an SM walks the work items
+  const int n_items = p.S / kBlockM * p.B * p.H;
+  kernel<<<n_items < sms ? n_items : sms, kThreads, kSmem, stream>>>(tq, tk,
+                                                                    tv, p);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
+
+// ---------------------------------------------------------------------------
 // K2: dQ
 // ---------------------------------------------------------------------------
 template <typename T, int D>
@@ -539,6 +1140,7 @@ size_t smem_bytes(Kind kind) {
   constexpr int LD = pitch<T, D>();
   switch (kind) {
     case kFwd:
+      if (std::is_same<T, bf16>::value) return hopper::Smem<D>::kBytes;
       return static_cast<size_t>(kRows + 2 * kTileK) * LD * sizeof(T);
     case kDq:
       return static_cast<size_t>(2 * kRows + 2 * kTileK) * LD * sizeof(T);
@@ -551,10 +1153,17 @@ size_t smem_bytes(Kind kind) {
 
 template <typename T, int D>
 cudaError_t launch_typed(Kind kind, const Params& p, cudaStream_t stream) {
-  void (*kernel)(Params) =
-      kind == kFwd ? flash_fwd_kernel<T, D>
-                   : (kind == kDq ? flash_bwd_dq_kernel<T, D>
-                                  : flash_bwd_dkv_kernel<T, D>);
+  void (*kernel)(Params) = nullptr;
+  if constexpr (std::is_same<T, bf16>::value) {
+    // K1 in bf16 is the Hopper kernel; K2, K3 and fp32 the kernels above
+    if (kind == kFwd) return hopper::launch_fwd<D>(p, stream);
+    kernel = kind == kDq ? flash_bwd_dq_kernel<T, D>
+                         : flash_bwd_dkv_kernel<T, D>;
+  } else {
+    kernel = kind == kFwd ? flash_fwd_kernel<T, D>
+                          : (kind == kDq ? flash_bwd_dq_kernel<T, D>
+                                         : flash_bwd_dkv_kernel<T, D>);
+  }
   const size_t smem = smem_bytes<T, D>(kind);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -13,9 +13,12 @@ with the attention probabilities recomputed from the saved LSE
   version :func:`_bwd_dkv_reference`.
 
 The kernels are hand-written CUDA for ``sm_90a``
-(``csrc/flash_attention.cu``).  On a CPU tensor each wrapper calls its
-plain version; on a CUDA tensor it launches the kernel or raises.  Each
-wrapper counts its launches in ``.launches``.
+(``csrc/flash_attention.cu``): K1 in bf16 is a persistent,
+warp-specialised kernel (TMA loads under mbarriers, ``wgmma`` products);
+K1 in fp32, K2 and K3 are FA2-style ``mma.sync`` kernels.  On a CPU
+tensor each wrapper calls its plain version; on a CUDA tensor it
+launches the kernel or raises.  Each wrapper counts its launches in
+``.launches``.
 
 Arithmetic follows the TPU kernel exactly where it rounds: every
 product whose operands include a 16-bit tensor takes both operands in

@@ -10,14 +10,21 @@ versions of the same function live here:
   ``NEG_INF``, fp32 softmax, fp32 weighted sum.  The CPU path, and what
   the CUDA kernel is held against on the card.
 * :func:`paged_decode_attention` — the wrapper of the hand-written CUDA
-  kernel ``csrc/paged_attention.cu`` (replaces the Pallas
-  ``_decode_kernel``): it walks the block tables over the pool directly,
-  so the ``[B, S]`` gathered view is never materialized.  On a CPU
-  tensor it calls the plain version; on a CUDA tensor it launches the
-  kernel or raises.  ``paged_decode_attention.launches`` counts the
-  kernel launches on float pools (K4),
-  ``paged_decode_attention.quant_launches[kv_dtype]`` those on int8/fp8
-  pools (K4q).
+  kernels ``csrc/paged_attention.cu`` (replaces the Pallas
+  ``_decode_kernel``): they walk the block tables over the pool
+  directly, so the ``[B, S]`` gathered view is never materialized.  The
+  keys of a row are split into runs of ``blocks_per_split`` blocks
+  (:func:`split_count`, from shapes alone): each CTA reduces one split
+  to its online-softmax state ``(m, l, acc)`` in fp32 scratch, and the
+  CTA that completes a (row, head) merges its splits in split order, in
+  the same launch (flash-decoding).  On a CPU tensor the wrapper calls
+  the plain version; on a CUDA tensor it launches the kernel or raises.
+  ``paged_decode_attention.launches`` counts the wrapper's launches on
+  float pools (K4), ``paged_decode_attention.quant_launches[kv_dtype]``
+  those on int8/fp8 pools (K4q).
+* :func:`paged_decode_attention_splits` and :func:`merge_splits` — a
+  plain mirror of the kernel's split and merge arithmetic, for the
+  tests; the main path never calls it.
 
 Quantized KV (``kv_dtype`` "int8" or "fp8" e4m3) stores the pools one
 byte a value with one fp32 scale per (block, position): per-token
@@ -39,6 +46,13 @@ from ._shapes import NEG_INF, check_divides, check_equal
 
 _FLOATS = (torch.float32, torch.bfloat16)
 _MAX_HEAD_DIM = 256
+#: keys a split of the CUDA kernel aims at, and the most blocks one may
+#: own (the kernel keeps a split's table entries in shared memory)
+SPLIT_KEYS = 64
+MAX_SPLIT_BLOCKS = 64
+#: the most splits a (row, head) may have in the CUDA kernel: 4096 x 64
+#: keys
+MAX_SPLITS = 4096
 
 #: serving ``kv_dtype`` string -> pool storage dtype.
 KV_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
@@ -115,13 +129,100 @@ def paged_decode_attention_reference(q, pool_k, pool_v, bt, pos,
     return torch.einsum("bhs,bshd->bhd", p, gv)
 
 
+def split_count(block_size, max_blocks):
+    """``(blocks_per_split, n_split)`` of the CUDA kernel's grid: about
+    ``SPLIT_KEYS`` keys a split, so the grid ``(nh, B, n_split)`` is a
+    function of shapes alone (never of ``pos``).  At the engine's shape
+    (64 blocks of 16) that is 4 blocks a split and 16 splits."""
+    bps = max(1, min(-(-SPLIT_KEYS // block_size), max_blocks,
+                     MAX_SPLIT_BLOCKS))
+    return bps, -(-max_blocks // bps)
+
+
+def paged_decode_attention_splits(q, pool_k, pool_v, bt, pos, scale_k=None,
+                                  scale_v=None, *, scale, blocks_per_split):
+    """Plain mirror of the CUDA kernel's split reduction: the
+    online-softmax state of each run of ``blocks_per_split`` blocks of
+    each (row, head).
+
+    Returns fp32 ``(m [B, nh, n_split], l [B, nh, n_split], acc [B, nh,
+    n_split, hd])``: ``m`` the split's max logit, ``l`` the sum of
+    ``exp(logit - m)`` and ``acc`` the sum of ``exp(logit - m) · v`` over
+    the split's live keys (K4q: logits scaled by ``sk``, values by
+    ``sv``).  A split with no live key (it starts past ``pos[b]``) holds
+    ``(NEG_INF, 0, 0)``; the kernel leaves its scratch unwritten and
+    :func:`merge_splits` skips it either way."""
+    B, nh, hd = q.shape
+    bs = pool_k.shape[1]
+    max_blocks = bt.shape[1]
+    n_split = -(-max_blocks // blocks_per_split)
+    S = n_split * blocks_per_split * bs
+    idx = torch.zeros((B, n_split * blocks_per_split), dtype=torch.long,
+                      device=q.device)
+    idx[:, :max_blocks] = bt.long()
+    if scale_k is None:
+        gk, gv = pool_k[idx].float(), pool_v[idx].float()
+    else:
+        gk = dequantize_kv(pool_k[idx], scale_k[idx])
+        gv = dequantize_kv(pool_v[idx], scale_v[idx])
+    gk = gk.reshape(B, n_split, -1, nh, hd)
+    gv = gv.reshape(B, n_split, -1, nh, hd)
+    logits = torch.einsum("bhd,bcshd->bhcs", q.float(), gk) * scale
+    kpos = torch.arange(S, device=q.device).reshape(n_split, -1)
+    live = kpos[None] <= pos.long().clamp_max(max_blocks * bs - 1)[
+        :, None, None]                                    # [B, c, s]
+    live = live[:, None]                                  # [B, 1, c, s]
+    neg = torch.full((), NEG_INF, device=q.device)
+    logits = torch.where(live, logits, neg)
+    m = logits.amax(-1)
+    p = torch.where(live, torch.exp(logits - m[..., None]),
+                    torch.zeros((), device=q.device))
+    l = p.sum(-1)
+    acc = torch.einsum("bhcs,bcshd->bhcd", p, gv)
+    return m, l, acc
+
+
+def merge_splits(m, l, acc, pos, *, block_size, blocks_per_split,
+                 max_blocks):
+    """Plain mirror of the CUDA kernel's merge: the live splits of each
+    (row, head) into fp32 ``[B, nh, hd]`` = ``sum_s acc_s · exp(m_s - M)
+    / max(sum_s l_s · exp(m_s - M), 1e-30)``, M the splits' max (the
+    kernel folds 16 splits at a time into a running max: the same sums up
+    to fp32 rounding)."""
+    n_split = m.shape[-1]
+    keys = blocks_per_split * block_size
+    n = (pos.long() + 1).clamp_max(max_blocks * block_size)
+    live = torch.arange(n_split, device=m.device)[None] < (
+        -(-n // keys))[:, None]                            # [B, n_split]
+    live = live[:, None]
+    neg = torch.full((), NEG_INF, device=m.device)
+    big = torch.where(live, m, neg).amax(-1, keepdim=True)
+    w = torch.where(live, torch.exp(m - big), torch.zeros((),
+                                                         device=m.device))
+    total = (l * w).sum(-1).clamp_min(1e-30)
+    return (acc * w[..., None]).sum(-2) / total[..., None]
+
+
+#: per device, the kernel's int32 split counts, one per (row, head): zero
+#: between launches (the last CTA of a (row, head) sets its count back)
+_COUNTS: dict[torch.device, torch.Tensor] = {}
+
+
+def _split_counts(dev, n):
+    buf = _COUNTS.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTS[dev] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                         device=dev)
+    return buf
+
+
 def _lib():
     lib = _build.load("paged_attention")
     fn = lib.paged_decode_attention_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, I, P, P, I, P, P, P, P, P, I, I, I, I, I,
-                       ctypes.c_float, P]
+        fn.argtypes = [P, I, P, P, I, P, P, P, P, P, P, P, I, I, I, I, I,
+                       I, ctypes.c_float, P]
         fn.restype = ctypes.c_int
         lib.paged_attention_error_string.argtypes = [ctypes.c_int]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
@@ -209,7 +310,15 @@ def paged_decode_attention(q, pool_k, pool_v, bt, pos, scale_k=None,
             # the kernel reads these in vectors of up to 16 bytes
             raise ValueError(f"paged_attention: {name} is not 16-byte "
                              "aligned")
+    bps, n_split = split_count(bs, max_blocks)
+    if n_split > MAX_SPLITS:
+        raise ValueError(f"paged_attention: {max_blocks} blocks of {bs} "
+                         f"make {n_split} splits, above the kernel's "
+                         f"{MAX_SPLITS}")
+    part = torch.empty((B, nh, n_split, hd + 2), dtype=torch.float32,
+                       device=dev)
     out = torch.empty((B, nh, hd), dtype=torch.float32, device=dev)
+    count = _split_counts(dev, B * nh)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -218,8 +327,9 @@ def paged_decode_attention(q, pool_k, pool_v, bt, pos, scale_k=None,
             pool_k.data_ptr(), pool_v.data_ptr(), _POOL_CODES[pool_k.dtype],
             scale_k.data_ptr() if scales else None,
             scale_v.data_ptr() if scales else None, bt.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), B, nh, hd, bs, max_blocks,
-            float(scale), stream)
+            pos.data_ptr(), part.data_ptr(), count.data_ptr(),
+            out.data_ptr(), B, nh, hd, bs, max_blocks, bps, float(scale),
+            stream)
     if err != 0:
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"paged_decode_attention launch failed: "

@@ -2,8 +2,10 @@
 
 The port's plain version (the CPU path of its CUDA kernel's wrapper) is
 held against the JAX ``paged_decode_attention`` Pallas kernel run in
-interpret mode, on the same numpy inputs.  The CUDA kernel itself runs
-only on the card: ``chip_smoke.py`` holds it against this plain version.
+interpret mode, on the same numpy inputs, and so is a plain mirror of
+the CUDA kernel's split-K arithmetic (per-split online-softmax states
+and their merge).  The CUDA kernel itself runs only on the card:
+``chip_smoke.py`` holds it against the plain version.
 
 Tolerance: atol 1e-5 for fp32, bf16, int8 and fp8 pools.  Both sides
 compute in fp32 (bf16 q and pools, and the 1-byte values times their
@@ -12,6 +14,8 @@ they differ only in the order of fp32 sums over at most 20 keys of unit
 scale.  The int8/fp8 pools are quantized by each package's own
 ``quantize_kv`` (bit-equal: ``tests/test_torch_quant_serving.py``).
 """
+
+import inspect
 
 import numpy as np
 import pytest
@@ -145,3 +149,91 @@ def test_shape_mismatch_names_the_dim():
     q, pk, pv, bt, pos = (torch.from_numpy(a) for a in _random_case(rng))
     with pytest.raises(ValueError, match="table_rows"):
         tpa.paged_decode_attention(q, pk, pv, bt[:2], pos, scale=1.0)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's split-K arithmetic (plain mirror), against the JAX kernel
+# ---------------------------------------------------------------------------
+def _split_inputs(dtype, rng):
+    """fp32 q over pools of ``dtype``: row 0 ends in the first block (its
+    later splits are all masked), row 1 at the last slot, row 2 is an idle
+    row tabled to the trash block 0 at position 0."""
+    q, pk, pv, bt, pos = _random_case(rng)
+    bs, max_blocks = pk.shape[1], bt.shape[1]
+    pos[:] = [2, max_blocks * bs - 1, 0]
+    bt[2] = 0
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    if dtype in tpa.KV_DTYPES:
+        jpools = [jpa.quantize_kv(jnp.asarray(p), dtype) for p in (pk, pv)]
+        tpools = [tpa.quantize_kv(torch.from_numpy(p), dtype)
+                  for p in (pk, pv)]
+        ref = np.asarray(jpa.paged_decode_attention(
+            jnp.asarray(q), jpools[0][0], jpools[1][0], jnp.asarray(bt),
+            jnp.asarray(pos), jpools[0][1], jpools[1][1], scale=scale))
+        args = (torch.from_numpy(q), tpools[0][0], tpools[1][0],
+                torch.from_numpy(bt), torch.from_numpy(pos), tpools[0][1],
+                tpools[1][1])
+    else:
+        jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+        tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+        ref = np.asarray(jpa.paged_decode_attention(
+            jnp.asarray(q, jdt), jnp.asarray(pk, jdt), jnp.asarray(pv, jdt),
+            jnp.asarray(bt), jnp.asarray(pos), scale=scale))
+        if dtype == "bfloat16":
+            q, pk, pv = _as_bf16(q), _as_bf16(pk), _as_bf16(pv)
+        args = (torch.from_numpy(q).to(tdt), torch.from_numpy(pk).to(tdt),
+                torch.from_numpy(pv).to(tdt), torch.from_numpy(bt),
+                torch.from_numpy(pos))
+    return args, ref, scale
+
+
+# split sizes in blocks: one block (bs keys), 4 blocks, and more blocks
+# than any row has (a single split)
+_SPLIT_BLOCKS = {"bs": 1, "4bs": 4, "beyond_rows": 7}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "fp8"])
+@pytest.mark.parametrize("split", list(_SPLIT_BLOCKS))
+def test_split_mirror_matches_jax_kernel(interpret_mode, split, dtype):
+    rng = np.random.default_rng(20 + list(_SPLIT_BLOCKS).index(split))
+    args, ref, scale = _split_inputs(dtype, rng)
+    bps = _SPLIT_BLOCKS[split]
+    bs, max_blocks = args[1].shape[1], args[3].shape[1]
+    m, l, acc = tpa.paged_decode_attention_splits(
+        *args, scale=scale, blocks_per_split=bps)
+    n_split = -(-max_blocks // bps)
+    B, nh, hd = args[0].shape
+    assert m.shape == l.shape == (B, nh, n_split)
+    assert acc.shape == (B, nh, n_split, hd)
+    # splits that start past pos hold the empty state, which the merge
+    # skips: row 0 (pos 2) and the trash row (pos 0) live in split 0 only
+    pos = args[4].long()
+    live = torch.arange(n_split)[None] * bps * bs <= pos[:, None]
+    assert live[:, 0].all()
+    for b in (0, 2):
+        assert live[b].sum() == 1
+        assert (m[b, :, 1:] == tpa.NEG_INF).all()
+        assert (l[b, :, 1:] == 0).all() and (acc[b, :, 1:] == 0).all()
+    out = tpa.merge_splits(m, l, acc, args[4], block_size=bs,
+                           blocks_per_split=bps, max_blocks=max_blocks)
+    assert out.dtype == torch.float32 and np.isfinite(out.numpy()).all()
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=ATOL)
+    # and the plain version the CPU path runs
+    np.testing.assert_allclose(
+        out.numpy(), tpa.paged_decode_attention_reference(
+            *args, scale=scale).numpy(), rtol=0, atol=ATOL)
+
+
+def test_split_count_depends_on_shapes_only():
+    # about SPLIT_KEYS keys a split: 4 blocks of 16 at the engine's shape
+    assert tpa.SPLIT_KEYS == 64
+    assert tpa.split_count(16, 64) == (4, 16)
+    assert tpa.split_count(16, 512) == (4, 128)
+    assert tpa.split_count(4, 6) == (6, 1)        # fewer blocks than a split
+    assert tpa.split_count(4, 64) == (16, 4)
+    assert tpa.split_count(3, 100) == (22, 5)     # 66 keys a split
+    assert tpa.split_count(128, 8) == (1, 8)      # blocks above SPLIT_KEYS
+    assert tpa.split_count(1, 1000) == (tpa.MAX_SPLIT_BLOCKS, 16)
+    # the grid follows (block size, table width) alone: no pos argument
+    assert list(inspect.signature(tpa.split_count).parameters) == [
+        "block_size", "max_blocks"]
