@@ -26,7 +26,10 @@ script exits non-zero:
    and K3 (dK/dV) against their plain versions over S in {128, 256,
    1024, 2048}, head dims {64, 96, 128}, causal and not, bf16 and fp32,
    with and without an LSE cotangent; plus one-tile (S 128, one head),
-   two-tile (S 256) and non-causal D 96 cases for K1's Hopper kernel.
+   two-tile (S 256) and non-causal D 96 cases for the Hopper kernels, a
+   persistent grid whose items are no multiple of the SMs (35 heads of
+   S 2048), and dO [B, H, S, D]-contiguous at the training shape.  Every
+   K2/K3 call runs twice and must give the same bits.
 6. small_reference — a small fp32 model's paged prefill/decode on the
    card against the same model on the CPU (where the kernels' plain
    versions run), over fp32, int8 and fp8 pools.
@@ -1040,10 +1043,17 @@ def flash_phase():
     cases += [(3, 5, 256, 96, torch.bfloat16, causal)
               for causal in (False, True)]
     cases.append((4, 16, TRAIN_S, 96, torch.bfloat16, False))
-    for B, H, S, D, dtype, causal in cases:
+    # K2/K3's persistent grids: 35 (b, h) x 16 tiles = 560 items, not a
+    # multiple of the card's SMs; and dO [B, H, S, D]-contiguous (another
+    # stride order for its tensor map) at the training shape
+    cases.append((5, 7, 2048, 96, torch.bfloat16, True))
+    cases.append((TRAIN_B, 16, TRAIN_S, 96, torch.bfloat16, True, "bhsd"))
+    for B, H, S, D, dtype, causal, *do_layout in cases:
         q, k, v = _qkv_views(gen, B, S, H, D, dtype)
         do = torch.randn(B, S, H, D, generator=gen,
                          device="cuda").to(dtype).transpose(1, 2)
+        if do_layout:
+            do = do.contiguous()
         sc = 1.0 / math.sqrt(D)
         out, lse = fa.flash_fwd(q, k, v, causal, sc)
         rout, rlse = fa._flash_fwd_reference(q, k, v, causal, sc)
@@ -1056,6 +1066,17 @@ def flash_phase():
             delta = fa._delta(rout, do, dlse)
             dq = fa.flash_bwd_dq(q, k, v, do, rlse, delta, causal, sc)
             dk, dv = fa.flash_bwd_dkv(q, k, v, do, rlse, delta, causal, sc)
+            # K2 and K3 sum in a fixed order: a second run, equal bits
+            again = [fa.flash_bwd_dq(q, k, v, do, rlse, delta, causal, sc),
+                     *fa.flash_bwd_dkv(q, k, v, do, rlse, delta, causal,
+                                       sc)]
+            for name, got, rerun in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                        again):
+                if not torch.equal(got, rerun):
+                    raise AssertionError(
+                        f"flash_bwd {name}: two runs differ at B={B} H={H} "
+                        f"S={S} D={D} {dtype} causal={causal}")
+            del again
             rdq = fa._bwd_dq_reference(q, k, v, do, rlse, delta, causal, sc)
             rdk, rdv = fa._bwd_dkv_reference(q, k, v, do, rlse, delta,
                                              causal, sc)
@@ -1063,7 +1084,8 @@ def flash_phase():
                        ("flash_bwd_dkv", dk, rdk, _flash_tol(rdk, dtype)),
                        ("flash_bwd_dkv", dv, rdv, _flash_tol(rdv, dtype))]
         torch.cuda.synchronize()
-        where = f"B={B} H={H} S={S} D={D} {dtype} causal={causal}"
+        where = (f"B={B} H={H} S={S} D={D} {dtype} causal={causal}"
+                 + (" dO [B, H, S, D]-contiguous" if do_layout else ""))
         for name, got, ref, tol in checks:
             if got.dtype != ref.dtype or got.shape != ref.shape:
                 raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} "
@@ -1083,6 +1105,7 @@ def flash_phase():
                     f"flat index {i} of {tuple(ref.shape)}, {where}")
         del checks
     emit({"phase": "flash_vs_plain", "cases": len(cases),
+          "bwd_equal_bits_on_two_runs": True,
           "max_abs_err": worst, "worst_err_over_tol": ratio,
           "tolerance": "per element: fp32 1e-4 x row max + 1e-5 x tensor "
                        "max; bf16 2 bf16 ulps of the element + 2^-7 x row "

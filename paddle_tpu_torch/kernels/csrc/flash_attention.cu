@@ -3,96 +3,103 @@
 // Replaces the Pallas kernels of paddle_tpu/kernels/flash_attention.py:
 //   K1 _fwd_kernel     (via _flash_fwd)  -> hopper::flash_fwd_wgmma_kernel
 //                                           (bf16), flash_fwd_kernel (fp32)
-//   K2 _bwd_dq_kernel  (via _flash_bwd)  -> flash_bwd_dq_kernel
-//   K3 _bwd_dkv_kernel (via _flash_bwd)  -> flash_bwd_dkv_kernel
+//   K2 _bwd_dq_kernel  (via _flash_bwd)  -> hopper::flash_bwd_dq_wgmma_kernel
+//                                           (bf16), flash_bwd_dq_kernel (fp32)
+//   K3 _bwd_dkv_kernel (via _flash_bwd)  -> hopper::flash_bwd_dkv_wgmma_kernel
+//                                           (bf16), flash_bwd_dkv_kernel (fp32)
 //
 // What they compute, per (batch b, head h), over q/k/v rows of length S
-// (S % 64 == 0 here, S % 128 == 0 for K1 in bf16; the wrapper asks
-// S % 128 == 0, the TPU kernel's rule):
+// (S % 128 == 0, the TPU kernel's rule; the fp32 kernels take S % 64):
 //   K1: O = softmax(scale * Q K^T) V with an online softmax over key
 //       tiles, and LSE = m + log(max(l, 1e-30)); O = acc / max(l, 1e-30).
 //   K2: dQ = scale * sum_k [P o (dO V^T - delta)] K, P = exp(scale*QK^T - LSE)
 //   K3: dV = sum_q P^T dO, dK = scale * sum_q dS^T Q, dS = P o (dP - delta)
 // Causal masks q_pos < k_pos with the finite -FLT_MAX (NEG_INF of the plain
-// version), so exp never sees inf - inf.  As the TPU kernel's _dot_f32 does,
-// every product of 16-bit inputs takes both operands in bf16 and sums in
-// fp32: P is rounded to bf16 before P.V and P^T.dO, dS before dS.K and
-// dS^T.Q.  fp32 inputs run the same loops on CUDA cores in fp32.  dK is
-// scaled once at the end instead of per tile (equal up to fp32 rounding).
+// version), so exp never sees inf - inf; a masked P is 0.  As the TPU
+// kernel's _dot_f32 does, every product of 16-bit inputs takes both
+// operands in bf16 and sums in fp32: P is rounded to bf16 before P.V and
+// P^T.dO, dS before dS.K and dS^T.Q.  fp32 inputs stay fp32 on CUDA
+// cores.  dQ and dK are scaled once at the end instead of per tile (equal
+// up to fp32 rounding).  Nothing crosses CTAs and every sum runs in a
+// fixed order: no atomics, and two runs give the same bits.  K2 and K3
+// keep the TPU's split of dQ from dK/dV for that reason.
 //
 // What bounds them on this card: at training shapes (S = 1024, D = 96)
-// the tensor-core work, ~4*S*S*D flops per (b, h) for K1 (halved by
-// causal) against ~4*S*D*2 bytes of q/k/v/o: hundreds of flops per byte,
-// near the H100's ~295 flops/byte ridge.  So every design keeps Q, K, V
-// tiles in shared memory and every score tile in registers, and never
-// writes the S x S matrix to device memory.
+// the tensor-core work, 4, 6 and 8 * D flops per (query, key) pair for K1,
+// K2 and K3 (halved by causal), against a few bytes of q/k/v/dO a row:
+// hundreds of flops per byte, at or above the H100's ~295 flops/byte
+// ridge.  So every design keeps its tiles in shared memory and its score
+// tiles in registers, never writes an S x S matrix to device memory, and
+// is held back by how busy it keeps the tensor cores.
 //
-// K1 in bf16 (FA3-style; the `hopper` namespace below):
+// The bf16 kernels (the `hopper` namespace below) share one design:
 // * A persistent CTA of three warpgroups, one a card SM, walks work items
-//   (128-row query tile, b, h) heaviest causal tiles first.  Warpgroup 0
-//   is the producer: one thread issues TMA loads (cp.async.bulk.tensor)
-//   of the Q tile and of 128-key K and V tiles into a ring of 2 stages,
-//   completing on mbarriers; each consumer warp frees a stage (and the Q
-//   tile) on another mbarrier, so the next item's loads overlap this
-//   item's last tiles and epilogue.  Warpgroups 1 and 2 each own 64 query
-//   rows; setmaxnreg moves registers from the producer (24) to them (240).
-// * Both products are wgmma: S = Q K^T with A and B from shared memory
-//   (K-major), O += P V with P from registers and V as a transposed
-//   (MN-major) B.  P is rounded to bf16 in registers; sums are fp32.  The
-//   online softmax runs on the accumulator registers in base 2, with
-//   scale * log2(e) folded into one FMA; LSE is turned back to natural
-//   log at the end.  Key tiles run from the diagonal down, so only the
-//   first is masked and tiles past the diagonal are never loaded.
-// * Tensor maps (D, S, H, B) over the strided q/k/v views (the [B, S,
-//   3*H*D] projection output, read in place), encoded per launch with
-//   cuTensorMapEncodeTiled from the runtime's driver entry point (no
-//   -lcuda).  D = 96 rows are 192 bytes, which no 128-byte swizzle box
-//   covers, so every operand is cut into 32-dim (64-byte) slabs with the
-//   64-byte swizzle: 2, 3 or 4 slabs for D 64, 96, 128, one layout for
-//   all three.  K-major descriptors step 32 bytes within a slab row and a
-//   slab (128 rows x 64 bytes) between 16-dim steps; the transposed V
-//   descriptor steps 1024 bytes (16 keys) a k-step, its leading offset
-//   one slab (the next 32 dims).  No zero-filled tail: D = 96 does no
-//   more Q K^T work than it needs.
-// * The epilogue stages each warpgroup's 64 output rows in shared memory
-//   (rows padded by 16 bytes) and writes them in whole 16-byte vectors;
-//   the accumulator layout alone would store 4-byte pieces 8 rows apart.
+//   (a 128-row tile, b, h), heaviest causal items first.  Warpgroup 0 is
+//   the producer: one thread issues TMA loads (cp.async.bulk.tensor) of
+//   the item's resident tiles once and streams the other side's tiles
+//   through a ring of 2 stages, completing on mbarriers; each consumer
+//   warp frees a stage (and the resident tiles) on another mbarrier, so
+//   the next item's loads overlap this item's last tiles and epilogue.
+//   Warpgroups 1 and 2 each own 64 rows of the item; setmaxnreg moves
+//   registers from the producer (24) to them (240).
+// * Products are wgmma with fp32 accumulators in registers.  A score tile
+//   is taken from the accumulators, exponentiated in base 2 (scale *
+//   log2(e) folded into one FMA, the LSE pre-scaled by log2(e)), rounded
+//   to bf16 and fed back as the register A operand of the next product.
+//   One shared-memory tile serves as a K-major operand in one product and
+//   as a transposed (MN-major) B in another, so no tile is transposed.
+//   K1: S = Q K^T, O += P V.  K2 (items: query tiles; K, V streamed):
+//   S = Q K^T, dP = dO V^T, dQ += dS K.  K3 (items: 128-key tiles; Q, dO
+//   streamed in 64-query tiles with their LSE and delta slices by 1-d
+//   bulk copies): the scores transposed, S^T = K Q^T and dP^T = V dO^T,
+//   so that P^T and dS^T have keys as rows, the A layout of dV += P^T dO
+//   and dK += dS^T Q.  Causal items load no tile past the diagonal and
+//   mask only the diagonal ones; K3 skips a warpgroup's tile whose every
+//   query is before every one of its keys.
+// * Tensor maps (D, S, H, B) over the strided views (the [B, S, 3*H*D]
+//   projection output, read in place; dO in any stride order), encoded
+//   per launch with cuTensorMapEncodeTiled from the runtime's driver entry
+//   point (no -lcuda).  D = 96 rows are 192 bytes, which no 128-byte
+//   swizzle box covers, so every operand is cut into 32-dim (64-byte)
+//   slabs with the 64-byte swizzle: 2, 3 or 4 slabs for D 64, 96, 128, one
+//   layout for all three.  K-major descriptors step 32 bytes within a slab
+//   row and a slab between 16-dim steps; MN-major ones step 16 rows (1024
+//   bytes) a k-step, their leading offset one slab (the next 32 dims).
+// * Epilogues stage each warpgroup's 64 output rows in shared memory and
+//   write them in whole 16-byte vectors; the accumulator layout alone
+//   would store 4-byte pieces 8 rows apart.
+// * K2's and K3's consumers are short of issue slots rather than of
+//   tensor-core time.  So they form P and dS in one pass once both score
+//   products are done (P never lies whole beside dP, which keeps them
+//   clear of spills), each exp is one MUFU op (ex2.approx.ftz), and K3
+//   issues dV += P^T dO and dK += dS^T Q as one group: together 12 % off
+//   K2's time and 17 % off K3's at the 760M shape on an H100 80GB HBM3.
+//   K1 keeps exp2f.
 // * Measured alternatives that lost at the 760M shape, and so are not
-//   here: a non-persistent grid (one CTA a query tile; each paid ~4.8 us
-//   of start-up and epilogue that nothing overlapped), 64-key tiles, 3
-//   stages, the two warpgroups taking turns on the tensor cores through
-//   named barriers, the next tile's Q K^T issued before this tile's
-//   softmax, and 64-dim slabs with the 128-byte swizzle at D 64 and 128
-//   (no faster than the one 64-byte layout) (PERF.md, PR 4).
+//   here (PERF.md, Findings): for K1 a non-persistent grid, 64-key
+//   tiles, warpgroups taking turns on the tensor cores, the next tile's
+//   Q K^T issued before this tile's softmax, and 64-dim slabs with the
+//   128-byte swizzle; for K2 and K3 the next tile's score products issued
+//   before this tile's last product is done, 3 stages, pairing light with
+//   heavy tiles so that CTAs in flight share a head's tiles in L2,
+//   descriptors precomputed once a tile, and P computed while dP's
+//   product runs.
 //
-// K1 in fp32, K2 and K3 (FA2-style, simple first):
-// * 4 warps per CTA, each warp owning 16 rows; a CTA owns 64 query rows
-//   (K1, K2) or 64 key rows (K3).  Grid (S/64, B*H).  The TPU kernels'
-//   sequential grid dimension becomes the loop inside the CTA; nothing
-//   crosses CTAs, so there are no atomics and sums run in a fixed order:
-//   the gradients are deterministic.  K2 and K3 keep the TPU's split of
-//   dQ from dK/dV for the same reason.
-// * Products run on tensor cores with mma.sync.m16n8k16 bf16 -> fp32.
-//   Score tiles stay in the accumulator layout, and the accumulator of
-//   one product is repacked in registers as the A operand of the next
-//   (P of Q K^T becomes the A of P V).  The online softmax runs on those
-//   registers, with the row max and sum reduced across each lane quad.
-// * Operands are read from shared memory with 32-bit loads; rows are
-//   padded by 16 bytes so the 8 rows a load touches sit in distinct banks.
-// * Causal CTAs stop at the diagonal, and a warp skips the tiles that are
-//   fully masked for its 16 rows.  K1/K2 start the heaviest query tiles
-//   first; K3's heaviest key tiles (the first) have the lowest index.
-// * q, k, v, dO and the outputs are strided views with a contiguous head
-//   dim: (b, h, s) strides are passed in, so the [B, S, 3H] projection
-//   output is read without transposes and outputs land [B, S, H, D].
-// * Head dims 64, 96 and 128 are instantiated, those of GPT-3 125M, 760M
-//   and 1.3B (96 = 6 x 16 along the mma depth, 12 x 8 along its width:
-//   nothing assumes a power of two).
+// The fp32 kernels (FA2-style, simple first): 4 warps per CTA, each warp
+// owning 16 rows; a CTA owns 64 query rows (K1, K2) or 64 key rows (K3)
+// and loops over the other side's tiles; grid (S/64, B*H).  Products run
+// on CUDA cores in the mma accumulator layout; rows are padded by 16
+// bytes in shared memory.  Causal CTAs stop at the diagonal, and a warp
+// skips the tiles that are fully masked for its 16 rows.
 //
-// Later PRs: K2 and K3 on the Hopper design (TMA ring, wgmma, persistent
-// CTAs); for K1, find why two warpgroups' wgmma groups leave the tensor
-// cores idle (the products alone, without softmax or loads, take 59 of
-// its 95 us) before overlapping the softmax with them.
+// Both read q, k, v and dO as strided views with a contiguous head dim
+// and write outputs [B, S, H, D].  Head dims 64, 96 and 128 are
+// instantiated, those of GPT-3 125M, 760M and 1.3B (nothing assumes a
+// power of two).
+//
+// Still open: why two warpgroups' wgmma groups leave the tensor cores
+// idle (on an H100 80GB HBM3, K1's products alone, without softmax or
+// loads, took 59 of its 95 us); overlap the elementwise work with them.
 //
 // Built by paddle_tpu_torch/kernels/_build.py with nvcc into a shared
 // library with a plain C interface, called through ctypes.
@@ -157,38 +164,15 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src,
   }
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack2(const bf16* lo, const bf16* hi) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(lo)) |
-         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi))
-          << 16);
-}
-
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// d += a * b on a 16x8x16 bf16 tile, fp32 accumulate.
-__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// The two products every kernel is made of, on one warp's 16 rows, with
-// results in the mma accumulator layout: lane = 4*g + t holds, of each
-// 8-column tile j, c[j][0..1] = row g, cols 8j+2t, 8j+2t+1 and
-// c[j][2..3] = row g+8, the same cols.
+// The two products the fp32 kernels are made of, on one warp's 16 rows,
+// on CUDA cores, with results in the mma accumulator layout: lane =
+// 4*g + t holds, of each 8-column tile j, c[j][0..1] = row g, cols 8j+2t,
+// 8j+2t+1 and c[j][2..3] = row g+8, the same cols.
 //
 // rowdot: c[16 x 8NT] = A[16 x D] . B[8NT x D]^T (A, B in shared memory).
 template <typename T, int D, int NT>
@@ -201,82 +185,47 @@ __device__ __forceinline__ void rowdot(const T* A, const T* Bm,
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
-  if constexpr (std::is_same<T, bf16>::value) {
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      const int k0 = kc * 16 + 2 * t;
-      const uint32_t a0 = ld32(A + g * LD + k0);
-      const uint32_t a1 = ld32(A + (g + 8) * LD + k0);
-      const uint32_t a2 = ld32(A + g * LD + k0 + 8);
-      const uint32_t a3 = ld32(A + (g + 8) * LD + k0 + 8);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const T* br = Bm + (j * 8 + g) * LD + k0;
-        mma16816(c[j], a0, a1, a2, a3, ld32(br), ld32(br + 8));
-      }
-    }
-  } else {
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float alo = A[g * LD + d];
-      const float ahi = A[(g + 8) * LD + d];
+  for (int d = 0; d < D; ++d) {
+    const float alo = A[g * LD + d];
+    const float ahi = A[(g + 8) * LD + d];
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float b0 = Bm[(j * 8 + 2 * t) * LD + d];
-        const float b1 = Bm[(j * 8 + 2 * t + 1) * LD + d];
-        c[j][0] = fmaf(alo, b0, c[j][0]);
-        c[j][1] = fmaf(alo, b1, c[j][1]);
-        c[j][2] = fmaf(ahi, b0, c[j][2]);
-        c[j][3] = fmaf(ahi, b1, c[j][3]);
-      }
+    for (int j = 0; j < NT; ++j) {
+      const float b0 = Bm[(j * 8 + 2 * t) * LD + d];
+      const float b1 = Bm[(j * 8 + 2 * t + 1) * LD + d];
+      c[j][0] = fmaf(alo, b0, c[j][0]);
+      c[j][1] = fmaf(alo, b1, c[j][1]);
+      c[j][2] = fmaf(ahi, b0, c[j][2]);
+      c[j][3] = fmaf(ahi, b1, c[j][3]);
     }
   }
 }
 
 // accum: o[16 x D] += P[16 x 8NT] . B[8NT x D], P in the accumulator
-// layout (rounded to bf16 on the tensor-core path), B in shared memory.
+// layout, B in shared memory.
 template <typename T, int D, int NT>
 __device__ __forceinline__ void accum(const float (&p)[NT][4], const T* Bm,
                                       float (&o)[D / 8][4]) {
   constexpr int LD = pitch<T, D>();
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  if constexpr (std::is_same<T, bf16>::value) {
-    static_assert(NT % 2 == 0, "P tiles pair up into 16-deep mma steps");
+  const int t = lane & 3;
 #pragma unroll
-    for (int kc = 0; kc < NT / 2; ++kc) {
-      const uint32_t a0 = pack_f32(p[2 * kc][0], p[2 * kc][1]);
-      const uint32_t a1 = pack_f32(p[2 * kc][2], p[2 * kc][3]);
-      const uint32_t a2 = pack_f32(p[2 * kc + 1][0], p[2 * kc + 1][1]);
-      const uint32_t a3 = pack_f32(p[2 * kc + 1][2], p[2 * kc + 1][3]);
-      const T* r0 = Bm + (kc * 16 + 2 * t) * LD;
-      const T* r8 = r0 + 8 * LD;
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      // P[row][8j + c] lives in lane 4g + c/2 of this quad
+      const int src = (lane & ~3) | (c >> 1);
+      const float plo = __shfl_sync(kFull, p[j][c & 1], src);
+      const float phi = __shfl_sync(kFull, p[j][2 + (c & 1)], src);
+      const T* br = Bm + (j * 8 + c) * LD + 2 * t;
 #pragma unroll
       for (int dt = 0; dt < D / 8; ++dt) {
-        const int d = dt * 8 + g;
-        mma16816(o[dt], a0, a1, a2, a3, pack2(r0 + d, r0 + LD + d),
-                 pack2(r8 + d, r8 + LD + d));
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        // P[row][8j + c] lives in lane 4g + c/2 of this quad
-        const int src = (lane & ~3) | (c >> 1);
-        const float plo = __shfl_sync(kFull, p[j][c & 1], src);
-        const float phi = __shfl_sync(kFull, p[j][2 + (c & 1)], src);
-        const T* br = Bm + (j * 8 + c) * LD + 2 * t;
-#pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
-          const float b0 = br[dt * 8];
-          const float b1 = br[dt * 8 + 1];
-          o[dt][0] = fmaf(plo, b0, o[dt][0]);
-          o[dt][1] = fmaf(plo, b1, o[dt][1]);
-          o[dt][2] = fmaf(phi, b0, o[dt][2]);
-          o[dt][3] = fmaf(phi, b1, o[dt][3]);
-        }
+        const float b0 = br[dt * 8];
+        const float b1 = br[dt * 8 + 1];
+        o[dt][0] = fmaf(plo, b0, o[dt][0]);
+        o[dt][1] = fmaf(plo, b1, o[dt][1]);
+        o[dt][2] = fmaf(phi, b0, o[dt][2]);
+        o[dt][3] = fmaf(phi, b1, o[dt][3]);
       }
     }
   }
@@ -429,7 +378,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// K1, bf16: the Hopper forward (TMA, mbarriers, wgmma, warp-specialised)
+// bf16: the Hopper kernels (TMA, mbarriers, wgmma, warp-specialised)
 // ---------------------------------------------------------------------------
 namespace hopper {
 
@@ -443,18 +392,67 @@ constexpr int kThreads = 384; // producer warpgroup + two consumer warpgroups
 constexpr int kConsumerWarps = 8;  // each frees a stage once it is done
 constexpr float kLog2e = 1.4426950408889634f;
 
+constexpr int kBlockQ = 64;   // queries a Q/dO tile of K3 holds
+constexpr int kQTSlabBytes = kBlockQ * kSlab * 2;  // 64 rows x 64 bytes
+
+// A warpgroup's 64 output rows of D bf16 on their way out: written from
+// the accumulator layout (4-byte pieces, 8 rows apart) and read back as
+// whole 16-byte vectors.  Rows of D 64 and 128 (8 or 16 vectors) are
+// unpadded, with the vector index XORed by row % 8; D 96 rows (12
+// vectors) are padded by one.  Either way the 8 rows a quad-strided
+// write touches sit in distinct banks.
+template <int D>
+struct Stage {
+  static constexpr bool kXor = D % 64 == 0;
+  static constexpr int kPitch = kXor ? 2 * D : 2 * D + 16;
+  static constexpr int kBytes = 64 * kPitch;
+  static __device__ __forceinline__ int at(int row, int vec) {
+    return row * kPitch + 16 * (kXor ? vec ^ (row & 7) : vec);
+  }
+};
+
+// K1: Q, then K and V of each stage, each tile 1024-byte aligned, then
+// the two warpgroups' output staging; plus the slack to align the
+// dynamic base.
 template <int D>
 struct Smem {
   static constexpr int kQBytes = D / kSlab * kQSlabBytes;    // 128 x D
   static constexpr int kKVBytes = D / kSlab * kKVSlabBytes;  // kBlockN x D
-  // the output tile's staging rows: D bf16 and 16 bytes of padding, so
-  // the 8 rows a quad-strided store touches sit in distinct banks
-  static constexpr int kOPitch = 2 * D + 16;
-  // Q, then K and V of each stage, each tile 1024-byte aligned, then the
-  // output staging; plus the slack to align the dynamic base
   static constexpr int kBytes =
-      kQBytes + 2 * kStages * kKVBytes + kBlockM * kOPitch + 1024;
+      kQBytes + 2 * kStages * kKVBytes + 2 * Stage<D>::kBytes + 1024;
 };
+
+// K2: Q and dO, then K and V of each stage, then the dQ staging.
+template <int D>
+struct DqSmem {
+  static constexpr int kQBytes = Smem<D>::kQBytes;
+  static constexpr int kKVBytes = Smem<D>::kKVBytes;
+  static constexpr int kBytes =
+      2 * kQBytes + 2 * kStages * kKVBytes + 2 * Stage<D>::kBytes + 1024;
+};
+
+// K3: K and V (128 keys), then Q and dO (64 queries) of each stage, then
+// the LSE and delta slices of each stage (64 fp32 each), then the dK and
+// dV staging of both warpgroups.
+template <int D>
+struct DkvSmem {
+  static constexpr int kKBytes = Smem<D>::kKVBytes;           // 128 x D
+  static constexpr int kQTBytes = D / kSlab * kQTSlabBytes;   // 64 x D
+  static constexpr int kStatBytes = kBlockQ * 4;
+  static constexpr int kStats = 2 * kKBytes + 2 * kStages * kQTBytes;
+  static constexpr int kStaging = kStats + 2 * kStages * kStatBytes;
+  static constexpr int kBytes = kStaging + 4 * Stage<D>::kBytes + 1024;
+};
+
+// 2^x in one MUFU op, results below 2^-126 flushed to 0: exp2f's
+// handling of subnormal results cost K2's and K3's consumers, which are
+// short of issue slots, a tenth to a sixth of their time.  A P that small
+// adds nothing to an fp32 sum of the products it enters.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -511,6 +509,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* tm,
       : "memory");
 }
 
+// A 1-d bulk copy of `bytes` (a multiple of 16) from global src to
+// shared dst, both 16-byte aligned, completing on bar's transaction count.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -529,6 +538,16 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The same for A operands held in registers: they stay live, and in
+// place, until the product that reads them is known to be done.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
 }
 
 // A wgmma shared-memory descriptor over a 64-byte-swizzled layout (type 2
@@ -574,6 +593,29 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 64] (+)= A . B^T: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -677,6 +719,41 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
   if constexpr (D == 64) wgmma_rs_n64(d, a, db);
   else if constexpr (D == 96) wgmma_rs_n96(d, a, db);
   else wgmma_rs_n128(d, a, db);
+}
+
+// Named barrier of consumer warpgroup cw's 128 threads.
+__device__ __forceinline__ void wg_sync(int cw) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+}
+
+// Write this warpgroup's 64 x D accumulator acc into its staging rows as
+// bf16 f(x, half), half 1 for the rows 8 below the thread's first.
+template <int D, typename F>
+__device__ __forceinline__ void stage_acc(unsigned char* stage,
+                                          const float (&acc)[D / 2], F f) {
+  const int lane = threadIdx.x & 31;
+  const int row = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    store2(reinterpret_cast<bf16*>(stage + Stage<D>::at(row, j) + 4 * t),
+           f(acc[4 * j], 0), f(acc[4 * j + 1], 0));
+    store2(reinterpret_cast<bf16*>(stage + Stage<D>::at(row + 8, j) + 4 * t),
+           f(acc[4 * j + 2], 1), f(acc[4 * j + 3], 1));
+  }
+}
+
+// Copy the 64 staged rows to out (row stride ss elements) in 16-byte
+// vectors, the warpgroup's threads on consecutive vectors.
+template <int D>
+__device__ __forceinline__ void flush_stage(const unsigned char* stage,
+                                            bf16* out, int64_t ss) {
+  constexpr int kVecs = D / 8;
+  for (int i = threadIdx.x & 127; i < 64 * kVecs; i += 128) {
+    const int row = i / kVecs, c = i % kVecs;
+    *reinterpret_cast<uint4*>(out + row * ss + 8 * c) =
+        *reinterpret_cast<const uint4*>(stage + Stage<D>::at(row, c));
+  }
 }
 
 // Work item i of a launch: query tile qi of (batch, head) bh.  Items run
@@ -871,38 +948,432 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // leave in whole 16-byte vectors a thread rather than as the
     // accumulator layout's 4-byte pieces
     const float l0 = fmaxf(l[0], 1e-30f), l1 = fmaxf(l[1], 1e-30f);
-    constexpr int kPitch = Smem<D>::kOPitch;
     unsigned char* stage = smem_raw + (base - smem_u32(smem_raw)) + kQBytes +
-                           2 * kStages * kKV + cw * 64 * kPitch;
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
-    {
-      bf16* lo = reinterpret_cast<bf16*>(stage + (r0 - 64 * cw) * kPitch) +
-                 2 * t;
-      bf16* hi = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(
-                                             lo) + 8 * kPitch);
-      // acc / l as the TPU kernel divides (not a multiply by 1/l)
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        store2(lo + 8 * j, o[4 * j] / l0, o[4 * j + 1] / l0);
-        store2(hi + 8 * j, o[4 * j + 2] / l1, o[4 * j + 3] / l1);
-      }
-    }
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
-    {
-      bf16* out = static_cast<bf16*>(p.out) + w.b * p.o_sb + w.h * p.o_sh +
-                  (q0 + 64 * cw) * p.o_ss;
-      constexpr int kChunks = 2 * D / 16;  // 16-byte vectors a row
-      for (int i = tid & 127; i < 64 * kChunks; i += 128) {
-        const int row = i / kChunks, c = i % kChunks;
-        *reinterpret_cast<uint4*>(out + row * p.o_ss + 8 * c) =
-            *reinterpret_cast<const uint4*>(stage + row * kPitch + 16 * c);
-      }
-    }
+                           2 * kStages * kKV + cw * Stage<D>::kBytes;
+    wg_sync(cw);
+    // acc / l as the TPU kernel divides (not a multiply by 1/l)
+    stage_acc<D>(stage, o, [&](float x, int hi) { return x / (hi ? l1 : l0); });
+    wg_sync(cw);
+    flush_stage<D>(stage, static_cast<bf16*>(p.out) + w.b * p.o_sb +
+                              w.h * p.o_sh + (q0 + 64 * cw) * p.o_ss,
+                   p.o_ss);
     if (t == 0) {
       float* lse = p.lse_out + (static_cast<int64_t>(w.b) * p.H + w.h) * p.S;
       lse[q0 + r0] = m[0] * p.scale + logf(l0);
       lse[q0 + r0 + 8] = m[1] * p.scale + logf(l1);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2, bf16: dQ on the same machinery
+// ---------------------------------------------------------------------------
+// A persistent CTA walks items (128-row query tile, b, h), heaviest causal
+// tiles first (item_of).  The producer loads the item's Q and dO tiles
+// once, then streams 128-key K and V tiles through the ring, diagonal
+// tile first.  Each consumer warpgroup owns 64 query rows and runs three
+// wgmma products a tile: S = Q K^T and dP = dO V^T (both operands K-major
+// in shared memory), then dQ += dS K with dS from registers and the K
+// tile read as a transposed (MN-major) B, as K1 reads V.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          Params p) {
+  constexpr int kSlabs = D / kSlab;
+  constexpr int kQBytes = DqSmem<D>::kQBytes;
+  constexpr int kKV = DqSmem<D>::kKVBytes;
+  constexpr int kN = kBlockN / 8;  // 8-key column blocks of a score tile
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, bar_q_free;
+  __shared__ __align__(8) uint64_t bar_k[kStages], bar_v[kStages];
+  __shared__ __align__(8) uint64_t bar_free[kStages];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const int n_items = p.S / kBlockM * p.B * p.H;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
+    mbar_init(&bar_q_free, kConsumerWarps);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&bar_k[st], 1);
+      mbar_init(&bar_v[st], 1);
+      mbar_init(&bar_free[st], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int ring = 0, round = 0;
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++round) {
+        const Item w = item_of(i, p);
+        const int q0 = w.qi * kBlockM;
+        const int n_tiles = (p.causal ? q0 + kBlockM : p.S) / kBlockN;
+        mbar_wait(&bar_q_free, (round & 1) ^ 1);
+        mbar_expect_tx(&bar_q, 2 * kQBytes);
+#pragma unroll
+        for (int s = 0; s < kSlabs; ++s) {
+          tma_load(base + s * kQSlabBytes, &tm_q, &bar_q, s * kSlab, q0, w.h,
+                   w.b);
+          tma_load(base + kQBytes + s * kQSlabBytes, &tm_do, &bar_q,
+                   s * kSlab, q0, w.h, w.b);
+        }
+        for (int it = 0; it < n_tiles; ++it, ++ring) {
+          const int st = ring % kStages;
+          const int k0 = (n_tiles - 1 - it) * kBlockN;
+          mbar_wait(&bar_free[st], ((ring / kStages) & 1) ^ 1);
+          const uint32_t sk = base + 2 * kQBytes + 2 * st * kKV, sv = sk + kKV;
+          mbar_expect_tx(&bar_k[st], kKV);
+#pragma unroll
+          for (int s = 0; s < kSlabs; ++s)
+            tma_load(sk + s * kKVSlabBytes, &tm_k, &bar_k[st], s * kSlab, k0,
+                     w.h, w.b);
+          mbar_expect_tx(&bar_v[st], kKV);
+#pragma unroll
+          for (int s = 0; s < kSlabs; ++s)
+            tma_load(sv + s * kKVSlabBytes, &tm_v, &bar_v[st], s * kSlab, k0,
+                     w.h, w.b);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int tid = threadIdx.x - 128;
+  const int cw = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 64 * cw + 16 * warp + g;  // rows r0 and r0 + 8 of the tile
+  const float sl2 = p.scale * kLog2e;
+  const uint32_t sq = base + cw * 64 * 64;  // 64 rows of 64 bytes a slab
+  const uint32_t sdo = sq + kQBytes;
+
+  int ring = 0, round = 0;
+  for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++round) {
+    const Item w = item_of(i, p);
+    const int q0 = w.qi * kBlockM;
+    const int n_tiles = (p.causal ? q0 + kBlockM : p.S) / kBlockN;
+    const int64_t row =
+        (static_cast<int64_t>(w.b) * p.H + w.h) * p.S + q0 + r0;
+    // LSE in base 2, once a row: P = 2^(s * scale * log2e - lse * log2e)
+    const float lse2[2] = {p.lse[row] * kLog2e, p.lse[row + 8] * kLog2e};
+    const float dlt[2] = {p.delta[row], p.delta[row + 8]};
+    float dq[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) dq[j] = 0.f;
+
+    mbar_wait(&bar_q, round & 1);
+    for (int it = 0; it < n_tiles; ++it, ++ring) {
+      const int st = ring % kStages;
+      const int par = (ring / kStages) & 1;
+      const uint32_t sk = base + 2 * kQBytes + 2 * st * kKV, sv = sk + kKV;
+      const int k0 = (n_tiles - 1 - it) * kBlockN;
+
+      // S = Q K^T and dP = dO V^T
+      float s[kBlockN / 2], dp[kBlockN / 2];
+      mbar_wait(&bar_k[st], par);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t kb = (kk & 1) * 32;
+        wgmma_ss_n128(s, desc_sw64(sq + (kk >> 1) * kQSlabBytes + kb, 16, 512),
+                      desc_sw64(sk + (kk >> 1) * kKVSlabBytes + kb, 16, 512),
+                      kk > 0);
+      }
+      wgmma_commit();
+      mbar_wait(&bar_v[st], par);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t kb = (kk & 1) * 32;
+        wgmma_ss_n128(dp,
+                      desc_sw64(sdo + (kk >> 1) * kQSlabBytes + kb, 16, 512),
+                      desc_sw64(sv + (kk >> 1) * kKVSlabBytes + kb, 16, 512),
+                      kk > 0);
+      }
+      wgmma_commit();
+
+      // P and dS = P o (dP - delta) in one pass once both products are
+      // done (P never lies beside dP whole: no spills, and the one-op
+      // exp), dS in bf16 as the A operand of dS K: da[kk][e] holds row
+      // half e & 1, keys 16 kk + 8 (e >> 1) + 2 t and + 1.  The diagonal
+      // tile (the first) alone is masked.
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+      if (it == n_tiles - 1 && lane == 0) mbar_arrive(&bar_q_free);
+      const bool diag = p.causal && it == 0;
+      uint32_t da[kBlockN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 8 * kk + 2 * e;
+          const int r = r0 + 8 * (e & 1);
+          const int c = k0 - q0 + 16 * kk + 8 * (e >> 1) + 2 * t;
+          float pr[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            pr[h] = diag && c + h > r
+                        ? 0.f
+                        : exp2_ftz(fmaf(s[x + h], sl2, -lse2[e & 1]));
+          da[kk][e] = pack_f32(pr[0] * (dp[x] - dlt[e & 1]),
+                               pr[1] * (dp[x + 1] - dlt[e & 1]));
+        }
+      // dQ += dS K: K MN-major, 16 keys (1024 bytes) a step
+      fence_regs(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk)
+        wgmma_rs<D>(dq, da[kk], desc_sw64(sk + kk * 1024, kKVSlabBytes, 512));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dq);
+      fence_regs(da);
+      if (lane == 0) mbar_arrive(&bar_free[st]);
+    }
+
+    // epilogue: dQ scaled once, out through shared memory
+    unsigned char* stage = smem_raw + (base - smem_u32(smem_raw)) +
+                           2 * kQBytes + 2 * kStages * kKV +
+                           cw * Stage<D>::kBytes;
+    wg_sync(cw);
+    stage_acc<D>(stage, dq, [&](float x, int) { return x * p.scale; });
+    wg_sync(cw);
+    flush_stage<D>(stage, static_cast<bf16*>(p.out) + w.b * p.o_sb +
+                              w.h * p.o_sh + (q0 + 64 * cw) * p.o_ss,
+                   p.o_ss);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3, bf16: dK and dV on the same machinery
+// ---------------------------------------------------------------------------
+// Items are (128-key tile, b, h), lowest key tile first: under the causal
+// mask it sees the most queries.  The producer loads the item's K and V
+// once, then streams 64-query Q and dO tiles, with their LSE and delta
+// slices (1-d bulk copies), through the ring; causal items start at the
+// diagonal.  Each consumer warpgroup owns 64 keys and computes the scores
+// transposed, S^T = K Q^T and dP^T = V dO^T, so that P^T and dS^T leave
+// the accumulators with keys as rows: the A layout of dV += P^T dO and
+// dK += dS^T Q, whose B (dO, Q) is read MN-major.  No tile is transposed
+// through shared memory.
+__device__ __forceinline__ Item dkv_item_of(int i, const Params& p) {
+  const int n_bh = p.B * p.H;
+  const int bh = i % n_bh;
+  return {i / n_bh, bh / p.H, bh % p.H};  // qi holds the key tile here
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           Params p) {
+  using L = DkvSmem<D>;
+  constexpr int kSlabs = D / kSlab;
+  constexpr int kK = L::kKBytes;
+  constexpr int kQT = L::kQTBytes;
+  constexpr int kM = kBlockQ / 8;  // 8-query column blocks of a score tile
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar_kv, bar_kv_free;
+  __shared__ __align__(8) uint64_t bar_q[kStages], bar_do[kStages];
+  __shared__ __align__(8) uint64_t bar_free[kStages];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - smem_u32(smem_raw));
+  const int n_items = p.S / kBlockN * p.B * p.H;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_kv, 1);
+    mbar_init(&bar_kv_free, kConsumerWarps);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&bar_q[st], 1);
+      mbar_init(&bar_do[st], 1);
+      mbar_init(&bar_free[st], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int ring = 0, round = 0;
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++round) {
+        const Item w = dkv_item_of(i, p);
+        const int k0 = w.qi * kBlockN;
+        const int first = p.causal ? k0 / kBlockQ : 0;
+        const int n_tiles = p.S / kBlockQ - first;
+        const int64_t bh = (static_cast<int64_t>(w.b) * p.H + w.h) * p.S;
+        mbar_wait(&bar_kv_free, (round & 1) ^ 1);
+        mbar_expect_tx(&bar_kv, 2 * kK);
+#pragma unroll
+        for (int s = 0; s < kSlabs; ++s) {
+          tma_load(base + s * kKVSlabBytes, &tm_k, &bar_kv, s * kSlab, k0,
+                   w.h, w.b);
+          tma_load(base + kK + s * kKVSlabBytes, &tm_v, &bar_kv, s * kSlab,
+                   k0, w.h, w.b);
+        }
+        for (int it = 0; it < n_tiles; ++it, ++ring) {
+          const int st = ring % kStages;
+          const int qs = (first + it) * kBlockQ;
+          mbar_wait(&bar_free[st], ((ring / kStages) & 1) ^ 1);
+          const uint32_t sqt = base + 2 * kK + 2 * st * kQT, sdo = sqt + kQT;
+          const uint32_t stats = base + L::kStats + 2 * st * L::kStatBytes;
+          mbar_expect_tx(&bar_q[st], kQT + L::kStatBytes);
+#pragma unroll
+          for (int s = 0; s < kSlabs; ++s)
+            tma_load(sqt + s * kQTSlabBytes, &tm_q, &bar_q[st], s * kSlab, qs,
+                     w.h, w.b);
+          bulk_load(stats, p.lse + bh + qs, L::kStatBytes, &bar_q[st]);
+          mbar_expect_tx(&bar_do[st], kQT + L::kStatBytes);
+#pragma unroll
+          for (int s = 0; s < kSlabs; ++s)
+            tma_load(sdo + s * kQTSlabBytes, &tm_do, &bar_do[st], s * kSlab,
+                     qs, w.h, w.b);
+          bulk_load(stats + L::kStatBytes, p.delta + bh + qs, L::kStatBytes,
+                    &bar_do[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int tid = threadIdx.x - 128;
+  const int cw = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g;  // keys r0 and r0 + 8 of the warpgroup's 64
+  const float sl2 = p.scale * kLog2e;
+  const uint32_t sk = base + cw * 64 * 64;  // 64 keys of 64 bytes a slab
+  const uint32_t sv = sk + kK;
+
+  int ring = 0, round = 0;
+  for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++round) {
+    const Item w = dkv_item_of(i, p);
+    const int k0 = w.qi * kBlockN;
+    const int first = p.causal ? k0 / kBlockQ : 0;
+    const int n_tiles = p.S / kBlockQ - first;
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) dk[j] = dv[j] = 0.f;
+
+    mbar_wait(&bar_kv, round & 1);
+    for (int it = 0; it < n_tiles; ++it, ++ring) {
+      const int st = ring % kStages;
+      const int par = (ring / kStages) & 1;
+      const int qs = (first + it) * kBlockQ;
+      const uint32_t sqt = base + 2 * kK + 2 * st * kQT, sdo = sqt + kQT;
+      const float* lse = reinterpret_cast<const float*>(
+          gbase + L::kStats + 2 * st * L::kStatBytes);
+      const float* dlt = lse + kBlockQ;
+      // causal: c0 is the tile's first query less the warpgroup's first
+      // key; every query is before every key (P^T = 0, skipped), or some
+      // are (the diagonal, masked)
+      const int c0 = qs - (k0 + 64 * cw);
+      const bool skip = p.causal && c0 + kBlockQ <= 0;
+      const bool diag = p.causal && c0 < 64;
+
+      mbar_wait(&bar_q[st], par);
+      if (!skip) {
+        // S^T = K Q^T and dP^T = V dO^T
+        float s[kBlockQ / 2], dp[kBlockQ / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t kb = (kk & 1) * 32;
+          wgmma_ss_n64(s,
+                       desc_sw64(sk + (kk >> 1) * kKVSlabBytes + kb, 16, 512),
+                       desc_sw64(sqt + (kk >> 1) * kQTSlabBytes + kb, 16, 512),
+                       kk > 0);
+        }
+        wgmma_commit();
+        mbar_wait(&bar_do[st], par);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t kb = (kk & 1) * 32;
+          wgmma_ss_n64(dp,
+                       desc_sw64(sv + (kk >> 1) * kKVSlabBytes + kb, 16, 512),
+                       desc_sw64(sdo + (kk >> 1) * kQTSlabBytes + kb, 16, 512),
+                       kk > 0);
+        }
+        wgmma_commit();
+
+        // P^T and dS^T = P^T o (dP^T - delta) in one pass once both
+        // products are done, each rounded to bf16 as the A operand of its
+        // product: pa[kk][e] and da[kk][e] hold key half e & 1, queries
+        // col = 16 kk + 8 (e >> 1) + 2 t and + 1.  LSE and delta are per
+        // column (query) here.
+        wgmma_wait_all();
+        fence_regs(s);
+        fence_regs(dp);
+        uint32_t pa[kBlockQ / 16][4], da[kBlockQ / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kBlockQ / 16; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = 8 * kk + 2 * e;
+            const int r = r0 + 8 * (e & 1);
+            const int col = 16 * kk + 8 * (e >> 1) + 2 * t;
+            const float2 l2 = *reinterpret_cast<const float2*>(lse + col);
+            const float2 d2 = *reinterpret_cast<const float2*>(dlt + col);
+            const float lse2[2] = {l2.x * kLog2e, l2.y * kLog2e};
+            float pr[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              pr[h] = diag && c0 + col + h < r
+                          ? 0.f
+                          : exp2_ftz(fmaf(s[x + h], sl2, -lse2[h]));
+            pa[kk][e] = pack_f32(pr[0], pr[1]);
+            da[kk][e] = pack_f32(pr[0] * (dp[x] - d2.x),
+                                 pr[1] * (dp[x + 1] - d2.y));
+          }
+        // dV += P^T dO and dK += dS^T Q, dO and Q MN-major, 16 queries
+        // (1024 bytes) a step, in one group
+        fence_regs(dv);
+        fence_regs(dk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBlockQ / 16; ++kk)
+          wgmma_rs<D>(dv, pa[kk],
+                      desc_sw64(sdo + kk * 1024, kQTSlabBytes, 512));
+#pragma unroll
+        for (int kk = 0; kk < kBlockQ / 16; ++kk)
+          wgmma_rs<D>(dk, da[kk],
+                      desc_sw64(sqt + kk * 1024, kQTSlabBytes, 512));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dk);
+        fence_regs(dv);
+        fence_regs(pa);
+        fence_regs(da);
+      } else {
+        mbar_wait(&bar_do[st], par);  // the stage's loads land before it frees
+      }
+      if (lane == 0) {
+        if (it == n_tiles - 1) mbar_arrive(&bar_kv_free);
+        mbar_arrive(&bar_free[st]);
+      }
+    }
+
+    // epilogue: dK scaled once, dV as it is, out through shared memory
+    unsigned char* stage_k = gbase + L::kStaging + 2 * cw * Stage<D>::kBytes;
+    unsigned char* stage_v = stage_k + Stage<D>::kBytes;
+    wg_sync(cw);
+    stage_acc<D>(stage_k, dk, [&](float x, int) { return x * p.scale; });
+    stage_acc<D>(stage_v, dv, [](float x, int) { return x; });
+    wg_sync(cw);
+    const int64_t off = w.b * p.o_sb + w.h * p.o_sh + (k0 + 64 * cw) * p.o_ss;
+    flush_stage<D>(stage_k, static_cast<bf16*>(p.out) + off, p.o_ss);
+    flush_stage<D>(stage_v, static_cast<bf16*>(p.out2) + off, p.o_ss);
   }
 }
 
@@ -954,6 +1425,37 @@ bool encode_view(CUtensorMap* tm, const void* ptr, int64_t sb, int64_t sh,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Raise kernel's dynamic shared memory limit to smem bytes and read the
+// card's SM count: once per kernel and process (one card a process).
+template <auto kernel>
+cudaError_t prepare(int smem, int* sms) {
+  static int count = 0;
+  if (count == 0) {
+    int device = 0, n = 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess) err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount,
+                                   device);
+    if (err != cudaSuccess) return err;
+    count = n;
+  }
+  *sms = count;
+  return cudaSuccess;
+}
+
+// Persistent: one CTA an SM, no more than there are items, walks them.
+template <auto kernel, typename... Args>
+cudaError_t launch_persistent(int smem, int n_items, cudaStream_t stream,
+                              const Args&... args) {
+  int sms = 0;
+  const cudaError_t err = prepare<kernel>(smem, &sms);
+  if (err != cudaSuccess) return err;
+  kernel<<<n_items < sms ? n_items : sms, kThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
   if (p.S % kBlockM != 0) return cudaErrorInvalidValue;
@@ -962,26 +1464,32 @@ cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
       !encode_view(&tk, p.k, p.k_sb, p.k_sh, p.k_ss, p, D, kBlockN) ||
       !encode_view(&tv, p.v, p.v_sb, p.v_sh, p.v_ss, p, D, kBlockN))
     return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_wgmma_kernel<D>;
-  constexpr int kSmem = Smem<D>::kBytes;
-  // once per instantiation and process (one card a process)
-  static int sms = 0;
-  if (sms == 0) {
-    int device = 0, count = 0;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err == cudaSuccess) err = cudaGetDevice(&device);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
-                                   device);
-    if (err != cudaSuccess) return err;
-    sms = count;
-  }
-  // persistent: one CTA an SM walks the work items
+  return launch_persistent<flash_fwd_wgmma_kernel<D>>(
+      Smem<D>::kBytes, p.S / kBlockM * p.B * p.H, stream, tq, tk, tv, p);
+}
+
+// K2 (dkv false) and K3: maps over q, k, v and dO in any strides TMA
+// takes; K3 reads q and dO in 64-row boxes and the LSE and delta slices
+// by bulk copies, which need 16-byte aligned rows.
+template <int D>
+cudaError_t launch_bwd(bool dkv, const Params& p, cudaStream_t stream) {
+  if (p.S % kBlockM != 0) return cudaErrorInvalidValue;
+  const int rows = dkv ? kBlockQ : kBlockM;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!encode_view(&tq, p.q, p.q_sb, p.q_sh, p.q_ss, p, D, rows) ||
+      !encode_view(&tk, p.k, p.k_sb, p.k_sh, p.k_ss, p, D, kBlockN) ||
+      !encode_view(&tv, p.v, p.v_sb, p.v_sh, p.v_ss, p, D, kBlockN) ||
+      !encode_view(&tdo, p.dout, p.do_sb, p.do_sh, p.do_ss, p, D, rows))
+    return cudaErrorInvalidValue;
   const int n_items = p.S / kBlockM * p.B * p.H;
-  kernel<<<n_items < sms ? n_items : sms, kThreads, kSmem, stream>>>(tq, tk,
-                                                                    tv, p);
-  return cudaGetLastError();
+  if (!dkv)
+    return launch_persistent<flash_bwd_dq_wgmma_kernel<D>>(
+        DqSmem<D>::kBytes, n_items, stream, tq, tk, tv, tdo, p);
+  if ((reinterpret_cast<uintptr_t>(p.lse) |
+       reinterpret_cast<uintptr_t>(p.delta)) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  return launch_persistent<flash_bwd_dkv_wgmma_kernel<D>>(
+      DkvSmem<D>::kBytes, n_items, stream, tq, tk, tv, tdo, p);
 }
 
 }  // namespace hopper
@@ -1143,8 +1651,10 @@ size_t smem_bytes(Kind kind) {
       if (std::is_same<T, bf16>::value) return hopper::Smem<D>::kBytes;
       return static_cast<size_t>(kRows + 2 * kTileK) * LD * sizeof(T);
     case kDq:
+      if (std::is_same<T, bf16>::value) return hopper::DqSmem<D>::kBytes;
       return static_cast<size_t>(2 * kRows + 2 * kTileK) * LD * sizeof(T);
     default:
+      if (std::is_same<T, bf16>::value) return hopper::DkvSmem<D>::kBytes;
       return static_cast<size_t>(2 * kRows + 2 * dkv_tile_q<T, D>()) * LD *
                  sizeof(T) +
              2 * dkv_tile_q<T, D>() * sizeof(float);
@@ -1153,25 +1663,24 @@ size_t smem_bytes(Kind kind) {
 
 template <typename T, int D>
 cudaError_t launch_typed(Kind kind, const Params& p, cudaStream_t stream) {
-  void (*kernel)(Params) = nullptr;
   if constexpr (std::is_same<T, bf16>::value) {
-    // K1 in bf16 is the Hopper kernel; K2, K3 and fp32 the kernels above
+    // bf16: the Hopper kernels
     if (kind == kFwd) return hopper::launch_fwd<D>(p, stream);
-    kernel = kind == kDq ? flash_bwd_dq_kernel<T, D>
-                         : flash_bwd_dkv_kernel<T, D>;
+    return hopper::launch_bwd<D>(kind == kDkv, p, stream);
   } else {
-    kernel = kind == kFwd ? flash_fwd_kernel<T, D>
-                          : (kind == kDq ? flash_bwd_dq_kernel<T, D>
-                                         : flash_bwd_dkv_kernel<T, D>);
+    void (*kernel)(Params) =
+        kind == kFwd ? flash_fwd_kernel<T, D>
+                     : (kind == kDq ? flash_bwd_dq_kernel<T, D>
+                                    : flash_bwd_dkv_kernel<T, D>);
+    const size_t smem = smem_bytes<T, D>(kind);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const dim3 grid(p.S / kRows, p.B * p.H);
+    kernel<<<grid, kThreads, smem, stream>>>(p);
+    return cudaGetLastError();
   }
-  const size_t smem = smem_bytes<T, D>(kind);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(p.S / kRows, p.B * p.H);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
 }
 
 template <typename T>

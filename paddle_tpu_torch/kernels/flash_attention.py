@@ -13,12 +13,13 @@ with the attention probabilities recomputed from the saved LSE
   version :func:`_bwd_dkv_reference`.
 
 The kernels are hand-written CUDA for ``sm_90a``
-(``csrc/flash_attention.cu``): K1 in bf16 is a persistent,
-warp-specialised kernel (TMA loads under mbarriers, ``wgmma`` products);
-K1 in fp32, K2 and K3 are FA2-style ``mma.sync`` kernels.  On a CPU
-tensor each wrapper calls its plain version; on a CUDA tensor it
-launches the kernel or raises.  Each wrapper counts its launches in
-``.launches``.
+(``csrc/flash_attention.cu``): in bf16 all three are persistent,
+warp-specialised kernels (TMA loads under mbarriers, ``wgmma``
+products; K3 computes the scores transposed so that Pᵀ and dSᵀ feed its
+products from registers); in fp32 they are FA2-style loops on CUDA
+cores.  On a CPU tensor each wrapper calls its plain version; on a CUDA
+tensor it launches the kernel or raises.  Each wrapper counts its
+launches in ``.launches``.
 
 Arithmetic follows the TPU kernel exactly where it rounds: every
 product whose operands include a 16-bit tensor takes both operands in
@@ -227,8 +228,10 @@ def _check_operands(kernel, q, k, v, do=None, lse=None, delta=None):
         if t.dtype != want:
             raise TypeError(f"{kernel}: {name} is {t.dtype}, want {want}")
         if stats:
-            if not t.is_contiguous():
-                raise ValueError(f"{kernel}: {name} is not contiguous")
+            # K3 copies 64-row slices of both with 16-byte bulk copies
+            if not t.is_contiguous() or t.data_ptr() % 16 != 0:
+                raise ValueError(f"{kernel}: {name} must be contiguous with "
+                                 "a 16-byte aligned data pointer")
             continue
         if not _kernel_layout(t):
             raise ValueError(
