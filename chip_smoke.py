@@ -49,27 +49,44 @@ script exits non-zero:
    launches == decode_steps x 24).
 9. int8_epilogue — one decode step's 96 layer matmuls with bf16 weights
    against int8 weights widened per call.
-10. times (K4, K4q) — µs per wrapper call at the engine's mid-run
+10. engine_slots — the same model and 16 requests through the default
+    slot layout ``LLMEngine(model, max_slots=8, max_seq_len=1024)`` (no
+    paged-attention launch); greedy agreement with the paged engine is
+    printed.  generate — ``model.generate`` on 4 prompts of 128 tokens,
+    32 new: greedy, sampled twice with one seed (equal tokens), and eos
+    fill; agreement with the slot engine printed.
+11. engine_spec — ``LLMEngine(model, draft_model=<GPT-3 125M bf16>,
+    spec_k=4)`` over 8 of the requests (K4 launches == draft steps x 12;
+    drafted == accepted + rejected; no block leaked); spec_in_model at
+    the fullest speculative round (the draft's K4 at head dim 64 against
+    its plain version; ``verify_paged`` column 0 against
+    ``decode_paged``); then 4 requests self-drafted and 4 over int8
+    pools (K4q-int8 launches == draft steps x 12).
+12. slots_in_model — the 1.3B width at 2 layers: the slot path against
+    the paged path (prefill and one decode step), each in bf16 and on
+    fp32 copies (``_self_calibrated``).
+13. times (K4, K4q) — µs per wrapper call at the engine's mid-run
     shape: K4 over the bf16 pools, K4q over the same pools quantized,
     beside the plain versions, the bounds and (K4) SDPA over gathered
     K/V; then the same at one row of 1024 keys (the engine's last
-    request), with its own bounds and yardstick.
-11. times (K5) — K5's main path (``rms_norm`` once at [8, 1024, 2048]
+    request), with its own bounds and yardstick; then K4 at the draft's
+    shape (8 rows, 12 heads of 64).
+14. times (K5) — K5's main path (``rms_norm`` once at [8, 1024, 2048]
     bf16, counted), then µs per launch beside the plain version, the
     bound and ``torch.nn.functional.rms_norm``.
-12. train — GPT-3 760M in bf16 at full width and depth, batch 8 x 1024,
+15. train — GPT-3 760M in bf16 at full width and depth, batch 8 x 1024,
     through ``CompiledTrainStep`` + ``AdamW(1e-4)``: 2 warm-up and 8
     timed steps on one repeated batch.  K1–K3 launch counts are set to 0
     just before and must each equal 24 x steps; losses must be finite and
     fall.
-13. train_profile — ``torch.profiler`` over one more step of that run
+16. train_profile — ``torch.profiler`` over one more step of that run
     (busy share, top device ops, device time by kind of op), and CUDA
     events around the forward, backward and AdamW update of another.
-14. train_in_model — the 760M width at 2 layers: one forward and
+17. train_in_model — the 760M width at 2 layers: one forward and
     backward through the kernels, then through their plain versions,
     then through the kernels with ``recompute="selective"`` (the same
     grads; K1 replayed in the backward).
-15. times (K1–K3) — µs per launch at the training shape beside the
+18. times (K1–K3) — µs per launch at the training shape beside the
     plain versions, the bounds and ``scaled_dot_product_attention``'s
     flash forward and backward (yardsticks the port never calls).
 
@@ -102,6 +119,7 @@ from paddle_tpu_torch.kernels import rms_norm as rn
 from paddle_tpu_torch.models.gpt import _mm
 from paddle_tpu_torch.profiler import counters
 from paddle_tpu_torch.quantization import PTQ_WEIGHTS, ptq_int8_decode_state
+from paddle_tpu_torch.serving import SpeculativeLLMEngine, bucket_length
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor)
 #: FLOP/s (the type the paged decode kernel computes in) and dense bf16
@@ -395,12 +413,35 @@ def _engine_prompts(V):
     return rng, prompts
 
 
+#: gauges (EMAs), not counters: a delta of them means nothing
+SPEC_GAUGES = ("serving.spec.acceptance", "serving.spec.yield")
+
+
+def _expected_launches(eng, moved):
+    """The paged-attention launches a counted run must show, by counter
+    name; every other count must be 0.  The paged engine launches the
+    variant its pools select once a layer a decode step; the speculative
+    engine once a draft layer a draft step (the target's verify pass is
+    dense attention); the slot engine never (dense attention)."""
+    if eng.kv_layout == "slots":
+        return {}
+    kv = eng.kv_dtype
+    name = ("paged_decode_attention" if kv is None
+            else f"paged_decode_attention_{kv}")
+    if isinstance(eng, SpeculativeLLMEngine):
+        return {name: moved.get("serving.spec.draft_steps", 0)
+                * eng.draft_model.config.num_layers}
+    return {name: moved.get("serving.decode_steps", 0)
+            * eng.config.num_layers}
+
+
 def _serve_counted(eng, prompts, max_new, phase):
     """The counted main-path run: every paged-attention launch count set to
     0 just before, read just after.  Returns the phase record, the
-    handles and a snapshot of the fullest decode batch (tables and clones
-    of the pools) for the in-model comparison."""
+    handles and (paged layout) a snapshot of the fullest decode batch
+    (tables and clones of the pools) for the in-model comparison."""
     L = eng.config.num_layers
+    paged = eng.kv_layout == "paged"
     pa.reset_launch_counts()
     before = counters.snapshot()
     t_run = time.perf_counter()
@@ -409,19 +450,21 @@ def _serve_counted(eng, prompts, max_new, phase):
     decode_only = []          # (seconds, tokens) of steps with no prefill
     snap, best = None, 0
     while not all(h.is_finished for h in handles):
-        chunks0 = counters.get("serving.kv.prefill_chunks")
+        prefills0 = (counters.get("serving.kv.prefill_chunks"),
+                     counters.get("serving.prefill_batches"))
         toks0 = counters.get("serving.decode_tokens")
         t0 = time.perf_counter()
         events = eng.step()
         dt = time.perf_counter() - t0
         now = time.monotonic_ns()
-        if counters.get("serving.kv.prefill_chunks") == chunks0:
+        if (counters.get("serving.kv.prefill_chunks"),
+                counters.get("serving.prefill_batches")) == prefills0:
             decode_only.append((dt, counters.get("serving.decode_tokens")
                                 - toks0))
         for ev in events:
             if ev["type"] == "token" and ev["index"] == 0:
                 first[ev["request"].rid] = now - ev["request"].arrival_ns
-        running = int(eng._running.sum())
+        running = int(eng._running.sum()) if paged else 0
         if running > best:
             # the fullest decode batch so far, for the in-model comparison
             best = running
@@ -447,23 +490,20 @@ def _serve_counted(eng, prompts, max_new, phase):
         if not all(0 <= t < V for t in h.tokens):
             raise AssertionError(f"{phase}: token out of range in {h}")
     steps = moved.get("serving.decode_steps", 0)
-    # the one paged-attention variant the pools' dtype selects runs once
-    # per layer per decode step; the others never run
-    kv = eng.kv_dtype
-    want_name = ("paged_decode_attention" if kv is None
-                 else f"paged_decode_attention_{kv}")
+    want = _expected_launches(eng, moved)
     for name, n in launches.items():
-        want = steps * L if name == want_name else 0
-        if (name == want_name and n <= 0) or n != want:
-            raise AssertionError(f"{phase}: {name} launched {n} times, want "
-                                 f"{want} (decode_steps {steps} x {L} "
-                                 "layers)")
+        if n != want.get(name, 0) or (name in want and n <= 0):
+            raise AssertionError(
+                f"{phase}: {name} launched {n} times, want "
+                f"{want.get(name, 0)} (decode_steps {steps}, counters "
+                f"{moved})")
 
     ttft = np.array(sorted(first.values())) / 1e6
     d_s = sum(s for s, _ in decode_only)
     d_tok = sum(n for _, n in decode_only)
     record = {
-        "phase": phase, "kv_dtype": kv, "weight_dtype": eng.weight_dtype,
+        "phase": phase, "kv_layout": eng.kv_layout,
+        "kv_dtype": eng.kv_dtype, "weight_dtype": eng.weight_dtype,
         "layers": L, "requests": len(handles),
         "prompt_tokens": int(sum(len(p) for p in prompts)),
         "generated_tokens": int(sum(len(h.tokens) for h in handles)),
@@ -475,14 +515,17 @@ def _serve_counted(eng, prompts, max_new, phase):
         "decode_step_ms_p50": (float(np.median([s for s, _ in decode_only]))
                                * 1e3 if decode_only else None),
         "output_tokens_per_s": sum(len(h.tokens) for h in handles) / wall,
-        "kernel_launches": launches[want_name], "launches": launches,
+        "kernel_launches": sum(want.values()), "launches": launches,
         "decode_steps": steps,
-        "kv_pool_bytes": eng.stats()["kv_pool_bytes"],
+        "kv_pool_bytes": (eng.stats()["kv_pool_bytes"] if paged
+                          else eng._ck.nbytes + eng._cv.nbytes),
         "counters": {k: v for k, v in moved.items()
                      if k.startswith(("serving.kv.prefix", "serving.kv.cow",
                                       "serving.kv.prefill", "serving.decode",
                                       "serving.kv.blocks_evicted",
-                                      "serving.kv.quant"))},
+                                      "serving.kv.quant", "serving.spec",
+                                      "serving.prefill"))
+                     and k not in SPEC_GAUGES},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     return record, handles, snap
@@ -865,6 +908,383 @@ def int8_epilogue_phase(model):
           "bound_ms_bf16": 2 * n_w / HBM_BYTES_PER_S * 1e3,
           "bound_ms_int8_eager": 5 * n_w / HBM_BYTES_PER_S * 1e3,
           "bound_ms_int8_fused": n_w / HBM_BYTES_PER_S * 1e3})
+
+
+# ---------------------------------------------------------------------------
+# the slot layout, generate and speculative decoding
+# ---------------------------------------------------------------------------
+#: proposals a speculative round drafts
+SPEC_K = 4
+
+
+def _fp32_state(w):
+    """fp32 copies of a ``decode_state()`` dict: the serving entry points
+    compute in the dtype of the weights and K/V they are given, so one
+    model object runs the same step in fp32."""
+    return {k: ({n: t.float() for n, t in v.items()} if k == "lws"
+                else None if v is None else v.float())
+            for k, v in w.items()}
+
+
+#: floor of the self-calibrated tolerance, relative to the fp32 logit
+#: scale.  Two fp32 paths of the same step differ only by reordered fp32
+#: sums (TF32 is off): 1.1e-6 to 1.8e-6 of the scale on an NVIDIA H100
+#: 80GB HBM3 at 700 W; a path that attends to a wrong position or block
+#: moves logits by far more
+SELF_CALIBRATED_FLOOR = 1e-5
+
+
+def _self_calibrated(phase, a16, b16, a32, b32):
+    """Path ``a`` (under test) and path ``b`` (its yardstick) of the same
+    step, each in bf16 and on fp32 copies of the same weights and K/V,
+    logits ``[rows, V]``.  Gates:
+
+    * fp32 agreement: ``max |a32 - b32| <= floor``
+      (``SELF_CALIBRATED_FLOOR`` of the fp32 logit scale);
+    * elementwise ``|a16 - b16| <= 2 * max(|a16 - a32|, |b16 - b32|) +
+      floor``.  Given the first gate this follows from the triangle
+      inequality: it holds whatever either path's bf16 error, so it is no
+      margin and catches no bf16 fault;
+    * per row, each path's bf16 logits against the other path's fp32
+      logits within twice that other path's own bf16 noise: ``max_v |a16
+      - b32| <= 2 * max_v |b16 - b32| + floor``, and the same with ``a``
+      and ``b`` swapped.  A bf16-only fault in one path (a lost dtype
+      order, a coarser rounding of K/V) moves it away from the fp32
+      answer while the other path's noise, the bound, stays put.
+
+    Returns the record's numbers (``*_over_bound``: the worst row's
+    distance over its bound, under 1 to pass)."""
+    a16, b16, a32, b32 = (t.float() for t in (a16, b16, a32, b32))
+    scale = float(b32.abs().max())
+    floor = SELF_CALIBRATED_FLOOR * max(1.0, scale)
+    noise_a, noise_b = (a16 - a32).abs(), (b16 - b32).abs()
+    err = (a16 - b16).abs()
+
+    def cross(x16, y32, y_noise):
+        return float(((x16 - y32).abs().amax(-1)
+                      / (2 * y_noise.amax(-1) + floor)).max())
+
+    out = {"max_abs_err_bf16": float(err.max()),
+           "max_abs_err_fp32": float((a32 - b32).abs().max()),
+           "floor": floor, "logit_scale": scale,
+           "bf16_noise_max_a": float(noise_a.max()),
+           "bf16_noise_max_b": float(noise_b.max()),
+           "a16_vs_b32_over_bound": cross(a16, b32, noise_b),
+           "b16_vs_a32_over_bound": cross(b16, a32, noise_a),
+           "argmax_agreement_bf16": float(
+               (a16.argmax(-1) == b16.argmax(-1)).float().mean())}
+    if not (all(bool(torch.isfinite(t).all()) for t in (a16, b16, a32, b32))
+            and out["max_abs_err_fp32"] <= floor
+            and bool((err <= 2 * torch.maximum(noise_a, noise_b)
+                      + floor).all())
+            and out["a16_vs_b32_over_bound"] <= 1.0
+            and out["b16_vs_a32_over_bound"] <= 1.0):
+        raise AssertionError(f"{phase}: {out}")
+    return out
+
+
+def engine_slots_phase(model, prompts, tokens, paged_record):
+    """The default slot layout, ``LLMEngine(model, max_slots=8,
+    max_seq_len=1024)``, over the engine phase's model and its 16 greedy
+    requests; no paged-attention launch (dense attention over the
+    arena).  Greedy agreement with the paged engine is printed, not
+    gated: random weights flip near-ties between two correct bf16
+    paths."""
+    eng = LLMEngine(model, max_slots=8, max_seq_len=1024)
+    rng = np.random.default_rng(2)
+    V = model.config.vocab_size
+    eng.generate([rng.integers(0, V, 64)], max_new_tokens=2)   # warm-up
+    torch.cuda.synchronize()
+    record, handles, _ = _serve_counted(eng, prompts, 32, "engine_slots")
+    record.update(
+        model="gpt3_1_3b bf16", arena_bytes=record.pop("kv_pool_bytes"),
+        greedy_requests_equal_to_paged=sum(
+            h.tokens == b for h, b in zip(handles, tokens)),
+        greedy_token_agreement_with_paged=_agreement(handles, tokens),
+        paged_decode_step_ms_p50=paged_record["decode_step_ms_p50"],
+        paged_ttft_ms_p50=paged_record["ttft_ms_p50"],
+        paged_kv_pool_bytes=paged_record["kv_pool_bytes"])
+    emit(record)
+    return eng
+
+
+def generate_phase(model, slot_eng):
+    """``GPTForCausalLM.generate`` at the 1.3B model: 4 prompts of 128
+    tokens, 32 new tokens, greedy; one sampled call (top_p 0.9, seed 11)
+    made twice, which must give the same tokens; and eos fill with an
+    eos taken from the greedy output.  Greedy agreement with the slot
+    engine over the same prompts is printed, not gated."""
+    V = model.config.vocab_size
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        0, V, (4, 128))).cuda()
+    model.generate(ids[:, :16], max_new_tokens=2)   # warm-up
+    torch.cuda.synchronize()
+    wall = {}
+
+    def timed(name, **kw):
+        t0 = time.perf_counter()
+        out = model.generate(ids, max_new_tokens=32, **kw)
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        return out
+
+    greedy = timed("greedy")
+    sampled = [timed(f"sampled_{i}", do_sample=True, top_p=0.9, seed=11)
+               for i in range(2)]
+    eos = int(greedy[0, 128 + 5])
+    with_eos = timed("greedy_eos", eos_token_id=eos)
+    for out in (greedy, *sampled, with_eos):
+        if out.shape != (4, 160) or not torch.equal(out[:, :128], ids) or \
+                not bool(((out >= 0) & (out < V)).all()):
+            raise AssertionError(f"generate: output {tuple(out.shape)} "
+                                 "malformed")
+    if not torch.equal(sampled[0], sampled[1]):
+        raise AssertionError("generate: two sampled calls with seed 11 "
+                             "differ")
+    new, new_eos = greedy[:, 128:].cpu(), with_eos[:, 128:].cpu()
+    for r in range(4):
+        hit = (new_eos[r] == eos).nonzero()
+        cut = int(hit[0]) + 1 if len(hit) else 32
+        if not (torch.equal(new_eos[r, :cut], new[r, :cut])
+                and bool((new_eos[r, cut:] == eos).all())):
+            raise AssertionError(f"generate: row {r} eos fill {new_eos[r]}")
+    if int((new_eos[0] == eos).sum()) < 32 - 5:
+        raise AssertionError("generate: row 0 does not keep emitting eos")
+    handles = [slot_eng.add_request(ids[i].cpu().numpy(), max_new_tokens=32)
+               for i in range(4)]
+    while not all(h.is_finished for h in handles):
+        slot_eng.step()
+    emit({"phase": "generate", "model": "gpt3_1_3b bf16", "batch": [4, 128],
+          "max_new_tokens": 32, "wall_ms": {k: v * 1e3 for k, v in
+                                             wall.items()},
+          "ms_per_step": wall["greedy"] * 1e3 / 32,
+          "ms_per_token": wall["greedy"] * 1e3 / (4 * 32),
+          "sampled_equal_twice": True, "eos": eos,
+          "sampled_token_agreement_with_greedy": float(
+              (sampled[0] == greedy)[:, 128:].float().mean()),
+          "greedy_token_agreement_with_slot_engine": _agreement(
+              handles, new.tolist())})
+
+
+def _spec_engine(model, draft, **kw):
+    # the pool covers both namespaces at every slot's worst case
+    return LLMEngine(model, draft_model=draft, spec_k=SPEC_K, max_slots=8,
+                     max_seq_len=1024, block_size=16, prefill_chunk=128,
+                     n_blocks=2 * 8 * 64 + 1, **kw)
+
+
+def _spec_counted(eng, prompts, phase, paged_record, tokens):
+    """A counted speculative run (``_serve_counted``: K4/K4q launches ==
+    draft steps x draft layers) with its own gates: drafted = accepted +
+    rejected, and no block leaked (free blocks + the prefix tree's blocks
+    = the pool's capacity)."""
+    record, handles, _ = _serve_counted(eng, prompts, 32, phase)
+    c = record["counters"]
+    drafted = c.get("serving.spec.drafted", 0)
+    accepted = c.get("serving.spec.accepted", 0)
+    rejected = c.get("serving.spec.rejected", 0)
+    emitted = c.get("serving.decode_tokens", 0)
+    free, tree = eng.pool.free_blocks, eng.prefix.nodes
+    if drafted <= 0 or drafted != accepted + rejected:
+        raise AssertionError(f"{phase}: drafted {drafted} != accepted "
+                             f"{accepted} + rejected {rejected}")
+    if free + tree != eng.pool.capacity:
+        raise AssertionError(f"{phase}: {free} free + {tree} in the prefix "
+                             f"tree != capacity {eng.pool.capacity}")
+    record.update(
+        draft_layers=eng.draft_model.config.num_layers, spec_k=eng.spec_k,
+        acceptance=accepted / drafted,
+        tokens_per_round_per_row=emitted / max(emitted - accepted, 1),
+        rounds=c.get("serving.spec.verify_steps", 0),
+        draft_steps=c.get("serving.spec.draft_steps", 0),
+        blocks_free_plus_tree=free + tree, blocks_capacity=eng.pool.capacity,
+        greedy_token_agreement_with_paged=_agreement(handles, tokens),
+        paged_decode_tokens_per_s=paged_record["decode_tokens_per_s"])
+    emit(record)
+    return record
+
+
+def _draft_cfg():
+    return GPTConfig.gpt3_125m(vocab_size=50304, max_seq_len=1024,
+                               dtype="bfloat16")
+
+
+def engine_spec_phase(model, prompts, tokens, paged_record):
+    """Speculative decoding: target = the engine phase's GPT-3 1.3B bf16,
+    draft = GPT-3 125M bf16 (12 layers, 12 heads of 64, random weights
+    from seed 1), ``spec_k=4``, 8 of the 16 requests, greedy; then 4
+    requests self-drafted, and 4 over int8 pools.  Then the in-model
+    checks at the fullest speculative round (spec_in_model).  Returns
+    that round's draft pools, tables and positions for K4's times at the
+    draft's shape."""
+    draft = GPTForCausalLM(_draft_cfg(), device="cuda",
+                           generator=torch.Generator().manual_seed(1))
+    eng = _spec_engine(model, draft)
+    rng = np.random.default_rng(4)
+    V = model.config.vocab_size
+    eng.generate([rng.integers(0, V, 64)], max_new_tokens=8)   # warm-up
+    torch.cuda.synchronize()
+    _spec_counted(eng, prompts[:8], "engine_spec", paged_record, tokens)
+    snap = spec_in_model_phase(eng, rng)
+    del eng
+    _free_cuda()
+    self_eng = _spec_engine(model, model)
+    _spec_counted(self_eng, prompts[:4], "engine_spec_self_draft",
+                  paged_record, tokens)
+    del self_eng
+    _free_cuda()
+    q_eng = _spec_engine(model, draft, kv_dtype="int8")
+    _spec_counted(q_eng, prompts[:4], "engine_spec_int8", paged_record,
+                  tokens)
+    del q_eng
+    _free_cuda()
+    return snap
+
+
+def spec_in_model_phase(eng, rng):
+    """At the fullest speculative round (8 fresh requests, all past
+    prefill, draft tables grown for the round): the draft's decode step
+    through K4 at head dim 64 against its plain version (``_in_model``'s
+    tolerance), and the target's ``verify_paged`` logits at column 0
+    against ``decode_paged``'s for the same rows and pools
+    (``_self_calibrated``: both in bf16 and on fp32 copies)."""
+    V = eng.config.vocab_size
+    handles = [eng.add_request(rng.integers(0, V, int(n)), max_new_tokens=32)
+               for n in rng.integers(64, 701, eng.max_slots)]
+    while not all(h.state == "running" for h in handles):
+        eng.step()
+    K1 = eng.spec_k + 1
+    run = eng._running.copy()
+    eng._grow_draft_tables(np.where(run, K1, 1).astype(np.int32))
+    rows = int(run.sum())
+    pos0 = np.where(run, eng._pos, 0).astype(np.int32)
+    tok = eng._tok.copy()
+    dbt = np.where(run[:, None], eng._dbt, 0)
+    bt = np.where(run[:, None], eng._bt, 0)
+    dpools = [t.clone() for t in (eng.dpool_k, eng.dpool_v)]
+    _in_model(eng.draft_model, eng._dw,
+              dict(tok=tok, pos=pos0, bt=dbt, rows=rows, pools=dpools),
+              "spec_in_model_draft")
+
+    dev = "cuda"
+    toks = np.concatenate([tok[:, None], rng.integers(0, V, (len(tok),
+                                                             K1 - 1))], 1)
+    nv = np.where(run, K1, 1).astype(np.int32)
+    t = {k: torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(dev)
+         for k, a in (("toks", toks), ("tok", tok), ("pos", pos0),
+                      ("nv", nv), ("bt", bt))}
+    logits = {}
+    for name, w, dt in (("bf16", eng._w, None),
+                        ("fp32", _fp32_state(eng._w), torch.float32)):
+        pools = [p.clone() if dt is None else p.to(dt)
+                 for p in (eng.pool_k, eng.pool_v)]
+        v = eng.model.verify_paged(w, t["toks"], t["pos"], t["nv"], t["bt"],
+                                   *pools)[:, 0]
+        pools = [p.clone() if dt is None else p.to(dt)
+                 for p in (eng.pool_k, eng.pool_v)]
+        d = eng.model.decode_paged(w, t["tok"], t["pos"], t["bt"], *pools)
+        logits[name] = (v[run], d[run])
+        del pools
+    torch.cuda.synchronize()
+    rec = _self_calibrated("spec_in_model", *logits["bf16"], *logits["fp32"])
+    emit({"phase": "spec_in_model", "rows_running": rows, "spec_k": eng.spec_k,
+          "check": "verify_paged column 0 vs decode_paged, bf16 and fp32",
+          **rec})
+    for h in handles:
+        h.cancel()
+    while eng.has_work():
+        eng.step()
+    return dict(pools=dpools, bt=dbt, pos=pos0, rows=rows)
+
+
+def slots_in_model_phase():
+    """The slot path against the paged path in a 2-layer model at the
+    1.3B width: 8 prompts of 64-700 tokens prefilled through
+    ``prefill_slot`` into an arena and through ``prefill_paged`` chunks of
+    128 into block pools, then one ``decode_slots`` and one
+    ``decode_paged`` (K4) step on the same tokens; in bf16 and on fp32
+    copies of the same weights, held by ``_self_calibrated``."""
+    cfg = GPTConfig.gpt3_1_3b(dtype="bfloat16")
+    cfg.num_layers = 2
+    model = GPTForCausalLM(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(4))
+    V, L, nh = cfg.vocab_size, cfg.num_layers, cfg.num_heads
+    hd = cfg.hidden_size // nh
+    rng = np.random.default_rng(5)
+    lens = rng.integers(64, 701, 8)
+    prompts = [rng.integers(0, V, int(n)) for n in lens]
+    S, bs, chunk = 1024, 16, 128
+    max_blocks = S // bs
+    bt = torch.arange(1, 8 * max_blocks + 1, dtype=torch.int32,
+                      device="cuda").reshape(8, max_blocks)
+    tok = torch.from_numpy(rng.integers(0, V, 8).astype(np.int32)).cuda()
+    pos = torch.from_numpy(lens.astype(np.int32)).cuda()
+    out = {}
+    for name, w, dt in (("bf16", model.decode_state(), torch.bfloat16),
+                        ("fp32", _fp32_state(model.decode_state()),
+                         torch.float32)):
+        arena = [torch.zeros((L, 8, S, nh, hd), dtype=dt, device="cuda")
+                 for _ in "kv"]
+        pools = [torch.zeros((L, 8 * max_blocks + 1, bs, nh, hd), dtype=dt,
+                             device="cuda") for _ in "kv"]
+        pre = {"slot": [], "paged": []}
+        for b, p in enumerate(prompts):
+            T = len(p)
+            ids = np.zeros((1, bucket_length(T, 8, S)), np.int64)
+            ids[0, :T] = p
+            pre["slot"].append(model.prefill_slot(
+                w, torch.from_numpy(ids).cuda(), T, arena[0][:, b:b + 1],
+                arena[1][:, b:b + 1])[0])
+            start = 0
+            while start < T:       # the paged engine's chunks of 128
+                C = bucket_length(min(T - start, chunk), 8, chunk)
+                take = min(T - start, C)
+                ids = np.zeros((1, C), np.int64)
+                ids[0, :take] = p[start:start + take]
+                lg = model.prefill_paged(w, torch.from_numpy(ids).cuda(),
+                                         start, take, bt[b], *pools)
+                start += take
+            pre["paged"].append(lg[0])
+        out[name] = {
+            "prefill": (torch.stack(pre["slot"]), torch.stack(pre["paged"])),
+            "decode": (model.decode_slots(w, tok, pos, *arena),
+                       model.decode_paged(w, tok, pos, bt, *pools))}
+        del arena, pools
+    torch.cuda.synchronize()
+    emit({"phase": "slots_in_model", "layers": L, "rows": 8,
+          "prompt_tokens": int(lens.sum()),
+          "check": "slot path vs paged path, bf16 and fp32",
+          **{step: _self_calibrated(f"slots_in_model {step}",
+                                    *out["bf16"][step], *out["fp32"][step])
+             for step in ("prefill", "decode")}})
+
+
+def draft_times_phase(snap):
+    """K4 at the draft's shape (GPT-3 125M: 12 heads of 64) over the
+    fullest speculative round's draft pools, tables and positions,
+    beside its plain version, SDPA over the gathered K/V and its bound,
+    on a line of its own."""
+    pk, pv = snap["pools"]
+    L, n_blocks, bs, nh, hd = pk.shape
+    bt = torch.from_numpy(snap["bt"].astype(np.int32)).cuda()
+    pos = torch.from_numpy(snap["pos"].astype(np.int32)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q = (torch.randn(bt.shape[0], nh, hd, generator=gen, device="cuda")
+         / math.sqrt(hd)).to(pk.dtype)
+    r = _paged_times(q, {None: (pk, pv)}, bt, pos, 48)[None]
+    emit({"phase": "times", "kernel": "paged_decode_attention",
+          "case": "draft shape (GPT-3 125M heads), fullest speculative round",
+          "rows_running": snap["rows"], "shape": r["shape"],
+          "kernel_us": r["ms"] * 1e3, "plain_us": r["plain_ms"] * 1e3,
+          "library_us": r["library_ms"] * 1e3,
+          "library": "sdpa over pre-gathered K/V",
+          "times": "device time per wrapper call, split kernel and merge "
+                   "(queued CUDA events)",
+          "event_us": {k: v * 1e3 for k, v in r["event_ms"].items()},
+          "runs_ms": r["runs_ms"], "bytes": r["bytes"], "flops": r["flops"],
+          "bound_us": r["bound_ms"] * 1e3, "bound_by": r["bound_by"],
+          "share_of_bound": r["bound_ms"] / r["ms"],
+          "kernel_gb_per_s": r["bytes"] / (r["ms"] * 1e-3) / 1e9})
 
 
 # ---------------------------------------------------------------------------
@@ -1457,7 +1877,14 @@ def main():
     model, prompts, tokens, record, snap = engine_phase()
     quant, fp8, _ = engine_quant_phase(model, prompts, tokens, record)
     int8_epilogue_phase(model)
+    slot_eng = engine_slots_phase(model, prompts, tokens, record)
+    generate_phase(model, slot_eng)
+    del slot_eng
+    _free_cuda()
+    draft_snap = engine_spec_phase(model, prompts, tokens, record)
     del model
+    _free_cuda()
+    slots_in_model_phase()
     _free_cuda()
     launches = {**record["launches"],
                 "paged_decode_attention_int8":
@@ -1465,7 +1892,8 @@ def main():
                 "paged_decode_attention_fp8":
                     fp8["launches"]["paged_decode_attention_fp8"]}
     paged_rows = times_phase(snap, max_err, launches)
-    del snap          # the serving phase's pools, before training
+    draft_times_phase(draft_snap)
+    del snap, draft_snap   # the serving phases' pools, before training
     _free_cuda()
     rms_row = rms_times_phase(rms_err)
     _free_cuda()

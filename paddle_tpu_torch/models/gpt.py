@@ -20,6 +20,18 @@ through the CUDA kernel ``kernels/paged_attention`` on a CUDA device.
 Quantized KV (int8/fp8 pools with per-token fp32 scale pools ``[L,
 n_blocks, bs]``) quantizes on insert; decode attends through the
 kernel's quantized variant, prefill over the dequantized gather.
+:meth:`GPTForCausalLM.verify_paged` scores a speculative draft block
+over the same pools (dense attention over the gathered sequence).
+
+Slot serving and ``generate``: :meth:`GPTForCausalLM.prefill_slot` and
+:meth:`GPTForCausalLM.decode_slots` run over a dense per-slot arena
+``[L, B, S, nh, hd]`` (``LLMEngine``'s default layout) and
+:meth:`GPTForCausalLM.generate` over a cache of its own: K/V written in
+place, dense attention that the reference leaves to XLA (no kernel
+stands behind it).
+
+Every serving entry point runs one layer loop (``_layers``); they
+differ only in how a layer writes its new K/V and attends.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ from ..kernels import paged_attention as _pa
 from ..kernels._shapes import NEG_INF
 from ..kernels.flash_attention import flash_attention_fwd, reference_attention
 from ..kernels.rope import apply_rope
+from ..serving.sampling import sample_tokens
 
 
 class GPTConfig:
@@ -129,26 +142,70 @@ def _dropout(x, p, seed):
 _RECOMPUTE = (False, True, "selective", "selective_lean")
 
 
-def _lm_logits(c, wte, lnf_w, lnf_b, head, h_last):
-    """Final norm + LM head in the model dtype, then fp32 logits."""
-    h_last = _norm(h_last, lnf_w, lnf_b, c.layer_norm_epsilon)
-    w = wte.T if c.tie_word_embeddings else head
-    return torch.matmul(h_last, w).float()
-
-
-def _rope_rows(x, pos, base=10000.0):
-    """apply_rope for single-token rows ``x[B, 1, nh, hd]`` sitting at
-    per-row positions ``pos[B]``."""
-    b, s, h, d = x.shape
+def _rope_grid(x, pos, base=10000.0):
+    """apply_rope for a grid of tokens ``x[B, T, nh, hd]`` sitting at
+    per-token positions ``pos`` (``[B, T]``, or ``[1, T]`` shared by the
+    rows): each token gets its own rotation."""
+    d = x.shape[-1]
     inv = 1.0 / (base ** (torch.arange(0, d, 2, dtype=torch.float32,
                                        device=x.device) / d))
-    freqs = pos.float()[:, None] * inv[None, :]               # [B, d/2]
-    sin = torch.sin(freqs)[:, None, None, :]
-    cos = torch.cos(freqs)[:, None, None, :]
+    freqs = pos.float()[..., None] * inv                      # [B, T, d/2]
+    sin = torch.sin(freqs)[:, :, None, :]
+    cos = torch.cos(freqs)[:, :, None, :]
     xf = x.float()
     x1, x2 = xf[..., : d // 2], xf[..., d // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
     return out.to(x.dtype)
+
+
+def _causal_mask(pos, S):
+    """``[B, 1, T, S]`` for tokens at positions ``pos[B, T]`` (B may be
+    1): key ``s`` is visible to the token at ``pos[b, t]`` when ``s <=
+    pos[b, t]``."""
+    return (torch.arange(S, device=pos.device) <= pos[..., None])[:, None]
+
+
+def _paged_write(pool, spool, new, blk, off, keep=None):
+    """Write one layer's new K (or V) ``new[..., nh, hd]`` in place into
+    ``pool [n_blocks, bs, nh, hd]`` at ``(blk, off)``.  With a scale pool
+    ``spool [n_blocks, bs]`` the pool is int8/fp8: ``new`` is quantized
+    on insert and its per-token scales are written beside it.  ``keep``
+    (bool, ``new``'s token shape) zeroes the tokens it drops, scales
+    included."""
+    if keep is not None:
+        new = torch.where(keep[..., None, None], new, 0)
+    if spool is None:
+        pool.index_put_((blk, off), new.to(pool.dtype))
+        return
+    xq, xs = _pa.quantize_kv(new, _pa.kv_dtype_of(pool.dtype))
+    pool.index_put_((blk, off), xq)
+    spool.index_put_((blk, off),
+                     xs if keep is None else torch.where(keep, xs, 0.0))
+
+
+def _paged_write_gather(pool, spool, new, blk, off, bt_l, keep=None):
+    """:func:`_paged_write`, then the rows' logical sequences gathered
+    through their tables ``bt_l`` (``pool[bt_l]``; dequantized to fp32
+    with a scale pool)."""
+    _paged_write(pool, spool, new, blk, off, keep)
+    if spool is None:
+        return pool[bt_l]
+    return _pa.dequantize_kv(pool[bt_l], spool[bt_l])
+
+
+def _dense_attention(q, k, v, mask):
+    """Masked softmax attention of ``q[B, T, nh, hd]`` over ``k``/``v
+    [B, S, nh, hd]``; ``mask`` broadcasts to ``[B, nh, T, S]``.  The
+    reference's dtype order: logits from ``q * scale`` widened to fp32
+    against fp32 keys, probabilities cast to ``v``'s dtype before the PV
+    product (the order that keeps bf16 in step with the JAX package).
+    Returns ``[B, T, nh, hd]`` in ``v``'s dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", (q * scale).float(), k.float())
+    logits = torch.where(mask, logits,
+                         torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
 
 
 def _mm(x, lw, name):
@@ -281,17 +338,6 @@ class GPTForCausalLM(nn.Module):
                                  f"{arr.shape}, want {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(arr)))  # a writable copy
 
-    def _embed(self, wte, wpe, ids, start):
-        """Token + learned-position embedding of ``ids[B, C]`` sitting at
-        positions ``start + i``.  Positions are gathered per token; a
-        padded tail that runs past the table is clamped token by token,
-        so the live tokens always get their own positions."""
-        h = wte[ids]
-        if wpe is not None:
-            p = start + torch.arange(ids.shape[1], device=ids.device)
-            h = h + wpe[p.clamp(max=wpe.shape[0] - 1)]
-        return h
-
     # -- training forward ---------------------------------------------------
     def forward(self, input_ids, *, generator=None, kernel=True):
         """Logits ``[B, S, V]`` in the model dtype for ``input_ids [B, S]``
@@ -412,6 +458,99 @@ class GPTForCausalLM(nn.Module):
         return h + (_mm(F.gelu(up, approximate="tanh"), lw, "fc2_w")
                     + lw["fc2_b"])
 
+    def _layers(self, w, ids, pos, attend):
+        """Embed ``ids[B, T]``, whose tokens sit at positions ``pos``
+        (int64 ``[B, T]``, or ``[1, T]`` shared by every row), and run
+        every block over them.  ``attend(l, q, k, v)`` writes layer
+        ``l``'s new K/V ``[B, T, nh, hd]`` into its cache in place and
+        returns the attention output ``[B, T, nh, hd]``: the serving
+        layouts differ only there.  Learned positions past the table (a
+        padded tail) are clamped token by token, so the live tokens
+        always get their own; RoPE turns each token by its own position.
+        Returns ``h[B, T, H]`` before the final norm."""
+        c = self.config
+        nh, H = c.num_heads, c.hidden_size
+        B, T = ids.shape
+        h = w["wte"][ids]
+        if w["wpe"] is not None:
+            h = h + w["wpe"][pos.clamp(max=w["wpe"].shape[0] - 1)]
+        for l in range(c.num_layers):
+            lw = {n: t[l] for n, t in w["lws"].items()}
+            x = _norm(h, lw["ln1_w"], lw["ln1_b"], c.layer_norm_epsilon)
+            qkv = _mm(x, lw, "qkv_w") + lw["qkv_b"]
+            q, k, v = (t.reshape(B, T, nh, H // nh)
+                       for t in qkv.split(H, dim=-1))
+            if c.use_rope:
+                q, k = _rope_grid(q, pos), _rope_grid(k, pos)
+            o = attend(l, q, k, v)
+            h = h + (_mm(o.reshape(B, T, H).to(h.dtype), lw, "proj_w")
+                     + lw["proj_b"])
+            h = self._ffn(h, lw)
+        return h
+
+    def _logits(self, w, h):
+        """Final norm + LM head in the model dtype, then fp32 logits."""
+        h = _norm(h, w["lnf_w"], w["lnf_b"], self.config.layer_norm_epsilon)
+        head = w["wte"].T if self.config.tie_word_embeddings else w["head"]
+        return torch.matmul(h, head).float()
+
+    def _cached_layers(self, w, ids, cache_k, cache_v, pos):
+        """Run every block over ``ids[B, T]``, whose tokens sit at
+        positions ``[pos, pos + T)`` (``pos`` a host int).  Each layer
+        writes its K/V **in place** into ``cache_k``/``cache_v [L, B, S,
+        nh, hd]`` at those positions (slice assignment: a view of an
+        arena row writes through to the arena), then attends densely over
+        the cache to keys ``kpos <= qpos``.  Returns ``h[B, T, H]``."""
+        T = ids.shape[1]
+        qpos = pos + torch.arange(T, device=ids.device)[None]      # [1, T]
+        mask = _causal_mask(qpos, cache_k.shape[2])
+
+        def attend(l, q, k, v):
+            ck, cv = cache_k[l], cache_v[l]
+            ck[:, pos:pos + T] = k.to(ck.dtype)
+            cv[:, pos:pos + T] = v.to(cv.dtype)
+            return _dense_attention(q, ck, cv, mask)
+
+        return self._layers(w, ids, qpos, attend)
+
+    @torch.no_grad()
+    def prefill_slot(self, w, ids, length, cache_k, cache_v):
+        """Prefill ONE right-padded prompt ``ids[1, Sb]`` of true length
+        ``length`` (a host int) into a slot's cache row ``cache_k``/
+        ``cache_v [L, 1, S, nh, hd]`` with ``S >= Sb`` — the engine passes
+        a view of its arena row.  Positions ``[0, Sb)`` are written in
+        place and attended over, then everything from ``length`` on is
+        zeroed, so the row holds only live K/V.  Returns the fp32
+        next-token logits ``[1, V]`` at position ``length - 1``."""
+        Sb = ids.shape[1]
+        h = self._cached_layers(w, ids, cache_k[:, :, :Sb],
+                                cache_v[:, :, :Sb], 0)
+        cache_k[:, :, length:] = 0
+        cache_v[:, :, length:] = 0
+        return self._logits(w, h[:, length - 1])
+
+    @torch.no_grad()
+    def decode_slots(self, w, tok, pos, cache_k, cache_v):
+        """One decode step for B independent slot rows at per-row
+        positions.  tok ``[B]`` and pos ``[B]`` int32, cache_k/cache_v
+        ``[L, B, S, nh, hd]`` (the engine's arena).  Each row writes its
+        K/V in place at ``pos[row]`` and attends to ``kpos <= pos[row]``.
+        Returns the fp32 logits ``[B, V]``.  Rows are independent, so a
+        slot's tokens are those of ``generate`` decoding its request
+        alone."""
+        pos_l = pos.long()
+        rows = torch.arange(tok.shape[0], device=tok.device)
+        mask = _causal_mask(pos_l[:, None], cache_k.shape[2])
+
+        def attend(l, q, k, v):
+            ck, cv = cache_k[l], cache_v[l]
+            ck.index_put_((rows, pos_l), k[:, 0].to(ck.dtype))
+            cv.index_put_((rows, pos_l), v[:, 0].to(cv.dtype))
+            return _dense_attention(q, ck, cv, mask)
+
+        h = self._layers(w, tok.long()[:, None], pos_l[:, None], attend)
+        return self._logits(w, h[:, 0])
+
     @torch.no_grad()
     def prefill_paged(self, w, ids, start, length, bt, pool_k, pool_v,
                       scale_k=None, scale_v=None):
@@ -435,17 +574,10 @@ class GPTForCausalLM(nn.Module):
         K/V is quantized on insert (``quantize_kv``; padded tokens get
         zero tiles and zero scales in the trash block) and attention runs
         over the gathered view dequantized to fp32."""
-        c = self.config
-        nh, H = c.num_heads, c.hidden_size
-        hd = H // nh
-        B, C = ids.shape
+        C = ids.shape[1]
         bs = pool_k.shape[2]
         max_blocks = bt.shape[0]
-        S = max_blocks * bs
-        scale = 1.0 / math.sqrt(hd)
-        dev = ids.device
-        h = self._embed(w["wte"], w["wpe"], ids, start)
-        ar = torch.arange(C, device=dev)
+        ar = torch.arange(C, device=ids.device)
         valid = ar < length
         tokpos = start + ar
         bt_l = bt.long()
@@ -454,53 +586,18 @@ class GPTForCausalLM(nn.Module):
         blk = torch.where(valid, bt_l[(tokpos // bs).clamp(max=max_blocks - 1)],
                           0)
         off = tokpos % bs
-        kpos = torch.arange(S, device=dev)
-        mask = kpos[None, :] <= tokpos[:, None]                    # [C, S]
-        vm = valid[:, None, None]
-        kv_dt = None if scale_k is None else _pa.kv_dtype_of(pool_k.dtype)
-        for l in range(c.num_layers):
-            lw = {n: t[l] for n, t in w["lws"].items()}
-            ck, cv = pool_k[l], pool_v[l]
-            x = _norm(h, lw["ln1_w"], lw["ln1_b"], c.layer_norm_epsilon)
-            qkv = _mm(x, lw, "qkv_w") + lw["qkv_b"]
-            q, k, v = qkv.split(H, dim=-1)
-            q = q.reshape(B, C, nh, hd)
-            k = k.reshape(B, C, nh, hd)
-            v = v.reshape(B, C, nh, hd)
-            if c.use_rope:
-                q = apply_rope(q, offset=start)
-                k = apply_rope(k, offset=start)
-            if kv_dt is None:
-                zero = torch.zeros((), dtype=ck.dtype, device=dev)
-                ck.index_put_((blk, off),
-                              torch.where(vm, k[0].to(ck.dtype), zero))
-                cv.index_put_((blk, off),
-                              torch.where(vm, v[0].to(cv.dtype), zero))
-                gk = ck[bt_l].reshape(S, nh, hd)[None]
-                gv = cv[bt_l].reshape(S, nh, hd)[None]
-            else:
-                # quantize on insert; a zeroed padded token quantizes to a
-                # zero tile, and its scale is zeroed as the reference does
-                sk, sv = scale_k[l], scale_v[l]
-                for pool, spool, new in ((ck, sk, k[0]), (cv, sv, v[0])):
-                    xq, xs = _pa.quantize_kv(torch.where(vm, new, 0), kv_dt)
-                    pool.index_put_((blk, off), xq)
-                    spool.index_put_((blk, off), torch.where(valid, xs, 0.0))
-                gk = _pa.dequantize_kv(ck[bt_l], sk[bt_l]).reshape(
-                    S, nh, hd)[None]
-                gv = _pa.dequantize_kv(cv[bt_l], sv[bt_l]).reshape(
-                    S, nh, hd)[None]
-            logits = torch.einsum("bqhd,bkhd->bhqk", (q * scale).float(),
-                                  gk.float())
-            logits = torch.where(mask[None, None], logits,
-                                 torch.full((), NEG_INF, device=dev))
-            p = torch.softmax(logits, dim=-1)
-            o = torch.einsum("bhqk,bkhd->bqhd", p.to(gv.dtype), gv)
-            o = o.reshape(B, C, H).to(h.dtype)
-            h = h + (_mm(o, lw, "proj_w") + lw["proj_b"])
-            h = self._ffn(h, lw)
-        return _lm_logits(c, w["wte"], w["lnf_w"], w["lnf_b"], w["head"],
-                          h[:, length - 1])
+        mask = _causal_mask(tokpos[None], max_blocks * bs)
+
+        def attend(l, q, k, v):
+            g = [_paged_write_gather(pool[l], None if sp is None else sp[l],
+                                     new[0], blk, off, bt_l, keep=valid)
+                 for pool, sp, new in ((pool_k, scale_k, k),
+                                       (pool_v, scale_v, v))]
+            return _dense_attention(q, *(t.flatten(0, 1)[None] for t in g),
+                                    mask)
+
+        h = self._layers(w, ids, tokpos[None], attend)
+        return self._logits(w, h[:, length - 1])
 
     @torch.no_grad()
     def decode_paged(self, w, tok, pos, bt, pool_k, pool_v, scale_k=None,
@@ -526,51 +623,141 @@ class GPTForCausalLM(nn.Module):
         runs the kernel's quantized variant (K4q), or its plain
         dequantizing version with ``kernel=False``."""
         c = self.config
-        nh, H = c.num_heads, c.hidden_size
-        hd = H // nh
-        B = tok.shape[0]
-        bs = pool_k.shape[2]
-        scale = 1.0 / math.sqrt(hd)
-        attend = (_pa.paged_decode_attention if kernel
-                  else _pa.paged_decode_attention_reference)
-        tok_l, pos_l = tok.long(), pos.long()
-        h = w["wte"][tok_l][:, None, :]
-        if w["wpe"] is not None:
-            h = h + w["wpe"][pos_l][:, None, :]
-        rows = torch.arange(B, device=tok.device)
-        blk = bt.long()[rows, pos_l // bs]                          # [B]
-        off = pos_l % bs
-        kv_dt = None if scale_k is None else _pa.kv_dtype_of(pool_k.dtype)
-        for l in range(c.num_layers):
-            lw = {n: t[l] for n, t in w["lws"].items()}
-            ck, cv = pool_k[l], pool_v[l]
-            scales = () if kv_dt is None else (scale_k[l], scale_v[l])
-            x = _norm(h, lw["ln1_w"], lw["ln1_b"], c.layer_norm_epsilon)
-            qkv = _mm(x, lw, "qkv_w") + lw["qkv_b"]
-            q, k, v = qkv.split(H, dim=-1)
-            q = q.reshape(B, 1, nh, hd)
-            k = k.reshape(B, 1, nh, hd)
-            v = v.reshape(B, 1, nh, hd)
-            if c.use_rope:
-                q = _rope_rows(q, pos)
-                k = _rope_rows(k, pos)
+        scale = 1.0 / math.sqrt(c.hidden_size // c.num_heads)
+        decode_attention = (_pa.paged_decode_attention if kernel
+                            else _pa.paged_decode_attention_reference)
+        pos_l = pos.long()
+        rows = torch.arange(tok.shape[0], device=tok.device)
+        blk = bt.long()[rows, pos_l // pool_k.shape[2]]             # [B]
+        off = pos_l % pool_k.shape[2]
+
+        def attend(l, q, k, v):
+            scales = () if scale_k is None else (scale_k[l], scale_v[l])
             # idle rows all write the trash slot (0, 0); nothing live
             # reads it, so the duplicate indices are harmless
-            if kv_dt is None:
-                ck.index_put_((blk, off), k[:, 0].to(ck.dtype))
-                cv.index_put_((blk, off), v[:, 0].to(cv.dtype))
+            for pool, sp, new in ((pool_k, scale_k, k), (pool_v, scale_v, v)):
+                _paged_write(pool[l], None if sp is None else sp[l],
+                             new[:, 0], blk, off)
+            o = decode_attention((q[:, 0] * scale).contiguous(), pool_k[l],
+                                 pool_v[l], bt, pos, *scales, scale=1.0)
+            return o[:, None]
+
+        h = self._layers(w, tok.long()[:, None], pos_l[:, None], attend)
+        return self._logits(w, h[:, 0])
+
+    @torch.no_grad()
+    def verify_paged(self, w, toks, pos0, n_valid, bt, pool_k, pool_v,
+                     scale_k=None, scale_v=None, adapters=None):
+        """Speculative-decoding verify step: score ``K1`` token positions
+        per row in one pass over the paged pools (the multi-query sibling
+        of :meth:`decode_paged`; see ``serving.speculative``).
+
+        ``toks[B, K1]`` holds each row's last committed token followed by
+        its ``K1 - 1`` draft proposals; ``toks[b, j]`` sits at position
+        ``pos0[b] + j``.  ``n_valid[B]`` (1..K1) caps how many of the
+        positions are real: writes for ``j >= n_valid`` are routed to the
+        trash block 0, so a row near its token budget never writes past
+        the blocks its admission reserved.  Each valid token's K/V is
+        written in place at ``bt[b, (pos0+j) // bs]``, offset ``(pos0+j)
+        % bs`` (overwriting stale rejected-draft K/V of earlier rounds),
+        and only then is the row's logical sequence gathered: query ``j``
+        attends to ``kpos <= pos0 + j``.  Returns the fp32 logits ``[B,
+        K1, V]`` at every position.  Quantized pools (with
+        ``scale_k``/``scale_v``) quantize on insert and attend over the
+        dequantized gather, as :meth:`prefill_paged` does.  LoRA
+        ``adapters`` are not ported."""
+        if adapters is not None:
+            raise NotImplementedError(
+                "verify_paged(adapters=...) is not ported to paddle_tpu_torch "
+                "yet: ROADMAP.md A6 (LoRA adapter serving)")
+        B, K1 = toks.shape
+        bs = pool_k.shape[2]
+        max_blocks = bt.shape[1]
+        dev = toks.device
+        ar = torch.arange(K1, device=dev)
+        pos = pos0.long()[:, None] + ar[None, :]                     # [B, K1]
+        valid = ar[None, :] < n_valid.long()[:, None]
+        bt_l = bt.long()
+        rows = torch.arange(B, device=dev)[:, None]
+        # positions past n_valid may index past the table: the where()
+        # routes them to the trash block before any write lands
+        blk = torch.where(valid, bt_l[rows, (pos // bs).clamp(
+            max=max_blocks - 1)], 0)
+        off = pos % bs
+        mask = _causal_mask(pos, max_blocks * bs)
+
+        def attend(l, q, k, v):
+            # scatter before the gather: query j sees the committed prefix
+            # and every draft token at or before its own position
+            g = [_paged_write_gather(pool[l], None if sp is None else sp[l],
+                                     new, blk, off, bt_l)
+                 for pool, sp, new in ((pool_k, scale_k, k),
+                                       (pool_v, scale_v, v))]
+            return _dense_attention(q, *(t.flatten(1, 2) for t in g), mask)
+
+        return self._logits(w, self._layers(w, toks.long(), pos, attend))
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=32, do_sample=False,
+                 temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
+                 seed=None):
+        """Autoregressive decoding over a static KV cache ``[L, B, T +
+        max_new_tokens, nh, hd]`` on the model's device: one prefill of
+        ``input_ids [B, T]``, then one step a token.  Returns the int64
+        token ids ``[B, T + max_new_tokens]``; after ``eos_token_id`` a
+        row keeps emitting it.
+
+        Sampling (``do_sample=True``) draws from one ``torch.Generator``
+        on the model's device seeded with ``seed`` (an unseeded one when
+        ``seed`` is None): one draw over ``[B, V]`` after the prefill,
+        then one a step — the slot engine's order, so a batch-1 sampled
+        ``generate`` and a sampled engine request with the same seed give
+        the same tokens.  Greedy decoding makes no generator.  Past
+        ``max_seq_len`` without RoPE raises ``ValueError``."""
+        c = self.config
+        dev = self.device
+        ids = torch.as_tensor(np.asarray(input_ids)
+                              if not isinstance(input_ids, torch.Tensor)
+                              else input_ids).to(dev).long()
+        if ids.dim() != 2:
+            raise ValueError(f"input_ids must be [B, T], got {tuple(ids.shape)}")
+        B, T = ids.shape
+        n = int(max_new_tokens)
+        if n < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {n}")
+        S = T + n
+        if S > c.max_seq_len and not c.use_rope:
+            raise ValueError(f"generation length {S} exceeds max_seq_len "
+                             f"{c.max_seq_len}")
+        gen = None
+        if do_sample:
+            gen = torch.Generator(device=dev)
+            if seed is None:
+                gen.seed()
             else:
-                for pool, spool, new in zip((ck, cv), scales, (k, v)):
-                    xq, xs = _pa.quantize_kv(new[:, 0], kv_dt)
-                    pool.index_put_((blk, off), xq)
-                    spool.index_put_((blk, off), xs)
-            o = attend((q[:, 0] * scale).contiguous(), ck, cv, bt, pos,
-                       *scales, scale=1.0)
-            o = o.reshape(B, 1, H).to(h.dtype)
-            h = h + (_mm(o, lw, "proj_w") + lw["proj_b"])
-            h = self._ffn(h, lw)
-        return _lm_logits(c, w["wte"], w["lnf_w"], w["lnf_b"], w["head"],
-                          h[:, 0])
+                gen.manual_seed(int(seed))
+        knobs = dict(do_sample=bool(do_sample), temperature=float(temperature),
+                     top_k=int(top_k), top_p=float(top_p))
+        w = self.decode_state()
+        nh = c.num_heads
+        shape = (c.num_layers, B, S, nh, c.hidden_size // nh)
+        ck = torch.zeros(shape, dtype=self.wte.dtype, device=dev)
+        cv = torch.zeros_like(ck)
+
+        def next_token(h_last):
+            return sample_tokens(self._logits(w, h_last), gen, **knobs)
+
+        h = self._cached_layers(w, ids, ck, cv, 0)
+        tok = next_token(h[:, -1])
+        eos = -1 if eos_token_id is None else int(eos_token_id)
+        done = tok == eos
+        out = [tok]
+        for i in range(n - 1):
+            h = self._cached_layers(w, tok[:, None], ck, cv, T + i)
+            tok = torch.where(done, eos, next_token(h[:, -1]))
+            done = done | (tok == eos)
+            out.append(tok)
+        return torch.cat([ids, torch.stack(out, dim=1)], dim=1)
 
 
 class GPTPretrainingCriterion(nn.Module):

@@ -9,7 +9,10 @@ The engine bumps the same ``serving.*`` names as the JAX engine —
 quantized KV the counters ``serving.kv.quant.prefill_tokens`` and
 ``.decode_tokens`` and the gauges ``serving.kv.quant.arena_bytes`` and
 ``.bytes_saved`` — so a test can diff both registries around the same
-traffic.
+traffic.  The speculative engine ticks ``serving.spec.draft_steps``,
+``.verify_steps``, ``.drafted``, ``.accepted``, ``.rejected``,
+``.rollback_blocks``, ``.draft_starved`` and ``.draft_prefill_chunks``,
+and sets the gauges ``serving.spec.acceptance`` and ``.yield`` (EMAs).
 
 Training ticks ``jit.steps`` and ``jit.host.dispatches`` (one each per
 ``CompiledTrainStep`` call) and ``optimizer.steps`` (one per

@@ -1,4 +1,4 @@
-"""Continuous-batching LLM engine base (port of
+"""Continuous-batching LLM engine (port of
 ``paddle_tpu/serving/engine.py``).
 
 Iteration-level scheduling (Orca, OSDI '22): requests are admitted from a
@@ -6,18 +6,22 @@ bounded queue into free slots, decoded together one token per step
 regardless of arrival time, and evicted on EOS / ``max_new_tokens`` /
 deadline / cancellation with the slot immediately re-handed out.
 
-This slice ports the paged layout only: ``LLMEngine(model,
-kv_layout="paged")`` constructs :class:`serving.paged.PagedLLMEngine`,
-which owns the KV pools, admission, chunked prefill and the decode step.
-The class here holds what every layout shares — request intake and
-backpressure, the finish/sweep/emit transitions, and the blocking
-``generate``/``drain`` loops.  ``kv_dtype="int8"|"fp8"`` quantizes the
-paged KV pools; ``weight_dtype="int8"`` serves int8 weight-only layer
-matmuls (``quantization.ptq_int8_decode_state``).  Knobs of later slices
-raise ``NotImplementedError`` naming their ROADMAP item.
+``LLMEngine(model)`` is the slot layout, the reference's default: a
+dense KV arena ``[L, max_slots, S, nh, hd]`` in the model dtype on the
+model's device, one row a slot.  Admission prefills a request's prompt,
+padded to a power-of-two bucket, straight into its slot's row
+(``GPTForCausalLM.prefill_slot``: the row's K/V written in place, the
+rest of the row zeroed) and draws the first token; each step then runs
+``decode_slots`` once for every occupied slot.  ``kv_layout="paged"``
+constructs :class:`serving.paged.PagedLLMEngine` (block pools, prefix
+cache, chunked prefill; ``kv_dtype="int8"|"fp8"`` quantized pools), and
+``draft_model=`` :class:`serving.speculative.SpeculativeLLMEngine` over
+the paged pools.  ``weight_dtype="int8"`` serves int8 weight-only layer
+matmuls (``quantization.ptq_int8_decode_state``).  Knobs of later
+slices raise ``NotImplementedError`` naming their ROADMAP item.
 
-The engine follows the model's device.  Each request carries its own
-``torch.Generator``, seeded from the request's ``seed``, for sampling.
+The engine follows the model's device.  Each sampled request carries its
+own ``torch.Generator``, seeded from the request's ``seed``.
 """
 
 from __future__ import annotations
@@ -28,13 +32,13 @@ import time
 from collections import deque
 
 import numpy as np
+import torch
 
 from ..profiler import counters
 from ..quantization import ptq_int8_decode_state
+from .sampling import sample_tokens
 
 _TODO = {
-    "slots": "ROADMAP.md A2 (slot layout, generate)",
-    "draft_model": "ROADMAP.md A6 (speculative decoding)",
     "adapter_slots": "ROADMAP.md A6 (LoRA adapter serving)",
     "host_kv_blocks": "ROADMAP.md A6 (host-RAM KV tier)",
     "mesh": "ROADMAP.md A7 (tensor-parallel serving)",
@@ -153,7 +157,12 @@ class LLMEngine:
 
     def __new__(cls, *args, **kw):
         # kv_layout="paged" routes construction to the paged subclass so
-        # `LLMEngine(model, kv_layout="paged")` is the one public spelling
+        # `LLMEngine(model, kv_layout="paged")` is the one public spelling;
+        # a draft_model= routes further to the speculative engine, which
+        # runs over the paged pools
+        if cls is LLMEngine and kw.get("draft_model") is not None:
+            from .speculative import SpeculativeLLMEngine
+            return super().__new__(SpeculativeLLMEngine)
         if cls is LLMEngine and kw.get("kv_layout", "slots") == "paged":
             from .paged import PagedLLMEngine
             return super().__new__(PagedLLMEngine)
@@ -163,8 +172,7 @@ class LLMEngine:
                  min_bucket=8, eos_token_id=None, kv_layout="slots",
                  block_size=16, n_blocks=None, prefill_chunk=None,
                  prefix_cache=True, kv_dtype=None, weight_dtype=None,
-                 host_kv_blocks=0, mesh=None, adapter_slots=0,
-                 draft_model=None):
+                 host_kv_blocks=0, mesh=None, adapter_slots=0):
         if kv_layout not in ("slots", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; "
                              "want 'slots' or 'paged'")
@@ -178,8 +186,7 @@ class LLMEngine:
             raise ValueError(f"weight_dtype must be None or 'int8', "
                              f"got {weight_dtype!r}")
         for knob, value in (("host_kv_blocks", host_kv_blocks),
-                            ("mesh", mesh), ("adapter_slots", adapter_slots),
-                            ("draft_model", draft_model)):
+                            ("mesh", mesh), ("adapter_slots", adapter_slots)):
             if value is not None and value != 0:
                 raise _not_ported(knob)
         self.kv_layout = kv_layout
@@ -230,9 +237,28 @@ class LLMEngine:
         self._ema_alpha = 0.25
 
     def _init_kv(self, c, B, S, nh, hd):
-        """Allocate the device KV storage: the slot arena in the
-        reference, a block pool in the PagedLLMEngine override."""
-        raise _not_ported("slots")
+        """Allocate the device KV storage: the slot arena ``[L, B, S, nh,
+        hd]`` in the model dtype here, a block pool in the PagedLLMEngine
+        override."""
+        shape = (c.num_layers, B, S, nh, hd)
+        self._ck = torch.zeros(shape, dtype=self.model.wte.dtype,
+                               device=self.device)
+        self._cv = torch.zeros_like(self._ck)
+
+    def release_kv(self):
+        """Drop the device KV arena (a dead replica's arena is garbage)."""
+        self._ck = self._cv = None
+
+    def prefix_peek(self, prompt):
+        """Tokens of ``prompt`` a prefix cache could serve without
+        prefilling: 0 under the slot layout (no sharing); the paged
+        engine overrides."""
+        return 0
+
+    def prefix_probe(self, prompt):
+        """``(device_tokens, host_tokens)`` a prefix cache could serve:
+        ``(0, 0)`` under the slot layout; the paged engine overrides."""
+        return 0, 0
 
     # -- request intake ------------------------------------------------------
     def add_request(self, prompt, max_new_tokens=32, do_sample=False,
@@ -364,6 +390,115 @@ class LLMEngine:
             self._finish(req, "eos", events)
         elif len(req.tokens) >= req.max_new_tokens:
             self._finish(req, "length", events)
+
+    def _next_tokens(self, logits, active):
+        """Next token of every row of ``logits [B, V]``: argmax, and a
+        draw with the request's generator and knobs for each sampled
+        ``(slot, request)`` of ``active``; read back to the host once."""
+        nxt = torch.argmax(logits, dim=-1)
+        for s, req in active:
+            if req.do_sample:
+                nxt[s] = sample_tokens(
+                    logits[s:s + 1], req.generator, do_sample=True,
+                    temperature=req.temperature, top_k=req.top_k,
+                    top_p=req.top_p)[0]
+        return nxt.cpu().numpy()
+
+    # -- the slot layout -----------------------------------------------------
+    def _prefill_insert(self, slot, req):
+        """Prefill ``req``'s prompt, padded to its power-of-two bucket,
+        straight into the slot's arena row (its K/V at ``[0, T)``, zeros
+        after) and draw the first token with the request's generator;
+        returns that token."""
+        T = int(req.prompt.shape[0])
+        bucket = bucket_length(T, self.min_bucket, self.max_seq_len)
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :T] = req.prompt
+        logits = self.model.prefill_slot(
+            self._w, torch.from_numpy(ids).to(self.device), T,
+            self._ck[:, slot:slot + 1], self._cv[:, slot:slot + 1])
+        return int(sample_tokens(
+            logits, req.generator, do_sample=req.do_sample,
+            temperature=req.temperature, top_k=req.top_k,
+            top_p=req.top_p)[0])
+
+    def _admit(self, events):
+        now = time.monotonic()
+        while self._free:
+            with self._cond:
+                if not self._queue:
+                    return
+                req = self._queue.popleft()
+                self._cond.notify()
+            if req._cancel:
+                self._finish(req, "cancelled", events)
+                continue
+            if req.deadline is not None and now > req.deadline:
+                counters.inc("serving.deadline_expired")
+                self._finish(req, "deadline", events)
+                continue
+            with self._cond:
+                slot = self._free.pop()
+            try:
+                if req.do_sample:
+                    req.generator = torch.Generator(
+                        device=self.device).manual_seed(req.seed)
+                tok = self._prefill_insert(slot, req)
+            except Exception as e:  # noqa: BLE001 — the scheduler boundary
+                # a poisoned request (bad prompt, prefill blow-up) must not
+                # kill the engine loop: it finishes with
+                # finish_reason="error", the exception riding the request,
+                # and the slot is handed right back
+                with self._cond:
+                    self._free.append(slot)
+                req.error = e
+                counters.inc("serving.request_errors")
+                self._finish(req, "error", events)
+                continue
+            counters.inc("serving.prefill_batches")
+            req.state = "running"
+            req.slot = slot
+            self._slots[slot] = req
+            self._tok[slot] = tok
+            self._pos[slot] = int(req.prompt.shape[0])
+            events.append({"type": "admitted", "request": req})
+            self._emit(req, tok, events)
+
+    def _decode_step(self, events):
+        active = [(s, r) for s, r in enumerate(self._slots) if r is not None]
+        if not active:
+            return
+        t0 = time.perf_counter()
+        dev = self.device
+        # idle rows decode token 0 at position 0 of their own row: nothing
+        # reads it, and the next admission rewrites the whole row
+        logits = self.model.decode_slots(
+            self._w, torch.from_numpy(self._tok).to(dev),
+            torch.from_numpy(self._pos).to(dev), self._ck, self._cv)
+        nxt = self._next_tokens(logits, active)
+        self._note_decode(len(active), time.perf_counter() - t0)
+        counters.inc("serving.decode_steps")
+        counters.inc("serving.decode_tokens", len(active))
+        for s, req in active:
+            self._tok[s] = nxt[s]
+            self._pos[s] += 1
+            self._emit(req, nxt[s], events)
+
+    def step(self):
+        """One scheduler iteration: sweep cancels/deadlines, admit from
+        the queue into free slots (prefill into the arena row), run ONE
+        decode launch for all occupied slots, re-admit into slots freed
+        this step.  Returns the list of events ({'type': 'admitted' |
+        'token' | 'finished', ...}) produced."""
+        events = []
+        self._sweep(events)
+        self._admit(events)
+        self._decode_step(events)
+        self._admit(events)
+        counters.set_gauge(
+            "serving.slot_occupancy",
+            sum(r is not None for r in self._slots) / self.max_slots)
+        return events
 
     # -- conveniences --------------------------------------------------------
     def has_work(self):

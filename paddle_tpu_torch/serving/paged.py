@@ -309,14 +309,7 @@ class PagedLLMEngine(LLMEngine):
             torch.from_numpy(pos_eff).to(dev),
             torch.from_numpy(bt_eff).to(dev), self.pool_k, self.pool_v,
             *self.scales)
-        nxt = torch.argmax(logits, dim=-1)
-        for s, req in active:
-            if req.do_sample:
-                nxt[s] = sample_tokens(
-                    logits[s:s + 1], req.generator, do_sample=True,
-                    temperature=req.temperature, top_k=req.top_k,
-                    top_p=req.top_p)[0]
-        nxt = nxt.cpu().numpy()
+        nxt = self._next_tokens(logits, active)
         self._note_decode(len(active), time.perf_counter() - t0)
         counters.inc("serving.decode_steps")
         counters.inc("serving.decode_tokens", len(active))

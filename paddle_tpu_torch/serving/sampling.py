@@ -1,6 +1,7 @@
 """Decode-time sampling (port of ``paddle_tpu/serving/sampling.py``).
 
-The temperature / top-k / top-p logits transform and the token draw.
+The temperature / top-k / top-p logits transform, the token draw, and
+the speculative-decoding residual draw.
 Randomness comes from an explicit ``torch.Generator`` (the engine keeps
 one per request, seeded from the request's ``seed``) in place of a JAX
 key; the two packages' random streams differ, so sampled tokens are
@@ -48,3 +49,20 @@ def sample_tokens(lg, generator=None, *, do_sample=True, temperature=1.0,
     probs = torch.softmax(filter_logits(lg, temperature, top_k, top_p),
                           dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[..., 0]
+
+
+def residual_sample(p, q, generator=None):
+    """One draw per row from the speculative-decoding residual
+    ``norm(max(0, p - q))`` (Leviathan et al., ICML 2023): ``p`` is the
+    target's probability row(s) ``[..., V]``, ``q`` the draft's.  A
+    correction drawn from it when a proposal is rejected keeps the
+    overall output distribution equal to sampling from ``p`` alone.  A
+    row whose residual mass is 0 (``q >= p`` everywhere, only possible up
+    to rounding) falls back to ``p`` itself.  Returns int64 tokens of
+    shape ``p.shape[:-1]``."""
+    res = torch.clamp(p - q, min=0.0)
+    mass = res.sum(dim=-1, keepdim=True)
+    dist = torch.where(mass > 0, res / mass.clamp_min(1e-20), p)
+    V = dist.shape[-1]
+    draw = torch.multinomial(dist.reshape(-1, V), 1, generator=generator)
+    return draw.reshape(dist.shape[:-1])

@@ -189,8 +189,7 @@ def test_sample_tokens_follow_filtered_softmax():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(kv_layout="slots"), dict(adapter_slots=2), dict(host_kv_blocks=8),
-    dict(mesh=object()), dict(draft_model=object())])
+    dict(adapter_slots=2), dict(host_kv_blocks=8), dict(mesh=object())])
 def test_later_slices_raise_not_implemented(models, knob):
     _, tm = models
     kw = dict(ENGINE, **knob)

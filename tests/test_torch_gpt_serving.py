@@ -10,7 +10,14 @@ same pool contents.  JAX decode runs both through its plain gather
 
 Tolerance: fp32, atol 1e-4 and rtol 1e-4 — two fp32 implementations of
 the same 2-layer model whose matmuls and softmax sums run in different
-orders.
+orders.  bf16 (the dtype the card serves): each package is also run in
+fp32 on the same bf16 weights and inputs, and the port's bf16 logits and
+pools are held to the JAX package's within twice the JAX package's own
+distance (max abs) from its fp32 run — the reference's bf16 rounding
+noise, measured per case — plus the fp32 tolerance at the case's scale,
+with equal greedy tokens.  The bound does not grow with the port's own
+error; measured, the port's distance is at most 1.61 times the
+reference's.
 """
 
 import numpy as np
@@ -100,6 +107,75 @@ def test_prefill_and_decode_match_jax(interpret_mode, use_rope):
     tk2, tv2 = tk.clone(), tv.clone()
     tl2 = tm.decode_paged(tw, *targs, tk2, tv2, kernel=False)
     np.testing.assert_allclose(_np(tl2), _np(tl), rtol=0, atol=1e-6)
+
+
+def _bf16_pair(use_rope, dtype):
+    """Both packages in ``dtype`` on the same bf16-rounded weights."""
+    paddle.seed(15 + use_rope)
+    src = JGPT(JConfig(use_flash_attention=False, use_rope=use_rope, **CFG))
+    w = {k: np.asarray(jnp.asarray(v.numpy(), jnp.bfloat16)
+                       .astype(jnp.float32))
+         for k, v in src.state_dict().items()}
+    jm = JGPT(JConfig(use_flash_attention=False, use_rope=use_rope,
+                      dtype=dtype, **CFG))
+    jm.set_state_dict(w)
+    jm.eval()
+    tm = GPTForCausalLM(GPTConfig(use_rope=use_rope, dtype=dtype, **CFG),
+                        device="cpu")
+    tm.load_numpy_state(w)
+    return jm, tm
+
+
+def _paged_steps(jm, tm, dtype, use_rope):
+    """Two prefill chunks and one three-row decode step (the sequence of
+    ``test_prefill_and_decode_match_jax``) in ``dtype``, JAX decode
+    through the Pallas kernel.  Returns ``{name: (port, jax)}`` as fp32
+    numpy."""
+    jw, tw = jm.decode_state(), tm.decode_state()
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    hd = CFG["hidden_size"] // CFG["num_heads"]
+    shape = (CFG["num_layers"], N_BLOCKS, BS, CFG["num_heads"], hd)
+    jk, jv = jnp.zeros(shape, dtype), jnp.zeros(shape, dtype)
+    tk, tv = torch.zeros(shape, dtype=tdt), torch.zeros(shape, dtype=tdt)
+    rng = np.random.default_rng(10 + use_rope)
+    prompt = rng.integers(0, CFG["vocab_size"], 13)
+    table = np.array([3, 5, 1, 7, 0, 0, 0, 0], np.int32)
+    out = {}
+    for start, length in ((0, 8), (8, 5)):
+        ids = np.zeros((1, 8), np.int32)
+        ids[0, :length] = prompt[start:start + length]
+        jk, jv, jl = jm.prefill_paged(jw, jnp.asarray(ids), start, length,
+                                      jnp.asarray(table), jk, jv)
+        tl = tm.prefill_paged(tw, torch.from_numpy(ids).long(), start,
+                              length, torch.from_numpy(table), tk, tv)
+        out[f"prefill_logits_{start}"] = (tl, jl)
+    tok = np.array([int(prompt[-1]), 9, 0], np.int32)
+    pos = np.array([13, 5, 0], np.int32)
+    bt = np.zeros((3, MAX_BLOCKS), np.int32)
+    bt[0] = table
+    bt[1, :2] = [2, 4]
+    tl = tm.decode_paged(tw, *[torch.from_numpy(a) for a in (tok, pos, bt)],
+                         tk, tv)
+    jl, jk, jv = jm.decode_paged(jw, jnp.asarray(tok), jnp.asarray(pos),
+                                 jnp.asarray(bt), jk, jv, kernel="pallas")
+    out.update(decode_logits=(tl, jl), pool_k=(tk, jk), pool_v=(tv, jv))
+    return {k: (a.float().numpy(), np.asarray(jnp.asarray(b, jnp.float32)))
+            for k, (a, b) in out.items()}
+
+
+@pytest.mark.parametrize("use_rope", [False, True])
+def test_prefill_and_decode_bf16_within_fp32_distance(interpret_mode,
+                                                      use_rope):
+    runs = {d: _paged_steps(*_bf16_pair(use_rope, d), d, use_rope)
+            for d in ("float32", "bfloat16")}
+    for name, (tb, jb) in runs["bfloat16"].items():
+        jf = runs["float32"][name][1]
+        noise = np.abs(jb - jf).max()
+        err = np.abs(tb - jb).max()
+        tol = 2 * noise + TOL["atol"] + TOL["rtol"] * np.abs(jf).max()
+        assert 0 < noise and err <= tol, (name, err, noise)
+        if "logits" in name:         # greedy tokens
+            np.testing.assert_array_equal(tb.argmax(-1), jb.argmax(-1))
 
 
 def test_load_numpy_state_rejects_wrong_names():

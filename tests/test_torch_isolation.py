@@ -26,6 +26,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert out.returncode == 0, out.stderr
     mods = out.stdout.split()
     for mod in ("paddle_tpu_torch.serving.paged",
+                "paddle_tpu_torch.serving.speculative",
                 "paddle_tpu_torch.kernels._build",
                 "paddle_tpu_torch.kernels.flash_attention",
                 "paddle_tpu_torch.optimizer", "paddle_tpu_torch.jit",
