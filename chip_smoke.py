@@ -28,8 +28,10 @@ script exits non-zero:
    with and without an LSE cotangent; plus one-tile (S 128, one head),
    two-tile (S 256) and non-causal D 96 cases for the Hopper kernels, a
    persistent grid whose items are no multiple of the SMs (35 heads of
-   S 2048), and dO [B, H, S, D]-contiguous at the training shape.  Every
-   K2/K3 call runs twice and must give the same bits.
+   S 2048), dO [B, H, S, D]-contiguous at the training shape, and the
+   125M fused leg's own shape (batch 16, 12 heads of 64, S 1024, causal:
+   1536 K1 items).  Every K2/K3 call runs twice and must give the same
+   bits.
 6. small_reference — a small fp32 model's paged prefill/decode on the
    card against the same model on the CPU (where the kernels' plain
    versions run), over fp32, int8 and fp8 pools.
@@ -80,13 +82,43 @@ script exits non-zero:
     just before and must each equal 24 x steps; losses must be finite and
     fall.
 16. train_profile — ``torch.profiler`` over one more step of that run
-    (busy share, top device ops, device time by kind of op), and CUDA
-    events around the forward, backward and AdamW update of another.
+    (busy share, top device ops, device time by kind of op), CUDA events
+    around the forward, backward and AdamW update of another, and the
+    AdamW update in place (as the optimizer runs it) against the same
+    formula out of place, in turns.
 17. train_in_model — the 760M width at 2 layers: one forward and
     backward through the kernels, then through their plain versions,
     then through the kernels with ``recompute="selective"`` (the same
     grads; K1 replayed in the backward).
-18. times (K1–K3) — µs per launch at the training shape beside the
+18. train_loop — GPT-3 760M bf16 at full depth with
+    ``recompute="selective_lean"`` (``bench.py``'s flagship) through the
+    loop users run: ``AdamW`` over ``CosineAnnealingWithWarmupDecay``,
+    ``ClipGradByGlobalNorm(1.0)``, no decay on biases and norms,
+    ``metrics=True``; 2 warm-up and 8 timed steps.  The lr series must be
+    the scheduler's, the grad norms finite, the losses fall, K1–K3
+    launches what the recompute mode implies (K1 replayed), the step
+    counters one a step; the host's enqueue time a step beside the step
+    time; one more step runs with host syncs made errors, and one under
+    ``torch.profiler``.
+19. train_fused — GPT-3 125M bf16, ``recompute="selective"``, batch 16 x
+    1024 (``bench.py``'s fused leg): ``fused_steps=4`` (CUDA-graph
+    replays) against ``fused_steps=1`` from the same weights on the same
+    batches, bit-identical losses, parameters and optimizer state over a
+    priming window, a captured window, a replayed one and a tail of 2;
+    one dispatch and K1–K3 launches of 4 steps a replay, counted by the
+    wrappers and, for one replay and for 4 single steps, in the
+    profiler's trace of what the device ran; step ms of both and their
+    ratio (``fused_speedup``), the device busy share of each; a replay
+    with host syncs made errors; dropout at 2 layers drawing a fresh mask
+    every step of every replay; NAdam and RAdam (whose updates read the
+    step count) in replayed windows at 2 layers, bit-equal to single
+    steps.
+20. scaler_skip — 125M width at 4 layers with a ``GradScaler`` inside
+    fused windows, loss weights that overflow the scaled gradients at
+    steps 6 and 12: the skipped steps leave parameters and optimizer
+    state bit-equal, the scale halves, K=4 equals K=1 bit for bit; then
+    ``FLAGS_check_nan_inf`` names step 2 of a 4-step window.
+21. times (K1–K3) — µs per launch at the training shape beside the
     plain versions, the bounds and ``scaled_dot_product_attention``'s
     flash forward and backward (yardsticks the port never calls).
 
@@ -111,7 +143,12 @@ import torch.nn.functional as F
 
 from paddle_tpu_torch import (AdamW, CompiledTrainStep, GPTConfig,
                               GPTForCausalLM, GPTPretrainingCriterion,
-                              LLMEngine)
+                              LLMEngine, flags)
+from paddle_tpu_torch.amp import GradScaler
+from paddle_tpu_torch.io import Window
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+from paddle_tpu_torch import optimizer as optim
+from paddle_tpu_torch.optimizer import lr
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import paged_attention as pa
@@ -134,11 +171,16 @@ FLASH_KERNELS = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
 KERNEL_ATOL = 1e-4
 
 
+#: the card's name and power limit (``nvidia-smi``), beside every number
+CARD = None
+
+
 def emit(record):
     print(json.dumps(record), flush=True)
 
 
 def device_phase():
+    global CARD
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs a CUDA GPU")
@@ -146,7 +188,7 @@ def device_phase():
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip()
+    card = CARD = smi.stdout.strip()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1468,6 +1510,8 @@ def flash_phase():
     # stride order for its tensor map) at the training shape
     cases.append((5, 7, 2048, 96, torch.bfloat16, True))
     cases.append((TRAIN_B, 16, TRAIN_S, 96, torch.bfloat16, True, "bhsd"))
+    # the 125M training paths' shape (train_fused, scaler_skip)
+    cases.append((FUSED_B, 12, TRAIN_S, 64, torch.bfloat16, True))
     for B, H, S, D, dtype, causal, *do_layout in cases:
         q, k, v = _qkv_views(gen, B, S, H, D, dtype)
         do = torch.randn(B, S, H, D, generator=gen,
@@ -1633,18 +1677,23 @@ def _device_kind(name):
     return "elementwise, norms, reductions, copies"
 
 
-def train_profile_phase(step, model, crit, opt, ids, labels):
-    """Where a training step's time goes: ``torch.profiler`` over one
-    more ``CompiledTrainStep`` call (the device's busy share of its wall
-    time, the device ops that take it, device time by kind of op), then
-    CUDA events around the forward + loss, the backward and the AdamW
-    update of one step run by hand."""
+#: K1–K3's device function names, as a trace shows them
+FLASH_DEVICE_NAMES = {"flash_fwd": "flash_fwd_wgmma_kernel",
+                      "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel",
+                      "flash_bwd_dkv": "flash_bwd_dkv_wgmma_kernel"}
+
+
+def _profile(fn, top=12):
+    """``torch.profiler`` over one call of ``fn`` (synchronised): its
+    wall time, the device time, the device's busy share of the wall
+    time, device time by kind of op, the ``top`` device ops, and the
+    K1–K3 kernels the device ran, counted in the trace."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        step(ids, labels)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     ops = sorted((e for e in prof.key_averages()
@@ -1655,7 +1704,29 @@ def train_profile_phase(step, model, crit, opt, ids, labels):
     for e in ops:
         k = _device_kind(e.key)
         by_kind[k] = by_kind.get(k, 0.0) + _dev_us(e)
+    return {"wall_us": wall_us, "device_us": busy,
+            "device_busy_share": busy / wall_us if busy else None,
+            "device_us_by_kind": by_kind,
+            "top_device_ops": [{"name": e.key[:80], "us": _dev_us(e),
+                                "calls": e.count} for e in ops[:top]
+                               if _dev_us(e) > 0],
+            "flash_kernels_run": {n: sum(e.count for e in ops if f in e.key)
+                                  for n, f in FLASH_DEVICE_NAMES.items()}}
 
+
+def train_profile_phase(step, model, crit, opt, ids, labels):
+    """Where a training step's time goes: :func:`_profile` over one more
+    ``CompiledTrainStep`` call, then CUDA events around the forward +
+    loss, the backward and the AdamW update of one step run by hand, and
+    AdamW in place against out of place (:func:`_adamw_times`)."""
+    # one more step with any host sync an error: the step reads nothing
+    # back (the loss, the norms and the scaler stay on the device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(ids, labels)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    prof = _profile(lambda: step(ids, labels))
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     ev[0].record()
     loss = crit(model(ids), labels)
@@ -1663,19 +1734,52 @@ def train_profile_phase(step, model, crit, opt, ids, labels):
     loss.backward()
     ev[2].record()
     opt.step()
-    opt.clear_grad()
     ev[3].record()
     torch.cuda.synchronize()
+    adamw = _adamw_times(opt)
+    opt.clear_grad()
     parts = ("forward_and_loss", "backward", "adamw_update")
-    emit({"phase": "train_profile", "steps": 1, "wall_us": wall_us,
-          "device_us": busy,
-          "device_busy_share": busy / wall_us if busy else None,
-          "device_us_by_kind": by_kind,
+    emit({"phase": "train_profile", "card": CARD, "steps": 1,
+          "adamw_ms": adamw, **prof,
           "step_parts_ms": {n: ev[i].elapsed_time(ev[i + 1])
-                            for i, n in enumerate(parts)},
-          "top_device_ops": [{"name": e.key[:80], "us": _dev_us(e),
-                              "calls": e.count} for e in ops[:12]
-                             if _dev_us(e) > 0]})
+                            for i, n in enumerate(parts)}})
+
+
+def _adamw_times(opt):
+    """ms of one AdamW update on the gradients the parameters hold: the
+    port's in-place update (``opt.step()``) against the same formula out
+    of place, every accumulator and master rebuilt as a new tensor each
+    step (the port's first AdamW), on copies of the state.  In turns
+    (in place, out of place, out of place, in place), 3 calls each."""
+    lr_, wd, b1, b2, eps = (opt.get_lr(), opt._wd, opt._beta1, opt._beta2,
+                            opt._eps)
+    acc = opt._accumulators
+    state = [{"p": p, "out": p.detach().clone(),
+              "master": opt._master_weights[id(p)].clone(),
+              **{k: acc[name][id(p)].clone() for k, name in (
+                  ("m", "moment1"), ("v", "moment2"), ("b1p", "beta1_pow"),
+                  ("b2p", "beta2_pow"))}}
+             for p in opt._parameter_list]
+
+    def out_of_place(_):
+        for st in state:
+            g = st["p"].grad.float()
+            st["m"] = b1 * st["m"] + (1 - b1) * g
+            st["v"] = b2 * st["v"] + (1 - b2) * g * g
+            st["b1p"] = st["b1p"] * b1
+            st["b2p"] = st["b2p"] * b2
+            mhat = st["m"] / (1 - st["b1p"])
+            vhat = st["v"] / (1 - st["b2p"])
+            st["master"] = (st["master"] * (1 - lr_ * wd)
+                            - lr_ * mhat / (torch.sqrt(vhat) + eps))
+            st["out"].copy_(st["master"])
+
+    times = {"in_place": [], "out_of_place": []}
+    for name in ("in_place", "out_of_place", "out_of_place", "in_place"):
+        fn = (lambda _: opt.step()) if name == "in_place" else out_of_place
+        times[name].append(_time_ms(fn, 3, warmup=1))
+    del state
+    return {k: float(np.mean(v)) for k, v in times.items()}
 
 
 def train_in_model_phase():
@@ -1747,6 +1851,452 @@ def train_in_model_phase():
         if not (math.isfinite(e["max_abs_err"]) and e["max_abs_err"]
                 <= e["atol"] and e["rel_fro"] <= e["rel_fro_limit"]):
             raise AssertionError(f"train_in_model: grad {n} {e}")
+
+
+# ---------------------------------------------------------------------------
+# the training loop: scheduler, clipping, metrics, fused windows, GradScaler
+# ---------------------------------------------------------------------------
+#: GPT-3's published peak learning rates (760M: 2.5e-4, 125M: 6e-4),
+#: warmed up over 2 steps, cosine-decayed to a tenth over 1000
+LOOP_LR = {"gpt3_760m": 2.5e-4, "gpt3_125m": 6e-4}
+#: 125M's fused leg (bench.py's gpt125m_fused): batch 16 x 1024, K = 4
+FUSED_B, FUSED_K = 16, 4
+
+
+def _decays(name):
+    """``apply_decay_param_fun``: biases and norm weights take no decay."""
+    return not (name.endswith("_b") or name.startswith("ln"))
+
+
+def _flash_per_layer_step(recompute):
+    """K1/K2/K3 launches a layer a training step, from the model's code:
+    every recompute mode keeps attention inside a checkpointed stage
+    (``GPTForCausalLM._block``: ``attend`` sits in ``ckpt(...)`` for
+    ``True``, ``"selective"`` and ``"selective_lean"``), so the backward
+    replays K1 once; K2 and K3 run once each."""
+    return {"flash_fwd": 2 if recompute else 1, "flash_bwd_dq": 1,
+            "flash_bwd_dkv": 1}
+
+
+def _loop(model, size, k=1, scaler=None, loss_fn=None, metrics=True):
+    """The training loop as a user runs GPT pretraining: AdamW over a
+    warmup + cosine schedule, global-norm clipping at 1.0, weight decay
+    0.1 on all but biases and norms, train metrics."""
+    crit = GPTPretrainingCriterion()
+    top = LOOP_LR[size]
+    sched = lr.CosineAnnealingWithWarmupDecay(top, top / 10, 2, 1000)
+    opt = AdamW(sched, parameters=model.named_parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0),
+                apply_decay_param_fun=_decays, weight_decay=0.1)
+    fn = loss_fn or (lambda m, x, y: crit(m(x), y))
+    step = CompiledTrainStep(model, fn, opt, scaler=scaler, fused_steps=k,
+                             metrics=metrics)
+    return sched, opt, step
+
+
+def _flash_counts():
+    return {fn.__name__: fn.launches for fn in FLASH_KERNELS}
+
+
+def train_loop_phase():
+    """The flagship leg as users run it: GPT-3 760M bf16, 24 layers,
+    ``recompute="selective_lean"`` (``bench.py:1995-2001``), batch 8 x
+    1024, through :func:`_loop` with ``fused_steps=1``; 2 warm-up and 8
+    timed steps on one batch."""
+    cfg = _train_cfg()
+    cfg.recompute = "selective_lean"
+    model = GPTForCausalLM(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    flags.set_flags({"FLAGS_peak_tflops": BF16_FLOPS / 1e12})
+    sched, opt, step = _loop(model, "gpt3_760m")
+    ids, labels = _batch(cfg, TRAIN_B, TRAIN_S, seed=1)
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+
+    _reset_flash_counts()
+    before = counters.snapshot()
+    lrs, losses, step_s, enqueue_s = [], [], [], []
+    for i in range(WARMUP + TRAIN_STEPS):
+        lrs.append(sched())
+        t = time.perf_counter()
+        losses.append(step(ids, labels))
+        queued = time.perf_counter() - t    # the host's share: no sync yet
+        torch.cuda.synchronize()
+        if i >= WARMUP:
+            step_s.append(time.perf_counter() - t)
+            enqueue_s.append(queued)
+        sched.step()
+    launches = _flash_counts()
+    moved = counters.delta(before)
+    step.sync()
+    losses = [float(x) for x in losses]
+    series = {n: [v for _, v in step.metrics.series(n)]
+              for n in ("lr", "grad_norm", "loss", "tok_s", "mfu")}
+    prof = _profile(lambda: step(ids, labels))
+
+    steps = WARMUP + TRAIN_STEPS
+    L = cfg.num_layers
+    want = {n: c * L * steps
+            for n, c in _flash_per_layer_step(cfg.recompute).items()}
+    p50 = float(np.median(step_s))
+    tokens = TRAIN_B * TRAIN_S
+    record = {
+        "phase": "train_loop", "card": CARD,
+        "model": "gpt3_760m bf16 selective_lean", "layers": L,
+        "params": n_params, "batch": [TRAIN_B, TRAIN_S], "steps": steps,
+        "warmup": WARMUP, "losses": losses, "lrs": lrs,
+        "grad_norms": series["grad_norm"], "step_ms_p50": p50 * 1e3,
+        "step_ms": [x * 1e3 for x in step_s], "tokens_per_s": tokens / p50,
+        "host_enqueue_ms_p50": float(np.median(enqueue_s)) * 1e3,
+        "model_flops_share_of_bf16_peak": 6 * n_params * tokens / p50
+        / BF16_FLOPS,
+        "metrics_tok_s_last": series["tok_s"][-1],
+        "metrics_mfu_last": series["mfu"][-1],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "launches_want": want,
+        "counters": {k: v for k, v in moved.items()
+                     if k.startswith(("jit.", "optimizer.", "kernels."))},
+        "profile_one_more_step": prof}
+    emit(record)
+    if series["lr"] != lrs:
+        raise AssertionError(f"train_loop: lr series {series['lr']} is not "
+                             f"the scheduler's {lrs}")
+    if not (len(series["grad_norm"]) == steps and all(
+            math.isfinite(x) and x > 0 for x in series["grad_norm"])):
+        raise AssertionError(f"train_loop: grad norms {series['grad_norm']}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and series["loss"] == losses):
+        raise AssertionError(f"train_loop: losses {losses}, series "
+                             f"{series['loss']}")
+    if launches != want:
+        raise AssertionError(f"train_loop: flash launches {launches}, want "
+                             f"{want} (selective_lean)")
+    if moved.get("kernels.flash.reference_fallbacks", 0) != 0:
+        raise AssertionError(f"train_loop: reference attention ran ({moved})")
+    for name in ("jit.steps", "jit.host.dispatches", "optimizer.steps"):
+        if moved.get(name) != steps:
+            raise AssertionError(f"train_loop: {name} moved "
+                                 f"{moved.get(name)}, want {steps}")
+    return record
+
+
+def _fused_cfg(num_layers=None, dropout=0.0):
+    cfg = GPTConfig.gpt3_125m(vocab_size=50304, max_seq_len=TRAIN_S,
+                              dtype="bfloat16", recompute="selective",
+                              dropout=dropout)
+    if num_layers is not None:
+        cfg.num_layers = num_layers
+    return cfg
+
+
+def _window(args, lo, hi):
+    return Window(tuple(a[lo:hi] for a in args), hi - lo)
+
+
+def _snapshot(model, opt):
+    """Copies of the parameters and the optimizer's state."""
+    return [p.detach().clone() for p in model.parameters()], opt.state_dict()
+
+
+def _same_state(a, b):
+    """Whether two snapshots hold the same bits: parameters, masters and
+    accumulators."""
+    (pa, sa), (pb, sb) = a, b
+    pairs = list(zip(pa, pb))
+    pairs += [(t, sb["master_weights"][n])
+              for n, t in sa["master_weights"].items()]
+    pairs += [(t, sb["accumulators"][acc][n])
+              for acc, store in sa["accumulators"].items()
+              for n, t in store.items()]
+    return all(torch.equal(x, y) for x, y in pairs)
+
+
+def train_fused_phase():
+    """GPT-3 125M bf16 (``bench.py:2019-2035``: recompute "selective",
+    batch 16 x 1024) through :func:`_loop` with ``fused_steps=4`` against
+    ``fused_steps=1``, from the same weights on the same batches: a
+    priming window, two fused windows (a capture, then a replay) and a
+    tail of 2 must give bit-identical losses, parameters and optimizer
+    state; then steady windows against single steps timed, and dropout
+    0.1 at 2 layers for fresh masks a step."""
+    cfg = _fused_cfg()
+    K, L = FUSED_K, cfg.num_layers
+    n = 3 * K + 2
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    args = tuple(torch.randint(0, cfg.vocab_size, (n, FUSED_B, TRAIN_S),
+                               generator=gen, device="cuda")
+                 for _ in range(2))
+    runs = {}
+    for k in (K, 1):
+        model = GPTForCausalLM(cfg, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+        sched, opt, step = _loop(model, "gpt3_125m", k=k)
+        losses, moved = [], []
+        bounds = ((0, K), (K, 2 * K), (2 * K, 3 * K), (3 * K, n))
+        for lo, hi in (bounds if k > 1 else
+                       [(i, i + 1) for i in range(n)]):
+            _reset_flash_counts()
+            before = counters.snapshot()
+            if k > 1:
+                losses.append(step(_window(args, lo, hi)))
+            else:
+                losses.append(step(*(a[lo] for a in args))[None])
+            moved.append((counters.delta(before), _flash_counts()))
+            for _ in range(hi - lo):
+                sched.step()
+        torch.cuda.synchronize()
+        runs[k] = (model, sched, opt, step, torch.cat(losses), moved)
+    (m4, s4, o4, st4, l4, moved4), (m1, s1, o1, st1, l1, _) = \
+        runs[K], runs[1]
+    same = {"losses": torch.equal(l4, l1),
+            "params_and_optimizer_state": _same_state(_snapshot(m4, o4),
+                                                      _snapshot(m1, o1)),
+            "step": o4._step_count == o1._step_count == n}
+    per = _flash_per_layer_step(cfg.recompute)
+    steady_moved, steady_launches = moved4[2]
+    want = {name: c * L * K for name, c in per.items()}
+
+    # timed: steady windows (replays) against single steps, same batches
+    n_win = 5
+    win = _window(args, K, 2 * K)
+    _reset_flash_counts()
+    before = counters.snapshot()
+    fused_s = []
+    for _ in range(n_win):
+        t = time.perf_counter()
+        st4(win)
+        torch.cuda.synchronize()
+        fused_s.append((time.perf_counter() - t) / K)
+    timed_moved, timed_launches = counters.delta(before), _flash_counts()
+    single_s = []
+    for i in range(n_win * K):
+        t = time.perf_counter()
+        st1(*(a[K + i % K] for a in args))
+        torch.cuda.synchronize()
+        single_s.append(time.perf_counter() - t)
+    torch.cuda.set_sync_debug_mode("error")   # a replayed window: no sync
+    try:
+        st4(win)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    fused_busy = _profile(lambda: st4(win), top=0)
+    single_busy = _profile(lambda: [st1(*(a[K + i] for a in args))
+                                    for i in range(K)], top=0)
+    fused_ms = float(np.median(fused_s)) * 1e3
+    single_ms = float(np.median(single_s)) * 1e3
+    del runs, m4, m1, o4, o1, st4, st1
+    _free_cuda()
+    dropout = _fresh_masks_check()
+    step_count = _step_count_optimizers_check()
+    record = {
+        "phase": "train_fused", "card": CARD,
+        "model": "gpt3_125m bf16 selective", "layers": L,
+        "batch": [FUSED_B, TRAIN_S], "fused_steps": K,
+        "windows": "priming (4 single steps), capture + replay, replay, "
+                   "tail of 2",
+        "bit_identical": same, "losses_fused": l4.tolist(),
+        "steady_window_counters": {
+            k: v for k, v in steady_moved.items()
+            if k.startswith(("jit.", "optimizer."))},
+        "steady_window_launches": steady_launches,
+        "launches_want_per_window": want,
+        "timed_windows": n_win, "timed_counters": {
+            k: v for k, v in timed_moved.items()
+            if k.startswith(("jit.", "optimizer."))},
+        "timed_launches": timed_launches,
+        "fused_step_ms_p50": fused_ms, "single_step_ms_p50": single_ms,
+        "fused_speedup": single_ms / fused_ms,
+        "fused_busy": fused_busy, "single_busy": single_busy,
+        "dropout": dropout, "step_count_optimizers": step_count}
+    emit(record)
+    if not all(same.values()):
+        raise AssertionError(f"train_fused: K={K} against K=1: {same}")
+    if (steady_moved.get("jit.host.dispatches") != 1
+            or steady_moved.get("jit.steps") != K
+            or steady_moved.get("optimizer.steps") != K
+            or steady_moved.get("jit.fused_windows") != 1
+            or timed_moved.get("jit.host.dispatches") != n_win
+            or timed_moved.get("jit.steps") != n_win * K):
+        raise AssertionError(f"train_fused: dispatches != steps / {K}: "
+                             f"{steady_moved} {timed_moved}")
+    if steady_launches != want or timed_launches != {
+            name: c * n_win for name, c in want.items()}:
+        raise AssertionError(f"train_fused: launches a replay "
+                             f"{steady_launches} / {timed_launches}, want "
+                             f"{want} a window")
+    # the wrappers' counts of a replay are what its capture recorded; the
+    # trace shows what the device ran
+    ran = {"replay": fused_busy["flash_kernels_run"],
+           "single_steps": single_busy["flash_kernels_run"]}
+    if any(r != want for r in ran.values()):
+        raise AssertionError(f"train_fused: the trace shows K1-K3 run "
+                             f"{ran}, want {want} a window of {K} steps")
+    if moved4[0][0].get("jit.fused_fallback_steps") != K \
+            or moved4[3][0].get("jit.fused_fallback_steps") != n - 3 * K:
+        raise AssertionError(f"train_fused: priming/tail fallbacks "
+                             f"{moved4[0][0]} {moved4[3][0]}")
+    return record
+
+
+def _fresh_masks_check():
+    """Dropout 0.1 at 2 layers, lr 0, one batch repeated over the window:
+    the parameters never move, so the losses differ only by their masks.
+    Each step of a replayed window, and each replay, must draw anew."""
+    cfg = _fused_cfg(num_layers=2, dropout=0.1)
+    model = GPTForCausalLM(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    crit = GPTPretrainingCriterion()
+    step = CompiledTrainStep(model, lambda m, x, y: crit(m(x), y),
+                             AdamW(0.0, parameters=model.parameters()),
+                             fused_steps=FUSED_K)
+    ids, labels = _batch(cfg, FUSED_B, TRAIN_S, seed=6)
+    win = Window((ids.expand(FUSED_K, -1, -1), labels.expand(
+        FUSED_K, -1, -1)), FUSED_K)
+    windows = [step(win).tolist() for _ in range(3)]  # priming, 2 replays
+    flat = [x for w in windows for x in w]
+    out = {"layers": 2, "dropout": 0.1, "losses": windows,
+           "distinct": len(set(flat)), "of": len(flat)}
+    if len(set(flat)) != len(flat):
+        raise AssertionError(f"train_fused: dropout masks repeat {out}")
+    return out
+
+
+def _step_count_optimizers_check():
+    """NAdam and RAdam read their step count from a device tensor, so a
+    captured window replays their bias corrections step by step: at 2
+    layers, a priming window, a captured and a replayed one against 12
+    single steps, bit for bit."""
+    cfg = _fused_cfg(num_layers=2)
+    ids, labels = _batch(cfg, 3 * FUSED_K * 2, 256, seed=8)
+    ids, labels = (t.view(3 * FUSED_K, 2, 256) for t in (ids, labels))
+    crit = GPTPretrainingCriterion()
+    out = {}
+    for name in ("NAdam", "RAdam"):
+        runs = []
+        for k in (FUSED_K, 1):
+            model = GPTForCausalLM(cfg, device="cuda",
+                                   generator=torch.Generator().manual_seed(0))
+            opt = getattr(optim, name)(1e-3, parameters=model.parameters())
+            step = CompiledTrainStep(model, lambda m, x, y: crit(m(x), y),
+                                     opt, fused_steps=k)
+            losses = torch.cat([step(ids[lo:lo + k], labels[lo:lo + k])
+                                if k > 1 else step(ids[lo], labels[lo])[None]
+                                for lo in range(0, 3 * FUSED_K, k)])
+            runs.append((losses, [p.detach().clone()
+                                  for p in model.parameters()]))
+        (l4, p4), (l1, p1) = runs
+        out[name] = {"losses": torch.equal(l4, l1),
+                     "params": all(torch.equal(a, b)
+                                   for a, b in zip(p4, p1))}
+    if not all(v for r in out.values() for v in r.values()):
+        raise AssertionError(f"train_fused: NAdam/RAdam windows against "
+                             f"single steps {out}")
+    return out
+
+
+def scaler_skip_phase():
+    """GPT-3 125M width at 4 layers, bf16, a ``GradScaler(2**16)`` and a
+    per-step loss weight of 2**120 at train steps 6 and 12 (index 1 of
+    the first fused window, index 3 of the second), so that their scaled
+    gradients overflow; the fused run (K = 4) against single steps, bit
+    for bit.  Each overflow step leaves the parameters and the optimizer
+    state bit-equal to before (the single run, around each; the fused
+    run, whose state after its second window must equal the single run's
+    before step 12), the scale halves each time, and the steps between
+    update the model.  Then, without a scaler, a NaN loss weight at index
+    2 of a fused window (that loop's train step 7) under
+    ``FLAGS_check_nan_inf``."""
+    cfg = _fused_cfg(num_layers=4)
+    K = FUSED_K
+    n, bad = 3 * K, (K + 1, 3 * K - 1)
+    ids, labels = _batch(cfg, n * FUSED_B, TRAIN_S, seed=7)
+    ids, labels = (t.view(n, FUSED_B, TRAIN_S) for t in (ids, labels))
+    weight = torch.ones(n, device="cuda")
+    weight[list(bad)] = 2.0 ** 120
+    crit = GPTPretrainingCriterion()
+
+    def loss_fn(m, x, y, w):
+        return crit(m(x), y) * w
+
+    runs, before, after = {}, {}, {}
+    for k in (K, 1):
+        model = GPTForCausalLM(cfg, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+        scaler = GradScaler(init_loss_scaling=2.0 ** 16,
+                            incr_every_n_steps=1000)
+        sched, opt, step = _loop(model, "gpt3_125m", k=k, scaler=scaler,
+                                 loss_fn=loss_fn)
+        args = (ids, labels, weight)
+        losses = []
+        for lo in range(0, n, k):
+            watch = k == 1 and lo in bad
+            if watch:
+                before[lo] = _snapshot(model, opt)
+            losses.append(step(*(a[lo:lo + k] if k > 1 else a[lo]
+                                 for a in args)).reshape(-1))
+            if watch:
+                after[lo] = _snapshot(model, opt)
+            for _ in range(k):
+                sched.step()
+        step.sync()
+        runs[k] = (model, opt, scaler, torch.cat(losses), step.metrics)
+    (m4, o4, sc4, l4, met4), (m1, o1, sc1, l1, met1) = runs[K], runs[1]
+    fused_end = _snapshot(m4, o4)
+    skips = [v for _, v in met4.series("scaler_skip")]
+    scales = [v for _, v in met4.series("scaler_scale")]
+    same = {"losses": torch.equal(l4, l1),
+            "params_and_optimizer_state": _same_state(fused_end,
+                                                      _snapshot(m1, o1)),
+            "step": o4._step_count == o1._step_count == n,
+            "scaler": sc4.state_dict() == sc1.state_dict(),
+            "series": skips == [v for _, v in met1.series("scaler_skip")]}
+    unchanged = {
+        "single_run_around_each": all(_same_state(before[b], after[b])
+                                      for b in bad),
+        "fused_window_ending_on_one": _same_state(fused_end,
+                                                  before[bad[1]])}
+    later_moved = not _same_state(after[bad[0]], before[bad[1]])
+    del runs, m1, o1, sc1, before, after
+    _free_cuda()
+
+    # FLAGS_check_nan_inf on a window, without a scaler (which would
+    # treat the NaN as an overflow to skip)
+    nan_w = torch.ones(n, device="cuda")
+    nan_w[K + 2] = float("nan")
+    _, _, check_step = _loop(m4, "gpt3_125m", k=K, loss_fn=loss_fn,
+                             metrics=False)
+    check_step(ids[:K], labels[:K], nan_w[:K])
+    flags.set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        check_step(ids[K:2 * K], labels[K:2 * K], nan_w[K:2 * K])
+        named = None
+    except FloatingPointError as e:
+        named = str(e)
+    finally:
+        flags.set_flags({"FLAGS_check_nan_inf": False})
+    want_where = f"train step {2 * K - 1} (step 2 of a {K}-step fused window)"
+    record = {"phase": "scaler_skip", "card": CARD, "layers": cfg.num_layers,
+              "batch": [FUSED_B, TRAIN_S], "fused_steps": K,
+              "overflow_steps": [b + 1 for b in bad], "skips": skips,
+              "scales": scales, "bit_identical": same,
+              "overflow_steps_left_state_unchanged": unchanged,
+              "later_steps_moved_params": later_moved,
+              "nan_inf_message": None if named is None else named[:160]}
+    emit(record)
+    if not all(same.values()):
+        raise AssertionError(f"scaler_skip: K={K} against K=1: {same}")
+    if skips != [float(i in bad) for i in range(n)]:
+        raise AssertionError(f"scaler_skip: skips {skips}")
+    if not (scales[bad[0]] == scales[bad[0] - 1] / 2 == 2.0 ** 15
+            and scales[bad[1]] == scales[bad[1] - 1] / 2 == 2.0 ** 14):
+        raise AssertionError(f"scaler_skip: scales {scales}")
+    if not (all(unchanged.values()) and later_moved):
+        raise AssertionError(f"scaler_skip: state unchanged {unchanged}, "
+                             f"later steps moved {later_moved}")
+    if named is None or want_where not in named:
+        raise AssertionError(f"scaler_skip: FLAGS_check_nan_inf raised "
+                             f"{named!r}, want {want_where!r}")
+    return record
 
 
 def flash_times_phase(max_err, launches):
@@ -1900,6 +2450,12 @@ def main():
     train = train_phase()
     _free_cuda()
     train_in_model_phase()
+    _free_cuda()
+    train_loop_phase()
+    _free_cuda()
+    train_fused_phase()
+    _free_cuda()
+    scaler_skip_phase()
     _free_cuda()
     flash_rows = flash_times_phase(flash_err, train["launches"])
     torch.cuda.synchronize()

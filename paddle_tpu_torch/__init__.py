@@ -17,17 +17,25 @@ far it holds, with every Pallas kernel of the reference:
 * GPT training — ``CompiledTrainStep(model, loss_fn, AdamW(...))`` over
   ``GPTForCausalLM.forward`` and ``GPTPretrainingCriterion``, with the
   flash-attention forward, dQ and dK/dV as hand-written CUDA kernels
-  (``kernels/csrc/flash_attention.cu``).
+  (``kernels/csrc/flash_attention.cu``);
+* the training loop around it — learning-rate schedulers
+  (``optimizer.lr``), gradient clipping (``nn.clip``), parameter groups
+  and the dense optimizer family (``optimizer``), ``amp.GradScaler``,
+  train metrics (``profiler.MetricsLogger``), ``FLAGS_check_nan_inf``
+  and fused windows of K steps (``io.Window``), replayed on CUDA as
+  one CUDA graph a window.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a GPU and without an explicit device the model
 raises instead of landing on the CPU.
 """
 
+from . import amp, flags, io, nn, optimizer
 from .jit import CompiledTrainStep
 from .models import GPTConfig, GPTForCausalLM, GPTPretrainingCriterion
 from .optimizer import Adam, AdamW
 from .serving import LLMEngine
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
-           "LLMEngine", "CompiledTrainStep", "Adam", "AdamW"]
+           "LLMEngine", "CompiledTrainStep", "Adam", "AdamW", "amp",
+           "flags", "io", "nn", "optimizer"]

@@ -1,0 +1,35 @@
+"""Runtime flags (the subset of ``paddle_tpu/core/flags.py`` the port
+reads).
+
+* ``FLAGS_fused_steps`` — the default window of
+  ``jit.CompiledTrainStep`` (1: one step a call).
+* ``FLAGS_check_nan_inf`` — ``CompiledTrainStep`` checks the loss and
+  every gradient (and, under a GradScaler, the updated parameters) for
+  NaN/Inf and raises ``FloatingPointError`` naming the step.
+* ``FLAGS_peak_tflops`` — the device's peak, for the MFU of the train
+  metrics (0: no MFU).
+"""
+
+from __future__ import annotations
+
+_REGISTRY: dict[str, object] = {
+    "FLAGS_fused_steps": 1,
+    "FLAGS_check_nan_inf": False,
+    "FLAGS_peak_tflops": 0.0,
+}
+
+
+def flag(name: str):
+    return _REGISTRY[name]
+
+
+def set_flags(flags: dict):
+    """Set flags by name; an unknown name raises ``KeyError``."""
+    unknown = sorted(set(flags) - set(_REGISTRY))
+    if unknown:
+        raise KeyError(f"unknown flags {unknown}; the port reads "
+                       f"{sorted(_REGISTRY)}")
+    _REGISTRY.update(flags)
+
+
+__all__ = ["flag", "set_flags"]

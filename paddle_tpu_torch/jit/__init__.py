@@ -1,54 +1,424 @@
-"""One training step per call (port of ``paddle_tpu/jit/__init__.py``'s
-``CompiledTrainStep``, single-step and single-device).
+"""The training step (port of ``paddle_tpu/jit/__init__.py``'s
+``CompiledTrainStep``, single-device).
 
 JAX compiles forward, backward and the optimizer update into one XLA
-program with the state donated through it.  PyTorch runs eagerly, so a
-call here is the body of that program (``_step_body``) run as it is:
-``loss_fn(model, *args)``, ``loss.backward()``, ``optimizer.step()``,
-``optimizer.clear_grad()``.  Parameters, fp32 masters and moments stay
-on the device and are updated in place, so there is no state to carry or
-sync.  The loss comes back as a device tensor without a host sync.
+program with the state donated through it.  Here a step is that
+program's body (:meth:`CompiledTrainStep._body`) run as it is:
+``loss_fn(model, *args)``, the backward (scaled and unscaled under a
+GradScaler), the optional nan/inf checks and metric scalars, the
+optimizer update and ``clear_grad``.  Parameters, fp32 masters,
+accumulators, the lr tensors and the GradScaler state stay on the device
+and are updated in place, so there is no state to carry and no host
+sync inside a step: the loss comes back as a device tensor.
 
-Counters, under the JAX names: ``jit.steps`` and ``jit.host.dispatches``
-(one each per call) and ``optimizer.steps`` (from ``optimizer.step``).
+``fused_steps=K`` (default ``FLAGS_fused_steps``) takes windows of K
+batches stacked on a leading axis (an ``io.Window``, or raw stacked
+tensors whose leading axis gives the window length), the port's form of
+the JAX ``lax.scan`` window:
 
-Fused multi-step windows (CUDA-graph replay), the GradScaler, the mesh
-and the train metrics are a later slice (ROADMAP.md A4, A7).
+* a window call returns the K-vector of losses; ``jit.steps`` and the
+  optimizer's step count advance by K, ``jit.host.dispatches`` by 1;
+* the learning rates of the window's steps come from the scheduler's
+  ``peek(K)`` without stepping it (the caller steps it K times after);
+* the first window of a step object (the priming window: it makes the
+  optimizer state) and partial tail windows run as single steps
+  (``jit.fused_fallback_steps``);
+* on CUDA a steady window is one replay of a CUDA graph that holds the
+  window's K step bodies, captured at the first steady window on a side
+  stream (the priming steps run on that stream too, as its warm-up).
+  The batch goes through static input buffers; the lr vector through a
+  device buffer each body reads its entry of; dropout masks come from
+  the model's CUDA generator, registered with the graph, so each replay
+  draws fresh ones.  A capture that fails raises: nothing falls back to
+  running eagerly.  The kernel launch counters (``kernels.launch_counted``)
+  and the counters the bodies tick are what one capture recorded, added
+  on each replay;
+* on the CPU a steady window runs its K bodies one after another, with
+  the same results and counters.
+
+K fused steps give the same trajectory as K single steps, bit for bit.
+
+``scaler=`` (an enabled ``amp.GradScaler``): the backward runs on the
+scaled loss; the scaler unscales the gradients in fp32 and zeroes them
+on overflow, the lr tensors are set to 0 and every tensor the update
+writes keeps its old value (the JAX ``_scaled_backward`` and
+``_skip_select``); the scaler updates its scale and counts on the
+device.
+
+``FLAGS_check_nan_inf``: the loss, every gradient and every updated
+parameter are checked on the device; after the call (once after a
+window) the bits are read back and a ``FloatingPointError`` names the
+first bad step (its index inside a fused window) and what was not
+finite.  A step whose overflow the scaler handled is not an error.
+
+``metrics=True`` (or a ``profiler.MetricsLogger``): per step the loss,
+the gradients' global norm (after unscaling, before clipping; its
+per-gradient sums of squares are the ones the clip reads), lr,
+scale, skip, step time, tokens/s and MFU (against ``FLAGS_peak_tflops``).
+The device scalars wait on the device until :meth:`metrics_flush` or
+:meth:`sync` reads them back in one transfer.
+
+Counters, under the JAX names: ``jit.steps``, ``jit.host.dispatches``,
+``jit.fused_windows``, ``jit.fused_fallback_steps``,
+``jit.nan_inf_checks``/``.nan_inf_hits``, ``optimizer.steps``, and the
+gauges ``train.steps_accum``, ``train.loss_mean``,
+``train.grad_norm_mean`` and ``train.skip_steps``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
+
+import torch
+
+from .. import flags
+from ..io import Window
+from ..kernels import launch_counted
+from ..nn.clip import sum_sq
 from ..profiler import counters
+from ..profiler.metrics import MetricsLogger
+
+def _window_len(args):
+    for a in args:
+        if isinstance(a, torch.Tensor) and a.dim() >= 1:
+            return int(a.shape[0])
+    raise ValueError("cannot infer the window length: no tensor with a "
+                     "leading axis in the window args (stack batches or "
+                     "pass an io.Window)")
+
+
+def _slice(args, i):
+    return tuple(a[i] if isinstance(a, torch.Tensor) and a.dim() >= 1
+                 else a for a in args)
+
+
+def _infer_tokens(args, stacked):
+    """Tokens a step from the batch shape: B*S of the first >= 2-d
+    tensor (ids [B, S]), else its leading size; a window's leading axis
+    is skipped."""
+    skip = 1 if stacked else 0
+    for a in args:
+        if not isinstance(a, torch.Tensor) or a.dim() <= skip:
+            continue
+        dims = a.shape[skip:]
+        return int(dims[0]) * int(dims[1]) if len(dims) >= 2 else int(dims[0])
+    return None
+
+
+class _Captured:
+    """One captured window: the graph, its static buffers and outputs,
+    and what one replay adds to the counters."""
+
+    def __init__(self, graph, args, lrs, out, names, launches, ticks):
+        self.graph, self.args, self.lrs = graph, args, lrs
+        self.out, self.names = out, names
+        self.launches, self.ticks = launches, ticks
 
 
 class CompiledTrainStep:
     def __init__(self, model, loss_fn, optimizer, scaler=None, donate=True,
                  fused_steps=None, mesh=None, shard_rules=None,
                  batch_axes=None, metrics=None):
-        for name, value, item in (
-                ("fused_steps > 1", fused_steps not in (None, 1),
-                 "A4 (fused windows with CUDA-graph replay)"),
-                ("scaler", scaler is not None, "A4 (GradScaler and AMP)"),
-                ("mesh", mesh is not None or shard_rules is not None
-                 or batch_axes is not None, "A7 (distributed)"),
-                ("metrics", metrics not in (None, False),
-                 "A4 (train metrics)")):
-            if value:
-                raise NotImplementedError(
-                    f"CompiledTrainStep({name}) is not ported yet: "
-                    f"ROADMAP.md {item}")
+        if mesh is not None or shard_rules is not None \
+                or batch_axes is not None:
+            raise NotImplementedError(
+                "CompiledTrainStep(mesh) is not ported yet: ROADMAP.md A7 "
+                "(distributed)")
+        if fused_steps is None:
+            fused_steps = int(flags.flag("FLAGS_fused_steps"))
+        if int(fused_steps) < 1:
+            raise ValueError(f"fused_steps must be >= 1, got {fused_steps}")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        self.scaler = (scaler if scaler is not None and scaler.is_enable()
+                       else None)
+        self.fused_steps = int(fused_steps)
+        self.metrics = MetricsLogger() if metrics is True else (
+            metrics or None)
+        self._primed = False      # a step body has run (state exists)
+        self._stream = None       # the side stream of CUDA windows
+        self._graphs = {}
+        self._pending = []
+        self._totals = dict.fromkeys(("steps", "loss", "grad_norm", "skip"),
+                                     0.0)
+        self._last_dispatch_t = None
+        self._tokens_per_step = None
+        self._n_params = None
 
+    # -- the step body -----------------------------------------------------
+    def _body(self, args, check, mon):
+        """One training step on the device with the lr tensors as they
+        are.  Returns ``(loss, check names, check bits, metric row,
+        overflow flag)``; nothing is read back."""
+        model, opt, scaler = self.model, self.optimizer, self.scaler
+        with torch.enable_grad():
+            loss = self.loss_fn(model, *args)
+            (loss if scaler is None else scaler.scale(loss)).backward()
+        found = None
+        if scaler is not None:
+            found = scaler._unscale(model.parameters())
+            opt._zero_lr_where(found)
+        named = [(n, p) for n, p in model.named_parameters()
+                 if p.grad is not None]
+        names, bits = [], []
+        if check:
+            names = ["loss"] + ["grad:" + n for n, _ in named]
+            bits = [torch.isfinite(loss.float()).all()] + [
+                torch.isfinite(p.grad.float()).all() for _, p in named]
+        row = sq = None
+        if mon:
+            # one pass over the gradients, shared with the clip
+            sq = {id(p): sum_sq(p.grad) for _, p in named}
+            row = [torch.sqrt(sum(sq.values()))]
+        opt._apply(found, sq)
+        opt.clear_grad()
+        if scaler is not None:
+            scaler._update(found)
+        if check:
+            names += ["param:" + n for n, _ in named]
+            bits += [torch.isfinite(p.float()).all() for _, p in named]
+        if mon:
+            if scaler is not None:
+                row += [found.float(), scaler._state["scale"].clone()]
+            else:
+                row += [torch.zeros_like(row[0]), torch.ones_like(row[0])]
+            row = torch.stack(row)
+        bits = torch.stack(bits) if check else None
+        return loss.detach(), names, bits, row, found
+
+    # -- dispatch ----------------------------------------------------------
     def __call__(self, *args):
+        if len(args) == 1 and isinstance(args[0], Window):
+            return self._call_window(tuple(args[0]), args[0].k)
+        if self.fused_steps > 1:
+            return self._call_window(args, None)
+        return self._dispatch_single(args, self.optimizer.get_lr())
+
+    def _device(self):
+        return next(self.model.parameters()).device
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """Windows on CUDA run every body on one side stream: the
+        capture's, so the priming steps are its warm-up."""
+        dev = self._device()
+        if dev.type != "cuda" or self.fused_steps == 1:
+            yield
+            return
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        cur = torch.cuda.current_stream(dev)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            yield
+        cur.wait_stream(self._stream)
+
+    def _dispatch_single(self, args, lr_val):
         counters.inc("jit.steps")
         counters.inc("jit.host.dispatches")
-        loss = self.loss_fn(self.model, *args)
-        loss.backward()
-        self.optimizer.step()
-        self.optimizer.clear_grad()
-        return loss.detach()
+        check = bool(flags.flag("FLAGS_check_nan_inf"))
+        mon = self.metrics is not None
+        with self._on_stream():
+            self.optimizer._fill_lr(lr_val)
+            loss, names, bits, row, found = self._body(args, check, mon)
+        self._primed = True
+        if mon:
+            self._note(loss[None], row[None], (lr_val,), 1, args, False)
+        if check:
+            self._raise_if_nonfinite(
+                names, bits[None], None if found is None else found[None], 1)
+        return loss
+
+    def _call_window(self, args, k=None):
+        if k is None:
+            k = _window_len(args)
+        k = int(k)
+        if k < 1:
+            raise ValueError(f"empty dispatch window (k={k})")
+        lrs = self.optimizer._peek_lrs(k)
+        if k == self.fused_steps and k > 1 and self._primed:
+            return self._dispatch_window(args, lrs, k)
+        counters.inc("jit.fused_fallback_steps", k)
+        return torch.stack([self._dispatch_single(_slice(args, i), lrs[i])
+                            for i in range(k)])
+
+    def _dispatch_window(self, args, lrs, k):
+        counters.inc("jit.steps", k)
+        counters.inc("jit.fused_windows")
+        counters.inc("jit.host.dispatches")
+        check = bool(flags.flag("FLAGS_check_nan_inf"))
+        mon = self.metrics is not None
+        if self._device().type == "cuda":
+            losses, names, bits, rows, found = self._replay(
+                args, lrs, k, check, mon)
+        else:
+            outs = []
+            for i in range(k):
+                self.optimizer._fill_lr(lrs[i])
+                outs.append(self._body(_slice(args, i), check, mon))
+            losses, names, bits, rows, found = self._stack(outs)
+        if mon:
+            self._note(losses, rows, tuple(lrs), k, args, True)
+        if check:
+            self._raise_if_nonfinite(names, bits, found, k)
+        return losses
+
+    @staticmethod
+    def _stack(outs):
+        loss, names, bits, row, found = zip(*outs)
+
+        def stack(ts):
+            return None if ts[0] is None else torch.stack(ts)
+
+        return stack(loss), names[0], stack(bits), stack(row), stack(found)
+
+    # -- CUDA graphs -------------------------------------------------------
+    def _replay(self, args, lrs, k, check, mon):
+        key = (check, mon, k, tuple(
+            (tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor) else a
+            for a in args))
+        cap = self._graphs.get(key)
+        with self._on_stream():
+            if cap is None:
+                cap = self._graphs[key] = self._capture(args, k, check, mon)
+            for dst, src in zip(cap.args, args):
+                if isinstance(dst, torch.Tensor):
+                    dst.copy_(src, non_blocking=True)
+            cap.lrs.copy_(torch.tensor(lrs, dtype=torch.float32)
+                          .pin_memory(), non_blocking=True)
+            cap.graph.replay()
+            out = tuple(None if t is None else t.clone() for t in cap.out)
+        self.optimizer._step_count += k
+        for fn, n in cap.launches.items():
+            fn.launches += n
+        for name, n in cap.ticks.items():
+            counters.inc(name, n)
+        losses, bits, rows, found = out
+        return losses, cap.names, bits, rows, found
+
+    def _capture(self, args, k, check, mon):
+        """Capture the window's K step bodies into one CUDA graph (on the
+        current stream: the side stream).  Nothing runs: the capture
+        records.  What the bodies counted is taken back and kept as the
+        increments of one replay."""
+        opt = self.optimizer
+        dev = self._device()
+        static = tuple(a.to(dev, copy=True) if isinstance(a, torch.Tensor)
+                       else a for a in args)
+        lrs = torch.zeros(k, dtype=torch.float32, device=dev)
+        graph = torch.cuda.CUDAGraph()
+        gen = getattr(self.model, "dropout_generator", None)
+        if gen is not None and gen.device.type == "cuda":
+            graph.register_generator_state(gen)
+        kernels = launch_counted()
+        launches0 = {fn: fn.launches for fn in kernels}
+        ticks0 = counters.snapshot()
+        step0 = opt._step_count
+        try:
+            with torch.cuda.graph(graph, stream=self._stream):
+                outs = []
+                for i in range(k):
+                    opt._load_lr(lrs[i])
+                    outs.append(self._body(_slice(static, i), check, mon))
+                losses, names, bits, rows, found = self._stack(outs)
+        finally:
+            opt._step_count = step0
+            launches = {fn: fn.launches - launches0[fn] for fn in kernels}
+            for fn in kernels:
+                fn.launches = launches0[fn]
+            ticks = counters.delta(ticks0)
+            for name, n in ticks.items():
+                counters.inc(name, -n)
+        return _Captured(graph, static, lrs, (losses, bits, rows, found),
+                         names, {f: n for f, n in launches.items() if n},
+                         ticks)
+
+    # -- metrics and checks ------------------------------------------------
+    def _note(self, losses, rows, lrs, k, args, stacked):
+        """Queue one dispatch's device scalars (not read here) with its
+        host context."""
+        if self._tokens_per_step is None:
+            self._tokens_per_step = _infer_tokens(args, stacked)
+        now = time.perf_counter()
+        dt = (now - self._last_dispatch_t
+              if self._last_dispatch_t is not None else None)
+        self._last_dispatch_t = now
+        self._pending.append({
+            "gstep0": self.optimizer._step_count - k + 1, "k": k,
+            "values": torch.cat([losses.float()[:, None], rows.float()], 1),
+            "lrs": lrs, "dt": dt})
+        if len(self._pending) >= 512:   # a loop that never syncs
+            self.metrics_flush()
+
+    def metrics_flush(self):
+        """Read the pending per-step scalars back in one transfer and log
+        them; set the ``train.*`` gauges."""
+        if self.metrics is None or not self._pending:
+            return
+        pending, self._pending = self._pending, []
+        values = torch.cat([r["values"] for r in pending]).cpu().tolist()
+        peak = float(flags.flag("FLAGS_peak_tflops") or 0.0)
+        if self._n_params is None:
+            self._n_params = sum(p.numel() for p in self.model.parameters())
+        tokens = self._tokens_per_step
+        t = self._totals
+        row = 0
+        for rec in pending:
+            k = rec["k"]
+            step_time = rec["dt"] / k if rec["dt"] is not None else None
+            tok_s = (tokens / step_time
+                     if tokens and step_time and step_time > 0 else None)
+            mfu = (6.0 * self._n_params * tok_s / (peak * 1e12)
+                   if tok_s and peak > 0 else None)
+            for i in range(k):
+                loss, gnorm, skip, scale = values[row]
+                row += 1
+                self.metrics.log(step=rec["gstep0"] + i, loss=loss,
+                                 grad_norm=gnorm, lr=rec["lrs"][i],
+                                 scaler_scale=scale, scaler_skip=skip,
+                                 step_time_s=step_time, tok_s=tok_s,
+                                 mfu=mfu)
+                t["steps"] += 1
+                t["loss"] += loss
+                t["grad_norm"] += gnorm
+                t["skip"] += skip
+        counters.set_gauge("train.steps_accum", t["steps"])
+        counters.set_gauge("train.loss_mean", t["loss"] / t["steps"])
+        counters.set_gauge("train.grad_norm_mean", t["grad_norm"] / t["steps"])
+        counters.set_gauge("train.skip_steps", t["skip"])
+
+    def sync(self):
+        """A sync boundary: the model and optimizer are always current
+        (updated in place), so this harvests the pending metrics."""
+        self.metrics_flush()
+
+    def _raise_if_nonfinite(self, names, bits, found, window):
+        """Read the finite-ness bits back (a host sync: a debug mode) and
+        raise naming the first bad step of the dispatch."""
+        counters.inc("jit.nan_inf_checks")
+        bits = bits.cpu().tolist()
+        found = found.cpu().tolist() if found is not None else None
+        bad_by_step = {}
+        for i, step_bits in enumerate(bits):
+            if found is not None and found[i]:
+                continue   # an overflow the scaler skipped: not a defect
+            bad = sorted(n for n, ok in zip(names, step_bits) if not ok)
+            if bad:
+                bad_by_step[i] = bad
+        if not bad_by_step:
+            return
+        counters.inc("jit.nan_inf_hits")
+        i = min(bad_by_step)
+        bad = bad_by_step[i]
+        shown = ", ".join(bad[:8]) + (f" (+{len(bad) - 8} more)"
+                                      if len(bad) > 8 else "")
+        gstep = self.optimizer._step_count - window + i + 1
+        where = (f"train step {gstep} (step {i} of a {window}-step fused "
+                 f"window)" if window > 1 else f"train step {gstep}")
+        raise FloatingPointError(
+            f"FLAGS_check_nan_inf: non-finite values at {where}: {shown}")
 
 
 __all__ = ["CompiledTrainStep"]

@@ -1,2 +1,12 @@
 """Kernels of the port: each hand-written CUDA kernel beside its plain
 PyTorch version (see ``paged_attention``)."""
+
+
+def launch_counted():
+    """Every kernel wrapper that counts its launches in ``.launches``
+    (K1–K3, K4, K5): a captured CUDA graph records what its capture
+    counted and adds it on each replay (``jit.CompiledTrainStep``)."""
+    from . import flash_attention, paged_attention, rms_norm
+    return (flash_attention.flash_fwd, flash_attention.flash_bwd_dq,
+            flash_attention.flash_bwd_dkv,
+            paged_attention.paged_decode_attention, rms_norm.rms_norm)

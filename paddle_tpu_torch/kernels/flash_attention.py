@@ -22,9 +22,10 @@ tensor it launches the kernel or raises.  Each wrapper counts its
 launches in ``.launches``.
 
 Arithmetic follows the TPU kernel exactly where it rounds: every
-product whose operands include a 16-bit tensor takes both operands in
-bf16 and sums in fp32 (``_dot_f32``), so P is rounded to bf16 before
-P·V and Pᵀ·dO and dS before dS·K and dSᵀ·Q; fp32 inputs stay fp32.
+product whose operands include a 16-bit tensor (bf16 or fp16) takes
+both operands in bf16 and sums in fp32 (``_dot_f32``), so P is rounded
+to bf16 before P·V and Pᵀ·dO and dS before dS·K and dSᵀ·Q; fp32 inputs
+stay fp32.  The CUDA kernels take bf16 and fp32: fp16 on CUDA raises.
 The mask fill is the finite ``NEG_INF``; the outputs are ``acc /
 max(l, 1e-30)`` and ``lse = m + log(max(l, 1e-30))``.
 
@@ -219,6 +220,11 @@ def _check_operands(kernel, q, k, v, do=None, lse=None, delta=None):
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{kernel}: dim 'head_dim'={D} is not one the "
                          f"CUDA kernel is built for {KERNEL_HEAD_DIMS}")
+    if q.dtype == torch.float16:
+        raise NotImplementedError(
+            f"{kernel}: float16 on CUDA is not ported yet: ROADMAP.md A4 "
+            "(fp16 instances of K1-K3 that round 2-byte operands to bf16, as "
+            "the JAX kernels do; the plain versions on the CPU already do)")
     if q.dtype not in _FLOATS:
         raise TypeError(f"{kernel}: q is {q.dtype}; the kernel takes "
                         "float32 or bfloat16")

@@ -110,8 +110,10 @@ class GPTConfig:
         return GPTConfig(hidden_size=4096, num_layers=32, num_heads=32, **kw)
 
 
-#: model dtypes the serving path (and its decode kernel) takes
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: model dtypes; float16 trains on the CPU (the CUDA flash kernels take
+#: float32 and bfloat16), and serving takes float32 and bfloat16
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 #: per-layer parameters stacked on a leading [L] axis
 _STACKED = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
@@ -127,13 +129,16 @@ def _norm(x, w, b, eps):
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
 
 
-def _dropout(x, p, seed):
-    """Inverted dropout with the keep mask drawn from a generator seeded
-    with ``seed``: a recomputed segment draws the same mask again.  (The
-    JAX package draws from ``jax.random`` keys: the streams differ, the
-    distribution is the same.)"""
-    gen = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1 - p
+def _keep_mask(shape, p, generator, device):
+    """Dropout's keep mask (rate ``1 - p``) drawn from ``generator``, a
+    generator on ``device``: on CUDA one a captured graph registers, so
+    every replay draws anew.  (The JAX package draws from ``jax.random``
+    keys: the streams differ, the distribution is the same.)"""
+    return torch.rand(shape, generator=generator, device=device) < 1 - p
+
+
+def _dropout(x, p, keep):
+    """Inverted dropout through the keep mask ``keep``."""
     return torch.where(keep, x / (1 - p), 0.0).to(x.dtype)
 
 
@@ -308,9 +313,9 @@ class GPTForCausalLM(nn.Module):
         self.lnf_b = const((H,), 0.0)
         if not c.tie_word_embeddings:
             self.lm_head = normal((H, V))
-        #: host generator the training forward draws dropout seeds from
-        #: when the caller passes none
-        self.dropout_generator = torch.Generator().manual_seed(0)
+        #: generator on the model's device the training forward draws
+        #: dropout masks from when the caller passes none
+        self.dropout_generator = torch.Generator(device=dev).manual_seed(0)
 
     @property
     def device(self):
@@ -346,9 +351,10 @@ class GPTForCausalLM(nn.Module):
         Each block: LayerNorm, qkv, causal flash attention (or
         ``reference_attention`` when ``use_flash_attention=False``),
         projection, GELU-tanh FFN, with residuals.  In training mode with
-        ``dropout > 0`` the masks come from seeds drawn from
-        ``generator`` (a CPU ``torch.Generator``; default
-        ``self.dropout_generator``).  ``config.recompute`` replays
+        ``dropout > 0`` each block's two keep masks are drawn from
+        ``generator`` (a ``torch.Generator`` on the model's device;
+        default ``self.dropout_generator``) before the block runs, so a
+        recomputed stage reuses them.  ``config.recompute`` replays
         activations in the backward through ``torch.utils.checkpoint``:
         ``True`` keeps only each block's input, ``"selective"`` also
         keeps qkv, the attention output and the FFN up-projection,
@@ -360,27 +366,27 @@ class GPTForCausalLM(nn.Module):
         h = self.wte[input_ids]
         if not c.use_rope:
             h = h + self.wpe[:input_ids.shape[1]]
-        seeds = [None] * L
-        if self.training and c.dropout > 0:
-            gen = self.dropout_generator if generator is None else generator
-            seeds = torch.randint(0, 2 ** 62, (L, 2), generator=gen).tolist()
+        drop = self.training and c.dropout > 0
+        gen = self.dropout_generator if generator is None else generator
         layers = {n: getattr(self, n).unbind(0) for n in _STACKED}
         for l in range(L):
             lw = {n: t[l] for n, t in layers.items()}
-            h = self._block(h, lw, seeds[l], kernel)
+            keep = (tuple(_keep_mask(h.shape, c.dropout, gen, h.device)
+                          for _ in range(2)) if drop else None)
+            h = self._block(h, lw, keep, kernel)
         h = _norm(h, self.lnf_w, self.lnf_b, c.layer_norm_epsilon)
         w = self.wte.T if c.tie_word_embeddings else self.lm_head
         return torch.matmul(h, w)
 
-    def _block(self, h, lw, seeds, kernel):
+    def _block(self, h, lw, keep, kernel):
         """One transformer block, cut into stages at the activations that
         recompute keeps: ``qkv``, ``attn_out`` and ``ffn_up`` (JAX
         ``checkpoint_name``s).  A checkpointed stage saves only its
         inputs and replays the rest in the backward."""
         c = self.config
         eps = c.layer_norm_epsilon
-        drop = (None if seeds is None else
-                lambda x, i: _dropout(x, c.dropout, seeds[i]))
+        drop = (None if keep is None else
+                lambda x, i: _dropout(x, c.dropout, keep[i]))
 
         def qkv_of(h):
             x = _norm(h, lw["ln1_w"], lw["ln1_b"], eps)

@@ -1,19 +1,34 @@
-"""Optimizers (port of ``paddle_tpu/optimizer/__init__.py``: ``Optimizer``,
-``Adam``, ``AdamW``; dense gradients only).
+"""Optimizers (port of ``paddle_tpu/optimizer/__init__.py``; dense
+gradients only).
 
-The update is the JAX package's formula in plain torch ops, step for
-step: gradients cast to fp32, ``m = b1*m + (1-b1)*g``, ``v = b2*v +
-(1-b2)*g*g``, per-parameter fp32 ``beta1_pow``/``beta2_pow``, ``mhat /
-(sqrt(vhat) + eps)`` (``torch.optim.AdamW`` puts eps elsewhere), and
-AdamW's decoupled ``master * (1 - lr*decay)``.  Under
-``multi_precision=True`` a bf16 parameter gets an fp32 master, made from
-the parameter at its first step; after each update the master is written
-back into the parameter **in place**.
+Each update is the JAX package's formula in plain torch ops, step for
+step and in the same order of operations: gradients cast to fp32 under
+``multi_precision``, per-parameter fp32 accumulators (Adam's
+``beta1_pow``/``beta2_pow`` included), AdamW's decoupled ``master * (1
+- lr*decay)``.  A 16-bit parameter gets an fp32 master, made from the
+parameter at its first step and written back into it after each update.
+
+Every accumulator and master is updated **in place**, so the tensors a
+captured CUDA graph writes are the ones the optimizer holds
+(``jit.CompiledTrainStep`` replays the step body as a graph).  For the
+same reason the learning rate is a 0-d fp32 device tensor per parameter
+group, filled before the update: from ``get_lr()`` by :meth:`step`, from
+a device vector by a fused window; and the step count the updates read
+(NAdam's and RAdam's bias corrections) is a 0-d device tensor counted up
+in place.  A step reads nothing back to the host.
+
+``learning_rate`` is a float or an ``lr.LRScheduler``; ``grad_clip`` a
+clip object of ``nn.clip``; ``weight_decay`` a float or an
+``L2Decay``/``L1Decay`` (whose coefficient enters the gradient as the
+JAX package adds it, ``g + coeff * w``, for both).  ``parameters`` is a
+list of tensors or ``(name, tensor)`` pairs, or of groups ``{"params":
+[...], "learning_rate": factor, "weight_decay": coeff}``: Paddle scales
+a group's lr by its factor and gives its parameters its decay (the JAX
+package reads neither key).
 
 The JAX update is XLA with no Pallas kernel behind it, so no kernel is
-owed here.  Learning-rate schedulers, gradient clipping, parameter
-groups, per-parameter decay and lr ratios, and sparse (``SelectedRows``)
-gradients are a later slice: ROADMAP.md A4.
+owed here.  ``LBFGS``, ``lazy_mode`` and sparse (``SelectedRows``)
+gradients are ROADMAP.md A4.
 """
 
 from __future__ import annotations
@@ -24,78 +39,203 @@ import numpy as np
 import torch
 
 from ..profiler import counters
+from . import lr
+from .lr import LRScheduler
 
-_TODO = "is not ported yet: ROADMAP.md A4 (training: the rest of optimizer)"
+_SPARSE = ("sparse (SelectedRows) gradients are not ported yet: ROADMAP.md "
+           "A4 (SelectedRows gradients with lazy_mode)")
+_GROUP_KEYS = {"params", "learning_rate", "weight_decay"}
+
+
+class L2Decay:
+    def __init__(self, coeff=0.0):
+        self._coeff = coeff
+
+
+class L1Decay:
+    def __init__(self, coeff=0.0):
+        self._coeff = coeff
+
+
+def _coeff(weight_decay, default=0.0):
+    """A decay's coefficient: a number as it is, a regularizer's
+    ``_coeff``, ``default`` for anything else (the JAX rule)."""
+    if isinstance(weight_decay, numbers.Real):
+        return float(weight_decay)
+    return float(getattr(weight_decay, "_coeff",
+                         getattr(weight_decay, "coeff", default)))
 
 
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, multi_precision=True,
                  name=None):
-        if not isinstance(learning_rate, numbers.Real):
-            raise NotImplementedError(f"a learning-rate scheduler {_TODO}")
-        if grad_clip is not None:
-            raise NotImplementedError(f"grad_clip {_TODO}")
         if parameters is None:
             raise ValueError("the optimizer needs parameters=")
+        if not isinstance(learning_rate, (numbers.Real, LRScheduler)):
+            raise TypeError(f"learning_rate must be a number or an "
+                            f"LRScheduler, got {type(learning_rate)}")
         parameters = list(parameters)
-        if any(isinstance(p, dict) for p in parameters):
-            raise NotImplementedError(f"parameter groups {_TODO}")
-        # (name, parameter) pairs, as ``model.named_parameters()`` gives
-        # them, name the state_dict entries; bare tensors are param_<i>
-        self._param_names = [p[0] if isinstance(p, tuple) else f"param_{i}"
-                             for i, p in enumerate(parameters)]
-        parameters = [p[1] if isinstance(p, tuple) else p
-                      for p in parameters]
-        if weight_decay is not None and not isinstance(weight_decay,
-                                                       numbers.Real):
-            raise NotImplementedError(f"a weight-decay regularizer {_TODO}")
-        self._parameter_list = parameters
-        self._learning_rate = float(learning_rate)
+        groups = (parameters if parameters and isinstance(parameters[0], dict)
+                  else [{"params": parameters}])
+        self._param_groups, self._parameter_list = [], []
+        self._param_names, self._group_of = [], {}
+        for gi, group in enumerate(groups):
+            unknown = sorted(set(group) - _GROUP_KEYS)
+            if unknown:
+                raise ValueError(f"parameter group keys {unknown}: the port "
+                                 f"reads {sorted(_GROUP_KEYS)}")
+            params = []
+            for item in group["params"]:
+                # (name, parameter) pairs, as model.named_parameters()
+                # gives them, name the state_dict entries; bare tensors
+                # are param_<i>
+                name_, p = item if isinstance(item, tuple) else (None, item)
+                self._param_names.append(
+                    name_ or f"param_{len(self._parameter_list)}")
+                self._parameter_list.append(p)
+                self._group_of[id(p)] = gi
+                params.append(p)
+            self._param_groups.append({**group, "params": params})
+        self._learning_rate = learning_rate
+        self._grad_clip = grad_clip
         self._multi_precision = multi_precision
-        self._weight_decay = float(weight_decay or 0.0)
+        self._weight_decay = _coeff(weight_decay)
         self._accumulators: dict[str, dict[int, torch.Tensor]] = {}
         self._master_weights: dict[int, torch.Tensor] = {}
         self._step_count = 0
+        dev = (self._parameter_list[0].device if self._parameter_list
+               else torch.device("cpu"))
+        #: one 0-d fp32 lr a group (its factor applied), on the device
+        self._lr_tensors = [torch.zeros((), dtype=torch.float32, device=dev)
+                            for _ in self._param_groups]
+        #: ``_step_count`` on the device, in float64 so that the bias
+        #: corrections computed from it are the Python floats JAX uses
+        self._step_t = torch.zeros((), dtype=torch.float64, device=dev)
+
+    # -- lr ------------------------------------------------------------------
+    def get_lr(self):
+        if isinstance(self._learning_rate, LRScheduler):
+            return self._learning_rate()
+        return self._learning_rate
+
+    def set_lr(self, value):
+        self._learning_rate = value
+
+    def set_lr_scheduler(self, scheduler):
+        self._learning_rate = scheduler
+
+    def _peek_lrs(self, k):
+        """The lr values (host floats) of the next ``k`` steps, read
+        without stepping the scheduler (``LRScheduler.peek``); a constant
+        lr repeats."""
+        if isinstance(self._learning_rate, LRScheduler):
+            return self._learning_rate.peek(k)
+        return [float(self._learning_rate)] * int(k)
+
+    def _fill_lr(self, value):
+        """Set every group's lr tensor from a host float."""
+        for t, g in zip(self._lr_tensors, self._param_groups):
+            t.fill_(float(value))
+            if g.get("learning_rate", 1.0) != 1.0:
+                t.mul_(g["learning_rate"])
+
+    def _load_lr(self, src):
+        """Set every group's lr tensor from a 0-d device tensor (graph
+        safe: no host value is baked in)."""
+        for t, g in zip(self._lr_tensors, self._param_groups):
+            t.copy_(src)
+            if g.get("learning_rate", 1.0) != 1.0:
+                t.mul_(g["learning_rate"])
+
+    def _zero_lr_where(self, found):
+        for t in self._lr_tensors:
+            t.copy_(torch.where(found, torch.zeros_like(t), t))
+
+    def _param_lr(self, p):
+        return getattr(p, "optimize_attr", {}).get("learning_rate", 1.0)
+
+    def _lr_of(self, p):
+        """The lr tensor of ``p``: its group's, times its own factor."""
+        t = self._lr_tensors[self._group_of[id(p)]]
+        f = self._param_lr(p)
+        return t if f == 1.0 else t * f
+
+    def _decay(self, p, default):
+        group = self._param_groups[self._group_of[id(p)]]
+        if "weight_decay" in group:
+            return _coeff(group["weight_decay"])
+        return default
 
     # -- accumulators --------------------------------------------------------
     def _acc(self, name, p, init=None):
+        """Accumulator ``name`` of ``p`` (created at first use, zeros like
+        the master unless ``init`` is given); updated in place."""
         store = self._accumulators.setdefault(name, {})
         if id(p) not in store:
             store[id(p)] = (torch.zeros_like(self._master(p)) if init is None
                             else init)
         return store[id(p)]
 
-    def _set_acc(self, name, p, value):
-        self._accumulators[name][id(p)] = value
-
     def _uses_master(self, p):
         return self._multi_precision and p.dtype != torch.float32
 
     def _master(self, p):
         """fp32 master weight of a low-precision parameter (the parameter
-        itself otherwise)."""
+        itself otherwise, so in-place updates land in it)."""
         if not self._uses_master(p):
             return p.detach()
         if id(p) not in self._master_weights:
             self._master_weights[id(p)] = p.detach().float()
         return self._master_weights[id(p)]
 
-    def _write_back(self, p, new_master):
+    def _write_back(self, p, master):
         if self._uses_master(p):
-            self._master_weights[id(p)] = new_master
-        p.detach().copy_(new_master)
+            p.detach().copy_(master)
+
+    def _state_of(self, p):
+        """Every tensor an update of ``p`` writes that exists now."""
+        out = [p.detach()]
+        if id(p) in self._master_weights:
+            out.append(self._master_weights[id(p)])
+        out.extend(store[id(p)] for store in self._accumulators.values()
+                   if id(p) in store)
+        return out
 
     # -- step ----------------------------------------------------------------
     @torch.no_grad()
     def step(self):
+        self._fill_lr(self.get_lr())
+        self._apply()
+
+    @torch.no_grad()
+    def _apply(self, found=None, sq=None):
+        """Clip and update with the lr tensors as they are.  With
+        ``found`` (a 0-d bool device tensor: a GradScaler overflow), every
+        tensor that existed before the update keeps its old value where
+        ``found`` is true (the JAX ``_skip_select``).  ``sq``: the
+        gradients' sums of squares for the clip (``nn.clip``), when the
+        caller has them."""
         counters.inc("optimizer.steps")
+        pg = [(p, p.grad) for p in self._parameter_list
+              if p.requires_grad and p.grad is not None]
+        for _, g in pg:
+            if g.is_sparse:
+                raise NotImplementedError(_SPARSE)
+        if self._grad_clip is not None:
+            pg = list(self._grad_clip(pg) if sq is None
+                      else self._grad_clip(pg, sq))
         self._step_count += 1
-        for p in self._parameter_list:
-            if p.grad is None:
+        self._step_t.add_(1)
+        for p, g in pg:
+            g = g.float() if self._multi_precision else g
+            if found is None:
+                self._update_param(p, g)
                 continue
-            g = p.grad
-            self._update_param(p, g.float() if self._multi_precision else g)
+            old = [(t, t.clone()) for t in self._state_of(p)]
+            self._update_param(p, g)
+            for t, before in old:
+                t.copy_(torch.where(found, before, t))
 
     def _update_param(self, p, g):
         raise NotImplementedError
@@ -104,48 +244,74 @@ class Optimizer:
         for p in self._parameter_list:
             p.grad = None
 
+    clear_gradients = clear_grad
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        loss.backward()
+        self.step()
+        self.clear_grad()
+
     # -- state dict ----------------------------------------------------------
     def _names(self):
         return {id(p): n for p, n in zip(self._parameter_list,
                                          self._param_names)}
 
     def state_dict(self):
-        """``{"master_weights": {name: t}, "accumulators": {acc: {name:
-        t}}, "step": n, "LR_Scheduler": {}}`` — the JAX layout, keyed by
-        parameter name, holding the optimizer's own tensors."""
+        """The JAX layout ``{"master_weights": {name: t}, "accumulators":
+        {acc: {name: t}}, "step": n, "LR_Scheduler": {...}}``, keyed by
+        parameter name, plus ``"lr"``: the group lr tensors.  Tensors are
+        copies: the optimizer goes on updating its own in place."""
         names = self._names()
+        sched = self._learning_rate
         return {
-            "master_weights": {names[pid]: v
+            "master_weights": {names[pid]: v.detach().clone()
                                for pid, v in self._master_weights.items()},
-            "LR_Scheduler": {},
-            "accumulators": {acc: {names[pid]: v for pid, v in store.items()}
+            "LR_Scheduler": (sched.state_dict()
+                             if isinstance(sched, LRScheduler) else {}),
+            "accumulators": {acc: {names[pid]: v.detach().clone()
+                                   for pid, v in store.items()}
                              for acc, store in self._accumulators.items()},
             "step": self._step_count,
+            "lr": [t.clone() for t in self._lr_tensors],
         }
 
     def set_state_dict(self, state):
-        """Copy a :meth:`state_dict` (tensors or numpy arrays) onto the
-        parameters' devices; unknown names are ignored, as in JAX."""
+        """Load a :meth:`state_dict` (tensors or numpy arrays); unknown
+        names are ignored, as in JAX.  A tensor the optimizer already
+        holds is overwritten in place, so a captured train step keeps
+        writing the tensors the optimizer reads."""
         by_name = dict(zip(self._param_names, self._parameter_list))
 
-        def tensor(v, p):
+        def put(store, key, v, p):
             if isinstance(v, torch.Tensor):
-                return v.detach().to(p.device, copy=True)
-            arr = np.asarray(v)
-            if arr.dtype.name == "bfloat16":   # numpy has no bf16 of its own
-                arr = arr.astype(np.float32)
-            return torch.from_numpy(np.array(arr)).to(p.device)
+                src = v.detach()
+            else:
+                arr = np.asarray(v)
+                if arr.dtype.name == "bfloat16":  # numpy has no bf16
+                    arr = arr.astype(np.float32)
+                src = torch.from_numpy(np.array(arr))
+            if key in store:
+                store[key].copy_(src)
+            else:
+                store[key] = src.to(p.device, copy=True)
 
         self._step_count = int(state.get("step", 0))
+        self._step_t.fill_(self._step_count)
         for acc, store in state.get("accumulators", {}).items():
             dst = self._accumulators.setdefault(acc, {})
             for name, v in store.items():
                 if name in by_name:
-                    dst[id(by_name[name])] = tensor(v, by_name[name])
+                    put(dst, id(by_name[name]), v, by_name[name])
         for name, v in state.get("master_weights", {}).items():
             if name in by_name:
-                self._master_weights[id(by_name[name])] = tensor(
-                    v, by_name[name])
+                put(self._master_weights, id(by_name[name]), v,
+                    by_name[name])
+        sched = self._learning_rate
+        if isinstance(sched, LRScheduler) and state.get("LR_Scheduler"):
+            sched.set_state_dict(state["LR_Scheduler"])
+        for t, v in zip(self._lr_tensors, state.get("lr", ())):
+            t.copy_(torch.as_tensor(v, dtype=torch.float32))
 
     def load_numpy_state(self, jax_state, names):
         """Resume from the JAX optimizer's ``state_dict()``.  JAX keys its
@@ -167,7 +333,49 @@ class Optimizer:
             "master_weights": rename(jax_state.get("master_weights", {})),
             "accumulators": {acc: rename(store) for acc, store in
                              jax_state.get("accumulators", {}).items()},
+            "LR_Scheduler": jax_state.get("LR_Scheduler", {}),
         })
+
+
+def _one(p):
+    return torch.ones((), dtype=torch.float32, device=p.device)
+
+
+class SGD(Optimizer):
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=True,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+
+    def _update_param(self, p, g):
+        m = self._master(p)
+        wd = self._decay(p, self._weight_decay)
+        if wd:
+            g = g + wd * m
+        m.sub_(self._lr_of(p) * g)
+        self._write_back(p, m)
+
+
+class Momentum(Optimizer):
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=True, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _update_param(self, p, g):
+        m = self._master(p)
+        wd = self._decay(p, self._weight_decay)
+        if wd:
+            g = g + wd * m
+        vel = self._acc("velocity", p)
+        vel.mul_(self._momentum).add_(g)
+        upd = (g + self._momentum * vel) if self._nesterov else vel
+        m.sub_(self._lr_of(p) * upd)
+        self._write_back(p, m)
 
 
 class Adam(Optimizer):
@@ -177,55 +385,334 @@ class Adam(Optimizer):
                  use_multi_tensor=False, amsgrad=False, name=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          multi_precision)
-        if lazy_mode or amsgrad:
-            raise NotImplementedError(f"lazy_mode/amsgrad {_TODO}")
+        if lazy_mode:
+            raise NotImplementedError(
+                "Adam(lazy_mode=True) is not ported yet: ROADMAP.md A4 "
+                "(SelectedRows gradients with lazy_mode)")
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+        self._amsgrad = amsgrad
 
     def _moments(self, p, g):
-        one = torch.ones((), dtype=torch.float32, device=p.device)
+        b1, b2 = self._beta1, self._beta2
         m = self._acc("moment1", p)
         v = self._acc("moment2", p)
-        b1p = self._acc("beta1_pow", p, one)
-        b2p = self._acc("beta2_pow", p, one.clone())
-        m = self._beta1 * m + (1 - self._beta1) * g
-        v = self._beta2 * v + (1 - self._beta2) * g * g
-        b1p = b1p * self._beta1
-        b2p = b2p * self._beta2
-        self._set_acc("moment1", p, m)
-        self._set_acc("moment2", p, v)
-        self._set_acc("beta1_pow", p, b1p)
-        self._set_acc("beta2_pow", p, b2p)
-        return m / (1 - b1p), v / (1 - b2p)
+        b1p = self._acc("beta1_pow", p, _one(p))
+        b2p = self._acc("beta2_pow", p, _one(p))
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * g * g)
+        b1p.mul_(b1)
+        b2p.mul_(b2)
+        mhat = m / (1 - b1p)
+        vhat = v / (1 - b2p)
+        if self._amsgrad:
+            vmax = self._acc("moment2_max", p)
+            torch.maximum(vmax, vhat, out=vmax)
+            vhat = vmax
+        return mhat, vhat
 
     def _update_param(self, p, g):
         master = self._master(p)
-        if self._weight_decay:  # Adam: L2 into the gradient
-            g = g + self._weight_decay * master
+        wd = self._decay(p, self._weight_decay)
+        if wd:  # Adam: L2 into the gradient
+            g = g + wd * master
         mhat, vhat = self._moments(p, g)
-        self._write_back(p, master - self._learning_rate * mhat
-                         / (torch.sqrt(vhat) + self._eps))
+        master.sub_(self._lr_of(p) * mhat / (torch.sqrt(vhat) + self._eps))
+        self._write_back(p, master)
 
 
 class AdamW(Adam):
-    """Adam with decoupled weight decay (default 0.01)."""
+    """Adam with decoupled weight decay (default 0.01).  ``lr_ratio(p)``
+    scales a parameter's lr; ``apply_decay_param_fun(name)`` false
+    exempts the parameter of that name from decay (names as given with
+    the parameters, ``param_<i>`` for bare tensors)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
-                 grad_clip=None, lazy_mode=False, multi_precision=True,
-                 amsgrad=False, name=None):
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=True, amsgrad=False,
+                 name=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, lazy_mode, multi_precision,
                          amsgrad=amsgrad)
-        if not isinstance(weight_decay, numbers.Real):
-            raise NotImplementedError(f"a weight-decay regularizer {_TODO}")
-        self._wd = float(weight_decay)
+        self._wd = _coeff(weight_decay, default=0.01)
+        self._apply_decay_fn = apply_decay_param_fun
+        self._lr_ratio = lr_ratio
+        self._name_of = self._names()
 
     def _update_param(self, p, g):
         master = self._master(p)
-        lr = self._learning_rate
+        lr_t = self._lr_of(p)
+        if self._lr_ratio is not None:
+            lr_t = lr_t * self._lr_ratio(p)
+        decay = self._decay(p, self._wd)
+        if self._apply_decay_fn is not None and not self._apply_decay_fn(
+                self._name_of[id(p)]):
+            decay = 0.0
         mhat, vhat = self._moments(p, g)
-        self._write_back(p, master * (1 - lr * self._wd)
-                         - lr * mhat / (torch.sqrt(vhat) + self._eps))
+        if decay:   # master * (1 - lr*0) is master itself
+            master.mul_(1 - lr_t * decay)
+        master.sub_(lr_t * mhat / (torch.sqrt(vhat) + self._eps))
+        self._write_back(p, master)
 
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+class Adagrad(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=True,
+                 initial_accumulator_value=0.0, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self._eps = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def _update_param(self, p, g):
+        m = self._master(p)
+        wd = self._decay(p, self._weight_decay)
+        if wd:
+            g = g + wd * m
+        acc = self._acc("moment", p, torch.full_like(m, self._init_acc))
+        acc.add_(g * g)
+        m.sub_(self._lr_of(p) * g / (torch.sqrt(acc) + self._eps))
+        self._write_back(p, m)
+
+
+class Adadelta(Optimizer):
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 multi_precision=True, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self._eps, self._rho = epsilon, rho
+
+    def _update_param(self, p, g):
+        m = self._master(p)
+        wd = self._decay(p, self._weight_decay)
+        if wd:
+            g = g + wd * m
+        rho = self._rho
+        avg_sq = self._acc("avg_squared_grad", p)
+        avg_upd = self._acc("avg_squared_update", p)
+        avg_sq.mul_(rho).add_((1 - rho) * g * g)
+        upd = (-torch.sqrt(avg_upd + self._eps)
+               / torch.sqrt(avg_sq + self._eps) * g)
+        avg_upd.mul_(rho).add_((1 - rho) * upd * upd)
+        m.add_(self._lr_of(p) * upd)
+        self._write_back(p, m)
+
+
+class Adamax(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, multi_precision=True, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+
+    def _update_param(self, p, g):
+        master = self._master(p)
+        wd = self._decay(p, self._weight_decay)
+        if wd:
+            g = g + wd * master
+        m = self._acc("moment", p)
+        u = self._acc("inf_norm", p)
+        b1p = self._acc("beta1_pow", p, _one(p))
+        m.mul_(self._beta1).add_((1 - self._beta1) * g)
+        torch.maximum(self._beta2 * u, torch.abs(g), out=u)
+        b1p.mul_(self._beta1)
+        master.sub_(self._lr_of(p) / (1 - b1p) * m / (u + self._eps))
+        self._write_back(p, master)
+
+
+class RMSProp(Optimizer):
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, multi_precision=True, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self._rho, self._eps = rho, epsilon
+        self._momentum = momentum
+        self._centered = centered
+
+    def _update_param(self, p, g):
+        m = self._master(p)
+        wd = self._decay(p, self._weight_decay)
+        if wd:
+            g = g + wd * m
+        rho = self._rho
+        ms = self._acc("mean_square", p)
+        ms.mul_(rho).add_((1 - rho) * g * g)
+        if self._centered:
+            mg = self._acc("mean_grad", p)
+            mg.mul_(rho).add_((1 - rho) * g)
+            denom = torch.sqrt(ms - mg * mg + self._eps)
+        else:
+            denom = torch.sqrt(ms + self._eps)
+        mom = self._acc("momentum", p)
+        mom.mul_(self._momentum).add_(self._lr_of(p) * g / denom)
+        m.sub_(mom)
+        self._write_back(p, m)
+
+
+class ASGD(Optimizer):
+    def __init__(self, learning_rate=0.001, batch_num=1, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=True,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self._batch_num = batch_num
+
+    def _update_param(self, p, g):
+        m = self._master(p)
+        wd = self._decay(p, self._weight_decay)
+        if wd:
+            g = g + wd * m
+        d = self._acc("d", p)
+        ys = self._acc("y", p)
+        d.sub_(ys).add_(g)
+        ys.copy_(g)
+        m.sub_(self._lr_of(p) * d / self._batch_num)
+        self._write_back(p, m)
+
+
+class NAdam(Optimizer):
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, momentum_decay=0.004, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=True,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+        self._psi = momentum_decay
+
+    def _update_param(self, p, g):
+        master = self._master(p)
+        wd = self._decay(p, self._weight_decay)
+        if wd:
+            g = g + wd * master
+        b1, b2, t = self._beta1, self._beta2, self._step_t
+        # the scalars JAX computes as Python floats: float64, then fp32
+        mu_t = b1 * (1 - 0.5 * torch.pow(0.96, t * self._psi))
+        mu_t1 = b1 * (1 - 0.5 * torch.pow(0.96, (t + 1) * self._psi))
+        mu_prod = self._acc("mu_prod", p, _one(p))
+        mu_prod.mul_(mu_t.float())
+        m = self._acc("moment1", p)
+        v = self._acc("moment2", p)
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * g * g)
+        mu_t1 = mu_t1.float()
+        mhat = (mu_t1 * m / (1 - mu_prod * mu_t1)
+                + (1 - mu_t).float() * g / (1 - mu_prod))
+        vhat = v / (1 - torch.pow(b2, t)).float()
+        master.sub_(self._lr_of(p) * mhat / (torch.sqrt(vhat) + self._eps))
+        self._write_back(p, master)
+
+
+class RAdam(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, multi_precision=True, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+
+    def _update_param(self, p, g):
+        master = self._master(p)
+        wd = self._decay(p, self._weight_decay)
+        if wd:
+            g = g + wd * master
+        b1, b2, t = self._beta1, self._beta2, self._step_t
+        m = self._acc("moment1", p)
+        v = self._acc("moment2", p)
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * g * g)
+        # the scalars JAX computes as Python floats: float64, then fp32;
+        # its ``if rho_t > 5`` is a select on the device
+        mhat = m / (1 - torch.pow(b1, t)).float()
+        b2t = torch.pow(b2, t)
+        rho_inf = 2 / (1 - b2) - 1
+        rho_t = rho_inf - 2 * t * b2t / (1 - b2t)
+        lr_t = self._lr_of(p)
+        vhat = torch.sqrt(v / (1 - b2t).float())
+        r = torch.pow(((rho_t - 4) * (rho_t - 2) * rho_inf)
+                      / ((rho_inf - 4) * (rho_inf - 2) * rho_t), 0.5).float()
+        master.sub_(torch.where(rho_t > 5,
+                                lr_t * r * mhat / (vhat + self._eps),
+                                lr_t * mhat))
+        self._write_back(p, master)
+
+
+class Rprop(Optimizer):
+    def __init__(self, learning_rate=0.001, learning_rate_range=(1e-5, 50),
+                 parameters=None, etas=(0.5, 1.2), grad_clip=None,
+                 multi_precision=True, name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip,
+                         multi_precision)
+        self._lr_range = learning_rate_range
+        self._etas = etas
+
+    def _update_param(self, p, g):
+        m = self._master(p)
+        prev = self._acc("prev_grad", p)
+        step = self._acc("step_size", p, torch.empty_like(m).copy_(
+            self._lr_tensors[self._group_of[id(p)]]))
+        sign = torch.sign(g * prev)
+        step.copy_(torch.clamp(
+            torch.where(sign > 0, step * self._etas[1],
+                        torch.where(sign < 0, step * self._etas[0], step)),
+            self._lr_range[0], self._lr_range[1]))
+        g = torch.where(sign < 0, 0.0, g)
+        prev.copy_(g)
+        m.sub_(torch.sign(g) * step)
+        self._write_back(p, m)
+
+
+class Lamb(Optimizer):
+    """LAMB; ``exclude_from_weight_decay_fn(p)`` true exempts parameter
+    ``p`` from decay."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 multi_precision=True, name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip,
+                         multi_precision)
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+        self._wd = lamb_weight_decay
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _update_param(self, p, g):
+        master = self._master(p)
+        b1, b2 = self._beta1, self._beta2
+        m = self._acc("moment1", p)
+        v = self._acc("moment2", p)
+        b1p = self._acc("beta1_pow", p, _one(p))
+        b2p = self._acc("beta2_pow", p, _one(p))
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * g * g)
+        b1p.mul_(b1)
+        b2p.mul_(b2)
+        mhat = m / (1 - b1p)
+        vhat = v / (1 - b2p)
+        wd = self._decay(p, self._wd)
+        if self._exclude_fn is not None and self._exclude_fn(p):
+            wd = 0.0
+        r = mhat / (torch.sqrt(vhat) + self._eps) + wd * master
+        w_norm = torch.linalg.norm(master)
+        r_norm = torch.linalg.norm(r)
+        trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                            1.0)
+        master.sub_(self._lr_of(p) * trust * r)
+        self._write_back(p, master)
+
+
+class LBFGS(Optimizer):
+    """Not ported yet: it takes a closure and a line search."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "LBFGS is not ported yet: ROADMAP.md A4 (LBFGS, with its "
+            "closure and line search)")
+
+
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",
+           "Adadelta", "Adamax", "RMSProp", "ASGD", "NAdam", "RAdam",
+           "Rprop", "Lamb", "LBFGS", "L1Decay", "L2Decay", "lr"]

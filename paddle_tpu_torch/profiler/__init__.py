@@ -1,5 +1,7 @@
-"""Observability for the port: the process-global counter registry."""
+"""Observability for the port: the process-global counter registry and
+the train-metrics logger."""
 
 from . import counters
+from .metrics import MetricsLogger
 
-__all__ = ["counters"]
+__all__ = ["counters", "MetricsLogger"]

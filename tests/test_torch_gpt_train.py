@@ -31,6 +31,7 @@ import torch
 import jax.numpy as jnp
 
 import paddle_tpu as paddle
+import paddle_tpu_torch.optimizer
 from paddle_tpu.core.tensor import Parameter as JParameter
 from paddle_tpu.core.tensor import Tensor as JTensor
 from paddle_tpu.jit import CompiledTrainStep as JStep
@@ -363,8 +364,8 @@ def _grads(cfg, dropout_seed=None):
 @pytest.mark.parametrize("mode", [True, "selective", "selective_lean"])
 def test_recompute_gives_the_grads_of_no_recompute(mode, dropout):
     """Recompute replays the same math (and, with dropout, the same
-    masks: they are drawn from per-layer seeds), so loss and grads are
-    those of ``recompute=False`` up to fp32 reordering."""
+    masks: they are drawn before each block and reused), so loss and
+    grads are those of ``recompute=False`` up to fp32 reordering."""
     launches = tfa.flash_fwd.launches
     loss0, g0 = _grads(dict(dropout=dropout), dropout_seed=7)
     loss1, g1 = _grads(dict(dropout=dropout, recompute=mode),
@@ -380,17 +381,22 @@ def test_dropout_mask_rate_and_scale():
     """The RNG streams differ from JAX's, so dropout is held by its
     distribution: keep rate 1 - p within 5 binomial sigmas, kept values
     scaled by 1 / (1 - p), and eval mode or p = 0 is the identity."""
-    from paddle_tpu_torch.models.gpt import _dropout
+    from paddle_tpu_torch.models.gpt import _dropout, _keep_mask
     p, n = 0.3, 200_000
-    out = _dropout(torch.ones(n), p, seed=123)
+
+    def drop(seed):
+        gen = torch.Generator().manual_seed(seed)
+        return _dropout(torch.ones(n), p, _keep_mask((n,), p, gen, "cpu"))
+
+    out = drop(123)
     kept = out != 0
     sigma = (n * p * (1 - p)) ** 0.5
     assert abs(int(kept.sum()) - n * (1 - p)) < 5 * sigma
     torch.testing.assert_close(out[kept], torch.full_like(out[kept],
                                                           1 / (1 - p)))
     # another seed, another mask; the same seed, the same mask
-    assert not torch.equal(out, _dropout(torch.ones(n), p, seed=124))
-    assert torch.equal(out, _dropout(torch.ones(n), p, seed=123))
+    assert not torch.equal(out, drop(124))
+    assert torch.equal(out, drop(123))
 
     ids = torch.from_numpy(_batch()[0])
     m = GPTForCausalLM(GPTConfig(**{**CFG, "dropout": 0.5}), device="cpu")
@@ -403,13 +409,31 @@ def test_dropout_mask_rate_and_scale():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(fused_steps=4), "A4"), (dict(scaler=object()), "A4"),
-    (dict(mesh=object()), "A7"), (dict(metrics=True), "A4")])
+    (dict(lazy_mode=True), "A4"), (dict(optimizer="LBFGS"), "A4"),
+    (dict(mesh=object()), "A7"), (dict(sparse_grad=True), "A4")])
 def test_unported_train_step_options_name_their_roadmap_item(kw, item):
+    """What the training loop still refuses names its ROADMAP item:
+    ``lazy_mode``, ``LBFGS`` and sparse (``SelectedRows``) gradients
+    (A4), a mesh (A7).  The scheduler, clipping, groups, GradScaler,
+    metrics and fused windows are ported (``test_torch_train_loop.py``,
+    ``test_torch_optimizer_family.py``)."""
     m = GPTForCausalLM(GPTConfig(**CFG), device="cpu")
-    opt = AdamW(LR, parameters=m.parameters())
+    loss_fn = _loss_fn(GPTPretrainingCriterion())
     with pytest.raises(NotImplementedError, match=item):
-        CompiledTrainStep(m, _loss_fn(GPTPretrainingCriterion()), opt, **kw)
+        if "lazy_mode" in kw:
+            AdamW(LR, parameters=m.parameters(), **kw)
+        elif "optimizer" in kw:
+            getattr(paddle_tpu_torch.optimizer, kw["optimizer"])(
+                parameters=m.parameters())
+        elif "mesh" in kw:
+            CompiledTrainStep(m, loss_fn, AdamW(LR, parameters=m.parameters()),
+                              **kw)
+        else:
+            opt = AdamW(LR, parameters=[m.wte])
+            m.wte.grad = torch.sparse_coo_tensor(
+                torch.tensor([[0]]), torch.ones(1, CFG["hidden_size"]),
+                tuple(m.wte.shape))
+            opt.step()
 
 
 @pytest.mark.parametrize("cfg", [dict(sequence_parallel=True),

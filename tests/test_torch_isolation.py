@@ -31,7 +31,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "paddle_tpu_torch.kernels.flash_attention",
                 "paddle_tpu_torch.optimizer", "paddle_tpu_torch.jit",
                 "paddle_tpu_torch.quantization",
-                "paddle_tpu_torch.kernels.rms_norm"):
+                "paddle_tpu_torch.kernels.rms_norm",
+                "paddle_tpu_torch.flags", "paddle_tpu_torch.optimizer.lr",
+                "paddle_tpu_torch.nn.clip", "paddle_tpu_torch.amp",
+                "paddle_tpu_torch.profiler.metrics", "paddle_tpu_torch.io"):
         assert mod in mods, mod
     leaked = [m for m in mods
               if m == "jax" or m.startswith(("jax.", "jaxlib"))
