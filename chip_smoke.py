@@ -28,10 +28,13 @@ script exits non-zero:
    with and without an LSE cotangent; plus one-tile (S 128, one head),
    two-tile (S 256) and non-causal D 96 cases for the Hopper kernels, a
    persistent grid whose items are no multiple of the SMs (35 heads of
-   S 2048), dO [B, H, S, D]-contiguous at the training shape, and the
+   S 2048), dO [B, H, S, D]-contiguous at the training shape, the
    125M fused leg's own shape (batch 16, 12 heads of 64, S 1024, causal:
-   1536 K1 items).  Every K2/K3 call runs twice and must give the same
-   bits.
+   1536 K1 items), BERT-large's (batch 16, 16 heads of 64, S 512, no
+   mask) in bf16 and fp16, and the fp16 instances (bf16 kernels on
+   operands rounded to bf16, fp16 outputs) over S {128, 256, 1024} x D
+   {64, 96, 128} x causal.  Every K2/K3 call runs twice and must give
+   the same bits.
 6. small_reference — a small fp32 model's paged prefill/decode on the
    card against the same model on the CPU (where the kernels' plain
    versions run), over fp32, int8 and fp8 pools.
@@ -118,9 +121,26 @@ script exits non-zero:
     steps 6 and 12: the skipped steps leave parameters and optimizer
     state bit-equal, the scale halves, K=4 equals K=1 bit for bit; then
     ``FLAGS_check_nan_inf`` names step 2 of a 4-step window.
-21. times (K1–K3) — µs per launch at the training shape beside the
-    plain versions, the bounds and ``scaled_dot_product_attention``'s
-    flash forward and backward (yardsticks the port never calls).
+21. bert_train — BERT-large pretraining on the paddle-style surface
+    (``paddle.seed(0)``, ``BertForPretraining`` at full width and depth,
+    hidden dropout 0.1, recompute, ``amp.decorate`` O2 bf16,
+    ``AdamW(1e-4, weight_decay=0.01)`` with fp32 masters and
+    ``ClipGradByGlobalNorm(1.0)``), batch 16 x 512 with MLM labels on
+    15 % of the positions and NSP labels, through ``auto_cast``,
+    ``loss.backward()``, ``opt.step()``, ``opt.clear_grad()``: 2 warm-up
+    and 8 timed steps on one repeated batch.  K1/K2/K3 launches == 48/24
+    /24 a step (recompute replays K1), losses finite and falling; one
+    more step under ``torch.profiler`` whose trace must show the same
+    48/24/24 as the counters set to 0 before it.
+22. bert_in_model — BERT-large's width at 2 layers: the loss and every
+    gradient of one step through K1–K3 against the same step on their
+    plain versions, at O2 bf16 and at fp32 (``_self_calibrated``), then
+    at O2 fp16 with a ``GradScaler`` (the fp16 instances), and that fp16
+    step taken.
+23. times (K1–K3) — µs per launch at the training shape and at
+    BERT-large's beside the plain versions, the bounds and
+    ``scaled_dot_product_attention``'s flash forward and backward
+    (yardsticks the port never calls).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -136,11 +156,13 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from importlib import import_module
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+import paddle_tpu_torch as paddle
 from paddle_tpu_torch import (AdamW, CompiledTrainStep, GPTConfig,
                               GPTForCausalLM, GPTPretrainingCriterion,
                               LLMEngine, flags)
@@ -153,10 +175,16 @@ from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import paged_attention as pa
 from paddle_tpu_torch.kernels import rms_norm as rn
+from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                     BertPretrainingCriterion)
 from paddle_tpu_torch.models.gpt import _mm
 from paddle_tpu_torch.profiler import counters
 from paddle_tpu_torch.quantization import PTQ_WEIGHTS, ptq_int8_decode_state
 from paddle_tpu_torch.serving import SpeculativeLLMEngine, bucket_length
+
+#: the attention functionals' module (its name is also a function of
+#: ``paddle_tpu_torch.nn.functional``)
+nnfa = import_module("paddle_tpu_torch.nn.functional.flash_attention")
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor)
 #: FLOP/s (the type the paged decode kernel computes in) and dense bf16
@@ -236,7 +264,7 @@ def build_phase():
     lib = fa._lib()
     smem = {f"{kind}_{dt}_{d}": lib.flash_attention_smem_bytes(i, d, bf)
             for i, kind in enumerate(("K1", "K2", "K3"))
-            for dt, bf in (("bf16", 1), ("fp32", 0))
+            for dt, bf in (("bf16", 1), ("fp16", 2), ("fp32", 0))
             for d in fa.KERNEL_HEAD_DIMS}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": {n: _ptxas(_build.BUILD_LOGS.get(n, "")) or "(cached)"
@@ -976,7 +1004,8 @@ def _fp32_state(w):
 SELF_CALIBRATED_FLOOR = 1e-5
 
 
-def _self_calibrated(phase, a16, b16, a32, b32):
+def _self_calibrated(phase, a16, b16, a32, b32,
+                     floor_share=SELF_CALIBRATED_FLOOR):
     """Path ``a`` (under test) and path ``b`` (its yardstick) of the same
     step, each in bf16 and on fp32 copies of the same weights and K/V,
     logits ``[rows, V]``.  Gates:
@@ -995,10 +1024,12 @@ def _self_calibrated(phase, a16, b16, a32, b32):
       answer while the other path's noise, the bound, stays put.
 
     Returns the record's numbers (``*_over_bound``: the worst row's
-    distance over its bound, under 1 to pass)."""
+    distance over its bound, under 1 to pass).  ``floor_share``: the
+    floor's share of the scale, ``SELF_CALIBRATED_FLOOR`` unless the
+    caller measured its own fp32 gap."""
     a16, b16, a32, b32 = (t.float() for t in (a16, b16, a32, b32))
     scale = float(b32.abs().max())
-    floor = SELF_CALIBRATED_FLOOR * max(1.0, scale)
+    floor = floor_share * max(1.0, scale)
     noise_a, noise_b = (a16 - a32).abs(), (b16 - b32).abs()
     err = (a16 - b16).abs()
 
@@ -1447,6 +1478,9 @@ def rms_times_phase(max_err):
 # ---------------------------------------------------------------------------
 #: 760M's training shape: batch 8 x 1024 tokens, 16 heads of 96
 TRAIN_B, TRAIN_S, TRAIN_STEPS, WARMUP = 8, 1024, 8, 2
+#: BERT-large pretraining: batch 16 x 512 packed sequences (no mask), 16
+#: heads of 64
+BERT_B, BERT_S, BERT_H, BERT_D = 16, 512, 16, 64
 
 
 def _bf16_ulp(x):
@@ -1460,7 +1494,8 @@ def _flash_tol(ref, dtype):
     """Per-element tolerance of a kernel output against its plain version
     on the same inputs, from ``ref``'s own values and the max of its row
     (the last dim).  fp32: both sum in fp32 in another order (<= 2048
-    keys): 1e-4 of the row's max.  bf16: both round the same operands to
+    keys): 1e-4 of the row's max.  bf16, and fp16 (whose operands both
+    round to bf16 too; its output rounds finer): both round the same operands to
     bf16, but P and dS are rounded from fp32 values that differ in their
     last bits (the kernel's online softmax scales P by a running max), so
     a few of them land one bf16 ulp apart, and the bf16 output may round
@@ -1512,6 +1547,15 @@ def flash_phase():
     cases.append((TRAIN_B, 16, TRAIN_S, 96, torch.bfloat16, True, "bhsd"))
     # the 125M training paths' shape (train_fused, scaler_skip)
     cases.append((FUSED_B, 12, TRAIN_S, 64, torch.bfloat16, True))
+    # BERT-large pretraining's shape (bert_train: 16 heads of 64, S 512,
+    # no mask), in bf16 and fp16; and the fp16 instances (bf16 kernels on
+    # operands rounded to bf16, fp16 outputs) over a grid of their own
+    cases += [(BERT_B, BERT_H, BERT_S, BERT_D, dtype, False)
+              for dtype in (torch.bfloat16, torch.float16)]
+    cases += [((2, 3) if S <= 256 else (1, 2)) + (S, D, torch.float16,
+                                                  causal)
+              for S in (128, 256, 1024) for D in fa.KERNEL_HEAD_DIMS
+              for causal in (False, True)]
     for B, H, S, D, dtype, causal, *do_layout in cases:
         q, k, v = _qkv_views(gen, B, S, H, D, dtype)
         do = torch.randn(B, S, H, D, generator=gen,
@@ -1572,8 +1616,9 @@ def flash_phase():
           "bwd_equal_bits_on_two_runs": True,
           "max_abs_err": worst, "worst_err_over_tol": ratio,
           "tolerance": "per element: fp32 1e-4 x row max + 1e-5 x tensor "
-                       "max; bf16 2 bf16 ulps of the element + 2^-7 x row "
-                       "max + 2^-12 x tensor max; lse 1e-5 x max(1, |lse|)"})
+                       "max; bf16 and fp16 2 bf16 ulps of the element + "
+                       "2^-7 x row max + 2^-12 x tensor max; lse 1e-5 x "
+                       "max(1, |lse|)"})
     return worst
 
 
@@ -1947,6 +1992,11 @@ def train_loop_phase():
         "warmup": WARMUP, "losses": losses, "lrs": lrs,
         "grad_norms": series["grad_norm"], "step_ms_p50": p50 * 1e3,
         "step_ms": [x * 1e3 for x in step_s], "tokens_per_s": tokens / p50,
+        # the host's time to enqueue a step (nothing in it waits for the
+        # device): a step whose enqueue is most of its wall is host-bound
+        "host_enqueue_ms_p50": float(np.median(enqueue_s)) * 1e3,
+        # the profiled step's device time over the unprofiled step's wall
+        "device_busy_share_of_p50": prof["device_us"] / 1e3 / (p50 * 1e3),
         "host_enqueue_ms_p50": float(np.median(enqueue_s)) * 1e3,
         "model_flops_share_of_bf16_peak": 6 * n_params * tokens / p50
         / BF16_FLOPS,
@@ -2299,41 +2349,307 @@ def scaler_skip_phase():
     return record
 
 
-def flash_times_phase(max_err, launches):
-    """K1–K3 per launch at the training shape (B=8, S=1024, 16 heads of
-    96, causal, bf16; q/k/v strided views of one projection output), in
-    turns within this one call, beside the plain versions, the bounds and
-    SDPA's flash backend (forward; backward against K2 + K3)."""
+# ---------------------------------------------------------------------------
+# BERT-large pretraining on the paddle-style surface
+# ---------------------------------------------------------------------------
+def _bert_batch(cfg, B, S, seed):
+    """Random ids, MLM labels on 15 % of the positions (-100 elsewhere)
+    and NSP labels, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                        device="cuda")
+    pick = torch.rand((B, S), generator=gen, device="cuda") < 0.15
+    labels = torch.where(pick, torch.randint(0, cfg.vocab_size, (B, S),
+                                             generator=gen, device="cuda"),
+                         -100)
+    nsp = torch.randint(0, 2, (B,), generator=gen, device="cuda")
+    return ids, labels, nsp
+
+
+def _bert_loss(model, crit, batch, level="O2", dtype="bfloat16"):
+    """The forward of Paddle's dygraph AMP loop: the loss of ``batch``
+    under ``auto_cast``."""
+    ids, labels, nsp = batch
+    with paddle.amp.auto_cast(enable=level != "O0",
+                              level="O1" if level == "O0" else level,
+                              dtype=dtype):
+        logits, seq_rel = model(ids)
+        return crit(logits, seq_rel, labels, nsp)
+
+
+def _bert_step(model, crit, opt, batch):
+    """``loss.backward(); opt.step(); opt.clear_grad()`` at O2 bf16."""
+    loss = _bert_loss(model, crit, batch)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss
+
+
+def bert_train_phase():
+    """This slice's main path: BERT-large (24 layers, hidden 1024, 16
+    heads of 64, intermediate 4096, vocab 30522), random weights from
+    ``paddle.seed(0)``, hidden dropout 0.1, no attention dropout,
+    recompute over the encoder layers, ``amp.decorate`` O2 bf16,
+    ``AdamW(1e-4, weight_decay=0.01)`` with fp32 masters and
+    ``ClipGradByGlobalNorm(1.0)``; batch 16 x 512, 2 warm-up and 8 timed
+    steps on one repeated batch."""
+    paddle.seed(0)
+    cfg = BertConfig.bert_large(attention_probs_dropout_prob=0.0,
+                                recompute=True)
+    t0 = time.perf_counter()
+    model = BertForPretraining(cfg)
+    crit = BertPretrainingCriterion()
+    opt = AdamW(1e-4, parameters=model.parameters(), weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = paddle.amp.decorate(model, opt, level="O2",
+                                     dtype="bfloat16")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = _bert_batch(cfg, BERT_B, BERT_S, seed=4)
+    n_params = sum(p.numel() for p in torch.nn.Module.parameters(model))
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the counted main-path run ------------------------------------------
+    _reset_flash_counts()
+    before = counters.snapshot()
+    losses, step_s, enqueue_s = [], [], []
+    for i in range(WARMUP + TRAIN_STEPS):
+        t = time.perf_counter()
+        loss = _bert_step(model, crit, opt, batch)
+        queued = time.perf_counter()
+        torch.cuda.synchronize()
+        if i >= WARMUP:
+            step_s.append(time.perf_counter() - t)
+            enqueue_s.append(queued - t)
+        losses.append(float(loss))
+    launches = {fn.__name__: fn.launches for fn in FLASH_KERNELS}
+    moved = counters.delta(before)
+    peak = torch.cuda.max_memory_allocated()
+
+    steps, L = WARMUP + TRAIN_STEPS, cfg.num_hidden_layers
+    # recompute replays every layer's forward, K1 with it
+    per_step = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"bert_train: non-finite losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"bert_train: loss did not fall: {losses}")
+    for name, n in launches.items():
+        if n != per_step[name] * steps:
+            raise AssertionError(f"bert_train: {name} launched {n} times, "
+                                 f"want {per_step[name]} x {steps} steps")
+    if moved.get("optimizer.steps") != steps or moved.get(
+            "kernels.flash.reference_fallbacks", 0):
+        raise AssertionError(f"bert_train: counters {moved}")
+
+    # one more step under the profiler: the trace must show the kernels
+    # the counters (set to 0 just before) say were launched
+    _reset_flash_counts()
+    prof = _profile(lambda: _bert_step(model, crit, opt, batch), top=15)
+    counted = {fn.__name__: fn.launches for fn in FLASH_KERNELS}
+    if prof["flash_kernels_run"] != per_step or counted != per_step:
+        raise AssertionError(
+            f"bert_train: one step ran {prof['flash_kernels_run']} in the "
+            f"trace and {counted} by the counters, want {per_step}")
+    p50 = float(np.median(step_s))
+    tokens = BERT_B * BERT_S
+    record = {
+        "phase": "bert_train", "model": "bert_large O2 bf16, recompute",
+        "card": CARD, "layers": L, "params": n_params,
+        "batch": [BERT_B, BERT_S], "init_s": init_s, "steps": steps,
+        "warmup": WARMUP, "losses": losses, "step_ms_p50": p50 * 1e3,
+        "step_ms": [x * 1e3 for x in step_s], "tokens_per_s": tokens / p50,
+        # the host's time to enqueue a step (nothing in it waits for the
+        # device): a step whose enqueue is most of its wall is host-bound
+        "host_enqueue_ms_p50": float(np.median(enqueue_s)) * 1e3,
+        # the profiled step's device time over the unprofiled step's wall
+        "device_busy_share_of_p50": prof["device_us"] / 1e3 / (p50 * 1e3),
+        "model_flops_share_of_bf16_peak": 6 * n_params * tokens / p50
+        / BF16_FLOPS,
+        "peak_mem_gb": peak / 1e9, "launches": launches,
+        "launches_per_step": per_step,
+        "profiled_step": prof,
+        "counters": {k: v for k, v in moved.items()
+                     if k.startswith(("optimizer.", "kernels."))}}
+    emit(record)
+    return record
+
+
+def _bert_grads(model, crit, batch, level, dtype, scaler=None):
+    """Loss and every gradient (fp32, unscaled) of one forward and
+    backward; the gradients are cleared after."""
+    loss = _bert_loss(model, crit, batch, level, dtype)
+    (loss if scaler is None else scaler.scale(loss)).backward()
+    inv = 1.0 if scaler is None else 1.0 / float(scaler.get_loss_scaling())
+    grads = {n: p.grad._data.float() * inv
+             for n, p in model.named_parameters() if p.grad is not None}
+    model.clear_gradients()
+    return loss, grads
+
+
+class _plain_attention:
+    """Inside: the encoder's attention runs K1–K3's plain versions on the
+    card instead of the kernels (same route, same AMP casts)."""
+
+    def __enter__(self):
+        self._fn = nnfa.flash_attention_fwd
+        nnfa.flash_attention_fwd = (
+            lambda q, k, v, causal=False, scale=None:
+            fa.flash_attention_fwd(q, k, v, causal, scale, kernel=False))
+
+    def __exit__(self, *exc):
+        nnfa.flash_attention_fwd = self._fn
+
+
+#: floor of bert_in_model's self-calibrated check, as a share of each
+#: gradient's fp32 scale.  The fp32 kernels and plain versions differ by
+#: reordered fp32 sums, which the backward carries into every gradient
+#: (sums over up to 8192 positions): 1.6e-5 of a gradient's scale on an
+#: NVIDIA H100 80GB HBM3 at 700 W; a kernel that drops or misweights a
+#: key tile moves gradients by far more.  The bf16/fp16 noise it is added
+#: to is ~0.07 of the scale.
+BERT_GRAD_FLOOR = 1e-4
+
+
+def _scale_of(runs, n):
+    """The fp32 scale a gradient is measured in: its own max, but the
+    query bias' for a key bias, whose true gradient is 0 (it shifts a
+    whole row of logits) and whose values are rounding noise."""
+    ref = n.replace("k_proj.bias", "q_proj.bias")
+    return max(float(runs["plain32"][ref].abs().max()), 1e-30)
+
+
+def _as_one_row(runs, tag):
+    """Every gradient (and the loss) of run ``tag``, each divided by its
+    fp32 scale, flattened into one row: ``_self_calibrated``'s noise is
+    then the whole model's, as a share of each tensor's scale (a tensor
+    of 2 elements, like the NSP bias, is too few to estimate its own)."""
+    return torch.cat([(runs[tag][n] / _scale_of(runs, n)).reshape(-1)
+                      for n in runs["plain32"]])[None]
+
+
+def bert_in_model_phase():
+    """BERT-large's width at 2 layers (no dropout, batch 16 x 512): the
+    loss and every gradient of one step through K1–K3 against the same
+    step with the attention on their plain versions, each at O2 bf16 and
+    at fp32 (the model before ``decorate``), held by
+    ``_self_calibrated`` over all of them at once, each in units of its
+    fp32 scale (``_as_one_row``).  Then the same at O2 fp16 with a
+    ``GradScaler`` (the fp16 instances of K1–K3) against the fp32
+    runs, and the scaler's step."""
+    def build():
+        paddle.seed(6)
+        cfg = BertConfig.bert_large(num_hidden_layers=2,
+                                    hidden_dropout_prob=0.0,
+                                    attention_probs_dropout_prob=0.0)
+        return cfg, BertForPretraining(cfg)
+
+    cfg, model = build()
+    crit = BertPretrainingCriterion()
+    batch = _bert_batch(cfg, BERT_B, BERT_S, seed=7)
+    runs = {}
+
+    def run(tag, level, dtype, plain, scaler=None):
+        _reset_flash_counts()
+        if plain:
+            with _plain_attention():
+                loss, g = _bert_grads(model, crit, batch, level, dtype,
+                                      scaler)
+        else:
+            loss, g = _bert_grads(model, crit, batch, level, dtype, scaler)
+        g["loss"] = loss._data.detach().float().reshape(1, 1)
+        runs[tag] = g
+        return {fn.__name__: fn.launches for fn in FLASH_KERNELS}
+
+    want_k = {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    want_p = dict.fromkeys(want_k, 0)
+    counts = {"kernel32": run("kernel32", "O0", "bfloat16", False),
+              "plain32": run("plain32", "O0", "bfloat16", True)}
+    opt = AdamW(1e-4, parameters=model.parameters())
+    model, opt = paddle.amp.decorate(model, opt, level="O2",
+                                     dtype="bfloat16")
+    counts["kernel16"] = run("kernel16", "O2", "bfloat16", False)
+    counts["plain16"] = run("plain16", "O2", "bfloat16", True)
+    _, model = build()      # the same weights again, for fp16
+    scaler = GradScaler(init_loss_scaling=2.0 ** 7)
+    opt = AdamW(1e-4, parameters=model.parameters())
+    model, opt = paddle.amp.decorate(model, opt, level="O2",
+                                     dtype="float16")
+    counts["kernel_f16"] = run("kernel_f16", "O2", "float16", False, scaler)
+    counts["plain_f16"] = run("plain_f16", "O2", "float16", True, scaler)
+    # the fp16 step itself: scaled loss, unscale, AdamW
+    loss = _bert_loss(model, crit, batch, "O2", "float16")
+    scaler.scale(loss).backward()
+    scaler.step(opt)
+    opt.clear_grad()
+    torch.cuda.synchronize()
+    out = {"phase": "bert_in_model", "card": CARD, "layers": 2,
+           "batch": [BERT_B, BERT_S], "launches": counts,
+           "fp16_loss_scale": float(scaler.get_loss_scaling())}
+    for low, a16, b16 in (("bf16", "kernel16", "plain16"),
+                          ("fp16", "kernel_f16", "plain_f16")):
+        r = _self_calibrated(f"bert_in_model {low}",
+                             *(_as_one_row(runs, t) for t in
+                               (a16, b16, "kernel32", "plain32")),
+                             floor_share=BERT_GRAD_FLOOR)
+        # per tensor, for the record: its kernel run's distance from the
+        # plain fp32 run over twice the plain run's own bf16 noise
+        noise = {n: float((runs[b16][n] - runs["plain32"][n]).abs().max())
+                 for n in runs["plain32"]}
+        worst = {n: float((runs[a16][n] - runs["plain32"][n]).abs().max())
+                 / max(2 * noise[n], 1e-30) for n in noise}
+        top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
+        r.pop("argmax_agreement_bf16")     # one row: no argmax to agree on
+        out[low] = {**r, "tensors": len(noise),
+                    "per_tensor_worst": dict(top),
+                    "loss_kernel": float(runs[a16]["loss"]),
+                    "loss_plain": float(runs[b16]["loss"]),
+                    "loss_fp32": float(runs["kernel32"]["loss"])}
+    emit(out)
+    for tag, c in counts.items():
+        if c != (want_p if "plain" in tag else want_k):
+            raise AssertionError(f"bert_in_model: {tag} launched {c}")
+    if scaler._found_inf or not all(
+            bool(torch.isfinite(p._data).all()) for p in model.parameters()):
+        raise AssertionError("bert_in_model: the fp16 step overflowed")
+
+
+def _flash_shape_times(B, H, S, D, causal, seed, dtype=torch.bfloat16):
+    """K1–K3 per launch at one shape (bf16, or fp16: the bf16 kernels on
+    operands the wrapper rounds to bf16; q/k/v strided views of one
+    projection output), in turns within this one call, beside the plain
+    versions, the bounds and SDPA's flash backend in the same dtype
+    (forward; backward against K2 + K3).  Returns ``{kernel: record}``."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    B, S, H, D = TRAIN_B, TRAIN_S, 16, 96
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    q, k, v = _qkv_views(gen, B, S, H, D, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = _qkv_views(gen, B, S, H, D, dtype)
     do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(
-        torch.bfloat16).transpose(1, 2)
+        dtype).transpose(1, 2)
     sc = 1.0 / math.sqrt(D)
-    out, lse = fa.flash_fwd(q, k, v, True, sc)
+    out, lse = fa.flash_fwd(q, k, v, causal, sc)
     delta = fa._delta(out, do)
     fns = {
-        "flash_fwd": (lambda i: fa.flash_fwd(q, k, v, True, sc),
-                      lambda i: fa._flash_fwd_reference(q, k, v, True, sc)),
+        "flash_fwd": (lambda i: fa.flash_fwd(q, k, v, causal, sc),
+                      lambda i: fa._flash_fwd_reference(q, k, v, causal,
+                                                        sc)),
         "flash_bwd_dq": (
-            lambda i: fa.flash_bwd_dq(q, k, v, do, lse, delta, True, sc),
-            lambda i: fa._bwd_dq_reference(q, k, v, do, lse, delta, True,
+            lambda i: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, sc),
+            lambda i: fa._bwd_dq_reference(q, k, v, do, lse, delta, causal,
                                            sc)),
         "flash_bwd_dkv": (
-            lambda i: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, sc),
-            lambda i: fa._bwd_dkv_reference(q, k, v, do, lse, delta, True,
+            lambda i: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, sc),
+            lambda i: fa._bwd_dkv_reference(q, k, v, do, lse, delta, causal,
                                             sc)),
     }
     # the yardstick gets contiguous [B, H, S, D] copies of the same values
     ql, kl, vl = (t.contiguous().requires_grad_() for t in (q, k, v))
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
-                                                 scale=sc)
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl,
+                                                 is_causal=causal, scale=sc)
 
         def lib_fwd(i):
             with torch.no_grad():
-                F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
                                                scale=sc)
 
         def lib_bwd(i):
@@ -2359,7 +2675,8 @@ def flash_times_phase(max_err, launches):
         lib_ms = {k: _device_ms(f, 10, lib_event_ms[k])
                   for k, f in (("fwd", lib_fwd), ("bwd", lib_bwd))}
 
-    pairs = B * H * S * (S + 1) // 2          # causal (q, k) pairs
+    # (q, k) pairs: all of them, or the causal half with its diagonal
+    pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
     elem = B * S * H * D                       # elements of one operand
     stats = B * H * S * 4                      # one fp32 [B, H, S] row
     work = {  # (flops, bytes): each input read once, each output written
@@ -2367,6 +2684,49 @@ def flash_times_phase(max_err, launches):
         "flash_bwd_dq": (6 * D * pairs, 5 * elem * 2 + 2 * stats),
         "flash_bwd_dkv": (8 * D * pairs, 6 * elem * 2 + 2 * stats),
     }
+    out = {}
+    for n in fns:
+        flops, nbytes = work[n]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / BF16_FLOPS * 1e3
+        bound = max(bytes_ms, ops_ms)
+        lib = lib_ms["fwd"] if n == "flash_fwd" else lib_ms["bwd"]
+        out[n] = {
+            "phase": "times", "kernel": n, "card": CARD,
+            "shape": {"B": B, "S": S, "H": H, "D": D, "causal": causal,
+                      "dtype": str(dtype).removeprefix("torch.")},
+            "kernel_us": ms[n]["kernel"] * 1e3,
+            "plain_us": ms[n]["plain"] * 1e3, "library_us": lib * 1e3,
+            "library": ("sdpa flash forward" if n == "flash_fwd" else
+                        "sdpa flash backward (dQ, dK, dV: K2 + K3)"),
+            "times": "device time per call (queued CUDA events)",
+            "event_us": {k: v * 1e3 for k, v in event_ms[n].items()},
+            "runs_ms": runs[n], "flops": flops, "bytes": nbytes,
+            "bound_us": bound * 1e3,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "share_of_bound": bound / ms[n]["kernel"],
+            "kernel_tflops": flops / (ms[n]["kernel"] * 1e-3) / 1e12}
+    emit({"phase": "times", "kernel": "flash_bwd_dq+flash_bwd_dkv",
+          "card": CARD, "shape": out["flash_fwd"]["shape"],
+          "kernel_us": (ms["flash_bwd_dq"]["kernel"]
+                        + ms["flash_bwd_dkv"]["kernel"]) * 1e3,
+          "library_us": lib_ms["bwd"] * 1e3,
+          "library_event_us": {k: v * 1e3 for k, v in lib_event_ms.items()},
+          "library_runs_ms": lib_runs})
+    return out
+
+
+def flash_times_phase(max_err, launches, bert_launches):
+    """K1–K3 per launch at the GPT training shape (B=8, S=1024, 16 heads
+    of 96, causal, bf16) and at BERT-large's (B=16, S=512, 16 heads of
+    64, no mask) in bf16 and fp16; the ``kernels`` rows keep the training
+    shape's numbers and the GPT train phase's launches, with BERT's
+    (its launches from bert_train) beside them."""
+    train = _flash_shape_times(TRAIN_B, 16, TRAIN_S, 96, True, seed=9)
+    bert = _flash_shape_times(BERT_B, BERT_H, BERT_S, BERT_D, False,
+                              seed=10)
+    bert16 = _flash_shape_times(BERT_B, BERT_H, BERT_S, BERT_D, False,
+                                seed=11, dtype=torch.float16)
     replaces = {"flash_fwd": "paddle_tpu/kernels/flash_attention.py:116",
                 "flash_bwd_dq": "paddle_tpu/kernels/flash_attention.py:204",
                 "flash_bwd_dkv": "paddle_tpu/kernels/flash_attention.py:243"}
@@ -2374,41 +2734,30 @@ def flash_times_phase(max_err, launches):
             "flash_bwd_dq": max_err["flash_bwd_dq"],
             "flash_bwd_dkv": max_err["flash_bwd_dkv"]}
     rows = []
-    for n in fns:
-        flops, nbytes = work[n]
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / BF16_FLOPS * 1e3
-        bound = max(bytes_ms, ops_ms)
-        by = "bytes" if bytes_ms >= ops_ms else "operations"
-        lib = lib_ms["fwd"] if n == "flash_fwd" else lib_ms["bwd"]
-        emit({"phase": "times", "kernel": n,
-              "shape": {"B": B, "S": S, "H": H, "D": D, "causal": True,
-                        "dtype": "bfloat16"},
-              "kernel_us": ms[n]["kernel"] * 1e3,
-              "plain_us": ms[n]["plain"] * 1e3, "library_us": lib * 1e3,
-              "library": ("sdpa flash forward" if n == "flash_fwd" else
-                          "sdpa flash backward (dQ, dK, dV: K2 + K3)"),
-              "times": "device time per call (queued CUDA events)",
-              "event_us": {k: v * 1e3 for k, v in event_ms[n].items()},
-              "runs_ms": runs[n], "flops": flops, "bytes": nbytes,
-              "bound_us": bound * 1e3, "bound_by": by,
-              "share_of_bound": bound / ms[n]["kernel"],
-              "kernel_tflops": flops / (ms[n]["kernel"] * 1e-3) / 1e12})
+    for n, t in train.items():
+        b, h = bert[n], bert16[n]
+        emit(t)
+        emit(b)
+        emit(h)
         rows.append({
             "name": n, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
             "replaces": replaces[n], "launches": launches[n],
-            "max_abs_err": errs[n], "ms": ms[n]["kernel"],
-            "plain_ms": ms[n]["plain"], "bound_ms": bound, "bound_by": by,
-            "library_ms": lib, "event_ms": event_ms[n]["kernel"],
+            "max_abs_err": errs[n], "ms": t["kernel_us"] / 1e3,
+            "plain_ms": t["plain_us"] / 1e3, "bound_ms": t["bound_us"] / 1e3,
+            "bound_by": t["bound_by"], "library_ms": t["library_us"] / 1e3,
+            "event_ms": t["event_us"]["kernel"] / 1e3,
             "library_covers": ("forward" if n == "flash_fwd"
-                               else "the whole backward, K2 + K3")})
-    emit({"phase": "times", "kernel": "flash_bwd_dq+flash_bwd_dkv",
-          "kernel_us": (ms["flash_bwd_dq"]["kernel"]
-                        + ms["flash_bwd_dkv"]["kernel"]) * 1e3,
-          "library_us": lib_ms["bwd"] * 1e3,
-          "library_event_us": {k: v * 1e3 for k, v in lib_event_ms.items()},
-          "library_runs_ms": lib_runs})
+                               else "the whole backward, K2 + K3"),
+            "bert": {"launches": bert_launches[n],
+                     "ms": b["kernel_us"] / 1e3,
+                     "plain_ms": b["plain_us"] / 1e3,
+                     "bound_ms": b["bound_us"] / 1e3,
+                     "bound_by": b["bound_by"],
+                     "library_ms": b["library_us"] / 1e3,
+                     "fp16_ms": h["kernel_us"] / 1e3,
+                     "fp16_plain_ms": h["plain_us"] / 1e3,
+                     "fp16_library_ms": h["library_us"] / 1e3}})
     return rows
 
 
@@ -2457,7 +2806,12 @@ def main():
     _free_cuda()
     scaler_skip_phase()
     _free_cuda()
-    flash_rows = flash_times_phase(flash_err, train["launches"])
+    bert = bert_train_phase()
+    _free_cuda()
+    bert_in_model_phase()
+    _free_cuda()
+    flash_rows = flash_times_phase(flash_err, train["launches"],
+                                   bert["launches"])
     torch.cuda.synchronize()
     print(json.dumps({"kernels": [*paged_rows, *flash_rows, rms_row]}),
           flush=True)

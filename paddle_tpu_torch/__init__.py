@@ -23,19 +23,52 @@ far it holds, with every Pallas kernel of the reference:
   and the dense optimizer family (``optimizer``), ``amp.GradScaler``,
   train metrics (``profiler.MetricsLogger``), ``FLAGS_check_nan_inf``
   and fused windows of K steps (``io.Window``), replayed on CUDA as
-  one CUDA graph a window.
+  one CUDA graph a window;
+* the paddle-style eager surface — ``Tensor`` with ``stop_gradient``
+  (``to_tensor``), op dispatch with AMP's O1/O2 lists
+  (``amp.auto_cast``, ``amp.decorate``), ``backward``/``grad``,
+  seeding and sampling over per-device generators, ``nn.Layer`` and
+  its initializers, ``Linear``/``Embedding``/``LayerNorm``/``Dropout``,
+  the transformer encoder, ``distributed.fleet.recompute`` — and BERT
+  pretraining on it (``BertForPretraining``), whose attention takes the
+  flash kernels.
 
 Every entry point runs on ``cuda`` unless the caller passes
-``device="cpu"``; without a GPU and without an explicit device the model
-raises instead of landing on the CPU.
+``device="cpu"`` or calls ``set_device("cpu")``; without a GPU and
+without an explicit device the model raises instead of landing on the
+CPU.
 """
 
-from . import amp, flags, io, nn, optimizer
+from . import amp, distributed, flags, io, nn, optimizer
+from .core.autograd import grad
+from .core.dtype import (bfloat16, bool_, float16, float32, float64, int8,
+                         int16, int32, int64, uint8)
+from .core.tensor import Parameter, Tensor, to_tensor
+from .device import get_device, set_device
 from .jit import CompiledTrainStep
-from .models import GPTConfig, GPTForCausalLM, GPTPretrainingCriterion
+from .models import (BertConfig, BertForPretraining, BertModel,
+                     BertPretrainingCriterion, GPTConfig, GPTForCausalLM,
+                     GPTPretrainingCriterion)
+from .nn.functional.init_utils import ParamAttr
 from .optimizer import Adam, AdamW
 from .serving import LLMEngine
+from .tensor.creation import (arange, full, full_like, ones, ones_like,
+                              zeros, zeros_like)
+from .tensor.manipulation import concat, expand, reshape, transpose
+from .tensor.math import add, matmul
+from .tensor.random import (bernoulli, get_rng_state, normal, rand, randint,
+                            randn, seed, set_rng_state, uniform)
+from torch import enable_grad, no_grad
 
-__all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
-           "LLMEngine", "CompiledTrainStep", "Adam", "AdamW", "amp",
-           "flags", "io", "nn", "optimizer"]
+__all__ = ["Adam", "AdamW", "BertConfig", "BertForPretraining", "BertModel",
+           "BertPretrainingCriterion", "CompiledTrainStep", "GPTConfig",
+           "GPTForCausalLM", "GPTPretrainingCriterion", "LLMEngine",
+           "ParamAttr", "Parameter", "Tensor", "add", "amp", "arange",
+           "bernoulli", "bfloat16", "bool_", "concat", "distributed",
+           "enable_grad", "expand", "flags", "float16", "float32", "float64",
+           "full", "full_like", "get_device", "get_rng_state", "grad",
+           "int16", "int32", "int64", "int8", "io", "matmul", "nn",
+           "no_grad", "normal", "ones", "ones_like", "optimizer", "rand",
+           "randint", "randn", "reshape", "seed", "set_device",
+           "set_rng_state", "to_tensor", "transpose", "uint8", "uniform",
+           "zeros", "zeros_like"]

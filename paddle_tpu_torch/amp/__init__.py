@@ -1,5 +1,19 @@
-"""Dynamic loss scaling (port of ``GradScaler`` from
-``paddle_tpu/amp/__init__.py``).
+"""Automatic mixed precision (port of ``paddle_tpu/amp/__init__.py``):
+``auto_cast``/``amp_guard`` and ``decorate``, and dynamic loss scaling.
+
+``auto_cast(level=, dtype=, custom_white_list=, custom_black_list=)``
+sets the AMP state that ``core.dispatch.apply_op`` reads: by op name, a
+white-listed op casts fp32 inputs to the AMP dtype, a black-listed one
+casts 16-bit inputs to fp32, and at O2 every other op casts fp32 inputs
+to the AMP dtype (the JAX lists, :data:`WHITE_LIST` and
+:data:`BLACK_LIST`).  ``decorate(models, optimizers, level="O2")`` casts
+every fp32 parameter of every sublayer but the norm layers to the AMP
+dtype **in place** (``param.data``): each stays the same
+``torch.nn.Parameter``, so an optimizer made before keeps its
+parameters, and its fp32 masters, made lazily at the first step, start
+from the 16-bit values as the JAX ones do.
+
+``GradScaler``:
 
 The scale and its good/bad step counts are 0-d tensors, updated in
 place on the gradients' device (the JAX ``_traced_update``), whoever
@@ -14,13 +28,107 @@ overflowing step is undone with ``torch.where`` (the JAX
 
 Unscaling zeroes every gradient on overflow (the JAX ``_scaled_backward``
 rule; the JAX eager ``unscale_`` leaves them non-finite, which no step
-reads).  ``auto_cast`` and ``decorate`` act through the paddle-style
-surface the port does not have yet (ROADMAP.md A4).
+reads).  It takes a paddle-style ``Tensor`` loss and optimizers built
+on ``Layer.parameters()`` as well as torch tensors.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..core.state import STATE
+from ..core.tensor import Tensor, unwrap
+
+#: ops that run in the AMP dtype (``amp_lists.py``'s white list)
+WHITE_LIST = {
+    "matmul", "linear", "conv1d", "conv2d", "conv3d", "conv1d_transpose",
+    "conv2d_transpose", "conv3d_transpose", "einsum", "mm", "bmm", "addmm",
+    "flash_attention", "sdpa", "lstm_cell", "gru_cell", "simple_rnn_cell",
+}
+#: ops forced to fp32
+BLACK_LIST = {
+    "exp", "square", "log", "log2", "log10", "log1p", "mean", "sum", "cos_sim",
+    "softmax", "log_softmax", "cross_entropy", "bce", "bce_with_logits",
+    "nll_loss", "mse_loss", "l1_loss", "kl_div", "layer_norm", "rms_norm",
+    "batch_norm", "group_norm", "instance_norm", "p_norm",
+    "softmax_with_cross_entropy", "sigmoid_focal_loss", "cumsum",
+    "logsumexp", "erfinv", "pow", "var", "std", "renorm", "atan2", "acos",
+    "asin", "cosh", "sinh", "tan", "logcumsumexp",
+}
+
+
+def white_list():
+    return WHITE_LIST
+
+
+def black_list():
+    return BLACK_LIST
+
+
+class auto_cast:
+    """``paddle.amp.auto_cast`` (reference: amp/auto_cast.py:859): a
+    context manager that sets the AMP level (``O1``/``O2``), dtype
+    (``bfloat16`` unless ``float16``/``fp16``) and op lists."""
+
+    def __init__(self, enable=True, custom_white_list=None,
+                 custom_black_list=None, level="O1", dtype="bfloat16",
+                 use_promote=True):
+        self.enable = enable
+        self.level = level if enable else "O0"
+        self.dtype = "float16" if dtype in ("float16", "fp16") \
+            else "bfloat16"
+        self.white = set(WHITE_LIST)
+        self.black = set(BLACK_LIST)
+        if custom_white_list:
+            self.white |= set(custom_white_list)
+            self.black -= set(custom_white_list)
+        if custom_black_list:
+            self.black |= set(custom_black_list)
+            self.white -= set(custom_black_list)
+
+    def __enter__(self):
+        self._prev = (STATE.amp_level, STATE.amp_dtype, STATE.amp_white,
+                      STATE.amp_black)
+        STATE.amp_level = self.level
+        STATE.amp_dtype = self.dtype
+        STATE.amp_white = self.white
+        STATE.amp_black = self.black
+        return self
+
+    def __exit__(self, *exc):
+        (STATE.amp_level, STATE.amp_dtype, STATE.amp_white,
+         STATE.amp_black) = self._prev
+        return False
+
+
+amp_guard = auto_cast
+
+
+@torch.no_grad()
+def decorate(models, optimizers=None, level="O1", dtype="bfloat16",
+             master_weight=None, save_dtype=None, master_grad=False,
+             excluded_layers=None):
+    """O2: cast every fp32 parameter of every sublayer but the norm
+    layers (and ``excluded_layers``) to the AMP dtype, in place; O1
+    changes nothing.  Returns ``models`` (and ``optimizers``) as
+    given."""
+    from ..nn.layer.norm import LayerNorm
+    single = not isinstance(models, (list, tuple))
+    model_list = [models] if single else list(models)
+    if level == "O2":
+        target = (torch.float16 if dtype in ("float16", "fp16")
+                  else torch.bfloat16)
+        skip = (LayerNorm, *(excluded_layers or ()))
+        for m in model_list:
+            for lay in m.sublayers(include_self=True):
+                if isinstance(lay, skip):
+                    continue
+                for p in lay._parameters.values():
+                    if p is not None and p.dtype == torch.float32:
+                        p.data = p.data.to(target)
+    if optimizers is None:
+        return models if single else model_list
+    return (models if single else model_list), optimizers
 
 
 class GradScaler:
@@ -56,6 +164,8 @@ class GradScaler:
         multiplies by a weakly typed float)."""
         if not self._enable:
             return var
+        if isinstance(var, Tensor):
+            return Tensor._wrap(self.scale(var._data))
         return var * self._on(var.device)["scale"].to(var.dtype)
 
     @torch.no_grad()
@@ -64,7 +174,8 @@ class GradScaler:
         round them back to their dtype; on overflow zero them all.
         Returns the overflow flag, a 0-d bool on the device (nothing is
         read back)."""
-        grads = [p.grad for p in params if p.grad is not None]
+        grads = [unwrap(p).grad for p in params
+                 if unwrap(p).grad is not None]
         if not grads:
             return torch.zeros((), dtype=torch.bool,
                                device=self._state["scale"].device)
@@ -157,4 +268,6 @@ def is_float16_supported(device=None):
     return True
 
 
-__all__ = ["GradScaler", "is_bfloat16_supported", "is_float16_supported"]
+__all__ = ["BLACK_LIST", "GradScaler", "WHITE_LIST", "amp_guard",
+           "auto_cast", "black_list", "decorate", "is_bfloat16_supported",
+           "is_float16_supported", "white_list"]

@@ -9,7 +9,10 @@ GradScaler), the optional nan/inf checks and metric scalars, the
 optimizer update and ``clear_grad``.  Parameters, fp32 masters,
 accumulators, the lr tensors and the GradScaler state stay on the device
 and are updated in place, so there is no state to carry and no host
-sync inside a step: the loss comes back as a device tensor.
+sync inside a step: the loss comes back as a device tensor.  ``model``
+is a ``torch.nn.Module`` (the port's GPT) or a paddle-style ``nn.Layer``
+(whose torch parameters the step reads); ``loss_fn`` may return a
+paddle-style ``Tensor``.
 
 ``fused_steps=K`` (default ``FLAGS_fused_steps``) takes windows of K
 batches stacked on a leading axis (an ``io.Window``, or raw stacked
@@ -73,11 +76,18 @@ import time
 import torch
 
 from .. import flags
+from ..core.tensor import unwrap
 from ..io import Window
 from ..kernels import launch_counted
 from ..nn.clip import sum_sq
 from ..profiler import counters
 from ..profiler.metrics import MetricsLogger
+
+def _params(model):
+    """The model's torch parameters (a paddle-style ``Layer``'s own
+    ``parameters()`` gives its wrappers)."""
+    return torch.nn.Module.parameters(model)
+
 
 def _window_len(args):
     for a in args:
@@ -154,13 +164,13 @@ class CompiledTrainStep:
         overflow flag)``; nothing is read back."""
         model, opt, scaler = self.model, self.optimizer, self.scaler
         with torch.enable_grad():
-            loss = self.loss_fn(model, *args)
+            loss = unwrap(self.loss_fn(model, *args))
             (loss if scaler is None else scaler.scale(loss)).backward()
         found = None
         if scaler is not None:
-            found = scaler._unscale(model.parameters())
+            found = scaler._unscale(_params(model))
             opt._zero_lr_where(found)
-        named = [(n, p) for n, p in model.named_parameters()
+        named = [(n, p) for n, p in torch.nn.Module.named_parameters(model)
                  if p.grad is not None]
         names, bits = [], []
         if check:
@@ -197,7 +207,7 @@ class CompiledTrainStep:
         return self._dispatch_single(args, self.optimizer.get_lr())
 
     def _device(self):
-        return next(self.model.parameters()).device
+        return next(_params(self.model)).device
 
     @contextlib.contextmanager
     def _on_stream(self):
@@ -361,7 +371,7 @@ class CompiledTrainStep:
         values = torch.cat([r["values"] for r in pending]).cpu().tolist()
         peak = float(flags.flag("FLAGS_peak_tflops") or 0.0)
         if self._n_params is None:
-            self._n_params = sum(p.numel() for p in self.model.parameters())
+            self._n_params = sum(p.numel() for p in _params(self.model))
         tokens = self._tokens_per_step
         t = self._totals
         row = 0

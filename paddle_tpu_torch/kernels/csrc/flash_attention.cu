@@ -19,7 +19,10 @@
 // kernel's _dot_f32 does, every product of 16-bit inputs takes both
 // operands in bf16 and sums in fp32: P is rounded to bf16 before P.V and
 // P^T.dO, dS before dS.K and dS^T.Q.  fp32 inputs stay fp32 on CUDA
-// cores.  dQ and dK are scaled once at the end instead of per tile (equal
+// cores.  fp16 inputs run the bf16 kernels: the wrapper rounds Q, K, V and
+// dO to bf16 (what _dot_f32 does to a 2-byte operand) and the epilogues
+// write O, dQ, dK and dV as fp16 straight from the fp32 accumulators
+// (Params::out_f16), never through a bf16 value.  dQ and dK are scaled once at the end instead of per tile (equal
 // up to fp32 rounding).  Nothing crosses CTAs and every sum runs in a
 // fixed order: no atomics, and two runs give the same bits.  K2 and K3
 // keep the TPU's split of dQ from dK/dV for that reason.
@@ -110,6 +113,7 @@
 
 #include <cuda.h>  // CUtensorMap types; the encoder is reached at run time
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -140,6 +144,7 @@ struct Params {
   float* lse_out;      // [B, H, S] (K1)
   int B, H, S, causal;
   float scale;
+  int out_f16;         // bf16 kernels: write O, dQ, dK, dV as fp16
 };
 
 // Shared-memory row pitch: D plus one 16-byte vector of padding.
@@ -726,28 +731,47 @@ __device__ __forceinline__ void wg_sync(int cw) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
 }
 
+// Two fp32 values as the 4 bytes of an output pair: bf16, or fp16 for
+// the fp16 instances (whose operands the wrapper rounded to bf16, as the
+// TPU kernel's _dot_f32 does): either way rounded once, from fp32.
+__device__ __forceinline__ uint32_t pack2(float a, float b, bool f16) {
+  uint32_t bits;
+  if (f16) {
+    const __half2 h = __floats2half2_rn(a, b);
+    memcpy(&bits, &h, 4);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    memcpy(&bits, &h, 4);
+  }
+  return bits;
+}
+
 // Write this warpgroup's 64 x D accumulator acc into its staging rows as
-// bf16 f(x, half), half 1 for the rows 8 below the thread's first.
+// f(x, half) in the output type (fp16 if f16, else bf16), half 1 for the
+// rows 8 below the thread's first.
 template <int D, typename F>
 __device__ __forceinline__ void stage_acc(unsigned char* stage,
-                                          const float (&acc)[D / 2], F f) {
+                                          const float (&acc)[D / 2],
+                                          bool f16, F f) {
   const int lane = threadIdx.x & 31;
   const int row = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
   const int t = lane & 3;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
-    store2(reinterpret_cast<bf16*>(stage + Stage<D>::at(row, j) + 4 * t),
-           f(acc[4 * j], 0), f(acc[4 * j + 1], 0));
-    store2(reinterpret_cast<bf16*>(stage + Stage<D>::at(row + 8, j) + 4 * t),
-           f(acc[4 * j + 2], 1), f(acc[4 * j + 3], 1));
+    *reinterpret_cast<uint32_t*>(stage + Stage<D>::at(row, j) + 4 * t) =
+        pack2(f(acc[4 * j], 0), f(acc[4 * j + 1], 0), f16);
+    *reinterpret_cast<uint32_t*>(stage + Stage<D>::at(row + 8, j) + 4 * t) =
+        pack2(f(acc[4 * j + 2], 1), f(acc[4 * j + 3], 1), f16);
   }
 }
 
-// Copy the 64 staged rows to out (row stride ss elements) in 16-byte
-// vectors, the warpgroup's threads on consecutive vectors.
+// Copy the 64 staged rows of 2-byte values to out (row stride ss
+// elements) in 16-byte vectors, the warpgroup's threads on consecutive
+// vectors.
 template <int D>
 __device__ __forceinline__ void flush_stage(const unsigned char* stage,
-                                            bf16* out, int64_t ss) {
+                                            void* out_, int64_t ss) {
+  uint16_t* out = static_cast<uint16_t*>(out_);
   constexpr int kVecs = D / 8;
   for (int i = threadIdx.x & 127; i < 64 * kVecs; i += 128) {
     const int row = i / kVecs, c = i % kVecs;
@@ -952,9 +976,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            2 * kStages * kKV + cw * Stage<D>::kBytes;
     wg_sync(cw);
     // acc / l as the TPU kernel divides (not a multiply by 1/l)
-    stage_acc<D>(stage, o, [&](float x, int hi) { return x / (hi ? l1 : l0); });
+    stage_acc<D>(stage, o, p.out_f16,
+                 [&](float x, int hi) { return x / (hi ? l1 : l0); });
     wg_sync(cw);
-    flush_stage<D>(stage, static_cast<bf16*>(p.out) + w.b * p.o_sb +
+    flush_stage<D>(stage, static_cast<uint16_t*>(p.out) + w.b * p.o_sb +
                               w.h * p.o_sh + (q0 + 64 * cw) * p.o_ss,
                    p.o_ss);
     if (t == 0) {
@@ -1143,9 +1168,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            2 * kQBytes + 2 * kStages * kKV +
                            cw * Stage<D>::kBytes;
     wg_sync(cw);
-    stage_acc<D>(stage, dq, [&](float x, int) { return x * p.scale; });
+    stage_acc<D>(stage, dq, p.out_f16,
+                 [&](float x, int) { return x * p.scale; });
     wg_sync(cw);
-    flush_stage<D>(stage, static_cast<bf16*>(p.out) + w.b * p.o_sb +
+    flush_stage<D>(stage, static_cast<uint16_t*>(p.out) + w.b * p.o_sb +
                               w.h * p.o_sh + (q0 + 64 * cw) * p.o_ss,
                    p.o_ss);
   }
@@ -1368,12 +1394,13 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     unsigned char* stage_k = gbase + L::kStaging + 2 * cw * Stage<D>::kBytes;
     unsigned char* stage_v = stage_k + Stage<D>::kBytes;
     wg_sync(cw);
-    stage_acc<D>(stage_k, dk, [&](float x, int) { return x * p.scale; });
-    stage_acc<D>(stage_v, dv, [](float x, int) { return x; });
+    stage_acc<D>(stage_k, dk, p.out_f16,
+                 [&](float x, int) { return x * p.scale; });
+    stage_acc<D>(stage_v, dv, p.out_f16, [](float x, int) { return x; });
     wg_sync(cw);
     const int64_t off = w.b * p.o_sb + w.h * p.o_sh + (k0 + 64 * cw) * p.o_ss;
-    flush_stage<D>(stage_k, static_cast<bf16*>(p.out) + off, p.o_ss);
-    flush_stage<D>(stage_v, static_cast<bf16*>(p.out2) + off, p.o_ss);
+    flush_stage<D>(stage_k, static_cast<uint16_t*>(p.out) + off, p.o_ss);
+    flush_stage<D>(stage_v, static_cast<uint16_t*>(p.out2) + off, p.o_ss);
   }
 }
 
@@ -1694,12 +1721,16 @@ cudaError_t launch_dim(Kind kind, int D, const Params& p,
   }
 }
 
-int launch(Kind kind, const Params& p, int D, int is_bf16, void* stream) {
-  if (p.S % kRows != 0 || p.S <= 0 || p.B * p.H < 1 || p.B * p.H > 65535)
+// dtype: 0 fp32; 1 bf16; 2 fp16 outputs from bf16 operands (the bf16
+// kernels with Params::out_f16 set).
+int launch(Kind kind, Params p, int D, int dtype, void* stream) {
+  if (p.S % kRows != 0 || p.S <= 0 || p.B * p.H < 1 || p.B * p.H > 65535 ||
+      dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_bf16 ? launch_dim<bf16>(kind, D, p, s)
-                            : launch_dim<float>(kind, D, p, s);
+  p.out_f16 = dtype == 2;
+  cudaError_t err = dtype != 0 ? launch_dim<bf16>(kind, D, p, s)
+                               : launch_dim<float>(kind, D, p, s);
   return static_cast<int>(err);
 }
 
@@ -1726,12 +1757,12 @@ int flash_fwd_launch(const void* q, long long q_sb, long long q_sh,
                      long long v_sb, long long v_sh, long long v_ss,
                      void* out, long long o_sb, long long o_sh,
                      long long o_ss, float* lse, int B, int H, int S, int D,
-                     int is_bf16, int causal, float scale, void* stream) {
+                     int dtype, int causal, float scale, void* stream) {
   Params p = base_params(q, q_sb, q_sh, q_ss, k, k_sb, k_sh, k_ss, v, v_sb,
                          v_sh, v_ss, B, H, S, causal, scale);
   p.out = out; p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
   p.lse_out = lse;
-  return launch(kFwd, p, D, is_bf16, stream);
+  return launch(kFwd, p, D, dtype, stream);
 }
 
 int flash_bwd_dq_launch(const void* q, long long q_sb, long long q_sh,
@@ -1742,14 +1773,14 @@ int flash_bwd_dq_launch(const void* q, long long q_sb, long long q_sh,
                         long long do_ss, const float* lse,
                         const float* delta, void* dq, long long o_sb,
                         long long o_sh, long long o_ss, int B, int H, int S,
-                        int D, int is_bf16, int causal, float scale,
+                        int D, int dtype, int causal, float scale,
                         void* stream) {
   Params p = base_params(q, q_sb, q_sh, q_ss, k, k_sb, k_sh, k_ss, v, v_sb,
                          v_sh, v_ss, B, H, S, causal, scale);
   p.dout = dout; p.do_sb = do_sb; p.do_sh = do_sh; p.do_ss = do_ss;
   p.lse = lse; p.delta = delta;
   p.out = dq; p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
-  return launch(kDq, p, D, is_bf16, stream);
+  return launch(kDq, p, D, dtype, stream);
 }
 
 int flash_bwd_dkv_launch(const void* q, long long q_sb, long long q_sh,
@@ -1760,7 +1791,7 @@ int flash_bwd_dkv_launch(const void* q, long long q_sb, long long q_sh,
                          long long do_ss, const float* lse,
                          const float* delta, void* dk, long long o_sb,
                          long long o_sh, long long o_ss, void* dv, int B,
-                         int H, int S, int D, int is_bf16, int causal,
+                         int H, int S, int D, int dtype, int causal,
                          float scale, void* stream) {
   Params p = base_params(q, q_sb, q_sh, q_ss, k, k_sb, k_sh, k_ss, v, v_sb,
                          v_sh, v_ss, B, H, S, causal, scale);
@@ -1768,14 +1799,15 @@ int flash_bwd_dkv_launch(const void* q, long long q_sb, long long q_sh,
   p.lse = lse; p.delta = delta;
   p.out = dk; p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
   p.out2 = dv;
-  return launch(kDkv, p, D, is_bf16, stream);
+  return launch(kDkv, p, D, dtype, stream);
 }
 
 // Dynamic shared memory a launch asks for: kind 0 = K1, 1 = K2, 2 = K3;
-// -1 for a head dim that is not instantiated.
-long long flash_attention_smem_bytes(int kind, int D, int is_bf16) {
+// dtype as launch() takes it (fp16 runs the bf16 kernels); -1 for a head
+// dim that is not instantiated.
+long long flash_attention_smem_bytes(int kind, int D, int dtype) {
   const Kind k = kind == 0 ? kFwd : (kind == 1 ? kDq : kDkv);
-  const bool b = is_bf16 != 0;
+  const bool b = dtype != 0;
   switch (D) {
     case 64: return b ? smem_bytes<bf16, 64>(k) : smem_bytes<float, 64>(k);
     case 96: return b ? smem_bytes<bf16, 96>(k) : smem_bytes<float, 96>(k);

@@ -25,7 +25,10 @@ Arithmetic follows the TPU kernel exactly where it rounds: every
 product whose operands include a 16-bit tensor (bf16 or fp16) takes
 both operands in bf16 and sums in fp32 (``_dot_f32``), so P is rounded
 to bf16 before P·V and Pᵀ·dO and dS before dS·K and dSᵀ·Q; fp32 inputs
-stay fp32.  The CUDA kernels take bf16 and fp32: fp16 on CUDA raises.
+stay fp32.  The CUDA kernels take bf16 and fp32; fp16 runs the bf16
+kernels on operands the wrapper rounds to bf16 (the same rounding), and
+they write O, dQ, dK and dV as fp16 straight from their fp32
+accumulators.
 The mask fill is the finite ``NEG_INF``; the outputs are ``acc /
 max(l, 1e-30)`` and ``lse = m + log(max(l, 1e-30))``.
 
@@ -53,7 +56,8 @@ KERNEL_HEAD_DIMS = (64, 96, 128)
 #: the kernels take S % 128 == 0, the TPU kernel's rule; the public
 #: entry sends other lengths to ``reference_attention``, as JAX does
 SEQ_MULTIPLE = 128
-_FLOATS = (torch.float32, torch.bfloat16)
+#: the kernels' dtype flag: 2 runs the bf16 kernels with fp16 outputs
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def reference_attention(q, k, v, causal=False, scale=None):
@@ -86,8 +90,10 @@ def _dot(a, b, low_precision):
 
 
 def _logits(q, k, causal, scale):
-    """fp32 ``scale·QKᵀ`` with the causal mask, ``[B, H, S, S]``."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    """fp32 ``scale·QKᵀ`` with the causal mask, ``[B, H, S, S]`` (16-bit
+    operands rounded to bf16, as ``_dot_f32`` takes them)."""
+    low = q.dtype.itemsize <= 2
+    s = _dot(q, k.transpose(-1, -2), low) * scale
     if causal:
         n = s.shape[-1]
         keep = torch.ones((n, n), dtype=torch.bool, device=q.device).tril()
@@ -157,7 +163,7 @@ def _lib():
         strides = [L] * 3
         # q, k, v pointers each with (b, h, s) strides; then the rest
         qkv = [P, *strides] * 3
-        dims = [I, I, I, I, I, I, F]   # B, H, S, D, bf16, causal, scale
+        dims = [I, I, I, I, I, I, F]   # B, H, S, D, dtype, causal, scale
         lib.flash_fwd_launch.argtypes = [*qkv, P, *strides, P, *dims, P]
         lib.flash_bwd_dq_launch.argtypes = [*qkv, P, *strides, P, P, P,
                                             *strides, *dims, P]
@@ -220,14 +226,9 @@ def _check_operands(kernel, q, k, v, do=None, lse=None, delta=None):
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{kernel}: dim 'head_dim'={D} is not one the "
                          f"CUDA kernel is built for {KERNEL_HEAD_DIMS}")
-    if q.dtype == torch.float16:
-        raise NotImplementedError(
-            f"{kernel}: float16 on CUDA is not ported yet: ROADMAP.md A4 "
-            "(fp16 instances of K1-K3 that round 2-byte operands to bf16, as "
-            "the JAX kernels do; the plain versions on the CPU already do)")
-    if q.dtype not in _FLOATS:
+    if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{kernel}: q is {q.dtype}; the kernel takes "
-                        "float32 or bfloat16")
+                        "float32, bfloat16 or float16")
     for name, t in named.items():
         stats = name in ("lse", "delta")
         want = torch.float32 if stats else q.dtype
@@ -272,8 +273,15 @@ def _raise_if(lib, err, kernel):
 
 def _dims(q, causal, scale):
     B, H, S, D = q.shape
-    return (B, H, S, D, int(q.dtype == torch.bfloat16), int(bool(causal)),
+    return (B, H, S, D, _DTYPE_CODE[q.dtype], int(bool(causal)),
             float(scale))
+
+
+def _operands(*ts):
+    """What the kernels read: fp16 operands rounded to bf16 (``_dot_f32``
+    rounds every 2-byte operand so), others as they are."""
+    return [t.to(torch.bfloat16) if t.dtype == torch.float16 else t
+            for t in ts]
 
 
 def flash_fwd(q, k, v, causal, scale):
@@ -287,12 +295,13 @@ def flash_fwd(q, k, v, causal, scale):
     B, H, S, D = q.shape
     out = _empty_bshd(q)
     lse = torch.empty((B, H, S, 1), dtype=torch.float32, device=dev)
+    qb, kb, vb = _operands(q, k, v)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_fwd_launch(
-            q.data_ptr(), *_strides(q), k.data_ptr(), *_strides(k),
-            v.data_ptr(), *_strides(v), out.data_ptr(), *_strides(out),
+            qb.data_ptr(), *_strides(qb), kb.data_ptr(), *_strides(kb),
+            vb.data_ptr(), *_strides(vb), out.data_ptr(), *_strides(out),
             lse.data_ptr(), *_dims(q, causal, scale), stream)
     _raise_if(lib, err, "flash_fwd")
     flash_fwd.launches += 1
@@ -307,12 +316,13 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal, scale):
     if dev.type == "cpu":
         return _bwd_dq_reference(q, k, v, do, lse, delta, causal, scale)
     dq = _empty_bshd(q)
+    qb, kb, vb, dob = _operands(q, k, v, do)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_bwd_dq_launch(
-            q.data_ptr(), *_strides(q), k.data_ptr(), *_strides(k),
-            v.data_ptr(), *_strides(v), do.data_ptr(), *_strides(do),
+            qb.data_ptr(), *_strides(qb), kb.data_ptr(), *_strides(kb),
+            vb.data_ptr(), *_strides(vb), dob.data_ptr(), *_strides(dob),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_strides(dq),
             *_dims(q, causal, scale), stream)
     _raise_if(lib, err, "flash_bwd_dq")
@@ -327,12 +337,13 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
     if dev.type == "cpu":
         return _bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale)
     dk, dv = _empty_bshd(q), _empty_bshd(q)
+    qb, kb, vb, dob = _operands(q, k, v, do)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_bwd_dkv_launch(
-            q.data_ptr(), *_strides(q), k.data_ptr(), *_strides(k),
-            v.data_ptr(), *_strides(v), do.data_ptr(), *_strides(do),
+            qb.data_ptr(), *_strides(qb), kb.data_ptr(), *_strides(kb),
+            vb.data_ptr(), *_strides(vb), dob.data_ptr(), *_strides(dob),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), *_strides(dk),
             dv.data_ptr(), *_dims(q, causal, scale), stream)
     _raise_if(lib, err, "flash_bwd_dkv")

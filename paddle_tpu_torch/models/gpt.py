@@ -110,8 +110,9 @@ class GPTConfig:
         return GPTConfig(hidden_size=4096, num_layers=32, num_heads=32, **kw)
 
 
-#: model dtypes; float16 trains on the CPU (the CUDA flash kernels take
-#: float32 and bfloat16), and serving takes float32 and bfloat16
+#: model dtypes; training takes all three (the CUDA flash kernels run
+#: float16 as bf16 products with fp16 outputs), serving float32 and
+#: bfloat16
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 

@@ -21,7 +21,9 @@ in place.  A step reads nothing back to the host.
 clip object of ``nn.clip``; ``weight_decay`` a float or an
 ``L2Decay``/``L1Decay`` (whose coefficient enters the gradient as the
 JAX package adds it, ``g + coeff * w``, for both).  ``parameters`` is a
-list of tensors or ``(name, tensor)`` pairs, or of groups ``{"params":
+list of tensors or ``(name, tensor)`` pairs (torch parameters or the
+paddle-style ``Parameter``s of ``Layer.parameters()``, whose torch
+parameters the optimizer keeps), or of groups ``{"params":
 [...], "learning_rate": factor, "weight_decay": coeff}``: Paddle scales
 a group's lr by its factor and gives its parameters its decay (the JAX
 package reads neither key).
@@ -38,6 +40,7 @@ import numbers
 import numpy as np
 import torch
 
+from ..core.tensor import unwrap
 from ..profiler import counters
 from . import lr
 from .lr import LRScheduler
@@ -91,6 +94,7 @@ class Optimizer:
                 # gives them, name the state_dict entries; bare tensors
                 # are param_<i>
                 name_, p = item if isinstance(item, tuple) else (None, item)
+                p = unwrap(p)   # a Layer's Parameter: its torch parameter
                 self._param_names.append(
                     name_ or f"param_{len(self._parameter_list)}")
                 self._parameter_list.append(p)

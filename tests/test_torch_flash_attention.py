@@ -15,6 +15,10 @@ Tolerances:
   Both sides round the same operands to bf16 (P before P.V, dS before
   dS.K); an fp32 difference of one ulp can still flip a bf16 rounding of
   an operand or of the output.
+* fp16: the same 2 bf16 ulps of the scale.  Both sides round every fp16
+  operand (Q, K, V, dO, P, dS) to bf16 before its product, as the TPU
+  kernel's ``_dot_f32`` does, so the same bf16 flips bound the
+  difference; the fp16 output itself rounds 8x finer.
 """
 
 import math
@@ -32,7 +36,8 @@ from paddle_tpu_torch.profiler import counters
 
 SHAPES = [(1, 2, 128, 32), (2, 2, 256, 64)]   # [B, H, S, D]
 DTYPES = {"float32": (jnp.float32, torch.float32),
-          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+          "bfloat16": (jnp.bfloat16, torch.bfloat16),
+          "float16": (jnp.float16, torch.float16)}
 
 
 @pytest.fixture()
@@ -63,7 +68,7 @@ def _np(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_plain_forward_matches_jax_kernel(interpret_mode, shape, causal,
@@ -80,7 +85,7 @@ def test_plain_forward_matches_jax_kernel(interpret_mode, shape, causal,
 
 
 @pytest.mark.parametrize("with_dlse", [False, True])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_plain_backward_matches_jax_kernel(interpret_mode, shape, causal,

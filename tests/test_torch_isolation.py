@@ -34,7 +34,29 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "paddle_tpu_torch.kernels.rms_norm",
                 "paddle_tpu_torch.flags", "paddle_tpu_torch.optimizer.lr",
                 "paddle_tpu_torch.nn.clip", "paddle_tpu_torch.amp",
-                "paddle_tpu_torch.profiler.metrics", "paddle_tpu_torch.io"):
+                "paddle_tpu_torch.profiler.metrics", "paddle_tpu_torch.io",
+                "paddle_tpu_torch.core.dtype", "paddle_tpu_torch.core.state",
+                "paddle_tpu_torch.core.dispatch",
+                "paddle_tpu_torch.core.autograd",
+                "paddle_tpu_torch.core.tensor", "paddle_tpu_torch.device",
+                "paddle_tpu_torch.tensor.random",
+                "paddle_tpu_torch.tensor.creation",
+                "paddle_tpu_torch.tensor.manipulation",
+                "paddle_tpu_torch.tensor.math",
+                "paddle_tpu_torch.nn.initializer",
+                "paddle_tpu_torch.nn.layer.layers",
+                "paddle_tpu_torch.nn.layer.common",
+                "paddle_tpu_torch.nn.layer.activation",
+                "paddle_tpu_torch.nn.layer.norm",
+                "paddle_tpu_torch.nn.layer.transformer",
+                "paddle_tpu_torch.nn.functional.common",
+                "paddle_tpu_torch.nn.functional.activation",
+                "paddle_tpu_torch.nn.functional.norm",
+                "paddle_tpu_torch.nn.functional.loss",
+                "paddle_tpu_torch.nn.functional.flash_attention",
+                "paddle_tpu_torch.nn.functional.init_utils",
+                "paddle_tpu_torch.distributed.fleet.recompute",
+                "paddle_tpu_torch.models.bert"):
         assert mod in mods, mod
     leaked = [m for m in mods
               if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -50,3 +72,24 @@ def test_model_without_gpu_raises_instead_of_using_cpu():
                     num_heads=4, max_seq_len=16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GPTForCausalLM(cfg)
+
+
+def test_layer_model_without_gpu_raises_instead_of_using_cpu():
+    """A paddle-style model lands on the default device: ``cuda`` unless
+    ``set_device("cpu")`` was called; without a GPU it raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is cuda")
+    from paddle_tpu_torch import device
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    import paddle_tpu_torch as paddle
+    prev, device._CURRENT[0] = device._CURRENT[0], None
+    try:
+        cfg = BertConfig(vocab_size=64, hidden_size=32, num_hidden_layers=1,
+                         num_attention_heads=4, intermediate_size=64,
+                         max_position_embeddings=16)
+        with pytest.raises(RuntimeError, match="set_device"):
+            BertForPretraining(cfg)
+        with pytest.raises(RuntimeError, match="set_device"):
+            paddle.to_tensor([1.0])
+    finally:
+        device._CURRENT[0] = prev
