@@ -67,9 +67,34 @@ script exits non-zero:
     its plain version; ``verify_paged`` column 0 against
     ``decode_paged``); then 4 requests self-drafted and 4 over int8
     pools (K4q-int8 launches == draft steps x 12).
+11a. engine_lora — the same model through ``LLMEngine(model,
+    kv_layout="paged", adapter_slots=4, adapter_rank=8)``, three tenants
+    from ``random_lora_factors(cfg, 8, seed=t)``, the 16 requests 4 base
+    and 4 a tenant (K4 launches == decode_steps x 24): the base requests'
+    tokens must equal the engine phase's; lora_in_model holds one mixed
+    decode step's base rows bit-equal to the adapter-free step and its
+    tenant rows, through ``_mm_lora``, to the merged-weight step
+    (``_self_calibrated``); two tenants with one prompt share no block;
+    a cold page-in and a warm acquire are timed.
+11b. host_tier — a paged engine whose pool the 16 requests' prefixes
+    overflow, ``host_kv_blocks=1024``, serving them twice (pass 1 spills,
+    pass 2 restores), in bf16 (K4) and int8 KV (K4q): spilled and
+    restored blocks > 0, a block spilled and restored bit-equal (scale
+    rows too), pass 2's greedy agreement with the engine phase at least
+    the slot layout's; µs and GB/s of a block spill and restore and the
+    device busy share.
+11c. migration — the 16 requests prefilled on a source with
+    ``hold_after_prefill=True`` and handed to a destination engine
+    (``export_request``, ``adopt_migration``, ``finish_migrated``), in
+    bf16 and int8 KV: copied blocks and scale rows bit-equal, shared
+    prefix blocks adopted (copied = the unshared tail), K4/K4q launches
+    == the destination's decode_steps x 24, ms a migration; then one
+    migration into a self-drafted ``SpeculativeLLMEngine`` (its draft
+    re-prefilled, tokens equal to the unmigrated speculative run).
 12. slots_in_model — the 1.3B width at 2 layers: the slot path against
     the paged path (prefill and one decode step), each in bf16 and on
-    fp32 copies (``_self_calibrated``).
+    fp32 copies (``_self_calibrated``); then migration_fp32: 8 requests
+    migrated at that depth in fp32 give the unmigrated tokens.
 13. times (K4, K4q) — µs per wrapper call at the engine's mid-run
     shape: K4 over the bf16 pools, K4q over the same pools quantized,
     beside the plain versions, the bounds and (K4) SDPA over gathered
@@ -142,7 +167,9 @@ script exits non-zero:
     ``scaled_dot_product_attention``'s flash forward and backward
     (yardsticks the port never calls).
 
-The line before the last is the ``kernels`` JSON; the last line is
+The ``total`` line gives the whole run's seconds; the line before the
+last is the ``kernels`` JSON (K4's and K4q-int8's launches summed over
+the engine, LoRA, host-tier and migration runs); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -180,7 +207,10 @@ from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
 from paddle_tpu_torch.models.gpt import _mm
 from paddle_tpu_torch.profiler import counters
 from paddle_tpu_torch.quantization import PTQ_WEIGHTS, ptq_int8_decode_state
-from paddle_tpu_torch.serving import SpeculativeLLMEngine, bucket_length
+from paddle_tpu_torch.serving import (SpeculativeLLMEngine, bucket_length,
+                                      random_lora_factors)
+from paddle_tpu_torch.serving.adapters import ADAPTER_TARGETS
+from paddle_tpu_torch.serving.kvcache import blocks_for_tokens
 
 #: the attention functionals' module (its name is also a function of
 #: ``paddle_tpu_torch.nn.functional``)
@@ -505,17 +535,22 @@ def _expected_launches(eng, moved):
             * eng.config.num_layers}
 
 
-def _serve_counted(eng, prompts, max_new, phase):
+def _serve_counted(eng, prompts, max_new, phase, adapters=None):
     """The counted main-path run: every paged-attention launch count set to
-    0 just before, read just after.  Returns the phase record, the
-    handles and (paged layout) a snapshot of the fullest decode batch
-    (tables and clones of the pools) for the in-model comparison."""
+    0 just before, read just after.  ``adapters`` names each request's
+    LoRA tenant (None: all base).  Returns the phase record, the handles
+    and (paged layout) a snapshot of the fullest decode batch (tables,
+    adapter slots and clones of the pools) for the in-model
+    comparison."""
     L = eng.config.num_layers
     paged = eng.kv_layout == "paged"
     pa.reset_launch_counts()
     before = counters.snapshot()
     t_run = time.perf_counter()
-    handles = [eng.add_request(p, max_new_tokens=max_new) for p in prompts]
+    handles = [eng.add_request(p, max_new_tokens=max_new,
+                               **({} if adapters is None
+                                  else {"adapter": adapters[i]}))
+               for i, p in enumerate(prompts)]
     first = {}
     decode_only = []          # (seconds, tokens) of steps with no prefill
     snap, best = None, 0
@@ -542,6 +577,7 @@ def _serve_counted(eng, prompts, max_new, phase):
                 bt=np.where(eng._running[:, None], eng._bt, 0),
                 pos=np.where(eng._running, eng._pos, 0),
                 tok=eng._tok.copy(), rows=running,
+                aid=np.where(eng._running, eng._aid, 0),
                 pools=[t.clone() for t in (eng.pool_k, eng.pool_v,
                                            *eng.scales)])
     torch.cuda.synchronize()
@@ -594,7 +630,8 @@ def _serve_counted(eng, prompts, max_new, phase):
                                       "serving.kv.prefill", "serving.decode",
                                       "serving.kv.blocks_evicted",
                                       "serving.kv.quant", "serving.spec",
-                                      "serving.prefill"))
+                                      "serving.prefill", "serving.kv.tier",
+                                      "serving.kv.host", "serving.adapter"))
                      and k not in SPEC_GAUGES},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
@@ -1078,7 +1115,7 @@ def engine_slots_phase(model, prompts, tokens, paged_record):
         paged_ttft_ms_p50=paged_record["ttft_ms_p50"],
         paged_kv_pool_bytes=paged_record["kv_pool_bytes"])
     emit(record)
-    return eng
+    return eng, record
 
 
 def generate_phase(model, slot_eng):
@@ -1268,6 +1305,489 @@ def spec_in_model_phase(eng, rng):
     while eng.has_work():
         eng.step()
     return dict(pools=dpools, bt=dbt, pos=pos0, rows=rows)
+
+
+LORA_RANK = 8
+LORA_TENANTS = ("t1", "t2", "t3")
+
+
+def _tenant_of(i):
+    """The 16 requests split 4 base and 4 for each tenant, in pairs, so
+    each group holds two prompts that share the 256-token prefix and two
+    that do not."""
+    return (None, *LORA_TENANTS)[(i // 2) % 4]
+
+
+def _merged_state(w, slabs, slot):
+    """``decode_state`` with tenant ``slot``'s LoRA update folded into the
+    adapted weights, ``W + A @ B`` in fp32, cast back: the reference the
+    gathered ``_mm_lora`` path is held to."""
+    lws = dict(w["lws"])
+    for t in ADAPTER_TARGETS:
+        ab = torch.bmm(slabs["a_" + t][:, slot].float(),
+                       slabs["b_" + t][:, slot].float())
+        lws[t] = (lws[t].float() + ab).to(lws[t].dtype)
+    return dict(w, lws=lws)
+
+
+def _lora_in_model(eng, snap):
+    """One ``decode_paged`` step at the fullest batch of the LoRA run, on
+    clones of its pools: base rows with the arena's ids against the same
+    step without adapters (bit for bit), and tenant rows through
+    ``_mm_lora`` against the merged-weight step of each tenant, in bf16
+    and on fp32 copies (``_self_calibrated``)."""
+    dev = eng.device
+    model, w = eng.model, eng._w
+    aid = snap["aid"]
+    args = [torch.from_numpy(np.ascontiguousarray(snap[k]).astype(
+        np.int32)).to(dev) for k in ("tok", "pos", "bt")]
+    ids = torch.from_numpy(aid.astype(np.int64)).to(dev)
+    slabs = eng.adapters.slabs()
+    base, tenant = aid == 0, aid > 0
+    if not (base & (snap["bt"][:, 0] > 0)).any() or not tenant.any():
+        raise AssertionError(f"lora_in_model: batch ids {aid} hold no base "
+                             "or no tenant row")
+
+    def step(wt, dt, **kw):
+        pools = [p.clone() if dt is None else p.to(dt)
+                 for p in snap["pools"]]
+        out = model.decode_paged(wt, *args, *pools, **kw)
+        del pools
+        return out
+
+    with_ids = step(w, None, adapters=slabs, adapter_ids=ids)
+    without = step(w, None)
+    torch.cuda.synchronize()
+    rows = torch.from_numpy(base).to(dev)
+    if not torch.equal(with_ids[rows], without[rows]):
+        raise AssertionError("lora_in_model: base rows differ from the "
+                             "adapter-free step")
+    w32 = _fp32_state(w)
+    s32 = {k: v.float() for k, v in slabs.items()}
+    a32 = step(w32, torch.float32, adapters=s32, adapter_ids=ids)
+    paths = {"a16": [], "b16": [], "a32": [], "b32": []}
+    for s in sorted(set(aid[tenant].tolist())):
+        r = torch.from_numpy(aid == s).to(dev)
+        paths["a16"].append(with_ids[r])
+        paths["a32"].append(a32[r])
+        paths["b16"].append(step(_merged_state(w, slabs, s), None)[r])
+        paths["b32"].append(step(_merged_state(w32, s32, s),
+                                 torch.float32)[r])
+    torch.cuda.synchronize()
+    rec = _self_calibrated("lora_in_model",
+                           *(torch.cat(paths[k]) for k in
+                             ("a16", "b16", "a32", "b32")))
+    emit({"phase": "lora_in_model", "rows": int(len(aid)),
+          "base_rows": int(base.sum()), "tenant_rows": int(tenant.sum()),
+          "check": "base rows bit-equal to the adapter-free step; tenant "
+                   "rows _mm_lora vs merged weights, bf16 and fp32",
+          "base_rows_bit_equal": True, **rec})
+
+
+def engine_lora_phase(model, prompts, tokens, paged_record):
+    """Multi-tenant LoRA serving: ``LLMEngine(model, kv_layout="paged",
+    adapter_slots=4, adapter_rank=8)`` with three tenants registered from
+    ``random_lora_factors(cfg, 8, seed=t)``, the 16 requests split 4 base
+    and 4 a tenant, greedy, 32 new tokens (K4 launches == decode_steps x
+    24).  Gates: base rows' tokens equal the adapter-free paged engine's,
+    the in-model check (lora_in_model), two tenants with one prompt share
+    no block.  Prints the decode step beside the adapter-free engine's
+    and the time of a tenant's cold page-in."""
+    cfg = model.config
+    eng = LLMEngine(model, kv_layout="paged", max_slots=8, max_seq_len=1024,
+                    block_size=16, prefill_chunk=128, adapter_slots=4,
+                    adapter_rank=LORA_RANK)
+    for i, t in enumerate(LORA_TENANTS):
+        eng.register_adapter(t, random_lora_factors(cfg, LORA_RANK,
+                                                    seed=i + 1))
+    rng = np.random.default_rng(6)
+    V = cfg.vocab_size
+    warm = [eng.add_request(rng.integers(0, V, 64), max_new_tokens=2,
+                            adapter=t) for t in (None, *LORA_TENANTS)]
+    while not all(h.is_finished for h in warm):
+        eng.step()
+    torch.cuda.synchronize()
+    record, handles, snap = _serve_counted(
+        eng, prompts, 32, "engine_lora",
+        adapters=[_tenant_of(i) for i in range(len(prompts))])
+    base = [i for i in range(len(prompts)) if _tenant_of(i) is None]
+    equal = [handles[i].tokens == tokens[i] for i in base]
+    tenant_agree = _agreement([handles[i] for i in range(len(prompts))
+                               if i not in base],
+                              [tokens[i] for i in range(len(prompts))
+                               if i not in base])
+    if not all(equal):
+        raise AssertionError(f"engine_lora: base requests {base} equal to "
+                             f"the adapter-free engine: {equal}")
+    _lora_in_model(eng, snap)
+
+    # two tenants, one prompt: no block shared, no prefix hit across them
+    p = prompts[1]
+    h1 = eng.add_request(p, max_new_tokens=4, adapter="t1")
+    while h1.state != "running":
+        eng.step()
+    t1_blocks = set(eng._slot_blocks[h1.slot])
+    while not h1.is_finished:
+        eng.step()
+    hits0 = counters.get("serving.kv.prefix_hits")
+    h2 = eng.add_request(p, max_new_tokens=4, adapter="t2")
+    while h2.state not in ("running", "finished"):
+        eng.step()
+    shared = t1_blocks & set(eng._slot_blocks[h2.slot] or ())
+    peeks = (eng.prefix_peek(p, tenant="t1"), eng.prefix_peek(p, tenant="t2"))
+    while not h2.is_finished:
+        eng.step()
+    if shared or counters.get("serving.kv.prefix_hits") != hits0 or \
+            peeks[0] <= 0:
+        raise AssertionError(f"engine_lora: tenants t1/t2 share blocks "
+                             f"{sorted(shared)} (peeks {peeks})")
+
+    # a cold page-in: a fourth tenant into the arena's free slot, then a
+    # warm acquire of it
+    eng.register_adapter("t4", random_lora_factors(cfg, LORA_RANK, seed=4))
+    times = {}
+    for kind in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with eng._cond:
+            eng.adapters.acquire("t4")
+        torch.cuda.synchronize()
+        times[kind] = (time.perf_counter() - t0) * 1e3
+    with eng._cond:
+        eng.adapters.release("t4")
+        eng.adapters.release("t4")
+    st = eng.adapters.stats()
+    record.update(
+        model="gpt3_1_3b bf16", adapter_slots=4, adapter_rank=LORA_RANK,
+        tenants=len(LORA_TENANTS), base_requests=len(base),
+        base_requests_equal_to_paged=sum(equal),
+        tenant_token_agreement_with_base_engine=tenant_agree,
+        adapter_free_decode_step_ms_p50=paged_record["decode_step_ms_p50"],
+        decode_step_ratio_to_adapter_free=(
+            record["decode_step_ms_p50"] / paged_record["decode_step_ms_p50"]
+            if record["decode_step_ms_p50"] else None),
+        cold_page_in_ms=times["cold"], warm_acquire_ms=times["warm"],
+        adapter_arena_bytes=st["arena_bytes"],
+        adapter_stats={k: st[k] for k in ("loads", "hits", "misses",
+                                          "evictions", "exhausted")},
+        tenants_share_no_block=True)
+    emit(record)
+    del eng
+    _free_cuda()
+    return record
+
+
+def _block_copy_times(eng, n):
+    """Host µs of ``n`` single-block spills (device to pinned host,
+    synchronous) and of their restores (pinned host to device, queued,
+    then one wait), each block's bytes, and the device busy share of the
+    whole spill-and-restore run (``_profile``)."""
+    with eng._cond:
+        eng.prefix.clear()
+        blocks = eng.pool.alloc_n(n)
+    per = {"spill": [], "restore": []}
+
+    def run():
+        bufs = []
+        for b in blocks:
+            t0 = time.perf_counter()
+            bufs.append(eng._spill_block(b))
+            per["spill"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for b, buf in zip(blocks, bufs):
+            eng._restore_block(b, buf)
+        eng._restores_done()
+        per["restore"].append((time.perf_counter() - t0) / n)
+        for buf in bufs:
+            eng._host_tier._recycle(buf)
+
+    with eng._cond:
+        run()                      # warm: pins the host buffers
+        per = {"spill": [], "restore": []}
+        run()
+        prof = _profile(run, top=4)
+        for b in blocks:
+            eng.pool.release(b)
+    nbytes = sum(t[:, 0].nbytes for t in eng._pools())
+    spill_s = float(np.median(per["spill"]))
+    restore_s = float(np.mean(per["restore"]))
+    return {"blocks": n, "block_bytes": nbytes,
+            "spill_us": spill_s * 1e6, "restore_us": restore_s * 1e6,
+            "spill_gb_per_s": nbytes / spill_s / 1e9,
+            "restore_gb_per_s": nbytes / restore_s / 1e9,
+            "device_busy_share": prof["device_busy_share"],
+            "top_device_ops": prof["top_device_ops"]}
+
+
+def host_tier_phase(model, prompts, tokens, bf16_agreement):
+    """The host-RAM KV tier: a paged engine whose pool (8 x 46 + 1
+    blocks: any 8 of the requests at once) the 16 requests' donated
+    prefixes overflow, ``host_kv_blocks=1024``, serving the 16 requests
+    twice: pass 1 spills cold prefixes, pass 2 restores them.  In bf16
+    (K4) and int8 KV (K4q).  Gates: spilled and restored blocks > 0; one
+    block spilled and restored into another is bit-equal (scale rows
+    too); the second pass's greedy tokens agree with the adapter-free
+    engine's at least as well as two correct bf16 engines do
+    (``bf16_agreement``: the slot layout against the paged engine).
+    Prints µs and GB/s of a block spill and restore, with the device
+    busy share."""
+    V = model.config.vocab_size
+    need = max(blocks_for_tokens(len(p) + 31, 16) for p in prompts)
+    records = {}
+    for kv in (None, "int8"):
+        eng = LLMEngine(model, kv_layout="paged", kv_dtype=kv, max_slots=8,
+                        max_seq_len=1024, block_size=16, prefill_chunk=128,
+                        n_blocks=8 * need + 1, host_kv_blocks=1024)
+        eng.generate([np.random.default_rng(7).integers(0, V, 64)],
+                     max_new_tokens=2)
+        torch.cuda.synchronize()
+        phase = "host_tier" + ("" if kv is None else f"_{kv}")
+        passes = []
+        for i in range(2):
+            rec, handles, _ = _serve_counted(eng, prompts, 32,
+                                             f"{phase}_pass{i + 1}")
+            passes.append((rec, handles))
+        moved = {k: sum(r["counters"].get(k, 0) for r, _ in passes)
+                 for k in ("serving.kv.tier.spilled_blocks",
+                           "serving.kv.tier.restored_blocks",
+                           "serving.kv.tier.readopted",
+                           "serving.kv.tier.spill_drops")}
+        if moved["serving.kv.tier.spilled_blocks"] <= 0 or \
+                passes[1][0]["counters"].get(
+                    "serving.kv.tier.restored_blocks", 0) <= 0:
+            raise AssertionError(f"{phase}: tier moved {moved}")
+        # one block of the tree spilled and restored into another: bit-equal
+        with eng._cond:
+            eng.prefix.evict(1)          # room for the destination block
+            nodes = list(eng.prefix._root.children.values())
+            src = next(n for n in nodes if not n.host).block
+            bufs = eng._spill_block(src)
+            dst = eng.pool.alloc()
+            eng._restore_block(dst, bufs)
+            eng._restores_done()
+            equal = all(torch.equal(t[:, dst], t[:, src])
+                        for t in eng._pools())
+            eng._host_tier._recycle(bufs)
+            eng.pool.release(dst)
+        if not equal:
+            raise AssertionError(f"{phase}: restored block differs from the "
+                                 "spilled one")
+        agree = [_agreement(h, tokens) for _, h in passes]
+        if kv is None and agree[1] < bf16_agreement:
+            raise AssertionError(
+                f"{phase}: pass 2 agrees with the adapter-free engine at "
+                f"{agree[1]} < {bf16_agreement} (slot vs paged bf16)")
+        times = _block_copy_times(eng, 32)
+        st = eng.stats()
+        out = {"phase": phase, "model": "gpt3_1_3b bf16", "kv_dtype": kv,
+               "n_blocks": eng.n_blocks, "host_kv_blocks": 1024,
+               "tier": moved, "block_bit_equal": True,
+               "host_arena_bytes": st["host_arena_bytes"],
+               "host_buffers_pinned": eng._host_tier.pin_memory,
+               "pass_decode_step_ms_p50": [r["decode_step_ms_p50"]
+                                           for r, _ in passes],
+               "pass_ttft_ms_p50": [r["ttft_ms_p50"] for r, _ in passes],
+               "pass_wall_s": [r["wall_s"] for r, _ in passes],
+               "greedy_token_agreement_with_paged": agree,
+               "bf16_engines_agreement": bf16_agreement,
+               "launches": {k: sum(r["launches"][k] for r, _ in passes)
+                            for k in passes[0][0]["launches"]},
+               "block_copy": times}
+        emit(out)
+        records[kv] = out
+        del eng
+        _free_cuda()
+    return records
+
+
+def _migrate_stream(src, dst, prompts, max_new, phase):
+    """Serve ``prompts`` through ``src`` with ``hold_after_prefill=True``
+    and hand each held request to ``dst`` (``export_request`` →
+    ``adopt_migration`` → ``finish_migrated``; a destination without a
+    free slot defers the hand-off), checking every copied block against
+    the source's, tiles and scale rows; ``dst`` decodes.  Returns the
+    destination's handles in prompt order, the migrations' infos and
+    their host ms (synchronised)."""
+    held = {}
+    for i, p in enumerate(prompts):
+        held[src.add_request(p, max_new_tokens=max_new,
+                             hold_after_prefill=True).rid] = i
+    out, infos, ms = [None] * len(prompts), [], []
+    waiting = []
+    while any(h is None or not h.is_finished for h in out):
+        for ev in src.step():
+            if ev["type"] == "prefilled":
+                waiting.append(ev["request"])
+        while waiting and dst._free:
+            req = waiting.pop(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mig = src.export_request(req)
+            new, info = dst.adopt_migration(mig, src)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            bs = src.pool.block_size
+            n_data = blocks_for_tokens(max(info["tokens"], 1), bs)
+            lo = info["blocks_shared"]
+            si = torch.tensor(mig["table"][lo:n_data], device=dst.device)
+            di = torch.tensor(dst._slot_blocks[new.slot][lo:n_data],
+                              device=dst.device)
+            for sp, dp in zip(src._pools(), dst._pools()):
+                if not torch.equal(sp[:, si], dp[:, di]):
+                    raise AssertionError(f"{phase}: migrated blocks differ "
+                                         f"from the source's ({info})")
+            if info["blocks_copied"] != n_data - info["blocks_shared"]:
+                raise AssertionError(f"{phase}: {info}")
+            src.finish_migrated(req)
+            out[held[req.rid]] = new
+            infos.append(info)
+        dst.step()
+    return out, infos, ms
+
+
+def migration_phase(model, prompts, tokens):
+    """Engine-level KV migration between two paged engines over the one
+    model: the 16 requests prefill on a source with
+    ``hold_after_prefill=True`` and each goes through ``export_request``
+    → ``adopt_migration`` → ``finish_migrated`` to a destination that
+    decodes it, in bf16 (K4) and int8 KV (K4q).  Gates: copied blocks and
+    scale rows bit-equal to the source's; shared prefix blocks adopted by
+    refcount (blocks copied = the unshared tail); the destination's
+    K4/K4q launches == its decode_steps x 24.  Then one request through a
+    ``SpeculativeLLMEngine`` destination (``_adopt_extra``; its tokens
+    equal the same request served speculatively unmigrated), and the fp32
+    identity at 2 layers (``migration_fp32_phase``).  Prints ms a
+    migration."""
+    V = model.config.vocab_size
+    kw = dict(kv_layout="paged", max_slots=8, max_seq_len=1024,
+              block_size=16, prefill_chunk=128)
+    records = {}
+    for kv in (None, "int8"):
+        src = LLMEngine(model, kv_dtype=kv, **kw)
+        dst = LLMEngine(model, kv_dtype=kv, **kw)
+        for e in (src, dst):
+            e.generate([np.random.default_rng(8).integers(0, V, 64)],
+                       max_new_tokens=2)
+        torch.cuda.synchronize()
+        phase = "migration" + ("" if kv is None else f"_{kv}")
+        name = ("paged_decode_attention" if kv is None
+                else f"paged_decode_attention_{kv}")
+        pa.reset_launch_counts()
+        before = counters.snapshot()
+        t0 = time.perf_counter()
+        handles, infos, ms = _migrate_stream(src, dst, prompts, 32, phase)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        moved = counters.delta(before)
+        launches = {"paged_decode_attention":
+                    pa.paged_decode_attention.launches,
+                    **{f"paged_decode_attention_{k}": n for k, n in
+                       pa.paged_decode_attention.quant_launches.items()}}
+        steps = moved.get("serving.decode_steps", 0)
+        for k, n in launches.items():
+            want = steps * model.config.num_layers if k == name else 0
+            if n != want or (k == name and n <= 0):
+                raise AssertionError(f"{phase}: {k} launched {n}, want "
+                                     f"{want}")
+        shared = sum(i["blocks_shared"] for i in infos)
+        if shared <= 0:
+            raise AssertionError(f"{phase}: no prefix block adopted by "
+                                 f"refcount ({infos})")
+        for h in handles:
+            if h.finish_reason not in ("length", "eos"):
+                raise AssertionError(f"{phase}: {h} finished badly")
+        rec = {"phase": phase, "model": "gpt3_1_3b bf16", "kv_dtype": kv,
+               "migrations": len(infos), "wall_s": wall,
+               "ms_per_migration_p50": float(np.median(ms)),
+               "ms_per_migration_max": float(np.max(ms)),
+               "blocks_copied": sum(i["blocks_copied"] for i in infos),
+               "blocks_shared": shared,
+               "bytes_copied": sum(i["blocks_copied"] for i in infos)
+               * sum(t[:, 0].nbytes for t in dst._pools()),
+               "decode_steps": steps, "launches": launches,
+               "kernel_launches": launches[name],
+               "blocks_bit_equal": True,
+               "greedy_token_agreement_with_paged": (
+                   _agreement(handles, tokens) if kv is None else None)}
+        emit(rec)
+        records[kv] = rec
+        del src, dst
+        _free_cuda()
+    records["spec"] = _migration_spec(model, prompts[0])
+    return records
+
+
+def _migration_spec(model, prompt):
+    """One migration into a ``SpeculativeLLMEngine`` (self-drafted):
+    ``_adopt_extra`` re-prefills the draft namespace, and the continuation
+    equals the same request served unmigrated by a speculative engine."""
+    src = LLMEngine(model, kv_layout="paged", max_slots=8, max_seq_len=1024,
+                    block_size=16, prefill_chunk=128)
+    dst = _spec_engine(model, model)
+    ref = _spec_engine(model, model)
+    want = ref.generate([prompt], max_new_tokens=32)[0]
+    del ref
+    _free_cuda()
+    req = src.add_request(prompt, max_new_tokens=32,
+                          hold_after_prefill=True)
+    while req.state != "held":
+        src.step()
+    pa.reset_launch_counts()
+    before = counters.snapshot()
+    new, info = dst.adopt_migration(src.export_request(req), src)
+    src.finish_migrated(req)
+    ready = dst._dslot_blocks[new.slot] is not None
+    while not new.is_finished:
+        dst.step()
+    torch.cuda.synchronize()
+    moved = counters.delta(before)
+    launches = {"paged_decode_attention": pa.paged_decode_attention.launches}
+    draft_steps = moved.get("serving.spec.draft_steps", 0)
+    equal = bool(np.array_equal(new.output_ids(), want))
+    rec = {"phase": "migration_spec", "model": "gpt3_1_3b bf16",
+           "draft": "self", "draft_table_rebuilt": ready,
+           "draft_prefill_chunks": moved.get(
+               "serving.spec.draft_prefill_chunks", 0),
+           "drafted": moved.get("serving.spec.drafted", 0),
+           "accepted": moved.get("serving.spec.accepted", 0),
+           "draft_steps": draft_steps, "launches": launches,
+           "tokens_equal_to_unmigrated": equal, **info}
+    emit(rec)
+    if not (ready and equal and rec["draft_prefill_chunks"] > 0
+            and launches["paged_decode_attention"]
+            == draft_steps * model.config.num_layers > 0):
+        raise AssertionError(f"migration_spec: {rec}")
+    del src, dst
+    _free_cuda()
+    return rec
+
+
+def migration_fp32_phase():
+    """At the depth of slots_in_model (the 1.3B width, 2 layers), in fp32:
+    8 requests migrated from a held source to a destination give the
+    tokens of the same requests served unmigrated."""
+    cfg = GPTConfig.gpt3_1_3b(dtype="float32")
+    cfg.num_layers = 2
+    model = GPTForCausalLM(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(4))
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n))
+               for n in rng.integers(64, 701, 8)]
+    kw = dict(kv_layout="paged", max_slots=8, max_seq_len=1024,
+              block_size=16, prefill_chunk=128)
+    ref = LLMEngine(model, **kw)
+    want = ref.generate(prompts, max_new_tokens=16)
+    handles, infos, _ = _migrate_stream(LLMEngine(model, **kw),
+                                        LLMEngine(model, **kw), prompts, 16,
+                                        "migration_fp32")
+    equal = [bool(np.array_equal(h.output_ids(), w))
+             for h, w in zip(handles, want)]
+    emit({"phase": "migration_fp32", "layers": 2, "dtype": "float32",
+          "requests": len(prompts), "tokens_equal_to_unmigrated": equal,
+          "blocks_copied": sum(i["blocks_copied"] for i in infos)})
+    if not all(equal):
+        raise AssertionError(f"migration_fp32: migrated tokens differ "
+                             f"from unmigrated ones: {equal}")
 
 
 def slots_in_model_phase():
@@ -2767,6 +3287,7 @@ def _free_cuda():
 
 
 def main():
+    t_start = time.perf_counter()
     name, _card = device_phase()
     build_phase()
     max_err = kernel_phase()
@@ -2776,20 +3297,31 @@ def main():
     model, prompts, tokens, record, snap = engine_phase()
     quant, fp8, _ = engine_quant_phase(model, prompts, tokens, record)
     int8_epilogue_phase(model)
-    slot_eng = engine_slots_phase(model, prompts, tokens, record)
+    slot_eng, slot_record = engine_slots_phase(model, prompts, tokens, record)
     generate_phase(model, slot_eng)
     del slot_eng
     _free_cuda()
     draft_snap = engine_spec_phase(model, prompts, tokens, record)
+    lora = engine_lora_phase(model, prompts, tokens, record)
+    tier = host_tier_phase(model, prompts, tokens,
+                           slot_record["greedy_token_agreement_with_paged"])
+    mig = migration_phase(model, prompts, tokens)
     del model
     _free_cuda()
     slots_in_model_phase()
     _free_cuda()
+    migration_fp32_phase()
+    _free_cuda()
+    k4, k4q = "paged_decode_attention", "paged_decode_attention_int8"
     launches = {**record["launches"],
-                "paged_decode_attention_int8":
-                    quant["launches"]["paged_decode_attention_int8"],
+                k4q: quant["launches"][k4q],
                 "paged_decode_attention_fp8":
                     fp8["launches"]["paged_decode_attention_fp8"]}
+    # the LoRA, host-tier and migration phases' main-path runs add theirs
+    for rec in (lora, tier[None], tier["int8"], mig[None], mig["int8"],
+                mig["spec"]):
+        for k in (k4, k4q):
+            launches[k] += rec["launches"].get(k, 0)
     paged_rows = times_phase(snap, max_err, launches)
     draft_times_phase(draft_snap)
     del snap, draft_snap   # the serving phases' pools, before training
@@ -2813,6 +3345,7 @@ def main():
     flash_rows = flash_times_phase(flash_err, train["launches"],
                                    bert["launches"])
     torch.cuda.synchronize()
+    emit({"phase": "total", "run_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": [*paged_rows, *flash_rows, rms_row]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,11 @@ reads).
   NaN/Inf and raises ``FloatingPointError`` naming the step.
 * ``FLAGS_peak_tflops`` — the device's peak, for the MFU of the train
   metrics (0: no MFU).
+* ``FLAGS_fault_schedule`` — the fault-injection schedule
+  (``resilience.faultinject``; empty: none).
+
+``register_flag_observer(name, fn)`` calls ``fn(value)`` whenever
+``set_flags`` sets ``name``.
 """
 
 from __future__ import annotations
@@ -16,7 +21,9 @@ _REGISTRY: dict[str, object] = {
     "FLAGS_fused_steps": 1,
     "FLAGS_check_nan_inf": False,
     "FLAGS_peak_tflops": 0.0,
+    "FLAGS_fault_schedule": "",
 }
+_OBSERVERS: dict[str, list] = {}
 
 
 def flag(name: str):
@@ -30,6 +37,16 @@ def set_flags(flags: dict):
         raise KeyError(f"unknown flags {unknown}; the port reads "
                        f"{sorted(_REGISTRY)}")
     _REGISTRY.update(flags)
+    for name, value in flags.items():
+        for fn in _OBSERVERS.get(name, ()):
+            fn(value)
 
 
-__all__ = ["flag", "set_flags"]
+def register_flag_observer(name: str, fn):
+    """Call ``fn(value)`` each time ``set_flags`` sets ``name``."""
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown flag {name!r}")
+    _OBSERVERS.setdefault(name, []).append(fn)
+
+
+__all__ = ["flag", "register_flag_observer", "set_flags"]

@@ -231,6 +231,25 @@ def _mm(x, lw, name):
     return (torch.matmul(x, w.to(x.dtype)) * s).to(x.dtype)
 
 
+def _mm_lora(x, lw, name, al, aids):
+    """:func:`_mm` plus the gathered batched low-rank update (S-LoRA /
+    Punica): ``y + x @ A[ids] @ B[ids]``, where ``al`` holds this layer's
+    adapter slabs ``a_<name> [n_slots, d_in, R]`` / ``b_<name> [n_slots,
+    R, d_out]`` and ``aids [B]`` is each row's adapter slot.  Slot 0 is the
+    base model: its row is selected from the un-adapted ``y`` itself (not
+    ``y + 0``), so base rows are bitwise those of an adapter-free call.
+    The update rides beside whatever ``_mm`` produced, int8 epilogue
+    included."""
+    y = _mm(x, lw, name)
+    if al is None:
+        return y
+    ag = al["a_" + name][aids]                        # [B, d_in, R]
+    bg = al["b_" + name][aids]                        # [B, R, d_out]
+    d = torch.einsum("bti,bir->btr", x, ag)
+    d = torch.einsum("btr,bro->bto", d, bg)
+    return torch.where((aids > 0)[:, None, None], y + d.to(y.dtype), y)
+
+
 def _resolve_device(device):
     if device is None:
         if not torch.cuda.is_available():
@@ -459,13 +478,13 @@ class GPTForCausalLM(nn.Module):
             "head": None if c.tie_word_embeddings else self.lm_head,
         }
 
-    def _ffn(self, h, lw):
+    def _ffn(self, h, lw, al=None, aids=None):
         x = _norm(h, lw["ln2_w"], lw["ln2_b"], self.config.layer_norm_epsilon)
-        up = _mm(x, lw, "fc1_w") + lw["fc1_b"]
-        return h + (_mm(F.gelu(up, approximate="tanh"), lw, "fc2_w")
-                    + lw["fc2_b"])
+        up = _mm_lora(x, lw, "fc1_w", al, aids) + lw["fc1_b"]
+        return h + (_mm_lora(F.gelu(up, approximate="tanh"), lw, "fc2_w",
+                             al, aids) + lw["fc2_b"])
 
-    def _layers(self, w, ids, pos, attend):
+    def _layers(self, w, ids, pos, attend, adapters=None, adapter_ids=None):
         """Embed ``ids[B, T]``, whose tokens sit at positions ``pos``
         (int64 ``[B, T]``, or ``[1, T]`` shared by every row), and run
         every block over them.  ``attend(l, q, k, v)`` writes layer
@@ -474,7 +493,11 @@ class GPTForCausalLM(nn.Module):
         layouts differ only there.  Learned positions past the table (a
         padded tail) are clamped token by token, so the live tokens
         always get their own; RoPE turns each token by its own position.
-        Returns ``h[B, T, H]`` before the final norm."""
+        LoRA: ``adapters`` holds the slabs ``a_<t> [L, n_slots, d_in, R]``
+        / ``b_<t> [L, n_slots, R, d_out]`` for ``t`` in qkv_w, proj_w,
+        fc1_w, fc2_w and ``adapter_ids [B]`` each row's slot
+        (:func:`_mm_lora`; 0 = the base model).  Returns ``h[B, T, H]``
+        before the final norm."""
         c = self.config
         nh, H = c.num_heads, c.hidden_size
         B, T = ids.shape
@@ -483,16 +506,18 @@ class GPTForCausalLM(nn.Module):
             h = h + w["wpe"][pos.clamp(max=w["wpe"].shape[0] - 1)]
         for l in range(c.num_layers):
             lw = {n: t[l] for n, t in w["lws"].items()}
+            al = (None if adapters is None
+                  else {n: t[l] for n, t in adapters.items()})
             x = _norm(h, lw["ln1_w"], lw["ln1_b"], c.layer_norm_epsilon)
-            qkv = _mm(x, lw, "qkv_w") + lw["qkv_b"]
+            qkv = _mm_lora(x, lw, "qkv_w", al, adapter_ids) + lw["qkv_b"]
             q, k, v = (t.reshape(B, T, nh, H // nh)
                        for t in qkv.split(H, dim=-1))
             if c.use_rope:
                 q, k = _rope_grid(q, pos), _rope_grid(k, pos)
             o = attend(l, q, k, v)
-            h = h + (_mm(o.reshape(B, T, H).to(h.dtype), lw, "proj_w")
-                     + lw["proj_b"])
-            h = self._ffn(h, lw)
+            h = h + (_mm_lora(o.reshape(B, T, H).to(h.dtype), lw, "proj_w",
+                              al, adapter_ids) + lw["proj_b"])
+            h = self._ffn(h, lw, al, adapter_ids)
         return h
 
     def _logits(self, w, h):
@@ -560,7 +585,8 @@ class GPTForCausalLM(nn.Module):
 
     @torch.no_grad()
     def prefill_paged(self, w, ids, start, length, bt, pool_k, pool_v,
-                      scale_k=None, scale_v=None):
+                      scale_k=None, scale_v=None, adapters=None,
+                      adapter_ids=None):
         """One chunked-prefill step over the paged pools.
 
         ``ids[1, C]`` is one right-padded prompt chunk of true length
@@ -580,7 +606,9 @@ class GPTForCausalLM(nn.Module):
         n_blocks, bs]`` fp32 are the per-token scale pools.  Each token's
         K/V is quantized on insert (``quantize_kv``; padded tokens get
         zero tiles and zero scales in the trash block) and attention runs
-        over the gathered view dequantized to fp32."""
+        over the gathered view dequantized to fp32.
+
+        LoRA: ``adapters``/``adapter_ids [1]`` as in :meth:`_layers`."""
         C = ids.shape[1]
         bs = pool_k.shape[2]
         max_blocks = bt.shape[0]
@@ -603,12 +631,13 @@ class GPTForCausalLM(nn.Module):
             return _dense_attention(q, *(t.flatten(0, 1)[None] for t in g),
                                     mask)
 
-        h = self._layers(w, ids, tokpos[None], attend)
+        h = self._layers(w, ids, tokpos[None], attend, adapters, adapter_ids)
         return self._logits(w, h[:, length - 1])
 
     @torch.no_grad()
     def decode_paged(self, w, tok, pos, bt, pool_k, pool_v, scale_k=None,
-                     scale_v=None, kernel=True):
+                     scale_v=None, kernel=True, adapters=None,
+                     adapter_ids=None):
         """One decode step for B rows over the paged pools.
 
         tok ``[B]`` and pos ``[B]`` int32, bt ``[B, max_blocks]`` int32,
@@ -628,7 +657,9 @@ class GPTForCausalLM(nn.Module):
         n_blocks, bs]``, each row's new K/V is quantized on insert and
         its scales written at the same ``(block, offset)``; attention
         runs the kernel's quantized variant (K4q), or its plain
-        dequantizing version with ``kernel=False``."""
+        dequantizing version with ``kernel=False``.
+
+        LoRA: ``adapters``/``adapter_ids [B]`` as in :meth:`_layers`."""
         c = self.config
         scale = 1.0 / math.sqrt(c.hidden_size // c.num_heads)
         decode_attention = (_pa.paged_decode_attention if kernel
@@ -649,12 +680,14 @@ class GPTForCausalLM(nn.Module):
                                  pool_v[l], bt, pos, *scales, scale=1.0)
             return o[:, None]
 
-        h = self._layers(w, tok.long()[:, None], pos_l[:, None], attend)
+        h = self._layers(w, tok.long()[:, None], pos_l[:, None], attend,
+                         adapters, adapter_ids)
         return self._logits(w, h[:, 0])
 
     @torch.no_grad()
     def verify_paged(self, w, toks, pos0, n_valid, bt, pool_k, pool_v,
-                     scale_k=None, scale_v=None, adapters=None):
+                     scale_k=None, scale_v=None, adapters=None,
+                     adapter_ids=None):
         """Speculative-decoding verify step: score ``K1`` token positions
         per row in one pass over the paged pools (the multi-query sibling
         of :meth:`decode_paged`; see ``serving.speculative``).
@@ -671,12 +704,8 @@ class GPTForCausalLM(nn.Module):
         attends to ``kpos <= pos0 + j``.  Returns the fp32 logits ``[B,
         K1, V]`` at every position.  Quantized pools (with
         ``scale_k``/``scale_v``) quantize on insert and attend over the
-        dequantized gather, as :meth:`prefill_paged` does.  LoRA
-        ``adapters`` are not ported."""
-        if adapters is not None:
-            raise NotImplementedError(
-                "verify_paged(adapters=...) is not ported to paddle_tpu_torch "
-                "yet: ROADMAP.md A6 (LoRA adapter serving)")
+        dequantized gather, as :meth:`prefill_paged` does.  LoRA:
+        ``adapters``/``adapter_ids [B]`` as in :meth:`_layers`."""
         B, K1 = toks.shape
         bs = pool_k.shape[2]
         max_blocks = bt.shape[1]
@@ -702,7 +731,8 @@ class GPTForCausalLM(nn.Module):
                                        (pool_v, scale_v, v))]
             return _dense_attention(q, *(t.flatten(1, 2) for t in g), mask)
 
-        return self._logits(w, self._layers(w, toks.long(), pos, attend))
+        return self._logits(w, self._layers(w, toks.long(), pos, attend,
+                                            adapters, adapter_ids))
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens=32, do_sample=False,

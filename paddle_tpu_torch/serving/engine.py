@@ -17,8 +17,12 @@ constructs :class:`serving.paged.PagedLLMEngine` (block pools, prefix
 cache, chunked prefill; ``kv_dtype="int8"|"fp8"`` quantized pools), and
 ``draft_model=`` :class:`serving.speculative.SpeculativeLLMEngine` over
 the paged pools.  ``weight_dtype="int8"`` serves int8 weight-only layer
-matmuls (``quantization.ptq_int8_decode_state``).  Knobs of later
-slices raise ``NotImplementedError`` naming their ROADMAP item.
+matmuls (``quantization.ptq_int8_decode_state``).  The paged engine's
+LoRA adapters (``adapter_slots``, ``adapter_rank``), host-RAM KV tier
+(``host_kv_blocks``, ``spill_idle_steps``) and held requests for KV
+migration (``add_request(hold_after_prefill=True)``) are described in
+``serving.paged``.  ``mesh`` raises ``NotImplementedError`` naming its
+ROADMAP item.
 
 The engine follows the model's device.  Each sampled request carries its
 own ``torch.Generator``, seeded from the request's ``seed``.
@@ -39,8 +43,6 @@ from ..quantization import ptq_int8_decode_state
 from .sampling import sample_tokens
 
 _TODO = {
-    "adapter_slots": "ROADMAP.md A6 (LoRA adapter serving)",
-    "host_kv_blocks": "ROADMAP.md A6 (host-RAM KV tier)",
     "mesh": "ROADMAP.md A7 (tensor-parallel serving)",
 }
 
@@ -77,7 +79,8 @@ class Request:
     __slots__ = ("rid", "prompt", "max_new_tokens", "do_sample",
                  "temperature", "top_k", "top_p", "eos_token_id", "seed",
                  "state", "finish_reason", "tokens", "slot", "arrival_ns",
-                 "deadline", "_cancel", "_engine", "error", "generator")
+                 "deadline", "_cancel", "_engine", "error", "generator",
+                 "tag", "hold", "adapter")
 
     def __init__(self, rid, prompt, max_new_tokens, do_sample, temperature,
                  top_k, top_p, eos_token_id, seed, deadline, engine):
@@ -90,7 +93,8 @@ class Request:
         self.top_p = top_p
         self.eos_token_id = eos_token_id
         self.seed = seed
-        self.state = "queued"     # queued | prefilling | running | finished
+        # queued | prefilling | running | held | finished
+        self.state = "queued"
         # eos | length | deadline | cancelled | error
         self.finish_reason = None
         self.error = None         # the exception, when finish_reason="error"
@@ -101,6 +105,9 @@ class Request:
         self._cancel = False
         self._engine = engine
         self.generator = None     # torch.Generator, made at admission
+        self.tag = None           # opaque owner backref
+        self.hold = False         # park after prefill for KV migration
+        self.adapter = None       # tenant id (LoRA adapter), None = base
 
     @property
     def is_finished(self):
@@ -172,7 +179,8 @@ class LLMEngine:
                  min_bucket=8, eos_token_id=None, kv_layout="slots",
                  block_size=16, n_blocks=None, prefill_chunk=None,
                  prefix_cache=True, kv_dtype=None, weight_dtype=None,
-                 host_kv_blocks=0, mesh=None, adapter_slots=0):
+                 host_kv_blocks=0, spill_idle_steps=0, mesh=None,
+                 adapter_slots=0, adapter_rank=8, tenant_buckets=8):
         if kv_layout not in ("slots", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; "
                              "want 'slots' or 'paged'")
@@ -185,11 +193,21 @@ class LLMEngine:
         if weight_dtype not in (None, "int8"):
             raise ValueError(f"weight_dtype must be None or 'int8', "
                              f"got {weight_dtype!r}")
-        for knob, value in (("host_kv_blocks", host_kv_blocks),
-                            ("mesh", mesh), ("adapter_slots", adapter_slots)):
-            if value is not None and value != 0:
-                raise _not_ported(knob)
+        if mesh is not None:
+            raise _not_ported("mesh")
+        if int(adapter_slots or 0) > 0 and kv_layout != "paged":
+            raise ValueError("adapter_slots requires kv_layout='paged' "
+                             "(adapter ids ride the paged calls)")
         self.kv_layout = kv_layout
+        # multi-tenant LoRA knobs (paged engine only; 0 disables).
+        # tenant_buckets is the reference's bound on per-tenant telemetry
+        # cardinality; the port keeps no per-tenant histograms yet (A9)
+        self.adapter_slots = int(adapter_slots or 0)
+        self.adapter_rank = int(adapter_rank)
+        self.tenant_buckets = int(tenant_buckets)
+        # host-RAM KV tier knobs (paged engine only; 0 disables)
+        self.host_kv_blocks = int(host_kv_blocks or 0)
+        self.spill_idle_steps = int(spill_idle_steps or 0)
         # paged-pool knobs (read by PagedLLMEngine._init_kv)
         self.block_size = int(block_size)
         self.n_blocks = n_blocks
@@ -249,21 +267,29 @@ class LLMEngine:
         """Drop the device KV arena (a dead replica's arena is garbage)."""
         self._ck = self._cv = None
 
-    def prefix_peek(self, prompt):
+    def prefix_peek(self, prompt, tenant=None):
         """Tokens of ``prompt`` a prefix cache could serve without
         prefilling: 0 under the slot layout (no sharing); the paged
-        engine overrides."""
+        engine overrides.  ``tenant`` scopes the probe to that adapter's
+        KV plane."""
         return 0
 
-    def prefix_probe(self, prompt):
+    def prefix_probe(self, prompt, tenant=None):
         """``(device_tokens, host_tokens)`` a prefix cache could serve:
         ``(0, 0)`` under the slot layout; the paged engine overrides."""
         return 0, 0
 
+    def adapter_peek(self, tenant):
+        """Prefill-equivalent tokens saved because ``tenant``'s LoRA
+        factors are already resident: 0 here (the slot engine serves no
+        adapters); the paged engine overrides."""
+        return 0
+
     # -- request intake ------------------------------------------------------
     def add_request(self, prompt, max_new_tokens=32, do_sample=False,
                     temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
-                    seed=None, deadline_s=None, block=True, timeout=None):
+                    seed=None, deadline_s=None, block=True, timeout=None,
+                    hold_after_prefill=False, adapter=None):
         """Enqueue one prompt; returns the live ``Request`` handle.
 
         Backpressure: when the bounded queue is full, ``block=False``
@@ -272,9 +298,18 @@ class LLMEngine:
         ``step()`` to make room, then raises.  ``deadline_s`` is a
         per-request wall-clock budget (queue wait included); on expiry the
         request finishes with ``finish_reason='deadline'`` and whatever
-        tokens it produced."""
+        tokens it produced.  ``hold_after_prefill`` parks the request
+        after its last prefill chunk (state ``"held"``, a ``{"type":
+        "prefilled"}`` event) instead of entering decode: the hand-off
+        point for KV migration (``export_request``).  The paged engine
+        honours it; the slot layout decodes in place.  ``adapter`` names
+        the tenant whose registered LoRA factors decorate this request's
+        matmuls (None = the base model); it needs ``adapter_slots > 0``."""
         if self._closed:
             raise EngineClosed("engine is drained; no new requests")
+        if adapter is not None and not self.adapter_slots:
+            raise ValueError("adapter given but the engine was built "
+                             "with adapter_slots=0")
         ids = np.asarray(prompt, dtype=np.int32).reshape(-1)
         T = int(ids.shape[0])
         if T < 1:
@@ -292,6 +327,8 @@ class LLMEngine:
                       bool(do_sample), float(temperature), int(top_k),
                       float(top_p), (None if eos is None else int(eos)),
                       int(seed), deadline, self)
+        req.hold = bool(hold_after_prefill)
+        req.adapter = adapter
         with self._cond:
             while len(self._queue) >= self.queue_size:
                 if not block:

@@ -1,5 +1,5 @@
 """Host-side bookkeeping for the paged KV cache (port of
-``paddle_tpu/serving/kvcache.py``, without the host-RAM tier).
+``paddle_tpu/serving/kvcache.py``).
 
 The device side of paging is the pool pair ``[L, n_blocks, block_size,
 nh, hd]`` plus fixed-shape per-slot int32 block tables (see
@@ -20,6 +20,22 @@ nh, hd]`` plus fixed-shape per-slot int32 block tables (see
   into a private block before extending it, so shared blocks are never
   mutated.  Unreferenced tree blocks are reclaimed in LRU order when the
   pool runs dry.
+* :class:`HostKVTier` — a host-RAM arena for *spilled* blocks.  When the
+  device pool is oversubscribed, cold tree leaves move their K/V tiles to
+  host buffers instead of being discarded: the node stays in the radix
+  tree (``host=True``, device block released) and pages back on demand
+  when a prompt matches it again.  Buffers come from a reuse pool keyed
+  by (shape, dtype), so steady-state spill/restore never allocates
+  (``serving.kv.host_buf_reuse``); they are pinned (page-locked) when the
+  pools live on CUDA, so a restore's host-to-device copy can run
+  asynchronously.  The device copies are the engine's job
+  (``serving.paged``).
+
+Host-residency invariant: only leaf-ward nodes spill (a node is
+spillable only once its entire subtree is host-resident), so the
+host-resident nodes of any root-to-leaf path form a contiguous *suffix*
+of that path.  Dropping a host node therefore drops an all-host subtree
+and can never strand a device block.
 
 Thread safety: the owning engine serialises access under its own lock;
 these classes are deliberately lock-free.
@@ -29,10 +45,12 @@ from __future__ import annotations
 
 import itertools
 
+import torch
+
 from ..profiler import counters
 
-__all__ = ["TRASH_BLOCK", "BlockPoolExhausted", "BlockPool", "PrefixCache",
-           "blocks_for_tokens"]
+__all__ = ["TRASH_BLOCK", "BlockPoolExhausted", "HostTierLost", "BlockPool",
+           "PrefixCache", "HostKVTier", "blocks_for_tokens"]
 
 #: Physical block id every "nowhere" table entry points at.  Never
 #: allocated, never read by a live query (attention masks trash
@@ -48,6 +66,13 @@ class BlockPoolExhausted(RuntimeError):
         super().__init__(msg)
         self.needed = int(needed)
         self.free = int(free)
+
+
+class HostTierLost(RuntimeError):
+    """A spilled request's host copy is gone (tier LRU overflow, or the
+    ``kv_spill_drop`` fault), so its KV cannot be paged back.  The caller
+    replays the request by re-prefill: same tokens, same seed, same
+    output."""
 
 
 def blocks_for_tokens(n_tokens, block_size):
@@ -144,7 +169,7 @@ class _Node:
     for a terminal partial block)."""
 
     __slots__ = ("chunk", "block", "children", "partials", "parent",
-                 "last_use")
+                 "last_use", "host")
 
     def __init__(self, chunk, block, parent):
         self.chunk = chunk
@@ -153,6 +178,9 @@ class _Node:
         self.partials = {}   # partial chunk tuple -> _Node (leaves)
         self.parent = parent
         self.last_use = 0
+        #: True once the node's K/V lives in the host tier: ``block`` is
+        #: TRASH_BLOCK and the tier holds this node as its entry key.
+        self.host = False
 
     def is_leaf(self):
         return not self.children and not self.partials
@@ -181,15 +209,24 @@ class PrefixCache:
         self._root = _Node((), TRASH_BLOCK, None)
         self._tick = itertools.count(1)
         self.nodes = 0
+        #: optional :class:`HostKVTier`; wired by the engine when
+        #: ``host_kv_blocks > 0``.
+        self.tier = None
+        #: hashes of root-level full-chunk children: the radix digest
+        #: :meth:`probe` reads before walking the tree.
+        self._digest = set()
 
     # -- lookup --------------------------------------------------------------
     def _walk_full(self, tokens, limit, touch):
-        """Longest full-block descent: returns (node, blocks, cached)."""
+        """Longest full-block descent over DEVICE-resident nodes:
+        returns (node, blocks, cached).  Host-resident children stop the
+        walk — their blocks are TRASH until restored, so matching past
+        them would retain the trash block."""
         bs = self.pool.block_size
         node, blocks, cached = self._root, [], 0
         while cached + bs <= limit:
             child = node.children.get(tuple(tokens[cached:cached + bs]))
-            if child is None:
+            if child is None or child.host:
                 break
             if touch:
                 child.last_use = next(self._tick)
@@ -222,8 +259,11 @@ class PrefixCache:
         their tokens, and ``partial_node``/``partial_tokens`` describe a
         terminal partial block usable via copy-on-write.  The partial's
         block is RETAINED too: the caller releases it after the COW copy
-        (or on admission failure), and the tree keeps its own retain so
-        the node survives for the next sharer.
+        (or on admission failure), and the tree keeps its OWN retain so
+        the node survives for the next sharer — without the caller-side
+        retain, the COW release would strip the tree's reference and
+        leave a dangling partial node over a freed (and eventually
+        reused) block.
         """
         tokens = [int(t) for t in tokens[:max(0, int(limit))]]
         node, blocks, cached = self._walk_full(tokens, limit, touch=True)
@@ -234,6 +274,22 @@ class PrefixCache:
             self.pool.retain(pn.block)
         return blocks, cached, pn, p
 
+    def match_full(self, tokens, limit):
+        """Full-block-only :meth:`match`: the longest fully-cached block
+        run, with NO terminal-partial candidate.  The KV-migration adopt
+        path uses this — a migrated request shares only whole data blocks
+        strictly below its write frontier (the block it will write next
+        must stay private), and a partial adoption would be exactly the
+        COW device copy the migration is trying to avoid.  Returns
+        ``(blocks, cached)``; every block is RETAINED on this pool for
+        the caller (the refcount transfer: release them on adopt
+        failure)."""
+        tokens = [int(t) for t in tokens[:max(0, int(limit))]]
+        _, blocks, cached = self._walk_full(tokens, limit, touch=True)
+        for b in blocks:
+            self.pool.retain(b)
+        return blocks, cached
+
     def peek(self, tokens, limit):
         """Read-only :meth:`match`: how many leading tokens the cache
         could serve (no refcounts, no LRU touch)."""
@@ -243,17 +299,50 @@ class PrefixCache:
         return cached + p
 
     def probe(self, tokens, limit):
-        """Read-only routing probe ``(device_tokens, host_tokens)``.
-        Without a host tier nothing is host-resident, so this is
-        ``(peek(tokens, limit), 0)``."""
-        return self.peek(tokens, limit), 0
+        """Read-only routing probe: ``(device_tokens, host_tokens)``.
+
+        ``device_tokens`` counts leading tokens servable without any
+        restore (full device blocks plus a terminal COW partial);
+        ``host_tokens`` counts the contiguous host-resident run that
+        would extend the device match after paging back in.  A
+        first-chunk digest check short-circuits the walk for prompts
+        this tree has never seen."""
+        limit = max(0, int(limit))
+        bs = self.pool.block_size
+        if (limit >= bs and len(tokens) >= bs and not self._root.partials
+                and hash(tuple(int(t) for t in tokens[:bs]))
+                not in self._digest):
+            return 0, 0
+        tokens = [int(t) for t in tokens[:limit]]
+        node, _, cached = self._walk_full(tokens, limit, touch=False)
+        host = 0
+        while cached + host + bs <= limit:
+            child = node.children.get(
+                tuple(tokens[cached + host:cached + host + bs]))
+            if child is None or not child.host:
+                break
+            node = child
+            host += bs
+        if host:
+            return cached, host
+        _, p = self._best_partial(node, tokens, cached, limit, touch=False)
+        return cached + p, 0
+
+    def digest(self):
+        """Snapshot of the radix digest (hashes of first-chunk entries):
+        what :meth:`probe`'s fast path consults."""
+        return frozenset(self._digest)
 
     # -- insertion -----------------------------------------------------------
     def insert(self, tokens, blocks):
         """Donate a sequence's blocks: ``blocks[i]`` holds the K/V of
         ``tokens[i*bs:(i+1)*bs]`` (the last chunk may be partial).
         Newly cached blocks are retained by the tree; already-cached
-        chunks are skipped.  Returns the number of blocks newly cached."""
+        chunks are skipped.  A host-resident node on the walk path is
+        *re-adopted* in place: the donor carries a live device copy of
+        that chunk, so the node flips back to device residency for free
+        and its host buffers recycle (``serving.kv.tier.readopted``).
+        Returns the number of blocks newly cached."""
         bs = self.pool.block_size
         tokens = [int(t) for t in tokens]
         node, added, i = self._root, 0, 0
@@ -267,6 +356,16 @@ class PrefixCache:
                 self.pool.retain(blocks[i])
                 self.nodes += 1
                 added += 1
+                if node is self._root:
+                    self._digest.add(hash(chunk))
+            elif child.host:
+                child.block = blocks[i]
+                self.pool.retain(blocks[i])
+                child.host = False
+                child.last_use = next(self._tick)
+                if self.tier is not None:
+                    self.tier.pop(child)
+                counters.inc("serving.kv.tier.readopted")
             node = child
             i += 1
         rest = tuple(tokens[i * bs:])
@@ -290,21 +389,27 @@ class PrefixCache:
 
     def _detach(self, node):
         parent = node.parent
-        if parent.partials.get(node.chunk) is node:
+        if node.chunk in parent.partials and \
+                parent.partials[node.chunk] is node:
             del parent.partials[node.chunk]
         else:
             del parent.children[node.chunk]
+            if parent is self._root:
+                self._digest.discard(hash(node.chunk))
         self.nodes -= 1
 
     def evict(self, n):
         """Free up to ``n`` blocks by releasing LRU leaf nodes whose
-        blocks nobody but the tree references.  Returns blocks freed."""
+        blocks nobody but the tree references.  Returns blocks freed.
+        Host-resident nodes are never evicted here — they hold no
+        device block; :meth:`drop_host` is their exit path."""
         freed = 0
         while freed < n:
             leaves = []
             self._leaves(self._root, leaves)
             victims = sorted(
-                (l for l in leaves if self.pool.ref(l.block) == 1),
+                (l for l in leaves
+                 if not l.host and self.pool.ref(l.block) == 1),
                 key=lambda l: l.last_use)
             if not victims:
                 break
@@ -314,3 +419,196 @@ class PrefixCache:
             freed += 1
             counters.inc("serving.kv.blocks_evicted")
         return freed
+
+    # -- host tiering --------------------------------------------------------
+    def _spillables(self, node, out):
+        for child in node.children.values():
+            self._spillables(child, out)
+            if (not child.host and not child.partials
+                    and self.pool.ref(child.block) == 1
+                    and all(c.host for c in child.children.values())):
+                out.append(child)
+
+    def spill_victims(self, n):
+        """Up to ``n`` nodes eligible to spill to the host tier,
+        coldest first.  Eligible: a full-block node the tree alone
+        references (refcount 1), with no partial children (partials
+        stay device-side — they exist only for COW adoption) and whose
+        full children are ALL already host-resident.  That closure rule
+        is what keeps host nodes a contiguous suffix of every path —
+        a device node can never end up below a host one."""
+        out = []
+        self._spillables(self._root, out)
+        out.sort(key=lambda nd: nd.last_use)
+        return out[:max(0, int(n))]
+
+    def mark_spilled(self, node):
+        """Flip a node to host residency AFTER the engine has copied
+        its K/V into host buffers and :meth:`HostKVTier.put` them under
+        this node.  Releases the tree's device reference (freeing the
+        block — eligibility required refcount 1)."""
+        self.pool.release(node.block)
+        node.block = TRASH_BLOCK
+        node.host = True
+        counters.inc("serving.kv.tier.spilled_blocks")
+
+    def mark_restored(self, node, block):
+        """Flip a host node back to device residency over a freshly
+        allocated ``block`` (the tree takes the allocation's ref).  The
+        engine has already copied the tier buffers into the pools; it
+        pops the tier entry once the copy has completed."""
+        node.block = int(block)
+        node.host = False
+        node.last_use = next(self._tick)
+        counters.inc("serving.kv.tier.restored_blocks")
+
+    def drop_host(self, node):
+        """Drop a host-resident node AND its (by the closure invariant,
+        all-host) subtree: the fault-injection and tier-overflow exit.
+        Tier buffers recycle into the reuse pool; the dropped tokens
+        become a plain cache miss, so a request depending on them
+        simply re-prefills — deterministic replay, no device blocks to
+        reconcile.  Returns nodes dropped."""
+        stack, dropped = [node], 0
+        while stack:
+            nd = stack.pop()
+            stack.extend(nd.children.values())
+            self._detach(nd)
+            if self.tier is not None:
+                self.tier.pop(nd)
+            counters.inc("serving.kv.tier.spill_drops")
+            dropped += 1
+        return dropped
+
+    def host_chain(self, tokens, limit):
+        """The contiguous host-resident run extending the device match
+        for this prompt: returns the host ``_Node`` list, shallowest
+        first (restore order).  Touches every node on the path so a
+        just-restored run is MRU — the same reservation's shortfall
+        handling must not immediately re-spill it."""
+        tokens = [int(t) for t in tokens[:max(0, int(limit))]]
+        bs = self.pool.block_size
+        node, _, cached = self._walk_full(tokens, limit, touch=True)
+        chain = []
+        while cached + bs <= limit:
+            child = node.children.get(tuple(tokens[cached:cached + bs]))
+            if child is None or not child.host:
+                break
+            child.last_use = next(self._tick)
+            chain.append(child)
+            node = child
+            cached += bs
+        return chain
+
+    def clear(self):
+        """Release every cached block (engine drain/teardown).  Host
+        entries hand their buffers back to the tier's reuse pool."""
+        leaves = []
+        self._leaves(self._root, leaves)
+        while leaves:
+            for node in leaves:
+                self._detach(node)
+                if node.host:
+                    if self.tier is not None:
+                        self.tier.pop(node)
+                else:
+                    self.pool.release(node.block)
+            leaves = []
+            self._leaves(self._root, leaves)
+
+
+class HostKVTier:
+    """Host-RAM arena for spilled KV blocks.
+
+    Holds at most ``capacity`` entries; one entry is one block's K/V tiles
+    across every layer (a tuple of CPU tensors, plus the fp32 scale rows
+    under quantized pools).  Keys are opaque to the tier: the prefix tree
+    uses its ``_Node`` objects, the engine ``("req", rid, i)`` tuples for
+    idle-request spills.  Overflow is LRU: :meth:`put` returns the
+    discarded keys so the owner can reconcile its own maps.
+
+    ``pin_memory=True`` (the engine sets it when its pools are on CUDA)
+    allocates page-locked buffers, which an asynchronous host-to-device
+    copy can read after the call that queued it returned; allocation
+    raises if the host cannot pin, never falling back to pageable memory.
+    Buffers come from a reuse pool keyed by (shape, dtype):
+    :meth:`acquire` hands back a recycled buffer when one fits (counted
+    under ``serving.kv.host_buf_reuse``) and allocates only when the pool
+    is dry, growing the ``serving.kv.host_arena_bytes`` gauge.
+    """
+
+    def __init__(self, capacity, pin_memory=False):
+        if int(capacity) < 1:
+            raise ValueError(
+                f"host tier capacity must be >= 1 block, got {capacity}")
+        self.capacity = int(capacity)
+        self.pin_memory = bool(pin_memory)
+        self._entries = {}    # key -> tuple[Tensor]; dict order = LRU
+        self._freebufs = {}   # (shape, dtype) -> [recycled buffers]
+        self._bytes = 0
+
+    @property
+    def resident(self):
+        """Entries currently held (blocks resident in the tier)."""
+        return len(self._entries)
+
+    @property
+    def arena_bytes(self):
+        """Total host bytes ever allocated (resident + reuse pool)."""
+        return self._bytes
+
+    def acquire(self, spec):
+        """One host buffer per ``(shape, torch.dtype)`` in ``spec``:
+        recycled when available, freshly allocated otherwise."""
+        bufs = []
+        for shape, dtype in spec:
+            pool = self._freebufs.get((tuple(shape), dtype))
+            if pool:
+                bufs.append(pool.pop())
+                counters.inc("serving.kv.host_buf_reuse")
+            else:
+                buf = torch.empty(tuple(shape), dtype=dtype,
+                                  pin_memory=self.pin_memory)
+                self._bytes += buf.nbytes
+                counters.set_gauge("serving.kv.host_arena_bytes",
+                                   self._bytes)
+                bufs.append(buf)
+        return tuple(bufs)
+
+    def _recycle(self, bufs):
+        for buf in bufs:
+            self._freebufs.setdefault((tuple(buf.shape), buf.dtype),
+                                      []).append(buf)
+
+    def put(self, key, bufs):
+        """Insert (or refresh) an entry; returns the keys LRU-discarded to
+        stay within ``capacity``.  Their buffers are already recycled;
+        the caller reconciles its own bookkeeping."""
+        self._entries.pop(key, None)
+        self._entries[key] = tuple(bufs)
+        dropped = []
+        while len(self._entries) > self.capacity:
+            old = next(iter(self._entries))
+            self._recycle(self._entries.pop(old))
+            dropped.append(old)
+        return dropped
+
+    def get(self, key):
+        """The entry's buffers (MRU-touched), or None.  The buffers stay
+        owned by the tier: callers :meth:`pop` only after any device copy
+        reading them has completed."""
+        bufs = self._entries.pop(key, None)
+        if bufs is None:
+            return None
+        self._entries[key] = bufs
+        return bufs
+
+    def pop(self, key):
+        """Remove an entry, recycling its buffers.  Tolerant of absent
+        keys (overflow may have discarded them first); returns True when
+        the key was present."""
+        bufs = self._entries.pop(key, None)
+        if bufs is None:
+            return False
+        self._recycle(bufs)
+        return True

@@ -30,8 +30,11 @@ writes to it); the draft's table grows ahead of each round and is
 rolled back after a rejection by truncating the table (stale K/V is
 masked until a later write overwrites it, so nothing is copied).
 
-KV migration, LoRA adapters and the host KV tier are not ported
-(ROADMAP.md A6): their knobs raise in ``LLMEngine``.
+LoRA adapters: the draft proposes on the base model and the verify pass
+scores under each row's adapter, so acceptance keeps the tenant's
+distribution.  KV migration: the draft namespace never migrates; an
+adopted request's committed sequence is re-prefilled into this engine's
+draft pools (:meth:`SpeculativeLLMEngine._adopt_extra`).
 """
 
 from __future__ import annotations
@@ -270,6 +273,37 @@ class SpeculativeLLMEngine(PagedLLMEngine):
             self._dgen[slot] = torch.Generator(device=self.device).manual_seed(
                 req.seed ^ DRAFT_SEED_SALT)
 
+    # -- KV migration --------------------------------------------------------
+    def _adopt_extra(self, slot, req, mig):
+        """Rebuild the draft namespace for a migrated request: its draft
+        KV never rides a migration, so the committed sequence is
+        re-prefilled into this engine's draft pools (ceil(pos / chunk)
+        chunks).  A pool that cannot cover the draft table leaves the row
+        draft-starved (plain decode, ``serving.spec.draft_starved``).
+        Caller holds ``_cond``."""
+        pos = int(mig["pos"])
+        dneed = blocks_for_tokens(max(pos, 1), self.pool.block_size)
+        short = dneed - self.pool.free_blocks
+        if short > 0 and self.prefix is not None:
+            self.kv_blocks_evicted += self.prefix.evict(short)
+        if dneed > self.pool.free_blocks:
+            self._dslot_blocks[slot] = None
+            self._dbt[slot] = 0
+            counters.inc("serving.spec.draft_starved")
+            return
+        dblocks = self.pool.alloc_n(dneed)
+        self._dslot_blocks[slot] = dblocks
+        self._dbt[slot] = 0
+        self._dbt[slot, :len(dblocks)] = dblocks
+        seq = np.concatenate(
+            [mig["prompt"], np.asarray(mig["tokens"], np.int32)])[:pos]
+        done = 0
+        while done < pos:
+            done = self._draft_prefill_tokens(slot, seq, done)
+        if req.do_sample:
+            self._dgen[slot] = torch.Generator(device=self.device).manual_seed(
+                req.seed ^ DRAFT_SEED_SALT)
+
     # -- the draft/verify round ----------------------------------------------
     def _grow_draft_tables(self, nv):
         """Extend each running row's draft table to cover this round's
@@ -405,8 +439,8 @@ class SpeculativeLLMEngine(PagedLLMEngine):
         nv_t = torch.from_numpy(nv).to(dev)
         logits = self.model.verify_paged(
             self._w, toks, torch.from_numpy(pos0).to(dev), nv_t,
-            torch.from_numpy(bt_eff).to(dev), self.pool_k, self.pool_v,
-            *self.scales)
+            torch.from_numpy(bt_eff).to(dev), *self._pools(),
+            **self._adapter_args(np.where(self._running, self._aid, 0)))
         q = None
         if any(r is not None and r.do_sample for r in reqs):
             # no q from the draft: every sampled row is draft-starved

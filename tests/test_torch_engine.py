@@ -27,10 +27,12 @@ import paddle_tpu as paddle
 from paddle_tpu.models import GPTConfig as JConfig
 from paddle_tpu.models import GPTForCausalLM as JGPT
 from paddle_tpu.profiler import counters as jcounters
+from paddle_tpu.resilience import faultinject as jfi
 from paddle_tpu.serving import LLMEngine as JEngine
 from paddle_tpu.serving.sampling import filter_logits as jfilter
 from paddle_tpu_torch import GPTConfig, GPTForCausalLM, LLMEngine
 from paddle_tpu_torch.profiler import counters as tcounters
+from paddle_tpu_torch.resilience import faultinject as tfi
 from paddle_tpu_torch.serving.sampling import filter_logits, sample_tokens
 
 CFG = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
@@ -189,12 +191,19 @@ def test_sample_tokens_follow_filtered_softmax():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(adapter_slots=2), dict(host_kv_blocks=8), dict(mesh=object())])
+    dict(mesh=object(), adapter_slots=2),
+    dict(mesh=object(), host_kv_blocks=8), dict(mesh=object())])
 def test_later_slices_raise_not_implemented(models, knob):
+    """``mesh`` (tensor-parallel serving) raises naming its ROADMAP item,
+    also beside the adapter and host-tier knobs, which construct."""
     _, tm = models
     kw = dict(ENGINE, **knob)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         LLMEngine(tm, **kw)
+    del kw["mesh"]
+    st = LLMEngine(tm, **kw).stats()
+    assert (st["adapter_slots"], st["host_tier_capacity"]) == (
+        knob.get("adapter_slots", 0), knob.get("host_kv_blocks", 0))
 
 
 @pytest.mark.parametrize("knob", [
@@ -273,3 +282,38 @@ def test_streaming_iterates_tokens(models):
     h = eng.add_request([5, 6, 7, 8, 9], max_new_tokens=6)
     assert list(h) == h.tokens and len(h.tokens) == 6
     assert h.output_ids().tolist() == [5, 6, 7, 8, 9] + h.tokens
+
+
+@pytest.mark.parametrize("site", ["kv_pool_exhausted", "serving_prefill"])
+def test_injected_faults_match_jax(models, site):
+    """The engine's fault sites fire as in the JAX package:
+    ``kv_pool_exhausted`` at a request's admission defers it (nothing
+    allocated) and it later finishes with the same tokens;
+    ``serving_prefill`` finishes that request alone with
+    ``finish_reason="error"``.  Tokens, reasons and counters equal."""
+    jm, tm = models
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, 64, n).tolist() for n in (9, 6, 11)]
+    out = []
+    for Eng, m, ctr, fi in ((LLMEngine, tm, tcounters, tfi),
+                            (JEngine, jm, jcounters, jfi)):
+        eng = Eng(m, **ENGINE)
+        before = ctr.snapshot()
+        handles = [eng.add_request(p, max_new_tokens=4) for p in prompts]
+        victim = handles[1].rid
+        with fi.fault_schedule(f"{site}@{victim}"):
+            while not all(h.is_finished for h in handles):
+                eng.step()
+            fired = list(fi.fired)
+        d = ctr.delta(before)
+        out.append(([h.tokens for h in handles],
+                    [h.finish_reason for h in handles], fired,
+                    {k: d.get(k, 0) for k in (
+                        "serving.kv.pool_exhausted", "serving.request_errors",
+                        "resilience.faults_injected",
+                        f"resilience.faults_injected.{site}")}))
+    assert out[0] == out[1]
+    reasons = out[0][1]
+    assert reasons == (["length", "error", "length"]
+                       if site == "serving_prefill" else ["length"] * 3)
+    assert out[0][3][f"resilience.faults_injected.{site}"] == 1

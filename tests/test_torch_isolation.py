@@ -56,7 +56,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "paddle_tpu_torch.nn.functional.flash_attention",
                 "paddle_tpu_torch.nn.functional.init_utils",
                 "paddle_tpu_torch.distributed.fleet.recompute",
-                "paddle_tpu_torch.models.bert"):
+                "paddle_tpu_torch.models.bert",
+                "paddle_tpu_torch.serving.adapters",
+                "paddle_tpu_torch.serving.kvcache",
+                "paddle_tpu_torch.resilience",
+                "paddle_tpu_torch.resilience.faultinject"):
         assert mod in mods, mod
     leaked = [m for m in mods
               if m == "jax" or m.startswith(("jax.", "jaxlib"))

@@ -162,9 +162,39 @@ def test_verify_paged_bf16_within_fp32_distance():
 
 
 def test_verify_paged_adapters_not_ported(models):
-    _, tm, _ = models
-    with pytest.raises(NotImplementedError, match="A6"):
-        tm.verify_paged(tm.decode_state(), *([None] * 6), adapters={})
+    """``verify_paged(adapters=...)``: rows on adapter slot 0 are the
+    adapter-free logits bit for bit, and a tenant row's logits match the
+    JAX package's ``verify_paged`` under the same slabs within ``TOL``."""
+    jm, tm, _ = models
+    rng = np.random.default_rng(3)
+    H, F = CFG["hidden_size"], 4 * CFG["hidden_size"]
+    dims = {"qkv_w": (H, 3 * H), "proj_w": (H, H), "fc1_w": (H, F),
+            "fc2_w": (F, H)}
+    slabs = {}
+    for t, (di, do) in dims.items():
+        slabs["a_" + t] = rng.standard_normal((L, 2, di, 4)).astype(
+            np.float32)
+        slabs["b_" + t] = rng.standard_normal((L, 2, 4, do)).astype(
+            np.float32)
+        slabs["a_" + t][:, 0] = 0
+        slabs["b_" + t][:, 0] = 0
+    aids = np.array([1, 0, 0], np.int32)
+    _, targs, tpools = _verify_case(jm, tm, "float32")
+    plain = tm.verify_paged(tm.decode_state(), *targs,
+                            *[p.clone() for p in tpools])
+    got = tm.verify_paged(tm.decode_state(), *targs,
+                          *[p.clone() for p in tpools],
+                          adapters={k: torch.from_numpy(v)
+                                    for k, v in slabs.items()},
+                          adapter_ids=torch.from_numpy(aids))
+    assert torch.equal(got[1:], plain[1:])
+    assert float((got[0] - plain[0]).abs().max()) > 1e-2
+    want = jm.verify_paged(
+        jm.decode_state(), *(jnp.asarray(t.numpy()) for t in targs),
+        *(jnp.asarray(p.numpy()) for p in tpools),
+        adapters={k: jnp.asarray(v) for k, v in slabs.items()},
+        adapter_ids=jnp.asarray(aids))[0]
+    np.testing.assert_allclose(got.numpy(), _f32(want), **TOL)
 
 
 # -- residual_sample ----------------------------------------------------------
