@@ -91,6 +91,21 @@ script exits non-zero:
     == the destination's decode_steps x 24, ms a migration; then one
     migration into a self-drafted ``SpeculativeLLMEngine`` (its draft
     re-prefilled, tokens equal to the unmigrated speculative run).
+11d. fleet — the 16 requests through ``ServingFleet(model, replicas=3,
+    prefill_replicas=1, kv_layout="paged", threaded=True)``, each
+    replica the engine phase's shape: tokens equal the engine phase's,
+    zero lost, no death or respawn, blocks copied + shared == blocks
+    owned, K4 == decode_steps x 24; TTFT/ITL from the merged replica
+    histograms, decode tokens/s beside the engine's, host ms a hand-off,
+    the busy share; then the same fleet unthreaded (``pump``, tokens
+    equal too); fleet_int8 the same with ``kv_dtype="int8"`` (K4q,
+    agreement with the bf16 fleet printed).  fleet_chaos (4 layers):
+    two unified replicas under ``replica_crash`` + ``decode_stall``, a
+    disaggregated pair under ``kv_migrate_drop``, each token-identical
+    to its no-fault run with deaths and respawns as injected, pools
+    reconciled and dead pools released.  fleet_autoscale (4 layers):
+    ``FLAGS_health`` on, ``slow_decode`` burns ITL, the autoscaler
+    disaggregates and the alert resolves.
 12. slots_in_model — the 1.3B width at 2 layers: the slot path against
     the paged path (prefill and one decode step), each in bf16 and on
     fp32 copies (``_self_calibrated``); then migration_fp32: 8 requests
@@ -169,7 +184,7 @@ script exits non-zero:
 
 The ``total`` line gives the whole run's seconds; the line before the
 last is the ``kernels`` JSON (K4's and K4q-int8's launches summed over
-the engine, LoRA, host-tier and migration runs); the last line is
+the engine, LoRA, host-tier, migration and fleet runs); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -178,6 +193,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -207,7 +223,10 @@ from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
 from paddle_tpu_torch.models.gpt import _mm
 from paddle_tpu_torch.profiler import counters
 from paddle_tpu_torch.quantization import PTQ_WEIGHTS, ptq_int8_decode_state
-from paddle_tpu_torch.serving import (SpeculativeLLMEngine, bucket_length,
+from paddle_tpu_torch.profiler import trace as rtrace
+from paddle_tpu_torch.resilience import faultinject
+from paddle_tpu_torch.serving import (RetryAfter, Router, ServingFleet,
+                                      SpeculativeLLMEngine, bucket_length,
                                       random_lora_factors)
 from paddle_tpu_torch.serving.adapters import ADAPTER_TARGETS
 from paddle_tpu_torch.serving.kvcache import blocks_for_tokens
@@ -1790,6 +1809,446 @@ def migration_fp32_phase():
                              f"from unmigrated ones: {equal}")
 
 
+# -- the serving fleet ------------------------------------------------------
+#: the fleet's per-replica engine shape: the engine phase's, so a decode
+#: row's products have that phase's shapes and its greedy tokens
+FLEET_ENGINE = dict(kv_layout="paged", max_slots=8, max_seq_len=1024,
+                    block_size=16, prefill_chunk=128)
+#: the counters a fleet phase gates at what its fault schedule injects
+FLEET_FAULT_COUNTERS = ("serving.fleet.replica_deaths",
+                        "serving.fleet.respawns",
+                        "serving.fleet.monitor_errors", "serving.fleet.lost")
+
+
+def _launch_counts():
+    return {"paged_decode_attention": pa.paged_decode_attention.launches,
+            **{f"paged_decode_attention_{k}": n for k, n in
+               pa.paged_decode_attention.quant_launches.items()}}
+
+
+def _fleet_warm(fleet, V):
+    """One request through the whole fleet before the counted run (its
+    prefill replica, a migration, a decode replica): the first use of
+    every path, off the counted run's clock (the engine phases warm up the
+    same way)."""
+    h = fleet.submit(np.random.default_rng(11).integers(0, V, 64),
+                     max_new_tokens=2, seed=0)
+    fleet.join([h])
+    torch.cuda.synchronize()
+
+
+def _fleet_pools_reconcile(fleet):
+    for rep in fleet._alive():
+        pool = rep.engine.pool
+        live = sum(1 for b in range(1, len(pool._ref)) if pool._ref[b] > 0)
+        if len(pool._free) + live != pool.capacity:
+            return False
+    return True
+
+
+def _fleet_counted(fleet, prompts, max_new, phase, schedule=None,
+                   on_pump=None):
+    """The counted main-path run of a fleet: launch counts set to 0 just
+    before, read just after; ``schedule`` is the fault schedule
+    (``faultinject`` spec) active during the run; ``on_pump(fleet)`` runs
+    after every ``pump`` of an unthreaded fleet.  Returns the handles, the
+    counter movement, the launches and the wall seconds."""
+    pa.reset_launch_counts()
+    before = counters.snapshot()
+    faultinject.set_schedule(schedule)
+    t0 = time.perf_counter()
+    try:
+        hs = [fleet.submit(p, max_new_tokens=max_new, seed=i)
+              for i, p in enumerate(prompts)]
+        if fleet.threaded:
+            fleet.join(hs, timeout_s=300)
+        else:
+            while not all(h.is_finished for h in hs):
+                fleet.pump()
+                if on_pump is not None:
+                    on_pump(fleet)
+        torch.cuda.synchronize()
+        fired = sorted(faultinject.fired)
+    finally:
+        faultinject.clear()
+    wall = time.perf_counter() - t0
+    return hs, counters.delta(before), _launch_counts(), wall, fired
+
+
+def _fleet_gates(phase, fleet, hs, moved, launches, L, kv_dtype, want=None,
+                 faults=None):
+    """The gates every fleet phase shares: each request finished
+    ``length``; ``serving.fleet.replica_deaths``, ``.respawns``,
+    ``.monitor_errors`` and ``.lost`` at exactly what the schedule
+    injected (``faults``, default none); K4 (or K4q) launched exactly
+    decode_steps x L times and no other variant; every pool reconciles;
+    tokens equal ``want`` where given."""
+    faults = faults or {}
+    for name in FLEET_FAULT_COUNTERS:
+        if moved.get(name, 0) != faults.get(name, 0):
+            raise AssertionError(f"{phase}: {name} moved "
+                                 f"{moved.get(name, 0)}, injected "
+                                 f"{faults.get(name, 0)} ({moved})")
+    bad = [h for h in hs if h.finish_reason != "length"]
+    if bad:
+        raise AssertionError(f"{phase}: {bad}")
+    k = ("paged_decode_attention" if kv_dtype is None
+         else f"paged_decode_attention_{kv_dtype}")
+    steps = moved.get("serving.decode_steps", 0)
+    for name, n in launches.items():
+        want_n = steps * L if name == k else 0
+        if n != want_n or (name == k and n <= 0):
+            raise AssertionError(f"{phase}: {name} launched {n} times, "
+                                 f"want {want_n} (decode_steps {steps})")
+    if not _fleet_pools_reconcile(fleet):
+        raise AssertionError(f"{phase}: a pool leaks (free + live != "
+                             f"capacity)")
+    if want is not None:
+        diff = [i for i, (h, w) in enumerate(zip(hs, want))
+                if list(map(int, h.tokens)) != list(map(int, w))]
+        if diff:
+            raise AssertionError(f"{phase}: requests {diff} differ from "
+                                 f"the reference tokens")
+
+
+def _ms(ns):
+    return ns / 1e6
+
+
+def fleet_phase(model, prompts, tokens, engine_record, kv_dtype=None,
+                bf16_tokens=None):
+    """``ServingFleet(model, replicas=3, prefill_replicas=1,
+    kv_layout="paged", threaded=True)``: the 16 requests, 32 greedy
+    tokens each, prefilled on the prefill replica and migrated to the two
+    decode replicas, each replica in its own thread.  Gates: the tokens
+    equal the paged engine phase's (bf16); zero lost, no death or
+    respawn; blocks copied + shared by the migrations == the blocks the
+    requests owned; K4 (K4q with ``kv_dtype``) == decode_steps x 24 and
+    the prefill replica never decoded.  Prints TTFT p50/p95 and ITL p50
+    from ``Router.latency_summary``, decode tokens/s against the engine
+    phase's, host ms a migration (the kv.migrate trace spans) and (bf16)
+    the device busy share over a second, profiled pass of 8 requests;
+    then (bf16) the same fleet unthreaded (``_fleet_unthreaded``)."""
+    phase = "fleet" if kv_dtype is None else f"fleet_{kv_dtype}"
+    L = model.config.num_layers
+    V = model.config.vocab_size
+    fleet = ServingFleet(model, replicas=3, prefill_replicas=1,
+                         threaded=True, kv_dtype=kv_dtype, **FLEET_ENGINE)
+    _fleet_warm(fleet, V)
+    hist0 = Router.aggregate_histograms(fleet._replicas)
+    flags.set_flags({"FLAGS_request_trace_sample": 1.0})
+    try:
+        hs, moved, launches, wall, _ = _fleet_counted(fleet, prompts, 32,
+                                                      phase)
+        mig_ms = sorted(_ms(s[4] - s[3]) for ctx in rtrace.kept()
+                        for s in ctx.spans if s[2] == "kv.migrate")
+    finally:
+        flags.set_flags({"FLAGS_request_trace_sample": 0.0})
+        rtrace.clear()
+    _fleet_gates(phase, fleet, hs, moved, launches, L, kv_dtype,
+                 want=tokens if kv_dtype is None else None)
+    owned = sum(blocks_for_tokens(len(p), 16) for p in prompts)
+    mig = {k.rsplit(".", 1)[1]: moved.get(k, 0) for k in (
+        "serving.fleet.migrate.requests", "serving.fleet.migrate.blocks_copied",
+        "serving.fleet.migrate.blocks_shared",
+        "serving.fleet.migrate.deferred", "serving.fleet.migrate.dropped")}
+    if (mig["requests"] != len(prompts)
+            or mig["blocks_copied"] + mig["blocks_shared"] != owned):
+        raise AssertionError(f"{phase}: migrations {mig}, owned {owned}")
+    pre = [r for r in fleet._alive() if r.role == "prefill"]
+    if len(pre) != 1 or pre[0].engine.stats()["decode_tps_ema"] != 0.0:
+        raise AssertionError(f"{phase}: the prefill replica decoded")
+    # the counted run's window of the merged replica histograms
+    lat = {n: (h.delta(hist0[n]) if n in hist0 else h).summary()
+           for n, h in Router.aggregate_histograms(fleet._replicas).items()}
+    dec_tok = moved.get("serving.decode_tokens", 0)
+    eng_c = engine_record["counters"]
+    rec = {
+        "phase": phase, "model": "gpt3_1_3b bf16", "layers": L,
+        "kv_dtype": kv_dtype, "replicas": 3, "prefill_replicas": 1,
+        "threaded": True, "requests": len(hs), "wall_s": wall,
+        "generated_tokens": sum(len(h.tokens) for h in hs),
+        "ttft_ms_p50": _ms(lat["serving.ttft_ns"]["p50"]),
+        "ttft_ms_p95": _ms(lat["serving.ttft_ns"]["p95"]),
+        "itl_ms_p50": _ms(lat["serving.itl_ns"]["p50"]),
+        "itl_ms_p95": _ms(lat["serving.itl_ns"]["p95"]),
+        "decode_tokens_per_s_wall": dec_tok / wall,
+        "output_tokens_per_s": sum(len(h.tokens) for h in hs) / wall,
+        "engine_decode_tokens_per_s_wall": (
+            eng_c.get("serving.decode_tokens", 0) / engine_record["wall_s"]),
+        "engine_output_tokens_per_s": engine_record["output_tokens_per_s"],
+        "engine_ttft_ms_p50": engine_record["ttft_ms_p50"],
+        "migration_host_ms_p50": (float(np.median(mig_ms)) if mig_ms
+                                  else None),
+        "migration_host_ms_max": max(mig_ms) if mig_ms else None,
+        "migrations": mig, "blocks_owned": owned,
+        "decode_steps": moved.get("serving.decode_steps", 0),
+        "launches": launches,
+        "kernel_launches": sum(launches.values()),
+        "deaths": moved.get("serving.fleet.replica_deaths", 0),
+        "lost": moved.get("serving.fleet.lost", 0),
+        "tokens_equal_to_engine_phase": kv_dtype is None,
+    }
+    if kv_dtype is not None:
+        # printed, not gated: int8 rounding flips near-ties
+        rec["greedy_token_agreement_with_bf16_fleet"] = _agreement(
+            hs, bf16_tokens)
+    else:
+        prof = _profile(lambda: fleet.join(
+            [fleet.submit(p, max_new_tokens=16, seed=i)
+             for i, p in enumerate(prompts[:8])], timeout_s=300), top=6)
+        rec.update(device_busy_share=prof["device_busy_share"],
+                   profiled_wall_us=prof["wall_us"],
+                   profiled_device_us=prof["device_us"],
+                   top_device_ops=prof["top_device_ops"])
+    fleet.drain()
+    del fleet
+    _free_cuda()
+    if kv_dtype is None:
+        rec.update(_fleet_unthreaded(model, prompts, tokens))
+    emit(rec)
+    return rec, [list(map(int, h.tokens)) for h in hs]
+
+
+def _fleet_unthreaded(model, prompts, tokens):
+    """The same fleet with ``threaded=False``: the replicas stepped in
+    turn by ``pump()`` in one thread.  Its tokens must equal the engine
+    phase's too; its decode tokens/s is printed beside the threaded
+    fleet's (the threads share one interpreter)."""
+    fleet = ServingFleet(model, replicas=3, prefill_replicas=1,
+                         threaded=False, **FLEET_ENGINE)
+    _fleet_warm(fleet, model.config.vocab_size)
+    hs, moved, launches, wall, _ = _fleet_counted(fleet, prompts, 32,
+                                                  "fleet_unthreaded")
+    _fleet_gates("fleet_unthreaded", fleet, hs, moved, launches,
+                 model.config.num_layers, None, want=tokens)
+    fleet.drain()
+    del fleet
+    _free_cuda()
+    return {"unthreaded_wall_s": wall,
+            "unthreaded_decode_tokens_per_s_wall":
+                moved.get("serving.decode_tokens", 0) / wall,
+            "unthreaded_launches": launches,
+            "unthreaded_tokens_equal_to_engine_phase": True}
+
+
+def _fleet_chaos_run(model, prompts, kw, phase, schedule=None, stall=False,
+                     faults=None, want=None):
+    """One unthreaded fleet over ``prompts`` (16 greedy tokens each);
+    ``stall`` sets a hung replica's heartbeat back past the timeout after
+    the pump that hung it, so the stall detector trips on the next."""
+    L = model.config.num_layers
+    fleet = ServingFleet(model, threaded=False, heartbeat_timeout_s=30.0,
+                         max_retries=2, **kw, **FLEET_ENGINE)
+
+    def set_back(f):
+        for rep in f._alive():
+            if rep.hung:
+                rep.last_beat -= f.heartbeat_timeout_s + 1.0
+
+    hs, moved, launches, wall, fired = _fleet_counted(
+        fleet, prompts, 16, phase, schedule=schedule,
+        on_pump=set_back if stall else None)
+    alloc = torch.cuda.memory_allocated()
+    pool_gb = fleet._alive()[0].engine.stats()["kv_pool_bytes"] / 1e9
+    _fleet_gates(phase, fleet, hs, moved, launches, L, None, want=want,
+                 faults=faults)
+    fleet.drain()
+    toks = [list(map(int, h.tokens)) for h in hs]
+    rec = {"run": phase, "schedule": schedule, "fired": fired,
+           "wall_s": wall, "retries": [h.retries for h in hs],
+           "alive_allocated_gb": alloc / 1e9, "pool_gb": pool_gb,
+           "launches": launches,
+           "moved": {k: v for k, v in moved.items()
+                     if k.startswith("serving.fleet.")
+                     and k not in ("serving.fleet.decode_tps",)}}
+    del fleet
+    _free_cuda()
+    return toks, rec
+
+
+def _flight_to_build():
+    """Postmortem bundles (replica deaths, health alerts) go under the
+    checkout's git-ignored ``build/flight``."""
+    flags.set_flags({"FLAGS_flight_dir": os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build", "flight")})
+
+
+def _fleet_4layer_model(seed):
+    cfg = GPTConfig.gpt3_1_3b(dtype="bfloat16")
+    cfg.num_layers = 4          # depth cut for time; width is 1.3B's
+    return GPTForCausalLM(cfg, device="cuda",
+                          generator=torch.Generator().manual_seed(seed))
+
+
+def fleet_chaos_phase(prompts):
+    """``threaded=False`` fleets at the 1.3B width, 4 layers (depth cut for
+    time): two unified replicas under ``replica_crash`` on request 0 and
+    ``decode_stall`` on request 1 (the stall detector tripped by setting
+    the hung replica's heartbeat back), then a disaggregated pair under
+    ``kv_migrate_drop`` on requests 0 and 2.  Gates: zero lost; tokens
+    identical to the same fleet's no-fault run; every pool reconciles
+    (free + live == capacity); deaths and respawns equal to what was
+    injected (2 and 2, 0 and 0); K4 == decode_steps x 4.  Prints
+    ``torch.cuda.memory_allocated()`` before and after the phase, and the
+    faulted fleets' allocation before drain beside the clean ones': a
+    dead replica's pool is released."""
+    _flight_to_build()
+    model = _fleet_4layer_model(5)
+    ps = prompts[:8]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    runs = []
+    # unified: crash + stall
+    uni = dict(replicas=2)
+    want, clean = _fleet_chaos_run(model, ps, uni, "unified_clean")
+    got, faulted = _fleet_chaos_run(
+        model, ps, uni, "unified_crash_stall",
+        schedule="replica_crash@0;decode_stall@1", stall=True,
+        faults={"serving.fleet.replica_deaths": 2,
+                "serving.fleet.respawns": 2}, want=want)
+    if faulted["fired"] != [("decode_stall", 1), ("replica_crash", 0)]:
+        raise AssertionError(f"fleet_chaos: fired {faulted['fired']}")
+    runs += [clean, faulted]
+    # disaggregated pair: migrations severed
+    dis = dict(replicas=2, prefill_replicas=1)
+    want_d, clean_d = _fleet_chaos_run(model, ps, dis, "disagg_clean")
+    got_d, dropped = _fleet_chaos_run(
+        model, ps, dis, "disagg_migrate_drop",
+        schedule="kv_migrate_drop@0,kv_migrate_drop@2", want=want_d)
+    if dropped["moved"].get("serving.fleet.migrate.dropped", 0) != 2:
+        raise AssertionError(f"fleet_chaos: {dropped}")
+    runs += [clean_d, dropped]
+    # a dead replica's pool is released: the faulted unified fleet holds
+    # no more than the clean one (well under one pool) before drain
+    leak = faulted["alive_allocated_gb"] - clean["alive_allocated_gb"]
+    del model
+    _free_cuda()
+    mem1 = torch.cuda.memory_allocated()
+    rec = {"phase": "fleet_chaos", "model": "gpt3_1_3b bf16", "layers": 4,
+           "layers_cut_from": 24, "requests": len(ps), "runs": runs,
+           "memory_allocated_gb_before": mem0 / 1e9,
+           "memory_allocated_gb_after": mem1 / 1e9,
+           "faulted_minus_clean_allocated_gb": leak,
+           "lost": sum(r["moved"].get("serving.fleet.lost", 0)
+                       for r in runs)}
+    emit(rec)
+    if leak > 0.5 * clean["pool_gb"]:
+        raise AssertionError(f"fleet_chaos: the faulted fleet holds "
+                             f"{leak} GB more than the clean one (a pool "
+                             f"is {clean['pool_gb']} GB)")
+    return rec
+
+
+def fleet_autoscale_phase(prompts):
+    """``FLAGS_health`` on, a unified two-replica fleet at the 1.3B width,
+    4 layers, an ``itl_burn`` SLO (p95 ITL over 0.5 s windows against the
+    default 15 ms objective) and ``FleetAutoscaler(cooldown_ticks=1)``;
+    ``slow_decode`` stalls the replica holding the first request 20 ms
+    before each of 24 of its iterations (``max_replicas=2``: no spawn).
+    New requests arrive whenever the fleet is idle and the admission
+    level is not critical (the router would shed them).  Gates: the 24 stalls ran, the alert
+    fires, the autoscaler disaggregates (one replica flips to prefill),
+    the alert resolves once the stalls end, the 8 requests admitted after
+    that migrate; ``serving.autoscale.*`` counters prove the transition;
+    zero lost; K4 == decode_steps x 4."""
+    from paddle_tpu_torch.profiler.health import SLO
+    _flight_to_build()
+    model = _fleet_4layer_model(6)
+    V = model.config.vocab_size
+    L = model.config.num_layers
+    flags.set_flags({"FLAGS_health": True})
+    slo = SLO("itl_burn", ("hist_p95", "serving.itl_ns"), 15e6,
+              windows=((0.5, 1.0),), min_count=4)
+    try:
+        fleet = ServingFleet(
+            model, replicas=2, threaded=False, autoscale=True,
+            autoscale_kw=dict(cooldown_ticks=1, ok_streak=10**6,
+                              max_replicas=2),
+            health_kw=dict(rules=[slo], interval_s=0.05), **FLEET_ENGINE)
+        _fleet_warm(fleet, V)
+        pa.reset_launch_counts()
+        before = counters.snapshot()
+        t0 = time.perf_counter()
+        marks = {}
+        hs = [fleet.submit(p, max_new_tokens=32, seed=i)
+              for i, p in enumerate(prompts[:8])]
+        faultinject.set_schedule(f"slow_decode@{hs[0].rid}*24")
+        rng = np.random.default_rng(12)
+
+        def more(n):
+            # new traffic; a request the router sheds (RetryAfter) is not
+            # resubmitted
+            for _ in range(n):
+                try:
+                    hs.append(fleet.submit(rng.integers(0, V, 128),
+                                           max_new_tokens=32,
+                                           seed=len(hs)))
+                except RetryAfter:
+                    pass
+
+        while time.perf_counter() - t0 < 60:
+            fleet.pump()
+            d = counters.delta(before)
+            if "fired" not in marks and d.get(
+                    "health.alerts.fired.itl_burn"):
+                marks["fired"] = time.perf_counter() - t0
+            if "disaggregate" not in marks and d.get(
+                    "serving.autoscale.decisions.disaggregate"):
+                marks["disaggregate"] = time.perf_counter() - t0
+            if "disaggregate" in marks and d.get(
+                    "health.alerts.resolved.itl_burn"):
+                marks["resolved"] = time.perf_counter() - t0
+                break
+            if (all(h.is_finished for h in hs)
+                    and fleet.health.admission_level() != "critical"):
+                more(8)
+        # after the split: new requests prefill on the prefill replica
+        # and migrate to the decode one
+        n0 = len(hs)
+        more(8)
+        admitted_after = len(hs) - n0
+        while not all(h.is_finished for h in hs):
+            fleet.pump()
+        torch.cuda.synchronize()
+        faultinject.clear()
+        moved = counters.delta(before)
+        launches = _launch_counts()
+        roles = fleet.stats()["roles"]
+        history = fleet.autoscaler.summary()["history"]
+        _fleet_gates("fleet_autoscale", fleet, hs, moved, launches, L, None)
+        fleet.drain()
+    finally:
+        faultinject.clear()
+        flags.set_flags({"FLAGS_health": False})
+    auto = {k: v for k, v in moved.items()
+            if k.startswith(("serving.autoscale.", "health.alerts."))}
+    rec = {"phase": "fleet_autoscale", "model": "gpt3_1_3b bf16",
+           "layers": 4, "layers_cut_from": 24, "requests": len(hs),
+           "seconds_to": marks, "roles_after": roles,
+           "decisions": [h["action"] for h in history],
+           "counters": auto,
+           "slow_decode_stalls": moved.get(
+               "serving.fleet.slow_decode_stalls", 0),
+           "migrations": moved.get("serving.fleet.migrate.requests", 0),
+           "admitted_after_resolve": admitted_after,
+           "health_shed": moved.get("serving.fleet.health_shed", 0),
+           "decode_steps": moved.get("serving.decode_steps", 0),
+           "launches": launches}
+    emit(rec)
+    if not (auto.get("health.alerts.fired.itl_burn", 0) >= 1
+            and auto.get("serving.autoscale.decisions.disaggregate", 0) >= 1
+            and auto.get("serving.autoscale.flips.to_prefill", 0) >= 1
+            and auto.get("health.alerts.resolved.itl_burn", 0) >= 1
+            and roles == {"prefill": 1, "decode": 1, "unified": 0}
+            and rec["slow_decode_stalls"] == 24
+            and admitted_after == 8 and rec["migrations"] >= 8):
+        raise AssertionError(f"fleet_autoscale: {rec}")
+    del fleet, model
+    _free_cuda()
+    return rec
+
+
 def slots_in_model_phase():
     """The slot path against the paged path in a 2-layer model at the
     1.3B width: 8 prompts of 64-700 tokens prefilled through
@@ -3306,8 +3765,13 @@ def main():
     tier = host_tier_phase(model, prompts, tokens,
                            slot_record["greedy_token_agreement_with_paged"])
     mig = migration_phase(model, prompts, tokens)
+    fleet, fleet_tokens = fleet_phase(model, prompts, tokens, record)
+    fleet8, _ = fleet_phase(model, prompts, tokens, record, kv_dtype="int8",
+                            bf16_tokens=fleet_tokens)
     del model
     _free_cuda()
+    chaos = fleet_chaos_phase(prompts)
+    autoscale = fleet_autoscale_phase(prompts)
     slots_in_model_phase()
     _free_cuda()
     migration_fp32_phase()
@@ -3317,9 +3781,11 @@ def main():
                 k4q: quant["launches"][k4q],
                 "paged_decode_attention_fp8":
                     fp8["launches"]["paged_decode_attention_fp8"]}
-    # the LoRA, host-tier and migration phases' main-path runs add theirs
+    # the LoRA, host-tier, migration and fleet phases' main-path runs add
+    # theirs
     for rec in (lora, tier[None], tier["int8"], mig[None], mig["int8"],
-                mig["spec"]):
+                mig["spec"], fleet, fleet8, *chaos["runs"], autoscale,
+                {"launches": fleet["unthreaded_launches"]}):
         for k in (k4, k4q):
             launches[k] += rec["launches"].get(k, 0)
     paged_rows = times_phase(snap, max_err, launches)

@@ -31,7 +31,14 @@ far it holds, with every Pallas kernel of the reference:
   its initializers, ``Linear``/``Embedding``/``LayerNorm``/``Dropout``,
   the transformer encoder, ``distributed.fleet.recompute`` — and BERT
   pretraining on it (``BertForPretraining``), whose attention takes the
-  flash kernels.
+  flash kernels;
+* LoRA tenants, the host-RAM KV tier and KV migration in the paged
+  engine;
+* the serving fleet — ``ServingFleet(model, replicas=N,
+  prefill_replicas=P, kv_layout="paged")`` behind a ``Router``, with
+  disaggregated prefill/decode over KV migration, a ``FleetAutoscaler``,
+  and the health, flight-recorder, request-trace and device-time plane
+  under it (``profiler``).
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"`` or calls ``set_device("cpu")``; without a GPU and
@@ -51,7 +58,7 @@ from .models import (BertConfig, BertForPretraining, BertModel,
                      GPTPretrainingCriterion)
 from .nn.functional.init_utils import ParamAttr
 from .optimizer import Adam, AdamW
-from .serving import LLMEngine
+from .serving import LLMEngine, ServingFleet
 from .tensor.creation import (arange, full, full_like, ones, ones_like,
                               zeros, zeros_like)
 from .tensor.manipulation import concat, expand, reshape, transpose
@@ -63,6 +70,7 @@ from torch import enable_grad, no_grad
 __all__ = ["Adam", "AdamW", "BertConfig", "BertForPretraining", "BertModel",
            "BertPretrainingCriterion", "CompiledTrainStep", "GPTConfig",
            "GPTForCausalLM", "GPTPretrainingCriterion", "LLMEngine",
+           "ServingFleet",
            "ParamAttr", "Parameter", "Tensor", "add", "amp", "arange",
            "bernoulli", "bfloat16", "bool_", "concat", "distributed",
            "enable_grad", "expand", "flags", "float16", "float32", "float64",

@@ -78,7 +78,7 @@ import torch
 from .. import flags
 from ..core.tensor import unwrap
 from ..io import Window
-from ..kernels import launch_counted
+from ..kernels import count_launch, launch_counted
 from ..nn.clip import sum_sq
 from ..profiler import counters
 from ..profiler.metrics import MetricsLogger
@@ -302,7 +302,7 @@ class CompiledTrainStep:
             out = tuple(None if t is None else t.clone() for t in cap.out)
         self.optimizer._step_count += k
         for fn, n in cap.launches.items():
-            fn.launches += n
+            count_launch(fn, n)
         for name, n in cap.ticks.items():
             counters.inc(name, n)
         losses, bits, rows, found = out

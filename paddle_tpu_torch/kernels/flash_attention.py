@@ -48,7 +48,7 @@ import warnings
 import torch
 
 from ..profiler import counters
-from . import _build
+from . import _build, count_launch
 from ._shapes import NEG_INF, check_divides, check_equal
 
 #: head dims the CUDA kernels are instantiated for (GPT-3 125M, 760M, 1.3B)
@@ -304,7 +304,7 @@ def flash_fwd(q, k, v, causal, scale):
             vb.data_ptr(), *_strides(vb), out.data_ptr(), *_strides(out),
             lse.data_ptr(), *_dims(q, causal, scale), stream)
     _raise_if(lib, err, "flash_fwd")
-    flash_fwd.launches += 1
+    count_launch(flash_fwd)
     return out, lse
 
 
@@ -326,7 +326,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal, scale):
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_strides(dq),
             *_dims(q, causal, scale), stream)
     _raise_if(lib, err, "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
+    count_launch(flash_bwd_dq)
     return dq
 
 
@@ -347,7 +347,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), *_strides(dk),
             dv.data_ptr(), *_dims(q, causal, scale), stream)
     _raise_if(lib, err, "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
+    count_launch(flash_bwd_dkv)
     return dk, dv
 
 

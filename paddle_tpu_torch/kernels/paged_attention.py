@@ -41,7 +41,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, count_launch
 from ._shapes import NEG_INF, check_divides, check_equal
 
 _FLOATS = (torch.float32, torch.bfloat16)
@@ -334,10 +334,7 @@ def paged_decode_attention(q, pool_k, pool_v, bt, pos, scale_k=None,
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"paged_decode_attention launch failed: "
                            f"CUDA error {err} ({msg})")
-    if kv_dtype is None:
-        paged_decode_attention.launches += 1
-    else:
-        paged_decode_attention.quant_launches[kv_dtype] += 1
+    count_launch(paged_decode_attention, kv_dtype=kv_dtype)
     return out
 
 

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, count_launch
 
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -89,7 +89,7 @@ def rms_norm(x, w, eps=1e-6, block_rows=256):
         msg = lib.rms_norm_error_string(err).decode()
         raise RuntimeError(f"rms_norm launch failed: CUDA error {err} "
                            f"({msg})")
-    rms_norm.launches += 1
+    count_launch(rms_norm)
     return y
 
 

@@ -1,7 +1,10 @@
-"""Observability for the port: the process-global counter registry and
-the train-metrics logger."""
+"""Observability for the port: the process-global counter registry,
+histograms and the train-metrics logger, the host span tracer, the
+flight recorder, request traces, the device-time ledger and the health
+plane."""
 
-from . import counters
-from .metrics import MetricsLogger
+from . import counters, devicetime, flight, health, host_tracer, metrics, trace
+from .metrics import Histogram, MetricsLogger
 
-__all__ = ["counters", "MetricsLogger"]
+__all__ = ["counters", "devicetime", "flight", "health", "host_tracer",
+           "metrics", "trace", "Histogram", "MetricsLogger"]

@@ -19,6 +19,27 @@ Training ticks ``jit.steps`` and ``jit.host.dispatches`` (one each per
 ``Optimizer.step``), under the JAX names, and
 ``kernels.flash.reference_fallbacks`` (one per ``flash_attention_fwd``
 call that takes ``reference_attention`` because S % 128 != 0).
+
+The fleet (``serving.fleet``) ticks ``serving.fleet.dispatched``,
+``.shed``, ``.health_shed``, ``.retried``, ``.respawns``,
+``.replica_deaths[.<reason>]``, ``.heartbeat_misses``,
+``.completed[.<reason>]``, ``.replayed_tokens``, ``.warmup_requests``,
+``.monitor_errors``, ``.replay_divergence``, ``.prefix_routed``,
+``.adapter_routed``, ``.slow_decode_stalls``, ``.lost`` (must stay 0) and
+``serving.fleet.migrate.requests``, ``.blocks_copied``,
+``.blocks_shared``, ``.tokens``, ``.deferred``, ``.dropped``,
+``.failed``; gauges ``serving.fleet.replicas``, ``.decode_tps``,
+``.spec_acceptance``.  The autoscaler ticks
+``serving.autoscale.decisions[.<action>]``, ``.flips.to_prefill``,
+``.flips.to_decode``, ``.spawns``, ``.retires`` and sets the gauges
+``serving.autoscale.prefill_replicas`` / ``.decode_replicas``.  The
+health plane ticks ``health.ticks``, ``health.alerts.fired[.<rule>]``,
+``health.alerts.resolved[.<rule>]`` and sets ``health.admission_level``
+(0 ok, 1 degraded, 2 critical); the flight recorder ``flight.dumps
+[.<reason>]``; request tracing ``trace.started``, ``.finished``,
+``.kept``, ``.kept.head``, ``.kept.tail``, ``.dropped``, ``.spans``; the
+device-time ledger ``jit.devicetime.dispatches`` and
+``jit.devicetime.sampled_syncs``.  All under the JAX names.
 """
 
 from __future__ import annotations

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..profiler import counters
+from ..profiler import devicetime as _devicetime
 from ..resilience import faultinject as _fi
 
 __all__ = ["AdapterArena", "AdapterArenaExhausted", "ADAPTER_TARGETS",
@@ -250,8 +251,10 @@ class AdapterArena:
             raise AdapterArenaExhausted(
                 f"injected adapter_load_drop for tenant {tenant!r}",
                 needed=1, free=len(self._free))
+        _dt = _devicetime.note("serving.adapter.load")
         for n, v in factors.items():
             self._slabs[n][:, slot].copy_(v)
+        _devicetime.observe(_dt, self._slabs)
         self._resident[tenant] = slot
         self._refs[tenant] = 1
         self.loads += 1

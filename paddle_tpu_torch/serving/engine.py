@@ -26,6 +26,18 @@ ROADMAP item.
 
 The engine follows the model's device.  Each sampled request carries its
 own ``torch.Generator``, seeded from the request's ``seed``.
+
+Telemetry, at the reference's sites: per-engine and process-global
+histograms ``serving.ttft_ns``, ``serving.itl_ns``,
+``serving.queue_wait_ns``, ``serving.prefill_occupancy`` and
+``serving.decode_occupancy`` (the paged engine adds
+``serving.kv.block_occupancy``; with adapters, per-tenant-bucket
+``serving.ttft_ns.tenant.<b>`` / ``serving.itl_ns.tenant.<b>``), which
+:meth:`LLMEngine.histogram_snapshot` copies for the fleet's Router;
+flight-recorder events at admit and finish; request-trace spans
+(``queue``, ``prefill``, ``decode.iter``, ``evict``); host-tracer spans
+``serving.step`` / ``serving.prefill`` / ``serving.decode``; and a
+device-time note at each dispatch.
 """
 
 from __future__ import annotations
@@ -33,13 +45,19 @@ from __future__ import annotations
 import itertools
 import threading
 import time
+import zlib
 from collections import deque
 
 import numpy as np
 import torch
 
 from ..profiler import counters
+from ..profiler import devicetime as _devicetime
+from ..profiler import flight, metrics
+from ..profiler import trace as rtrace
+from ..profiler.host_tracer import span
 from ..quantization import ptq_int8_decode_state
+from ..resilience import faultinject as _fi
 from .sampling import sample_tokens
 
 _TODO = {
@@ -79,8 +97,8 @@ class Request:
     __slots__ = ("rid", "prompt", "max_new_tokens", "do_sample",
                  "temperature", "top_k", "top_p", "eos_token_id", "seed",
                  "state", "finish_reason", "tokens", "slot", "arrival_ns",
-                 "deadline", "_cancel", "_engine", "error", "generator",
-                 "tag", "hold", "adapter")
+                 "last_emit_ns", "deadline", "_cancel", "_engine", "error",
+                 "generator", "tag", "trace", "hold", "adapter")
 
     def __init__(self, rid, prompt, max_new_tokens, do_sample, temperature,
                  top_k, top_p, eos_token_id, seed, deadline, engine):
@@ -101,11 +119,13 @@ class Request:
         self.tokens = []          # generated tokens (includes eos if hit)
         self.slot = None
         self.arrival_ns = time.monotonic_ns()
+        self.last_emit_ns = None  # monotonic_ns of the last emitted token
         self.deadline = deadline  # absolute time.monotonic() or None
         self._cancel = False
         self._engine = engine
         self.generator = None     # torch.Generator, made at admission
-        self.tag = None           # opaque owner backref
+        self.tag = None           # opaque owner backref (fleet handle)
+        self.trace = None         # TraceContext when request tracing is on
         self.hold = False         # park after prefill for KV migration
         self.adapter = None       # tenant id (LoRA adapter), None = base
 
@@ -200,8 +220,9 @@ class LLMEngine:
                              "(adapter ids ride the paged calls)")
         self.kv_layout = kv_layout
         # multi-tenant LoRA knobs (paged engine only; 0 disables).
-        # tenant_buckets is the reference's bound on per-tenant telemetry
-        # cardinality; the port keeps no per-tenant histograms yet (A9)
+        # tenant_buckets bounds the per-tenant telemetry cardinality:
+        # TTFT/ITL histograms are keyed by a stable hash bucket, never by
+        # the raw tenant id
         self.adapter_slots = int(adapter_slots or 0)
         self.adapter_rank = int(adapter_rank)
         self.tenant_buckets = int(tenant_buckets)
@@ -253,6 +274,42 @@ class LLMEngine:
         self._outstanding = 0     # undelivered tokens across queued+active
         self._tps_ema = 0.0       # decode tokens/s, EMA over launches
         self._ema_alpha = 0.25
+        # per-engine mergeable histograms (the fleet Router merges them
+        # across replicas); every observation also feeds the global
+        # registry under the same name
+        self.hists = {
+            n: metrics.Histogram(n, unit)
+            for n, unit in (("serving.ttft_ns", "ns"),
+                            ("serving.itl_ns", "ns"),
+                            ("serving.queue_wait_ns", "ns"),
+                            ("serving.prefill_occupancy", "frac"),
+                            ("serving.decode_occupancy", "frac"))}
+
+    def _observe(self, name, value, sum_counter=False):
+        metrics.observe(name, value, sum_counter=sum_counter,
+                        extra=self.hists[name])
+
+    def _tenant_bucket(self, tenant):
+        """Stable low-cardinality label of a tenant: ``"base"`` for
+        un-adapted rows, else a crc32 hash bucket ``"t<n>"``."""
+        if tenant is None:
+            return "base"
+        return f"t{zlib.crc32(str(tenant).encode()) % self.tenant_buckets}"
+
+    def _observe_tenant(self, base, tenant, value):
+        """Record a latency sample into the tenant-bucketed histogram
+        (created on first use) and the global registry, where the health
+        plane's ``noisy_neighbor`` watchdog reads it."""
+        name = f"{base}.tenant.{self._tenant_bucket(tenant)}"
+        h = self.hists.get(name)
+        if h is None:
+            h = self.hists[name] = metrics.Histogram(name, "ns")
+        metrics.observe(name, value, extra=h)
+
+    def histogram_snapshot(self):
+        """Copies of the per-engine histograms (safe to
+        ``Histogram.merge`` across replicas, as the fleet Router does)."""
+        return {n: h.copy() for n, h in self.hists.items()}
 
     def _init_kv(self, c, B, S, nh, hd):
         """Allocate the device KV storage: the slot arena ``[L, B, S, nh,
@@ -289,7 +346,7 @@ class LLMEngine:
     def add_request(self, prompt, max_new_tokens=32, do_sample=False,
                     temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
                     seed=None, deadline_s=None, block=True, timeout=None,
-                    hold_after_prefill=False, adapter=None):
+                    trace_ctx=None, hold_after_prefill=False, adapter=None):
         """Enqueue one prompt; returns the live ``Request`` handle.
 
         Backpressure: when the bounded queue is full, ``block=False``
@@ -298,7 +355,10 @@ class LLMEngine:
         ``step()`` to make room, then raises.  ``deadline_s`` is a
         per-request wall-clock budget (queue wait included); on expiry the
         request finishes with ``finish_reason='deadline'`` and whatever
-        tokens it produced.  ``hold_after_prefill`` parks the request
+        tokens it produced.  ``trace_ctx`` carries a caller-minted
+        ``TraceContext`` (the fleet threads one through every attempt);
+        with tracing on and none given, the engine mints its own.
+        ``hold_after_prefill`` parks the request
         after its last prefill chunk (state ``"held"``, a ``{"type":
         "prefilled"}`` event) instead of entering decode: the hand-off
         point for KV migration (``export_request``).  The paged engine
@@ -329,6 +389,10 @@ class LLMEngine:
                       int(seed), deadline, self)
         req.hold = bool(hold_after_prefill)
         req.adapter = adapter
+        req.trace = trace_ctx if trace_ctx is not None \
+            else rtrace.new_trace(req.rid)
+        if req.trace is not None:
+            req.trace.stamp("enqueue")  # the queue span covers the wait
         with self._cond:
             while len(self._queue) >= self.queue_size:
                 if not block:
@@ -347,6 +411,8 @@ class LLMEngine:
             self._queue.append(req)
             self._outstanding += req.max_new_tokens
         counters.inc("serving.requests")
+        flight.record("serving.request", rid=req.rid, prompt_len=T,
+                      max_new_tokens=req.max_new_tokens)
         return req
 
     def _note_decode(self, emitted, elapsed_s):
@@ -386,7 +452,19 @@ class LLMEngine:
                 req.slot = None
         counters.inc("serving.evictions")
         counters.inc(f"serving.evictions.{reason}")
+        flight.record("serving.finish", rid=req.rid, reason=reason,
+                      tokens=len(req.tokens))
         events.append({"type": "finished", "request": req, "reason": reason})
+        tr = req.trace
+        if tr is not None:
+            tr.add_event("evict", reason=reason)
+            if req.tag is None:
+                # a standalone request: the engine finalizes its trace; a
+                # fleet-owned one (tag set) is finalized by its fleet
+                # handle, which sees retries
+                breached = (req.deadline is not None
+                            and time.monotonic() > req.deadline)
+                rtrace.finish(tr, reason, breached=breached)
         return True
 
     def _sweep(self, events):
@@ -417,8 +495,21 @@ class LLMEngine:
                 self._finish(req, "deadline", events)
 
     def _emit(self, req, tok, events):
-        """Record one generated token; finish on EOS / length."""
+        """Record one generated token; finish on EOS / length.  The event
+        carries the token's stream index (one step can emit several)."""
         req.tokens.append(int(tok))
+        now_ns = time.monotonic_ns()
+        if len(req.tokens) == 1:
+            self._observe("serving.ttft_ns", now_ns - req.arrival_ns)
+            if self.adapter_slots:
+                self._observe_tenant("serving.ttft_ns", req.adapter,
+                                     now_ns - req.arrival_ns)
+        elif req.last_emit_ns is not None:
+            self._observe("serving.itl_ns", now_ns - req.last_emit_ns)
+            if self.adapter_slots:
+                self._observe_tenant("serving.itl_ns", req.adapter,
+                                     now_ns - req.last_emit_ns)
+        req.last_emit_ns = now_ns
         with self._cond:
             self._outstanding -= 1
         events.append({"type": "token", "request": req, "token": int(tok),
@@ -449,15 +540,25 @@ class LLMEngine:
         returns that token."""
         T = int(req.prompt.shape[0])
         bucket = bucket_length(T, self.min_bucket, self.max_seq_len)
+        self._observe("serving.prefill_occupancy", T / bucket)
         ids = np.zeros((1, bucket), np.int64)
         ids[0, :T] = req.prompt
-        logits = self.model.prefill_slot(
-            self._w, torch.from_numpy(ids).to(self.device), T,
-            self._ck[:, slot:slot + 1], self._cv[:, slot:slot + 1])
-        return int(sample_tokens(
-            logits, req.generator, do_sample=req.do_sample,
-            temperature=req.temperature, top_k=req.top_k,
-            top_p=req.top_p)[0])
+        tr = req.trace
+        t0_tr = time.perf_counter_ns() if tr is not None else 0
+        with span("serving.prefill"):
+            _dt = _devicetime.note(f"serving.prefill[b{bucket}]")
+            logits = self.model.prefill_slot(
+                self._w, torch.from_numpy(ids).to(self.device), T,
+                self._ck[:, slot:slot + 1], self._cv[:, slot:slot + 1])
+            _devicetime.observe(_dt, logits)
+            tok = int(sample_tokens(
+                logits, req.generator, do_sample=req.do_sample,
+                temperature=req.temperature, top_k=req.top_k,
+                top_p=req.top_p)[0])
+        if tr is not None:
+            tr.add_span("prefill", t0_tr, time.perf_counter_ns(),
+                        bucket=bucket, tokens=T)
+        return tok
 
     def _admit(self, events):
         now = time.monotonic()
@@ -474,9 +575,15 @@ class LLMEngine:
                 counters.inc("serving.deadline_expired")
                 self._finish(req, "deadline", events)
                 continue
+            self._observe("serving.queue_wait_ns",
+                          time.monotonic_ns() - req.arrival_ns,
+                          sum_counter=True)
+            if req.trace is not None:
+                req.trace.span_from("enqueue", "queue")
             with self._cond:
                 slot = self._free.pop()
             try:
+                _fi.maybe_fault("serving_prefill", req.rid)
                 if req.do_sample:
                     req.generator = torch.Generator(
                         device=self.device).manual_seed(req.seed)
@@ -505,14 +612,21 @@ class LLMEngine:
         active = [(s, r) for s, r in enumerate(self._slots) if r is not None]
         if not active:
             return
+        self._observe("serving.decode_occupancy",
+                      len(active) / self.max_slots)
         t0 = time.perf_counter()
+        t0_tr = time.perf_counter_ns() if rtrace.enabled() else 0
         dev = self.device
-        # idle rows decode token 0 at position 0 of their own row: nothing
-        # reads it, and the next admission rewrites the whole row
-        logits = self.model.decode_slots(
-            self._w, torch.from_numpy(self._tok).to(dev),
-            torch.from_numpy(self._pos).to(dev), self._ck, self._cv)
-        nxt = self._next_tokens(logits, active)
+        with span("serving.decode"):
+            # idle rows decode token 0 at position 0 of their own row:
+            # nothing reads it, and the next admission rewrites the row
+            _dt = _devicetime.note("serving.decode")
+            logits = self.model.decode_slots(
+                self._w, torch.from_numpy(self._tok).to(dev),
+                torch.from_numpy(self._pos).to(dev), self._ck, self._cv)
+            _devicetime.observe(_dt, logits)
+            nxt = self._next_tokens(logits, active)
+        self._trace_decode(active, t0_tr)
         self._note_decode(len(active), time.perf_counter() - t0)
         counters.inc("serving.decode_steps")
         counters.inc("serving.decode_tokens", len(active))
@@ -521,17 +635,30 @@ class LLMEngine:
             self._pos[s] += 1
             self._emit(req, nxt[s], events)
 
+    @staticmethod
+    def _trace_decode(active, t0_tr):
+        """One ``decode.iter`` span per traced row of a decode launch that
+        started at ``t0_tr`` (0: tracing was off)."""
+        if not t0_tr:
+            return
+        t1_tr = time.perf_counter_ns()
+        for _s, r in active:
+            if r.trace is not None:
+                r.trace.add_span("decode.iter", t0_tr, t1_tr,
+                                 batch=len(active))
+
     def step(self):
         """One scheduler iteration: sweep cancels/deadlines, admit from
         the queue into free slots (prefill into the arena row), run ONE
         decode launch for all occupied slots, re-admit into slots freed
         this step.  Returns the list of events ({'type': 'admitted' |
         'token' | 'finished', ...}) produced."""
-        events = []
-        self._sweep(events)
-        self._admit(events)
-        self._decode_step(events)
-        self._admit(events)
+        with span("serving.step"):
+            events = []
+            self._sweep(events)
+            self._admit(events)
+            self._decode_step(events)
+            self._admit(events)
         counters.set_gauge(
             "serving.slot_occupancy",
             sum(r is not None for r in self._slots) / self.max_slots)

@@ -47,6 +47,13 @@ replaces the reference's donation of the pools through every program.
 Each decode step copies the host mirrors (tokens, positions, block
 tables, adapter slots) to the device once and reads the next tokens back
 once.
+
+Telemetry, beyond the slot engine's: the ``serving.kv.block_occupancy``
+histogram once a step; flight-recorder events at admission
+(``serving.kv.admit``), pool and adapter exhaustion, host-tier moves and
+adopts; trace spans ``kv.reserve``, ``cow.adopt``, ``prefill.chunk``,
+``decode.iter`` and ``kv.adopt``; a device-time note at each chunk,
+decode, COW copy, spill, restore and migration copy.
 """
 
 from __future__ import annotations
@@ -60,6 +67,10 @@ import torch
 
 from ..kernels.paged_attention import KV_DTYPES
 from ..profiler import counters
+from ..profiler import devicetime as _devicetime
+from ..profiler import flight, metrics
+from ..profiler import trace as rtrace
+from ..profiler.host_tracer import span
 from ..resilience import faultinject as _fi
 from .adapters import AdapterArena, AdapterArenaExhausted
 from .engine import (EngineBackpressure, EngineClosed, LLMEngine, Request,
@@ -92,6 +103,18 @@ class PagedLLMEngine(LLMEngine):
     * ``spill_idle_steps`` — scheduler steps a held request sits idle
       before its private KV spills to the host tier (default 0: never).
     """
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.hists["serving.kv.block_occupancy"] = metrics.Histogram(
+            "serving.kv.block_occupancy", "frac")
+
+    def _prog_key(self, base):
+        """A dispatch's device-time name: ``base``, then ``@<kv_dtype>``
+        for quantized pools and ``+lora<rank>`` with adapters."""
+        kv = f"@{self.kv_dtype}" if self.kv_dtype else ""
+        lo = f"+lora{self.adapter_rank}" if self.adapters is not None else ""
+        return f"{base}{kv}{lo}"
 
     def _init_kv(self, c, B, S, nh, hd):
         bs = self.block_size
@@ -178,9 +201,11 @@ class PagedLLMEngine(LLMEngine):
         """Copy-on-write block clone: ``dst[:nvalid] = src[:nvalid]``,
         zeros beyond, in every layer of both pools and of the scale
         pools."""
+        _dt = _devicetime.note(f"serving.kv.{self._prog_key('copy_block')}")
         for pool in self._pools():
             pool[:, dst, :nvalid] = pool[:, src, :nvalid]
             pool[:, dst, nvalid:] = 0
+        _devicetime.observe(_dt, self.pool_k)
 
     # -- adapters and prefix views -------------------------------------------
     def register_adapter(self, tenant, factors):
@@ -242,8 +267,10 @@ class PagedLLMEngine(LLMEngine):
         (returned).  The copy is synchronous, so the device block may be
         released the moment this returns."""
         bufs = self._host_tier.acquire(self._host_spec)
+        _dt = _devicetime.note(f"serving.kv.{self._prog_key('spill_block')}")
         for buf, pool in zip(bufs, self._pools()):
             buf.copy_(pool[:, block])
+        _devicetime.observe(_dt, self.pool_k)
         return bufs
 
     def _restore_block(self, block, bufs):
@@ -251,8 +278,11 @@ class PagedLLMEngine(LLMEngine):
         asynchronously from pinned buffers on CUDA: the buffers are read
         after this returns, so callers :meth:`_restores_done` before they
         recycle them."""
+        _dt = _devicetime.note(
+            f"serving.kv.{self._prog_key('restore_block')}")
         for pool, buf in zip(self._pools(), bufs):
             pool[:, block].copy_(buf, non_blocking=True)
+        _devicetime.observe(_dt, self.pool_k)
 
     def _restores_done(self):
         """Wait for the restores queued so far (a CUDA event recorded
@@ -306,7 +336,9 @@ class PagedLLMEngine(LLMEngine):
         if not chain:
             return 0
         if _fi.take("kv_spill_drop", rid):
-            self.prefix.drop_host(chain[0])
+            dropped = self.prefix.drop_host(chain[0])
+            flight.record("serving.kv.tier.spill_drop", rid=rid,
+                          nodes=dropped, where="prefix_restore")
             return 0
         restored = []
         for node in chain:
@@ -375,6 +407,8 @@ class PagedLLMEngine(LLMEngine):
             self.kv_tier_spilled += 1
         if ent["idx"]:
             self._req_host[req.rid] = ent
+            flight.record("serving.kv.tier.req_spilled", rid=req.rid,
+                          blocks=len(ent["idx"]))
 
     def _restore_request(self, req):
         """Page a spilled held request's KV back into fresh device blocks,
@@ -394,6 +428,8 @@ class PagedLLMEngine(LLMEngine):
                 self._host_tier.pop(("req", req.rid, i))
                 counters.inc("serving.kv.tier.spill_drops")
             del self._req_host[req.rid]
+            flight.record("serving.kv.tier.spill_drop", rid=req.rid,
+                          nodes=len(table), where="request_restore")
             raise HostTierLost(
                 f"request {req.rid}: spilled KV lost before restore")
         restored, err = [], None
@@ -432,6 +468,8 @@ class PagedLLMEngine(LLMEngine):
         if err is not None:
             raise err
         del self._req_host[req.rid]
+        flight.record("serving.kv.tier.req_restored", rid=req.rid,
+                      blocks=len(restored))
 
     # -- request intake ------------------------------------------------------
     def add_request(self, prompt, max_new_tokens=32, **kw):
@@ -470,6 +508,8 @@ class PagedLLMEngine(LLMEngine):
         T = int(req.prompt.shape[0])
         bs = self.pool.block_size
         total = blocks_for_tokens(max(1, T + req.max_new_tokens - 1), bs)
+        tr = req.trace
+        t0_tr = time.perf_counter_ns() if tr is not None else 0
         with self._cond:
             injected = _fi.take("kv_pool_exhausted", req.rid)
             aslot = 0
@@ -478,7 +518,10 @@ class PagedLLMEngine(LLMEngine):
                 # request exactly as KV exhaustion does
                 try:
                     aslot = self.adapters.acquire(req.adapter, rid=req.rid)
-                except AdapterArenaExhausted:
+                except AdapterArenaExhausted as e:
+                    flight.record("serving.adapter.exhausted",
+                                  rid=req.rid, tenant=str(req.adapter),
+                                  needed=e.needed, free=e.free)
                     return False
             shared, cached, pnode, p = [], 0, None, 0
             if self.prefix is not None and not injected:
@@ -507,14 +550,26 @@ class PagedLLMEngine(LLMEngine):
                     self.adapters.release(req.adapter)
                 self.kv_pool_exhausted_events += 1
                 counters.inc("serving.kv.pool_exhausted")
+                flight.record("serving.kv.pool_exhausted", rid=req.rid,
+                              needed=fresh_needed,
+                              free=self.pool.free_blocks,
+                              injected=bool(injected))
                 return False
             fresh = self.pool.alloc_n(fresh_needed)
             table = shared + fresh
             slot = self._free.pop()
+            if tr is not None:
+                tr.add_span("kv.reserve", t0_tr, time.perf_counter_ns(),
+                            blocks=len(table), shared=len(shared),
+                            cached=cached)
             if pnode is not None:
                 # copy-on-write: clone the shared partial block into the
                 # request's first private tail block before extending it
+                t0_cow = time.perf_counter_ns() if tr is not None else 0
                 self._copy_block(pnode.block, table[len(shared)], p)
+                if tr is not None:
+                    tr.add_span("cow.adopt", t0_cow,
+                                time.perf_counter_ns(), tokens=p)
                 self.pool.release(pnode.block)   # drop the match retain
                 cached += p
                 self.kv_cow_copies += 1
@@ -539,6 +594,8 @@ class PagedLLMEngine(LLMEngine):
                     device=self.device).manual_seed(req.seed)
             self._slots[slot] = req
             self._prefill_state[slot] = {"req": req, "done": cached}
+        flight.record("serving.kv.admit", rid=req.rid, blocks=len(table),
+                      shared=len(shared), cached_tokens=cached)
         events.append({"type": "admitted", "request": req})
         return True
 
@@ -564,6 +621,11 @@ class PagedLLMEngine(LLMEngine):
                 with self._cond:
                     self._queue.appendleft(req)
                 return
+            self._observe("serving.queue_wait_ns",
+                          time.monotonic_ns() - req.arrival_ns,
+                          sum_counter=True)
+            if req.trace is not None:
+                req.trace.span_from("enqueue", "queue")
 
     def _adapter_args(self, aids):
         """``(adapters, adapter_ids)`` keywords of a model call over rows
@@ -586,11 +648,21 @@ class PagedLLMEngine(LLMEngine):
         last = start + take_n == T
         ids = np.zeros((1, C), np.int64)
         ids[0, :take_n] = req.prompt[start:start + take_n]
+        self._observe("serving.prefill_occupancy", take_n / C)
+        tr = req.trace
+        t0_tr = time.perf_counter_ns() if tr is not None else 0
         dev = self.device
-        logits = self.model.prefill_paged(
-            self._w, torch.from_numpy(ids).to(dev), start, take_n,
-            torch.from_numpy(self._bt[slot]).to(dev), *self._pools(),
-            **self._adapter_args(self._aid[slot:slot + 1]))
+        with span("serving.prefill"):
+            _dt = _devicetime.note(
+                f"serving.{self._prog_key('prefill_paged')}[c{C}]")
+            logits = self.model.prefill_paged(
+                self._w, torch.from_numpy(ids).to(dev), start, take_n,
+                torch.from_numpy(self._bt[slot]).to(dev), *self._pools(),
+                **self._adapter_args(self._aid[slot:slot + 1]))
+            _devicetime.observe(_dt, logits)
+        if tr is not None:
+            tr.add_span("prefill.chunk", t0_tr, time.perf_counter_ns(),
+                        chunk=C, start=start, take=take_n)
         counters.inc("serving.kv.prefill_chunks")
         if self.kv_dtype:
             counters.inc("serving.kv.quant.prefill_tokens", take_n)
@@ -646,6 +718,8 @@ class PagedLLMEngine(LLMEngine):
                   if r is not None and r.state == "running"]
         if not active:
             return
+        self._observe("serving.decode_occupancy",
+                      len(active) / self.max_slots)
         # non-running rows (idle, mid-prefill or held) are tabled to the
         # trash block at position 0 on the base row, so every launch has
         # the same shapes
@@ -653,13 +727,19 @@ class PagedLLMEngine(LLMEngine):
             np.int32)
         pos_eff = np.where(self._running, self._pos, 0).astype(np.int32)
         t0 = time.perf_counter()
+        t0_tr = time.perf_counter_ns() if rtrace.enabled() else 0
         dev = self.device
-        logits = self.model.decode_paged(
-            self._w, torch.from_numpy(self._tok).to(dev),
-            torch.from_numpy(pos_eff).to(dev),
-            torch.from_numpy(bt_eff).to(dev), *self._pools(),
-            **self._adapter_args(np.where(self._running, self._aid, 0)))
-        nxt = self._next_tokens(logits, active)
+        with span("serving.decode"):
+            _dt = _devicetime.note(
+                f"serving.{self._prog_key('decode_paged')}")
+            logits = self.model.decode_paged(
+                self._w, torch.from_numpy(self._tok).to(dev),
+                torch.from_numpy(pos_eff).to(dev),
+                torch.from_numpy(bt_eff).to(dev), *self._pools(),
+                **self._adapter_args(np.where(self._running, self._aid, 0)))
+            _devicetime.observe(_dt, logits)
+            nxt = self._next_tokens(logits, active)
+        self._trace_decode(active, t0_tr)
         self._note_decode(len(active), time.perf_counter() - t0)
         counters.inc("serving.decode_steps")
         counters.inc("serving.decode_tokens", len(active))
@@ -701,6 +781,7 @@ class PagedLLMEngine(LLMEngine):
                 "seed": req.seed,
                 "deadline": req.deadline,
                 "arrival_ns": req.arrival_ns,
+                "last_emit_ns": req.last_emit_ns,
                 "tok": int(self._tok[slot]),
                 "pos": int(self._pos[slot]),
                 "generator_state": (None if req.generator is None
@@ -719,10 +800,13 @@ class PagedLLMEngine(LLMEngine):
         dev = self.device
         si = torch.tensor(src_ids, dtype=torch.long, device=dev)
         di = torch.tensor(dst_ids, dtype=torch.long, device=dev)
+        _dt = _devicetime.note(
+            f"serving.kv.{self._prog_key('migrate_blocks')}")
         for dst, s in zip(self._pools(), src._pools()):
             dst.index_copy_(1, di, s.index_select(1, si))
+        _devicetime.observe(_dt, self.pool_k)
 
-    def adopt_migration(self, mig, src):
+    def adopt_migration(self, mig, src, trace_ctx=None):
         """Install a migrated request on THIS engine (the decode side of
         the hand-off; ``src`` is the exporting engine, on the same
         device).  The prefix is re-resolved against this engine's own
@@ -734,7 +818,9 @@ class PagedLLMEngine(LLMEngine):
 
         Returns ``(request, info)``: the installed request is already
         ``"running"`` with the migrated tokens in its stream, so its next
-        token continues the source's."""
+        token continues the source's.  ``trace_ctx`` (the fleet handle's
+        trace) rides the installed request and gets a ``kv.adopt``
+        span."""
         if (self.pool.block_size != mig["block_size"]
                 or self.kv_dtype != mig["kv_dtype"]):
             raise ValueError(
@@ -756,6 +842,7 @@ class PagedLLMEngine(LLMEngine):
         n_data = blocks_for_tokens(max(pos, 1), bs)
         seq = np.concatenate(
             [mig["prompt"], np.asarray(mig["tokens"], np.int32)])[:pos]
+        t0_tr = time.perf_counter_ns() if trace_ctx is not None else 0
         with self._cond:
             if self._closed:
                 raise EngineClosed("engine is drained; cannot adopt")
@@ -808,6 +895,9 @@ class PagedLLMEngine(LLMEngine):
                     self.adapters.release(mig_ad)
                 self.kv_pool_exhausted_events += 1
                 counters.inc("serving.kv.pool_exhausted")
+                flight.record("serving.kv.pool_exhausted",
+                              migration=True, needed=fresh_needed,
+                              free=self.pool.free_blocks)
                 raise BlockPoolExhausted(
                     f"migration needs {fresh_needed} blocks, "
                     f"{self.pool.free_blocks} free",
@@ -833,6 +923,8 @@ class PagedLLMEngine(LLMEngine):
                           int(mig["seed"]), mig["deadline"], self)
             req.tokens = list(mig["tokens"])
             req.arrival_ns = mig["arrival_ns"]
+            req.last_emit_ns = mig["last_emit_ns"]
+            req.trace = trace_ctx
             req.adapter = mig_ad
             if mig["generator_state"] is not None:
                 req.generator = torch.Generator(device=self.device)
@@ -858,8 +950,13 @@ class PagedLLMEngine(LLMEngine):
                 self.prefix.insert(
                     self._prefix_key(seq[:n_full * bs].tolist(), mig_ad),
                     table[:n_full])
-        return req, {"blocks_copied": n_copy, "blocks_shared": n_shared,
-                     "tokens": pos, "blocks_total": total}
+        info = {"blocks_copied": n_copy, "blocks_shared": n_shared,
+                "tokens": pos, "blocks_total": total}
+        if trace_ctx is not None:
+            trace_ctx.add_span("kv.adopt", t0_tr, time.perf_counter_ns(),
+                               **info)
+        flight.record("serving.kv.adopt", rid=req.rid, **info)
+        return req, info
 
     def _adopt_extra(self, slot, req, mig):
         """Subclass hook: rebuild engine-local state the migration payload
@@ -930,17 +1027,21 @@ class PagedLLMEngine(LLMEngine):
         anything freed this step.  Returns the list of events ({'type':
         'admitted' | 'token' | 'prefilled' | 'finished', ...})
         produced."""
-        events = []
-        self._sweep(events)
-        self._maybe_spill_idle()
-        self._admit(events)
-        self._prefill_chunks(events)
-        self._decode_step(events)
-        self._admit(events)
+        with span("serving.step"):
+            events = []
+            self._sweep(events)
+            self._maybe_spill_idle()
+            self._admit(events)
+            self._prefill_chunks(events)
+            self._decode_step(events)
+            self._admit(events)
         counters.set_gauge(
             "serving.slot_occupancy",
             sum(r is not None for r in self._slots) / self.max_slots)
-        counters.set_gauge("serving.kv.blocks_used", self.pool.used_blocks)
+        used = self.pool.used_blocks
+        counters.set_gauge("serving.kv.blocks_used", used)
+        self._observe("serving.kv.block_occupancy",
+                      used / max(1, self.pool.capacity))
         if self._host_tier is not None:
             counters.set_gauge("serving.kv.tier.host_blocks",
                                self._host_tier.resident)

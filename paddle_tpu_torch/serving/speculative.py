@@ -46,6 +46,10 @@ import torch
 
 from ..kernels.paged_attention import KV_DTYPES
 from ..profiler import counters
+from ..profiler import devicetime as _devicetime
+from ..profiler import flight
+from ..profiler import trace as rtrace
+from ..profiler.host_tracer import span
 from ..quantization import ptq_int8_decode_state
 from .engine import bucket_length
 from .kvcache import blocks_for_tokens
@@ -221,6 +225,9 @@ class SpeculativeLLMEngine(PagedLLMEngine):
             if dneed > self.pool.free_blocks:
                 self.kv_pool_exhausted_events += 1
                 counters.inc("serving.kv.pool_exhausted")
+                flight.record("serving.kv.pool_exhausted", rid=req.rid,
+                              needed=dneed, free=self.pool.free_blocks,
+                              injected=False)
                 return False
             dblocks = self.pool.alloc_n(dneed)
         if not super()._reserve(req, events):
@@ -247,10 +254,14 @@ class SpeculativeLLMEngine(PagedLLMEngine):
         ids = np.zeros((1, C), np.int64)
         ids[0, :take_n] = tokens[start:start + take_n]
         dev = self.device
-        self.draft_model.prefill_paged(
-            self._dw, torch.from_numpy(ids).to(dev), start, take_n,
-            torch.from_numpy(self._dbt[slot]).to(dev), self.dpool_k,
-            self.dpool_v, *self.dscales)
+        with span("serving.spec.draft_prefill"):
+            _dt = _devicetime.note(
+                f"{self._prog_key('serving.draft_prefill_paged')}[c{C}]")
+            self.draft_model.prefill_paged(
+                self._dw, torch.from_numpy(ids).to(dev), start, take_n,
+                torch.from_numpy(self._dbt[slot]).to(dev), self.dpool_k,
+                self.dpool_v, *self.dscales)
+            _devicetime.observe(_dt, self.dpool_k)
         counters.inc("serving.spec.draft_prefill_chunks")
         return start + take_n
 
@@ -382,9 +393,11 @@ class SpeculativeLLMEngine(PagedLLMEngine):
         a draw from the filtered distribution ``q`` with the row's draft
         generator for sampled rows.  Returns ``(proposals [B], q [B, V] or
         None when no row samples)``."""
+        _dt = _devicetime.note(self._prog_key("serving.draft_paged"))
         logits = self.draft_model.decode_paged(
             self._dw, tok, pos, bt, self.dpool_k, self.dpool_v,
             *self.dscales)
+        _devicetime.observe(_dt, logits)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         q = None
         for b, req in enumerate(reqs):
@@ -407,6 +420,8 @@ class SpeculativeLLMEngine(PagedLLMEngine):
                   if r is not None and r.state == "running"]
         if not active:
             return
+        self._observe("serving.decode_occupancy",
+                      len(active) / self.max_slots)
         K1 = self.spec_k + 1
         nv = np.ones(self.max_slots, np.int32)
         for s, r in active:
@@ -421,36 +436,43 @@ class SpeculativeLLMEngine(PagedLLMEngine):
             reqs[s] = r
         dreqs = [r if dready[s] else None for s, r in enumerate(reqs)]
         dev = self.device
-        cur = torch.from_numpy(self._tok).to(dev)
-        ts, qs = [cur], []
-        for j in range(K1):
-            part = self._running & dready & (nv > j)
-            bt_j = np.where(part[:, None], self._dbt, 0).astype(np.int32)
-            pos_j = np.where(part, pos0 + j, 0).astype(np.int32)
-            cur, q = self._draft_step(cur, torch.from_numpy(pos_j).to(dev),
-                                      torch.from_numpy(bt_j).to(dev), dreqs)
-            if j < K1 - 1:
-                ts.append(cur)
-                qs.append(q)
-        counters.inc("serving.spec.draft_steps", K1)
-        bt_eff = np.where(self._running[:, None], self._bt, 0).astype(
-            np.int32)
-        toks = torch.stack(ts, dim=1)
-        nv_t = torch.from_numpy(nv).to(dev)
-        logits = self.model.verify_paged(
-            self._w, toks, torch.from_numpy(pos0).to(dev), nv_t,
-            torch.from_numpy(bt_eff).to(dev), *self._pools(),
-            **self._adapter_args(np.where(self._running, self._aid, 0)))
-        q = None
-        if any(r is not None and r.do_sample for r in reqs):
-            # no q from the draft: every sampled row is draft-starved
-            # (nv = 1) and reads none
-            q = torch.stack([torch.zeros_like(logits[:, 0]) if x is None
-                             else x for x in qs], dim=1)
-        emit, n_emit = _acceptance(logits, toks, q, nv_t, reqs)
-        # the one read-back of the round
-        out = torch.cat([emit, n_emit[:, None]], dim=1).cpu().numpy()
-        emit, n_emit = out[:, :-1], out[:, -1]
+        t0_tr = time.perf_counter_ns() if rtrace.enabled() else 0
+        with span("serving.spec.round"):
+            cur = torch.from_numpy(self._tok).to(dev)
+            ts, qs = [cur], []
+            for j in range(K1):
+                part = self._running & dready & (nv > j)
+                bt_j = np.where(part[:, None], self._dbt, 0).astype(np.int32)
+                pos_j = np.where(part, pos0 + j, 0).astype(np.int32)
+                cur, q = self._draft_step(
+                    cur, torch.from_numpy(pos_j).to(dev),
+                    torch.from_numpy(bt_j).to(dev), dreqs)
+                if j < K1 - 1:
+                    ts.append(cur)
+                    qs.append(q)
+            counters.inc("serving.spec.draft_steps", K1)
+            bt_eff = np.where(self._running[:, None], self._bt, 0).astype(
+                np.int32)
+            toks = torch.stack(ts, dim=1)
+            nv_t = torch.from_numpy(nv).to(dev)
+            _dt = _devicetime.note(
+                self._prog_key(f"serving.verify_paged[k{self.spec_k}]"))
+            logits = self.model.verify_paged(
+                self._w, toks, torch.from_numpy(pos0).to(dev), nv_t,
+                torch.from_numpy(bt_eff).to(dev), *self._pools(),
+                **self._adapter_args(np.where(self._running, self._aid, 0)))
+            _devicetime.observe(_dt, logits)
+            q = None
+            if any(r is not None and r.do_sample for r in reqs):
+                # no q from the draft: every sampled row is draft-starved
+                # (nv = 1) and reads none
+                q = torch.stack([torch.zeros_like(logits[:, 0]) if x is None
+                                 else x for x in qs], dim=1)
+            emit, n_emit = _acceptance(logits, toks, q, nv_t, reqs)
+            # the one read-back of the round
+            out = torch.cat([emit, n_emit[:, None]], dim=1).cpu().numpy()
+            emit, n_emit = out[:, :-1], out[:, -1]
+        self._trace_decode(active, t0_tr)
         counters.inc("serving.spec.verify_steps")
         counters.inc("serving.decode_steps")
         emitted = int(sum(int(n_emit[s]) for s, _ in active))
@@ -476,6 +498,11 @@ class SpeculativeLLMEngine(PagedLLMEngine):
                 self._emit(req, int(emit[s, i]), events)
 
     # -- teardown / stats ----------------------------------------------------
+    def release_kv(self):
+        super().release_kv()
+        self.dpool_k = self.dpool_v = None
+        self.dscales = ()
+
     def _release_slot_kv(self, slot, req, reason):
         super()._release_slot_kv(slot, req, reason)
         dbl = self._dslot_blocks[slot]

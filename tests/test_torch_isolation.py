@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, and it never lands on the CPU unless asked to."""
+package — not at import time and not lazily inside a function — and it
+never lands on the CPU unless asked to."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -60,12 +62,77 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "paddle_tpu_torch.serving.adapters",
                 "paddle_tpu_torch.serving.kvcache",
                 "paddle_tpu_torch.resilience",
-                "paddle_tpu_torch.resilience.faultinject"):
+                "paddle_tpu_torch.resilience.faultinject",
+                "paddle_tpu_torch.profiler.counters",
+                "paddle_tpu_torch.profiler.host_tracer",
+                "paddle_tpu_torch.profiler.flight",
+                "paddle_tpu_torch.profiler.trace",
+                "paddle_tpu_torch.profiler.devicetime",
+                "paddle_tpu_torch.profiler.health",
+                "paddle_tpu_torch.serving.router",
+                "paddle_tpu_torch.serving.autoscale",
+                "paddle_tpu_torch.serving.fleet"):
         assert mod in mods, mod
     leaked = [m for m in mods
               if m == "jax" or m.startswith(("jax.", "jaxlib"))
               or m == "paddle_tpu" or m.startswith("paddle_tpu.")]
     assert leaked == []
+
+
+def _imports(path, package):
+    """``(module, relative)`` for every module an import statement
+    anywhere in ``path`` names (at module level or inside a function),
+    relative imports resolved against ``package``, plus literal
+    ``import_module`` / ``__import__`` arguments."""
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name, False
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                parts = package.split(".")
+                base = parts[:max(len(parts) - node.level + 1, 0)]
+                yield ".".join(base + ([node.module] if node.module
+                                       else [])), True
+            else:
+                yield node.module, False
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__")):
+            yield node.args[0].value, False
+
+
+def _escapes(path, package):
+    return [mod for mod, relative in _imports(path, package)
+            if mod.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")
+            or (relative and mod.split(".")[0] != "paddle_tpu_torch")]
+
+
+def test_no_import_of_jax_or_the_reference_even_lazily(tmp_path):
+    """The fleet, router and health plane import the profiler lazily in
+    places (as the reference does); every import statement of every
+    module of the port, nested ones included, stays inside the port."""
+    probe = tmp_path / "probe.py"
+    probe.write_text("def f():\n    import jax.numpy\n"
+                     "    from ... import paddle_tpu\n"
+                     "    importlib.import_module('paddle_tpu.serving')\n")
+    assert len(_escapes(str(probe), "paddle_tpu_torch.serving")) == 3
+    root = os.path.join(REPO, "paddle_tpu_torch")
+    seen, bad = 0, []
+    for d, _, files in os.walk(root):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(d, f)
+            rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+            package = (rel[:-len(".__init__")] if rel.endswith("__init__")
+                       else rel.rsplit(".", 1)[0])
+            seen += 1
+            bad += [(rel, m) for m in _escapes(path, package)]
+    assert seen > 50 and bad == []
 
 
 def test_model_without_gpu_raises_instead_of_using_cpu():
