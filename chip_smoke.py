@@ -11,10 +11,12 @@ script exits non-zero:
 2. build — builds every CUDA kernel of the port from the sources in the
    checkout (``paddle_tpu_torch/kernels/csrc``), one ``nvcc`` per source,
    all started together; prints registers, shared memory and spills per
-   variant (K4/K4q, K1–K3, K5).
+   variant (K4/K4q, K1–K3 in ``flash_attention.cu`` at head dims 64/96/
+   128 and in ``flash_attention_mma.cu`` at the others, K5).
 3. kernel_vs_plain — the paged decode kernel against its plain PyTorch
-   version on the card: K4 over fp32/bf16 pools and K4q over int8/fp8
-   pools (quantized by the port's ``quantize_kv``), over a grid of
+   version on the card: K4 over fp32/bf16/fp16 pools and K4q over
+   int8/fp8 pools (quantized by the port's ``quantize_kv``; fp32, bf16
+   and fp16 queries), over a grid of
    shapes, at the engine's shapes, and at shapes that hit its split-K
    design (pos on and beside split boundaries, rows whose later splits
    are all masked, one row at 64 blocks, one 8192-key table); every case
@@ -35,6 +37,11 @@ script exits non-zero:
    operands rounded to bf16, fp16 outputs) over S {128, 256, 1024} x D
    {64, 96, 128} x causal.  Every K2/K3 call runs twice and must give
    the same bits.
+5a. flash_hd_vs_plain — K1–K3 at the head dims off the wgmma kernels
+   (``flash_attention_mma.cu``): 12 head dims from 16 to 256 at S 256,
+   then D 256 (B 2, H 16, S 1024), D 32 (B 4, H 32, S 1024) and D 80,
+   each causal and not, in fp32, bf16 and fp16, the same tolerance and
+   equal-bits check.
 6. small_reference — a small fp32 model's paged prefill/decode on the
    card against the same model on the CPU (where the kernels' plain
    versions run), over fp32, int8 and fp8 pools.
@@ -46,6 +53,10 @@ script exits non-zero:
    the engine's pools, once through the kernel and once through the
    plain attention, compared in bf16 (in_model); and ``torch.profiler``
    over four decode-only engine steps (profile).
+7a. prompt_device — ROADMAP C's fault pinned: the first 4 prompts as
+   CUDA int64 tensors through the slot, paged, speculative (125M draft)
+   engines and an unthreaded ``ServingFleet``: the same sequences as the
+   prompts given as lists.
 8. engine_quant — the same model and the same 16 requests through
    ``LLMEngine(..., kv_dtype="int8", weight_dtype="int8")`` (K4q-int8
    launches == decode_steps x 24, no K4 launch; the quant counters move),
@@ -106,6 +117,12 @@ script exits non-zero:
     reconciled and dead pools released.  fleet_autoscale (4 layers):
     ``FLAGS_health`` on, ``slow_decode`` burns ITL, the autoscaler
     disaggregates and the alert resolves.
+11e. serve_fp16 — GPT-3 1.3B with ``dtype="float16"``, the 16 requests
+    through the paged engine (K4 over fp16 pools == decode_steps x 24),
+    ``kv_dtype="int8", weight_dtype="int8"`` (K4q with fp16 queries) and
+    the slot engine; in-model checks on the live pools; agreement with
+    the bf16 engine printed; K4 fp16 and K4q fp16-q timed at the fp16
+    engine's shape.
 12. slots_in_model — the 1.3B width at 2 layers: the slot path against
     the paged path (prefill and one decode step), each in bf16 and on
     fp32 copies (``_self_calibrated``); then migration_fp32: 8 requests
@@ -124,6 +141,14 @@ script exits non-zero:
     timed steps on one repeated batch.  K1–K3 launch counts are set to 0
     just before and must each equal 24 x steps; losses must be finite and
     fall.
+15a. gpt_dygraph — the same model and batch through Paddle's dygraph
+    loop on the ``Layer`` (``model(Tensor)``, ``GPTPretrainingCriterion``,
+    ``AdamW`` + ``ClipGradByGlobalNorm(1.0)``, ``loss.backward()``,
+    ``opt.step()``, ``opt.clear_grad()``): the first step bit-equal to
+    ``CompiledTrainStep``'s from the same weights, K1–K3 24/24/24 a step
+    by the counters and the trace; step ms, tokens/s, model-FLOPs share,
+    enqueue, busy share, peak GB; then 4 layers in fp16 with an eager
+    ``GradScaler``.
 16. train_profile — ``torch.profiler`` over one more step of that run
     (busy share, top device ops, device time by kind of op), CUDA events
     around the forward, backward and AdamW update of another, and the
@@ -177,10 +202,22 @@ script exits non-zero:
     plain versions, at O2 bf16 and at fp32 (``_self_calibrated``), then
     at O2 fp16 with a ``GradScaler`` (the fp16 instances), and that fp16
     step taken.
+22a. flash_hd_in_model — a 2-layer ``nn.TransformerEncoder(4096, 16,
+    16384)`` (16 heads of 256) forward and backward at B 4 x S 1024,
+    under ``auto_cast`` O2 bf16 and at fp32, through K1–K3 and their
+    plain versions (``_self_calibrated``), 2/2/2 launches by the counters
+    and the trace.
+22b. sparse_embedding — ``nn.Embedding(1_000_000, 256, sparse=True)``,
+    4096 x 26 Zipf ids a step, ``Adam(lazy_mode=True)`` + the global-norm
+    clip, 10 steps: untouched rows bit-equal, touched rows against a
+    plain row-wise update, ``lazy_mode=False`` against ``sparse=False``.
+22c. lbfgs — least squares at 8192 x 1024 fp32, 20 ``step(closure)``
+    calls, x against the CPU run's, the loss falls.
 23. times (K1–K3) — µs per launch at the training shape and at
     BERT-large's beside the plain versions, the bounds and
     ``scaled_dot_product_attention``'s flash forward and backward
-    (yardsticks the port never calls).
+    (yardsticks the port never calls); then at D 256 (B 2, H 16, S
+    1024, causal, bf16: the mma.sync kernels).
 
 The ``total`` line gives the whole run's seconds; the line before the
 last is the ``kernels`` JSON (K4's and K4q-int8's launches summed over
@@ -190,6 +227,7 @@ the engine, LoRA, host-tier, migration and fleet runs); the last line is
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -210,6 +248,7 @@ from paddle_tpu_torch import (AdamW, CompiledTrainStep, GPTConfig,
                               GPTForCausalLM, GPTPretrainingCriterion,
                               LLMEngine, flags)
 from paddle_tpu_torch.amp import GradScaler
+from paddle_tpu_torch.core.selected_rows import SelectedRows
 from paddle_tpu_torch.io import Window
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch import optimizer as optim
@@ -305,16 +344,19 @@ def _ptxas(log):
 def build_phase():
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    names = ("paged_attention", "flash_attention", "rms_norm")
+    names = ("paged_attention", "flash_attention", "flash_attention_mma",
+             "rms_norm")
     with ThreadPoolExecutor(len(names)) as ex:
         list(ex.map(_build.build, names))
     for name in names:
         _build.load(name)
-    lib = fa._lib()
-    smem = {f"{kind}_{dt}_{d}": lib.flash_attention_smem_bytes(i, d, bf)
+    dtypes = {"bf16": (1, torch.bfloat16), "fp16": (2, torch.float16),
+              "fp32": (0, torch.float32)}
+    smem = {f"{kind}_{dt}_{d}":
+            fa._lib(d, torch_dt).flash_attention_smem_bytes(i, d, code)
             for i, kind in enumerate(("K1", "K2", "K3"))
-            for dt, bf in (("bf16", 1), ("fp16", 2), ("fp32", 0))
-            for d in fa.KERNEL_HEAD_DIMS}
+            for dt, (code, torch_dt) in dtypes.items()
+            for d in (*fa.KERNEL_HEAD_DIMS, *FLASH_HD_DIMS)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": {n: _ptxas(_build.BUILD_LOGS.get(n, "")) or "(cached)"
                     for n in names},
@@ -381,6 +423,15 @@ def kernel_phase():
               for kv in quant for dt in (fp32, bf16)]
     cases += [dict(B=8, nh=16, hd=128, bs=16, max_blocks=64, q_dtype=bf16,
                    kv_dtype=kv, trash_row=True) for kv in quant]
+    # fp16 (B-ii): fp16 q over fp16 pools (K4) and over int8/fp8 pools
+    # (K4q), a grid, a head dim off it, and the engine's shape
+    fp16 = torch.float16
+    cases += [dict(B=B, nh=3, hd=hd, bs=bs, max_blocks=6, q_dtype=fp16,
+                   kv_dtype=kv, trash_row=True)
+              for kv in (fp16, *quant) for hd in (33, 64, 128)
+              for bs in (4, 16) for B in (1, 7)]
+    cases += [dict(B=8, nh=16, hd=128, bs=16, max_blocks=64, q_dtype=fp16,
+                   kv_dtype=kv, trash_row=True) for kv in (fp16, *quant)]
     # the split design (pa.SPLIT_KEYS = 64 keys a split at bs 4 and 16):
     # pos on and beside split boundaries, rows whose later splits are all
     # masked, one row at 64 blocks, and one long table (512 blocks of 16,
@@ -404,7 +455,8 @@ def kernel_phase():
     # the same atol for K4q: both sides widen identical bytes exactly and
     # sum in fp32, the kernel scaling logits and probabilities where the
     # plain version scales the widened values
-    worst = dict.fromkeys(("paged_decode_attention", *quant), 0.0)
+    worst = dict.fromkeys(("paged_decode_attention", "float16", *quant,
+                           *(f"{kv}_fp16q" for kv in quant)), 0.0)
     counts = dict.fromkeys(worst, 0)
     for case in cases:
         q, pk, pv, bt, pos, *scales = _paged_case(gen, **case)
@@ -420,7 +472,9 @@ def kernel_phase():
             raise AssertionError(f"paged_decode_attention: non-finite "
                                  f"output for {case}")
         err = float((out - ref).abs().max())
-        key = case["kv_dtype"] if scales else "paged_decode_attention"
+        fp16q = case["q_dtype"] == torch.float16
+        key = (f"{case['kv_dtype']}{'_fp16q' if fp16q else ''}" if scales
+               else "float16" if fp16q else "paged_decode_attention")
         worst[key] = max(worst[key], err)
         counts[key] += 1
         if err > KERNEL_ATOL:
@@ -2499,42 +2553,12 @@ def _qkv_views(gen, B, S, H, D, dtype):
             for t in qkv.split(H * D, -1)]
 
 
-def flash_phase():
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    worst = {"flash_fwd": 0.0, "flash_fwd_lse": 0.0, "flash_bwd_dq": 0.0,
-             "flash_bwd_dkv": 0.0}
-    ratio = dict.fromkeys(worst, 0.0)
-    # (B, H, S, D, dtype, causal): the grid, then the training main path's
-    # own shape (760M: batch 8, 16 heads of 96, S 1024, causal, bf16)
-    cases = [((2, 3) if S <= 256 else (1, 2)) + (S, D, dtype, causal)
-             for S in (128, 256, 1024, 2048) for D in (64, 96, 128)
-             for dtype in (torch.bfloat16, torch.float32)
-             for causal in (False, True)]
-    cases.append((TRAIN_B, 16, TRAIN_S, 96, torch.bfloat16, True))
-    # K1's Hopper kernel takes 128-row query tiles: one tile (S 128, one
-    # head), two (S 256), and a non-causal D 96 case over the strided
-    # projection views
-    cases += [(1, 1, 128, D, torch.bfloat16, causal)
-              for D in fa.KERNEL_HEAD_DIMS for causal in (False, True)]
-    cases += [(3, 5, 256, 96, torch.bfloat16, causal)
-              for causal in (False, True)]
-    cases.append((4, 16, TRAIN_S, 96, torch.bfloat16, False))
-    # K2/K3's persistent grids: 35 (b, h) x 16 tiles = 560 items, not a
-    # multiple of the card's SMs; and dO [B, H, S, D]-contiguous (another
-    # stride order for its tensor map) at the training shape
-    cases.append((5, 7, 2048, 96, torch.bfloat16, True))
-    cases.append((TRAIN_B, 16, TRAIN_S, 96, torch.bfloat16, True, "bhsd"))
-    # the 125M training paths' shape (train_fused, scaler_skip)
-    cases.append((FUSED_B, 12, TRAIN_S, 64, torch.bfloat16, True))
-    # BERT-large pretraining's shape (bert_train: 16 heads of 64, S 512,
-    # no mask), in bf16 and fp16; and the fp16 instances (bf16 kernels on
-    # operands rounded to bf16, fp16 outputs) over a grid of their own
-    cases += [(BERT_B, BERT_H, BERT_S, BERT_D, dtype, False)
-              for dtype in (torch.bfloat16, torch.float16)]
-    cases += [((2, 3) if S <= 256 else (1, 2)) + (S, D, torch.float16,
-                                                  causal)
-              for S in (128, 256, 1024) for D in fa.KERNEL_HEAD_DIMS
-              for causal in (False, True)]
+def _flash_check(gen, cases, worst, ratio):
+    """Hold K1–K3 to their plain versions on each case ``(B, H, S, D,
+    dtype, causal[, "bhsd"])``, per element within :func:`_flash_tol`,
+    with an LSE cotangent and without, every K2/K3 call run twice for
+    equal bits; ``worst``/``ratio`` gather the max abs error and err/tol
+    by output."""
     for B, H, S, D, dtype, causal, *do_layout in cases:
         q, k, v = _qkv_views(gen, B, S, H, D, dtype)
         do = torch.randn(B, S, H, D, generator=gen,
@@ -2591,6 +2615,77 @@ def flash_phase():
                     f"{name}: err {float(err[i])} > tol {float(tol[i])} at "
                     f"flat index {i} of {tuple(ref.shape)}, {where}")
         del checks
+
+
+#: head dims of the mma.sync kernels held to their plain versions: the
+#: bucket ends and a head dim inside each bucket (B-i)
+FLASH_HD_DIMS = (16, 32, 48, 80, 112, 144, 160, 192, 208, 224, 240, 256)
+
+
+def flash_hd_phase():
+    """K1–K3 at head dims off the wgmma kernels (``flash_attention_mma.cu``)
+    against their plain versions: every bucket small, then D 256 (B 2, H
+    16, S 1024: ``nn.MultiHeadAttention(4096, 16)``'s heads), D 32 (B 4,
+    H 32, S 1024) and D 80 (B 2, H 8, S 1024), each causal and not, in
+    fp32, bf16 and fp16."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = {"flash_fwd": 0.0, "flash_fwd_lse": 0.0, "flash_bwd_dq": 0.0,
+             "flash_bwd_dkv": 0.0}
+    ratio = dict.fromkeys(worst, 0.0)
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    cases = [(2, 2, 256, D, dt, causal) for D in FLASH_HD_DIMS
+             for dt in dtypes for causal in (False, True)]
+    cases += [shape + (dt, causal)
+              for shape in ((2, 16, 1024, 256), (4, 32, 1024, 32),
+                            (2, 8, 1024, 80))
+              for dt in dtypes for causal in (False, True)]
+    t0 = time.perf_counter()
+    _flash_check(gen, cases, worst, ratio)
+    emit({"phase": "flash_hd_vs_plain", "cases": len(cases),
+          "head_dims": list(FLASH_HD_DIMS), "bwd_equal_bits_on_two_runs": True,
+          "max_abs_err": worst, "worst_err_over_tol": ratio,
+          "seconds": time.perf_counter() - t0,
+          "tolerance": "as flash_vs_plain (_flash_tol)"})
+    return worst
+
+
+def flash_phase():
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = {"flash_fwd": 0.0, "flash_fwd_lse": 0.0, "flash_bwd_dq": 0.0,
+             "flash_bwd_dkv": 0.0}
+    ratio = dict.fromkeys(worst, 0.0)
+    # (B, H, S, D, dtype, causal): the grid, then the training main path's
+    # own shape (760M: batch 8, 16 heads of 96, S 1024, causal, bf16)
+    cases = [((2, 3) if S <= 256 else (1, 2)) + (S, D, dtype, causal)
+             for S in (128, 256, 1024, 2048) for D in (64, 96, 128)
+             for dtype in (torch.bfloat16, torch.float32)
+             for causal in (False, True)]
+    cases.append((TRAIN_B, 16, TRAIN_S, 96, torch.bfloat16, True))
+    # K1's Hopper kernel takes 128-row query tiles: one tile (S 128, one
+    # head), two (S 256), and a non-causal D 96 case over the strided
+    # projection views
+    cases += [(1, 1, 128, D, torch.bfloat16, causal)
+              for D in fa.KERNEL_HEAD_DIMS for causal in (False, True)]
+    cases += [(3, 5, 256, 96, torch.bfloat16, causal)
+              for causal in (False, True)]
+    cases.append((4, 16, TRAIN_S, 96, torch.bfloat16, False))
+    # K2/K3's persistent grids: 35 (b, h) x 16 tiles = 560 items, not a
+    # multiple of the card's SMs; and dO [B, H, S, D]-contiguous (another
+    # stride order for its tensor map) at the training shape
+    cases.append((5, 7, 2048, 96, torch.bfloat16, True))
+    cases.append((TRAIN_B, 16, TRAIN_S, 96, torch.bfloat16, True, "bhsd"))
+    # the 125M training paths' shape (train_fused, scaler_skip)
+    cases.append((FUSED_B, 12, TRAIN_S, 64, torch.bfloat16, True))
+    # BERT-large pretraining's shape (bert_train: 16 heads of 64, S 512,
+    # no mask), in bf16 and fp16; and the fp16 instances (bf16 kernels on
+    # operands rounded to bf16, fp16 outputs) over a grid of their own
+    cases += [(BERT_B, BERT_H, BERT_S, BERT_D, dtype, False)
+              for dtype in (torch.bfloat16, torch.float16)]
+    cases += [((2, 3) if S <= 256 else (1, 2)) + (S, D, torch.float16,
+                                                  causal)
+              for S in (128, 256, 1024) for D in fa.KERNEL_HEAD_DIMS
+              for causal in (False, True)]
+    _flash_check(gen, cases, worst, ratio)
     emit({"phase": "flash_vs_plain", "cases": len(cases),
           "bwd_equal_bits_on_two_runs": True,
           "max_abs_err": worst, "worst_err_over_tol": ratio,
@@ -2636,7 +2731,7 @@ def train_phase():
     opt = AdamW(1e-4, parameters=model.named_parameters())
     step = CompiledTrainStep(model, lambda m, x, y: crit(m(x), y), opt)
     ids, labels = _batch(cfg, TRAIN_B, TRAIN_S, seed=1)
-    n_params = sum(p.numel() for p in model.parameters())
+    n_params = sum(p.numel() for p in torch.nn.Module.parameters(model))
     torch.cuda.reset_peak_memory_stats()
 
     # -- the counted main-path run ------------------------------------------
@@ -2707,19 +2802,33 @@ FLASH_DEVICE_NAMES = {"flash_fwd": "flash_fwd_wgmma_kernel",
                       "flash_bwd_dkv": "flash_bwd_dkv_wgmma_kernel"}
 
 
-def _profile(fn, top=12):
+def _profile(fn, top=12, names=None, warmup=False):
     """``torch.profiler`` over one call of ``fn`` (synchronised): its
     wall time, the device time, the device's busy share of the wall
     time, device time by kind of op, the ``top`` device ops, and the
-    K1–K3 kernels the device ran, counted in the trace."""
+    K1–K3 kernels the device ran, counted in the trace.  ``warmup``:
+    ``fn`` runs once more before, under the profiler's warm-up step, so
+    the traced call's first kernels are not lost while tracing starts
+    (on an H100 a trace without it once showed 23 of a step's 24 K1
+    launches); its kernel counts are the traced call's, but its device
+    times take in more than the traced call: use them only for the
+    counts."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    sched = (torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+             if warmup else None)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        if warmup:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        if warmup:
+            prof.step()
     ops = sorted((e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA),
                  key=_dev_us, reverse=True)
@@ -2735,7 +2844,13 @@ def _profile(fn, top=12):
                                 "calls": e.count} for e in ops[:top]
                                if _dev_us(e) > 0],
             "flash_kernels_run": {n: sum(e.count for e in ops if f in e.key)
-                                  for n, f in FLASH_DEVICE_NAMES.items()}}
+                                  for n, f in (names or FLASH_DEVICE_NAMES
+                                               ).items()},
+            # every traced event of those names, whatever device it is
+            # attributed to (what a failed gate prints beside its counts)
+            "flash_events_any_device": {
+                n: sum(1 for e in prof.events() if f in e.name)
+                for n, f in (names or FLASH_DEVICE_NAMES).items()}}
 
 
 def train_profile_phase(step, model, crit, opt, ids, labels):
@@ -2822,8 +2937,8 @@ def train_in_model_phase():
         _reset_flash_counts()
         loss = crit(model(ids, kernel=kernel), labels)
         loss.backward()
-        res[run] = (loss.item(), {n: p.grad.float()
-                                  for n, p in model.named_parameters()},
+        named = torch.nn.Module.named_parameters(model)
+        res[run] = (loss.item(), {n: p.grad.float() for n, p in named},
                     {fn.__name__: fn.launches for fn in FLASH_KERNELS})
         model.zero_grad(set_to_none=True)
     torch.cuda.synchronize()
@@ -2934,7 +3049,7 @@ def train_loop_phase():
     flags.set_flags({"FLAGS_peak_tflops": BF16_FLOPS / 1e12})
     sched, opt, step = _loop(model, "gpt3_760m")
     ids, labels = _batch(cfg, TRAIN_B, TRAIN_S, seed=1)
-    n_params = sum(p.numel() for p in model.parameters())
+    n_params = sum(p.numel() for p in torch.nn.Module.parameters(model))
     torch.cuda.reset_peak_memory_stats()
 
     _reset_flash_counts()
@@ -3024,7 +3139,8 @@ def _window(args, lo, hi):
 
 def _snapshot(model, opt):
     """Copies of the parameters and the optimizer's state."""
-    return [p.detach().clone() for p in model.parameters()], opt.state_dict()
+    return ([p.detach().clone() for p in torch.nn.Module.parameters(model)],
+            opt.state_dict())
 
 
 def _same_state(a, b):
@@ -3038,6 +3154,53 @@ def _same_state(a, b):
               for acc, store in sa["accumulators"].items()
               for n, t in store.items()]
     return all(torch.equal(x, y) for x, y in pairs)
+
+
+def _fused_traces():
+    """The body of :func:`_fused_traces_in_fresh_process`: GPT-3 125M as
+    train_fused runs it, a priming window and a captured one, then one
+    replay and 4 single steps each traced after a warm-up call; prints
+    their ``_profile`` counts as one JSON line."""
+    cfg = _fused_cfg()
+    K = FUSED_K
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    args = tuple(torch.randint(0, cfg.vocab_size, (2 * K, FUSED_B, TRAIN_S),
+                               generator=gen, device="cuda")
+                 for _ in range(2))
+    steps = []
+    for k in (K, 1):
+        model = GPTForCausalLM(cfg, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+        steps.append(_loop(model, "gpt3_125m", k=k)[2])
+    st4, st1 = steps
+    st4(_window(args, 0, K))
+    st4(_window(args, K, 2 * K))            # the capture
+    win = _window(args, K, 2 * K)
+    keep = ("flash_kernels_run", "flash_events_any_device")
+    traces = {
+        "replay": _profile(lambda: st4(win), top=0, warmup=True),
+        "single_steps": _profile(
+            lambda: [st1(*(a[K + i] for a in args)) for i in range(K)],
+            top=0, warmup=True)}
+    print(json.dumps({k: {n: v[n] for n in keep}
+                      for k, v in traces.items()}), flush=True)
+
+
+def _fused_traces_in_fresh_process():
+    """train_fused's trace counts, taken in a child process that has
+    traced nothing before: deep into this script the profiler twice
+    dropped one of a replay's 96 K1 events (a warm-up trace first did
+    not help once), while a fresh process traced 96 of 96 in every trial
+    on the same card."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke as cs; cs.device_phase(); "
+         "cs._fused_traces()"],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"train_fused: the trace process failed:\n"
+                           f"{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def train_fused_phase():
@@ -3115,6 +3278,9 @@ def train_fused_phase():
     single_ms = float(np.median(single_s)) * 1e3
     del runs, m4, m1, o4, o1, st4, st1
     _free_cuda()
+    traces = _fused_traces_in_fresh_process()
+    ran = {k: v["flash_kernels_run"] for k, v in traces.items()}
+    any_device = {k: v["flash_events_any_device"] for k, v in traces.items()}
     dropout = _fresh_masks_check()
     step_count = _step_count_optimizers_check()
     record = {
@@ -3155,11 +3321,10 @@ def train_fused_phase():
                              f"{want} a window")
     # the wrappers' counts of a replay are what its capture recorded; the
     # trace shows what the device ran
-    ran = {"replay": fused_busy["flash_kernels_run"],
-           "single_steps": single_busy["flash_kernels_run"]}
     if any(r != want for r in ran.values()):
         raise AssertionError(f"train_fused: the trace shows K1-K3 run "
-                             f"{ran}, want {want} a window of {K} steps")
+                             f"{ran}, want {want} a window of {K} steps "
+                             f"(events on any device: {any_device})")
     if moved4[0][0].get("jit.fused_fallback_steps") != K \
             or moved4[3][0].get("jit.fused_fallback_steps") != n - 3 * K:
         raise AssertionError(f"train_fused: priming/tail fallbacks "
@@ -3212,7 +3377,7 @@ def _step_count_optimizers_check():
                                 if k > 1 else step(ids[lo], labels[lo])[None]
                                 for lo in range(0, 3 * FUSED_K, k)])
             runs.append((losses, [p.detach().clone()
-                                  for p in model.parameters()]))
+                                  for p in torch.nn.Module.parameters(model)]))
         (l4, p4), (l1, p1) = runs
         out[name] = {"losses": torch.equal(l4, l1),
                      "params": all(torch.equal(a, b)
@@ -3421,15 +3586,18 @@ def bert_train_phase():
             "kernels.flash.reference_fallbacks", 0):
         raise AssertionError(f"bert_train: counters {moved}")
 
-    # one more step under the profiler: the trace must show the kernels
-    # the counters (set to 0 just before) say were launched
-    _reset_flash_counts()
+    # one more step under the profiler for the record; then the gate: the
+    # trace of a step (after a warm-up step) must show the kernels the
+    # counters (set to 0 just before) say were launched
     prof = _profile(lambda: _bert_step(model, crit, opt, batch), top=15)
-    counted = {fn.__name__: fn.launches for fn in FLASH_KERNELS}
-    if prof["flash_kernels_run"] != per_step or counted != per_step:
+    _reset_flash_counts()
+    traced = _profile(lambda: _bert_step(model, crit, opt, batch), top=0,
+                      warmup=True)["flash_kernels_run"]
+    counted = {fn.__name__: fn.launches // 2 for fn in FLASH_KERNELS}
+    if traced != per_step or counted != per_step:
         raise AssertionError(
-            f"bert_train: one step ran {prof['flash_kernels_run']} in the "
-            f"trace and {counted} by the counters, want {per_step}")
+            f"bert_train: one step ran {traced} in the trace and "
+            f"{counted} by the counters, want {per_step}")
     p50 = float(np.median(step_s))
     tokens = BERT_B * BERT_S
     record = {
@@ -3740,6 +3908,590 @@ def flash_times_phase(max_err, launches, bert_launches):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# CUDA prompts, fp16 serving, the dygraph GPT, head dims off the wgmma
+# kernels, sparse embeddings, LBFGS
+# ---------------------------------------------------------------------------
+#: prompts (the engine phase's first) and new tokens of prompt_device
+PROMPT_DEVICE_N, PROMPT_DEVICE_NEW = 4, 8
+
+
+def prompt_device_phase(model, prompts):
+    """ROADMAP C's fault, pinned on the card: the engine phase's first
+    prompts as CUDA int64 tensors through the slot engine, the paged
+    engine, the speculative engine (a random GPT-3 125M draft) and an
+    unthreaded ``ServingFleet``; each must give the sequences the same
+    prompts give as lists."""
+    t0 = time.perf_counter()
+    sub = [np.asarray(p) for p in prompts[:PROMPT_DEVICE_N]]
+    on_card = [torch.as_tensor(p, dtype=torch.int64, device="cuda")
+               for p in sub]
+    draft = GPTForCausalLM(_draft_cfg(), device="cuda",
+                           generator=torch.Generator().manual_seed(1))
+    engines = {
+        "slots": lambda: LLMEngine(model, max_slots=8, max_seq_len=1024),
+        "paged": lambda: LLMEngine(model, **FLEET_ENGINE),
+        "speculative": lambda: _spec_engine(model, draft),
+        "fleet": lambda: ServingFleet(model, replicas=2, threaded=False,
+                                      **FLEET_ENGINE)}
+    tokens = {}
+    for name, make in engines.items():
+        runs = []
+        for ps in ([p.tolist() for p in sub], on_card):
+            eng = make()
+            seqs = eng.generate(ps, max_new_tokens=PROMPT_DEVICE_NEW)
+            eng.drain()
+            runs.append([np.asarray(s).tolist() for s in seqs])
+            del eng
+        if runs[0] != runs[1]:
+            raise AssertionError(f"prompt_device: {name} gave other tokens "
+                                 "for CUDA tensor prompts than for lists")
+        tokens[name] = sum(len(s) - len(p) for s, p in zip(runs[1], sub))
+    del draft
+    _free_cuda()
+    emit({"phase": "prompt_device", "card": CARD,
+          "prompts": PROMPT_DEVICE_N, "prompt_dtype": "torch.int64 on cuda",
+          "new_tokens_by_engine": tokens,
+          "tokens_equal_to_list_prompts": True,
+          "seconds": time.perf_counter() - t0})
+
+
+def serve_fp16_phase(prompts, bf16_tokens, max_err):
+    """GPT-3 1.3B with ``dtype="float16"`` at full width and depth,
+    random weights from seed 0, the engine phase's 16 requests through
+    the paged engine (K4 over fp16 pools: launches == decode_steps x 24),
+    with ``kv_dtype="int8", weight_dtype="int8"`` (K4q with fp16 queries)
+    and through the slot engine (no paged launch); each paged run's
+    in-model check holds K4/K4q to their plain versions on the live
+    pools; greedy agreement with the bf16 engine is printed, not gated.
+    Returns the K4 fp16 / K4q-int8 fp16-q rows of the ``kernels`` line."""
+    cfg = GPTConfig.gpt3_1_3b(dtype="float16")
+    model = GPTForCausalLM(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    runs, snaps = {}, {}
+    for phase, kw in (("serve_fp16", {}),
+                      ("serve_fp16_int8", dict(kv_dtype="int8",
+                                               weight_dtype="int8")),
+                      ("serve_fp16_slots", None)):
+        eng = (LLMEngine(model, max_slots=8, max_seq_len=1024) if kw is None
+               else LLMEngine(model, **FLEET_ENGINE, **kw))
+        eng.generate([np.arange(64) % cfg.vocab_size], max_new_tokens=2)
+        torch.cuda.synchronize()
+        rec, hs, snap = _serve_counted(eng, prompts, 32, phase)
+        rec.update(model="gpt3_1_3b fp16", card=CARD,
+                   greedy_token_agreement_with_bf16=_agreement(hs,
+                                                               bf16_tokens))
+        emit(rec)
+        if snap is not None:
+            _in_model(model, eng._w, snap, phase + "_in_model")
+            snaps[phase] = snap
+        runs[phase] = rec
+        del eng
+        _free_cuda()
+    # per-call times at the fp16 engine's mid-run shape: K4 over its fp16
+    # pools, K4q over the same pools quantized to int8, an fp16 query
+    snap = snaps["serve_fp16"]
+    pk_all, pv_all = snap["pools"]
+    bt = torch.from_numpy(snap["bt"].astype(np.int32)).cuda()
+    pos = torch.from_numpy(snap["pos"].astype(np.int32)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    B, nh, hd = bt.shape[0], pk_all.shape[3], pk_all.shape[4]
+    q = (torch.randn(B, nh, hd, generator=gen, device="cuda")
+         / math.sqrt(hd)).to(torch.float16)
+    (qk, sk), (qv, sv) = (pa.quantize_kv(t, "int8") for t in (pk_all,
+                                                              pv_all))
+    times = _paged_times(q, {None: (pk_all, pv_all), "int8": (qk, qv, sk,
+                                                              sv)},
+                         bt, pos, 48)
+    del snaps, snap, model
+    _free_cuda()
+    rows = []
+    for kv, name, run, err in ((None, "paged_decode_attention_fp16",
+                                "serve_fp16", "float16"),
+                               ("int8", "paged_decode_attention_int8_fp16q",
+                                "serve_fp16_int8", "int8_fp16q")):
+        r = times[kv]
+        launched = runs[run]["launches"][
+            "paged_decode_attention" if kv is None
+            else "paged_decode_attention_int8"]
+        emit({"phase": "times", "kernel": name, "card": CARD,
+              "case": "fp16 engine mid-run", "shape": r["shape"],
+              "kernel_us": r["ms"] * 1e3, "plain_us": r["plain_ms"] * 1e3,
+              "library_us": (None if r["library_ms"] is None
+                             else r["library_ms"] * 1e3),
+              "bound_us": r["bound_ms"] * 1e3, "bound_by": r["bound_by"],
+              "share_of_bound": r["bound_ms"] / r["ms"],
+              "event_us": {k: v * 1e3 for k, v in r["event_ms"].items()}})
+        rows.append({"name": name, "route": "cuda",
+                     "source": "paddle_tpu_torch/kernels/csrc/"
+                               "paged_attention.cu",
+                     "replaces": "paddle_tpu/kernels/paged_attention.py:132",
+                     "launches": launched,
+                     "max_abs_err": max_err[err], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"],
+                     "event_ms": r["event_ms"]["kernel"]})
+    return rows
+
+
+def _bits_equal(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def gpt_dygraph_phase():
+    """GPT-3 760M bf16 at full width and depth (24 layers, 16 heads of
+    96), batch 8 x 1024, trained through Paddle's dygraph loop on the
+    ``Layer``: ``model(ids)`` on Tensors, ``GPTPretrainingCriterion``,
+    ``AdamW(1e-4, parameters=model.parameters(),
+    grad_clip=ClipGradByGlobalNorm(1.0))``, ``loss.backward()``,
+    ``opt.step()``, ``opt.clear_grad()``; 2 warm-up and 8 timed steps.
+    Gates: the first step's loss and every updated parameter equal
+    ``CompiledTrainStep``'s from the same weights and batch bit for bit
+    (the same torch ops in the same order; stricter than
+    ``_self_calibrated``); K1/K2/K3 24/24/24 a step by the counters and
+    in the profiler's trace of one more step.  Then a 4-layer fp16 run
+    with an eager ``GradScaler`` (the fp16 instances of K1–K3)."""
+    cfg = _train_cfg()
+    ids, labels = _batch(cfg, TRAIN_B, TRAIN_S, seed=12)
+    crit = GPTPretrainingCriterion()
+
+    def build(c=cfg):
+        return GPTForCausalLM(c, device="cuda",
+                              generator=torch.Generator().manual_seed(0))
+
+    def optimizer(model):
+        return AdamW(1e-4, parameters=model.parameters(),
+                     grad_clip=ClipGradByGlobalNorm(1.0))
+
+    # the yardstick: CompiledTrainStep's first step from the same weights
+    ref = build()
+    step = CompiledTrainStep(ref, lambda m, x, y: crit(m(x), y),
+                             optimizer(ref))
+    ref_loss = step(ids, labels).clone()
+    ref_params = [p.detach().clone() for p in torch.nn.Module.parameters(ref)]
+    del step, ref
+    _free_cuda()
+
+    model = build()
+    opt = optimizer(model)
+    x, y = paddle.to_tensor(ids), paddle.to_tensor(labels)
+    n_params = sum(p.numel() for p in torch.nn.Module.parameters(model))
+
+    def dygraph_step():
+        loss = crit(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_counts()
+    before = counters.snapshot()
+    losses, step_s, enqueue_s = [], [], []
+    for i in range(WARMUP + TRAIN_STEPS):
+        t = time.perf_counter()
+        loss = dygraph_step()
+        queued = time.perf_counter()
+        torch.cuda.synchronize()
+        if i >= WARMUP:
+            step_s.append(time.perf_counter() - t)
+            enqueue_s.append(queued - t)
+        if i == 0:
+            if not isinstance(loss, paddle.Tensor):
+                raise AssertionError(f"gpt_dygraph: the loss is {type(loss)}")
+            same = [_bits_equal(p.detach(), r) for p, r in
+                    zip(torch.nn.Module.parameters(model), ref_params)]
+            if not (_bits_equal(loss._data.detach(), ref_loss)
+                    and all(same)):
+                raise AssertionError(
+                    f"gpt_dygraph: first step differs from "
+                    f"CompiledTrainStep's: loss {float(loss)} vs "
+                    f"{float(ref_loss)}, {same.count(False)} parameters")
+            del ref_params
+        losses.append(float(loss))
+    launches = {fn.__name__: fn.launches for fn in FLASH_KERNELS}
+    moved = counters.delta(before)
+    peak = torch.cuda.max_memory_allocated()
+    steps, L = WARMUP + TRAIN_STEPS, cfg.num_layers
+    per_step = dict.fromkeys(launches, L)
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"gpt_dygraph: losses {losses}")
+    if launches != {n: L * steps for n in launches} or moved.get(
+            "optimizer.steps") != steps or moved.get(
+            "kernels.flash.reference_fallbacks", 0):
+        raise AssertionError(f"gpt_dygraph: launches {launches}, counters "
+                             f"{moved}")
+    # one step profiled for the record (as bert_train), then the gate on a
+    # trace whose warm-up step absorbs the start of tracing
+    prof = _profile(dygraph_step, top=12)
+    _reset_flash_counts()
+    traced = _profile(dygraph_step, top=0, warmup=True)["flash_kernels_run"]
+    counted = {fn.__name__: fn.launches // 2 for fn in FLASH_KERNELS}
+    if traced != per_step or counted != per_step:
+        raise AssertionError(
+            f"gpt_dygraph: one step ran {traced} in the trace and "
+            f"{counted} by the counters, want {per_step}")
+    p50 = float(np.median(step_s))
+    tokens = TRAIN_B * TRAIN_S
+    record = {
+        "phase": "gpt_dygraph", "model": "gpt3_760m bf16", "card": CARD,
+        "layers": L, "params": n_params, "batch": [TRAIN_B, TRAIN_S],
+        "loop": "model(Tensor), GPTPretrainingCriterion, loss.backward(), "
+                "AdamW + ClipGradByGlobalNorm(1.0), opt.step(), "
+                "opt.clear_grad()",
+        "first_step_bit_equal_to_compiled_train_step": True,
+        "steps": steps, "warmup": WARMUP, "losses": losses,
+        "step_ms_p50": p50 * 1e3, "step_ms": [s * 1e3 for s in step_s],
+        "tokens_per_s": tokens / p50,
+        "model_flops_share_of_bf16_peak": 6 * n_params * tokens / p50
+        / BF16_FLOPS,
+        "host_enqueue_ms_p50": float(np.median(enqueue_s)) * 1e3,
+        "device_busy_share_of_p50": prof["device_us"] / 1e3 / (p50 * 1e3),
+        "peak_mem_gb": peak / 1e9, "launches": launches,
+        "launches_per_step": per_step, "profiled_step": prof}
+    emit(record)
+    del model, opt, x, y, loss
+    _free_cuda()
+
+    # the fp16 instances on the same loop: 4 layers, an eager GradScaler
+    cfg16 = GPTConfig.gpt3_760m(vocab_size=50304, max_seq_len=TRAIN_S,
+                                dtype="float16")
+    cfg16.num_layers = 4
+    m16 = build(cfg16)
+    opt16 = optimizer(m16)
+    scaler = GradScaler(init_loss_scaling=2.0 ** 15)
+    x, y = paddle.to_tensor(ids), paddle.to_tensor(labels)
+    _reset_flash_counts()
+    losses16 = []
+    for _ in range(4):
+        loss = crit(m16(x), y)
+        scaler.scale(loss).backward()
+        scaler.step(opt16)
+        opt16.clear_grad()
+        losses16.append(float(loss))
+    counted = {fn.__name__: fn.launches for fn in FLASH_KERNELS}
+    ok = (all(math.isfinite(v) for v in losses16)
+          and counted == dict.fromkeys(counted, 4 * 4)
+          and not scaler._found_inf
+          and all(bool(torch.isfinite(p).all())
+                  for p in torch.nn.Module.parameters(m16)))
+    emit({"phase": "gpt_dygraph_fp16", "card": CARD, "layers": 4,
+          "losses": losses16, "launches": counted,
+          "loss_scale": float(scaler.get_loss_scaling())})
+    if not ok:
+        raise AssertionError(f"gpt_dygraph_fp16: losses {losses16}, "
+                             f"launches {counted}")
+    del m16, opt16
+    _free_cuda()
+    return record
+
+
+#: K1–K3's device functions in ``flash_attention_mma.cu`` (head dims off
+#: the wgmma kernels), as a trace shows them
+FLASH_MMA_DEVICE_NAMES = {"flash_fwd": "flash_fwd_kernel<",
+                          "flash_bwd_dq": "flash_bwd_dq_kernel<",
+                          "flash_bwd_dkv": "flash_bwd_dkv_kernel<"}
+
+
+def flash_hd_in_model_phase():
+    """A 2-layer paddle-style ``nn.TransformerEncoder(d_model=4096,
+    nhead=16, dim_feedforward=16384, dropout=0, activation="gelu")`` —
+    16 heads of 256, the
+    head dim ``scaled_dot_product_attention`` routes to the kernels —
+    forward and backward on B 4 x S 1024: under ``auto_cast`` O2 bf16
+    and at fp32, each through K1–K3 and through their plain versions;
+    outputs and input gradients held by ``_self_calibrated``; K1/K2/K3
+    launched 2/2/2 a kernel run (0 a plain one) by the counters, and in
+    the profiler's trace of the O2 run."""
+    paddle.seed(8)
+    # GELU, as BERT and GPT: with the default ReLU, forward outputs that
+    # agree to fp32 rounding flip a few of the 67M ReLU masks, and those
+    # kinks alone move the input gradient between two fp32 runs far past
+    # rounding (seen on an H100), which no gradient check of the
+    # attention can see past
+    enc = paddle.nn.TransformerEncoder(
+        paddle.nn.TransformerEncoderLayer(4096, 16, 16384, dropout=0.0,
+                                          activation="gelu"), 2)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    xs = torch.randn(4, 1024, 4096, generator=gen, device="cuda")
+    gs = torch.randn(4, 1024, 4096, generator=gen, device="cuda")
+
+    def run(level, plain):
+        x = paddle.to_tensor(xs.clone(), stop_gradient=False)
+        _reset_flash_counts()
+        with (_plain_attention() if plain else contextlib.nullcontext()), \
+                paddle.amp.auto_cast(enable=level != "O0", level=level,
+                                     dtype="bfloat16"):
+            out = enc(x)
+        out.backward(paddle.to_tensor(gs.to(out.dtype)))
+        res = (out._data.detach().float().reshape(-1, 4096),
+               x.grad._data.float().reshape(-1, 4096),
+               {fn.__name__: fn.launches for fn in FLASH_KERNELS})
+        enc.clear_gradients()
+        return res
+
+    runs = {(lv, p): run(lv, p) for lv in ("O2", "O0") for p in (False,
+                                                                 True)}
+    want = {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    for (lv, plain), (_, _, launched) in runs.items():
+        if launched != (dict.fromkeys(want, 0) if plain else want):
+            raise AssertionError(f"flash_hd_in_model: {lv} plain={plain} "
+                                 f"launched {launched}")
+    rec = {"phase": "flash_hd_in_model", "card": CARD, "layers": 2,
+           "d_model": 4096, "heads": 16, "head_dim": 256,
+           "batch": [4, 1024], "launches_per_kernel_run": want}
+    for i, what in enumerate(("output", "input_grad")):
+        rec[what] = _self_calibrated(
+            f"flash_hd_in_model {what}", runs[("O2", False)][i],
+            runs[("O2", True)][i], runs[("O0", False)][i],
+            runs[("O0", True)][i],
+            floor_share=(SELF_CALIBRATED_FLOOR if i == 0
+                         else BERT_GRAD_FLOOR))
+    traced = _profile(lambda: run("O2", False), top=0,
+                      names=FLASH_MMA_DEVICE_NAMES,
+                      warmup=True)["flash_kernels_run"]
+    if traced != want:
+        raise AssertionError(f"flash_hd_in_model: the trace shows "
+                             f"{traced}, want {want}")
+    rec["traced_o2_run"] = traced
+    emit(rec)
+    del enc, runs
+    _free_cuda()
+    return want
+
+
+SPARSE_V, SPARSE_DIM, SPARSE_B, SPARSE_FIELDS = 1_000_000, 256, 4096, 26
+SPARSE_STEPS, SPARSE_LR = 10, 1e-3
+
+
+def _sparse_batches(seed):
+    """``SPARSE_STEPS`` batches of 4096 x 26 ids (26: the categorical
+    fields of Criteo's display-advertising data), each field's ids drawn
+    Zipf-skewed (p_k ∝ 1/(k+1)^1.05 over the table) and scattered over
+    the table by a multiplicative hash, with click labels at a 0.25
+    rate; numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, SPARSE_V + 1) ** 1.05
+    cdf = np.cumsum(p / p.sum())
+    out = []
+    for _ in range(SPARSE_STEPS):
+        ranks = np.searchsorted(cdf, rng.random((SPARSE_B, SPARSE_FIELDS)))
+        ranks = np.minimum(ranks, SPARSE_V - 1)
+        ids = (ranks * 2654435761 + np.arange(SPARSE_FIELDS) * 40503) \
+            % SPARSE_V
+        labels = (rng.random(SPARSE_B) < 0.25).astype(np.float32)
+        out.append((torch.from_numpy(ids).cuda(),
+                    torch.from_numpy(labels).cuda()))
+    return out
+
+
+def _sparse_model(sparse, w0, head0):
+    emb = paddle.nn.Embedding(SPARSE_V, SPARSE_DIM, sparse=sparse)
+    head = paddle.nn.Linear(SPARSE_DIM, 1)
+    emb.weight.set_value(w0)
+    head.weight.set_value(head0)
+    head.bias.set_value(torch.zeros(1, device="cuda"))
+    return emb, head
+
+
+def _sparse_loss(emb, head, ids, labels):
+    """Embedding -> sum over the fields -> Linear -> BCE with logits (the
+    port's Tensor has no reductions yet, so the sum and the loss are torch
+    ops on its data, inside the same graph)."""
+    e = emb(paddle.to_tensor(ids))
+    logit = head(paddle.Tensor._wrap(e._data.sum(1)))
+    return paddle.Tensor._wrap(F.binary_cross_entropy_with_logits(
+        logit._data[:, 0], labels))
+
+
+def sparse_embedding_phase():
+    """``nn.Embedding(1_000_000, 256, sparse=True)`` (a 1.02 GB fp32
+    table) -> sum over 26 fields -> ``Linear`` -> BCE, batch 4096,
+    ``Adam(1e-3, lazy_mode=True)`` with ``ClipGradByGlobalNorm(1.0)``, 10
+    steps.  Gates: rows no batch touched are bit-equal to their start;
+    touched rows equal a plain fp32 row-wise update written here (clip
+    over the merged rows and the head's gradients, Adam on the unique
+    rows) within Adam's bounds; with ``lazy_mode=False`` the trajectory
+    equals ``sparse=False`` within the same bounds, losses within 1e-5
+    relative.  Step ms of the sparse and the dense table printed."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    w0 = torch.randn(SPARSE_V, SPARSE_DIM, generator=gen, device="cuda")
+    head0 = torch.randn(SPARSE_DIM, 1, generator=gen, device="cuda") * 0.05
+    batches = _sparse_batches(17)
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    bound = 2 * SPARSE_STEPS * SPARSE_LR
+
+    def within_adam_bounds(what, got, want):
+        """Adam moves an element by at most lr a step, so two runs differ
+        by at most 2·steps·lr; an element whose gradient is within
+        rounding of 0 may take the other sign, so at most 1e-4 of the
+        elements may differ by more than 1% of lr."""
+        diff = (got - want).abs()
+        off = int((diff > 0.01 * SPARSE_LR).sum())
+        if float(diff.max()) > bound or off > 1e-4 * diff.numel():
+            raise AssertionError(f"sparse_embedding {what}: max diff "
+                                 f"{float(diff.max())}, {off} elements "
+                                 "off by more than 1% of lr")
+        return {"max_abs_diff": float(diff.max()), "off_by_1pct_lr": off}
+
+    def train(sparse, lazy, reference=False):
+        emb, head = _sparse_model(sparse, w0, head0)
+        params = [emb.weight, head.weight, head.bias]
+        opt = paddle.optimizer.Adam(SPARSE_LR, parameters=params,
+                                    lazy_mode=lazy,
+                                    grad_clip=ClipGradByGlobalNorm(1.0))
+        ref = ({"w": w0.clone(), "m": torch.zeros_like(w0),
+                "v": torch.zeros_like(w0)} if reference else None)
+        losses, step_s = [], []
+        for t, (ids, labels) in enumerate(batches, 1):
+            t0 = time.perf_counter()
+            loss = _sparse_loss(emb, head, ids, labels)
+            loss.backward()
+            if ref is not None:
+                sr = emb.weight.grad
+                if not isinstance(sr, SelectedRows):
+                    raise AssertionError("sparse_embedding: the table's "
+                                         f"gradient is {type(sr)}")
+                rows, inv = torch.unique(sr.rows, return_inverse=True)
+                g = torch.zeros(rows.numel(), SPARSE_DIM, device="cuda")
+                g.index_add_(0, inv, sr.values.float())
+                dense = [p.grad._data.float() for p in params[1:]]
+                norm = torch.sqrt((g * g).sum()
+                                  + sum((d * d).sum() for d in dense))
+                g = g * (1.0 / torch.clamp(norm, min=1.0))
+                m = b1 * ref["m"][rows] + (1 - b1) * g
+                v = b2 * ref["v"][rows] + (1 - b2) * g * g
+                ref["m"][rows], ref["v"][rows] = m, v
+                ref["w"][rows] -= SPARSE_LR * (m / (1 - b1 ** t)) / (
+                    torch.sqrt(v / (1 - b2 ** t)) + eps)
+            opt.step()
+            opt.clear_grad()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        return emb, losses, step_s, ref
+
+    # lazy_mode: the main path
+    emb, losses, lazy_s, ref = train(True, True, reference=True)
+    touched = torch.zeros(SPARSE_V, dtype=torch.bool, device="cuda")
+    for ids, _ in batches:
+        touched[ids.reshape(-1)] = True
+    w = emb.weight._data.detach()
+    if not torch.equal(w[~touched], w0[~touched]):
+        raise AssertionError("sparse_embedding: an untouched row moved")
+    rec = {"phase": "sparse_embedding", "card": CARD,
+           "table": [SPARSE_V, SPARSE_DIM], "batch": [SPARSE_B,
+                                                      SPARSE_FIELDS],
+           "steps": SPARSE_STEPS, "optimizer": "Adam(1e-3, lazy_mode=True) "
+           "+ ClipGradByGlobalNorm(1.0)", "losses_lazy": losses,
+           "touched_rows": int(touched.sum()),
+           "unique_ids_per_step": [int(torch.unique(i).numel())
+                                   for i, _ in batches],
+           "untouched_rows_bit_equal": True,
+           "touched_vs_plain_row_update": within_adam_bounds(
+               "lazy vs the plain row-wise update", w[touched],
+               ref["w"][touched])}
+    del emb, w, ref, touched
+    _free_cuda()
+    # lazy_mode=False densifies: the dense table's trajectory
+    emb_s, loss_s, dense_sparse_s, _ = train(True, False)
+    emb_d, loss_d, dense_s, _ = train(False, False)
+    if not np.allclose(loss_s, loss_d, rtol=1e-5, atol=0):
+        raise AssertionError(f"sparse_embedding: densified losses {loss_s} "
+                             f"vs dense {loss_d}")
+    rec["densify_vs_dense_table"] = within_adam_bounds(
+        "densified vs dense", emb_s.weight._data, emb_d.weight._data)
+    rec.update({
+        "step_ms_p50": {"sparse_lazy": float(np.median(lazy_s[2:])) * 1e3,
+                        "sparse_densified": float(np.median(
+                            dense_sparse_s[2:])) * 1e3,
+                        "dense_table": float(np.median(dense_s[2:])) * 1e3},
+        "step_times": "host clock around each synchronised step, p50 of "
+                      "steps 3-10",
+        "seconds": time.perf_counter() - t_phase})
+    emit(rec)
+    del emb_s, emb_d, w0, batches
+    _free_cuda()
+    return rec
+
+
+def lbfgs_phase():
+    """Least squares ``||A x - b||^2`` at 8192 x 1024 fp32 (A N(0, 1/8192),
+    b = A x* + 0.01 noise), ``LBFGS(lr=0.5, history_size=10)``, 20
+    ``step(closure)`` calls from x = 0 on the card and on the CPU: x after
+    every step within 1e-4 of its scale of the CPU run's (the same fp32
+    dots and products summed in another order, carried through 20
+    recursions), and the loss falls below 1e-3 of its start."""
+    rng = np.random.default_rng(14)
+    A = (rng.standard_normal((8192, 1024)) / math.sqrt(8192)).astype(
+        np.float32)
+    x_true = rng.standard_normal(1024).astype(np.float32)
+    b = (A @ x_true + 0.01 * rng.standard_normal(8192)).astype(np.float32)
+
+    def run(dev):
+        At, bt = torch.from_numpy(A).to(dev), torch.from_numpy(b).to(dev)
+        x = torch.zeros(1024, device=dev, requires_grad=True)
+        opt = optim.LBFGS(learning_rate=0.5, history_size=10,
+                          parameters=[x])
+        losses, xs = [], []
+
+        def closure():
+            opt.clear_grad()
+            loss = ((At @ x - bt) ** 2).sum()
+            loss.backward()
+            losses.append(float(loss))
+            return loss
+
+        t0 = time.perf_counter()
+        for _ in range(20):
+            opt.step(closure)
+            xs.append(x.detach().cpu().clone())
+        return losses, xs, time.perf_counter() - t0
+
+    card, card_x, card_s = run("cuda")
+    cpu, cpu_x, cpu_s = run("cpu")
+    worst = max(float((a - c).abs().max() / c.abs().max().clamp_min(1e-30))
+                for a, c in zip(card_x, cpu_x))
+    if worst > 1e-4 or not card[-1] < 1e-3 * card[0]:
+        raise AssertionError(f"lbfgs: worst x diff {worst} of its scale, "
+                             f"losses {card[0]} -> {card[-1]}")
+    emit({"phase": "lbfgs", "card": CARD, "A": [8192, 1024],
+          "steps": 20, "losses": card, "cpu_losses": cpu,
+          "worst_x_diff_over_scale": worst, "tolerance": 1e-4,
+          "card_s": card_s, "cpu_s": cpu_s})
+
+
+def flash_hd_times_phase(max_err, launches):
+    """K1–K3 at D 256 (bf16, B 2, H 16, S 1024, causal: the mma.sync
+    kernels), in turns beside the plain versions, the bounds and SDPA's
+    flash backend; the ``kernels`` rows, with the launches of
+    flash_hd_in_model's kernel runs."""
+    rows = []
+    errs = {"flash_fwd": max(max_err["flash_fwd"], max_err["flash_fwd_lse"]),
+            "flash_bwd_dq": max_err["flash_bwd_dq"],
+            "flash_bwd_dkv": max_err["flash_bwd_dkv"]}
+    replaces = {"flash_fwd": "paddle_tpu/kernels/flash_attention.py:116",
+                "flash_bwd_dq": "paddle_tpu/kernels/flash_attention.py:204",
+                "flash_bwd_dkv": "paddle_tpu/kernels/flash_attention.py:243"}
+    for n, t in _flash_shape_times(2, 16, 1024, 256, True, seed=18).items():
+        emit(t)
+        rows.append({"name": f"{n}_d256", "route": "cuda",
+                     "source": "paddle_tpu_torch/kernels/csrc/"
+                               "flash_attention_mma.cu",
+                     "replaces": replaces[n], "launches": launches[n],
+                     "max_abs_err": errs[n], "ms": t["kernel_us"] / 1e3,
+                     "plain_ms": t["plain_us"] / 1e3,
+                     "bound_ms": t["bound_us"] / 1e3,
+                     "bound_by": t["bound_by"],
+                     "library_ms": t["library_us"] / 1e3,
+                     "event_ms": t["event_us"]["kernel"] / 1e3,
+                     "library_covers": ("forward" if n == "flash_fwd"
+                                        else "the whole backward, K2 + K3")})
+    return rows
+
+
 def _free_cuda():
     gc.collect()
     torch.cuda.empty_cache()
@@ -3752,8 +4504,10 @@ def main():
     max_err = kernel_phase()
     rms_err = rms_phase()
     flash_err = flash_phase()
+    flash_hd_err = flash_hd_phase()
     small_reference_phase()
     model, prompts, tokens, record, snap = engine_phase()
+    prompt_device_phase(model, prompts)
     quant, fp8, _ = engine_quant_phase(model, prompts, tokens, record)
     int8_epilogue_phase(model)
     slot_eng, slot_record = engine_slots_phase(model, prompts, tokens, record)
@@ -3770,6 +4524,7 @@ def main():
                             bf16_tokens=fleet_tokens)
     del model
     _free_cuda()
+    fp16_rows = serve_fp16_phase(prompts, tokens, max_err)
     chaos = fleet_chaos_phase(prompts)
     autoscale = fleet_autoscale_phase(prompts)
     slots_in_model_phase()
@@ -3796,6 +4551,7 @@ def main():
     _free_cuda()
     train = train_phase()
     _free_cuda()
+    gpt_dygraph_phase()
     train_in_model_phase()
     _free_cuda()
     train_loop_phase()
@@ -3808,12 +4564,16 @@ def main():
     _free_cuda()
     bert_in_model_phase()
     _free_cuda()
+    hd_launches = flash_hd_in_model_phase()
+    sparse_embedding_phase()
+    lbfgs_phase()
     flash_rows = flash_times_phase(flash_err, train["launches"],
                                    bert["launches"])
+    hd_rows = flash_hd_times_phase(flash_hd_err, hd_launches)
     torch.cuda.synchronize()
     emit({"phase": "total", "run_s": time.perf_counter() - t_start})
-    print(json.dumps({"kernels": [*paged_rows, *flash_rows, rms_row]}),
-          flush=True)
+    print(json.dumps({"kernels": [*paged_rows, *fp16_rows, *flash_rows,
+                                  *hd_rows, rms_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,12 +4,18 @@
 torch records the graph as ops run, so the JAX module's ``GradNode``
 tape and its topological walk are ``torch.autograd.backward`` and
 ``torch.autograd.grad``.  Leaf gradients accumulate as Paddle's do:
-``.grad`` adds up across backward calls until ``clear_grad``.
+``.grad`` adds up across backward calls until ``clear_grad``.  A sparse
+embedding's ``SelectedRows`` gradient is written by its own hook
+(``nn.Embedding(sparse=True)``); ``paddle.grad`` sets
+``STATE.accumulating_backward`` to False while it runs, so that hook
+leaves ``.grad`` alone, as in JAX.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .state import STATE
 
 
 def _data(t):
@@ -57,6 +63,7 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
     outs = [_data(o) for o in outputs]
     gos = None if grad_outputs is None else [
         None if g is None else _data(g) for g in grad_outputs]
+    STATE.accumulating_backward = False
     try:
         res = torch.autograd.grad(outs, [_data(i) for i in inputs], gos,
                                   retain_graph=retain_graph,
@@ -68,4 +75,6 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
                 "an input tensor is unused in the graph; pass "
                 "allow_unused=True to get None instead") from e
         raise
+    finally:
+        STATE.accumulating_backward = True
     return [None if r is None else Tensor._wrap(r) for r in res]

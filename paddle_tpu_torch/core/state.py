@@ -20,6 +20,13 @@ class _State(threading.local):
         self.amp_dtype = "bfloat16"    # or "float16"
         self.amp_white = set()
         self.amp_black = set()
+        #: False during ``paddle.grad()``, which promises not to touch
+        #: ``.grad``: the sparse embedding's gradient hook stands down
+        self.accumulating_backward = True
+        #: > 0 inside a ``jit.CompiledTrainStep`` body, which takes the
+        #: dense path where eager code would make SelectedRows (the JAX
+        #: package does so under tracing)
+        self.tracing_depth = 0
 
 
 STATE = _State()

@@ -28,6 +28,8 @@ import torch
 from . import dtype as dtypes
 from .autograd import run_backward
 from .dispatch import apply_op
+from .selected_rows import (SelectedRows, grad_of, set_sparse_grad,
+                            sparse_grad)
 
 _names = itertools.count(1)
 
@@ -175,11 +177,20 @@ class Tensor:
 
     @property
     def grad(self):
-        g = self._data.grad
-        return None if g is None else Tensor._wrap(g)
+        """The gradient: a ``Tensor``, or the ``SelectedRows`` of a sparse
+        embedding's table (merged to dense once a dense gradient met
+        it)."""
+        g = grad_of(self._data)
+        return g if g is None or isinstance(g, SelectedRows) \
+            else Tensor._wrap(g)
 
     @grad.setter
     def grad(self, value):
+        if isinstance(value, SelectedRows):
+            self._data.grad = None
+            set_sparse_grad(self._data, value)
+            return
+        set_sparse_grad(self._data, None)
         self._data.grad = value._data if isinstance(value, Tensor) else value
 
     # -- conversion ----------------------------------------------------------
@@ -250,9 +261,14 @@ class Tensor:
         return self._data.register_hook(torch_hook)
 
     def clear_gradient(self, set_to_zero=False):
-        if set_to_zero and self._data.grad is not None:
+        if set_to_zero and sparse_grad(self._data) is not None:
+            # a SelectedRows gradient: its rows go, the dense zeros stay
+            set_sparse_grad(self._data, None)
+            self._data.grad = torch.zeros_like(self._data)
+        elif set_to_zero and self._data.grad is not None:
             self._data.grad.zero_()
         else:
+            set_sparse_grad(self._data, None)
             self._data.grad = None
 
     clear_grad = clear_gradient

@@ -76,6 +76,7 @@ import time
 import torch
 
 from .. import flags
+from ..core.state import STATE
 from ..core.tensor import unwrap
 from ..io import Window
 from ..kernels import count_launch, launch_counted
@@ -163,9 +164,15 @@ class CompiledTrainStep:
         are.  Returns ``(loss, check names, check bits, metric row,
         overflow flag)``; nothing is read back."""
         model, opt, scaler = self.model, self.optimizer, self.scaler
-        with torch.enable_grad():
-            loss = unwrap(self.loss_fn(model, *args))
-            (loss if scaler is None else scaler.scale(loss)).backward()
+        # the body takes the dense path where eager code makes SelectedRows
+        # (a CUDA graph records shapes; JAX traces the same way)
+        STATE.tracing_depth += 1
+        try:
+            with torch.enable_grad():
+                loss = unwrap(self.loss_fn(model, *args))
+                (loss if scaler is None else scaler.scale(loss)).backward()
+        finally:
+            STATE.tracing_depth -= 1
         found = None
         if scaler is not None:
             found = scaler._unscale(_params(model))

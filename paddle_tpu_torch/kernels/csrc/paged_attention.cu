@@ -1,8 +1,12 @@
 // Paged decode attention for Hopper (sm_90a), split-K (flash-decoding).
 //
 // Replaces paddle_tpu/kernels/paged_attention.py::_decode_kernel, the
-// Pallas kernel behind paged_decode_attention: K4 over fp32/bf16 pools
-// (quant=False) and K4q over int8 or fp8-e4m3 pools (quant=True).
+// Pallas kernel behind paged_decode_attention: K4 over fp32/bf16/fp16
+// pools (quant=False) and K4q over int8 or fp8-e4m3 pools (quant=True).
+// Queries are fp32, bf16 or fp16; an fp16 query pairs with fp16 or 1-byte
+// pools and fp16 pools with an fp16 query (the fp16 model's paths).  As
+// the JAX kernel's _dot32 widens both operands to fp32, every element is
+// widened on load and nothing is rounded to bf16.
 //
 // What it computes: for every row b and head h, the single query
 // q[b, h, :] attends over the row's logical sequence, which lives in
@@ -79,7 +83,10 @@
 #include <cfloat>
 #include <cstdint>
 
+#include <type_traits>
+
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
@@ -95,6 +102,9 @@ constexpr int kMergeUnroll = 16;         // split loads in flight a merge
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(__half x) {
+  return __half2float(x);
 }
 __device__ __forceinline__ float to_float(int8_t x) {
   return static_cast<float>(x);
@@ -506,31 +516,43 @@ cudaError_t launch_dims(const Args& a) {
   return launch<TQ, TKV, kWide, 32>(a);
 }
 
+// fp16 pools are built with fp16 queries only, and fp16 queries with fp16
+// or 1-byte pools: the pairs an fp16 model serves with.
 template <typename TQ>
 cudaError_t launch_pool(const Args& a, int kv_type) {
+  constexpr bool kHalf = std::is_same<TQ, __half>::value;
   switch (kv_type) {
-    case 0: return launch_dims<TQ, float>(a);
-    case 1: return launch_dims<TQ, __nv_bfloat16>(a);
+    case 0:
+      if constexpr (!kHalf) return launch_dims<TQ, float>(a);
+      break;
+    case 1:
+      if constexpr (!kHalf) return launch_dims<TQ, __nv_bfloat16>(a);
+      break;
     case 2: return launch_dims<TQ, int8_t>(a);
     case 3: return launch_dims<TQ, __nv_fp8_e4m3>(a);
-    default: return cudaErrorInvalidValue;
+    case 4:
+      if constexpr (kHalf) return launch_dims<TQ, __half>(a);
+      break;
+    default: break;
   }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q_bf16: 0 for float32 q, 1 for bfloat16.  kv_type: the pools' type,
-// 0 float32, 1 bfloat16 (K4; scale_k and scale_v are ignored), 2 int8,
-// 3 fp8 e4m3 (K4q; scale_k and scale_v are fp32 [n_blocks, bs]).  part:
+// q_type: 0 for float32 q, 1 for bfloat16, 2 for float16.  kv_type: the
+// pools' type, 0 float32, 1 bfloat16, 4 float16 (K4; scale_k and scale_v
+// are ignored), 2 int8, 3 fp8 e4m3 (K4q; scale_k and scale_v are fp32
+// [n_blocks, bs]).  part:
 // fp32 scratch [B, nh, ceil(max_blocks / bps), hd + 2]; count: int32
 // [B * nh], all zero before the launch and left all zero by it.  Returns
 // the cudaError_t of the launch (0 on success).  The caller guarantees
 // every bt value is below n_blocks, 1 <= hd <= 256, bs >= 1, 1 <= bps <=
 // 64, ceil(max_blocks / bps) <= 4096, B <= 65535, and 16-byte aligned,
 // contiguous operands.
-int paged_decode_attention_launch(const void* q, int q_bf16,
+int paged_decode_attention_launch(const void* q, int q_type,
                                   const void* pool_k, const void* pool_v,
                                   int kv_type, const void* scale_k,
                                   const void* scale_v, const void* bt,
@@ -560,8 +582,12 @@ int paged_decode_attention_launch(const void* q, int q_bf16,
                bps,
                scale,
                static_cast<cudaStream_t>(stream)};
-  return q_bf16 ? launch_pool<__nv_bfloat16>(a, kv_type)
-                : launch_pool<float>(a, kv_type);
+  switch (q_type) {
+    case 0: return launch_pool<float>(a, kv_type);
+    case 1: return launch_pool<__nv_bfloat16>(a, kv_type);
+    case 2: return launch_pool<__half>(a, kv_type);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* paged_attention_error_string(int err) {

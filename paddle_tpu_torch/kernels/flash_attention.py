@@ -12,14 +12,18 @@ with the attention probabilities recomputed from the saved LSE
 * K3 :func:`flash_bwd_dkv` (``_bwd_dkv_kernel``) — dK and dV; plain
   version :func:`_bwd_dkv_reference`.
 
-The kernels are hand-written CUDA for ``sm_90a``
-(``csrc/flash_attention.cu``): in bf16 all three are persistent,
-warp-specialised kernels (TMA loads under mbarriers, ``wgmma``
-products; K3 computes the scores transposed so that Pᵀ and dSᵀ feed its
-products from registers); in fp32 they are FA2-style loops on CUDA
-cores.  On a CPU tensor each wrapper calls its plain version; on a CUDA
-tensor it launches the kernel or raises.  Each wrapper counts its
-launches in ``.launches``.
+The kernels are hand-written CUDA for ``sm_90a`` (:func:`_library`
+picks the source).  In bf16 and fp16 at head dims 64, 96 and 128
+(``KERNEL_HEAD_DIMS``, GPT-3's heads) they are
+``csrc/flash_attention.cu``: persistent, warp-specialised kernels (TMA
+loads under mbarriers, ``wgmma`` products; K3 computes the scores
+transposed so that Pᵀ and dSᵀ feed its products from registers).
+Everywhere else — fp32 at every head dim, and bf16/fp16 at the other
+multiples of 16 up to 256 — they are ``csrc/flash_attention_mma.cu``:
+FA2-style loops on warp-level ``mma.sync`` in bf16 and on CUDA cores in
+fp32, built by buckets of 32 dims.  On a CPU tensor each wrapper calls
+its plain version; on a CUDA tensor it launches the kernel or raises.
+Each wrapper counts its launches in ``.launches``.
 
 Arithmetic follows the TPU kernel exactly where it rounds: every
 product whose operands include a 16-bit tensor (bf16 or fp16) takes
@@ -51,8 +55,10 @@ from ..profiler import counters
 from . import _build, count_launch
 from ._shapes import NEG_INF, check_divides, check_equal
 
-#: head dims the CUDA kernels are instantiated for (GPT-3 125M, 760M, 1.3B)
+#: head dims of the wgmma kernels (GPT-3 125M, 760M, 1.3B); the other
+#: multiples of 16 up to ``MAX_HEAD_DIM`` run the mma.sync kernels
 KERNEL_HEAD_DIMS = (64, 96, 128)
+MAX_HEAD_DIM = 256
 #: the kernels take S % 128 == 0, the TPU kernel's rule; the public
 #: entry sends other lengths to ``reference_attention``, as JAX does
 SEQ_MULTIPLE = 128
@@ -155,8 +161,14 @@ def _flash_bwd_reference(q, k, v, out, lse, do, causal, scale, dlse=None):
 # ---------------------------------------------------------------------------
 # the CUDA kernels' wrappers
 # ---------------------------------------------------------------------------
-def _lib():
-    lib = _build.load("flash_attention")
+def _library(D, dtype):
+    """The CUDA source whose kernels take head dim ``D`` in ``dtype``."""
+    return ("flash_attention" if D in KERNEL_HEAD_DIMS
+            and dtype != torch.float32 else "flash_attention_mma")
+
+
+def _lib(D=KERNEL_HEAD_DIMS[0], dtype=torch.bfloat16):
+    lib = _build.load(_library(D, dtype))
     if lib.flash_fwd_launch.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         L = ctypes.c_longlong
@@ -223,9 +235,10 @@ def _check_operands(kernel, q, k, v, do=None, lse=None, delta=None):
         return dev
     if dev.type != "cuda":
         raise ValueError(f"{kernel}: unsupported device {dev}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{kernel}: dim 'head_dim'={D} is not one the "
-                         f"CUDA kernel is built for {KERNEL_HEAD_DIMS}")
+    if D % 16 or not 16 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"{kernel}: dim 'head_dim'={D}: the CUDA kernels "
+                         f"take multiples of 16 up to {MAX_HEAD_DIM} "
+                         "(ROADMAP.md B-i)")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{kernel}: q is {q.dtype}; the kernel takes "
                         "float32, bfloat16 or float16")
@@ -296,7 +309,7 @@ def flash_fwd(q, k, v, causal, scale):
     out = _empty_bshd(q)
     lse = torch.empty((B, H, S, 1), dtype=torch.float32, device=dev)
     qb, kb, vb = _operands(q, k, v)
-    lib = _lib()
+    lib = _lib(D, q.dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_fwd_launch(
@@ -317,7 +330,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal, scale):
         return _bwd_dq_reference(q, k, v, do, lse, delta, causal, scale)
     dq = _empty_bshd(q)
     qb, kb, vb, dob = _operands(q, k, v, do)
-    lib = _lib()
+    lib = _lib(q.shape[3], q.dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_bwd_dq_launch(
@@ -338,7 +351,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
         return _bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale)
     dk, dv = _empty_bshd(q), _empty_bshd(q)
     qb, kb, vb, dob = _operands(q, k, v, do)
-    lib = _lib()
+    lib = _lib(q.shape[3], q.dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_bwd_dkv_launch(

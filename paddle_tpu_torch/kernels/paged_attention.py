@@ -44,7 +44,8 @@ import torch
 from . import _build, count_launch
 from ._shapes import NEG_INF, check_divides, check_equal
 
-_FLOATS = (torch.float32, torch.bfloat16)
+#: query dtype -> code of the C entry point
+_Q_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_HEAD_DIM = 256
 #: keys a split of the CUDA kernel aims at, and the most blocks one may
 #: own (the kernel keeps a split's table entries in shared memory)
@@ -63,7 +64,7 @@ KV_QMAX = {"int8": 127.0, "fp8": 448.0}
 
 #: pool-type code of the C entry point, by pool dtype
 _POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
-               torch.float8_e4m3fn: 3}
+               torch.float8_e4m3fn: 3, torch.float16: 4}
 
 
 def quantize_kv(x, kv_dtype):
@@ -233,9 +234,9 @@ def paged_decode_attention(q, pool_k, pool_v, bt, pos, scale_k=None,
                            scale_v=None, *, scale):
     """Paged decode attention for B rows over the shared pool.
 
-    q ``[B, nh, hd]`` fp32/bf16 (the rows' single query tokens),
+    q ``[B, nh, hd]`` fp32/bf16/fp16 (the rows' single query tokens),
     pool_k/pool_v ``[n_blocks, bs, nh, hd]`` (one layer's pool, already
-    holding each row's new K/V at ``pos``): fp32/bf16, or int8/fp8 with
+    holding each row's new K/V at ``pos``): fp32/bf16/fp16, or int8/fp8 with
     their per-token fp32 scales scale_k/scale_v ``[n_blocks, bs]``.  bt
     ``[B, max_blocks]`` int32, pos ``[B]`` int32.  Returns fp32 ``[B,
     nh, hd]``.
@@ -283,10 +284,16 @@ def paged_decode_attention(q, pool_k, pool_v, bt, pos, scale_k=None,
                                                 scale_k, scale_v, scale=scale)
     if dev.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {dev}")
-    if q.dtype not in _FLOATS or pool_k.dtype not in _POOL_CODES:
-        raise TypeError(f"paged_attention: q {q.dtype} must be float32 or "
-                        f"bfloat16, pools {pool_k.dtype} float32, bfloat16, "
-                        "int8 or float8_e4m3fn")
+    if q.dtype not in _Q_CODES or pool_k.dtype not in _POOL_CODES:
+        raise TypeError(f"paged_attention: q {q.dtype} must be float32, "
+                        f"bfloat16 or float16, pools {pool_k.dtype} "
+                        "float32, bfloat16, float16, int8 or float8_e4m3fn")
+    if (q.dtype == torch.float16) != (pool_k.dtype == torch.float16) and \
+            kv_dtype is None:
+        # the kernel is built for the pairs an fp16 model serves with
+        raise TypeError(f"paged_attention: q {q.dtype} with pools "
+                        f"{pool_k.dtype}: float16 q takes float16, int8 or "
+                        "float8_e4m3fn pools, float16 pools a float16 q")
     if pool_v.dtype != pool_k.dtype:
         raise TypeError(f"paged_attention: pool_v {pool_v.dtype} != "
                         f"pool_k {pool_k.dtype}")
@@ -323,7 +330,7 @@ def paged_decode_attention(q, pool_k, pool_v, bt, pos, scale_k=None,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.paged_decode_attention_launch(
-            q.data_ptr(), int(q.dtype == torch.bfloat16),
+            q.data_ptr(), _Q_CODES[q.dtype],
             pool_k.data_ptr(), pool_v.data_ptr(), _POOL_CODES[pool_k.dtype],
             scale_k.data_ptr() if scales else None,
             scale_v.data_ptr() if scales else None, bt.data_ptr(),
@@ -339,7 +346,7 @@ def paged_decode_attention(q, pool_k, pool_v, bt, pos, scale_k=None,
 
 
 #: kernel launches since the counters were last set to 0 (CUDA tensors
-#: only; the CPU path never moves them): ``launches`` over fp32/bf16
+#: only; the CPU path never moves them): ``launches`` over fp32/bf16/fp16
 #: pools (K4), ``quant_launches[kv_dtype]`` over int8/fp8 pools (K4q).
 paged_decode_attention.launches = 0
 paged_decode_attention.quant_launches = dict.fromkeys(KV_DTYPES, 0)

@@ -1,16 +1,27 @@
 """GPT causal LM — the training forward and the serving entry points
 (port of ``paddle_tpu/models/gpt.py``).
 
+``GPTForCausalLM`` is a paddle-style ``nn.Layer``, as the JAX class is:
+its attributes are ``Parameter`` wrappers, ``parameters()``,
+``state_dict``/``set_state_dict``, ``train``/``eval`` and
+``amp.decorate``/``auto_cast`` work as on any layer, and Paddle's
+dygraph loop (``model(ids)`` on ``Tensor``s, the criterion,
+``loss.backward()``, ``opt.step()``, ``opt.clear_grad()``) trains it.
 The parameters keep the reference's stacked ``[L, ...]`` layout and
 names (``wte``, ``wpe``, ``ln1_w``, ``qkv_w [L, H, 3H]``, ...), so a JAX
-``state_dict`` loads one to one (:meth:`GPTForCausalLM.load_numpy_state`).
-A plain Python loop over layers replaces ``lax.scan``.
+``state_dict`` loads one to one (``load_numpy_state``).  Everything
+inside reads the torch parameters themselves (:meth:`_weights`), so the
+serving entry points, ``jit.CompiledTrainStep`` and its CUDA graphs see
+plain torch tensors.  A plain Python loop over layers replaces
+``lax.scan``.
 
 Training: :meth:`GPTForCausalLM.forward` returns logits in the model
-dtype; attention goes through ``kernels.flash_attention`` (the CUDA
-kernels K1–K3 on a CUDA device), recompute through
-``torch.utils.checkpoint``.  :class:`GPTPretrainingCriterion` is the
-fp32 causal-LM loss.
+dtype — a ``Tensor`` for a ``Tensor`` input (the op ``"gpt_forward"``,
+whose AMP cast applies), a torch tensor for a torch input; attention
+goes through ``kernels.flash_attention`` (the CUDA kernels K1–K3 on a
+CUDA device), recompute through ``torch.utils.checkpoint``.
+:class:`GPTPretrainingCriterion` is the fp32 causal-LM loss
+(``"gpt_loss"``).
 
 Serving: the paged KV pools ``[L, n_blocks, bs, nh, hd]`` are updated
 **in place** (``index_put_``) by :meth:`GPTForCausalLM.prefill_paged`
@@ -44,10 +55,13 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..core.dispatch import apply_op
+from ..core.tensor import Tensor
 from ..kernels import paged_attention as _pa
 from ..kernels._shapes import NEG_INF
 from ..kernels.flash_attention import flash_attention_fwd, reference_attention
 from ..kernels.rope import apply_rope
+from ..nn.layer.layers import Layer
 from ..serving.sampling import sample_tokens
 
 
@@ -110,9 +124,9 @@ class GPTConfig:
         return GPTConfig(hidden_size=4096, num_layers=32, num_heads=32, **kw)
 
 
-#: model dtypes; training takes all three (the CUDA flash kernels run
-#: float16 as bf16 products with fp16 outputs), serving float32 and
-#: bfloat16
+#: model dtypes; training and serving take all three (the CUDA flash
+#: kernels run float16 as bf16 products with fp16 outputs, the paged
+#: decode kernels widen fp16 to fp32 as the JAX kernel does)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -251,24 +265,30 @@ def _mm_lora(x, lw, name, al, aids):
 
 
 def _resolve_device(device):
+    """``device``, else the paddle-style default device (``set_device``),
+    else ``cuda``; raises when there is no GPU and the caller asked for
+    no other device."""
     if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "paddle_tpu_torch runs on a CUDA device and none is "
-                "available; pass device='cpu' to run on the CPU explicitly")
-        return torch.device("cuda")
+        from ..device import default_device
+        return default_device()
     return torch.device(device)
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """GPT causal LM with stacked ``[L, ...]`` parameters.
 
-    ``device=None`` picks ``cuda`` and raises ``RuntimeError`` when no
-    GPU is present; pass ``device="cpu"`` to run on the CPU.  Weights are
-    drawn from ``generator`` (default: a CPU ``torch.Generator`` seeded
-    with 0): N(0, ``initializer_range``) for matrices and embeddings,
-    zero biases, unit norm weights.
+    ``device=None`` picks the default device (``paddle.set_device``),
+    ``cuda`` unless the caller set another, and raises ``RuntimeError``
+    when no GPU is present; pass ``device="cpu"`` (or set it) to run on
+    the CPU.  Weights are drawn from ``generator`` (default: a CPU
+    ``torch.Generator`` seeded with 0): N(0, ``initializer_range``) for
+    matrices and embeddings, zero biases, unit norm weights.
     """
+
+    #: generator on the model's device the training forward draws dropout
+    #: masks from when the caller passes none (an instance attribute,
+    #: set in ``__init__``, in place of ``Layer``'s property)
+    dropout_generator = None
 
     def __init__(self, config: GPTConfig, device=None, generator=None):
         super().__init__()
@@ -333,40 +353,25 @@ class GPTForCausalLM(nn.Module):
         self.lnf_b = const((H,), 0.0)
         if not c.tie_word_embeddings:
             self.lm_head = normal((H, V))
-        #: generator on the model's device the training forward draws
-        #: dropout masks from when the caller passes none
         self.dropout_generator = torch.Generator(device=dev).manual_seed(0)
 
     @property
     def device(self):
-        return self.wte.device
+        return self._parameters["wte"].device
 
-    @torch.no_grad()
-    def load_numpy_state(self, arrays):
-        """Copy ``{name: ndarray}`` — the JAX model's ``state_dict()``
-        names, as they are — into the parameters on this model's device,
-        with no transposes (both packages keep the stacked layout).  The
-        names must be exactly this model's parameters."""
-        own = dict(self.named_parameters())
-        missing = sorted(set(own) - set(arrays))
-        unexpected = sorted(set(arrays) - set(own))
-        if missing or unexpected:
-            raise KeyError(f"load_numpy_state: missing {missing}, "
-                           f"unexpected {unexpected}")
-        for name, arr in arrays.items():
-            arr = np.asarray(arr)
-            if arr.dtype.name == "bfloat16":   # numpy has no bf16 of its own
-                arr = arr.astype(np.float32)
-            p = own[name]
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"load_numpy_state: {name} has shape "
-                                 f"{arr.shape}, want {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(arr)))  # a writable copy
+    def _weights(self):
+        """``{name: torch parameter}`` (the attributes are the paddle-style
+        wrappers; every reader inside the model takes the torch
+        parameters)."""
+        return {n: t for n, t in self._parameters.items() if t is not None}
 
     # -- training forward ---------------------------------------------------
     def forward(self, input_ids, *, generator=None, kernel=True):
         """Logits ``[B, S, V]`` in the model dtype for ``input_ids [B, S]``
-        (positions ``0..S-1``), through the tied head.
+        (positions ``0..S-1``), through the tied head.  A ``Tensor``
+        input runs as the op ``"gpt_forward"`` over the ids and every
+        parameter (so ``amp.auto_cast`` casts them as JAX's does) and
+        gives a ``Tensor``; a torch input gives a torch tensor.
 
         Each block: LayerNorm, qkv, causal flash attention (or
         ``reference_attention`` when ``use_flash_attention=False``),
@@ -381,22 +386,38 @@ class GPTForCausalLM(nn.Module):
         ``"selective_lean"`` keeps qkv and the attention output.
         ``kernel=False`` swaps the flash kernels K1–K3 for their plain
         versions (used to hold the kernels against them in the model)."""
+        # the JAX op's operand order: wte, lnf_w, lnf_b, wpe, the stacked
+        # weights, lm_head
+        w = self._weights()
+        names = [n for n in ("wte", "lnf_w", "lnf_b", "wpe", *_STACKED,
+                             "lm_head") if n in w]
+
+        def fn(ids, *ws):
+            return self._forward(ids, dict(zip(names, ws)), generator,
+                                 kernel)
+
+        ws = [w[n] for n in names]
+        if isinstance(input_ids, Tensor):
+            return apply_op("gpt_forward", fn, input_ids, *ws)
+        return fn(input_ids, *ws)
+
+    def _forward(self, input_ids, w, generator, kernel):
         c = self.config
         L = c.num_layers
-        h = self.wte[input_ids]
+        h = w["wte"][input_ids]
         if not c.use_rope:
-            h = h + self.wpe[:input_ids.shape[1]]
+            h = h + w["wpe"][:input_ids.shape[1]]
         drop = self.training and c.dropout > 0
         gen = self.dropout_generator if generator is None else generator
-        layers = {n: getattr(self, n).unbind(0) for n in _STACKED}
+        layers = {n: w[n].unbind(0) for n in _STACKED}
         for l in range(L):
             lw = {n: t[l] for n, t in layers.items()}
             keep = (tuple(_keep_mask(h.shape, c.dropout, gen, h.device)
                           for _ in range(2)) if drop else None)
             h = self._block(h, lw, keep, kernel)
-        h = _norm(h, self.lnf_w, self.lnf_b, c.layer_norm_epsilon)
-        w = self.wte.T if c.tie_word_embeddings else self.lm_head
-        return torch.matmul(h, w)
+        h = _norm(h, w["lnf_w"], w["lnf_b"], c.layer_norm_epsilon)
+        head = w["wte"].T if c.tie_word_embeddings else w["lm_head"]
+        return torch.matmul(h, head)
 
     def _block(self, h, lw, keep, kernel):
         """One transformer block, cut into stages at the activations that
@@ -468,14 +489,14 @@ class GPTForCausalLM(nn.Module):
     def decode_state(self):
         """The weights the serving entry points read, as one dict of the
         parameters themselves (no copies)."""
-        c = self.config
+        w = self._weights()
         return {
-            "lws": {n: getattr(self, n) for n in _STACKED},
-            "wte": self.wte,
-            "wpe": None if c.use_rope else self.wpe,
-            "lnf_w": self.lnf_w,
-            "lnf_b": self.lnf_b,
-            "head": None if c.tie_word_embeddings else self.lm_head,
+            "lws": {n: w[n] for n in _STACKED},
+            "wte": w["wte"],
+            "wpe": w.get("wpe"),
+            "lnf_w": w["lnf_w"],
+            "lnf_b": w["lnf_b"],
+            "head": w.get("lm_head"),
         }
 
     def _ffn(self, h, lw, al=None, aids=None):
@@ -778,7 +799,7 @@ class GPTForCausalLM(nn.Module):
         w = self.decode_state()
         nh = c.num_heads
         shape = (c.num_layers, B, S, nh, c.hidden_size // nh)
-        ck = torch.zeros(shape, dtype=self.wte.dtype, device=dev)
+        ck = torch.zeros(shape, dtype=w["wte"].dtype, device=dev)
         cv = torch.zeros_like(ck)
 
         def next_token(h_last):
@@ -797,19 +818,27 @@ class GPTForCausalLM(nn.Module):
         return torch.cat([ids, torch.stack(out, dim=1)], dim=1)
 
 
-class GPTPretrainingCriterion(nn.Module):
+def _causal_lm_loss(logits, labels, loss_mask=None):
+    lg = logits.float()
+    picked = lg.gather(-1, labels.long()[..., None])[..., 0]
+    loss = torch.logsumexp(lg, -1) - picked
+    if loss_mask is None:
+        return loss.mean()
+    m = loss_mask.float()
+    return (loss * m).sum() / m.sum().clamp_min(1.0)
+
+
+class GPTPretrainingCriterion(Layer):
     """Causal-LM loss over ``logits [B, S, V]`` and ``labels [B, S]``: fp32
     ``logsumexp - picked`` per token, averaged, or averaged over
-    ``loss_mask`` (at least one token) when it is given."""
+    ``loss_mask`` (at least one token) when it is given.  ``Tensor``
+    inputs run as the op ``"gpt_loss"`` and give a ``Tensor``."""
 
     def __init__(self, config=None):
         super().__init__()
 
     def forward(self, logits, labels, loss_mask=None):
-        lg = logits.float()
-        picked = lg.gather(-1, labels.long()[..., None])[..., 0]
-        loss = torch.logsumexp(lg, -1) - picked
-        if loss_mask is None:
-            return loss.mean()
-        m = loss_mask.float()
-        return (loss * m).sum() / m.sum().clamp_min(1.0)
+        args = (logits, labels) + (() if loss_mask is None else (loss_mask,))
+        if any(isinstance(a, Tensor) for a in args):
+            return apply_op("gpt_loss", _causal_lm_loss, *args)
+        return _causal_lm_loss(*args)

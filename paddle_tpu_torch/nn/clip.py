@@ -1,5 +1,4 @@
-"""Gradient clipping (port of ``paddle_tpu/nn/clip.py``), dense
-gradients only.
+"""Gradient clipping (port of ``paddle_tpu/nn/clip.py``).
 
 A clip object is called by ``Optimizer.step`` on the ``(param, grad)``
 pairs and returns new pairs; every norm and coefficient stays a device
@@ -8,7 +7,13 @@ gradient is scaled in fp32 and rounded back once, as the JAX package's
 promotion does.  A parameter with ``need_clip = False`` keeps its
 gradient and, under the global norm, stays out of the norm (Paddle's
 rule; the JAX package honours it in ``ClipGradByGlobalNorm`` only).
-Sparse (``SelectedRows``) gradients raise ``NotImplementedError``.
+
+Sparse (``SelectedRows``) gradients: ``ClipGradByGlobalNorm`` merges
+their duplicate rows, adds the merged values' squares to the global
+norm and scales the values, never densifying
+(``_handles_selected_rows``); the optimizer lets them bypass
+``ClipGradByValue`` and ``ClipGradByNorm`` with a ``RuntimeWarning``, as
+the JAX optimizer does.
 
 A caller that already holds each gradient's fp32 sum of squares (the
 train step, for its grad-norm metric) passes them as ``sq``, a dict from
@@ -20,14 +25,7 @@ from __future__ import annotations
 
 import torch
 
-_SPARSE = ("sparse (SelectedRows) gradients are not ported yet: ROADMAP.md "
-           "A4 (SelectedRows gradients with lazy_mode)")
-
-
-def _dense(g):
-    if g.is_sparse:
-        raise NotImplementedError(_SPARSE)
-    return g
+from ..core.selected_rows import SelectedRows
 
 
 def _skip(p, g):
@@ -40,7 +38,7 @@ def _scaled(g, scale):
 
 def sum_sq(g):
     """The fp32 sum of squares of gradient ``g`` (a 0-d device tensor)."""
-    g32 = _dense(g).float()
+    g32 = g.float()
     return torch.sum(g32 * g32)
 
 
@@ -63,7 +61,7 @@ class ClipGradByValue(ClipGradBase):
 
     def __call__(self, params_grads, sq=None):
         return [(p, g) if _skip(p, g)
-                else (p, torch.clamp(_dense(g), self.min, self.max))
+                else (p, torch.clamp(g, self.min, self.max))
                 for p, g in params_grads]
 
 
@@ -89,7 +87,12 @@ class ClipGradByNorm(ClipGradBase):
 class ClipGradByGlobalNorm(ClipGradBase):
     """Scale every gradient by ``clip_norm / max(global_norm,
     clip_norm)``, the global norm taken over the gradients of the
-    parameters that ``need_clip``."""
+    parameters that ``need_clip``.  A ``SelectedRows`` gradient has its
+    duplicate rows merged first; the merged values' squares join the
+    norm and the merged values are scaled."""
+
+    #: read by ``Optimizer.step``: sparse gradients are routed through it
+    _handles_selected_rows = True
 
     def __init__(self, clip_norm, group_name="default_group",
                  auto_skip_clip=False):
@@ -102,17 +105,28 @@ class ClipGradByGlobalNorm(ClipGradBase):
         for p, g in params_grads:
             if _skip(p, g):
                 continue
-            s = _sq(p, g, sq)
+            s = (sum_sq(g.merge_rows().values) if isinstance(g, SelectedRows)
+                 else _sq(p, g, sq))
             total = s if total is None else total + s
         return None if total is None else torch.sqrt(total)
 
     def __call__(self, params_grads, sq=None):
+        params_grads = [(p, g.merge_rows() if isinstance(g, SelectedRows)
+                         else g) for p, g in params_grads]
         norm = self.global_norm(params_grads, sq)
         if norm is None:
             return params_grads
         scale = self.clip_norm / norm.clamp_min(self.clip_norm)
-        return [(p, g) if _skip(p, g) else (p, _scaled(g, scale))
-                for p, g in params_grads]
+        out = []
+        for p, g in params_grads:
+            if _skip(p, g):
+                out.append((p, g))
+            elif isinstance(g, SelectedRows):
+                out.append((p, SelectedRows(g.rows, _scaled(g.values, scale),
+                                            g.height)))
+            else:
+                out.append((p, _scaled(g, scale)))
+        return out
 
 
 def _params(parameters):
@@ -127,7 +141,7 @@ def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
     ``error_if_nonfinite`` reads the norm back and raises if it is
     NaN or Inf."""
     params = _params(parameters)
-    grads = [_dense(p.grad) for p in params if p.grad is not None]
+    grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return torch.zeros(())
     if norm_type == float("inf"):
@@ -148,7 +162,7 @@ def clip_grad_value_(parameters, clip_value):
     """Clamp the gradients in place into ``[-clip_value, clip_value]``."""
     for p in _params(parameters):
         if p.grad is not None:
-            _dense(p.grad).clamp_(-clip_value, clip_value)
+            p.grad.clamp_(-clip_value, clip_value)
 
 
 __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",

@@ -7,8 +7,8 @@ where the JAX function takes Pallas (``:25-32, 61``): no mask,
 in (64, 128, 256), with "the tensor is on CUDA" for "the platform is a
 TPU".  It then calls ``kernels.flash_attention.flash_attention_fwd``:
 K1 in the forward, K2 and K3 in the backward, under the op name
-``"flash_attention"``.  ``D`` 256 qualifies but has no CUDA instance
-and raises.  Everywhere else (a mask, attention dropout, other shapes,
+``"flash_attention"`` (D 64 and 128 on the wgmma kernels, D 256 on the
+mma.sync ones).  Everywhere else (a mask, attention dropout, other shapes,
 the CPU) it runs :func:`_sdpa_reference` under ``"sdpa"``, as JAX does;
 that path applies no attention dropout, as JAX's does not.
 """
@@ -21,7 +21,6 @@ import torch
 
 from ...core.dispatch import apply_op
 from ...core.tensor import Tensor
-from ...kernels import flash_attention as _fa
 from ...kernels.flash_attention import flash_attention_fwd
 
 _NEG = -1e30
@@ -66,12 +65,6 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  training=True, name=None):
     q, k, v = _t(query), _t(key), _t(value)
     if _use_kernel(q._data) and attn_mask is None and dropout_p == 0.0:
-        d = q.shape[-1]
-        if d not in _fa.KERNEL_HEAD_DIMS:
-            raise ValueError(
-                f"scaled_dot_product_attention: head dim {d} takes the flash "
-                f"kernel route, but the CUDA kernels are built for "
-                f"{_fa.KERNEL_HEAD_DIMS}: ROADMAP.md A4 (a D 256 instance)")
         return apply_op(
             "flash_attention",
             lambda a, b, c: flash_attention_fwd(a, b, c, causal=is_causal),

@@ -1,5 +1,4 @@
-"""Optimizers (port of ``paddle_tpu/optimizer/__init__.py``; dense
-gradients only).
+"""Optimizers (port of ``paddle_tpu/optimizer/__init__.py``).
 
 Each update is the JAX package's formula in plain torch ops, step for
 step and in the same order of operations: gradients cast to fp32 under
@@ -28,25 +27,36 @@ parameters the optimizer keeps), or of groups ``{"params":
 a group's lr by its factor and gives its parameters its decay (the JAX
 package reads neither key).
 
+Sparse (``SelectedRows``) gradients, from ``nn.Embedding(sparse=True)``:
+:meth:`Optimizer.step` routes them through a clip that handles them
+(``ClipGradByGlobalNorm``) or past one that does not, with the JAX
+package's ``RuntimeWarning``, and then to ``_update_param_sparse``,
+which densifies and runs the dense rule unless the class has a row-wise
+one: SGD's, and Adam's and AdamW's ``lazy_mode`` (untouched rows keep
+their moments, the beta powers advance for the whole table, AdamW
+decays the touched rows only; ``amsgrad`` densifies).
+
+``LBFGS`` computes what the JAX class computes: one two-loop-recursion
+step of length ``lr`` per ``step(closure)``, with no line search.
+
 The JAX update is XLA with no Pallas kernel behind it, so no kernel is
-owed here.  ``LBFGS``, ``lazy_mode`` and sparse (``SelectedRows``)
-gradients are ROADMAP.md A4.
+owed here.
 """
 
 from __future__ import annotations
 
 import numbers
+import warnings
 
 import numpy as np
 import torch
 
+from ..core.selected_rows import SelectedRows, grad_of, set_sparse_grad
 from ..core.tensor import unwrap
 from ..profiler import counters
 from . import lr
 from .lr import LRScheduler
 
-_SPARSE = ("sparse (SelectedRows) gradients are not ported yet: ROADMAP.md "
-           "A4 (SelectedRows gradients with lazy_mode)")
 _GROUP_KEYS = {"params", "learning_rate", "weight_decay"}
 
 
@@ -221,17 +231,17 @@ class Optimizer:
         gradients' sums of squares for the clip (``nn.clip``), when the
         caller has them."""
         counters.inc("optimizer.steps")
-        pg = [(p, p.grad) for p in self._parameter_list
-              if p.requires_grad and p.grad is not None]
-        for _, g in pg:
-            if g.is_sparse:
-                raise NotImplementedError(_SPARSE)
+        pg = [(p, g) for p, g in ((p, grad_of(p))
+                                  for p in self._parameter_list
+                                  if p.requires_grad) if g is not None]
         if self._grad_clip is not None:
-            pg = list(self._grad_clip(pg) if sq is None
-                      else self._grad_clip(pg, sq))
+            pg = self._clip(pg, sq)
         self._step_count += 1
         self._step_t.add_(1)
         for p, g in pg:
+            if isinstance(g, SelectedRows):
+                self._update_param_sparse(p, g)
+                continue
             g = g.float() if self._multi_precision else g
             if found is None:
                 self._update_param(p, g)
@@ -241,12 +251,36 @@ class Optimizer:
             for t, before in old:
                 t.copy_(torch.where(found, before, t))
 
+    def _clip(self, pg, sq):
+        """The clip's pairs.  A clip that does not handle SelectedRows gets
+        the dense pairs only; the sparse ones bypass it, warned (JAX)."""
+        clip = self._grad_clip
+        if getattr(clip, "_handles_selected_rows", False):
+            return list(clip(pg) if sq is None else clip(pg, sq))
+        dense = [(p, g) for p, g in pg if not isinstance(g, SelectedRows)]
+        sparse = [(p, g) for p, g in pg if isinstance(g, SelectedRows)]
+        if sparse:
+            warnings.warn(
+                f"{type(clip).__name__} does not support SelectedRows "
+                f"gradients; {len(sparse)} sparse grad(s) bypass clipping",
+                RuntimeWarning, stacklevel=3)
+        return list(clip(dense) if sq is None else clip(dense, sq)) + sparse
+
     def _update_param(self, p, g):
         raise NotImplementedError
+
+    def _update_param_sparse(self, p, sr):
+        """A SelectedRows gradient.  Default: densify and run the dense
+        rule (numerically a dense gradient).  Classes with a row-wise rule
+        override it (SGD; Adam's and AdamW's lazy_mode)."""
+        g = sr.to_dense()
+        self._update_param(p, g.float() if self._multi_precision
+                           else g.to(p.dtype))
 
     def clear_grad(self, set_to_zero=True):
         for p in self._parameter_list:
             p.grad = None
+            set_sparse_grad(p, None)
 
     clear_gradients = clear_grad
 
@@ -360,6 +394,14 @@ class SGD(Optimizer):
         m.sub_(self._lr_of(p) * g)
         self._write_back(p, m)
 
+    def _update_param_sparse(self, p, sr):
+        """Row-wise SGD: only the gradient's rows move (duplicates add up);
+        no weight decay, as the reference's sparse SGD (decay would make
+        the update dense)."""
+        m = self._master(p)
+        m.index_add_(0, sr.rows, sr.values.to(m.dtype) * -self._lr_of(p))
+        self._write_back(p, m)
+
 
 class Momentum(Optimizer):
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
@@ -389,12 +431,9 @@ class Adam(Optimizer):
                  use_multi_tensor=False, amsgrad=False, name=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          multi_precision)
-        if lazy_mode:
-            raise NotImplementedError(
-                "Adam(lazy_mode=True) is not ported yet: ROADMAP.md A4 "
-                "(SelectedRows gradients with lazy_mode)")
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
         self._amsgrad = amsgrad
+        self._lazy_mode = lazy_mode
 
     def _moments(self, p, g):
         b1, b2 = self._beta1, self._beta2
@@ -421,6 +460,41 @@ class Adam(Optimizer):
             g = g + wd * master
         mhat, vhat = self._moments(p, g)
         master.sub_(self._lr_of(p) * mhat / (torch.sqrt(vhat) + self._eps))
+        self._write_back(p, master)
+
+    def _update_param_sparse(self, p, sr):
+        """lazy_mode: the row-wise update (untouched rows keep their
+        moments; the beta powers advance for the whole table).  Without
+        it the dense rule applies (densify: untouched rows still decay
+        their moments); amsgrad densifies too, since its running max is
+        global."""
+        if not self._lazy_mode or self._amsgrad:
+            return super()._update_param_sparse(p, sr)
+        self._lazy_row_update(p, sr, self._lr_of(p), decay=0.0)
+
+    def _lazy_row_update(self, p, sr, lr_t, decay):
+        """Adam on the unique rows of ``sr`` (duplicates summed in fp32),
+        each accumulator and the master written back row by row;
+        ``decay`` is AdamW's decoupled decay of the touched rows."""
+        b1, b2 = self._beta1, self._beta2
+        rows, inv = torch.unique(sr.rows, sorted=True, return_inverse=True)
+        g = torch.zeros((rows.numel(), *sr.values.shape[1:]),
+                        dtype=torch.float32, device=sr.values.device)
+        g.index_add_(0, inv, sr.values.float())
+        master = self._master(p)
+        m = self._acc("moment1", p)
+        v = self._acc("moment2", p)
+        b1p = self._acc("beta1_pow", p, _one(p))
+        b2p = self._acc("beta2_pow", p, _one(p))
+        mr = b1 * m[rows] + (1 - b1) * g
+        vr = b2 * v[rows] + (1 - b2) * g * g
+        b1p.mul_(b1)
+        b2p.mul_(b2)
+        m.index_copy_(0, rows, mr)
+        v.index_copy_(0, rows, vr)
+        upd = lr_t * (mr / (1 - b1p)) / (torch.sqrt(vr / (1 - b2p))
+                                         + self._eps)
+        master.index_copy_(0, rows, master[rows] * (1 - lr_t * decay) - upd)
         self._write_back(p, master)
 
 
@@ -457,6 +531,20 @@ class AdamW(Adam):
             master.mul_(1 - lr_t * decay)
         master.sub_(lr_t * mhat / (torch.sqrt(vhat) + self._eps))
         self._write_back(p, master)
+
+    def _update_param_sparse(self, p, sr):
+        """lazy_mode decays the touched rows only (the densified path
+        decays the whole table through :meth:`_update_param`)."""
+        if not self._lazy_mode or self._amsgrad:
+            return Optimizer._update_param_sparse(self, p, sr)
+        lr_t = self._lr_of(p)
+        if self._lr_ratio is not None:
+            lr_t = lr_t * self._lr_ratio(p)
+        decay = self._decay(p, self._wd)
+        if self._apply_decay_fn is not None and not self._apply_decay_fn(
+                self._name_of[id(p)]):
+            decay = 0.0
+        self._lazy_row_update(p, sr, lr_t, decay)
 
 
 class Adagrad(Optimizer):
@@ -709,12 +797,70 @@ class Lamb(Optimizer):
 
 
 class LBFGS(Optimizer):
-    """Not ported yet: it takes a closure and a line search."""
+    """LBFGS as the JAX package computes it: each :meth:`step` calls
+    ``closure`` (which runs the backward) once, then takes one step of
+    length ``lr`` along the two-loop recursion's direction from the last
+    ``history_size`` pairs ``(s, y)`` of parameter and gradient changes;
+    a pair enters the history only when ``s·y > 1e-10``.  There is no
+    line search: ``max_iter``, ``max_eval``, the tolerances and
+    ``line_search_fn`` are taken and not used, and ``grad_clip`` is not
+    applied (all as in JAX)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LBFGS is not ported yet: ROADMAP.md A4 (LBFGS, with its "
-            "closure and line search)")
+    def __init__(self, learning_rate=1.0, max_iter=20, max_eval=None,
+                 tolerance_grad=1e-7, tolerance_change=1e-9, history_size=100,
+                 line_search_fn=None, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         False)
+        self._max_iter = max_iter
+        self._history = history_size
+        self._s, self._y = [], []
+        self._prev_flat = None
+        self._prev_grad = None
+
+    def step(self, closure=None):
+        if closure is not None:
+            with torch.enable_grad():
+                closure()
+        with torch.no_grad():
+            pg = [(p, p.grad) for p in self._parameter_list
+                  if p.requires_grad and p.grad is not None]
+            if not pg:
+                return None
+            flat_g = torch.cat([g.float().reshape(-1) for _, g in pg])
+            flat_w = torch.cat([p.float().reshape(-1) for p, _ in pg])
+            if self._prev_flat is not None:
+                s = flat_w - self._prev_flat
+                y = flat_g - self._prev_grad
+                if float(torch.dot(s, y)) > 1e-10:
+                    self._s.append(s)
+                    self._y.append(y)
+                    if len(self._s) > self._history:
+                        self._s.pop(0)
+                        self._y.pop(0)
+            q = flat_g
+            alphas = []
+            for s, y in zip(reversed(self._s), reversed(self._y)):
+                rho = 1.0 / torch.dot(y, s)
+                a = rho * torch.dot(s, q)
+                q = q - a * y
+                alphas.append((a, rho, s, y))
+            if self._s:
+                gamma = (torch.dot(self._s[-1], self._y[-1])
+                         / torch.dot(self._y[-1], self._y[-1]))
+                q = gamma * q
+            for a, rho, s, y in reversed(alphas):
+                b = rho * torch.dot(y, q)
+                q = q + (a - b) * s
+            self._prev_flat = flat_w
+            self._prev_grad = flat_g
+            new_flat = flat_w + self.get_lr() * -q
+            ofs = 0
+            for p, _ in pg:
+                n = p.numel()
+                p.copy_(new_flat[ofs:ofs + n].reshape(p.shape))
+                ofs += n
+        return None
 
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",

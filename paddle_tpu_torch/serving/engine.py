@@ -51,6 +51,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from ..core.tensor import unwrap
 from ..profiler import counters
 from ..profiler import devicetime as _devicetime
 from ..profiler import flight, metrics
@@ -161,6 +162,17 @@ class Request:
                 f"reason={self.finish_reason!r}, "
                 f"generated={len(self.tokens)})")
 
+
+
+def prompt_ids(prompt):
+    """A prompt as a 1-d int32 numpy array, from a ``torch.Tensor`` on any
+    device (copied to the host), the paddle-style ``Tensor``, a list or
+    an array: what every entry point that takes a prompt reads (the
+    reference unwraps its own device arrays the same way)."""
+    data = unwrap(prompt)
+    if isinstance(data, torch.Tensor):
+        data = data.detach().cpu().numpy()
+    return np.asarray(data, dtype=np.int32).reshape(-1)
 
 def bucket_length(n, min_bucket=8, max_len=None):
     """Smallest power-of-two >= n (floored at ``min_bucket``, clamped to
@@ -370,7 +382,7 @@ class LLMEngine:
         if adapter is not None and not self.adapter_slots:
             raise ValueError("adapter given but the engine was built "
                              "with adapter_slots=0")
-        ids = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        ids = prompt_ids(prompt)
         T = int(ids.shape[0])
         if T < 1:
             raise ValueError("empty prompt")

@@ -70,7 +70,7 @@ from ..profiler.host_tracer import span
 from ..resilience import faultinject
 from .autoscale import FleetAutoscaler
 from .engine import (EngineBackpressure, EngineClosed, LLMEngine,
-                     _not_ported, bucket_length)
+                     _not_ported, bucket_length, prompt_ids)
 from .kvcache import BlockPoolExhausted, HostTierLost
 from .router import RetryAfter, Router
 
@@ -574,7 +574,7 @@ class ServingFleet:
         the tenant's factors, and the tenant rides every retry."""
         if self._closed:
             raise EngineClosed("fleet is drained; no new requests")
-        ids = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        ids = prompt_ids(prompt)
         if seed is None:
             seed = int(np.random.randint(0, 2**31 - 1))
         rid = next(self._rid)

@@ -74,7 +74,7 @@ from ..profiler.host_tracer import span
 from ..resilience import faultinject as _fi
 from .adapters import AdapterArena, AdapterArenaExhausted
 from .engine import (EngineBackpressure, EngineClosed, LLMEngine, Request,
-                     bucket_length)
+                     bucket_length, prompt_ids)
 from .kvcache import (TRASH_BLOCK, BlockPool, BlockPoolExhausted,
                       HostKVTier, HostTierLost, PrefixCache,
                       blocks_for_tokens)
@@ -242,7 +242,7 @@ class PagedLLMEngine(LLMEngine):
         prefilling (read-only), in ``tenant``'s key plane."""
         if self.prefix is None:
             return 0
-        ids = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        ids = prompt_ids(prompt)
         with self._cond:
             return self.prefix.peek(self._prefix_key(ids.tolist(), tenant),
                                     int(ids.shape[0]) - 1)
@@ -253,7 +253,7 @@ class PagedLLMEngine(LLMEngine):
         page-in first."""
         if self.prefix is None:
             return 0, 0
-        ids = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        ids = prompt_ids(prompt)
         with self._cond:
             return self.prefix.probe(self._prefix_key(ids.tolist(), tenant),
                                      int(ids.shape[0]) - 1)
@@ -485,7 +485,7 @@ class PagedLLMEngine(LLMEngine):
                     raise KeyError(
                         f"adapter {tenant!r} is not registered on this "
                         "engine (register_adapter first)")
-        ids = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        ids = prompt_ids(prompt)
         need = blocks_for_tokens(
             max(1, int(ids.shape[0]) + int(max_new_tokens) - 1),
             self.pool.block_size)

@@ -51,7 +51,7 @@ from ..profiler import flight
 from ..profiler import trace as rtrace
 from ..profiler.host_tracer import span
 from ..quantization import ptq_int8_decode_state
-from .engine import bucket_length
+from .engine import bucket_length, prompt_ids
 from .kvcache import blocks_for_tokens
 from .paged import PagedLLMEngine
 from .sampling import filter_logits, residual_sample
@@ -199,7 +199,7 @@ class SpeculativeLLMEngine(PagedLLMEngine):
 
     # -- request intake ------------------------------------------------------
     def add_request(self, prompt, max_new_tokens=32, **kw):
-        ids = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        ids = prompt_ids(prompt)
         need = blocks_for_tokens(
             max(1, int(ids.shape[0]) + int(max_new_tokens) - 1),
             self.pool.block_size)

@@ -139,10 +139,30 @@ def test_clip_grad_value_matches_jax(dtype):
 
 
 def test_sparse_gradients_name_a4():
-    p = torch.zeros(8, 4, requires_grad=True)
-    g = torch.sparse_coo_tensor(torch.tensor([[1, 5]]), torch.ones(2, 4),
-                                (8, 4))
-    for clip in (tclip.ClipGradByValue(1.0), tclip.ClipGradByNorm(1.0),
-                 tclip.ClipGradByGlobalNorm(1.0)):
-        with pytest.raises(NotImplementedError, match="A4"):
-            clip([(p, g)])
+    """Once refused naming ROADMAP.md A4, now ported: the global-norm
+    clip on a SelectedRows gradient (duplicate rows) beside a dense one
+    merges the rows, puts the merged values' squares into the norm and
+    scales them, as JAX's does (``_handles_selected_rows``; fp32, 1e-6
+    relative).  ``ClipGradByValue``/``ByNorm`` never see one: the
+    optimizer routes sparse gradients past them
+    (``tests/test_torch_selected_rows.py``)."""
+    from paddle_tpu.core.selected_rows import SelectedRows as JSR
+    from paddle_tpu_torch.core.selected_rows import SelectedRows as TSR
+    jp, tp = _case("float32")
+    rng = np.random.default_rng(9)
+    rows = [1, 5, 1, 7]
+    vals = (3.0 * rng.standard_normal((4, 4))).astype(np.float32)
+    jt = JParameter(jnp.zeros((8, 4), jnp.float32))
+    tt = torch.zeros(8, 4, requires_grad=True)
+    jpairs = [(jt, JSR(rows, jnp.asarray(vals), 8))] + [
+        (p, p.grad) for p in jp]
+    tpairs = [(tt, TSR(torch.tensor(rows), torch.from_numpy(vals), 8))] + [
+        (p, p.grad) for p in tp]
+    assert tclip.ClipGradByGlobalNorm._handles_selected_rows
+    jout = jclip.ClipGradByGlobalNorm(2.0)(jpairs)
+    tout = tclip.ClipGradByGlobalNorm(2.0)(tpairs)
+    (_, jg), (_, tg) = jout[0], tout[0]
+    assert tg.rows.tolist() == np.asarray(jg.rows).tolist() == [1, 5, 7]
+    _close(tg.values, jg.values, "float32", "sparse values")
+    for i, ((_, a), (_, b)) in enumerate(zip(jout[1:], tout[1:])):
+        _close(b, a, "float32", f"dense grad {i}")

@@ -34,7 +34,8 @@ from paddle_tpu.kernels import flash_attention as jfa
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.profiler import counters
 
-SHAPES = [(1, 2, 128, 32), (2, 2, 256, 64)]   # [B, H, S, D]
+# [B, H, S, D]; D 80 and 256 are the head dims off the wgmma kernels
+SHAPES = [(1, 2, 128, 32), (2, 2, 256, 64), (1, 1, 128, 80), (1, 1, 128, 256)]
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16),
           "float16": (jnp.float16, torch.float16)}

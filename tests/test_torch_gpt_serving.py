@@ -191,9 +191,12 @@ def test_init_from_explicit_generator():
         GPTConfig(**CFG), device="cpu",
         generator=torch.Generator().manual_seed(seed))
     a, b, c = make(3), make(3), make(4)
-    assert torch.equal(a.qkv_w, b.qkv_w) and not torch.equal(a.qkv_w, c.qkv_w)
-    assert torch.all(a.ln1_w == 1) and torch.all(a.qkv_b == 0)
-    std = float(a.fc1_w.detach().std())
+    # the torch parameters behind the Layer's Parameter attributes
+    a, b, c = (dict(torch.nn.Module.named_parameters(x)) for x in (a, b, c))
+    assert torch.equal(a["qkv_w"], b["qkv_w"]) and not torch.equal(
+        a["qkv_w"], c["qkv_w"])
+    assert torch.all(a["ln1_w"] == 1) and torch.all(a["qkv_b"] == 0)
+    std = float(a["fc1_w"].detach().std())
     assert abs(std - CFG["initializer_range"]) < 0.02
 
 

@@ -129,9 +129,76 @@ def test_five_steps_match_jax(name, kw, wd, dtype):
 
 
 def test_every_dense_optimizer_is_ported():
+    """The 13 dense classes, and LBFGS (once refused naming A4): one
+    ``step(closure)`` calls the closure once and, with no history yet,
+    moves by ``-lr * g`` — JAX's single step with no line search."""
     assert len({n for n, _, _ in FAMILY}) == 13
-    with pytest.raises(NotImplementedError, match="A4"):
-        topt.LBFGS(parameters=[torch.zeros(2, requires_grad=True)])
+    g0 = np.array([0.5, -2.0], np.float32)
+    calls = []
+    x = torch.zeros(2, requires_grad=True)
+
+    def closure():
+        calls.append(1)
+        x.grad = torch.from_numpy(g0)
+
+    jx = JParameter(jnp.zeros(2, jnp.float32))
+
+    def jclosure():
+        jx.grad = JTensor._wrap(jnp.asarray(g0))
+
+    topt.LBFGS(learning_rate=0.3, parameters=[x]).step(closure)
+    paddle.optimizer.LBFGS(learning_rate=0.3, parameters=[jx]).step(
+        jclosure)
+    assert len(calls) == 1
+    np.testing.assert_array_equal(_f32(x), _f32(jx))
+    np.testing.assert_allclose(_f32(x), -0.3 * g0, rtol=1e-7)
+
+
+@pytest.mark.parametrize("history", [2, 100])
+def test_lbfgs_with_closure_matches_jax(history):
+    """Ten ``step(closure)`` calls on a least-squares problem (fp32,
+    ``history_size`` 2 trims the history; 100 keeps it all): parameters
+    after every step as JAX's within ``RTOL`` of their scale (the same
+    dots summed in another order), and the loss falls toward the
+    optimum."""
+    rng = np.random.default_rng(12)
+    # scaled so that the first step, -lr * g, does not overshoot
+    A = (0.1 * rng.standard_normal((32, 8))).astype(np.float32)
+    b = rng.standard_normal(32).astype(np.float32)
+    x0 = rng.standard_normal(8).astype(np.float32)
+    jx = JParameter(jnp.asarray(x0))
+    tx = torch.from_numpy(x0.copy()).requires_grad_()
+    jo = paddle.optimizer.LBFGS(learning_rate=1.0, history_size=history,
+                                parameters=[jx])
+    to = topt.LBFGS(learning_rate=1.0, history_size=history,
+                    parameters=[tx])
+    jA, jb = paddle.to_tensor(A), paddle.to_tensor(b)
+    tA, tb = torch.from_numpy(A), torch.from_numpy(b)
+    losses = []
+
+    def jclosure():
+        jo.clear_grad()
+        r = paddle.matmul(jA, jx) - jb
+        loss = (r * r).sum()
+        loss.backward()
+        return loss
+
+    def tclosure():
+        to.clear_grad()
+        loss = ((tA @ tx - tb) ** 2).sum()
+        loss.backward()
+        losses.append(float(loss))
+        return loss
+
+    for step in range(10):
+        jo.step(jclosure)
+        to.step(tclosure)
+        _close(tx, jx, f"x after step {step}")
+    assert len(to._s) == min(history, len(jo._s)) == len(jo._s)
+    # the loss falls to within a tenth of its start's excess over the
+    # least-squares optimum
+    best = float(np.sum((A @ np.linalg.lstsq(A, b, rcond=None)[0] - b) ** 2))
+    assert losses[-1] - best < 0.1 * (losses[0] - best)
 
 
 @pytest.mark.parametrize("name", ["Adam", "AdamW"])
@@ -336,10 +403,31 @@ def test_device_step_count_matches_jax_after_a_resume(name, kw):
 
 
 def test_sparse_gradients_and_lazy_mode_name_a4():
-    p = torch.zeros(8, 4, requires_grad=True)
-    p.grad = torch.sparse_coo_tensor(torch.tensor([[1, 5]]),
-                                     torch.ones(2, 4), (8, 4))
-    with pytest.raises(NotImplementedError, match="A4"):
-        topt.SGD(0.1, parameters=[p]).step()
-    with pytest.raises(NotImplementedError, match="A4"):
-        topt.AdamW(0.1, parameters=[p], lazy_mode=True)
+    """Once refused naming ROADMAP.md A4, now ported: a SelectedRows
+    gradient set on a parameter (duplicate rows) steps SGD row-wise and
+    AdamW(lazy_mode=True) on the touched rows, as JAX's do, for two
+    steps (fp32, ``RTOL``); untouched rows keep their start bits."""
+    from paddle_tpu.core.selected_rows import SelectedRows as JSR
+    from paddle_tpu_torch.core.selected_rows import SelectedRows as TSR
+    rng = np.random.default_rng(3)
+    w0 = rng.standard_normal((8, 4)).astype(np.float32)
+    rows = [1, 5, 1]
+    for name, kw in (("SGD", {}), ("AdamW", dict(lazy_mode=True))):
+        jparams, tparams = _params([w0], "float32")
+        jo = getattr(paddle.optimizer, name)(0.1, parameters=jparams, **kw)
+        to = getattr(topt, name)(0.1, parameters=tparams, **kw)
+        for _ in range(2):
+            vals = rng.standard_normal((3, 4)).astype(np.float32)
+            jparams[0].grad = JSR(rows, jnp.asarray(vals), 8)
+            tparams[0].grad = None
+            from paddle_tpu_torch.core.selected_rows import set_sparse_grad
+            set_sparse_grad(tparams[0], TSR(torch.tensor(rows),
+                                            torch.from_numpy(vals), 8))
+            jo.step()
+            jo.clear_grad()
+            to.step()
+            to.clear_grad()
+        _close(tparams[0], jparams[0], name)
+        untouched = [0, 2, 3, 4, 6, 7]
+        np.testing.assert_array_equal(_f32(tparams[0])[untouched],
+                                      w0[untouched])

@@ -70,11 +70,18 @@ _KINDS = ["random", "pos0", "block_boundaries", "shared_blocks",
           "trash_row"]
 
 
+#: the float pool dtypes of both packages (fp16: B-ii's instance)
+_FLOATS = {"float32": (jnp.float32, torch.float32),
+           "bfloat16": (jnp.bfloat16, torch.bfloat16),
+           "float16": (jnp.float16, torch.float16)}
+
+
 def _as_bf16(x):
     return np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "fp8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16", "int8",
+                                   "fp8"])
 @pytest.mark.parametrize("kind", _KINDS)
 def test_plain_version_matches_jax_kernel(interpret_mode, kind, dtype):
     rng = np.random.default_rng(_KINDS.index(kind))
@@ -91,8 +98,7 @@ def test_plain_version_matches_jax_kernel(interpret_mode, kind, dtype):
                 torch.from_numpy(bt), torch.from_numpy(pos), tpools[0][1],
                 tpools[1][1])
     else:
-        jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
-        tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+        jdt, tdt = _FLOATS[dtype]
         ref = np.asarray(jpa.paged_decode_attention(
             jnp.asarray(q, jdt), jnp.asarray(pk, jdt), jnp.asarray(pv, jdt),
             jnp.asarray(bt), jnp.asarray(pos), scale=scale))
@@ -174,8 +180,7 @@ def _split_inputs(dtype, rng):
                 torch.from_numpy(bt), torch.from_numpy(pos), tpools[0][1],
                 tpools[1][1])
     else:
-        jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
-        tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+        jdt, tdt = _FLOATS[dtype]
         ref = np.asarray(jpa.paged_decode_attention(
             jnp.asarray(q, jdt), jnp.asarray(pk, jdt), jnp.asarray(pv, jdt),
             jnp.asarray(bt), jnp.asarray(pos), scale=scale))
@@ -192,7 +197,8 @@ def _split_inputs(dtype, rng):
 _SPLIT_BLOCKS = {"bs": 1, "4bs": 4, "beyond_rows": 7}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "fp8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16", "int8",
+                                   "fp8"])
 @pytest.mark.parametrize("split", list(_SPLIT_BLOCKS))
 def test_split_mirror_matches_jax_kernel(interpret_mode, split, dtype):
     rng = np.random.default_rng(20 + list(_SPLIT_BLOCKS).index(split))

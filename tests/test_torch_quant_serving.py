@@ -143,7 +143,8 @@ def test_ptq_decode_state_matches_jax(models):
             tw["lws"][name + "__scale"].numpy(),
             np.asarray(jw["lws"][name + "__scale"]))
     # biases, norms and embeddings stay the model's own tensors
-    assert tw["lws"]["qkv_b"] is tm.qkv_b and tw["wte"] is tm.wte
+    assert tw["lws"]["qkv_b"] is tm.qkv_b._data \
+        and tw["wte"] is tm.wte._data
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

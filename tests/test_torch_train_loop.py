@@ -228,14 +228,14 @@ def test_grad_scaler_skips_and_scales_like_jax(jax_runs):
     ids, labels = _batches(SCALER_STEPS, 2, 128, seed=1)
     losses, skipped = [], 0
     for x, y in zip(ids, labels):
-        before = ([p.detach().clone() for p in m.parameters()],
+        before = ([p.detach().clone() for p in torch.nn.Module.parameters(m)],
                   opt.state_dict())
         losses.append(float(step(torch.from_numpy(x), torch.from_numpy(y))))
         step.metrics_flush()
         if step.metrics.latest("scaler_skip") == 1.0 and before[1]["step"]:
             skipped += 1
             after = opt.state_dict()
-            for a, b in zip(before[0], m.parameters()):
+            for a, b in zip(before[0], torch.nn.Module.parameters(m)):
                 assert torch.equal(a, b)
             for acc, store in before[1]["accumulators"].items():
                 for n, t in store.items():
@@ -331,7 +331,8 @@ def test_k4_windows_equal_k1_steps_bit_for_bit(jax_runs, dropout):
     m4, s4, o4, st4 = _fused_setup(w, K, dropout)
     l4 = _run_windows(st4, s4, ids, labels)
     assert torch.equal(l1, l4)
-    for (n, a), b in zip(m1.named_parameters(), m4.parameters()):
+    for (n, a), b in zip(torch.nn.Module.named_parameters(m1),
+                         torch.nn.Module.parameters(m4)):
         assert torch.equal(a, b), n
     assert o1.state_dict()["step"] == o4.state_dict()["step"] == N
     assert s1.last_lr == s4.last_lr
@@ -352,7 +353,8 @@ def test_step_count_optimizers_in_windows_equal_single_steps(jax_runs,
         step = CompiledTrainStep(m, _loss_fn(), opt, fused_steps=k)
         losses = (_run_single if k == 1 else _run_windows)(
             step, sched, ids, labels)
-        out.append((losses, [p.detach().clone() for p in m.parameters()]))
+        out.append((losses, [p.detach().clone()
+                             for p in torch.nn.Module.parameters(m)]))
     (l1, p1), (l4, p4) = out
     assert torch.equal(l1, l4)
     assert all(torch.equal(a, b) for a, b in zip(p1, p4))
@@ -480,7 +482,8 @@ def test_scaler_skip_inside_a_fused_window_equals_single_steps(jax_runs):
     assert skip1 == skip4
     assert [s for s, v in skip1 if v] == [K + 2]
     assert torch.equal(l1, l4)
-    for a, b in zip(m1.parameters(), m4.parameters()):
+    for a, b in zip(torch.nn.Module.parameters(m1),
+                    torch.nn.Module.parameters(m4)):
         assert torch.equal(a, b)
     s1, s4 = o1.state_dict(), o4.state_dict()
     for acc in s1["accumulators"]:

@@ -119,10 +119,31 @@ def test_route_takes_the_kernel_where_jax_takes_pallas():
 
 
 def test_head_dim_256_on_the_kernel_route_raises(monkeypatch):
+    """D 256 on the kernel route once raised naming ROADMAP.md A4; now it
+    takes the flash kernels (K1–K3, their plain versions on a CPU
+    tensor), as JAX's route takes Pallas (interpret mode here): output
+    and the q/k/v gradients within ``TOL`` of JAX's."""
+    from paddle_tpu.kernels import flash_attention as jfa
+    jroute = importlib.import_module(
+        "paddle_tpu.nn.functional.flash_attention")
     monkeypatch.setattr(tfa_route, "_use_kernel", lambda q: True)
-    q = tp.to_tensor(np.zeros((1, 128, 1, 256), np.float32))
-    with pytest.raises(ValueError, match="ROADMAP.md A4"):
-        tp.nn.functional.scaled_dot_product_attention(q, q, q)
+    monkeypatch.setattr(jroute, "_use_pallas", lambda q: True)
+    interpret = jfa._INTERPRET[0]
+    jfa._INTERPRET[0] = True
+    rng = np.random.default_rng(4)
+    x = [rng.standard_normal((1, 128, 1, 256)).astype(np.float32)
+         for _ in range(3)]
+    g = rng.standard_normal((1, 128, 1, 256)).astype(np.float32)
+    outs = []
+    for pkg in (jp, tp):
+        q, k, v = (pkg.to_tensor(a, stop_gradient=False) for a in x)
+        out = pkg.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True)
+        out.backward(pkg.to_tensor(g))
+        outs.append([out.numpy()] + [t.grad.numpy() for t in (q, k, v)])
+    jfa._INTERPRET[0] = interpret
+    for name, want, got in zip(("out", "dq", "dk", "dv"), *outs):
+        _close(got, want, name)
 
 
 def test_attention_dropout_and_masks_take_the_plain_route(monkeypatch):
