@@ -1,33 +1,37 @@
 #!/usr/bin/env python3
 """Compare variants of the flash-attention kernels on one NVIDIA GPU.
 
-    python3 flash_variants.py VARIANT.cu [VARIANT.cu ...]
+    python3 flash_variants.py [--source NAME] VARIANT.cu [VARIANT.cu ...]
 
 Each VARIANT.cu is a whole replacement of
-``paddle_tpu_torch/kernels/csrc/flash_attention.cu`` (a text edit of it,
-say) with the same C interface.  The script builds the checked-in
-source and every variant with the package's ``nvcc`` flags, one
+``paddle_tpu_torch/kernels/csrc/NAME.cu`` (a text edit of it, say) with
+the same C interface; NAME is ``flash_attention`` (the default: K1–K3
+at head dims 64/96/128) or ``flash_attention_d256`` (K1 and K3 at head
+dim 256).  The script builds the checked-in source and every variant
+with the package's ``nvcc`` flags (``csrc/`` on the include path), one
 process each, all started together, into ``build/variants/``
 (git-ignored), and prints per variant ptxas's registers and spills of
 the Hopper kernels.  It then holds each variant's K1, K2 and K3 to their
 plain versions with ``chip_smoke.py``'s per-element tolerance over a
-few shapes (one and several tiles, odd tile counts, head dims 64/96/128,
-causal and not, dO [B, H, S, D]-contiguous, the 760M training shape),
-K2 and K3 also to the same bits on a second run, and drops a variant
-that fails.  Last it times K1, K2 and K3 of every variant left at the
-760M training shape (B 8, S 1024, 16 heads of 96, causal, bf16) in
-turns, first to last and back, beside SDPA's flash backward, with
-``chip_smoke.py``'s device timer.  One JSON line per result; the last
-holds the times in µs.  Exits non-zero without a GPU.
+few shapes (one and several tiles, odd tile counts, causal and not, dO
+[B, H, S, D]-contiguous, the timed shape), K1–K3 also to the same bits
+on a second run, drops a variant that fails, and says whether each
+variant's outputs are bit for bit the checked-in source's on every case
+(``bits_equal_to_source``).  Last it times the kernels the source holds
+of every variant left at its shape (``flash_attention``: the 760M
+training shape, B 8, S 1024, 16 heads of 96; ``flash_attention_d256``:
+B 2, H 16, S 1024, D 256; causal, bf16) in turns, first to last and
+back, beside SDPA's flash backward, with ``chip_smoke.py``'s device
+timer.  One JSON line per result; the last holds the times in µs.
+Exits non-zero without a GPU.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
-import json
 import math
 import subprocess
-import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -40,31 +44,42 @@ from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import flash_attention as fa
 
 OUT = Path(__file__).resolve().parent / "build" / "variants"
-#: (B, H, S, D, causal, dO [B, H, S, D]-contiguous)
-CASES = ([(2, 3, 256, d, c, False) for d in fa.KERNEL_HEAD_DIMS
-          for c in (False, True)]
-         + [(1, 1, 128, 96, True, False), (2, 3, 384, 96, True, False),
-            (2, 3, 384, 128, False, False), (5, 7, 2048, 96, True, True),
-            (cs.TRAIN_B, 16, cs.TRAIN_S, 96, True, False)])
+#: per source: checked cases (B, H, S, D, causal, dO [B, H, S, D]-
+#: contiguous) and the timed (B, H, S, D)
+SOURCES = {
+    "flash_attention": (
+        [(2, 3, 256, d, c, False) for d in fa.KERNEL_HEAD_DIMS
+         for c in (False, True)]
+        + [(1, 1, 128, 96, True, False), (2, 3, 384, 96, True, False),
+           (2, 3, 384, 128, False, False), (5, 7, 2048, 96, True, True),
+           (cs.TRAIN_B, 16, cs.TRAIN_S, 96, True, False)],
+        (cs.TRAIN_B, 16, cs.TRAIN_S, 96)),
+    "flash_attention_d256": (
+        [(1, 1, 128, 256, c, False) for c in (False, True)]
+        + [(3, 5, 384, 256, c, False) for c in (False, True)]
+        + [(5, 7, 1024, 256, True, False), (2, 4, 512, 256, True, True),
+           (2, 16, 1024, 256, True, False)],
+        (2, 16, 1024, 256)),
+}
 
 
 def build(name, src):
     """nvcc one source into ``OUT/<name>.so``: (name, exit code, log)."""
     out = OUT / f"{name}.so"
-    cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)]
+    cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+           str(out), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     return name, proc.returncode, proc.stderr
 
 
-def use(lib):
-    """Route the wrappers in ``fa`` to ``lib``."""
-    _build._LIBS["flash_attention"] = lib
-    fa._lib()
+def use(source, lib):
+    """Route the wrappers in ``fa`` that take ``source`` to ``lib``."""
+    _build._LIBS[source] = fa._bind(lib)
 
 
 def check(case, gen):
-    """Worst err/tol of K1, dQ, dK, dV on one case, None if K2/K3 give
-    other bits on a second run."""
+    """(worst err/tol of K1, dQ, dK, dV; the outputs) on one case; None
+    if a kernel gives other bits on a second run."""
     B, H, S, D, causal, bhsd = case
     q, k, v = cs._qkv_views(gen, B, S, H, D, torch.bfloat16)
     do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(
@@ -75,59 +90,74 @@ def check(case, gen):
     rout, rlse = fa._flash_fwd_reference(q, k, v, causal, sc)
     delta = fa._delta(rout, do)
     args = (q, k, v, do, rlse, delta, causal, sc)
-    got = [fa.flash_fwd(q, k, v, causal, sc)[0], fa.flash_bwd_dq(*args),
-           *fa.flash_bwd_dkv(*args)]
-    again = [fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args)]
+
+    def run():
+        return [*fa.flash_fwd(q, k, v, causal, sc), fa.flash_bwd_dq(*args),
+                *fa.flash_bwd_dkv(*args)]
+
+    got, again = run(), run()
     refs = [rout, fa._bwd_dq_reference(*args),
             *fa._bwd_dkv_reference(*args)]
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(got[1:], again)):
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
         return None
+    outs = [got[0], *got[2:]]
     return [float(((g.float() - r.float()).abs()
                    / cs._flash_tol(r, torch.bfloat16)).max())
-            for g, r in zip(got, refs)]
+            for g, r in zip(outs, refs)], got
 
 
-def main(paths):
+def main(source, paths):
     cs.device_phase()
     OUT.mkdir(parents=True, exist_ok=True)
-    sources = {"source": _build.CSRC / "flash_attention.cu"}
+    cases, (B, H, S, D) = SOURCES[source]
+    sources = {"source": _build.CSRC / f"{source}.cu"}
     sources.update((Path(p).stem, Path(p)) for p in paths)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as ex:
         built = list(ex.map(lambda kv: build(*kv), sources.items()))
-    cs.emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    cs.emit({"phase": "build", "source": source,
+             "seconds": time.perf_counter() - t0})
     libs = {}
     for name, rc, log in built:
         if rc != 0:
             cs.emit({"variant": name, "build": "failed", "log": log[-4000:]})
             continue
         ptxas = {k.split("hopper")[1].split("EEE")[0]: v
-                 for k, v in cs._ptxas(log).items() if "wgmma" in k}
+                 for k, v in cs._ptxas(log).items() if "hopper" in k}
         cs.emit({"variant": name, "ptxas": ptxas})
         libs[name] = ctypes.CDLL(str(OUT / f"{name}.so"))
 
+    reference = {}  # the checked-in source's outputs, by case
     for name in list(libs):
-        use(libs[name])
+        use(source, libs[name])
         gen = torch.Generator(device="cuda").manual_seed(5)
-        worst = [0.0] * 4
+        worst, same = [0.0] * 4, True
         try:
-            for case in CASES:
-                ratios = check(case, gen)
-                if ratios is None:
+            for i, case in enumerate(cases):
+                res = check(case, gen)
+                if res is None:
                     raise AssertionError(f"two runs differ at {case}")
+                ratios, outs = res
                 worst = [max(a, b) for a, b in zip(worst, ratios)]
+                if name == "source":
+                    reference[i] = outs
+                elif "source" in libs:
+                    same = same and all(map(torch.equal, outs, reference[i]))
+                del res, outs
             if max(worst) > 1.0:
                 raise AssertionError(f"err/tol {worst}")
             cs.emit({"variant": name, "check": "ok",
                      "worst_err_over_tol": dict(zip(
-                         ("k1", "dq", "dk", "dv"), worst))})
+                         ("k1", "dq", "dk", "dv"), worst)),
+                     **({} if name == "source"
+                        else {"bits_equal_to_source": same})})
         except (AssertionError, RuntimeError) as e:
             cs.emit({"variant": name, "check": "failed", "error": str(e)})
             del libs[name]
+    reference.clear()
 
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    B, S, H, D = cs.TRAIN_B, cs.TRAIN_S, 16, 96
     gen = torch.Generator(device="cuda").manual_seed(9)
     q, k, v = cs._qkv_views(gen, B, S, H, D, torch.bfloat16)
     do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(
@@ -140,9 +170,11 @@ def main(paths):
                                            sc),
            "k3": lambda i: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True,
                                             sc)}
+    if fa._library(D, torch.bfloat16, "dq") != source:
+        del fns["k2"]  # another source's K2: the same for every variant
     times = {n: {k: [] for k in fns} for n in libs}
     for name in list(libs) + list(libs)[::-1]:
-        use(libs[name])
+        use(source, libs[name])
         for kn, fn in fns.items():
             times[name][kn].append(cs._device_ms(fn, 10,
                                                  cs._time_ms(fn, 30)) * 1e3)
@@ -154,9 +186,9 @@ def main(paths):
                                                 retain_graph=True)
         sdpa = [cs._device_ms(lib_bwd, 10, cs._time_ms(lib_bwd, 30)) * 1e3
                 for _ in range(2)]
-    cs.emit({"phase": "times", "shape": {"B": B, "S": S, "H": H, "D": D,
-                                         "causal": True,
-                                         "dtype": "bfloat16"},
+    cs.emit({"phase": "times", "source": source, "card": cs.CARD,
+             "shape": {"B": B, "S": S, "H": H, "D": D, "causal": True,
+                       "dtype": "bfloat16"},
              "times": "device us per launch, in turns (queued CUDA events)",
              "kernel_us": times, "sdpa_flash_backward_us": sdpa})
 
@@ -164,4 +196,9 @@ def main(paths):
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         raise SystemExit("flash_variants: needs a CUDA GPU")
-    main(sys.argv[1:])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--source", default="flash_attention",
+                    choices=sorted(SOURCES))
+    ap.add_argument("variants", nargs="*")
+    a = ap.parse_args()
+    main(a.source, a.variants)

@@ -17,7 +17,8 @@ far it holds, with every Pallas kernel of the reference:
 * GPT training — ``CompiledTrainStep(model, loss_fn, AdamW(...))`` over
   ``GPTForCausalLM.forward`` and ``GPTPretrainingCriterion``, with the
   flash-attention forward, dQ and dK/dV as hand-written CUDA kernels
-  (``kernels/csrc/flash_attention.cu``);
+  (``kernels/csrc/flash_attention.cu``; ``flash_attention_d256.cu`` and
+  ``flash_attention_mma.cu`` for the other head dims and fp32);
 * the training loop around it — learning-rate schedulers
   (``optimizer.lr``), gradient clipping (``nn.clip``), parameter groups
   and the dense optimizer family (``optimizer``), ``amp.GradScaler``,

@@ -4,10 +4,11 @@
 Each ``csrc/<name>.cu`` exports a plain C interface.  :func:`load` builds
 it at first use into ``build/paddle_tpu_torch/`` at the root of the
 checkout (a directory ``.gitignore`` lists), under a file name keyed by
-a hash of the source and the flags, so an edited source is rebuilt and
-an unchanged one is reused.  A missing ``nvcc`` or a failed compile
-raises with the compiler's own message; nothing falls back to the plain
-PyTorch versions.
+a hash of the source, the ``csrc/`` headers it includes and the flags,
+so an edited source or header is rebuilt and an unchanged one is
+reused.  A missing ``nvcc`` or a failed compile raises with the
+compiler's own message; nothing falls back to the plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -51,10 +53,29 @@ def nvcc() -> str:
         "needed to build paddle_tpu_torch's kernels")
 
 
-def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` lives (hash of source+flags)."""
-    src = CSRC / f"{name}.cu"
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def included_headers(src: Path) -> list[Path]:
+    """The headers beside ``src`` that it includes by a quoted name,
+    directly or through one another, each once, in the order found."""
+    found, todo = [], [src]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop(0).read_text()):
+            header = src.parent / name
+            if header.is_file() and header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where the build of ``<csrc>/<name>.cu`` lives: keyed by a hash of
+    the source, the headers it includes and the flags."""
+    src = csrc / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in included_headers(src):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

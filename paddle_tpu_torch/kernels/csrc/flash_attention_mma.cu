@@ -3,11 +3,16 @@
 //
 // Replaces the same Pallas kernels of paddle_tpu/kernels/flash_attention.py
 // as flash_attention.cu (K1 _fwd_kernel, K2 _bwd_dq_kernel, K3
-// _bwd_dkv_kernel) where that file's kernels do not run: flash_attention.cu
-// holds the persistent wgmma kernels for bf16/fp16 at D 64, 96 and 128
-// (GPT-3's heads); this file holds one simpler design for fp32 at every D
-// and for bf16/fp16 at every other D, and the wrapper
-// (kernels/flash_attention.py, _library) picks the library.
+// _bwd_dkv_kernel) where the wgmma kernels do not run.  By kernel, head
+// dim and type, the wrapper (kernels/flash_attention.py, _library) picks:
+//   bf16/fp16, D 64, 96, 128:  K1, K2, K3 in flash_attention.cu
+//   bf16/fp16, D 256:          K1, K3 in flash_attention_d256.cu; K2 here
+//   bf16/fp16, other D:        K1, K2, K3 here
+//   fp32, every D:             K1, K2, K3 here
+// So this file holds one simpler design for fp32 at every D and for
+// bf16/fp16 at the other head dims.  Its bf16 K1 and K3 of the 256
+// bucket still run D 240, and chip_smoke.py times them at D 256 beside
+// the wgmma kernels that took D 256 over.
 //
 // The arithmetic and its rounding are those of flash_attention.cu's header:
 // every product of 16-bit inputs takes both operands in bf16 and sums in
@@ -19,10 +24,12 @@
 // 1e-30)).  Nothing crosses CTAs and every sum runs in a fixed order: no
 // atomics, and two runs give the same bits.
 //
-// Why not the wgmma design at every D: at D 256 its consumer warpgroups
-// would need K3's two 64 x 256 fp32 accumulators (dK and dV), 256
-// registers a thread on their own, and K1's O accumulator 128 more than at
-// D 128.  So this file takes the FA2 shape instead: a CTA of 4 warps owns
+// Why not the wgmma design at every D: flash_attention.cu's K3 gives each
+// consumer warpgroup both a dK and a dV accumulator, 256 registers a
+// thread on their own at D 256, and its K2 holds dQ beside two score
+// tiles.  flash_attention_d256.cu recuts K1 and K3 for D 256 (64-key
+// tiles; K3's warpgroups split dV from dK and hand P^T over); K2 at D
+// 256 and the other head dims take the FA2 shape here: a CTA of 4 warps owns
 // 64 query rows (K1, K2) or 64 key rows (K3), each warp 16 of them, and
 // loops over the other side's tiles staged in shared memory; products are
 // warp-level mma.sync m16n8k16 (bf16 in, fp32 sums) fed by ldmatrix, with

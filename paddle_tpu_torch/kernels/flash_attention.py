@@ -12,18 +12,27 @@ with the attention probabilities recomputed from the saved LSE
 * K3 :func:`flash_bwd_dkv` (``_bwd_dkv_kernel``) — dK and dV; plain
   version :func:`_bwd_dkv_reference`.
 
-The kernels are hand-written CUDA for ``sm_90a`` (:func:`_library`
-picks the source).  In bf16 and fp16 at head dims 64, 96 and 128
-(``KERNEL_HEAD_DIMS``, GPT-3's heads) they are
-``csrc/flash_attention.cu``: persistent, warp-specialised kernels (TMA
-loads under mbarriers, ``wgmma`` products; K3 computes the scores
-transposed so that Pᵀ and dSᵀ feed its products from registers).
-Everywhere else — fp32 at every head dim, and bf16/fp16 at the other
-multiples of 16 up to 256 — they are ``csrc/flash_attention_mma.cu``:
-FA2-style loops on warp-level ``mma.sync`` in bf16 and on CUDA cores in
-fp32, built by buckets of 32 dims.  On a CPU tensor each wrapper calls
-its plain version; on a CUDA tensor it launches the kernel or raises.
-Each wrapper counts its launches in ``.launches``.
+The kernels are hand-written CUDA for ``sm_90a``; :func:`_library`
+picks the source by kernel, head dim and dtype:
+
+* bf16/fp16 at head dims 64, 96 and 128 (``KERNEL_HEAD_DIMS``, GPT-3's
+  heads): K1–K3 in ``csrc/flash_attention.cu``, persistent,
+  warp-specialised kernels (TMA loads under mbarriers, ``wgmma``
+  products; K3 computes the scores transposed so that Pᵀ and dSᵀ feed
+  its products from registers);
+* bf16/fp16 at head dim 256 (``D256_HEAD_DIM``, ``nn.MultiHeadAttention
+  (4096, 16)``'s heads): K1 and K3 in ``csrc/flash_attention_d256.cu``,
+  the same design recut for D 256 (64-key tiles; K3's two consumer
+  warpgroups own dV and dK and hand Pᵀ over in fp32), K2 in
+  ``csrc/flash_attention_mma.cu``;
+* everything else — fp32 at every head dim, bf16/fp16 at the other
+  multiples of 16 up to 256 — ``csrc/flash_attention_mma.cu``: FA2-style
+  loops on warp-level ``mma.sync`` in bf16 and on CUDA cores in fp32,
+  built by buckets of 32 dims.
+
+The Hopper sources share ``csrc/flash_hopper.cuh``.  On a CPU tensor
+each wrapper calls its plain version; on a CUDA tensor it launches the
+kernel or raises.  Each wrapper counts its launches in ``.launches``.
 
 Arithmetic follows the TPU kernel exactly where it rounds: every
 product whose operands include a 16-bit tensor (bf16 or fp16) takes
@@ -58,6 +67,8 @@ from ._shapes import NEG_INF, check_divides, check_equal
 #: head dims of the wgmma kernels (GPT-3 125M, 760M, 1.3B); the other
 #: multiples of 16 up to ``MAX_HEAD_DIM`` run the mma.sync kernels
 KERNEL_HEAD_DIMS = (64, 96, 128)
+#: head dim whose K1 and K3 (bf16/fp16) are ``flash_attention_d256.cu``'s
+D256_HEAD_DIM = 256
 MAX_HEAD_DIM = 256
 #: the kernels take S % 128 == 0, the TPU kernel's rule; the public
 #: entry sends other lengths to ``reference_attention``, as JAX does
@@ -161,14 +172,25 @@ def _flash_bwd_reference(q, k, v, out, lse, do, causal, scale, dlse=None):
 # ---------------------------------------------------------------------------
 # the CUDA kernels' wrappers
 # ---------------------------------------------------------------------------
-def _library(D, dtype):
-    """The CUDA source whose kernels take head dim ``D`` in ``dtype``."""
-    return ("flash_attention" if D in KERNEL_HEAD_DIMS
-            and dtype != torch.float32 else "flash_attention_mma")
+def _library(D, dtype, kernel="fwd"):
+    """The CUDA source whose ``kernel`` (``"fwd"`` K1, ``"dq"`` K2,
+    ``"dkv"`` K3) takes head dim ``D`` in ``dtype``."""
+    if dtype == torch.float32:
+        return "flash_attention_mma"
+    if D in KERNEL_HEAD_DIMS:
+        return "flash_attention"
+    if D == D256_HEAD_DIM and kernel != "dq":
+        return "flash_attention_d256"
+    return "flash_attention_mma"
 
 
-def _lib(D=KERNEL_HEAD_DIMS[0], dtype=torch.bfloat16):
-    lib = _build.load(_library(D, dtype))
+def _lib(D=KERNEL_HEAD_DIMS[0], dtype=torch.bfloat16, kernel="fwd"):
+    return _bind(_build.load(_library(D, dtype, kernel)))
+
+
+def _bind(lib):
+    """Set the C signatures of the launches ``lib`` exports (the D 256
+    library has no K2)."""
     if lib.flash_fwd_launch.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         L = ctypes.c_longlong
@@ -176,14 +198,16 @@ def _lib(D=KERNEL_HEAD_DIMS[0], dtype=torch.bfloat16):
         # q, k, v pointers each with (b, h, s) strides; then the rest
         qkv = [P, *strides] * 3
         dims = [I, I, I, I, I, I, F]   # B, H, S, D, dtype, causal, scale
-        lib.flash_fwd_launch.argtypes = [*qkv, P, *strides, P, *dims, P]
-        lib.flash_bwd_dq_launch.argtypes = [*qkv, P, *strides, P, P, P,
-                                            *strides, *dims, P]
-        lib.flash_bwd_dkv_launch.argtypes = [*qkv, P, *strides, P, P, P,
-                                             *strides, P, *dims, P]
-        for fn in (lib.flash_fwd_launch, lib.flash_bwd_dq_launch,
-                   lib.flash_bwd_dkv_launch):
-            fn.restype = ctypes.c_int
+        signatures = {
+            "flash_fwd_launch": [*qkv, P, *strides, P, *dims, P],
+            "flash_bwd_dq_launch": [*qkv, P, *strides, P, P, P, *strides,
+                                    *dims, P],
+            "flash_bwd_dkv_launch": [*qkv, P, *strides, P, P, P, *strides,
+                                     P, *dims, P]}
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, name, None)
+            if fn is not None:
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib.flash_attention_smem_bytes.argtypes = [I, I, I]
@@ -309,7 +333,7 @@ def flash_fwd(q, k, v, causal, scale):
     out = _empty_bshd(q)
     lse = torch.empty((B, H, S, 1), dtype=torch.float32, device=dev)
     qb, kb, vb = _operands(q, k, v)
-    lib = _lib(D, q.dtype)
+    lib = _lib(D, q.dtype, "fwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_fwd_launch(
@@ -330,7 +354,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal, scale):
         return _bwd_dq_reference(q, k, v, do, lse, delta, causal, scale)
     dq = _empty_bshd(q)
     qb, kb, vb, dob = _operands(q, k, v, do)
-    lib = _lib(q.shape[3], q.dtype)
+    lib = _lib(q.shape[3], q.dtype, "dq")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_bwd_dq_launch(
@@ -351,7 +375,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
         return _bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale)
     dk, dv = _empty_bshd(q), _empty_bshd(q)
     qb, kb, vb, dob = _operands(q, k, v, do)
-    lib = _lib(q.shape[3], q.dtype)
+    lib = _lib(q.shape[3], q.dtype, "dkv")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_bwd_dkv_launch(

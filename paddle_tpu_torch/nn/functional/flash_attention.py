@@ -7,8 +7,8 @@ where the JAX function takes Pallas (``:25-32, 61``): no mask,
 in (64, 128, 256), with "the tensor is on CUDA" for "the platform is a
 TPU".  It then calls ``kernels.flash_attention.flash_attention_fwd``:
 K1 in the forward, K2 and K3 in the backward, under the op name
-``"flash_attention"`` (D 64 and 128 on the wgmma kernels, D 256 on the
-mma.sync ones).  Everywhere else (a mask, attention dropout, other shapes,
+``"flash_attention"`` (D 64 and 128 on the wgmma kernels; D 256 with K1
+and K3 on the D 256 wgmma kernels and K2 on the mma.sync one).  Everywhere else (a mask, attention dropout, other shapes,
 the CPU) it runs :func:`_sdpa_reference` under ``"sdpa"``, as JAX does;
 that path applies no attention dropout, as JAX's does not.
 """

@@ -14,6 +14,13 @@ per-element tolerance for a kernel against its plain version
 2⁻¹² of the tensor max in bf16; 1e-4 of the row max + 1e-5 of the
 tensor max in fp32.  S 256 gives K2 two key tiles and K3 four query
 tiles.
+
+At head dim 256, ``csrc/flash_attention_d256.cu`` runs K1 over 128-row
+query items (64 rows a warpgroup) and 64-key tiles from the diagonal
+down, the online softmax in base 2, and K3 over 64-key items and
+64-query tiles from the diagonal on, dS formed from the fp32 Pᵀ that one
+warpgroup hands the other.  Their mirrors are held to the JAX kernels
+(forward and backward computed once per case for both) at D 256.
 """
 
 import math
@@ -84,26 +91,27 @@ def _mirror_dq(q, k, v, do, lse, delta, causal, scale):
     return dq.to(q.dtype)
 
 
-def _mirror_dkv(q, k, v, do, lse, delta, causal, scale):
-    """K3: per 128-key tile, 64-query tiles from the diagonal on, scores
-    transposed (keys as rows), LSE and δ per column; dK scaled once."""
+def _mirror_dkv(q, k, v, do, lse, delta, causal, scale, block_k=BLOCK_N):
+    """K3: per ``block_k``-key tile (128; 64 at D 256), 64-query tiles
+    from the diagonal on, scores transposed (keys as rows), LSE and δ per
+    column, dS from the fp32 Pᵀ; dK scaled once."""
     low = q.dtype == torch.bfloat16
     B, H, S, D = q.shape
     dk, dv = torch.empty(B, H, S, D), torch.empty(B, H, S, D)
     lse_t = lse.float().transpose(-1, -2)      # [B, H, 1, S]
     delta_t = delta.transpose(-1, -2)
-    for k0 in range(0, S, BLOCK_N):
-        keys = slice(k0, k0 + BLOCK_N)
+    for k0 in range(0, S, block_k):
+        keys = slice(k0, k0 + block_k)
         kt, vt = k[:, :, keys].float(), v[:, :, keys].float()
-        acc_k = torch.zeros(B, H, BLOCK_N, D)
-        acc_v = torch.zeros(B, H, BLOCK_N, D)
+        acc_k = torch.zeros(B, H, block_k, D)
+        acc_v = torch.zeros(B, H, block_k, D)
         first = k0 // BLOCK_Q if causal else 0
         for qs in range(first * BLOCK_Q, S, BLOCK_Q):
             cols = slice(qs, qs + BLOCK_Q)
             qt, dot = q[:, :, cols].float(), do[:, :, cols].float()
             pt = _p2(kt @ qt.transpose(-1, -2), lse_t[..., cols], scale)
-            if causal and qs < k0 + BLOCK_N:
-                r = torch.arange(BLOCK_N)[:, None] + k0
+            if causal and qs < k0 + block_k:
+                r = torch.arange(block_k)[:, None] + k0
                 c = torch.arange(BLOCK_Q)[None, :] + qs
                 pt = torch.where(c < r, torch.zeros(()), pt)
             dpt = vt @ dot.transpose(-1, -2)
@@ -152,3 +160,123 @@ def test_tile_mirror_matches_jax_backward(interpret_mode, D, dtype, causal,
         tol = _flash_tol(ref, td)
         worst = float((err / tol).nan_to_num(nan=0.0).max())
         assert worst <= 1.0, (name, worst)
+
+
+# ---------------------------------------------------------------------------
+# head dim 256: csrc/flash_attention_d256.cu's tile orders
+# ---------------------------------------------------------------------------
+D256_TILE = 64       # K1's key tiles; K3's key items and query tiles
+D256_SHAPE = (1, 1, 256, 256)
+
+
+def _mirror_fwd_d256(q, k, v, causal, scale):
+    """K1 at D 256: per 128-row query item, each 64-row half (a consumer
+    warpgroup) over 64-key tiles from the diagonal down, skipping the
+    tile whose keys all follow its rows; the online softmax on raw scores
+    in base 2 (p = 2^(s·sl2 − m·sl2)), P rounded to bf16 for P·V;
+    O = acc / max(l, 1e-30), LSE = m·scale + log(max(l, 1e-30))."""
+    low = q.dtype == torch.bfloat16
+    B, H, S, D = q.shape
+    sl2 = scale * LOG2E
+    out, lse = torch.empty(B, H, S, D), torch.empty(B, H, S, 1)
+    for q0 in range(S - BLOCK_M, -1, -BLOCK_M):
+        n_tiles = (q0 + BLOCK_M if causal else S) // D256_TILE
+        for r0 in (q0, q0 + 64):
+            qt = q[:, :, r0:r0 + 64].float()
+            m = torch.full((B, H, 64, 1), -torch.finfo(torch.float32).max)
+            l = torch.zeros(B, H, 64, 1)
+            acc = torch.zeros(B, H, 64, D)
+            for it in range(n_tiles):
+                k0 = (n_tiles - 1 - it) * D256_TILE
+                if causal and k0 > r0:
+                    continue
+                kt = k[:, :, k0:k0 + D256_TILE].float()
+                vt = v[:, :, k0:k0 + D256_TILE].float()
+                s = qt @ kt.transpose(-1, -2)
+                if causal and k0 == r0:
+                    r = torch.arange(64)[:, None] + r0
+                    c = torch.arange(D256_TILE)[None, :] + k0
+                    s = torch.where(c > r, torch.full((), -torch.finfo(
+                        torch.float32).max), s)
+                mx = torch.maximum(m, s.amax(-1, keepdim=True))
+                alpha = torch.exp2((m - mx) * sl2)
+                p = torch.exp2(s * sl2 - mx * sl2)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                acc = acc * alpha + _mm(p, vt, low)
+                m = mx
+            l = l.clamp_min(1e-30)
+            out[:, :, r0:r0 + 64] = acc / l
+            lse[:, :, r0:r0 + 64] = m * scale + torch.log(l)
+    return out.to(q.dtype), lse
+
+
+@pytest.fixture(scope="module")
+def jax_d256():
+    """The JAX forward and backward at ``D256_SHAPE``, Pallas in
+    interpret mode: the forward once per (dtype, causal), the backward
+    once per (dtype, causal, with_dlse), for both mirrors."""
+    rng = np.random.default_rng(12)
+    arrs = [rng.standard_normal(D256_SHAPE).astype(np.float32)
+            for _ in range(4)]
+    dlse = rng.standard_normal(D256_SHAPE[:3]).astype(np.float32)
+    scale = 1.0 / math.sqrt(D256_SHAPE[-1])
+    fwd, bwd = {}, {}
+
+    def get(dtype, causal, with_dlse):
+        jq, jk, jv, jdo = (jnp.asarray(a, DTYPES[dtype][0]) for a in arrs)
+        jfa._INTERPRET[0] = True
+        try:
+            if (dtype, causal) not in fwd:
+                fwd[dtype, causal] = jfa._flash_fwd(jq, jk, jv, causal, scale)
+            jout, jlse = fwd[dtype, causal]
+            key = (dtype, causal, with_dlse)
+            if key not in bwd:
+                bwd[key] = [_np(g) for g in jfa._flash_bwd(
+                    jq, jk, jv, jout, jlse, jdo, causal, scale,
+                    dlse=jnp.asarray(dlse) if with_dlse else None)]
+        finally:
+            jfa._INTERPRET[0] = False
+        return (arrs, dlse if with_dlse else None, _np(jout), _np(jlse),
+                bwd[key])
+
+    return get
+
+
+def _within_tol(name, got, ref, dtype):
+    ref = torch.from_numpy(ref)
+    err = (got.float() - ref).abs()
+    worst = float((err / _flash_tol(ref, dtype)).nan_to_num(nan=0.0).max())
+    assert worst <= 1.0, (name, worst)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_d256_fwd_mirror_matches_jax(jax_d256, dtype, causal):
+    arrs, _, jout, jlse, _ = jax_d256(dtype, causal, False)
+    td = DTYPES[dtype][1]
+    q, k, v = (torch.from_numpy(a).to(td) for a in arrs[:3])
+    out, lse = _mirror_fwd_d256(q, k, v, causal,
+                                1.0 / math.sqrt(D256_SHAPE[-1]))
+    assert out.dtype == td
+    _within_tol("out", out, jout, td)
+    # fp32 log-sum-exps on both sides, 1e-5 relative (chip_smoke's)
+    ref = torch.from_numpy(jlse)
+    assert bool(((lse - ref).abs() <= 1e-5 * ref.abs().clamp_min(1.0)).all())
+
+
+@pytest.mark.parametrize("with_dlse", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_d256_dkv_mirror_matches_jax(jax_d256, dtype, causal, with_dlse):
+    arrs, dlse, jout, jlse, jgrads = jax_d256(dtype, causal, with_dlse)
+    td = DTYPES[dtype][1]
+    q, k, v, do = (torch.from_numpy(a).to(td) for a in arrs)
+    out = torch.from_numpy(jout).to(td)
+    delta = (out.float() * do.float()).sum(-1, keepdim=True)
+    if dlse is not None:
+        delta = delta - torch.from_numpy(dlse)[..., None]
+    dk, dv = _mirror_dkv(q, k, v, do, torch.from_numpy(jlse), delta, causal,
+                         1.0 / math.sqrt(D256_SHAPE[-1]), block_k=D256_TILE)
+    for name, got, jg in (("dk", dk, jgrads[1]), ("dv", dv, jgrads[2])):
+        assert got.dtype == td, name
+        _within_tol(name, got, jg, td)
