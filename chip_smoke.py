@@ -289,6 +289,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 FLASH_KERNELS = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+#: each flash wrapper's kernel name in ``fa._library``/``fa._dtype_code``
+FLASH_KIND = {"flash_fwd": "fwd", "flash_bwd_dq": "dq",
+              "flash_bwd_dkv": "dkv"}
 #: kernel vs plain version: both compute in fp32 from the same inputs and
 #: differ only in the order of their fp32 sums (<= 8192 keys, <= 256
 #: dims, unit-scale values)
@@ -349,13 +352,33 @@ def _ptxas(log):
     return out
 
 
-#: the D 256 wgmma kernels, as ptxas names them (mangled)
-D256_KERNELS = ("flash_fwd_d256_kernel", "flash_bwd_dkv_d256_kernel")
+#: the wgmma kernels that must not spill, as ptxas names them (mangled),
+#: by source: K1 and K3 at D 256, and K1 and K3 at D 64/96/128 (their
+#: producer warpgroup, 40 registers a thread, also rounds fp16 tiles)
+NO_SPILL_KERNELS = {
+    "flash_attention_d256": {("flash_fwd_d256_kernel",),
+                             ("flash_bwd_dkv_d256_kernel",)},
+    "flash_attention": {(k, f"ILi{d}E") for d in (64, 96, 128)
+                        for k in ("flash_fwd_wgmma_kernel",
+                                  "flash_bwd_dkv_wgmma_kernel")},
+}
+
+
+def _spills(ptxas, kernels):
+    """The ptxas records of ``kernels`` (name parts, each matching one
+    mangled name) that spill, or a message if one is missing."""
+    found = {parts: [v for k, v in ptxas.items()
+                     if all(x in k for x in parts)] for parts in kernels}
+    missing = [parts for parts, v in found.items() if len(v) != 1]
+    if missing:
+        return f"not found once: {missing}"
+    return {"".join(parts): v[0] for parts, v in found.items()
+            if v[0].get("spill_stores", 0) or v[0].get("spill_loads", 0)}
 
 
 def build_phase():
-    """One nvcc per source, all started together; the D 256 wgmma
-    kernels must not spill."""
+    """One nvcc per source, all started together; the wgmma kernels of
+    ``NO_SPILL_KERNELS`` must not spill."""
     t0 = time.perf_counter()
     names = ("paged_attention", "flash_attention", "flash_attention_d256",
              "flash_attention_mma", "rms_norm")
@@ -363,25 +386,24 @@ def build_phase():
         list(ex.map(_build.build, names))
     for name in names:
         _build.load(name)
-    dtypes = {"bf16": (1, torch.bfloat16), "fp16": (2, torch.float16),
-              "fp32": (0, torch.float32)}
-    # by the library the wrapper routes each kernel to
+    dtypes = {"bf16": torch.bfloat16, "fp16": torch.float16,
+              "fp32": torch.float32}
+    # by the library and dtype code the wrapper routes each kernel to
     smem = {f"{kind}_{dt}_{d}": fa._lib(d, torch_dt, kernel)
-            .flash_attention_smem_bytes(i, d, code)
+            .flash_attention_smem_bytes(i, d,
+                                        fa._dtype_code(kernel, d, torch_dt))
             for i, (kind, kernel) in enumerate((("K1", "fwd"), ("K2", "dq"),
                                                 ("K3", "dkv")))
-            for dt, (code, torch_dt) in dtypes.items()
+            for dt, torch_dt in dtypes.items()
             for d in (*fa.KERNEL_HEAD_DIMS, *FLASH_HD_DIMS)}
     ptxas = {n: _ptxas(_build.BUILD_LOGS.get(n, "")) or "(cached)"
              for n in names}
-    if ptxas["flash_attention_d256"] != "(cached)":
-        d256 = {k: v for k, v in ptxas["flash_attention_d256"].items()
-                if any(n in k for n in D256_KERNELS)}
-        if len(d256) != len(D256_KERNELS) or any(
-                v.get("spill_stores", 0) or v.get("spill_loads", 0)
-                for v in d256.values()):
-            raise AssertionError(f"build: the D 256 kernels spill or are "
-                                 f"missing: {d256}")
+    for name, kernels in NO_SPILL_KERNELS.items():
+        if ptxas[name] != "(cached)":
+            bad = _spills(ptxas[name], kernels)
+            if bad:
+                raise AssertionError(f"build: {name}'s wgmma kernels spill "
+                                     f"or are missing: {bad}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas, "flash_dynamic_smem_bytes": smem})
 
@@ -2609,14 +2631,55 @@ def _qkv_views(gen, B, S, H, D, dtype):
             for t in qkv.split(H * D, -1)]
 
 
+@contextlib.contextmanager
+def _wrapper_rounding():
+    """Route every fp16 launch to dtype code 2, the route K1 and K3 took
+    before they rounded fp16 tiles in shared memory: the wrapper hands
+    the kernel bf16 copies of the operands (``_operands``), rounded by
+    torch.  To hold the new route to its bits and time it beside it."""
+    routed = fa._dtype_code
+    fa._dtype_code = lambda kernel, D, dtype: fa._DTYPE_CODE[dtype]
+    try:
+        yield
+    finally:
+        fa._dtype_code = routed
+
+
+def _ties_and_subnormals(gen, ts, head=None):
+    """Set every element of the fp16 ``[B, H, S, D]`` views ``ts``
+    halfway between two bf16 values (low 3 mantissa bits 0b100: ties to
+    even), then head ``head`` of each, if given, to random fp16
+    subnormals (whose bf16 roundings are normal): the rounding's edge
+    cases, where a kernel that truncated, rounded ties away or flushed
+    subnormals gives other bits than torch's cast."""
+    for t in ts:
+        bits = t.view(torch.int16)
+        bits.copy_((bits & -8) | 4)
+        if head is None:
+            continue
+        sub = torch.randint(1, 1024, bits[:, head].shape, generator=gen,
+                            device="cuda", dtype=torch.int16)
+        sign = torch.randint(0, 2, sub.shape, generator=gen, device="cuda",
+                             dtype=torch.int16) * -32768
+        bits[:, head].copy_(sub | sign)
+
+
 def _flash_check(gen, cases, worst, ratio):
     """Hold K1–K3 to their plain versions on each case ``(B, H, S, D,
-    dtype, causal[, do_layout])``, per element within :func:`_flash_tol`,
+    dtype, causal[, option])``, per element within :func:`_flash_tol`,
     with an LSE cotangent and without, every call run twice for equal
     bits; ``worst``/``ratio`` gather the max abs error and err/tol by
     output.  dO is a ``[B, S, H, D]``-contiguous view by default;
-    ``"bhsd"`` makes it ``[B, H, S, D]``-contiguous, ``"strided"`` the
-    first D dims of rows of 2·D (rows with gaps)."""
+    option ``"bhsd"`` makes it ``[B, H, S, D]``-contiguous,
+    ``"strided"`` the first D dims of rows of 2·D (rows with gaps), and
+    ``"ties"`` (fp16) sets q, k, v and dO to ties between bf16 values,
+    with subnormals in head 0 of v and dO (:func:`_ties_and_subnormals`).
+    Where a kernel rounds fp16 operands in shared memory
+    (``fa._dtype_code``), its outputs (K1's O and LSE, K3's dK and dV)
+    must be bit for bit those of the route on the wrapper's rounded
+    copies (:func:`_wrapper_rounding`).  Returns the number of those
+    equal-bits gates passed."""
+    gates = 0
     for B, H, S, D, dtype, causal, *do_layout in cases:
         q, k, v = _qkv_views(gen, B, S, H, D, dtype)
         wide = 2 if do_layout == ["strided"] else 1
@@ -2624,13 +2687,28 @@ def _flash_check(gen, cases, worst, ratio):
                          device="cuda").to(dtype)[..., :D].transpose(1, 2)
         if do_layout == ["bhsd"]:
             do = do.contiguous()
+        if do_layout == ["ties"]:
+            _ties_and_subnormals(gen, (q, k))
+            _ties_and_subnormals(gen, (v, do), head=0)
         sc = 1.0 / math.sqrt(D)
+        in_kernel = {n: fa._dtype_code(n, D, dtype) != fa._DTYPE_CODE[dtype]
+                     for n in ("fwd", "dkv")}
         out, lse = fa.flash_fwd(q, k, v, causal, sc)
         if not all(map(torch.equal, (out, lse),
                        fa.flash_fwd(q, k, v, causal, sc))):
             raise AssertionError(f"flash_fwd: two runs differ at B={B} "
                                  f"H={H} S={S} D={D} {dtype} "
                                  f"causal={causal}")
+        if in_kernel["fwd"]:
+            with _wrapper_rounding():
+                copies = fa.flash_fwd(q, k, v, causal, sc)
+            if not all(map(torch.equal, (out, lse), copies)):
+                raise AssertionError(
+                    f"flash_fwd: fp16 rounded in the kernel differs from "
+                    f"the wrapper's rounded copies at B={B} H={H} S={S} "
+                    f"D={D} causal={causal} {do_layout}")
+            gates += 1
+            del copies
         rout, rlse = fa._flash_fwd_reference(q, k, v, causal, sc)
         # lse: fp32 log-sum-exps on both sides, 1e-5 relative
         checks = [("flash_fwd", out, rout, _flash_tol(rout, dtype)),
@@ -2652,6 +2730,17 @@ def _flash_check(gen, cases, worst, ratio):
                         f"flash_bwd {name}: two runs differ at B={B} H={H} "
                         f"S={S} D={D} {dtype} causal={causal}")
             del again
+            if in_kernel["dkv"]:
+                with _wrapper_rounding():
+                    copies = fa.flash_bwd_dkv(q, k, v, do, rlse, delta,
+                                              causal, sc)
+                if not all(map(torch.equal, (dk, dv), copies)):
+                    raise AssertionError(
+                        f"flash_bwd_dkv: fp16 rounded in the kernel "
+                        f"differs from the wrapper's rounded copies at B={B} "
+                        f"H={H} S={S} D={D} causal={causal} {do_layout}")
+                gates += 1
+                del copies
             rdq = fa._bwd_dq_reference(q, k, v, do, rlse, delta, causal, sc)
             rdk, rdv = fa._bwd_dkv_reference(q, k, v, do, rlse, delta,
                                              causal, sc)
@@ -2679,6 +2768,7 @@ def _flash_check(gen, cases, worst, ratio):
                     f"{name}: err {float(err[i])} > tol {float(tol[i])} at "
                     f"flat index {i} of {tuple(ref.shape)}, {where}")
         del checks
+    return gates
 
 
 #: head dims of the mma.sync kernels held to their plain versions: the
@@ -2757,16 +2847,29 @@ def flash_phase():
     cases.append((FUSED_B, 12, TRAIN_S, 64, torch.bfloat16, True))
     # BERT-large pretraining's shape (bert_train: 16 heads of 64, S 512,
     # no mask), in bf16 and fp16; and the fp16 instances (bf16 kernels on
-    # operands rounded to bf16, fp16 outputs) over a grid of their own
+    # operands rounded to bf16, fp16 outputs; K1 and K3 round each tile
+    # in shared memory, bit for bit the wrapper's rounded copies) over a
+    # grid of their own, gpt_dygraph_fp16's shape (760M, 4 layers), and
+    # operands that are all ties between bf16 values, with subnormals
     cases += [(BERT_B, BERT_H, BERT_S, BERT_D, dtype, False)
               for dtype in (torch.bfloat16, torch.float16)]
     cases += [((2, 3) if S <= 256 else (1, 2)) + (S, D, torch.float16,
                                                   causal)
               for S in (128, 256, 1024) for D in fa.KERNEL_HEAD_DIMS
               for causal in (False, True)]
-    _flash_check(gen, cases, worst, ratio)
+    cases.append((TRAIN_B, 16, TRAIN_S, 96, torch.float16, True))
+    cases += [(2, 4, 256, D, torch.float16, causal, "ties")
+              for D in fa.KERNEL_HEAD_DIMS for causal in (False, True)]
+    gates = _flash_check(gen, cases, worst, ratio)
+    # K1 once a case, K3 with and without an LSE cotangent
+    want = 3 * sum(c[4] == torch.float16 and c[3] in fa.KERNEL_HEAD_DIMS
+                   for c in cases)
+    if gates != want:
+        raise AssertionError(f"flash_vs_plain: {gates} equal-bits gates of "
+                             f"the fp16 route, want {want}")
     emit({"phase": "flash_vs_plain", "cases": len(cases),
           "equal_bits_on_two_runs": True,
+          "fp16_in_kernel_equal_to_rounded_copies": gates,
           "max_abs_err": worst, "worst_err_over_tol": ratio,
           "tolerance": "per element: fp32 1e-4 x row max + 1e-5 x tensor "
                        "max; bf16 and fp16 2 bf16 ulps of the element + "
@@ -3853,15 +3956,31 @@ def _flash_library(name):
         fa._library = routed
 
 
+#: a replaced route of :func:`_flash_shape_times`: fp16 K1/K3 on the
+#: wrapper's rounded copies (dtype code 2), not a library
+ROUNDING_COPIES = "rounding_copies"
+
+
+def _replaced_route(name):
+    """The context that routes the flash wrappers to a replaced instance:
+    :data:`ROUNDING_COPIES` (:func:`_wrapper_rounding`), or the library
+    ``csrc/<name>.cu`` (:func:`_flash_library`)."""
+    if name == ROUNDING_COPIES:
+        return _wrapper_rounding()
+    return _flash_library(name)
+
+
 def _flash_shape_times(B, H, S, D, causal, seed, dtype=torch.bfloat16,
                        replaced=()):
     """K1–K3 per launch at one shape (bf16, or fp16: the bf16 kernels on
-    operands the wrapper rounds to bf16; q/k/v strided views of one
-    projection output), in turns within this one call, beside the plain
-    versions, the bounds and SDPA's flash backend in the same dtype
+    operands rounded to bf16, by K1 and K3 in shared memory at D
+    64/96/128 and by the wrapper's copies otherwise; q/k/v strided views
+    of one projection output), in turns within this one call, beside the
+    plain versions, the bounds and SDPA's flash backend in the same dtype
     (forward; backward against K2 + K3).  ``replaced``: ``(kernel,
-    library)`` pairs whose instance in ``csrc/<library>.cu`` is timed in
-    the same turns (``replaced_us``).  Returns ``{kernel: record}``."""
+    route)`` pairs whose replaced instance (:func:`_replaced_route`: a
+    library, or the fp16 route on the wrapper's rounded copies) is timed
+    in the same turns (``replaced_us``).  Returns ``{kernel: record}``."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = _qkv_views(gen, B, S, H, D, dtype)
@@ -3898,9 +4017,9 @@ def _flash_shape_times(B, H, S, D, causal, seed, dtype=torch.bfloat16,
             torch.autograd.grad(lib_out, (ql, kl, vl), do,
                                 retain_graph=True)
 
-        def replaced_call(n, lib_name):
+        def replaced_call(n, route):
             def call(i):
-                with _flash_library(lib_name):
+                with _replaced_route(route):
                     fns[n][0](i)
             return call
 
@@ -3962,9 +4081,15 @@ def _flash_shape_times(B, H, S, D, causal, seed, dtype=torch.bfloat16,
             "share_of_bound": bound / ms[n]["kernel"],
             "kernel_tflops": flops / (ms[n]["kernel"] * 1e-3) / 1e12}
         if n in olds:
-            out[n].update(replaced_us=ms[n]["replaced"] * 1e3,
-                          replaced_source=f"{dict(replaced)[n]}.cu",
-                          replaced_share_of_bound=bound / ms[n]["replaced"])
+            route = dict(replaced)[n]
+            out[n].update(
+                replaced_us=ms[n]["replaced"] * 1e3,
+                replaced_source=(
+                    f"{fa._library(D, dtype, FLASH_KIND[n])}.cu, dtype code "
+                    "2 on the "
+                    "wrapper's rounded copies" if route == ROUNDING_COPIES
+                    else f"{route}.cu"),
+                replaced_share_of_bound=bound / ms[n]["replaced"])
     emit({"phase": "times", "kernel": "flash_bwd_dq+flash_bwd_dkv",
           "card": CARD, "shape": out["flash_fwd"]["shape"],
           "kernel_us": (ms["flash_bwd_dq"]["kernel"]
@@ -3977,15 +4102,23 @@ def _flash_shape_times(B, H, S, D, causal, seed, dtype=torch.bfloat16,
 
 def flash_times_phase(max_err, launches, bert_launches):
     """K1–K3 per launch at the GPT training shape (B=8, S=1024, 16 heads
-    of 96, causal, bf16) and at BERT-large's (B=16, S=512, 16 heads of
-    64, no mask) in bf16 and fp16; the ``kernels`` rows keep the training
-    shape's numbers and the GPT train phase's launches, with BERT's
-    (its launches from bert_train) beside them."""
+    of 96, causal) in bf16 and fp16 (gpt_dygraph_fp16's) and at
+    BERT-large's (B=16, S=512, 16 heads of 64, no mask) in bf16 and
+    fp16; in fp16, beside K1 and K3 the route they replaced (dtype code
+    2 on the wrapper's rounded copies) in the same turns.  The
+    ``kernels`` rows keep the training shape's numbers and the GPT train
+    phase's launches, with BERT's (its launches from bert_train) and the
+    fp16 numbers beside them."""
+    copies = (("flash_fwd", ROUNDING_COPIES),
+              ("flash_bwd_dkv", ROUNDING_COPIES))
     train = _flash_shape_times(TRAIN_B, 16, TRAIN_S, 96, True, seed=9)
+    train16 = _flash_shape_times(TRAIN_B, 16, TRAIN_S, 96, True, seed=12,
+                                 dtype=torch.float16, replaced=copies)
     bert = _flash_shape_times(BERT_B, BERT_H, BERT_S, BERT_D, False,
                               seed=10)
     bert16 = _flash_shape_times(BERT_B, BERT_H, BERT_S, BERT_D, False,
-                                seed=11, dtype=torch.float16)
+                                seed=11, dtype=torch.float16,
+                                replaced=copies)
     replaces = {"flash_fwd": "paddle_tpu/kernels/flash_attention.py:116",
                 "flash_bwd_dq": "paddle_tpu/kernels/flash_attention.py:204",
                 "flash_bwd_dkv": "paddle_tpu/kernels/flash_attention.py:243"}
@@ -3994,10 +4127,23 @@ def flash_times_phase(max_err, launches, bert_launches):
             "flash_bwd_dkv": max_err["flash_bwd_dkv"]}
     rows = []
     for n, t in train.items():
-        b, h = bert[n], bert16[n]
+        b, h, t16 = bert[n], bert16[n], train16[n]
         emit(t)
+        emit(t16)
         emit(b)
         emit(h)
+        # fp16 K1/K3: beside the route they replaced, timed in the same
+        # turns; rounding in shared memory must beat the rounding copies
+        replaced = {k: v["replaced_us"] / 1e3
+                    for k, v in (("fp16_replaced_ms", h),
+                                 ("gpt_fp16_replaced_ms", t16))
+                    if "replaced_us" in v}
+        for v in (h, t16):
+            if "replaced_us" in v and v["kernel_us"] >= v["replaced_us"]:
+                raise AssertionError(
+                    f"flash_times: fp16 {n} {v['kernel_us']} us, not below "
+                    f"the replaced route's {v['replaced_us']} us at "
+                    f"{v['shape']}")
         rows.append({
             "name": n, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
@@ -4016,7 +4162,12 @@ def flash_times_phase(max_err, launches, bert_launches):
                      "library_ms": b["library_us"] / 1e3,
                      "fp16_ms": h["kernel_us"] / 1e3,
                      "fp16_plain_ms": h["plain_us"] / 1e3,
-                     "fp16_library_ms": h["library_us"] / 1e3}})
+                     "fp16_library_ms": h["library_us"] / 1e3},
+            "gpt_fp16": {"ms": t16["kernel_us"] / 1e3,
+                         "plain_ms": t16["plain_us"] / 1e3,
+                         "bound_ms": t16["bound_us"] / 1e3,
+                         "library_ms": t16["library_us"] / 1e3},
+            **replaced})
     return rows
 
 

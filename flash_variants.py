@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Compare variants of the flash-attention kernels on one NVIDIA GPU.
 
-    python3 flash_variants.py [--source NAME] VARIANT.cu [VARIANT.cu ...]
+    python3 flash_variants.py [--source NAME] [--dtype float16]
+                              [--shape B,H,S,D,CAUSAL] [--unchecked]
+                              VARIANT.cu [VARIANT.cu ...]
 
 Each VARIANT.cu is a whole replacement of
 ``paddle_tpu_torch/kernels/csrc/NAME.cu`` (a text edit of it, say) with
@@ -11,7 +13,9 @@ dim 256).  The script builds the checked-in source and every variant
 with the package's ``nvcc`` flags (``csrc/`` on the include path), one
 process each, all started together, into ``build/variants/``
 (git-ignored), and prints per variant ptxas's registers and spills of
-the Hopper kernels.  It then holds each variant's K1, K2 and K3 to their
+the Hopper kernels.  A variant that includes ``flash_hopper.cuh`` takes
+the copy beside it if there is one (another commit's), else the
+checked-in one.  It then holds each variant's K1, K2 and K3 to their
 plain versions with ``chip_smoke.py``'s per-element tolerance over a
 few shapes (one and several tiles, odd tile counts, causal and not, dO
 [B, H, S, D]-contiguous, the timed shape), K1–K3 also to the same bits
@@ -20,10 +24,17 @@ variant's outputs are bit for bit the checked-in source's on every case
 (``bits_equal_to_source``).  Last it times the kernels the source holds
 of every variant left at its shape (``flash_attention``: the 760M
 training shape, B 8, S 1024, 16 heads of 96; ``flash_attention_d256``:
-B 2, H 16, S 1024, D 256; causal, bf16) in turns, first to last and
-back, beside SDPA's flash backward, with ``chip_smoke.py``'s device
-timer.  One JSON line per result; the last holds the times in µs.
-Exits non-zero without a GPU.
+B 2, H 16, S 1024, D 256; causal) in turns, first to last and back,
+beside SDPA's flash backward, with ``chip_smoke.py``'s device timer.
+The operands are bf16, or fp16 with ``--dtype float16``: then the cases
+add operands that are all ties between bf16 values, with subnormals;
+K1 and K3 of ``flash_attention`` must give the bits of the route on the
+wrapper's rounded copies (dtype code 2) of the same library, and that
+route is timed beside them (``k1_copies``, ``k3_copies``).  ``--shape`` times another
+shape (CAUSAL 0 or 1; BERT-large's is 16,16,512,64,0); ``--unchecked``
+skips the checks, to time diagnostic edits that are wrong on purpose
+(a handshake without its work, say).  One JSON line per result; the
+last holds the times in µs.  Exits non-zero without a GPU.
 """
 
 from __future__ import annotations
@@ -44,21 +55,21 @@ from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import flash_attention as fa
 
 OUT = Path(__file__).resolve().parent / "build" / "variants"
-#: per source: checked cases (B, H, S, D, causal, dO [B, H, S, D]-
-#: contiguous) and the timed (B, H, S, D)
+#: per source: checked cases (B, H, S, D, causal, layout: None, or
+#: "bhsd" for dO [B, H, S, D]-contiguous) and the timed (B, H, S, D)
 SOURCES = {
     "flash_attention": (
-        [(2, 3, 256, d, c, False) for d in fa.KERNEL_HEAD_DIMS
+        [(2, 3, 256, d, c, None) for d in fa.KERNEL_HEAD_DIMS
          for c in (False, True)]
-        + [(1, 1, 128, 96, True, False), (2, 3, 384, 96, True, False),
-           (2, 3, 384, 128, False, False), (5, 7, 2048, 96, True, True),
-           (cs.TRAIN_B, 16, cs.TRAIN_S, 96, True, False)],
+        + [(1, 1, 128, 96, True, None), (2, 3, 384, 96, True, None),
+           (2, 3, 384, 128, False, None), (5, 7, 2048, 96, True, "bhsd"),
+           (cs.TRAIN_B, 16, cs.TRAIN_S, 96, True, None)],
         (cs.TRAIN_B, 16, cs.TRAIN_S, 96)),
     "flash_attention_d256": (
-        [(1, 1, 128, 256, c, False) for c in (False, True)]
-        + [(3, 5, 384, 256, c, False) for c in (False, True)]
-        + [(5, 7, 1024, 256, True, False), (2, 4, 512, 256, True, True),
-           (2, 16, 1024, 256, True, False)],
+        [(1, 1, 128, 256, c, None) for c in (False, True)]
+        + [(3, 5, 384, 256, c, None) for c in (False, True)]
+        + [(5, 7, 1024, 256, True, None), (2, 4, 512, 256, True, "bhsd"),
+           (2, 16, 1024, 256, True, None)],
         (2, 16, 1024, 256)),
 }
 
@@ -77,15 +88,19 @@ def use(source, lib):
     _build._LIBS[source] = fa._bind(lib)
 
 
-def check(case, gen):
+def check(case, gen, dtype):
     """(worst err/tol of K1, dQ, dK, dV; the outputs) on one case; None
-    if a kernel gives other bits on a second run."""
-    B, H, S, D, causal, bhsd = case
-    q, k, v = cs._qkv_views(gen, B, S, H, D, torch.bfloat16)
+    if a kernel gives other bits on a second run, or (fp16) K1 or K3
+    other bits than on the wrapper's rounded copies."""
+    B, H, S, D, causal, layout = case
+    q, k, v = cs._qkv_views(gen, B, S, H, D, dtype)
     do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(
-        torch.bfloat16).transpose(1, 2)
-    if bhsd:
+        dtype).transpose(1, 2)
+    if layout == "bhsd":
         do = do.contiguous()
+    if layout == "ties":
+        cs._ties_and_subnormals(gen, (q, k))
+        cs._ties_and_subnormals(gen, (v, do), head=0)
     sc = 1.0 / math.sqrt(D)
     rout, rlse = fa._flash_fwd_reference(q, k, v, causal, sc)
     delta = fa._delta(rout, do)
@@ -101,16 +116,27 @@ def check(case, gen):
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         return None
+    if fa._dtype_code("fwd", D, dtype) == fa.F16_IN_KERNEL:
+        with cs._wrapper_rounding():
+            copies = [*fa.flash_fwd(q, k, v, causal, sc),
+                      *fa.flash_bwd_dkv(*args)]
+        if not all(map(torch.equal, [*got[:2], *got[3:]], copies)):
+            return None
     outs = [got[0], *got[2:]]
     return [float(((g.float() - r.float()).abs()
-                   / cs._flash_tol(r, torch.bfloat16)).max())
+                   / cs._flash_tol(r, dtype)).max())
             for g, r in zip(outs, refs)], got
 
 
-def main(source, paths):
+def main(source, paths, dtype, shape=None, checked=True):
     cs.device_phase()
     OUT.mkdir(parents=True, exist_ok=True)
-    cases, (B, H, S, D) = SOURCES[source]
+    cases, timed = SOURCES[source]
+    B, H, S, D, causal = shape or (*timed, True)
+    f16_in_kernel = fa._dtype_code("fwd", D, dtype) == fa.F16_IN_KERNEL
+    if f16_in_kernel:
+        cases = cases + [(2, 4, 256, d, c, "ties")
+                         for d in fa.KERNEL_HEAD_DIMS for c in (False, True)]
     sources = {"source": _build.CSRC / f"{source}.cu"}
     sources.update((Path(p).stem, Path(p)) for p in paths)
     t0 = time.perf_counter()
@@ -129,15 +155,18 @@ def main(source, paths):
         libs[name] = ctypes.CDLL(str(OUT / f"{name}.so"))
 
     reference = {}  # the checked-in source's outputs, by case
-    for name in list(libs):
+    for name in list(libs) if checked else ():
         use(source, libs[name])
         gen = torch.Generator(device="cuda").manual_seed(5)
         worst, same = [0.0] * 4, True
         try:
             for i, case in enumerate(cases):
-                res = check(case, gen)
+                res = check(case, gen, dtype)
                 if res is None:
-                    raise AssertionError(f"two runs differ at {case}")
+                    raise AssertionError(
+                        f"two runs differ at {case}" + (
+                            ", or fp16 K1/K3 differ from the rounding "
+                            "copies route" if f16_in_kernel else ""))
                 ratios, outs = res
                 worst = [max(a, b) for a, b in zip(worst, ratios)]
                 if name == "source":
@@ -148,8 +177,11 @@ def main(source, paths):
             if max(worst) > 1.0:
                 raise AssertionError(f"err/tol {worst}")
             cs.emit({"variant": name, "check": "ok",
+                     "dtype": str(dtype).removeprefix("torch."),
                      "worst_err_over_tol": dict(zip(
                          ("k1", "dq", "dk", "dv"), worst)),
+                     **({"bits_equal_to_rounding_copies": True}
+                        if f16_in_kernel else {}),
                      **({} if name == "source"
                         else {"bits_equal_to_source": same})})
         except (AssertionError, RuntimeError) as e:
@@ -159,18 +191,24 @@ def main(source, paths):
 
     from torch.nn.attention import SDPBackend, sdpa_kernel
     gen = torch.Generator(device="cuda").manual_seed(9)
-    q, k, v = cs._qkv_views(gen, B, S, H, D, torch.bfloat16)
+    q, k, v = cs._qkv_views(gen, B, S, H, D, dtype)
     do = torch.randn(B, S, H, D, generator=gen, device="cuda").to(
-        torch.bfloat16).transpose(1, 2)
+        dtype).transpose(1, 2)
     sc = 1.0 / math.sqrt(D)
-    out, lse = fa._flash_fwd_reference(q, k, v, True, sc)
+    out, lse = fa._flash_fwd_reference(q, k, v, causal, sc)
     delta = fa._delta(out, do)
-    fns = {"k1": lambda i: fa.flash_fwd(q, k, v, True, sc),
-           "k2": lambda i: fa.flash_bwd_dq(q, k, v, do, lse, delta, True,
-                                           sc),
-           "k3": lambda i: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True,
-                                            sc)}
-    if fa._library(D, torch.bfloat16, "dq") != source:
+    args = (q, k, v, do, lse, delta, causal, sc)
+    fns = {"k1": lambda i: fa.flash_fwd(q, k, v, causal, sc),
+           "k2": lambda i: fa.flash_bwd_dq(*args),
+           "k3": lambda i: fa.flash_bwd_dkv(*args)}
+    if f16_in_kernel:
+        def copies(fn):
+            def call(i):
+                with cs._wrapper_rounding():
+                    fn(i)
+            return call
+        fns.update(k1_copies=copies(fns["k1"]), k3_copies=copies(fns["k3"]))
+    if fa._library(D, dtype, "dq") != source:
         del fns["k2"]  # another source's K2: the same for every variant
     times = {n: {k: [] for k in fns} for n in libs}
     for name in list(libs) + list(libs)[::-1]:
@@ -180,15 +218,16 @@ def main(source, paths):
                                                  cs._time_ms(fn, 30)) * 1e3)
     ql, kl, vl = (t.contiguous().requires_grad_() for t in (q, k, v))
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+        lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
                                             scale=sc)
         lib_bwd = lambda i: torch.autograd.grad(lo, (ql, kl, vl), do,
                                                 retain_graph=True)
         sdpa = [cs._device_ms(lib_bwd, 10, cs._time_ms(lib_bwd, 30)) * 1e3
                 for _ in range(2)]
     cs.emit({"phase": "times", "source": source, "card": cs.CARD,
-             "shape": {"B": B, "S": S, "H": H, "D": D, "causal": True,
-                       "dtype": "bfloat16"},
+             "shape": {"B": B, "S": S, "H": H, "D": D, "causal": causal,
+                       "dtype": str(dtype).removeprefix("torch.")},
+             "checked": checked,
              "times": "device us per launch, in turns (queued CUDA events)",
              "kernel_us": times, "sdpa_flash_backward_us": sdpa})
 
@@ -199,6 +238,12 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--source", default="flash_attention",
                     choices=sorted(SOURCES))
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float16"))
+    ap.add_argument("--shape", type=lambda x: tuple(map(int, x.split(","))))
+    ap.add_argument("--unchecked", action="store_true")
     ap.add_argument("variants", nargs="*")
     a = ap.parse_args()
-    main(a.source, a.variants)
+    shape = a.shape and (*a.shape[:4], bool(a.shape[4]))
+    main(a.source, a.variants, getattr(torch, a.dtype), shape,
+         not a.unchecked)

@@ -23,14 +23,17 @@
 // version), so exp never sees inf - inf; a masked P is 0.  As the TPU
 // kernel's _dot_f32 does, every product of 16-bit inputs takes both
 // operands in bf16 and sums in fp32: P is rounded to bf16 before P.V and
-// P^T.dO, dS before dS.K and dS^T.Q.  fp16 inputs run the bf16 kernels:
-// the wrapper rounds Q, K, V and dO to bf16 (what _dot_f32 does to a
-// 2-byte operand) and the epilogues write O, dQ, dK and dV as fp16
-// straight from the fp32 accumulators (Params::out_f16), never through a
-// bf16 value.  dQ and dK are scaled once at the end instead of per tile
-// (equal up to fp32 rounding).  Nothing crosses CTAs and every sum runs in a
-// fixed order: no atomics, and two runs give the same bits.  K2 and K3
-// keep the TPU's split of dQ from dK/dV for that reason.
+// P^T.dO, dS before dS.K and dS^T.Q.  fp16 inputs run the bf16 kernels
+// on operands rounded to bf16 (what _dot_f32 does to a 2-byte operand):
+// K1 and K3 read the fp16 tiles through TMA and round them in shared
+// memory (Params::in_f16, dtype 3: the converter warps of the producer
+// warpgroup, flash_hopper.cuh); K2 still takes operands the wrapper
+// rounded by copies (dtype 2).  The epilogues write O, dQ, dK and dV as
+// fp16 straight from the fp32 accumulators (Params::out_f16), never
+// through a bf16 value.  dQ and dK are scaled once at the end instead of
+// per tile (equal up to fp32 rounding).  Nothing crosses CTAs and every
+// sum runs in a fixed order: no atomics, and two runs give the same bits.
+// K2 and K3 keep the TPU's split of dQ from dK/dV for that reason.
 //
 // What bounds them on this card: at training shapes (S = 1024, D = 96)
 // the tensor-core work, 4, 6 and 8 * D flops per (query, key) pair for K1,
@@ -49,7 +52,12 @@
 //   warp frees a stage (and the resident tiles) on another mbarrier, so
 //   the next item's loads overlap this item's last tiles and epilogue.
 //   Warpgroups 1 and 2 each own 64 rows of the item; setmaxnreg moves
-//   registers from the producer (24) to them (240).
+//   registers from the producer to them: 24 and 240 in K2; 40 and 232 in
+//   K1 and K3, where with fp16 operands warps 1-3 of warpgroup 0 round
+//   each landed tile to bf16 in place and arrive on its ready barrier,
+//   which the consumers wait on too (at 24, ptxas spilled the converter
+//   loop and K3's producer).  Either split takes 504 registers for each
+//   of 128 thread slots: the 168 x 384 that the CTA holds.
 // * Products are wgmma with fp32 accumulators in registers.  A score tile
 //   is taken from the accumulators, exponentiated in base 2 (scale *
 //   log2(e) folded into one FMA, the LSE pre-scaled by log2(e)), rounded
@@ -162,16 +170,22 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   __shared__ __align__(8) uint64_t bar_q, bar_q_free;
   __shared__ __align__(8) uint64_t bar_k[kStages], bar_v[kStages];
   __shared__ __align__(8) uint64_t bar_free[kStages];
+  // fp16 operands: each tile's converters are done
+  __shared__ __align__(8) uint64_t bar_q_ready, bar_k_ready[kStages],
+      bar_v_ready[kStages];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const int n_items = p.S / kBlockM * p.B * p.H;
 
   if (threadIdx.x == 0) {
     mbar_init(&bar_q, 1);
     mbar_init(&bar_q_free, kConsumerWarps);
+    mbar_init(&bar_q_ready, kConverters);
     for (int st = 0; st < kStages; ++st) {
       mbar_init(&bar_k[st], 1);
       mbar_init(&bar_v[st], 1);
       mbar_init(&bar_free[st], kConsumerWarps);
+      mbar_init(&bar_k_ready[st], kConverters);
+      mbar_init(&bar_v_ready[st], kConverters);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -182,7 +196,26 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // producer: one thread issues every TMA load, for item after item;
     // an item's tiles go from the diagonal (the only masked one) down to
     // key 0.  `ring` counts K/V tiles over the CTA's whole life.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (p.in_f16 && threadIdx.x >= 32) {
+      // converters: the producer's walk, each tile rounded once landed
+      const int c = threadIdx.x - 32;
+      int ring = 0, round = 0;
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++round) {
+        const Item w = item_of(i, p);
+        const int n_tiles =
+            (p.causal ? (w.qi + 1) * kBlockM : p.S) / kBlockN;
+        convert_landed(&bar_q, &bar_q_ready, round & 1, base, kQBytes, c);
+        for (int it = 0; it < n_tiles; ++it, ++ring) {
+          const int st = ring % kStages;
+          const int par = (ring / kStages) & 1;
+          const uint32_t tk = base + kQBytes + 2 * st * kKV;
+          convert_landed(&bar_k[st], &bar_k_ready[st], par, tk, kKV, c);
+          convert_landed(&bar_v[st], &bar_v_ready[st], par, tk + kKV, kKV,
+                         c);
+        }
+      }
+    }
     if (threadIdx.x == 0) {
       int ring = 0, round = 0;
       for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++round) {
@@ -218,7 +251,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   // consumers: warpgroup cw owns query rows 64*cw .. 64*cw + 63 of the
   // item's tile
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int tid = threadIdx.x - 128;
   const int cw = tid >> 7;
   const int warp = (tid >> 5) & 3, lane = tid & 31;
@@ -238,7 +271,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     float m[2] = {kNegInf, kNegInf};
     float l[2] = {0.f, 0.f};
 
-    mbar_wait(&bar_q, round & 1);
+    tile_wait(&bar_q, &bar_q_ready, round & 1, p.in_f16);
     for (int it = 0; it < n_tiles; ++it, ++ring) {
       const int st = ring % kStages;
       const int par = (ring / kStages) & 1;
@@ -247,7 +280,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       // S = Q K^T: D/16 steps of 16 dims, two per 64-byte slab row
       float s[kBlockN / 2];
-      mbar_wait(&bar_k[st], par);
+      tile_wait(&bar_k[st], &bar_k_ready[st], par, p.in_f16);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
@@ -311,7 +344,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       // O += P V: V MN-major, 16 keys (1024 bytes) a step; the next
       // 32-dim slab is kKVSlabBytes on
-      mbar_wait(&bar_v[st], par);
+      tile_wait(&bar_v[st], &bar_v_ready[st], par, p.in_f16);
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
@@ -567,6 +600,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   __shared__ __align__(8) uint64_t bar_kv, bar_kv_free;
   __shared__ __align__(8) uint64_t bar_q[kStages], bar_do[kStages];
   __shared__ __align__(8) uint64_t bar_free[kStages];
+  // fp16 operands: each tile's converters are done
+  __shared__ __align__(8) uint64_t bar_kv_ready, bar_q_ready[kStages],
+      bar_do_ready[kStages];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   unsigned char* const gbase = smem_raw + (base - smem_u32(smem_raw));
   const int n_items = p.S / kBlockN * p.B * p.H;
@@ -574,10 +610,13 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (threadIdx.x == 0) {
     mbar_init(&bar_kv, 1);
     mbar_init(&bar_kv_free, kConsumerWarps);
+    mbar_init(&bar_kv_ready, kConverters);
     for (int st = 0; st < kStages; ++st) {
       mbar_init(&bar_q[st], 1);
       mbar_init(&bar_do[st], 1);
       mbar_init(&bar_free[st], kConsumerWarps);
+      mbar_init(&bar_q_ready[st], kConverters);
+      mbar_init(&bar_do_ready[st], kConverters);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -585,7 +624,27 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == 0) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (p.in_f16 && threadIdx.x >= 32) {
+      // converters: the producer's walk, each tile rounded once landed
+      // (the LSE and delta slices are fp32 and stay as they are)
+      const int c = threadIdx.x - 32;
+      int ring = 0, round = 0;
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++round) {
+        const Item w = dkv_item_of(i, p);
+        const int first = p.causal ? w.qi * kBlockN / kBlockQ : 0;
+        const int n_tiles = p.S / kBlockQ - first;
+        convert_landed(&bar_kv, &bar_kv_ready, round & 1, base, 2 * kK, c);
+        for (int it = 0; it < n_tiles; ++it, ++ring) {
+          const int st = ring % kStages;
+          const int par = (ring / kStages) & 1;
+          const uint32_t tq = base + 2 * kK + 2 * st * kQT;
+          convert_landed(&bar_q[st], &bar_q_ready[st], par, tq, kQT, c);
+          convert_landed(&bar_do[st], &bar_do_ready[st], par, tq + kQT, kQT,
+                         c);
+        }
+      }
+    }
     if (threadIdx.x == 0) {
       int ring = 0, round = 0;
       for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++round) {
@@ -628,7 +687,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     return;
   }
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int tid = threadIdx.x - 128;
   const int cw = tid >> 7;
   const int warp = (tid >> 5) & 3, lane = tid & 31;
@@ -648,7 +707,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int j = 0; j < D / 2; ++j) dk[j] = dv[j] = 0.f;
 
-    mbar_wait(&bar_kv, round & 1);
+    tile_wait(&bar_kv, &bar_kv_ready, round & 1, p.in_f16);
     for (int it = 0; it < n_tiles; ++it, ++ring) {
       const int st = ring % kStages;
       const int par = (ring / kStages) & 1;
@@ -664,7 +723,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const bool skip = p.causal && c0 + kBlockQ <= 0;
       const bool diag = p.causal && c0 < 64;
 
-      mbar_wait(&bar_q[st], par);
+      tile_wait(&bar_q[st], &bar_q_ready[st], par, p.in_f16);
       if (!skip) {
         // S^T = K Q^T and dP^T = V dO^T
         float s[kBlockQ / 2], dp[kBlockQ / 2];
@@ -678,7 +737,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        kk > 0);
         }
         wgmma_commit();
-        mbar_wait(&bar_do[st], par);
+        tile_wait(&bar_do[st], &bar_do_ready[st], par, p.in_f16);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t kb = (kk & 1) * 32;
@@ -738,7 +797,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         fence_regs(pa);
         fence_regs(da);
       } else {
-        mbar_wait(&bar_do[st], par);  // the stage's loads land before it frees
+        // the stage's loads land, and are rounded, before it frees
+        tile_wait(&bar_do[st], &bar_do_ready[st], par, p.in_f16);
       }
       if (lane == 0) {
         if (it == n_tiles - 1) mbar_arrive(&bar_kv_free);
@@ -818,14 +878,21 @@ cudaError_t launch_typed(Kind kind, const Params& p, cudaStream_t stream) {
   return hopper::launch_bwd<D>(kind == kDkv, p, stream);
 }
 
-// dtype: 1 bf16; 2 fp16 outputs from bf16 operands (Params::out_f16).
+// dtype: 1 bf16; 2 fp16 outputs from bf16 operands (Params::out_f16: the
+// caller rounded the fp16 operands); 3 fp16 operands, rounded to bf16 in
+// shared memory (Params::in_f16), and fp16 outputs: K1 and K3 only.
 // fp32, and the other head dims, are flash_attention_mma.cu's.
+bool takes(Kind kind, int dtype) {
+  return dtype == 1 || dtype == 2 || (dtype == 3 && kind != kDq);
+}
+
 int launch(Kind kind, Params p, int D, int dtype, void* stream) {
   if (p.S % 128 != 0 || p.S <= 0 || p.B * p.H < 1 || p.B * p.H > 65535 ||
-      dtype < 1 || dtype > 2)
+      !takes(kind, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  p.out_f16 = dtype == 2;
+  p.out_f16 = dtype >= 2;
+  p.in_f16 = dtype == 3;
   switch (D) {
     case 64: return static_cast<int>(launch_typed<64>(kind, p, s));
     case 96: return static_cast<int>(launch_typed<96>(kind, p, s));
@@ -893,7 +960,7 @@ int flash_bwd_dkv_launch(const void* q, long long q_sb, long long q_sh,
 // dtype as launch() takes it; -1 for a head dim or type not built here.
 long long flash_attention_smem_bytes(int kind, int D, int dtype) {
   const Kind k = kind == 0 ? kFwd : (kind == 1 ? kDq : kDkv);
-  if (dtype < 1 || dtype > 2) return -1;
+  if (!takes(k, dtype)) return -1;
   switch (D) {
     case 64: return smem_bytes<64>(k);
     case 96: return smem_bytes<96>(k);

@@ -1,8 +1,9 @@
 // Shared pieces of the Hopper flash-attention kernels (sm_90a): the
 // launch parameters, TMA loads and bulk copies under mbarriers, wgmma
 // products and their shared-memory descriptors over 64-byte-swizzled
-// 32-dim slabs, the epilogue's staging through shared memory, the
-// persistent launch and the tensor maps.  Included by flash_attention.cu
+// 32-dim slabs, the rounding of landed fp16 tiles to bf16 in shared
+// memory, the epilogue's staging through shared memory, the persistent
+// launch and the tensor maps.  Included by flash_attention.cu
 // (head dims 64/96/128) and flash_attention_d256.cu (head dim 256); each
 // builds into its own library, so everything here has internal linkage.
 //
@@ -45,6 +46,8 @@ struct Params {
   int B, H, S, causal;
   float scale;
   int out_f16;         // bf16 kernels: write O, dQ, dK, dV as fp16
+  int in_f16;          // q, k, v, dO are fp16: rounded to bf16 in shared
+                       // memory by the producer warpgroup's converters
 };
 
 // Params of a launch, from the C entry points' leading arguments.
@@ -441,14 +444,81 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
   else wgmma_rs_n256(d, a, db);
 }
 
+// ---------------------------------------------------------------------------
+// fp16 operands.  The products take both operands in bf16, as the TPU
+// kernel's _dot_f32 rounds every 2-byte operand, so an fp16 operand is
+// rounded once on its way in: TMA lands the fp16 tile (an fp16 tile has
+// the bytes of its bf16 rounding), warps 1-3 of the producer warpgroup
+// round it in place in shared memory, and the consumers wait on the
+// tile's "ready" barrier as well as on its TMA barrier.  No extra byte
+// crosses device memory.
+// ---------------------------------------------------------------------------
+constexpr int kConverters = 96;  // warps 1-3 of warpgroup 0
+
+// Two fp16 values (one 32-bit word) as two bf16 values: widened to fp32
+// exactly, then rounded to nearest even (cvt.rn.bf16x2.f32), as torch's
+// and JAX's casts round.
+__device__ __forceinline__ uint32_t f16x2_to_bf16x2(uint32_t bits) {
+  __half2 h;
+  memcpy(&h, &bits, 4);
+  const float2 f = __half22float2(h);
+  return pack_f32(f.x, f.y);
+}
+
+// Round `bytes` (a multiple of 16) of fp16 at shared address tile to
+// bf16 in place, 16 bytes a converter thread c a step, neighbours on
+// neighbouring vectors.  Elementwise and size-keeping, so the tile's
+// swizzle does not matter.  (Two or four vectors in flight a thread
+// measured the same on an H100 80GB HBM3.)
+__device__ __forceinline__ void round_f16_tile(uint32_t tile, int bytes,
+                                               int c) {
+  for (int off = 16 * c; off < bytes; off += 16 * kConverters) {
+    uint32_t v[4];
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+                 : "r"(tile + off)
+                 : "memory");
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = f16x2_to_bf16x2(v[e]);
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                     tile + off),
+                 "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+                 : "memory");
+  }
+}
+
+// Converter thread c's step for one tile the producer lands: wait for the
+// phase `parity` of its TMA barrier, round it, order the writes before
+// the async proxy's next accesses (the consumers' wgmma reads, the next
+// TMA write into the stage), and arrive on its ready barrier (count
+// kConverters).  The converters walk the producer's tiles in its order.
+__device__ __forceinline__ void convert_landed(uint64_t* landed,
+                                               uint64_t* ready, int parity,
+                                               uint32_t tile, int bytes,
+                                               int c) {
+  mbar_wait(landed, parity);
+  round_f16_tile(tile, bytes, c);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  mbar_arrive(ready);
+}
+
+// A consumer's wait for a tile: its TMA barrier (which also covers the
+// fp32 bulk copies landing with it), and with fp16 operands its ready
+// barrier.
+__device__ __forceinline__ void tile_wait(uint64_t* landed, uint64_t* ready,
+                                          int parity, bool f16) {
+  mbar_wait(landed, parity);
+  if (f16) mbar_wait(ready, parity);
+}
+
 // Named barrier of consumer warpgroup cw's 128 threads.
 __device__ __forceinline__ void wg_sync(int cw) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
 }
 
 // Two fp32 values as the 4 bytes of an output pair: bf16, or fp16 for
-// the fp16 instances (whose operands the wrapper rounded to bf16, as the
-// TPU kernel's _dot_f32 does): either way rounded once, from fp32.
+// the fp16 instances (whose operands were rounded to bf16, as the TPU
+// kernel's _dot_f32 does): either way rounded once, from fp32.
 __device__ __forceinline__ uint32_t pack2(float a, float b, bool f16) {
   uint32_t bits;
   if (f16) {
@@ -539,8 +609,9 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (D, S, H, B) tensor map over a strided [B, H, S, D] bf16 view with a
-// contiguous head dim, boxes of 32 dims x 128 rows, 64-byte swizzle.
+// A (D, S, H, B) tensor map over a strided [B, H, S, D] bf16 view (fp16
+// if p.in_f16) with a contiguous head dim, boxes of 32 dims x `rows`
+// rows, 64-byte swizzle.
 bool encode_view(CUtensorMap* tm, const void* ptr, int64_t sb, int64_t sh,
                  int64_t ss, const Params& p, int D, int rows) {
   const EncodeTiled fn = encode_tiled();
@@ -554,7 +625,10 @@ bool encode_view(CUtensorMap* tm, const void* ptr, int64_t sb, int64_t sh,
                                  static_cast<cuuint64_t>(sb) * 2};
   const cuuint32_t box[4] = {kSlab, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+  const CUtensorMapDataType type = p.in_f16
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return fn(tm, type, 4, const_cast<void*>(ptr),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -38,10 +38,13 @@ Arithmetic follows the TPU kernel exactly where it rounds: every
 product whose operands include a 16-bit tensor (bf16 or fp16) takes
 both operands in bf16 and sums in fp32 (``_dot_f32``), so P is rounded
 to bf16 before P·V and Pᵀ·dO and dS before dS·K and dSᵀ·Q; fp32 inputs
-stay fp32.  The CUDA kernels take bf16 and fp32; fp16 runs the bf16
-kernels on operands the wrapper rounds to bf16 (the same rounding), and
-they write O, dQ, dK and dV as fp16 straight from their fp32
-accumulators.
+stay fp32.  The CUDA kernels compute in bf16 and fp32; fp16 runs the
+bf16 kernels on operands rounded to bf16 (the same rounding), and they
+write O, dQ, dK and dV as fp16 straight from their fp32 accumulators.
+Where the fp16 operands are rounded is :func:`_dtype_code`'s choice: K1
+and K3 at ``KERNEL_HEAD_DIMS`` read them as they are and round each tile
+in shared memory (code 3); K2, and the other sources, take copies the
+wrapper rounds (code 2, :func:`_operands`).
 The mask fill is the finite ``NEG_INF``; the outputs are ``acc /
 max(l, 1e-30)`` and ``lse = m + log(max(l, 1e-30))``.
 
@@ -73,8 +76,12 @@ MAX_HEAD_DIM = 256
 #: the kernels take S % 128 == 0, the TPU kernel's rule; the public
 #: entry sends other lengths to ``reference_attention``, as JAX does
 SEQ_MULTIPLE = 128
-#: the kernels' dtype flag: 2 runs the bf16 kernels with fp16 outputs
+#: the kernels' dtype flag: 2 runs the bf16 kernels on operands the
+#: wrapper rounded to bf16, with fp16 outputs
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: fp16 operands read as they are and rounded to bf16 in the kernel, fp16
+#: outputs (``flash_attention.cu``'s K1 and K3)
+F16_IN_KERNEL = 3
 
 
 def reference_attention(q, k, v, causal=False, scale=None):
@@ -308,15 +315,30 @@ def _raise_if(lib, err, kernel):
                            f"({msg})")
 
 
-def _dims(q, causal, scale):
+def _dtype_code(kernel, D, dtype):
+    """The dtype code the launch of ``kernel`` (``"fwd"``, ``"dq"``,
+    ``"dkv"``) at head dim ``D`` takes for ``dtype`` operands: fp16 K1
+    and K3 at ``KERNEL_HEAD_DIMS`` round their operands in the kernel
+    (``F16_IN_KERNEL``); every other fp16 launch takes copies rounded by
+    the wrapper (2)."""
+    if (dtype == torch.float16 and kernel in ("fwd", "dkv")
+            and D in KERNEL_HEAD_DIMS):
+        return F16_IN_KERNEL
+    return _DTYPE_CODE[dtype]
+
+
+def _dims(q, code, causal, scale):
     B, H, S, D = q.shape
-    return (B, H, S, D, _DTYPE_CODE[q.dtype], int(bool(causal)),
-            float(scale))
+    return B, H, S, D, code, int(bool(causal)), float(scale)
 
 
-def _operands(*ts):
-    """What the kernels read: fp16 operands rounded to bf16 (``_dot_f32``
-    rounds every 2-byte operand so), others as they are."""
+def _operands(code, *ts):
+    """What a launch with dtype ``code`` reads: at code 2, copies of the
+    fp16 operands rounded to bf16 (``_dot_f32`` rounds every 2-byte
+    operand so); otherwise the operands as they are (at
+    ``F16_IN_KERNEL`` the kernel rounds each fp16 tile itself)."""
+    if code != _DTYPE_CODE[torch.float16]:
+        return list(ts)
     return [t.to(torch.bfloat16) if t.dtype == torch.float16 else t
             for t in ts]
 
@@ -332,14 +354,15 @@ def flash_fwd(q, k, v, causal, scale):
     B, H, S, D = q.shape
     out = _empty_bshd(q)
     lse = torch.empty((B, H, S, 1), dtype=torch.float32, device=dev)
-    qb, kb, vb = _operands(q, k, v)
+    code = _dtype_code("fwd", D, q.dtype)
+    qb, kb, vb = _operands(code, q, k, v)
     lib = _lib(D, q.dtype, "fwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_fwd_launch(
             qb.data_ptr(), *_strides(qb), kb.data_ptr(), *_strides(kb),
             vb.data_ptr(), *_strides(vb), out.data_ptr(), *_strides(out),
-            lse.data_ptr(), *_dims(q, causal, scale), stream)
+            lse.data_ptr(), *_dims(q, code, causal, scale), stream)
     _raise_if(lib, err, "flash_fwd")
     count_launch(flash_fwd)
     return out, lse
@@ -353,7 +376,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal, scale):
     if dev.type == "cpu":
         return _bwd_dq_reference(q, k, v, do, lse, delta, causal, scale)
     dq = _empty_bshd(q)
-    qb, kb, vb, dob = _operands(q, k, v, do)
+    code = _dtype_code("dq", q.shape[3], q.dtype)
+    qb, kb, vb, dob = _operands(code, q, k, v, do)
     lib = _lib(q.shape[3], q.dtype, "dq")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -361,7 +385,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal, scale):
             qb.data_ptr(), *_strides(qb), kb.data_ptr(), *_strides(kb),
             vb.data_ptr(), *_strides(vb), dob.data_ptr(), *_strides(dob),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_strides(dq),
-            *_dims(q, causal, scale), stream)
+            *_dims(q, code, causal, scale), stream)
     _raise_if(lib, err, "flash_bwd_dq")
     count_launch(flash_bwd_dq)
     return dq
@@ -374,7 +398,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
     if dev.type == "cpu":
         return _bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale)
     dk, dv = _empty_bshd(q), _empty_bshd(q)
-    qb, kb, vb, dob = _operands(q, k, v, do)
+    code = _dtype_code("dkv", q.shape[3], q.dtype)
+    qb, kb, vb, dob = _operands(code, q, k, v, do)
     lib = _lib(q.shape[3], q.dtype, "dkv")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -382,7 +407,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
             qb.data_ptr(), *_strides(qb), kb.data_ptr(), *_strides(kb),
             vb.data_ptr(), *_strides(vb), dob.data_ptr(), *_strides(dob),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), *_strides(dk),
-            dv.data_ptr(), *_dims(q, causal, scale), stream)
+            dv.data_ptr(), *_dims(q, code, causal, scale), stream)
     _raise_if(lib, err, "flash_bwd_dkv")
     count_launch(flash_bwd_dkv)
     return dk, dv
