@@ -12,9 +12,9 @@ script exits non-zero:
    checkout (``paddle_tpu_torch/kernels/csrc``), one ``nvcc`` per source,
    all started together; prints registers, shared memory and spills per
    variant (K4/K4q; K1–K3 in ``flash_attention.cu`` at head dims 64/96/
-   128, K1 and K3 in ``flash_attention_d256.cu`` at 256, and K1–K3 in
-   ``flash_attention_mma.cu`` at the others; K5); the D 256 wgmma
-   kernels must not spill.
+   128 and in ``flash_attention_d256.cu`` at 256, and in
+   ``flash_attention_mma.cu`` at the others; K5); the wgmma kernels
+   (``NO_SPILL_KERNELS``) must not spill.
 3. kernel_vs_plain — the paged decode kernel against its plain PyTorch
    version on the card: K4 over fp32/bf16/fp16 pools and K4q over
    int8/fp8 pools (quantized by the port's ``quantize_kv``; fp32, bf16
@@ -36,12 +36,15 @@ script exits non-zero:
    125M fused leg's own shape (batch 16, 12 heads of 64, S 1024, causal:
    1536 K1 items), BERT-large's (batch 16, 16 heads of 64, S 512, no
    mask) in bf16 and fp16, and the fp16 instances (bf16 kernels on
-   operands rounded to bf16, fp16 outputs) over S {128, 256, 1024} x D
-   {64, 96, 128} x causal.  Every K2/K3 call runs twice and must give
-   the same bits.
+   operands rounded to bf16 in shared memory, fp16 outputs) over S
+   {128, 256, 1024} x D {64, 96, 128} x causal, at the 760M shape and
+   on operands that are all ties between bf16 values, with subnormals:
+   K1's O and LSE, K2's dQ and K3's dK and dV bit for bit the route on
+   the wrapper's rounded copies.  Every K2/K3 call runs twice and must
+   give the same bits.
 5a. flash_hd_vs_plain — K1–K3 at the head dims off ``flash_attention.cu``
-   (``flash_attention_mma.cu``, and ``flash_attention_d256.cu``'s K1 and
-   K3 at D 256 in bf16/fp16): 12 head dims from 16 to 256 at S 256,
+   (``flash_attention_mma.cu``, and ``flash_attention_d256.cu``'s K1–K3
+   at D 256 in bf16/fp16): 12 head dims from 16 to 256 at S 256,
    then D 256 (B 2, H 16, S 1024), D 32 (B 4, H 32, S 1024) and D 80,
    each causal and not, in fp32, bf16 and fp16; then 20 D 256 cases at
    the persistent loops' edges (S 128; 35 heads of S 1024, no multiple
@@ -212,7 +215,7 @@ script exits non-zero:
     under ``auto_cast`` O2 bf16 and at fp32, through K1–K3 and their
     plain versions (``_self_calibrated``, rows by RMS: see
     ``flash_hd_gates.py``), 2/2/2 launches by the counters and the trace
-    (K1 and K3 the D 256 wgmma kernels, K2 ``mma.sync``).
+    (the D 256 wgmma kernels of ``flash_attention_d256.cu``).
 22b. sparse_embedding — ``nn.Embedding(1_000_000, 256, sparse=True)``,
     4096 x 26 Zipf ids a step, ``Adam(lazy_mode=True)`` + the global-norm
     clip, 10 steps: untouched rows bit-equal, touched rows against a
@@ -223,9 +226,10 @@ script exits non-zero:
     BERT-large's beside the plain versions, the bounds and
     ``scaled_dot_product_attention``'s flash forward and backward
     (yardsticks the port never calls); then at D 256 (B 2, H 16, S
-    1024, causal, bf16: K1 and K3 in ``flash_attention_d256.cu``, K2
-    ``mma.sync``), with the ``mma.sync`` K1 and K3 instances they
-    replaced timed in the same turns.
+    1024, causal, bf16: K1–K3 in ``flash_attention_d256.cu``), with the
+    ``mma.sync`` instances they replaced timed in the same turns; each
+    must beat the one it replaced, as fp16 K1–K3 must beat the route on
+    the wrapper's rounded copies.
 
 The ``total`` line gives the whole run's seconds; the line before the
 last is the ``kernels`` JSON (K4's and K4q-int8's launches summed over
@@ -353,14 +357,19 @@ def _ptxas(log):
 
 
 #: the wgmma kernels that must not spill, as ptxas names them (mangled),
-#: by source: K1 and K3 at D 256, and K1 and K3 at D 64/96/128 (their
-#: producer warpgroup, 40 registers a thread, also rounds fp16 tiles)
+#: by source: K1–K3 at D 256, and K1–K3 at D 64/96/128 (K1's and K3's
+#: producer warpgroup, 40 registers a thread, also rounds fp16 tiles; K2
+#: has a bf16 instance at 24/240 and an fp16 one at 40/232, its template
+#: flag ``Lb0``/``Lb1``)
 NO_SPILL_KERNELS = {
     "flash_attention_d256": {("flash_fwd_d256_kernel",),
+                             ("flash_bwd_dq_d256_kernel",),
                              ("flash_bwd_dkv_d256_kernel",)},
     "flash_attention": {(k, f"ILi{d}E") for d in (64, 96, 128)
                         for k in ("flash_fwd_wgmma_kernel",
-                                  "flash_bwd_dkv_wgmma_kernel")},
+                                  "flash_bwd_dkv_wgmma_kernel")}
+                       | {("flash_bwd_dq_wgmma_kernel", f"ILi{d}ELb{f}E")
+                          for d in (64, 96, 128) for f in (0, 1)},
 }
 
 
@@ -2633,7 +2642,7 @@ def _qkv_views(gen, B, S, H, D, dtype):
 
 @contextlib.contextmanager
 def _wrapper_rounding():
-    """Route every fp16 launch to dtype code 2, the route K1 and K3 took
+    """Route every fp16 launch to dtype code 2, the route K1–K3 took
     before they rounded fp16 tiles in shared memory: the wrapper hands
     the kernel bf16 copies of the operands (``_operands``), rounded by
     torch.  To hold the new route to its bits and time it beside it."""
@@ -2675,10 +2684,10 @@ def _flash_check(gen, cases, worst, ratio):
     ``"ties"`` (fp16) sets q, k, v and dO to ties between bf16 values,
     with subnormals in head 0 of v and dO (:func:`_ties_and_subnormals`).
     Where a kernel rounds fp16 operands in shared memory
-    (``fa._dtype_code``), its outputs (K1's O and LSE, K3's dK and dV)
-    must be bit for bit those of the route on the wrapper's rounded
-    copies (:func:`_wrapper_rounding`).  Returns the number of those
-    equal-bits gates passed."""
+    (``fa._dtype_code``), its outputs (K1's O and LSE, K2's dQ, K3's dK
+    and dV) must be bit for bit those of the route on the wrapper's
+    rounded copies (:func:`_wrapper_rounding`).  Returns the number of
+    those equal-bits gates passed."""
     gates = 0
     for B, H, S, D, dtype, causal, *do_layout in cases:
         q, k, v = _qkv_views(gen, B, S, H, D, dtype)
@@ -2692,7 +2701,7 @@ def _flash_check(gen, cases, worst, ratio):
             _ties_and_subnormals(gen, (v, do), head=0)
         sc = 1.0 / math.sqrt(D)
         in_kernel = {n: fa._dtype_code(n, D, dtype) != fa._DTYPE_CODE[dtype]
-                     for n in ("fwd", "dkv")}
+                     for n in ("fwd", "dq", "dkv")}
         out, lse = fa.flash_fwd(q, k, v, causal, sc)
         if not all(map(torch.equal, (out, lse),
                        fa.flash_fwd(q, k, v, causal, sc))):
@@ -2730,6 +2739,17 @@ def _flash_check(gen, cases, worst, ratio):
                         f"flash_bwd {name}: two runs differ at B={B} H={H} "
                         f"S={S} D={D} {dtype} causal={causal}")
             del again
+            if in_kernel["dq"]:
+                with _wrapper_rounding():
+                    copies = fa.flash_bwd_dq(q, k, v, do, rlse, delta,
+                                             causal, sc)
+                if not torch.equal(dq, copies):
+                    raise AssertionError(
+                        f"flash_bwd_dq: fp16 rounded in the kernel differs "
+                        f"from the wrapper's rounded copies at B={B} H={H} "
+                        f"S={S} D={D} causal={causal} {do_layout}")
+                gates += 1
+                del copies
             if in_kernel["dkv"]:
                 with _wrapper_rounding():
                     copies = fa.flash_bwd_dkv(q, k, v, do, rlse, delta,
@@ -2780,13 +2800,14 @@ def flash_hd_phase():
     """K1–K3 at head dims off ``flash_attention.cu`` against their plain
     versions: every bucket of ``flash_attention_mma.cu`` small, then D
     256 (B 2, H 16, S 1024: ``nn.MultiHeadAttention(4096, 16)``'s heads;
-    K1 and K3 in bf16/fp16 are ``flash_attention_d256.cu``'s), D 32 (B
-    4, H 32, S 1024) and D 80 (B 2, H 8, S 1024), each causal and not, in
+    K1–K3 in bf16/fp16 are ``flash_attention_d256.cu``'s), D 32 (B 4, H
+    32, S 1024) and D 80 (B 2, H 8, S 1024), each causal and not, in
     fp32, bf16 and fp16; then the D 256 wgmma kernels' persistent loops
-    at their edges, in bf16 and fp16: S 128 (one K1 item and two K3
-    items a head), 35 heads of S 1024 (280 K1 and 560 K3 items, no
+    at their edges, in bf16 and fp16: S 128 (one K1/K2 item and two K3
+    items a head), 35 heads of S 1024 (280 K1/K2 and 560 K3 items, no
     multiple of the SMs), S 384 (an odd count of 128-row tiles), and dO
-    [B, H, S, D]-contiguous and strided."""
+    [B, H, S, D]-contiguous and strided (K2's and K3's dO tensor
+    maps)."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     worst = {"flash_fwd": 0.0, "flash_fwd_lse": 0.0, "flash_bwd_dq": 0.0,
              "flash_bwd_dkv": 0.0}
@@ -2847,8 +2868,8 @@ def flash_phase():
     cases.append((FUSED_B, 12, TRAIN_S, 64, torch.bfloat16, True))
     # BERT-large pretraining's shape (bert_train: 16 heads of 64, S 512,
     # no mask), in bf16 and fp16; and the fp16 instances (bf16 kernels on
-    # operands rounded to bf16, fp16 outputs; K1 and K3 round each tile
-    # in shared memory, bit for bit the wrapper's rounded copies) over a
+    # operands rounded to bf16, fp16 outputs; K1–K3 round each tile in
+    # shared memory, bit for bit the wrapper's rounded copies) over a
     # grid of their own, gpt_dygraph_fp16's shape (760M, 4 layers), and
     # operands that are all ties between bf16 values, with subnormals
     cases += [(BERT_B, BERT_H, BERT_S, BERT_D, dtype, False)
@@ -2861,8 +2882,8 @@ def flash_phase():
     cases += [(2, 4, 256, D, torch.float16, causal, "ties")
               for D in fa.KERNEL_HEAD_DIMS for causal in (False, True)]
     gates = _flash_check(gen, cases, worst, ratio)
-    # K1 once a case, K3 with and without an LSE cotangent
-    want = 3 * sum(c[4] == torch.float16 and c[3] in fa.KERNEL_HEAD_DIMS
+    # K1 once a case, K2 and K3 with and without an LSE cotangent
+    want = 5 * sum(c[4] == torch.float16 and c[3] in fa.KERNEL_HEAD_DIMS
                    for c in cases)
     if gates != want:
         raise AssertionError(f"flash_vs_plain: {gates} equal-bits gates of "
@@ -3956,7 +3977,7 @@ def _flash_library(name):
         fa._library = routed
 
 
-#: a replaced route of :func:`_flash_shape_times`: fp16 K1/K3 on the
+#: a replaced route of :func:`_flash_shape_times`: fp16 K1–K3 on the
 #: wrapper's rounded copies (dtype code 2), not a library
 ROUNDING_COPIES = "rounding_copies"
 
@@ -3973,7 +3994,7 @@ def _replaced_route(name):
 def _flash_shape_times(B, H, S, D, causal, seed, dtype=torch.bfloat16,
                        replaced=()):
     """K1–K3 per launch at one shape (bf16, or fp16: the bf16 kernels on
-    operands rounded to bf16, by K1 and K3 in shared memory at D
+    operands rounded to bf16, by the kernels in shared memory at D
     64/96/128 and by the wrapper's copies otherwise; q/k/v strided views
     of one projection output), in turns within this one call, beside the
     plain versions, the bounds and SDPA's flash backend in the same dtype
@@ -4104,12 +4125,13 @@ def flash_times_phase(max_err, launches, bert_launches):
     """K1–K3 per launch at the GPT training shape (B=8, S=1024, 16 heads
     of 96, causal) in bf16 and fp16 (gpt_dygraph_fp16's) and at
     BERT-large's (B=16, S=512, 16 heads of 64, no mask) in bf16 and
-    fp16; in fp16, beside K1 and K3 the route they replaced (dtype code
-    2 on the wrapper's rounded copies) in the same turns.  The
+    fp16; in fp16, beside K1–K3 the route they replaced (dtype code 2 on
+    the wrapper's rounded copies) in the same turns.  The
     ``kernels`` rows keep the training shape's numbers and the GPT train
     phase's launches, with BERT's (its launches from bert_train) and the
     fp16 numbers beside them."""
     copies = (("flash_fwd", ROUNDING_COPIES),
+              ("flash_bwd_dq", ROUNDING_COPIES),
               ("flash_bwd_dkv", ROUNDING_COPIES))
     train = _flash_shape_times(TRAIN_B, 16, TRAIN_S, 96, True, seed=9)
     train16 = _flash_shape_times(TRAIN_B, 16, TRAIN_S, 96, True, seed=12,
@@ -4132,7 +4154,7 @@ def flash_times_phase(max_err, launches, bert_launches):
         emit(t16)
         emit(b)
         emit(h)
-        # fp16 K1/K3: beside the route they replaced, timed in the same
+        # fp16 K1–K3: beside the route they replaced, timed in the same
         # turns; rounding in shared memory must beat the rounding copies
         replaced = {k: v["replaced_us"] / 1e3
                     for k, v in (("fp16_replaced_ms", h),
@@ -4451,10 +4473,9 @@ def gpt_dygraph_phase():
 
 
 #: K1–K3's device functions at head dim 256 in bf16/fp16, as a trace
-#: shows them: K1 and K3 in ``flash_attention_d256.cu``, K2 the
-#: ``mma.sync`` kernel of ``flash_attention_mma.cu``
+#: shows them: the wgmma kernels of ``flash_attention_d256.cu``
 FLASH_D256_DEVICE_NAMES = {"flash_fwd": "flash_fwd_d256_kernel",
-                           "flash_bwd_dq": "flash_bwd_dq_kernel<",
+                           "flash_bwd_dq": "flash_bwd_dq_d256_kernel",
                            "flash_bwd_dkv": "flash_bwd_dkv_d256_kernel"}
 
 
@@ -4753,16 +4774,16 @@ def lbfgs_phase():
 
 #: the source of each kernel at D 256 in bf16/fp16
 D256_SOURCES = {"flash_fwd": "flash_attention_d256",
-                "flash_bwd_dq": "flash_attention_mma",
+                "flash_bwd_dq": "flash_attention_d256",
                 "flash_bwd_dkv": "flash_attention_d256"}
 
 
 def flash_hd_times_phase(max_err, launches):
-    """K1–K3 at D 256 (bf16, B 2, H 16, S 1024, causal: K1 and K3 the
-    wgmma kernels of ``flash_attention_d256.cu``, K2 the ``mma.sync``
-    one), in turns beside the ``mma.sync`` K1 and K3 instances they
-    replaced (called from their library), the plain versions, the
-    bounds and SDPA's flash backend; the ``kernels`` rows, with the
+    """K1–K3 at D 256 (bf16, B 2, H 16, S 1024, causal: the wgmma
+    kernels of ``flash_attention_d256.cu``), in turns beside the
+    ``mma.sync`` instances they replaced (called from their library),
+    the plain versions, the bounds and SDPA's flash backend; each must
+    beat the instance it replaced.  The ``kernels`` rows, with the
     launches of flash_hd_in_model's kernel runs."""
     rows = []
     errs = {"flash_fwd": max(max_err["flash_fwd"], max_err["flash_fwd_lse"]),
@@ -4773,10 +4794,14 @@ def flash_hd_times_phase(max_err, launches):
                 "flash_bwd_dkv": "paddle_tpu/kernels/flash_attention.py:243"}
     times = _flash_shape_times(
         2, 16, 1024, 256, True, seed=18,
-        replaced=(("flash_fwd", "flash_attention_mma"),
-                  ("flash_bwd_dkv", "flash_attention_mma")))
+        replaced=tuple((n, "flash_attention_mma") for n in D256_SOURCES))
     for n, t in times.items():
         emit(t)
+        if t["kernel_us"] >= t["replaced_us"]:
+            raise AssertionError(
+                f"flash_hd_times: {n} {t['kernel_us']} us at D 256, not "
+                f"below the replaced mma.sync instance's "
+                f"{t['replaced_us']} us")
         rows.append({"name": f"{n}_d256", "route": "cuda",
                      "source": "paddle_tpu_torch/kernels/csrc/"
                                f"{D256_SOURCES[n]}.cu",
@@ -4789,9 +4814,8 @@ def flash_hd_times_phase(max_err, launches):
                      "event_ms": t["event_us"]["kernel"] / 1e3,
                      "library_covers": ("forward" if n == "flash_fwd"
                                         else "the whole backward, K2 + K3"),
-                     **({"replaced_ms": t["replaced_us"] / 1e3,
-                         "replaced_source": t["replaced_source"]}
-                        if "replaced_us" in t else {})})
+                     "replaced_ms": t["replaced_us"] / 1e3,
+                     "replaced_source": t["replaced_source"]})
     return rows
 
 

@@ -8,8 +8,8 @@
 Each VARIANT.cu is a whole replacement of
 ``paddle_tpu_torch/kernels/csrc/NAME.cu`` (a text edit of it, say) with
 the same C interface; NAME is ``flash_attention`` (the default: K1–K3
-at head dims 64/96/128) or ``flash_attention_d256`` (K1 and K3 at head
-dim 256).  The script builds the checked-in source and every variant
+at head dims 64/96/128) or ``flash_attention_d256`` (K1–K3 at head dim
+256).  The script builds the checked-in source and every variant
 with the package's ``nvcc`` flags (``csrc/`` on the include path), one
 process each, all started together, into ``build/variants/``
 (git-ignored), and prints per variant ptxas's registers and spills of
@@ -21,20 +21,22 @@ few shapes (one and several tiles, odd tile counts, causal and not, dO
 [B, H, S, D]-contiguous, the timed shape), K1–K3 also to the same bits
 on a second run, drops a variant that fails, and says whether each
 variant's outputs are bit for bit the checked-in source's on every case
-(``bits_equal_to_source``).  Last it times the kernels the source holds
-of every variant left at its shape (``flash_attention``: the 760M
-training shape, B 8, S 1024, 16 heads of 96; ``flash_attention_d256``:
-B 2, H 16, S 1024, D 256; causal) in turns, first to last and back,
-beside SDPA's flash backward, with ``chip_smoke.py``'s device timer.
-The operands are bf16, or fp16 with ``--dtype float16``: then the cases
-add operands that are all ties between bf16 values, with subnormals;
-K1 and K3 of ``flash_attention`` must give the bits of the route on the
-wrapper's rounded copies (dtype code 2) of the same library, and that
-route is timed beside them (``k1_copies``, ``k3_copies``).  ``--shape`` times another
-shape (CAUSAL 0 or 1; BERT-large's is 16,16,512,64,0); ``--unchecked``
-skips the checks, to time diagnostic edits that are wrong on purpose
-(a handshake without its work, say).  One JSON line per result; the
-last holds the times in µs.  Exits non-zero without a GPU.
+(``bits_equal_to_source``); a variant without K2 (an older
+``flash_attention_d256.cu``) runs the checked-in source's K2, whose time
+is not its own.  Last it times K1–K3 of every variant left at its shape
+(``flash_attention``: the 760M training shape, B 8, S 1024, 16 heads of
+96; ``flash_attention_d256``: B 2, H 16, S 1024, D 256; causal) in
+turns, first to last and back, beside SDPA's flash backward, with
+``chip_smoke.py``'s device timer.  The operands are bf16, or fp16 with
+``--dtype float16``: then the cases add operands that are all ties
+between bf16 values, with subnormals; K1–K3 of ``flash_attention`` must
+give the bits of the route on the wrapper's rounded copies (dtype code
+2) of the same library, and that route is timed beside them
+(``k1_copies``, ``k2_copies``, ``k3_copies``).  ``--shape`` times
+another shape (CAUSAL 0 or 1; BERT-large's is 16,16,512,64,0);
+``--unchecked`` skips the checks, to time diagnostic edits that are
+wrong on purpose (a handshake without its work, say).  One JSON line per
+result; the last holds the times in µs.  Exits non-zero without a GPU.
 """
 
 from __future__ import annotations
@@ -83,14 +85,30 @@ def build(name, src):
     return name, proc.returncode, proc.stderr
 
 
-def use(source, lib):
-    """Route the wrappers in ``fa`` that take ``source`` to ``lib``."""
+#: the library name a variant without K2 (an older source) sends its K2
+#: launches to: the checked-in source's build
+K2_OF_SOURCE = "k2_of_source"
+_ROUTED = fa._library
+
+
+def has_k2(lib):
+    return getattr(lib, "flash_bwd_dq_launch", None) is not None
+
+
+def use(source, lib, fallback=None):
+    """Route the wrappers in ``fa`` that take ``source`` to ``lib``, and
+    K2 to ``fallback`` if ``lib`` has none."""
     _build._LIBS[source] = fa._bind(lib)
+    fa._library = _ROUTED
+    if not has_k2(lib) and fallback is not None:
+        _build._LIBS[K2_OF_SOURCE] = fa._bind(fallback)
+        fa._library = lambda D, dtype, kernel="fwd": (
+            K2_OF_SOURCE if kernel == "dq" else _ROUTED(D, dtype, kernel))
 
 
 def check(case, gen, dtype):
     """(worst err/tol of K1, dQ, dK, dV; the outputs) on one case; None
-    if a kernel gives other bits on a second run, or (fp16) K1 or K3
+    if a kernel gives other bits on a second run, or (fp16) K1, K2 or K3
     other bits than on the wrapper's rounded copies."""
     B, H, S, D, causal, layout = case
     q, k, v = cs._qkv_views(gen, B, S, H, D, dtype)
@@ -118,9 +136,8 @@ def check(case, gen, dtype):
         return None
     if fa._dtype_code("fwd", D, dtype) == fa.F16_IN_KERNEL:
         with cs._wrapper_rounding():
-            copies = [*fa.flash_fwd(q, k, v, causal, sc),
-                      *fa.flash_bwd_dkv(*args)]
-        if not all(map(torch.equal, [*got[:2], *got[3:]], copies)):
+            copies = run()
+        if not all(map(torch.equal, got, copies)):
             return None
     outs = [got[0], *got[2:]]
     return [float(((g.float() - r.float()).abs()
@@ -156,7 +173,7 @@ def main(source, paths, dtype, shape=None, checked=True):
 
     reference = {}  # the checked-in source's outputs, by case
     for name in list(libs) if checked else ():
-        use(source, libs[name])
+        use(source, libs[name], libs.get("source"))
         gen = torch.Generator(device="cuda").manual_seed(5)
         worst, same = [0.0] * 4, True
         try:
@@ -165,7 +182,7 @@ def main(source, paths, dtype, shape=None, checked=True):
                 if res is None:
                     raise AssertionError(
                         f"two runs differ at {case}" + (
-                            ", or fp16 K1/K3 differ from the rounding "
+                            ", or fp16 K1–K3 differ from the rounding "
                             "copies route" if f16_in_kernel else ""))
                 ratios, outs = res
                 worst = [max(a, b) for a, b in zip(worst, ratios)]
@@ -207,13 +224,14 @@ def main(source, paths, dtype, shape=None, checked=True):
                 with cs._wrapper_rounding():
                     fn(i)
             return call
-        fns.update(k1_copies=copies(fns["k1"]), k3_copies=copies(fns["k3"]))
-    if fa._library(D, dtype, "dq") != source:
-        del fns["k2"]  # another source's K2: the same for every variant
+        fns.update(k1_copies=copies(fns["k1"]), k2_copies=copies(fns["k2"]),
+                   k3_copies=copies(fns["k3"]))
     times = {n: {k: [] for k in fns} for n in libs}
     for name in list(libs) + list(libs)[::-1]:
-        use(source, libs[name])
+        use(source, libs[name], libs.get("source"))
         for kn, fn in fns.items():
+            if kn.startswith("k2") and not has_k2(libs[name]):
+                continue  # the checked-in K2, timed as "source"
             times[name][kn].append(cs._device_ms(fn, 10,
                                                  cs._time_ms(fn, 30)) * 1e3)
     ql, kl, vl = (t.contiguous().requires_grad_() for t in (q, k, v))

@@ -6,12 +6,12 @@
 //   K1 _fwd_kernel     (via _flash_fwd)  -> hopper::flash_fwd_wgmma_kernel
 //   K2 _bwd_dq_kernel  (via _flash_bwd)  -> hopper::flash_bwd_dq_wgmma_kernel
 //   K3 _bwd_dkv_kernel (via _flash_bwd)  -> hopper::flash_bwd_dkv_wgmma_kernel
-// K1 and K3 at head dim 256 in bf16/fp16 are flash_attention_d256.cu's
-// (this design, recut for D 256); fp32 at every head dim, K2 at D 256,
-// and bf16/fp16 at the other multiples of 16 up to 240, are
-// flash_attention_mma.cu's simpler kernels.  The helpers the Hopper
-// kernels share (TMA, mbarriers, wgmma, descriptors, staging, launches)
-// are in flash_hopper.cuh.
+// K1-K3 at head dim 256 in bf16/fp16 are flash_attention_d256.cu's
+// (this design, recut for D 256); fp32 at every head dim, and bf16/fp16
+// at the other multiples of 16 up to 240, are flash_attention_mma.cu's
+// simpler kernels.  The helpers the Hopper kernels share (TMA,
+// mbarriers, wgmma, descriptors, staging, launches) are in
+// flash_hopper.cuh.
 //
 // What they compute, per (batch b, head h), over q/k/v rows of length S
 // (S % 128 == 0, the TPU kernel's rule):
@@ -25,14 +25,15 @@
 // operands in bf16 and sums in fp32: P is rounded to bf16 before P.V and
 // P^T.dO, dS before dS.K and dS^T.Q.  fp16 inputs run the bf16 kernels
 // on operands rounded to bf16 (what _dot_f32 does to a 2-byte operand):
-// K1 and K3 read the fp16 tiles through TMA and round them in shared
+// K1, K2 and K3 read the fp16 tiles through TMA and round them in shared
 // memory (Params::in_f16, dtype 3: the converter warps of the producer
-// warpgroup, flash_hopper.cuh); K2 still takes operands the wrapper
-// rounded by copies (dtype 2).  The epilogues write O, dQ, dK and dV as
-// fp16 straight from the fp32 accumulators (Params::out_f16), never
-// through a bf16 value.  dQ and dK are scaled once at the end instead of
-// per tile (equal up to fp32 rounding).  Nothing crosses CTAs and every
-// sum runs in a fixed order: no atomics, and two runs give the same bits.
+// warpgroup, flash_hopper.cuh); dtype 2 takes operands the wrapper
+// rounded by copies, the route those outputs are held to bit for bit.
+// The epilogues write O, dQ, dK and dV as fp16 straight from the fp32
+// accumulators (Params::out_f16), never through a bf16 value.  dQ and dK
+// are scaled once at the end instead of per tile (equal up to fp32
+// rounding).  Nothing crosses CTAs and every sum runs in a fixed order:
+// no atomics, and two runs give the same bits.
 // K2 and K3 keep the TPU's split of dQ from dK/dV for that reason.
 //
 // What bounds them on this card: at training shapes (S = 1024, D = 96)
@@ -52,12 +53,13 @@
 //   warp frees a stage (and the resident tiles) on another mbarrier, so
 //   the next item's loads overlap this item's last tiles and epilogue.
 //   Warpgroups 1 and 2 each own 64 rows of the item; setmaxnreg moves
-//   registers from the producer to them: 24 and 240 in K2; 40 and 232 in
-//   K1 and K3, where with fp16 operands warps 1-3 of warpgroup 0 round
-//   each landed tile to bf16 in place and arrive on its ready barrier,
-//   which the consumers wait on too (at 24, ptxas spilled the converter
-//   loop and K3's producer).  Either split takes 504 registers for each
-//   of 128 thread slots: the 168 x 384 that the CTA holds.
+//   registers from the producer to them: 40 and 232 in K1, K3 and fp16
+//   K2, where with fp16 operands warps 1-3 of warpgroup 0 round each
+//   landed tile to bf16 in place and arrive on its ready barrier, which
+//   the consumers wait on too (at 24, ptxas spilled the converter loop
+//   and K3's producer); 24 and 240 in bf16 K2, an instance of its own
+//   (the template's F16).  Either split takes 504 registers for each of
+//   128 thread slots: the 168 x 384 that the CTA holds.
 // * Products are wgmma with fp32 accumulators in registers.  A score tile
 //   is taken from the accumulators, exponentiated in base 2 (scale *
 //   log2(e) folded into one FMA, the LSE pre-scaled by log2(e)), rounded
@@ -380,7 +382,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
-// K2, bf16: dQ on the same machinery
+// K2: dQ on the same machinery
 // ---------------------------------------------------------------------------
 // A persistent CTA walks items (128-row query tile, b, h), heaviest causal
 // tiles first (item_of).  The producer loads the item's Q and dO tiles
@@ -389,7 +391,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // wgmma products a tile: S = Q K^T and dP = dO V^T (both operands K-major
 // in shared memory), then dQ += dS K with dS from registers and the K
 // tile read as a transposed (MN-major) B, as K1 reads V.
-template <int D>
+//
+// F16 (fp16 operands, dtype code 3) is an instance of its own: warps 1-3
+// of the producer warpgroup round each landed tile to bf16 in shared
+// memory, as in K1 and K3, and need 40 registers a thread (at 24 the
+// converter loop spills), so its consumers take 232.  Q and dO land
+// together but are ready apart, in the order the products read them (Q,
+// the first K, dO, the first V): S starts before dO is rounded, which
+// took 6 % off fp16 K2 at the 760M shape on an H100 80GB HBM3.  The bf16
+// instance keeps 24/240 and its code.
+template <int D, bool F16>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -404,16 +415,27 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   __shared__ __align__(8) uint64_t bar_q, bar_q_free;
   __shared__ __align__(8) uint64_t bar_k[kStages], bar_v[kStages];
   __shared__ __align__(8) uint64_t bar_free[kStages];
+  // F16: each tile's converters are done (Q and dO land on bar_q)
+  __shared__ __align__(8) uint64_t bar_q_ready, bar_k_ready[kStages],
+      bar_v_ready[kStages], bar_do_ready;
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const int n_items = p.S / kBlockM * p.B * p.H;
 
   if (threadIdx.x == 0) {
     mbar_init(&bar_q, 1);
     mbar_init(&bar_q_free, kConsumerWarps);
+    if constexpr (F16) {
+      mbar_init(&bar_q_ready, kConverters);
+      mbar_init(&bar_do_ready, kConverters);
+    }
     for (int st = 0; st < kStages; ++st) {
       mbar_init(&bar_k[st], 1);
       mbar_init(&bar_v[st], 1);
       mbar_init(&bar_free[st], kConsumerWarps);
+      if constexpr (F16) {
+        mbar_init(&bar_k_ready[st], kConverters);
+        mbar_init(&bar_v_ready[st], kConverters);
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -421,7 +443,34 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == 0) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if constexpr (F16) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+      if (threadIdx.x >= 32) {
+        // converters: the producer's walk, each tile rounded once landed,
+        // dO after the item's first K
+        const int c = threadIdx.x - 32;
+        int ring = 0, round = 0;
+        for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++round) {
+          const Item w = item_of(i, p);
+          const int n_tiles =
+              (p.causal ? (w.qi + 1) * kBlockM : p.S) / kBlockN;
+          convert_landed(&bar_q, &bar_q_ready, round & 1, base, kQBytes, c);
+          for (int it = 0; it < n_tiles; ++it, ++ring) {
+            const int st = ring % kStages;
+            const int par = (ring / kStages) & 1;
+            const uint32_t tk = base + 2 * kQBytes + 2 * st * kKV;
+            convert_landed(&bar_k[st], &bar_k_ready[st], par, tk, kKV, c);
+            if (it == 0)
+              convert_landed(&bar_q, &bar_do_ready, round & 1,
+                             base + kQBytes, kQBytes, c);
+            convert_landed(&bar_v[st], &bar_v_ready[st], par, tk + kKV, kKV,
+                           c);
+          }
+        }
+      }
+    } else {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    }
     if (threadIdx.x == 0) {
       int ring = 0, round = 0;
       for (int i = blockIdx.x; i < n_items; i += gridDim.x, ++round) {
@@ -458,7 +507,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     return;
   }
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  if constexpr (F16)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  else
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
   const int tid = threadIdx.x - 128;
   const int cw = tid >> 7;
   const int warp = (tid >> 5) & 3, lane = tid & 31;
@@ -482,7 +534,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int j = 0; j < D / 2; ++j) dq[j] = 0.f;
 
-    mbar_wait(&bar_q, round & 1);
+    tile_wait(&bar_q, &bar_q_ready, round & 1, F16);
     for (int it = 0; it < n_tiles; ++it, ++ring) {
       const int st = ring % kStages;
       const int par = (ring / kStages) & 1;
@@ -491,7 +543,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       // S = Q K^T and dP = dO V^T
       float s[kBlockN / 2], dp[kBlockN / 2];
-      mbar_wait(&bar_k[st], par);
+      tile_wait(&bar_k[st], &bar_k_ready[st], par, F16);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
@@ -501,7 +553,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       kk > 0);
       }
       wgmma_commit();
-      mbar_wait(&bar_v[st], par);
+      tile_wait(&bar_v[st], &bar_v_ready[st], par, F16);
+      if (F16 && it == 0) mbar_wait(&bar_do_ready, round & 1);  // dO rounded
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t kb = (kk & 1) * 32;
@@ -846,8 +899,11 @@ cudaError_t launch_bwd(bool dkv, const Params& p, cudaStream_t stream) {
       !encode_view(&tdo, p.dout, p.do_sb, p.do_sh, p.do_ss, p, D, rows))
     return cudaErrorInvalidValue;
   const int n_items = p.S / kBlockM * p.B * p.H;
+  if (!dkv && p.in_f16)
+    return launch_persistent<flash_bwd_dq_wgmma_kernel<D, true>>(
+        DqSmem<D>::kBytes, n_items, stream, tq, tk, tv, tdo, p);
   if (!dkv)
-    return launch_persistent<flash_bwd_dq_wgmma_kernel<D>>(
+    return launch_persistent<flash_bwd_dq_wgmma_kernel<D, false>>(
         DqSmem<D>::kBytes, n_items, stream, tq, tk, tv, tdo, p);
   if ((reinterpret_cast<uintptr_t>(p.lse) |
        reinterpret_cast<uintptr_t>(p.delta)) % 16 != 0)
@@ -880,15 +936,13 @@ cudaError_t launch_typed(Kind kind, const Params& p, cudaStream_t stream) {
 
 // dtype: 1 bf16; 2 fp16 outputs from bf16 operands (Params::out_f16: the
 // caller rounded the fp16 operands); 3 fp16 operands, rounded to bf16 in
-// shared memory (Params::in_f16), and fp16 outputs: K1 and K3 only.
-// fp32, and the other head dims, are flash_attention_mma.cu's.
-bool takes(Kind kind, int dtype) {
-  return dtype == 1 || dtype == 2 || (dtype == 3 && kind != kDq);
-}
+// shared memory (Params::in_f16), and fp16 outputs.  fp32, and the other
+// head dims, are flash_attention_mma.cu's.
+bool takes(int dtype) { return dtype >= 1 && dtype <= 3; }
 
 int launch(Kind kind, Params p, int D, int dtype, void* stream) {
   if (p.S % 128 != 0 || p.S <= 0 || p.B * p.H < 1 || p.B * p.H > 65535 ||
-      !takes(kind, dtype))
+      !takes(dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   p.out_f16 = dtype >= 2;
@@ -960,7 +1014,7 @@ int flash_bwd_dkv_launch(const void* q, long long q_sb, long long q_sh,
 // dtype as launch() takes it; -1 for a head dim or type not built here.
 long long flash_attention_smem_bytes(int kind, int D, int dtype) {
   const Kind k = kind == 0 ? kFwd : (kind == 1 ? kDq : kDkv);
-  if (!takes(k, dtype)) return -1;
+  if (!takes(dtype)) return -1;
   switch (D) {
     case 64: return smem_bytes<64>(k);
     case 96: return smem_bytes<96>(k);

@@ -1,27 +1,27 @@
-// Flash attention forward (K1) and dK/dV (K3) at head dim 256, bf16 and
-// fp16, for Hopper (sm_90a).
+// Flash attention forward (K1), dQ (K2) and dK/dV (K3) at head dim 256,
+// bf16 and fp16, for Hopper (sm_90a).
 //
 // Replaces, at D 256, the Pallas kernels of paddle_tpu/kernels/
 // flash_attention.py:
 //   K1 _fwd_kernel     (via _flash_fwd)  -> hopper::flash_fwd_d256_kernel
+//   K2 _bwd_dq_kernel  (via _flash_bwd)  -> hopper::flash_bwd_dq_d256_kernel
 //   K3 _bwd_dkv_kernel (via _flash_bwd)  -> hopper::flash_bwd_dkv_d256_kernel
 // Heads of 256 are what the paddle-style scaled_dot_product_attention
 // sends to the kernels from nn.MultiHeadAttention(4096, 16) and the
-// encoders built on it.  K2 (dQ) at D 256 and fp32 at every D are
-// flash_attention_mma.cu's; bf16/fp16 at D 64/96/128 are
-// flash_attention.cu's.  The wrapper (kernels/flash_attention.py,
-// _library) picks the library per kernel.
+// encoders built on it.  fp32 at every D is flash_attention_mma.cu's;
+// bf16/fp16 at D 64/96/128 are flash_attention.cu's.  The wrapper
+// (kernels/flash_attention.py, _library) picks the library per kernel.
 //
 // The arithmetic is flash_attention.cu's, unchanged: every product takes
 // bf16 operands and sums in fp32; P is rounded to bf16 before P.V and
-// P^T.dO, dS before dS^T.Q; fp16 inputs arrive rounded to bf16 by the
-// wrapper and the epilogues write fp16 straight from the fp32
+// P^T.dO, dS before dS.K and dS^T.Q; fp16 inputs arrive rounded to bf16
+// by the wrapper and the epilogues write fp16 straight from the fp32
 // accumulators (Params::out_f16).  The causal mask is the finite -FLT_MAX;
-// O = acc / max(l, 1e-30), LSE = m + log(max(l, 1e-30)); dK is scaled once
-// at the end.  No atomics, every sum in a fixed order: two runs give the
-// same bits.
+// O = acc / max(l, 1e-30), LSE = m + log(max(l, 1e-30)); dQ and dK are
+// scaled once at the end.  No atomics, every sum in a fixed order: two
+// runs give the same bits.
 //
-// What bounds them on this card: the tensor-core work, 4 and 8 * 256
+// What bounds them on this card: the tensor-core work, 4, 6 and 8 * 256
 // flops per (query, key) pair (halved by causal), against 512 bytes a row
 // of each operand: well above the H100's ~295 flops/byte ridge.
 //
@@ -42,6 +42,16 @@
 //   no room for two 64 x 256 staging tiles (64 KB), so each warpgroup
 //   stages its rows through 16 KB of its own in two parts of 128 columns:
 //   225 KB with the alignment slack.
+// * K2: K1's items, each consumer warpgroup owning 64 rows and their dQ
+//   (128 registers), so nothing passes between warpgroups.  Q and dO stay
+//   resident (128 KB), which leaves room for two stages of 32-key K and V
+//   tiles (64 KB) and K1's staging (32 KB): 225 KB.  A consumer holds dQ,
+//   S and dP (16 each) and dS in bf16 (8).  S = Q K^T and dP = dO V^T are
+//   m64n32, dQ += dS K two m64n256 steps; under the causal mask warpgroup
+//   0 skips the two tiles past its rows and both mask the tiles that
+//   cross their diagonal.  A CTA walks its items in rounds of
+//   alternating direction, so that the heaviest items of one round meet
+//   the lightest of the next.
 // * K3: an item is a 64-key tile of one (b, h); its K and V stay resident
 //   while Q and dO stream in 64-query tiles, with their LSE and delta
 //   slices, diagonal tile first under the causal mask.  The two consumer
@@ -64,8 +74,7 @@
 //   the slack.
 //
 // Built by paddle_tpu_torch/kernels/_build.py with nvcc into a shared
-// library with the plain C interface of the other two flash sources (K1,
-// K3 and the smem query; no K2).
+// library with the plain C interface of the other two flash sources.
 
 #include "flash_hopper.cuh"
 
@@ -104,8 +113,21 @@ struct DkvSmem {
   static constexpr int kBytes = kStaging + 2 * Stage<kPart>::kBytes + 1024;
 };
 
+// K2: Q and dO, then K and V of each stage (32-key tiles), then each
+// warpgroup's staging of 128 output columns.
+constexpr int kDqTile = 32;  // keys of a K2 K/V tile
+constexpr int kDqTileSlabBytes = kDqTile * kSlab * 2;    // 32 rows x 64 B
+constexpr int kDqTileBytes = kSlabs * kDqTileSlabBytes;  // 32 x 256: 16 KB
+struct DqSmem {
+  static constexpr int kQBytes = FwdSmem::kQBytes;  // 128 x 256
+  static constexpr int kStaging = 2 * kQBytes + 2 * kStages * kDqTileBytes;
+  static constexpr int kPart = 128;
+  static constexpr int kBytes = kStaging + 2 * Stage<kPart>::kBytes + 1024;
+};
+
 // the barriers' static shared memory is well under 1 KB
 static_assert(FwdSmem::kBytes + 1024 <= kMaxSmem, "K1 shared memory");
+static_assert(DqSmem::kBytes + 1024 <= kMaxSmem, "K2 shared memory");
 static_assert(DkvSmem::kBytes + 1024 <= kMaxSmem, "K3 shared memory");
 
 // Write this warpgroup's 64 x 256 accumulator to out (row stride ss) in
@@ -333,6 +355,220 @@ flash_fwd_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
       lse[q0 + r0] = m[0] * p.scale + logf(l0);
       lse[q0 + r0 + 8] = m[1] * p.scale + logf(l1);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2 at D 256
+// ---------------------------------------------------------------------------
+// The CTA's round-th item, rounds in alternating directions: the CTA
+// with the heaviest item of one round takes the lightest of the next.
+__device__ __forceinline__ int snake_item(int round) {
+  const int g = gridDim.x, b = blockIdx.x;
+  return round * g + ((round & 1) ? g - 1 - b : b);
+}
+
+// Items (128-row query tile, b, h), heaviest first (item_of), as K1, but
+// a CTA takes them in rounds of alternating direction (snake_item): at
+// B 2, H 16, S 1024, causal, the 256 items make two rounds on 132 SMs,
+// and the plain stride gave the CTAs with the heaviest items (32 tiles)
+// the next round's heaviest too (16); alternating took 21 % off the
+// launch on an H100 80GB HBM3 (113.9 -> 90.1 us).  The producer loads
+// the item's Q and dO once and streams 32-key K and V tiles from the
+// diagonal down to key 0; each consumer warpgroup owns 64 rows and their
+// dQ (128 registers): S = Q K^T and dP = dO V^T (m64n32, 16 steps of 16
+// dims each, both operands K-major), P and dS = P o (dP - delta) in one
+// pass once both are done, dS rounded to bf16 as the A operand of dQ +=
+// dS K (m64n256, 2 steps of 16 keys, K read MN-major as K1 reads V).
+// Under the causal mask warpgroup 0 skips the item's two tiles whose keys
+// all follow its rows.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         Params p) {
+  using L = DqSmem;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q, bar_q_free;
+  __shared__ __align__(8) uint64_t bar_k[kStages], bar_v[kStages];
+  __shared__ __align__(8) uint64_t bar_free[kStages];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - smem_u32(smem_raw));
+  const int n_items = p.S / kBlockM * p.B * p.H;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
+    mbar_init(&bar_q_free, kConsumerWarps);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&bar_k[st], 1);
+      mbar_init(&bar_v[st], 1);
+      mbar_init(&bar_free[st], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int ring = 0, round = 0;
+      for (int i = snake_item(0); i < n_items; i = snake_item(++round)) {
+        const Item w = item_of(i, p);
+        const int q0 = w.qi * kBlockM;
+        const int n_tiles = (p.causal ? q0 + kBlockM : p.S) / kDqTile;
+        mbar_wait(&bar_q_free, (round & 1) ^ 1);
+        mbar_expect_tx(&bar_q, 2 * L::kQBytes);
+#pragma unroll
+        for (int s = 0; s < kSlabs; ++s) {
+          tma_load(base + s * kQSlabBytes, &tm_q, &bar_q, s * kSlab, q0,
+                   w.h, w.b);
+          tma_load(base + L::kQBytes + s * kQSlabBytes, &tm_do, &bar_q,
+                   s * kSlab, q0, w.h, w.b);
+        }
+        for (int it = 0; it < n_tiles; ++it, ++ring) {
+          const int st = ring % kStages;
+          const int k0 = (n_tiles - 1 - it) * kDqTile;
+          mbar_wait(&bar_free[st], ((ring / kStages) & 1) ^ 1);
+          const uint32_t sk = base + 2 * L::kQBytes + 2 * st * kDqTileBytes;
+          const uint32_t sv = sk + kDqTileBytes;
+          mbar_expect_tx(&bar_k[st], kDqTileBytes);
+#pragma unroll
+          for (int s = 0; s < kSlabs; ++s)
+            tma_load(sk + s * kDqTileSlabBytes, &tm_k, &bar_k[st],
+                     s * kSlab, k0, w.h, w.b);
+          mbar_expect_tx(&bar_v[st], kDqTileBytes);
+#pragma unroll
+          for (int s = 0; s < kSlabs; ++s)
+            tma_load(sv + s * kDqTileSlabBytes, &tm_v, &bar_v[st],
+                     s * kSlab, k0, w.h, w.b);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int tid = threadIdx.x - 128;
+  const int cw = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 64 * cw + 16 * warp + g;  // rows r0 and r0 + 8 of the tile
+  const float sl2 = p.scale * kLog2e;
+  const uint32_t sq = base + cw * 64 * 64;  // 64 rows of 64 bytes a slab
+  const uint32_t sdo = sq + L::kQBytes;
+  unsigned char* const stage =
+      gbase + L::kStaging + cw * Stage<L::kPart>::kBytes;
+
+  int ring = 0, round = 0;
+  for (int i = snake_item(0); i < n_items; i = snake_item(++round)) {
+    const Item w = item_of(i, p);
+    const int q0 = w.qi * kBlockM;
+    const int n_tiles = (p.causal ? q0 + kBlockM : p.S) / kDqTile;
+    const int64_t row =
+        (static_cast<int64_t>(w.b) * p.H + w.h) * p.S + q0 + r0;
+    // LSE in base 2, once a row: P = 2^(s * scale * log2e - lse * log2e)
+    const float lse2[2] = {p.lse[row] * kLog2e, p.lse[row + 8] * kLog2e};
+    const float dlt[2] = {p.delta[row], p.delta[row + 8]};
+    float dq[kD / 2];
+#pragma unroll
+    for (int j = 0; j < kD / 2; ++j) dq[j] = 0.f;
+
+    mbar_wait(&bar_q, round & 1);
+    for (int it = 0; it < n_tiles; ++it, ++ring) {
+      const int st = ring % kStages;
+      const int par = (ring / kStages) & 1;
+      const uint32_t sk = base + 2 * L::kQBytes + 2 * st * kDqTileBytes;
+      const uint32_t sv = sk + kDqTileBytes;
+      const int k0 = (n_tiles - 1 - it) * kDqTile;
+      // causal: the tile's first key less the warpgroup's first row, a
+      // multiple of 32: 64 and above, every key follows every row (P = 0,
+      // the tile skipped); 0 and 32, some do (masked)
+      const int c0 = k0 - (q0 + 64 * cw);
+      if (p.causal && c0 >= 64) {
+        mbar_wait(&bar_k[st], par);  // the stage's loads land before it frees
+        mbar_wait(&bar_v[st], par);
+        if (lane == 0) {
+          if (it == n_tiles - 1) mbar_arrive(&bar_q_free);
+          mbar_arrive(&bar_free[st]);
+        }
+        continue;
+      }
+
+      // S = Q K^T and dP = dO V^T: 16 steps of 16 dims each, two per
+      // 64-byte slab row
+      float s[kDqTile / 2], dp[kDqTile / 2];
+      mbar_wait(&bar_k[st], par);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint32_t kb = (kk & 1) * 32;
+        wgmma_ss_n32(s, desc_sw64(sq + (kk >> 1) * kQSlabBytes + kb, 16, 512),
+                     desc_sw64(sk + (kk >> 1) * kDqTileSlabBytes + kb, 16,
+                               512),
+                     kk > 0);
+      }
+      wgmma_commit();
+      mbar_wait(&bar_v[st], par);
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint32_t kb = (kk & 1) * 32;
+        wgmma_ss_n32(dp,
+                     desc_sw64(sdo + (kk >> 1) * kQSlabBytes + kb, 16, 512),
+                     desc_sw64(sv + (kk >> 1) * kDqTileSlabBytes + kb, 16,
+                               512),
+                     kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+      if (it == n_tiles - 1 && lane == 0) mbar_arrive(&bar_q_free);
+
+      // P and dS in one pass, dS in bf16 as the A operand of dS K:
+      // da[kk][e] holds row half e & 1, keys 16 kk + 8 (e >> 1) + 2 t and
+      // + 1 of the tile
+      const bool diag = p.causal && c0 >= 0;
+      uint32_t da[kDqTile / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kDqTile / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 8 * kk + 2 * e;
+          const int r = r0 + 8 * (e & 1);
+          const int c = k0 - q0 + 16 * kk + 8 * (e >> 1) + 2 * t;
+          float pr[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            pr[h] = diag && c + h > r
+                        ? 0.f
+                        : exp2_ftz(fmaf(s[x + h], sl2, -lse2[e & 1]));
+          da[kk][e] = pack_f32(pr[0] * (dp[x] - dlt[e & 1]),
+                               pr[1] * (dp[x + 1] - dlt[e & 1]));
+        }
+      // dQ += dS K: K MN-major, 16 keys (1024 bytes) a step; the next
+      // 32-dim slab is kDqTileSlabBytes on
+      fence_regs(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDqTile / 16; ++kk)
+        wgmma_rs_n256(dq, da[kk],
+                      desc_sw64(sk + kk * 1024, kDqTileSlabBytes, 512));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dq);
+      fence_regs(da);
+      if (lane == 0) mbar_arrive(&bar_free[st]);
+    }
+
+    // epilogue, while the producer already loads the next item: dQ
+    // scaled once
+    write_parts<L::kPart>(
+        stage, dq,
+        static_cast<uint16_t*>(p.out) + w.b * p.o_sb + w.h * p.o_sh +
+            (q0 + 64 * cw) * p.o_ss,
+        p.o_ss, cw, p.out_f16, [&](float x, int) { return x * p.scale; });
   }
 }
 
@@ -574,6 +810,19 @@ cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
       FwdSmem::kBytes, p.S / kBlockM * p.B * p.H, stream, tq, tk, tv, p);
 }
 
+// q and dO in 128-row boxes, k and v in 32-row boxes, in any strides TMA
+// takes.
+cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!encode_view(&tq, p.q, p.q_sb, p.q_sh, p.q_ss, p, kD, kBlockM) ||
+      !encode_view(&tk, p.k, p.k_sb, p.k_sh, p.k_ss, p, kD, kDqTile) ||
+      !encode_view(&tv, p.v, p.v_sb, p.v_sh, p.v_ss, p, kD, kDqTile) ||
+      !encode_view(&tdo, p.dout, p.do_sb, p.do_sh, p.do_ss, p, kD, kBlockM))
+    return cudaErrorInvalidValue;
+  return launch_persistent<flash_bwd_dq_d256_kernel>(
+      DqSmem::kBytes, p.S / kBlockM * p.B * p.H, stream, tq, tk, tv, tdo, p);
+}
+
 // q, k, v and dO in 64-row boxes, in any strides TMA takes; the LSE and
 // delta slices by bulk copies, which need 16-byte aligned rows.
 cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
@@ -621,6 +870,26 @@ int flash_fwd_launch(const void* q, long long q_sb, long long q_sh,
       hopper::launch_fwd(p, static_cast<cudaStream_t>(stream)));
 }
 
+int flash_bwd_dq_launch(const void* q, long long q_sb, long long q_sh,
+                        long long q_ss, const void* k, long long k_sb,
+                        long long k_sh, long long k_ss, const void* v,
+                        long long v_sb, long long v_sh, long long v_ss,
+                        const void* dout, long long do_sb, long long do_sh,
+                        long long do_ss, const float* lse,
+                        const float* delta, void* dq, long long o_sb,
+                        long long o_sh, long long o_ss, int B, int H, int S,
+                        int D, int dtype, int causal, float scale,
+                        void* stream) {
+  Params p = base_params(q, q_sb, q_sh, q_ss, k, k_sb, k_sh, k_ss, v, v_sb,
+                         v_sh, v_ss, B, H, S, causal, scale);
+  p.dout = dout; p.do_sb = do_sb; p.do_sh = do_sh; p.do_ss = do_ss;
+  p.lse = lse; p.delta = delta;
+  p.out = dq; p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
+  if (const int err = check(&p, D, dtype)) return err;
+  return static_cast<int>(
+      hopper::launch_dq(p, static_cast<cudaStream_t>(stream)));
+}
+
 int flash_bwd_dkv_launch(const void* q, long long q_sb, long long q_sh,
                          long long q_ss, const void* k, long long k_sb,
                          long long k_sh, long long k_ss, const void* v,
@@ -642,11 +911,12 @@ int flash_bwd_dkv_launch(const void* q, long long q_sb, long long q_sh,
       hopper::launch_dkv(p, static_cast<cudaStream_t>(stream)));
 }
 
-// Dynamic shared memory a launch asks for: kind 0 = K1, 2 = K3 (1, K2, is
-// not built here); dtype as check() takes it; -1 for what is not built.
+// Dynamic shared memory a launch asks for: kind 0 = K1, 1 = K2, 2 = K3;
+// dtype as check() takes it; -1 for what is not built.
 long long flash_attention_smem_bytes(int kind, int D, int dtype) {
   if (D != hopper::kD || dtype < 1 || dtype > 2) return -1;
   if (kind == 0) return hopper::FwdSmem::kBytes;
+  if (kind == 1) return hopper::DqSmem::kBytes;
   if (kind == 2) return hopper::DkvSmem::kBytes;
   return -1;
 }

@@ -21,10 +21,9 @@ picks the source by kernel, head dim and dtype:
   products; K3 computes the scores transposed so that Pᵀ and dSᵀ feed
   its products from registers);
 * bf16/fp16 at head dim 256 (``D256_HEAD_DIM``, ``nn.MultiHeadAttention
-  (4096, 16)``'s heads): K1 and K3 in ``csrc/flash_attention_d256.cu``,
-  the same design recut for D 256 (64-key tiles; K3's two consumer
-  warpgroups own dV and dK and hand Pᵀ over in fp32), K2 in
-  ``csrc/flash_attention_mma.cu``;
+  (4096, 16)``'s heads): K1–K3 in ``csrc/flash_attention_d256.cu``, the
+  same design recut for D 256 (K1 on 64-key tiles, K2 on 32-key tiles;
+  K3's two consumer warpgroups own dV and dK and hand Pᵀ over in fp32);
 * everything else — fp32 at every head dim, bf16/fp16 at the other
   multiples of 16 up to 256 — ``csrc/flash_attention_mma.cu``: FA2-style
   loops on warp-level ``mma.sync`` in bf16 and on CUDA cores in fp32,
@@ -41,10 +40,10 @@ to bf16 before P·V and Pᵀ·dO and dS before dS·K and dSᵀ·Q; fp32 inputs
 stay fp32.  The CUDA kernels compute in bf16 and fp32; fp16 runs the
 bf16 kernels on operands rounded to bf16 (the same rounding), and they
 write O, dQ, dK and dV as fp16 straight from their fp32 accumulators.
-Where the fp16 operands are rounded is :func:`_dtype_code`'s choice: K1
-and K3 at ``KERNEL_HEAD_DIMS`` read them as they are and round each tile
-in shared memory (code 3); K2, and the other sources, take copies the
-wrapper rounds (code 2, :func:`_operands`).
+Where the fp16 operands are rounded is :func:`_dtype_code`'s choice:
+K1–K3 at ``KERNEL_HEAD_DIMS`` read them as they are and round each tile
+in shared memory (code 3); the other sources take copies the wrapper
+rounds (code 2, :func:`_operands`).
 The mask fill is the finite ``NEG_INF``; the outputs are ``acc /
 max(l, 1e-30)`` and ``lse = m + log(max(l, 1e-30))``.
 
@@ -70,7 +69,7 @@ from ._shapes import NEG_INF, check_divides, check_equal
 #: head dims of the wgmma kernels (GPT-3 125M, 760M, 1.3B); the other
 #: multiples of 16 up to ``MAX_HEAD_DIM`` run the mma.sync kernels
 KERNEL_HEAD_DIMS = (64, 96, 128)
-#: head dim whose K1 and K3 (bf16/fp16) are ``flash_attention_d256.cu``'s
+#: head dim whose K1–K3 (bf16/fp16) are ``flash_attention_d256.cu``'s
 D256_HEAD_DIM = 256
 MAX_HEAD_DIM = 256
 #: the kernels take S % 128 == 0, the TPU kernel's rule; the public
@@ -80,7 +79,7 @@ SEQ_MULTIPLE = 128
 #: wrapper rounded to bf16, with fp16 outputs
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: fp16 operands read as they are and rounded to bf16 in the kernel, fp16
-#: outputs (``flash_attention.cu``'s K1 and K3)
+#: outputs (``flash_attention.cu``'s K1–K3)
 F16_IN_KERNEL = 3
 
 
@@ -181,12 +180,14 @@ def _flash_bwd_reference(q, k, v, out, lse, do, causal, scale, dlse=None):
 # ---------------------------------------------------------------------------
 def _library(D, dtype, kernel="fwd"):
     """The CUDA source whose ``kernel`` (``"fwd"`` K1, ``"dq"`` K2,
-    ``"dkv"`` K3) takes head dim ``D`` in ``dtype``."""
+    ``"dkv"`` K3) takes head dim ``D`` in ``dtype``.  Today the three
+    kernels of one head dim and dtype share a source; callers name the
+    kernel so that a source may hold only some of them."""
     if dtype == torch.float32:
         return "flash_attention_mma"
     if D in KERNEL_HEAD_DIMS:
         return "flash_attention"
-    if D == D256_HEAD_DIM and kernel != "dq":
+    if D == D256_HEAD_DIM:
         return "flash_attention_d256"
     return "flash_attention_mma"
 
@@ -196,8 +197,7 @@ def _lib(D=KERNEL_HEAD_DIMS[0], dtype=torch.bfloat16, kernel="fwd"):
 
 
 def _bind(lib):
-    """Set the C signatures of the launches ``lib`` exports (the D 256
-    library has no K2)."""
+    """Set the C signatures of the launches ``lib`` exports."""
     if lib.flash_fwd_launch.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         L = ctypes.c_longlong
@@ -317,12 +317,11 @@ def _raise_if(lib, err, kernel):
 
 def _dtype_code(kernel, D, dtype):
     """The dtype code the launch of ``kernel`` (``"fwd"``, ``"dq"``,
-    ``"dkv"``) at head dim ``D`` takes for ``dtype`` operands: fp16 K1
-    and K3 at ``KERNEL_HEAD_DIMS`` round their operands in the kernel
+    ``"dkv"``) at head dim ``D`` takes for ``dtype`` operands: fp16 K1–K3
+    at ``KERNEL_HEAD_DIMS`` round their operands in the kernel
     (``F16_IN_KERNEL``); every other fp16 launch takes copies rounded by
     the wrapper (2)."""
-    if (dtype == torch.float16 and kernel in ("fwd", "dkv")
-            and D in KERNEL_HEAD_DIMS):
+    if dtype == torch.float16 and D in KERNEL_HEAD_DIMS:
         return F16_IN_KERNEL
     return _DTYPE_CODE[dtype]
 

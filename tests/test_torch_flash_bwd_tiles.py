@@ -17,10 +17,11 @@ tiles.
 
 At head dim 256, ``csrc/flash_attention_d256.cu`` runs K1 over 128-row
 query items (64 rows a warpgroup) and 64-key tiles from the diagonal
-down, the online softmax in base 2, and K3 over 64-key items and
-64-query tiles from the diagonal on, dS formed from the fp32 Pᵀ that one
+down, the online softmax in base 2; K2 over the same items and 32-key
+tiles from the diagonal down; and K3 over 64-key items and 64-query
+tiles from the diagonal on, dS formed from the fp32 Pᵀ that one
 warpgroup hands the other.  Their mirrors are held to the JAX kernels
-(forward and backward computed once per case for both) at D 256.
+(forward and backward computed once per case for all three) at D 256.
 """
 
 import math
@@ -166,6 +167,7 @@ def test_tile_mirror_matches_jax_backward(interpret_mode, D, dtype, causal,
 # head dim 256: csrc/flash_attention_d256.cu's tile orders
 # ---------------------------------------------------------------------------
 D256_TILE = 64       # K1's key tiles; K3's key items and query tiles
+D256_DQ_TILE = 32    # K2's key tiles
 D256_SHAPE = (1, 1, 256, 256)
 
 
@@ -208,6 +210,40 @@ def _mirror_fwd_d256(q, k, v, causal, scale):
             out[:, :, r0:r0 + 64] = acc / l
             lse[:, :, r0:r0 + 64] = m * scale + torch.log(l)
     return out.to(q.dtype), lse
+
+
+def _mirror_dq_d256(q, k, v, do, lse, delta, causal, scale):
+    """K2 at D 256: per 128-row query item, each 64-row half (a consumer
+    warpgroup) over 32-key tiles from the diagonal down, skipping the
+    tiles whose keys all follow its rows and masking those that cross
+    its diagonal; P in base 2 from the raw scores and the pre-scaled LSE,
+    dS rounded to bf16 for dS·K; dQ scaled once at the end."""
+    low = q.dtype == torch.bfloat16
+    B, H, S, D = q.shape
+    dq = torch.empty(B, H, S, D)
+    lse2 = lse.float()
+    for q0 in range(S - BLOCK_M, -1, -BLOCK_M):
+        n_tiles = (q0 + BLOCK_M if causal else S) // D256_DQ_TILE
+        for r0 in (q0, q0 + 64):
+            rows = slice(r0, r0 + 64)
+            qt, dot = q[:, :, rows].float(), do[:, :, rows].float()
+            l2, dl = lse2[:, :, rows], delta[:, :, rows]
+            acc = torch.zeros(B, H, 64, D)
+            for it in range(n_tiles):
+                k0 = (n_tiles - 1 - it) * D256_DQ_TILE
+                if causal and k0 - r0 >= 64:
+                    continue
+                kt = k[:, :, k0:k0 + D256_DQ_TILE].float()
+                vt = v[:, :, k0:k0 + D256_DQ_TILE].float()
+                p = _p2(qt @ kt.transpose(-1, -2), l2, scale)
+                if causal and k0 >= r0:
+                    r = torch.arange(64)[:, None] + r0
+                    c = torch.arange(D256_DQ_TILE)[None, :] + k0
+                    p = torch.where(c > r, torch.zeros(()), p)
+                ds = p * (dot @ vt.transpose(-1, -2) - dl)
+                acc = acc + _mm(ds, kt, low)
+            dq[:, :, rows] = acc * scale
+    return dq.to(q.dtype)
 
 
 @pytest.fixture(scope="module")
@@ -280,3 +316,20 @@ def test_d256_dkv_mirror_matches_jax(jax_d256, dtype, causal, with_dlse):
     for name, got, jg in (("dk", dk, jgrads[1]), ("dv", dv, jgrads[2])):
         assert got.dtype == td, name
         _within_tol(name, got, jg, td)
+
+
+@pytest.mark.parametrize("with_dlse", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_d256_dq_mirror_matches_jax(jax_d256, dtype, causal, with_dlse):
+    arrs, dlse, jout, jlse, jgrads = jax_d256(dtype, causal, with_dlse)
+    td = DTYPES[dtype][1]
+    q, k, v, do = (torch.from_numpy(a).to(td) for a in arrs)
+    out = torch.from_numpy(jout).to(td)
+    delta = (out.float() * do.float()).sum(-1, keepdim=True)
+    if dlse is not None:
+        delta = delta - torch.from_numpy(dlse)[..., None]
+    dq = _mirror_dq_d256(q, k, v, do, torch.from_numpy(jlse), delta, causal,
+                         1.0 / math.sqrt(D256_SHAPE[-1]))
+    assert dq.dtype == td
+    _within_tol("dq", dq, jgrads[0], td)

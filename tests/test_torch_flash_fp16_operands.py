@@ -108,12 +108,12 @@ HEAD_DIMS = (*tfa.KERNEL_HEAD_DIMS, tfa.D256_HEAD_DIM, 32, 80)
                                    torch.float32],
                          ids=["fp16", "bf16", "fp32"])
 def test_dtype_code(kernel, D, dtype):
-    """fp16 K1 and K3 at the wgmma head dims round in the kernel (code
-    3); fp16 K2, fp16 at D 256 and at the mma.sync dims take the
-    wrapper's rounded copies (code 2); bf16 is 1 and fp32 0."""
+    """fp16 K1, K2 and K3 at the wgmma head dims round in the kernel
+    (code 3); fp16 at D 256 and at the mma.sync dims take the wrapper's
+    rounded copies (code 2); bf16 is 1 and fp32 0."""
     code = tfa._dtype_code(kernel, D, dtype)
     if dtype == torch.float16:
-        in_kernel = kernel != "dq" and D in tfa.KERNEL_HEAD_DIMS
+        in_kernel = D in tfa.KERNEL_HEAD_DIMS
         assert code == (tfa.F16_IN_KERNEL if in_kernel else 2)
     else:
         assert code == {torch.bfloat16: 1, torch.float32: 0}[dtype]

@@ -73,7 +73,9 @@ def test_checkout_key_names_its_source():
     (128, torch.bfloat16, "dkv", "flash_attention"),
     (256, torch.bfloat16, "fwd", "flash_attention_d256"),
     (256, torch.float16, "dkv", "flash_attention_d256"),
-    (256, torch.bfloat16, "dq", "flash_attention_mma"),
+    (256, torch.bfloat16, "dq", "flash_attention_d256"),
+    (256, torch.float16, "dq", "flash_attention_d256"),
+    (256, torch.float32, "dq", "flash_attention_mma"),
     (256, torch.float32, "fwd", "flash_attention_mma"),
     (240, torch.bfloat16, "fwd", "flash_attention_mma"),
     (64, torch.float32, "dkv", "flash_attention_mma"),
