@@ -189,6 +189,36 @@ script exits non-zero:
     every step of every replay; NAdam and RAdam (whose updates read the
     step count) in replayed windows at 2 layers, bit-equal to single
     steps.
+19a. ckpt_resume — checkpointed, fault-tolerant training fed by the
+    input pipeline: GPT-3 125M bf16 at full width and depth, dropout
+    0.1, ``recompute="selective"``, batch 16 x 1024, the loop of
+    train_loop in windows of 4 (``_loop(k=4)``), 24 steps from a
+    ``Dataset`` of seeded numpy token rows through ``DataLoader(
+    batch_size=16, num_workers=2)`` (numpy batches, so the
+    ``StackingPrefetcher``'s pinned host-to-device copies are on the
+    path), driven by ``FaultTolerantTrainer`` with an async
+    ``CheckpointManager(keep_last=2)`` saving every 8 steps.  Run A is
+    uninterrupted; run B takes a transient write error at the step-8
+    save (retried), a preemption after step 8 and a loader fault at step
+    13 (2 recoveries); run C crashes in its third save (the
+    ``SimulatedCrash`` escapes ``run()``, its ``.tmp-`` directory stays
+    and is ignored) and is finished by a fresh model (other weights),
+    optimizer, step, manager and trainer over the same directory (no
+    ``.tmp-`` left after its first save).  B's and C's 24 losses and
+    final parameters, masters, accumulators, step count, lr tensors and
+    generator states must be bit-equal to A's; each run's goodput ledger
+    must account for 99 % of its wall clock; K1–K3 launches must equal
+    the steps run (replays included) x 12 x their per-layer count; then
+    a byte flipped in A's newest save makes a restore fall back to the
+    older save.  Disk space for four checkpoints is checked first.
+    Prints the checkpoint's bytes, snapshot, write and restore ms
+    (p50/p99), each run's goodput buckets and its ``io.*`` counters.
+19b. ckpt_overhead — ``bench.py``'s ckpt leg (``:2044``): GPT-3 125M
+    bf16, 16 x 1024, ``AdamW(1e-4)``, 16 steps in windows of 4, bare and
+    then with an async save every 2 windows: tokens/s of each,
+    ``ckpt_overhead_frac``, save ms; one ``jit.syncs`` a save and no
+    CUDA-graph recapture; then one save's parts timed apart (snapshot,
+    crc32, ``np.savez``, fsync).
 20. scaler_skip — 125M width at 4 layers with a ``GradScaler`` inside
     fused windows, loss weights that overflow the scaled gradients at
     steps 6 and 12: the skipped steps leave parameters and optimizer
@@ -225,7 +255,8 @@ script exits non-zero:
 23. times (K1–K3) — µs per launch at the training shape and at
     BERT-large's beside the plain versions, the bounds and
     ``scaled_dot_product_attention``'s flash forward and backward
-    (yardsticks the port never calls); then at D 256 (B 2, H 16, S
+    (yardsticks the port never calls), and at GPT-3 125M's shape (the
+    ckpt phases' path); then at D 256 (B 2, H 16, S
     1024, causal, bf16: K1–K3 in ``flash_attention_d256.cu``), with the
     ``mma.sync`` instances they replaced timed in the same turns; each
     must beat the one it replaced, as fp16 K1–K3 must beat the route on
@@ -233,7 +264,9 @@ script exits non-zero:
 
 The ``total`` line gives the whole run's seconds; the line before the
 last is the ``kernels`` JSON (K4's and K4q-int8's launches summed over
-the engine, LoRA, host-tier, migration and fleet runs); the last line is
+the engine, LoRA, host-tier, migration and fleet runs; each K1–K3 row's
+``gpt125m`` entry holds the ckpt phases' launches and the times at their
+shape); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -245,6 +278,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -3591,6 +3625,447 @@ def _step_count_optimizers_check():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Checkpointed, fault-tolerant training fed by the input pipeline
+# ---------------------------------------------------------------------------
+#: ckpt_resume: steps, save interval, rows of the token dataset (one
+#: epoch of batches of FUSED_B), the injected faults of run B (a
+#: transient write error at the step-8 save, a preemption after step 8, a
+#: loader fault at step 13) and run C's crash (the third save)
+CKPT_STEPS, CKPT_SAVE_EVERY = 24, 8
+CKPT_FAULTS = "ckpt_write@1;preempt@8;loader@13"
+CKPT_CRASH = "ckpt_crash@2"
+#: ckpt_overhead (bench.py's ckpt leg, :2044): 16 steps in windows of 4,
+#: an async save every 2 windows
+CKPT_ITERS, CKPT_SAVE_WINDOWS = 16, 2
+
+
+class _TokenRows(paddle.io.Dataset):
+    """``n`` rows of ``S + 1`` tokens from a seeded numpy generator;
+    item i is (ids, labels) = (row[:-1], row[1:])."""
+
+    def __init__(self, n, S, vocab, seed):
+        rng = np.random.default_rng(seed)
+        self.rows = rng.integers(0, vocab, (n, S + 1), dtype=np.int64)
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, i):
+        return self.rows[i, :-1], self.rows[i, 1:]
+
+
+def _numpy_collate(items):
+    """Stacks on the host as numpy, so the prefetcher's pinned copies to
+    the card are on the path."""
+    return tuple(np.stack(col) for col in zip(*items))
+
+
+def _ckpt_bytes(model, opt_tensors=3):
+    """One checkpoint's array bytes for AdamW with fp32 masters: the
+    parameters, then a master and two moments a parameter in fp32 (the
+    beta powers, lr and generator states are a few bytes)."""
+    params = list(torch.nn.Module.parameters(model))
+    return sum(p.numel() * (p.element_size() + 4 * opt_tensors)
+               for p in params)
+
+
+def _disk_check(root, need, phase):
+    free = shutil.disk_usage(root).free
+    if free < need:
+        raise AssertionError(f"{phase}: {free} bytes free under {root}, the "
+                             f"phase needs {need} (four checkpoints)")
+    return free
+
+
+def _timed_manager(mgr):
+    """Time each snapshot, disk write and restore of ``mgr`` (instance
+    wrappers; the writes run on the writer thread)."""
+    times = {"snapshot_ms": [], "write_ms": [], "restore_ms": []}
+    for name, key in (("_snapshot", "snapshot_ms"), ("_write", "write_ms"),
+                      ("restore", "restore_ms")):
+        fn = getattr(mgr, name)
+
+        def timed(*a, _fn=fn, _key=key, **kw):
+            t = time.perf_counter()
+            out = _fn(*a, **kw)
+            times[_key].append((time.perf_counter() - t) * 1e3)
+            return out
+        setattr(mgr, name, timed)
+    return times
+
+
+def _p50_p99(xs):
+    return ({"p50": float(np.percentile(xs, 50)),
+             "p99": float(np.percentile(xs, 99)), "n": len(xs)}
+            if xs else None)
+
+
+def _train_state(model, opt):
+    """Copies of everything a resumed run must reproduce: parameters,
+    masters, accumulators, the step count, the lr tensors and every
+    generator's state."""
+    from paddle_tpu_torch.tensor import random as prandom
+    return {"params": [p.detach().clone()
+                       for p in torch.nn.Module.parameters(model)],
+            "masters": {i: t.clone()
+                        for i, t in opt._master_weights.items()},
+            "accs": {(a, i): t.clone() for a, s in opt._accumulators.items()
+                     for i, t in s.items()},
+            "step": opt._step_count,
+            "lr": [t.clone() for t in opt._lr_tensors],
+            "gens": [model.dropout_generator.get_state(),
+                     *prandom._states().values()]}
+
+
+def _same_train_state(a, b, ids_a, ids_b):
+    """``a`` and ``b`` bit-equal; masters and accumulators are matched by
+    parameter position (``ids_*``: parameter ids in order)."""
+    pos_a = {pid: i for i, pid in enumerate(ids_a)}
+    pos_b = {pid: i for i, pid in enumerate(ids_b)}
+    ma = {pos_a[i]: t for i, t in a["masters"].items()}
+    mb = {pos_b[i]: t for i, t in b["masters"].items()}
+    aa = {(n, pos_a[i]): t for (n, i), t in a["accs"].items()}
+    ab = {(n, pos_b[i]): t for (n, i), t in b["accs"].items()}
+    return {
+        "params": all(torch.equal(x, y)
+                      for x, y in zip(a["params"], b["params"])),
+        "masters": ma.keys() == mb.keys() and all(
+            torch.equal(ma[k], mb[k]) for k in ma),
+        "accumulators": aa.keys() == ab.keys() and all(
+            torch.equal(aa[k], ab[k]) for k in aa),
+        "step": a["step"] == b["step"],
+        "lr": all(torch.equal(x, y) for x, y in zip(a["lr"], b["lr"])),
+        "generators": len(a["gens"]) == len(b["gens"]) and all(
+            torch.equal(x, y) for x, y in zip(a["gens"], b["gens"]))}
+
+
+def _ckpt_run(cfg, ds, root, schedule=None, weights_seed=0,
+              before_run=None):
+    """One ``FaultTolerantTrainer`` run of :func:`_loop` (125M, K = 4,
+    the config's dropout) over ``ds`` under the fault ``schedule``, with
+    an async ``CheckpointManager(root, keep_last=2)``.  Returns a record
+    (losses, recoveries, counter delta, K1–K3 launches, the manager's
+    timings, the goodput report, what escaped ``run()``) and the trainer,
+    model and optimizer."""
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.resilience import (CheckpointManager,
+                                             FaultTolerantTrainer)
+    model = GPTForCausalLM(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(
+                               weights_seed))
+    sched, opt, step = _loop(model, "gpt3_125m", k=FUSED_K)
+    if before_run is not None:
+        before_run(model)
+    mgr = CheckpointManager(root, keep_last=2, async_save=True)
+    times = _timed_manager(mgr)
+    trainer = FaultTolerantTrainer(
+        step, lambda epoch: DataLoader(ds, batch_size=FUSED_B,
+                                       num_workers=2,
+                                       collate_fn=_numpy_collate),
+        mgr, scheduler=sched, max_steps=CKPT_STEPS,
+        save_every=CKPT_SAVE_EVERY)
+    _reset_flash_counts()
+    before = counters.snapshot()
+    escaped = None
+    with (faultinject.fault_schedule(schedule) if schedule
+          else contextlib.nullcontext()):
+        try:
+            trainer.run()
+        except faultinject.SimulatedCrash as e:
+            escaped = e
+    torch.cuda.synchronize()
+    moved = counters.delta(before)
+    record = {"losses": dict(trainer.losses),
+              "recoveries": trainer.recoveries,
+              "moved": {k: v for k, v in moved.items() if k.startswith(
+                  ("resilience.", "io.", "jit.", "optimizer."))},
+              "launches": _flash_counts(), "times": times,
+              "goodput": trainer.goodput.report(),
+              "escaped": None if escaped is None else repr(escaped)}
+    return record, trainer, model, opt
+
+
+def _flip_chunk_byte(step_dir, prefix="model/"):
+    """Flip one payload byte of the first ``prefix`` chunk of a save's
+    npz in place: the archive keeps its layout and the bytes are wrong,
+    as on a bad disk.  Returns the chunk's key."""
+    import zipfile
+    fname = next(n for n in os.listdir(step_dir)
+                 if n.endswith(".distcp.npz"))
+    fpath = os.path.join(step_dir, fname)
+    with zipfile.ZipFile(fpath) as z:
+        info = next(i for i in z.infolist() if i.filename.startswith(prefix))
+    with open(fpath, "r+b") as f:
+        f.seek(info.header_offset)
+        local = f.read(30)
+        name_len = int.from_bytes(local[26:28], "little")
+        extra_len = int.from_bytes(local[28:30], "little")
+        # past the member's .npy header, inside the tensor's bytes
+        at = info.header_offset + 30 + name_len + extra_len + 4096
+        f.seek(at)
+        b = f.read(1)
+        f.seek(at)
+        f.write(bytes([b[0] ^ 0xFF]))
+    return info.filename[:-len(".npy")]
+
+
+def _dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(d, n)) for n in os.listdir(d))
+
+
+def _tmp_dirs(d):
+    return sorted(n for n in os.listdir(d) if n.startswith(".tmp-"))
+
+
+def ckpt_resume_phase():
+    """GPT-3 125M bf16 at full width and depth, dropout 0.1, batch 16 x
+    1024, ``_loop(k=4)``, fed by ``DataLoader(num_workers=2)`` (numpy
+    batches) through a ``StackingPrefetcher`` and driven by
+    ``FaultTolerantTrainer`` with an async ``CheckpointManager(keep_last=
+    2)``, 24 steps, a save every 8: (A) uninterrupted; (B) a transient
+    write error, a preemption and a loader fault; (C) a crash in the
+    third save, then a fresh model (other weights), optimizer, step,
+    manager and trainer over the same directory.  B's and C's losses and
+    final state must be bit-equal to A's; then a byte flipped in A's
+    newest save makes a restore fall back to the older save."""
+    import tempfile
+    from paddle_tpu_torch.resilience import CheckpointManager
+    cfg = _fused_cfg(dropout=0.1)
+    ds = _TokenRows(CKPT_STEPS * FUSED_B, TRAIN_S, cfg.vocab_size, seed=15)
+    root = tempfile.mkdtemp(prefix="ckpt_resume_")
+    disk = {}
+
+    def check_disk(model):
+        disk["ckpt_bytes_estimate"] = _ckpt_bytes(model)
+        disk["free"] = _disk_check(root, 4 * disk["ckpt_bytes_estimate"],
+                                   "ckpt_resume")
+    try:
+        runs, states = {}, {}
+
+        def keep(tag, rec, model, opt):
+            runs[tag] = rec
+            states[tag] = (_train_state(model, opt),
+                           [id(p) for p in opt._parameter_list])
+
+        t0 = time.perf_counter()
+        rec, trainer_a, model, opt = _ckpt_run(
+            cfg, ds, os.path.join(root, "A"), before_run=check_disk)
+        keep("A", rec, model, opt)
+        disk["ckpt_bytes"] = _dir_bytes(
+            trainer_a.manager._dir(trainer_a.manager.latest()))
+        del model, opt
+        rec, trainer, model, opt = _ckpt_run(cfg, ds, os.path.join(root, "B"),
+                                             CKPT_FAULTS)
+        keep("B", rec, model, opt)
+        del trainer, model, opt
+        _free_cuda()
+        c_dir = os.path.join(root, "C")
+        rec, trainer, model, opt = _ckpt_run(cfg, ds, c_dir, CKPT_CRASH)
+        rec["tmp_after_crash"] = _tmp_dirs(c_dir)
+        rec["latest_after_crash"] = trainer.manager.latest()
+        runs["C_crash"] = rec
+        del trainer, model, opt
+        _free_cuda()
+        rec, trainer, model, opt = _ckpt_run(cfg, ds, c_dir, weights_seed=1)
+        rec["tmp_after_restart"] = _tmp_dirs(c_dir)
+        keep("C_restart", rec, model, opt)
+        del trainer, model, opt
+        _free_cuda()
+        # a byte flipped in A's newest save: the restore falls back
+        mgr = CheckpointManager(os.path.join(root, "A"), keep_last=2)
+        newest = mgr.latest()
+        victim = _flip_chunk_byte(mgr._dir(newest))
+        before = counters.snapshot()
+        info = mgr.restore(trainer_a.step)
+        fallback = {"newest": newest, "flipped_chunk": victim,
+                    "restored_step": info["step"],
+                    "moved": {k: v for k, v in counters.delta(before).items()
+                              if k.startswith("resilience.")}}
+        run_s = time.perf_counter() - t0
+        del trainer_a
+        _free_cuda()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return _ckpt_resume_gates(cfg, runs, states, disk, fallback, run_s)
+
+
+def _ckpt_resume_gates(cfg, runs, states, disk, fallback, run_s):
+    per = _flash_per_layer_step(cfg.recompute)
+    L = cfg.num_layers
+    a_losses = runs["A"]["losses"]
+    merged_c = {**runs["C_crash"]["losses"], **runs["C_restart"]["losses"]}
+    same = {tag: _same_train_state(states["A"][0], states[tag][0],
+                                   states["A"][1], states[tag][1])
+            for tag in ("B", "C_restart")}
+    launches_ok = {}
+    for tag, rec in runs.items():
+        steps = rec["moved"].get("jit.steps", 0)
+        want = {n: c * L * steps for n, c in per.items()}
+        launches_ok[tag] = rec["launches"] == want
+        rec["launches_want"] = want
+    times = {k: [x for rec in runs.values() for x in rec["times"][k]]
+             for k in ("snapshot_ms", "write_ms", "restore_ms")}
+    record = {
+        "phase": "ckpt_resume", "card": CARD,
+        "model": "gpt3_125m bf16 selective, dropout 0.1", "layers": L,
+        "batch": [FUSED_B, TRAIN_S], "fused_steps": FUSED_K,
+        "steps": CKPT_STEPS, "save_every": CKPT_SAVE_EVERY,
+        "faults_B": CKPT_FAULTS, "crash_C": CKPT_CRASH,
+        "checkpoint_bytes": disk["ckpt_bytes"],
+        "checkpoint_bytes_estimate": disk["ckpt_bytes_estimate"],
+        "disk_free_bytes": disk["free"],
+        "snapshot_ms": _p50_p99(times["snapshot_ms"]),
+        "write_ms": _p50_p99(times["write_ms"]),
+        "restore_ms": _p50_p99(times["restore_ms"]),
+        "losses_A": [a_losses[s] for s in sorted(a_losses)],
+        "losses_equal": {"B": runs["B"]["losses"] == a_losses,
+                         "C": merged_c == a_losses},
+        "state_equal": same, "launches_ok": launches_ok,
+        "fallback": fallback, "run_s": run_s,
+        "runs": {tag: {k: v for k, v in rec.items()
+                       if k not in ("losses", "times")}
+                 for tag, rec in runs.items()}}
+    emit(record)
+    if sorted(a_losses) != list(range(1, CKPT_STEPS + 1)) or not all(
+            math.isfinite(v) for v in a_losses.values()) \
+            or runs["A"]["recoveries"] or runs["A"]["escaped"]:
+        raise AssertionError(f"ckpt_resume: run A {runs['A']}")
+    if not all(record["losses_equal"].values()):
+        raise AssertionError(f"ckpt_resume: losses differ from A's: "
+                             f"{record['losses_equal']}")
+    if not all(v for r in same.values() for v in r.values()):
+        raise AssertionError(f"ckpt_resume: final state differs from A's: "
+                             f"{same}")
+    b = runs["B"]
+    if b["recoveries"] != 2 or b["moved"].get("resilience.retries", 0) < 1 \
+            or b["escaped"]:
+        raise AssertionError(f"ckpt_resume: run B recoveries "
+                             f"{b['recoveries']}, moved {b['moved']}")
+    c = runs["C_crash"]
+    if ("SimulatedCrash" not in str(c["escaped"])
+            or c["tmp_after_crash"] != [".tmp-step-00000016"]
+            or c["latest_after_crash"] != CKPT_SAVE_EVERY
+            or runs["C_restart"]["tmp_after_restart"]
+            or sorted(runs["C_restart"]["losses"])
+            != list(range(CKPT_SAVE_EVERY + 1, CKPT_STEPS + 1))):
+        raise AssertionError(f"ckpt_resume: run C {c} / "
+                             f"{runs['C_restart']}")
+    if fallback["restored_step"] >= fallback["newest"] \
+            or fallback["moved"].get("resilience.corrupt_detected", 0) < 1:
+        raise AssertionError(f"ckpt_resume: corrupt fallback {fallback}")
+    accounted = {tag: rec["goodput"]["accounted"]
+                 for tag, rec in runs.items()}
+    if min(accounted.values()) < 0.99:
+        raise AssertionError(f"ckpt_resume: goodput accounted {accounted}")
+    if not all(launches_ok.values()):
+        got = {t: (r["launches"], r["launches_want"])
+               for t, r in runs.items()}
+        raise AssertionError(f"ckpt_resume: K1-K3 launches (got, want) "
+                             f"{got}")
+    return {n: sum(rec["launches"][n] for rec in runs.values())
+            for n in per}
+
+
+def ckpt_overhead_phase():
+    """``bench.py``'s ckpt leg (``_run_ckpt_leg``, run at ``:2044``):
+    GPT-3 125M bf16 selective, batch 16 x 1024, ``AdamW(1e-4)``, 16 steps
+    in windows of 4 (one repeated window), bare and then with an async
+    ``CheckpointManager`` save every 2 windows; one ``jit.syncs`` a save
+    and no recapture.  Then where one save's time goes: the snapshot,
+    crc32 of every chunk, ``np.savez`` and fsync, timed apart."""
+    import tempfile
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    from paddle_tpu_torch.resilience import CheckpointManager
+    cfg = _fused_cfg()
+    model = GPTForCausalLM(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    crit = GPTPretrainingCriterion()
+    opt = AdamW(1e-4, parameters=torch.nn.Module.parameters(model))
+    step = CompiledTrainStep(model, lambda m, x, y: crit(m(x), y), opt,
+                             fused_steps=FUSED_K)
+    ids, labels = _batch(cfg, FUSED_B, TRAIN_S, seed=16)
+    win = Window((ids.expand(FUSED_K, -1, -1).contiguous(),
+                  labels.expand(FUSED_K, -1, -1).contiguous()), FUSED_K)
+    step(win)
+    step(win).cpu()           # priming, then the capture
+    n_windows = max(CKPT_SAVE_WINDOWS, CKPT_ITERS // FUSED_K)
+    _reset_flash_counts()
+    t0 = time.perf_counter()
+    for _ in range(n_windows):
+        loss = step(win)
+    loss.cpu()
+    base_s = time.perf_counter() - t0
+    root = tempfile.mkdtemp(prefix="ckpt_overhead_")
+    try:
+        _disk_check(root, 4 * _ckpt_bytes(model), "ckpt_overhead")
+        mgr = CheckpointManager(root, keep_last=2, async_save=True)
+        times = _timed_manager(mgr)
+        before = counters.snapshot()
+        t0 = time.perf_counter()
+        gs = 0
+        for i in range(n_windows):
+            loss = step(win)
+            gs += FUSED_K
+            if (i + 1) % CKPT_SAVE_WINDOWS == 0:
+                mgr.save(step, gs, blocking=False)
+        loss.cpu()
+        mgr.wait()
+        ckpt_s = time.perf_counter() - t0
+        moved = counters.delta(before)
+        launches = _flash_counts()
+        # one save's parts, timed apart on this state
+        t = time.perf_counter()
+        arrays, _ = mgr._snapshot(step, gs, None, None)
+        parts = {"snapshot_ms": (time.perf_counter() - t) * 1e3}
+        host = {k: dck.to_numpy(v) for k, v in arrays.items()}
+        t = time.perf_counter()
+        for v in host.values():
+            dck._crc32(v)
+        parts["crc32_ms"] = (time.perf_counter() - t) * 1e3
+        path = os.path.join(root, "parts.npz")
+        with open(path, "wb") as f:
+            t = time.perf_counter()
+            np.savez(f, **host)
+            f.flush()
+            parts["npz_write_ms"] = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            os.fsync(f.fileno())
+            parts["fsync_ms"] = (time.perf_counter() - t) * 1e3
+        parts["bytes"] = os.path.getsize(path)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    saves = moved.get("resilience.saves", 0)
+    tokens = FUSED_B * TRAIN_S * FUSED_K * n_windows
+    record = {
+        "phase": "ckpt_overhead", "card": CARD,
+        "model": "gpt3_125m bf16 selective", "batch": [FUSED_B, TRAIN_S],
+        "fused_steps": FUSED_K, "windows": n_windows, "async_saves": saves,
+        "tokens_per_s": tokens / ckpt_s, "bare_tokens_per_s": tokens / base_s,
+        "ckpt_overhead_frac": max(0.0, ckpt_s / base_s - 1.0),
+        "bare_s": base_s, "ckpt_s": ckpt_s,
+        "save_ms": _p50_p99(times["write_ms"]),
+        "snapshot_ms": _p50_p99(times["snapshot_ms"]),
+        "one_save_parts": parts,
+        "syncs": moved.get("jit.syncs", 0),
+        "captures": moved.get("jit.captures", 0), "launches": launches,
+        "counters": {k: v for k, v in moved.items()
+                     if k.startswith(("jit.", "resilience."))}}
+    emit(record)
+    if record["syncs"] != saves or saves != n_windows // CKPT_SAVE_WINDOWS \
+            or record["captures"]:
+        raise AssertionError(f"ckpt_overhead: {saves} saves, "
+                             f"{record['syncs']} syncs, "
+                             f"{record['captures']} captures")
+    want = {n: c * cfg.num_layers * FUSED_K * 2 * n_windows
+            for n, c in _flash_per_layer_step(cfg.recompute).items()}
+    if launches != want:
+        raise AssertionError(f"ckpt_overhead: K1-K3 launches {launches}, "
+                             f"want {want}")
+    del step, model, opt
+    return launches
+
+
 def scaler_skip_phase():
     """GPT-3 125M width at 4 layers, bf16, a ``GradScaler(2**16)`` and a
     per-step loss weight of 2**120 at train steps 6 and 12 (index 1 of
@@ -4121,7 +4596,7 @@ def _flash_shape_times(B, H, S, D, causal, seed, dtype=torch.bfloat16,
     return out
 
 
-def flash_times_phase(max_err, launches, bert_launches):
+def flash_times_phase(max_err, launches, bert_launches, gpt125m_launches):
     """K1–K3 per launch at the GPT training shape (B=8, S=1024, 16 heads
     of 96, causal) in bf16 and fp16 (gpt_dygraph_fp16's) and at
     BERT-large's (B=16, S=512, 16 heads of 64, no mask) in bf16 and
@@ -4129,7 +4604,10 @@ def flash_times_phase(max_err, launches, bert_launches):
     the wrapper's rounded copies) in the same turns.  The
     ``kernels`` rows keep the training shape's numbers and the GPT train
     phase's launches, with BERT's (its launches from bert_train) and the
-    fp16 numbers beside them."""
+    fp16 numbers beside them, and GPT-3 125M's shape (16 x 1024, 12
+    heads of 64, causal; flash_vs_plain holds the kernels to their plain
+    versions there) timed alike, with its launches on the checkpointed
+    training path (ckpt_resume's runs and ckpt_overhead)."""
     copies = (("flash_fwd", ROUNDING_COPIES),
               ("flash_bwd_dq", ROUNDING_COPIES),
               ("flash_bwd_dkv", ROUNDING_COPIES))
@@ -4138,6 +4616,7 @@ def flash_times_phase(max_err, launches, bert_launches):
                                  dtype=torch.float16, replaced=copies)
     bert = _flash_shape_times(BERT_B, BERT_H, BERT_S, BERT_D, False,
                               seed=10)
+    gpt125m = _flash_shape_times(FUSED_B, 12, TRAIN_S, 64, True, seed=13)
     bert16 = _flash_shape_times(BERT_B, BERT_H, BERT_S, BERT_D, False,
                                 seed=11, dtype=torch.float16,
                                 replaced=copies)
@@ -4149,7 +4628,8 @@ def flash_times_phase(max_err, launches, bert_launches):
             "flash_bwd_dkv": max_err["flash_bwd_dkv"]}
     rows = []
     for n, t in train.items():
-        b, h, t16 = bert[n], bert16[n], train16[n]
+        b, h, t16, g = bert[n], bert16[n], train16[n], gpt125m[n]
+        emit(g)
         emit(t)
         emit(t16)
         emit(b)
@@ -4185,6 +4665,13 @@ def flash_times_phase(max_err, launches, bert_launches):
                      "fp16_ms": h["kernel_us"] / 1e3,
                      "fp16_plain_ms": h["plain_us"] / 1e3,
                      "fp16_library_ms": h["library_us"] / 1e3},
+            "gpt125m": {"launches": gpt125m_launches[n],
+                        "phases": "ckpt_resume + ckpt_overhead",
+                        "ms": g["kernel_us"] / 1e3,
+                        "plain_ms": g["plain_us"] / 1e3,
+                        "bound_ms": g["bound_us"] / 1e3,
+                        "bound_by": g["bound_by"],
+                        "library_ms": g["library_us"] / 1e3},
             "gpt_fp16": {"ms": t16["kernel_us"] / 1e3,
                          "plain_ms": t16["plain_us"] / 1e3,
                          "bound_ms": t16["bound_us"] / 1e3,
@@ -4885,6 +5372,10 @@ def main():
     _free_cuda()
     train_fused_phase()
     _free_cuda()
+    ckpt_launches = ckpt_resume_phase()
+    _free_cuda()
+    overhead_launches = ckpt_overhead_phase()
+    _free_cuda()
     scaler_skip_phase()
     _free_cuda()
     bert = bert_train_phase()
@@ -4895,7 +5386,9 @@ def main():
     sparse_embedding_phase()
     lbfgs_phase()
     flash_rows = flash_times_phase(flash_err, train["launches"],
-                                   bert["launches"])
+                                   bert["launches"],
+                                   {n: ckpt_launches[n] + overhead_launches[n]
+                                    for n in ckpt_launches})
     hd_rows = flash_hd_times_phase(flash_hd_err, hd_launches)
     torch.cuda.synchronize()
     emit({"phase": "total", "run_s": time.perf_counter() - t_start})

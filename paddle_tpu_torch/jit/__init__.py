@@ -61,11 +61,22 @@ scale, skip, step time, tokens/s and MFU (against ``FLAGS_peak_tflops``).
 The device scalars wait on the device until :meth:`metrics_flush` or
 :meth:`sync` reads them back in one transfer.
 
+Checkpoints (``resilience.CheckpointManager``): :meth:`sync` is the
+boundary a save reads the state at (one ``jit.syncs`` after any
+dispatch); :meth:`export_resume_state` syncs once and returns the
+model's dropout generator state (the port's form of the JAX in-graph RNG
+carry); :meth:`restore_resume_state` drops the captured graphs, since a
+restore replaces tensors they write (accumulators the checkpoint lacks
+are dropped), so the next window primes and captures afresh
+(``jit.captures`` counts captures), and installs that generator state.
+
 Counters, under the JAX names: ``jit.steps``, ``jit.host.dispatches``,
-``jit.fused_windows``, ``jit.fused_fallback_steps``,
+``jit.fused_windows``, ``jit.fused_fallback_steps``, ``jit.syncs``,
 ``jit.nan_inf_checks``/``.nan_inf_hits``, ``optimizer.steps``, and the
 gauges ``train.steps_accum``, ``train.loss_mean``,
-``train.grad_norm_mean`` and ``train.skip_steps``.
+``train.grad_norm_mean`` and ``train.skip_steps``; the port's own
+``jit.captures``.  Batch arguments may be ``Tensor``s (the prefetchers'
+leaves): the step takes their torch tensors.
 """
 
 from __future__ import annotations
@@ -73,6 +84,7 @@ from __future__ import annotations
 import contextlib
 import time
 
+import numpy as np
 import torch
 
 from .. import flags
@@ -149,6 +161,7 @@ class CompiledTrainStep:
         self.metrics = MetricsLogger() if metrics is True else (
             metrics or None)
         self._primed = False      # a step body has run (state exists)
+        self._dirty = False       # dispatched since the last sync
         self._stream = None       # the side stream of CUDA windows
         self._graphs = {}
         self._pending = []
@@ -207,8 +220,10 @@ class CompiledTrainStep:
 
     # -- dispatch ----------------------------------------------------------
     def __call__(self, *args):
+        self._dirty = True
         if len(args) == 1 and isinstance(args[0], Window):
-            return self._call_window(tuple(args[0]), args[0].k)
+            return self._call_window(tuple(map(unwrap, args[0])), args[0].k)
+        args = tuple(map(unwrap, args))
         if self.fused_steps > 1:
             return self._call_window(args, None)
         return self._dispatch_single(args, self.optimizer.get_lr())
@@ -348,6 +363,7 @@ class CompiledTrainStep:
             ticks = counters.delta(ticks0)
             for name, n in ticks.items():
                 counters.inc(name, -n)
+        counters.inc("jit.captures")
         return _Captured(graph, static, lrs, (losses, bits, rows, found),
                          names, {f: n for f, n in launches.items() if n},
                          ticks)
@@ -408,8 +424,53 @@ class CompiledTrainStep:
 
     def sync(self):
         """A sync boundary: the model and optimizer are always current
-        (updated in place), so this harvests the pending metrics."""
+        (updated in place, and the caller's stream is ordered after the
+        windows' side stream), so this harvests the pending metrics and,
+        after any dispatch since the last sync, counts one
+        ``jit.syncs``."""
         self.metrics_flush()
+        if self._dirty:
+            counters.inc("jit.syncs")
+            self._dirty = False
+
+    def _drop_graphs(self):
+        """Forget the captured windows; the next window primes (single
+        steps) and captures again."""
+        if self._graphs:
+            self._stream.synchronize()  # no replay still reads their pool
+        self._graphs = {}
+        self._primed = False
+
+    def invalidate(self):
+        """Sync, then drop the captured graphs (JAX: drop the device
+        state); the next window primes and captures again.  Use after
+        replacing tensors the optimizer holds."""
+        self.sync()
+        self._drop_graphs()
+
+    def export_resume_state(self):
+        """Checkpoint hook: one counted :meth:`sync`, then the state of
+        the model's dropout generator as a uint8 array (the JAX in-graph
+        RNG carry's counterpart; empty when the model has none)."""
+        self.sync()
+        gen = getattr(self.model, "dropout_generator", None)
+        if gen is None:
+            return np.zeros(0, np.uint8)
+        return gen.get_state().numpy().copy()
+
+    def restore_resume_state(self, rng_carry=None):
+        """After a restore: drop the captured graphs (the restore replaced
+        tensors they write), install the saved dropout generator state
+        (:meth:`export_resume_state`'s array) and start the metric
+        accumulators afresh."""
+        self._drop_graphs()
+        gen = getattr(self.model, "dropout_generator", None)
+        if gen is not None and rng_carry is not None and len(rng_carry):
+            gen.set_state(torch.from_numpy(np.asarray(rng_carry, np.uint8)))
+        self._pending = []
+        self._totals = dict.fromkeys(self._totals, 0.0)
+        self._last_dispatch_t = None
+        self._dirty = False
 
     def _raise_if_nonfinite(self, names, bits, found, window):
         """Read the finite-ness bits back (a host sync: a debug mode) and

@@ -313,9 +313,10 @@ def _wd_kv_backpressure(w, monitor):
 
 
 def _wd_goodput_accounted(w, monitor):
-    """The goodput ledger must attribute >= 99% of wall-clock to some
-    bucket (abstains until ``goodput.*`` gauges exist; the ledger is
-    ROADMAP.md A9)."""
+    """The goodput ledger (``profiler.goodput``, published by a
+    ``FaultTolerantTrainer``'s ``goodput.report()``) must attribute
+    >= 99% of wall-clock to some bucket; abstains until a report has set
+    ``goodput.wall_ns``."""
     if not w.gauge("goodput.wall_ns", 0):
         return False, {}
     acc = w.gauge("goodput.accounted")
