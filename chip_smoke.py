@@ -135,6 +135,27 @@ script exits non-zero:
     the paged path (prefill and one decode step), each in bf16 and on
     fp32 copies (``_self_calibrated``); then migration_fp32: 8 requests
     migrated at that depth in fp32 give the unmigrated tokens.
+12a. servemp — ``bench.py``'s servemp leg (``:1582``) at one rank over
+    NCCL in this process (``init_parallel_env()`` with an in-process
+    store): GPT-3 760M bf16 at full width and depth, 8 requests of
+    32-128 prompt tokens, 24 new each, 8 slots, blocks of 16, chunks of
+    128, through the unsharded paged engine, the slot layout (their
+    greedy agreement is the bf16 bar), int8 KV + weights, and
+    ``LLMEngine(mesh=build_mesh({"mp": 1}))`` in bf16 and int8: the mesh
+    engine's tokens equal the unsharded ones, K4/K4q launches == decode
+    steps x 24, host collectives issued, ``kv_pool_bytes_per_chip`` and
+    ``weight_bytes_per_chip`` printed; the in-model kernel-vs-plain
+    step; K4/K4q at 16 heads of 96 against their plain versions and
+    timed (servemp_times).
+12b. servemp_mp2 — the same model and requests at mp2 in two processes
+    on this card over gloo (a correctness run: gloo stages CUDA
+    collectives through the host), bf16 and int8: greedy agreement with
+    the unsharded engine at least the bf16 bar, equal tokens on both
+    ranks, per-rank KV + weight bytes <= 0.6 x the unsharded figure, K4
+    / K4q launches == decode steps x 24 on each rank at 8 heads of 96,
+    held against their plain versions on the engine's pools; decode
+    tokens/s printed, not gated; K4/K4q at 8 x 96 timed
+    (servemp_mp2_times).
 13. times (K4, K4q) — µs per wrapper call at the engine's mid-run
     shape: K4 over the bf16 pools, K4q over the same pools quantized,
     beside the plain versions, the bounds and (K4) SDPA over gathered
@@ -224,6 +245,19 @@ script exits non-zero:
     steps 6 and 12: the skipped steps leave parameters and optimizer
     state bit-equal, the scale halves, K=4 equals K=1 bit for bit; then
     ``FLAGS_check_nan_inf`` names step 2 of a 4-step window.
+20a. mesh_train — ``bench.py``'s mesh leg (``:1697``) at one rank over
+    NCCL: GPT-3 125M bf16 (``selective``, 16 x 1024) through the loop
+    with ``fused_steps=4``, without a mesh and built and stepped under
+    ``build_mesh({"dp": 1, "mp": 1})``: a priming, a captured and a
+    replayed window; losses, parameters and optimizer state bit-equal,
+    one dispatch and one capture, the collectives issued inside the
+    captured window, K1–K3 == 4 steps' worth a window.
+20b. mesh_train_2rank — GPT-3 125M at dp2 and then mp2 (6 heads of 64 a
+    rank) in two processes over gloo, ``fused_steps=1``, 3 steps each
+    on the global batch: losses within 2e-2 of this process's
+    one-process step, K1–K3 launches == steps x 12 x their per-layer
+    count on each rank, and K1–K3 at 16 x 1024, 6 x 64 against their
+    plain versions and timed.
 21. bert_train — BERT-large pretraining on the paddle-style surface
     (``paddle.seed(0)``, ``BertForPretraining`` at full width and depth,
     hidden dropout 0.1, recompute, ``amp.decorate`` O2 bf16,
@@ -266,7 +300,9 @@ The ``total`` line gives the whole run's seconds; the line before the
 last is the ``kernels`` JSON (K4's and K4q-int8's launches summed over
 the engine, LoRA, host-tier, migration and fleet runs; each K1–K3 row's
 ``gpt125m`` entry holds the ckpt phases' launches and the times at their
-shape); the last line is
+shape; K4's and K4q-int8's rows hold the servemp shapes (16 and 8 heads
+of 96) and each K1–K3 row the 125M mp2 slice, each with its launches,
+error, times and bound); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -3254,10 +3290,12 @@ def _flash_per_layer_step(recompute):
             "flash_bwd_dkv": 1}
 
 
-def _loop(model, size, k=1, scaler=None, loss_fn=None, metrics=True):
+def _loop(model, size, k=1, scaler=None, loss_fn=None, metrics=True,
+          mesh=None):
     """The training loop as a user runs GPT pretraining: AdamW over a
     warmup + cosine schedule, global-norm clipping at 1.0, weight decay
-    0.1 on all but biases and norms, train metrics."""
+    0.1 on all but biases and norms, train metrics; ``mesh``: the mesh
+    step."""
     crit = GPTPretrainingCriterion()
     top = LOOP_LR[size]
     sched = lr.CosineAnnealingWithWarmupDecay(top, top / 10, 2, 1000)
@@ -3266,7 +3304,7 @@ def _loop(model, size, k=1, scaler=None, loss_fn=None, metrics=True):
                 apply_decay_param_fun=_decays, weight_decay=0.1)
     fn = loss_fn or (lambda m, x, y: crit(m(x), y))
     step = CompiledTrainStep(model, fn, opt, scaler=scaler, fused_steps=k,
-                             metrics=metrics)
+                             metrics=metrics, mesh=mesh)
     return sched, opt, step
 
 
@@ -5306,6 +5344,670 @@ def flash_hd_times_phase(max_err, launches):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the device mesh: tensor-parallel serving (bench's servemp leg) and mesh
+# training (its mesh leg)
+# ---------------------------------------------------------------------------
+#: the defaults of bench.py's servemp function (:1582): 8 requests of
+#: S/32..S/8 tokens, 24 new each, 8 slots, blocks of 16, chunks of 128
+#: (its leg at :2170 calls it with 16 requests, 64 new, chunks of 256)
+SERVEMP_N, SERVEMP_NEW, SERVEMP_S = 8, 24, 1024
+#: the largest per-rank share of the unsharded KV-pool + weight bytes
+#: (bench.py:1683-1687), held both to the arena's accounting and to the
+#: device memory a rank's model and engine hold
+SERVEMP_MAX_HBM_FRAC = 0.6
+#: 2-rank training: steps of each mesh (the loop's warmup schedule
+#: stepped after each, so its learning rates are 0, top/2, top: two
+#: updates), the bf16 tolerance of its losses against the one-process
+#: step on the same global batch, and of its parameter updates: the
+#: relative error of each fp32 master weight's change over the steps (the
+#: worst tensor's, gathered whole) against the one-process change.  Each
+#: limit lies between the sound runs' largest reading on an H100 (loss
+#: 1.13e-4, update 0.032, mp2) and the control's (dp2 without its
+#: gradient all-reduce: loss 8.05e-3, update 0.196 on its best tensor,
+#: 0.892 on its worst), and the control must exceed both
+MESH2_STEPS, MESH2_LOSS_ATOL, MESH2_UPDATE_RTOL = 3, 1e-3, 0.1
+
+
+def _servemp_cfg():
+    return GPTConfig.gpt3_760m(vocab_size=50304, max_seq_len=SERVEMP_S,
+                               dtype="bfloat16")
+
+
+def _servemp_prompts(V):
+    rng = np.random.RandomState(0)
+    lens = [int(rng.randint(max(2, SERVEMP_S // 32), max(3, SERVEMP_S // 8)))
+            for _ in range(SERVEMP_N)]
+    return [rng.randint(0, V, size=n) for n in lens]
+
+
+def _servemp_engine(model, mesh=None, **kw):
+    return LLMEngine(model, max_slots=8, max_seq_len=SERVEMP_S, min_bucket=8,
+                     kv_layout="paged", block_size=16, prefill_chunk=128,
+                     mesh=mesh, **kw)
+
+
+def _servemp_model():
+    """GPT-3 760M bf16 at full width and depth, weights from seed 0; under
+    a global mesh each rank holds its shards of the same draw."""
+    return GPTForCausalLM(_servemp_cfg(), device="cuda",
+                          generator=torch.Generator().manual_seed(0))
+
+
+def _servemp_run(model, prompts, phase, mesh=None, base=0, **kw):
+    """A warmed engine's counted run (``_serve_counted``: K4/K4q launches
+    == decode steps x 24); returns its record, tokens, snapshot and
+    stats.  ``allocated_bytes``: the device memory allocated after the
+    warm-up, less ``base`` (read before the model was built), so the
+    model and the engine's state."""
+    eng = _servemp_engine(model, mesh, **kw)
+    eng.generate([prompts[0][:16]], max_new_tokens=2)
+    gc.collect()
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - base
+    record, handles, snap = _serve_counted(eng, prompts, SERVEMP_NEW, phase)
+    st = eng.stats()
+    record.update(kv_pool_bytes_per_chip=st["kv_pool_bytes_per_chip"],
+                  weight_bytes_per_chip=st["weight_bytes_per_chip"],
+                  mesh_tag=st["mesh_tag"], allocated_bytes=allocated,
+                  rank_disagreements=st["rank_disagreements"])
+    return record, [list(map(int, h.tokens)) for h in handles], snap, eng
+
+
+def _wrapper_vs_plain(q, pools, bt, pos):
+    """One K4/K4q call at the pools' shape against its plain version."""
+    out = pa.paged_decode_attention(q, *pools[:2], bt, pos, *pools[2:],
+                                    scale=1.0)
+    ref = pa.paged_decode_attention_reference(q, *pools[:2], bt, pos,
+                                              *pools[2:], scale=1.0)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"K4 at {tuple(pools[0].shape)}: non-finite")
+    err = float((out - ref).abs().max())
+    if err > KERNEL_ATOL:
+        raise AssertionError(f"K4 at {tuple(pools[0].shape)} {pools[0].dtype}"
+                             f": max abs err {err} > {KERNEL_ATOL}")
+    return err
+
+
+def _head_slice_times(snap, heads, launches, kv_dtypes=(None, "int8")):
+    """K4 and K4q against their plain versions and timed
+    (``_paged_times``) on the snapshot's pools cut to their first
+    ``heads`` heads; ``launches``: the mesh runs' counts by kernel."""
+    pk_all, pv_all = (t[..., :heads, :].contiguous()
+                      for t in snap["pools"][:2])
+    L, n_blocks, bs, nh, hd = pk_all.shape
+    bt = torch.from_numpy(snap["bt"].astype(np.int32)).cuda()
+    pos = torch.from_numpy(snap["pos"].astype(np.int32)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q = (torch.randn(bt.shape[0], nh, hd, generator=gen, device="cuda")
+         / math.sqrt(hd)).to(pk_all.dtype)
+    pools = {None: (pk_all, pv_all)}
+    for kv in kv_dtypes:
+        if kv is not None:
+            (qk, sk), (qv, sv) = (pa.quantize_kv(t, kv) for t in (pk_all,
+                                                                   pv_all))
+            pools[kv] = (qk, qv, sk, sv)
+    errs = {kv: _wrapper_vs_plain(q, tuple(t[0] for t in p), bt, pos)
+            for kv, p in pools.items()}
+    times = _paged_times(q, pools, bt, pos, 24)
+    out = {}
+    for kv, r in times.items():
+        name = ("paged_decode_attention" if kv is None
+                else f"paged_decode_attention_{kv}")
+        out[name] = {"shape": r["shape"], "launches": launches.get(name, 0),
+                     "max_abs_err": errs[kv], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"],
+                     "share_of_bound": r["bound_ms"] / r["ms"]}
+    return out
+
+
+def servemp_phase():
+    """bench.py's servemp function (its defaults) at one rank (NCCL, in
+    this process): GPT-3 760M bf16 through the unsharded paged engine,
+    the slot layout (the bf16 agreement bar: two engines of the same
+    model whose sums differ only in order) and
+    ``LLMEngine(mesh=build_mesh({"mp": 1}))``, bf16 and int8 KV +
+    weights; the mesh engine's tokens must equal the
+    unsharded engine's (the collectives run over a group of one), K4
+    launches == decode steps x 24, host collectives issued."""
+    from paddle_tpu_torch import distributed as D
+    _free_cuda()
+    m0 = torch.cuda.memory_allocated()
+    model = _servemp_model()
+    prompts = _servemp_prompts(model.config.vocab_size)
+    base, base_toks, bsnap, beng = _servemp_run(model, prompts,
+                                                "servemp_unsharded", base=m0)
+    del beng, bsnap
+    slot = LLMEngine(model, max_slots=8, max_seq_len=SERVEMP_S)
+    slot.generate([prompts[0][:16]], max_new_tokens=2)
+    _, slot_handles, _ = _serve_counted(slot, prompts, SERVEMP_NEW,
+                                        "servemp_slots")
+    bar = float(np.mean([x == y for h, b in zip(slot_handles, base_toks)
+                         for x, y in zip(h.tokens, b)]))
+    del slot, slot_handles
+    q8 = dict(kv_dtype="int8", weight_dtype="int8")
+    base8, base8_toks, bsnap, beng = _servemp_run(
+        model, prompts, "servemp_unsharded_int8", base=m0, **q8)
+    del beng, bsnap
+    D.init_parallel_env()
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError("servemp: the default backend on the card "
+                                 f"is {torch.distributed.get_backend()}")
+        mesh = D.build_mesh({"mp": 1})
+        c0 = counters.get("dist.collective_launches")
+        rec, toks, snap, eng = _servemp_run(model, prompts, "servemp",
+                                            mesh=mesh)
+        collectives = counters.get("dist.collective_launches") - c0
+        _in_model(model, eng._w, snap, "servemp_in_model")
+        del eng
+        rec8, toks8, _, eng = _servemp_run(model, prompts, "servemp_int8",
+                                           mesh=mesh, **q8)
+        del eng
+    finally:
+        D.reset_parallel_env()
+    record = {"phase": "servemp", "card": CARD, "model": "gpt3_760m bf16",
+              "mesh": "mp1 (nccl, one rank)", "requests": SERVEMP_N,
+              "new_tokens": SERVEMP_NEW,
+              "tokens_equal_unsharded": toks == base_toks,
+              "int8_tokens_equal_unsharded": toks8 == base8_toks,
+              "host_collectives": collectives,
+              "slot_vs_paged_agreement": bar,
+              "kv_pool_bytes_per_chip": rec["kv_pool_bytes_per_chip"],
+              "weight_bytes_per_chip": rec["weight_bytes_per_chip"],
+              "unsharded": {"kv_pool_bytes_per_chip":
+                            base["kv_pool_bytes_per_chip"],
+                            "weight_bytes_per_chip":
+                            base["weight_bytes_per_chip"]},
+              "launches": {**rec["launches"],
+                           "paged_decode_attention_int8":
+                               rec8["launches"]["paged_decode_attention_int8"]},
+              "decode_steps": rec["decode_steps"],
+              "decode_tokens_per_s": rec["decode_tokens_per_s"],
+              "unsharded_decode_tokens_per_s": base["decode_tokens_per_s"]}
+    emit(record)
+    if not (record["tokens_equal_unsharded"]
+            and record["int8_tokens_equal_unsharded"]):
+        raise AssertionError(f"servemp: the one-rank mesh engine's tokens "
+                             f"differ from the unsharded engine's: {record}")
+    if collectives <= 0:
+        raise AssertionError("servemp: the mesh engine issued no collective")
+    rows = _head_slice_times(snap, 16, record["launches"])
+    emit({"phase": "servemp_times", "card": CARD, "heads": "16 x 96",
+          "kernels": rows})
+    return {"model": model, "prompts": prompts, "tokens": base_toks,
+            "tokens_int8": base8_toks, "bar": bar, "snap": snap,
+            "unsharded_bytes": (base["kv_pool_bytes_per_chip"]
+                                + base["weight_bytes_per_chip"]),
+            "unsharded_bytes_int8": (base8["kv_pool_bytes_per_chip"]
+                                     + base8["weight_bytes_per_chip"]),
+            "unsharded_allocated": base["allocated_bytes"],
+            "unsharded_allocated_int8": base8["allocated_bytes"],
+            "rows": rows, "record": record}
+
+
+def _spawn_ranks(target, world, payload):
+    """``target(rank, world, payload)`` of this script in ``world`` processes
+    on this card, joined in a gloo group through a ``FileStore`` in a
+    temporary directory (the payload goes through a file there); returns
+    their results in rank order.  Every process is joined; a rank that
+    fails makes this raise with its traceback."""
+    import multiprocessing
+    import pickle
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="mesh_", dir=os.environ.get("TMPDIR"))
+    path = os.path.join(tmp, "payload.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, args=(
+        target, r, world, os.path.join(tmp, "store"), path, q))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    deadline = time.monotonic() + 900
+    try:
+        while len(got) < world and not errors:
+            try:
+                rank, ok, value = q.get(timeout=5)
+            except Exception:  # noqa: BLE001 - queue.Empty: look at them
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead or time.monotonic() > deadline:
+                    errors.append(f"ranks exited {dead} or timed out with "
+                                  f"results from {sorted(got)}")
+                continue
+            if ok:
+                got[rank] = value
+            else:
+                errors.append(f"rank {rank}:\n{value}")
+    finally:
+        for p in procs:
+            p.join(timeout=60 if not errors else 5)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if errors:
+        raise AssertionError("\n".join(errors))
+    return [got[r] for r in range(world)]
+
+
+def _rank_main(target, rank, world, store, path, q):
+    import datetime
+    import pickle
+    import traceback
+    from paddle_tpu_torch import distributed as D
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    try:
+        with open(path, "rb") as f:
+            payload = pickle.load(f)
+        D.init_parallel_env(backend="gloo", rank=rank, world_size=world,
+                            init_method="file://" + store,
+                            timeout=datetime.timedelta(seconds=600))
+        q.put((rank, True, globals()[target](rank, world, payload)))
+    except BaseException:  # noqa: BLE001 - sent to the parent, which raises
+        q.put((rank, False, traceback.format_exc()))
+    finally:
+        D.reset_parallel_env()
+
+
+def _servemp_rank(rank, world, pl):
+    """One rank of servemp_mp2: the 760M model built under the mp2 mesh
+    (this rank's shards of the seed-0 weights, kept by the engine's
+    arena as they are), the mp2 engine in bf16 and then with int8 KV +
+    weights; K4/K4q at the rank's 8 heads of 96 against their plain
+    versions on the engine's pools; the device memory the rank holds."""
+    from paddle_tpu_torch import distributed as D
+    m0 = torch.cuda.memory_allocated()
+    mesh = D.build_mesh({"mp": world})
+    model = _servemp_model()
+    out = {}
+    for tag, kw in (("bf16", {}),
+                    ("int8", dict(kv_dtype="int8", weight_dtype="int8"))):
+        rec, toks, snap, eng = _servemp_run(model, pl["prompts"],
+                                            f"servemp_mp2_{tag}_rank{rank}",
+                                            mesh=mesh, base=m0, **kw)
+        pools = tuple(t[0] for t in snap["pools"])
+        bt = torch.from_numpy(snap["bt"].astype(np.int32)).cuda()
+        pos = torch.from_numpy(snap["pos"].astype(np.int32)).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(rank)
+        q = torch.randn(bt.shape[0], pools[0].shape[2], pools[0].shape[3],
+                        generator=gen, device="cuda").to(torch.bfloat16)
+        out[tag] = {"tokens": toks, "launches": rec["launches"],
+                    "decode_steps": rec["decode_steps"],
+                    "decode_tokens_per_s": rec["decode_tokens_per_s"],
+                    "kv_shard_shape": list(eng.arena.shard_shape("pool_k")),
+                    "bytes": (rec["kv_pool_bytes_per_chip"]
+                              + rec["weight_bytes_per_chip"]),
+                    "max_abs_err": _wrapper_vs_plain(q, pools, bt, pos),
+                    "mesh_tag": rec["mesh_tag"],
+                    "allocated": rec["allocated_bytes"],
+                    "rank_disagreements": rec["rank_disagreements"],
+                    "wte_shard": list(model.wte.shape)}
+        del eng, snap, pools
+        torch.cuda.empty_cache()
+    return out
+
+
+def servemp_mp2_phase(sm):
+    """bench.py's servemp function (its defaults) at mp2: two processes
+    on this card in one gloo group (gloo stages CUDA tensors through the
+    host; a correctness run, not a speed run), each serving the same 8
+    requests through the mp2 engine over a model built under the mesh,
+    bf16 and then int8.  Tokens agree with the unsharded engine's at
+    least as well as the slot layout agrees with the paged one (the bf16
+    bar); no rank chose a token other than rank 0's before the
+    broadcast; per-rank KV-pool + weight bytes, and the device memory a
+    rank's model and engine hold, <= 0.6 x the unsharded figures; K4 /
+    K4q launches == decode steps x 24 on each rank, at 8 heads of 96,
+    held against their plain versions."""
+    res = _spawn_ranks("_servemp_rank", 2, {"prompts": sm["prompts"]})
+    record = {"phase": "servemp_mp2", "card": CARD,
+              "model": "gpt3_760m bf16", "mesh": "mp2 (gloo, 2 processes)",
+              "bar": sm["bar"]}
+    for tag, want, full, held in (
+            ("bf16", sm["tokens"], sm["unsharded_bytes"],
+             sm["unsharded_allocated"]),
+            ("int8", sm["tokens_int8"], sm["unsharded_bytes_int8"],
+             sm["unsharded_allocated_int8"])):
+        r0 = res[0][tag]
+        agree = float(np.mean([x == y for a, b in zip(r0["tokens"], want)
+                               for x, y in zip(a, b)]))
+        record[tag] = {
+            "agreement_with_unsharded": agree,
+            "rank_disagreements": [r[tag]["rank_disagreements"]
+                                   for r in res],
+            "hbm_frac": [r[tag]["bytes"] / full for r in res],
+            "allocated_bytes": [r[tag]["allocated"] for r in res],
+            "unsharded_allocated_bytes": held,
+            "allocated_frac": [r[tag]["allocated"] / held for r in res],
+            "wte_shard": r0["wte_shard"],
+            "kv_shard_shape": r0["kv_shard_shape"],
+            "launches": [r[tag]["launches"] for r in res],
+            "decode_steps": r0["decode_steps"],
+            "max_abs_err": max(r[tag]["max_abs_err"] for r in res),
+            "decode_tokens_per_s": [r[tag]["decode_tokens_per_s"]
+                                    for r in res],
+            "mesh_tag": r0["mesh_tag"]}
+    emit(record)
+    for tag in ("bf16", "int8"):
+        r = record[tag]
+        if any(r["rank_disagreements"]) or r["mesh_tag"] != "[mp2]":
+            raise AssertionError(f"servemp_mp2 {tag}: ranks disagree or no "
+                                 f"mp2 mesh: {r}")
+        if r["wte_shard"] != [sm["model"].config.vocab_size // 2, 1536]:
+            raise AssertionError(f"servemp_mp2 {tag}: the model was not "
+                                 f"built in shards: {r}")
+        if r["agreement_with_unsharded"] < sm["bar"]:
+            raise AssertionError(
+                f"servemp_mp2 {tag}: agreement with the unsharded engine "
+                f"{r['agreement_with_unsharded']} < the bf16 bar "
+                f"{sm['bar']}")
+        if max(r["hbm_frac"] + r["allocated_frac"]) > SERVEMP_MAX_HBM_FRAC:
+            raise AssertionError(f"servemp_mp2 {tag}: per-rank bytes "
+                                 f"{r['hbm_frac']}, allocated "
+                                 f"{r['allocated_frac']} of unsharded > "
+                                 f"{SERVEMP_MAX_HBM_FRAC}")
+        if r["kv_shard_shape"][3:] != [8, 96]:
+            raise AssertionError(f"servemp_mp2 {tag}: KV shard "
+                                 f"{r['kv_shard_shape']}")
+    rows = _head_slice_times(sm["snap"], 8, {
+        "paged_decode_attention":
+            record["bf16"]["launches"][0]["paged_decode_attention"],
+        "paged_decode_attention_int8":
+            record["int8"]["launches"][0]["paged_decode_attention_int8"]})
+    for name, tag in (("paged_decode_attention", "bf16"),
+                      ("paged_decode_attention_int8", "int8")):
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        record[tag]["max_abs_err"])
+    emit({"phase": "servemp_mp2_times", "card": CARD, "heads": "8 x 96",
+          "kernels": rows})
+    return rows
+
+
+def mesh_train_phase():
+    """bench.py's mesh leg at one rank (NCCL, this process): GPT-3 125M
+    bf16, 16 x 1024, ``recompute="selective"``, the training loop of
+    :func:`_loop` with ``fused_steps=4``, once without a mesh and once
+    built and stepped under ``build_mesh({"dp": 1, "mp": 1})`` (the
+    tensor-parallel GPT and the mesh step, every collective over a group
+    of one): a priming window, a captured one and a replay.  Losses,
+    parameters and optimizer state bit-equal; one dispatch a steady
+    window; K1–K3 counted; the collectives issued inside the captured
+    window (counted at capture, added at each replay)."""
+    from paddle_tpu_torch import distributed as D
+    cfg = _fused_cfg()
+    K, L = FUSED_K, cfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    args = tuple(torch.randint(0, cfg.vocab_size, (3 * K, FUSED_B, TRAIN_S),
+                               generator=gen, device="cuda")
+                 for _ in range(2))
+    runs = {}
+    for mesh in (False, True):
+        if mesh:
+            D.init_parallel_env()
+            D.build_mesh({"dp": 1, "mp": 1})
+        try:
+            model = GPTForCausalLM(cfg, device="cuda",
+                                   generator=torch.Generator().manual_seed(0))
+            sched, opt, step = _loop(model, "gpt3_125m", k=K,
+                                     mesh=D.get_mesh())
+            losses, moved = [], []
+            for w in range(3):
+                _reset_flash_counts()
+                before = counters.snapshot()
+                losses.append(step(_window(args, w * K, (w + 1) * K)))
+                moved.append((counters.delta(before), _flash_counts()))
+                for _ in range(K):
+                    sched.step()
+            torch.cuda.synchronize()
+            snap = _snapshot(model, opt)
+            # one more replay, traced, after the snapshot
+            trace = (_profile(lambda: step(_window(args, K, 2 * K)), top=8)
+                     if mesh else None)
+            runs[mesh] = (torch.cat(losses), snap, moved, trace)
+        finally:
+            if mesh:
+                D.reset_parallel_env()
+        del model, opt, step
+        _free_cuda()
+    (l0, s0, _, _), (l1, s1, moved, trace) = runs[False], runs[True]
+    per = _flash_per_layer_step(cfg.recompute)
+    want = {n: c * L * K for n, c in per.items()}
+    steady = [m for m, _ in moved[1:]]
+    nccl = [o["name"] for o in trace["top_device_ops"]
+            if "nccl" in o["name"].lower()]
+    record = {"phase": "mesh_train", "card": CARD,
+              "model": "gpt3_125m bf16 selective",
+              "mesh": "dp1 x mp1 (nccl, one rank)", "fused_steps": K,
+              "losses_bit_equal": torch.equal(l0, l1),
+              "state_bit_equal": _same_state(s0, s1),
+              "steady_dispatches": [m.get("jit.host.dispatches") for m in
+                                    steady],
+              "steady_collectives": [m.get("dist.collective_launches", 0)
+                                     for m in steady],
+              "captures": moved[1][0].get("jit.captures", 0),
+              "steady_launches": [f for _, f in moved[1:]],
+              "launches_want_per_window": want,
+              "replay_nccl_kernels": nccl,
+              "replay_busy_share": trace["device_busy_share"],
+              "losses": l1.tolist()}
+    emit(record)
+    if not (record["losses_bit_equal"] and record["state_bit_equal"]):
+        raise AssertionError(f"mesh_train: the one-rank mesh differs from "
+                             f"no mesh: {record}")
+    if record["steady_dispatches"] != [1, 1] or record["captures"] != 1:
+        raise AssertionError(f"mesh_train: dispatches {record}")
+    if any(c <= 0 for c in record["steady_collectives"]):
+        raise AssertionError(f"mesh_train: no collective in the captured "
+                             f"window: {record}")
+    if any(f != want for f in record["steady_launches"]):
+        raise AssertionError(f"mesh_train: K1-K3 launches "
+                             f"{record['steady_launches']}, want {want}")
+    return {n: want[n] * 2 for n in want}
+
+
+#: the key third of ``qkv_b``: a bias added to every key shifts each
+#: query's scores by one constant, which the softmax removes, so its
+#: gradient is zero and its Adam steps are rounding noise scaled to full
+#: size in every run; reported, not held
+NOISE_ONLY = "qkv_b[k]"
+
+
+def _update_rel_err(init, after, d_ref):
+    """``{name: |d - d_ref| / |d_ref|}`` of each parameter's change ``d =
+    after - init`` against the one-process change ``d_ref`` (numpy
+    arrays in the JAX layout), with ``qkv_b``'s key third apart as
+    :data:`NOISE_ONLY`."""
+    def rel(got, want):
+        return float(np.linalg.norm((got - want).ravel())
+                     / max(np.linalg.norm(want.ravel()), 1e-30))
+
+    out = {}
+    for n, want in d_ref.items():
+        got = after[n] - init[n]
+        if n == "qkv_b":
+            H = want.shape[-1] // 3
+            out[NOISE_ONLY] = rel(got[..., H:2 * H], want[..., H:2 * H])
+            got, want = (np.concatenate([t[..., :H], t[..., 2 * H:]], -1)
+                         for t in (got, want))
+        out[n] = rel(got, want)
+    return out
+
+
+def _masters(model, opt):
+    """The optimizer's fp32 master weights (a parameter's own value where
+    it has none), whole and in the JAX layout (every rank calls: a
+    tensor-parallel model gathers its shards)."""
+    tp, masters = model._tp, opt.state_dict()["master_weights"]
+    out = {}
+    for n, t in model._weights().items():
+        t = masters.get(n, t).detach().float()
+        out[n] = (t if tp is None else tp.full(n, t)).cpu().numpy()
+    return out
+
+
+def _skip_dp_sync(plan):
+    """The control's gradient sync: each rank keeps its own half-batch
+    gradient (no all-reduce over the data axes)."""
+    plan.optimizer._shard_grads = {}
+    return {id(p): p.grad for p in plan.params if p.grad is not None}
+
+
+def _mesh_train_rank(rank, world, pl):
+    """One rank of mesh_train_2rank: GPT-3 125M (seed 0) at dp2, mp2 and
+    the dp2 control (the gradient all-reduce skipped), 3 steps each on
+    the global batch through :func:`_loop` with its schedule stepped;
+    the gathered fp32 masters' changes held against the one-process run's
+    (``pl["d_ref"]``); K1–K3 counted."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.jit.mesh import MeshPlan
+    ids, labels = (torch.from_numpy(pl[k]).cuda() for k in ("ids", "labels"))
+    out = {}
+    for name, degrees in (("dp2", {"dp": world}), ("mp2", {"mp": world}),
+                          ("dp2_control", {"dp": world})):
+        D.set_mesh(None)
+        mesh = D.build_mesh(degrees)
+        model = GPTForCausalLM(_fused_cfg(), device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+        init = model.gather_numpy_state()
+        sched, opt, step = _loop(model, "gpt3_125m", k=1, mesh=mesh)
+        _reset_flash_counts()
+        sync = MeshPlan.sync_grads
+        if name == "dp2_control":
+            MeshPlan.sync_grads = _skip_dp_sync
+        try:
+            losses = []
+            for i in range(MESH2_STEPS):
+                losses.append(float(step(ids[i], labels[i])))
+                sched.step()
+        finally:
+            MeshPlan.sync_grads = sync
+        launches = _flash_counts()
+        errs = _update_rel_err(init, _masters(model, opt), pl["d_ref"])
+        out[name] = {"losses": losses, "launches": launches,
+                     "update_rel_err": errs,
+                     "qkv_w": list(model.qkv_w.shape)}
+        del model, opt, step, init
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_2rank_phase():
+    """bench.py's mesh leg across two processes on this card (gloo: a
+    correctness run; ``fused_steps=1``, gloo's collectives cannot be
+    captured): GPT-3 125M at full width and depth, dp2 and then mp2 (6
+    heads of 64 a rank), 3 steps each on the global batch of 16 x 1024
+    through :func:`_loop` with its schedule stepped (two updates).
+    Losses within ``MESH2_LOSS_ATOL`` of this process's one-process
+    step; every fp32 master weight's change, gathered whole, within
+    ``MESH2_UPDATE_RTOL`` of the one-process change (``qkv_b``'s key third
+    apart: :data:`NOISE_ONLY`), while a control with dp2's gradient
+    all-reduce skipped must exceed both limits (so each gate can fail);
+    K1–K3 launches == steps x 12 x their per-layer count on each rank,
+    and at the mp2 head slice held against their plain versions and
+    timed."""
+    cfg = _fused_cfg()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    ids, labels = (torch.randint(0, cfg.vocab_size,
+                                 (MESH2_STEPS, FUSED_B, TRAIN_S),
+                                 generator=gen, device="cuda")
+                   for _ in range(2))
+    model = GPTForCausalLM(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    init = model.gather_numpy_state()
+    sched, opt, step = _loop(model, "gpt3_125m", k=1)
+    ref, lrs = [], []
+    for i in range(MESH2_STEPS):
+        lrs.append(sched())
+        ref.append(float(step(ids[i], labels[i])))
+        sched.step()
+    d_ref = {n: v - init[n] for n, v in _masters(model, opt).items()}
+    del model, opt, step, init
+    _free_cuda()
+    res = _spawn_ranks("_mesh_train_rank", 2,
+                       {"ids": ids.cpu().numpy(),
+                        "labels": labels.cpu().numpy(), "d_ref": d_ref})
+    del d_ref
+    per = _flash_per_layer_step(cfg.recompute)
+    want = {n: c * cfg.num_layers * MESH2_STEPS for n, c in per.items()}
+    record = {"phase": "mesh_train_2rank", "card": CARD,
+              "model": "gpt3_125m bf16 selective", "batch": [FUSED_B,
+                                                             TRAIN_S],
+              "lrs": lrs, "one_process_losses": ref,
+              "loss_atol": MESH2_LOSS_ATOL,
+              "update_rtol": MESH2_UPDATE_RTOL, "launches_want": want}
+    for name in ("dp2", "mp2", "dp2_control"):
+        errs = [r[name]["update_rel_err"] for r in res]
+        worst_n = max((n for n in errs[0] if n != NOISE_ONLY),
+                      key=lambda n: max(e[n] for e in errs))
+        record[name] = {
+            "losses": [r[name]["losses"] for r in res],
+            "max_loss_err": max(abs(a - b) for r in res
+                                for a, b in zip(r[name]["losses"], ref)),
+            "max_update_rel_err": max(e[worst_n] for e in errs),
+            "worst_param": worst_n,
+            "noise_only_rel_err": max(e[NOISE_ONLY] for e in errs),
+            "update_rel_err_rank0": errs[0],
+            "launches": [r[name]["launches"] for r in res],
+            "qkv_w_shard": res[0][name]["qkv_w"]}
+    worst = dict.fromkeys(("flash_fwd", "flash_fwd_lse", "flash_bwd_dq",
+                           "flash_bwd_dkv"), 0.0)
+    ratio = dict(worst)
+    _flash_check(torch.Generator(device="cuda").manual_seed(31),
+                 [(FUSED_B, 6, TRAIN_S, 64, torch.bfloat16, True)], worst,
+                 ratio)
+    record["slice_max_abs_err"] = worst
+    record["slice_err_over_tol"] = ratio
+    emit(record)
+    for name in ("dp2", "mp2"):
+        r = record[name]
+        if r["max_loss_err"] > MESH2_LOSS_ATOL:
+            raise AssertionError(f"mesh_train_2rank {name}: losses {r} vs "
+                                 f"one process {ref}")
+        if r["max_update_rel_err"] > MESH2_UPDATE_RTOL:
+            raise AssertionError(f"mesh_train_2rank {name}: parameter "
+                                 f"updates differ from one process: {r}")
+        if any(l != want for l in r["launches"]):
+            raise AssertionError(f"mesh_train_2rank {name}: K1-K3 launches "
+                                 f"{r['launches']}, want {want}")
+    ctl = record["dp2_control"]
+    if (ctl["max_update_rel_err"] <= MESH2_UPDATE_RTOL
+            or ctl["max_loss_err"] <= MESH2_LOSS_ATOL):
+        raise AssertionError("mesh_train_2rank: the control without dp's "
+                             "gradient all-reduce passes a gate: "
+                             f"{ctl}")
+    if record["mp2"]["qkv_w_shard"] != [cfg.num_layers, 768, 3 * 384]:
+        raise AssertionError(f"mesh_train_2rank: mp2 qkv shard "
+                             f"{record['mp2']['qkv_w_shard']}")
+    times = _flash_shape_times(FUSED_B, 6, TRAIN_S, 64, True, seed=14)
+    errs = {"flash_fwd": max(worst["flash_fwd"], worst["flash_fwd_lse"]),
+            "flash_bwd_dq": worst["flash_bwd_dq"],
+            "flash_bwd_dkv": worst["flash_bwd_dkv"]}
+    rows = {}
+    for n, t in times.items():
+        emit(t)
+        rows[n] = {"shape": t["shape"],
+                   "launches": record["mp2"]["launches"][0][n],
+                   "max_abs_err": errs[n], "ms": t["kernel_us"] / 1e3,
+                   "plain_ms": t["plain_us"] / 1e3,
+                   "bound_ms": t["bound_us"] / 1e3,
+                   "bound_by": t["bound_by"],
+                   "library_ms": t["library_us"] / 1e3,
+                   "share_of_bound": t["share_of_bound"]}
+    return rows
+
+
+
 def _free_cuda():
     gc.collect()
     torch.cuda.empty_cache()
@@ -5345,6 +6047,11 @@ def main():
     _free_cuda()
     migration_fp32_phase()
     _free_cuda()
+    sm = servemp_phase()
+    mp2_rows = servemp_mp2_phase(sm)
+    sm_rows = sm["rows"]
+    del sm
+    _free_cuda()
     k4, k4q = "paged_decode_attention", "paged_decode_attention_int8"
     launches = {**record["launches"],
                 k4q: quant["launches"][k4q],
@@ -5378,6 +6085,10 @@ def main():
     _free_cuda()
     scaler_skip_phase()
     _free_cuda()
+    mesh_launches = mesh_train_phase()
+    _free_cuda()
+    mesh2_rows = mesh_train_2rank_phase()
+    _free_cuda()
     bert = bert_train_phase()
     _free_cuda()
     bert_in_model_phase()
@@ -5390,6 +6101,15 @@ def main():
                                    {n: ckpt_launches[n] + overhead_launches[n]
                                     for n in ckpt_launches})
     hd_rows = flash_hd_times_phase(flash_hd_err, hd_launches)
+    # the mesh paths' shapes beside each row: 760M serving's 16 x 96 heads
+    # and its mp2 slice of 8, 125M training's mp2 slice of 6 x 64
+    for row in paged_rows:
+        if row["name"] in sm_rows:
+            row["servemp_760m_16x96"] = sm_rows[row["name"]]
+            row["servemp_mp2_8x96"] = mp2_rows[row["name"]]
+    for row in flash_rows:
+        row["gpt125m_mp2_6x64"] = mesh2_rows[row["name"]]
+        row["mesh_train_one_rank_launches"] = mesh_launches[row["name"]]
     torch.cuda.synchronize()
     emit({"phase": "total", "run_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": [*paged_rows, *fp16_rows, *flash_rows,

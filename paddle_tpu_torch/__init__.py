@@ -39,7 +39,12 @@ far it holds, with every Pallas kernel of the reference:
   prefill_replicas=P, kv_layout="paged")`` behind a ``Router``, with
   disaggregated prefill/decode over KV migration, a ``FleetAutoscaler``,
   and the health, flight-recorder, request-trace and device-time plane
-  under it (``profiler``).
+  under it (``profiler``);
+* the device mesh — ``distributed.init_parallel_env``/``build_mesh``
+  (one process a rank over ``torch.distributed``), the eager
+  collectives, ``fleet``, the tensor-parallel GPT,
+  ``LLMEngine(mesh=...)`` (K4/K4q on each rank's heads) and
+  ``CompiledTrainStep(mesh=...)``.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"`` or calls ``set_device("cpu")``; without a GPU and

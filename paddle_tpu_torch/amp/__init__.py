@@ -169,13 +169,14 @@ class GradScaler:
         return var * self._on(var.device)["scale"].to(var.dtype)
 
     @torch.no_grad()
-    def _unscale(self, params):
-        """Divide the gradients of ``params`` by the scale in fp32 and
-        round them back to their dtype; on overflow zero them all.
-        Returns the overflow flag, a 0-d bool on the device (nothing is
-        read back)."""
-        grads = [unwrap(p).grad for p in params
-                 if unwrap(p).grad is not None]
+    def _unscale(self, params, grads=None):
+        """Divide the gradients of ``params`` (or the tensors ``grads``)
+        by the scale in fp32 and round them back to their dtype; on
+        overflow zero them all.  Returns the overflow flag, a 0-d bool
+        on the device (nothing is read back)."""
+        if grads is None:
+            grads = [unwrap(p).grad for p in params
+                     if unwrap(p).grad is not None]
         if not grads:
             return torch.zeros((), dtype=torch.bool,
                                device=self._state["scale"].device)

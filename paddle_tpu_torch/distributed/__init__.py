@@ -1,10 +1,47 @@
-"""``paddle.distributed`` of the port: ``fleet.recompute`` and the
-one-process ``checkpoint`` (``save_state_dict``/``load_state_dict``);
-the rest is ROADMAP.md A7."""
+"""``paddle.distributed`` of the port (port of
+``paddle_tpu/distributed``).
+
+One process a rank over ``torch.distributed``: the parallel environment
+and the device mesh (``env``: ``init_parallel_env``, ``build_mesh``),
+the eager collectives (``communication``), partition specs and their
+rules (``sharding_utils``), Megatron's tensor-parallel primitives
+(``mp_ops``), ``fleet`` (``init``, the hybrid communicate group, the
+tensor-parallel layers, the hybrid optimizer, ``recompute``),
+``DataParallel``, and the one-process ``checkpoint``.  MoE, sequence,
+context and pipeline parallelism, multi-process checkpoints and the
+launchers are ROADMAP.md A7b–A7h.
+"""
 
 from . import checkpoint, fleet
 from .checkpoint import (CheckpointCorrupt, load_state_dict,
                          save_state_dict, wait_async_save)
+from .communication import (Group, P2POp, ReduceOp, all_gather,
+                            all_gather_object, all_reduce, all_to_all,
+                            axis_group, barrier, batch_isend_irecv,
+                            broadcast, get_group, irecv, isend, new_group,
+                            recv, reduce, reduce_scatter, scatter, send,
+                            stream)
+from .env import (AXIS_ORDER, Mesh, ParallelEnv, build_mesh, data_axes,
+                  get_mesh, get_rank, get_world_size, hybrid_degrees,
+                  init_parallel_env, is_initialized, reset_parallel_env,
+                  set_mesh)
+from .parallel import DataParallel, fused_allreduce_gradients
+from .sharding_utils import P
 
-__all__ = ["CheckpointCorrupt", "checkpoint", "fleet", "load_state_dict",
-           "save_state_dict", "wait_async_save"]
+
+def get_backend():
+    import torch.distributed as dist
+    return dist.get_backend() if dist.is_initialized() else None
+
+
+__all__ = ["AXIS_ORDER", "CheckpointCorrupt", "DataParallel", "Group",
+           "Mesh", "P", "P2POp", "ParallelEnv", "ReduceOp", "all_gather",
+           "all_gather_object", "all_reduce", "all_to_all", "axis_group",
+           "barrier", "batch_isend_irecv", "broadcast", "build_mesh",
+           "checkpoint", "data_axes", "fleet", "fused_allreduce_gradients",
+           "get_backend", "get_group", "get_mesh", "get_rank",
+           "get_world_size", "hybrid_degrees", "init_parallel_env", "irecv",
+           "is_initialized", "isend", "load_state_dict", "new_group",
+           "recv", "reduce", "reduce_scatter", "reset_parallel_env",
+           "save_state_dict", "scatter", "send", "set_mesh", "stream",
+           "wait_async_save"]

@@ -21,8 +21,14 @@ has waited on the copy's event.  ``StackingPrefetcher`` stacks ``k``
 staged batches into a ``Window`` with ``torch.stack`` on the card.
 Values are bit for bit the loader's.
 
-Multi-device placement (``sharding=``) and the rank query of
-``DistributedBatchSampler`` are ROADMAP.md A7.
+On a mesh (``distributed.build_mesh``), ``sharding=`` (a partition
+spec such as ``P("dp")``, or a ``(mesh, spec)`` pair) gives each rank
+its rows of every leaf: the rank's piece of each split dimension, cut
+on the host before the copy; a leaf whose dimension does not divide
+stays whole (replicated), as the JAX prefetchers leave it.  The staged
+tensors carry ``_local_rows = True``, and ``jit.CompiledTrainStep``
+does not split them again.  ``DistributedBatchSampler`` without
+``num_replicas``/``rank`` reads them from the process group.
 """
 
 from __future__ import annotations
@@ -254,17 +260,17 @@ class BatchSampler(Sampler):
 
 class DistributedBatchSampler(BatchSampler):
     """Shards indices across data-parallel ranks (reference:
-    io/dataloader/batch_sampler.py DistributedBatchSampler).  Pass
-    ``num_replicas`` and ``rank``: asking the process group for them is
-    ROADMAP.md A7."""
+    io/dataloader/batch_sampler.py DistributedBatchSampler).
+    ``num_replicas`` and ``rank`` default to the process group's world
+    size and rank (1 and 0 without one)."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
-        if num_replicas is None or rank is None:
-            raise NotImplementedError(
-                "DistributedBatchSampler without num_replicas= and rank= "
-                "asks the process group, which is not ported yet: "
-                "ROADMAP.md A7 (distributed)")
+        from ..distributed.env import get_rank, get_world_size
+        if num_replicas is None:
+            num_replicas = get_world_size()
+        if rank is None:
+            rank = get_rank()
         self.dataset = dataset
         self.batch_size = batch_size
         self.nranks = num_replicas
@@ -510,11 +516,28 @@ class DataLoader:
         return _PrefetchIter(self, index_iter)
 
 
-def _no_sharding(sharding):
-    if sharding is not None:
-        raise NotImplementedError(
-            "prefetching onto a mesh (sharding=) is not ported yet: "
-            "ROADMAP.md A7 (distributed)")
+def _rows_of(sharding):
+    """A function giving this rank's rows of a host tensor under
+    ``sharding`` (a spec on the global mesh or ``(mesh, spec)``), or
+    None without one."""
+    if sharding is None:
+        return None
+    from ..distributed.env import get_mesh
+    from ..distributed.sharding_utils import P, local_shard, validate_spec
+    mesh, spec = (sharding if isinstance(sharding, tuple)
+                  and not isinstance(sharding, P) else (get_mesh(), sharding))
+    if mesh is None or not isinstance(spec, tuple):
+        raise TypeError(f"sharding={sharding!r}: want a partition spec "
+                        "(distributed.P) on the global mesh, or (mesh, spec)")
+
+    def rows(t):
+        rspec = validate_spec(spec, tuple(t.shape), mesh, quiet=True)
+        out = local_shard(t, rspec, mesh)
+        if out is not t:
+            _counters.inc("dist.device_put_sharded_bytes",
+                          int(out.numel() * out.element_size()))
+        return out
+    return rows
 
 
 def _target_device(device):
@@ -556,12 +579,14 @@ class DevicePrefetcher:
     Counters, under the JAX names: ``io.device_put_calls`` and
     ``io.device_put_bytes`` (one a leaf placed), ``io.reader_ns``, the
     ``io.prefetch_stall_ns`` histogram (reader waits while no batch was
-    buffered), ``io.skipped_batches``.  ``sharding=`` is ROADMAP.md A7.
+    buffered), ``io.skipped_batches``; with ``sharding=``,
+    ``dist.device_put_sharded_bytes`` (the bytes of the rows a rank
+    keeps).
     """
 
     def __init__(self, loader, depth=2, device=None, start_offset=0,
                  sharding=None):
-        _no_sharding(sharding)
+        self._rows = _rows_of(sharding)
         self.loader = loader
         self.depth = max(1, int(depth))
         self.device = device
@@ -573,6 +598,14 @@ class DevicePrefetcher:
         return max(0, len(self.loader) - self.start_offset)
 
     def _put(self, t, dev, copied):
+        if self._rows is not None:
+            t = self._rows(t)
+        out = self._copy(t, dev, copied)
+        if self._rows is not None:
+            out._local_rows = True
+        return out
+
+    def _copy(self, t, dev, copied):
         _counters.inc("io.device_put_calls")
         _counters.inc("io.device_put_bytes",
                       int(t.numel() * t.element_size()))
@@ -699,12 +732,13 @@ class StackingPrefetcher:
     what has accumulated is emitted as a partial ``Window`` (``w.k <
     k``), never dropped or padded; the step runs it as single steps.
     ``consumed`` counts underlying batches of the windows handed out.
-    ``sharding=`` is ROADMAP.md A7.
+    ``sharding=`` stages each batch's rows of this rank (see
+    ``DevicePrefetcher``), so a window holds ``[k, rows, ...]``: the
+    window axis whole, the batch axis split.
     """
 
     def __init__(self, loader, k, depth=None, device=None, start_offset=0,
                  sharding=None):
-        _no_sharding(sharding)
         self.loader = loader
         self.k = max(1, int(k))
         # double-buffered in windows: the next window's batches stage
@@ -712,7 +746,8 @@ class StackingPrefetcher:
         depth = 2 * self.k if depth is None else max(1, int(depth))
         self.start_offset = max(0, int(start_offset))
         self._pref = DevicePrefetcher(loader, depth=depth, device=device,
-                                      start_offset=self.start_offset)
+                                      start_offset=self.start_offset,
+                                      sharding=sharding)
         self.consumed = self.start_offset
 
     def __len__(self):
@@ -735,9 +770,12 @@ class StackingPrefetcher:
     def _stack(self, items):
         first = items[0]
         if isinstance(first, Tensor):
-            return Tensor._wrap(torch.stack([t._data for t in items]))
+            return Tensor._wrap(self._stack([t._data for t in items]))
         if isinstance(first, torch.Tensor):
-            return torch.stack(items)
+            out = torch.stack(items)
+            if getattr(first, "_local_rows", False):
+                out._local_rows = True
+            return out
         if isinstance(first, (list, tuple)):
             return type(first)(self._stack([b[i] for b in items])
                                for i in range(len(first)))

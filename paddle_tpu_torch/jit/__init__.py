@@ -1,5 +1,5 @@
 """The training step (port of ``paddle_tpu/jit/__init__.py``'s
-``CompiledTrainStep``, single-device).
+``CompiledTrainStep``).
 
 JAX compiles forward, backward and the optimizer update into one XLA
 program with the state donated through it.  Here a step is that
@@ -70,6 +70,15 @@ restore replaces tensors they write (accumulators the checkpoint lacks
 are dropped), so the next window primes and captures afresh
 (``jit.captures`` counts captures), and installs that generator state.
 
+``mesh=`` (``distributed.build_mesh``), ``shard_rules=``,
+``batch_axes=``: the mesh step of ``jit/mesh.py`` — each rank takes its
+rows of the batch, the gradients and the loss are averaged over the data
+axes, parameters the model holds whole may keep their optimizer state
+sharded (reduce-scattered gradients, all-gathered parameters), and the
+collectives run inside the step body, so a fused window's CUDA graph
+captures them (NCCL; gloo's cannot be captured: use ``fused_steps=1``
+there).  A mesh of one rank gives the meshless step's bits.
+
 Counters, under the JAX names: ``jit.steps``, ``jit.host.dispatches``,
 ``jit.fused_windows``, ``jit.fused_fallback_steps``, ``jit.syncs``,
 ``jit.nan_inf_checks``/``.nan_inf_hits``, ``optimizer.steps``, and the
@@ -95,6 +104,7 @@ from ..kernels import count_launch, launch_counted
 from ..nn.clip import sum_sq
 from ..profiler import counters
 from ..profiler.metrics import MetricsLogger
+from .mesh import MeshPlan
 
 def _params(model):
     """The model's torch parameters (a paddle-style ``Layer``'s own
@@ -143,11 +153,9 @@ class CompiledTrainStep:
     def __init__(self, model, loss_fn, optimizer, scaler=None, donate=True,
                  fused_steps=None, mesh=None, shard_rules=None,
                  batch_axes=None, metrics=None):
-        if mesh is not None or shard_rules is not None \
-                or batch_axes is not None:
-            raise NotImplementedError(
-                "CompiledTrainStep(mesh) is not ported yet: ROADMAP.md A7 "
-                "(distributed)")
+        if mesh is None and (shard_rules is not None
+                             or batch_axes is not None):
+            raise ValueError("shard_rules= and batch_axes= need mesh=")
         if fused_steps is None:
             fused_steps = int(flags.flag("FLAGS_fused_steps"))
         if int(fused_steps) < 1:
@@ -170,6 +178,8 @@ class CompiledTrainStep:
         self._last_dispatch_t = None
         self._tokens_per_step = None
         self._n_params = None
+        self._mesh = (None if mesh is None else MeshPlan(
+            mesh, model, optimizer, shard_rules, batch_axes))
 
     # -- the step body -----------------------------------------------------
     def _body(self, args, check, mon):
@@ -186,23 +196,37 @@ class CompiledTrainStep:
                 (loss if scaler is None else scaler.scale(loss)).backward()
         finally:
             STATE.tracing_depth -= 1
-        found = None
-        if scaler is not None:
-            found = scaler._unscale(_params(model))
-            opt._zero_lr_where(found)
+        mesh = self._mesh
         named = [(n, p) for n, p in torch.nn.Module.named_parameters(model)
                  if p.grad is not None]
+        # the gradients the update reads: the parameters' own, or on a
+        # mesh their data-axes means (a storage slice where sharded)
+        grads = {id(p): p.grad for _, p in named}
+        if mesh is not None:
+            loss = mesh.mean_loss(loss)
+            grads = mesh.sync_grads()
+        found = None
+        if scaler is not None:
+            found = scaler._unscale(_params(model), list(grads.values()))
+            if mesh is not None:
+                found = mesh.found_inf(found)
+            opt._zero_lr_where(found)
         names, bits = [], []
         if check:
             names = ["loss"] + ["grad:" + n for n, _ in named]
             bits = [torch.isfinite(loss.float()).all()] + [
-                torch.isfinite(p.grad.float()).all() for _, p in named]
+                torch.isfinite(grads[id(p)].float()).all() for _, p in named]
         row = sq = None
+        if mon or (mesh is not None and opt._grad_clip is not None):
+            # one pass over the gradients, shared with the clip (on a
+            # mesh: summed over the ranks that hold pieces of one)
+            sq = ({id(p): sum_sq(p.grad) for _, p in named} if mesh is None
+                  else mesh.sum_squares(grads))
         if mon:
-            # one pass over the gradients, shared with the clip
-            sq = {id(p): sum_sq(p.grad) for _, p in named}
             row = [torch.sqrt(sum(sq.values()))]
         opt._apply(found, sq)
+        if mesh is not None:
+            mesh.gather_params()
         opt.clear_grad()
         if scaler is not None:
             scaler._update(found)
@@ -221,12 +245,16 @@ class CompiledTrainStep:
     # -- dispatch ----------------------------------------------------------
     def __call__(self, *args):
         self._dirty = True
+        rows = (self._mesh.rows if self._mesh is not None
+                else lambda a, stacked: a)
         if len(args) == 1 and isinstance(args[0], Window):
-            return self._call_window(tuple(map(unwrap, args[0])), args[0].k)
+            return self._call_window(rows(tuple(map(unwrap, args[0])), True),
+                                     args[0].k)
         args = tuple(map(unwrap, args))
         if self.fused_steps > 1:
-            return self._call_window(args, None)
-        return self._dispatch_single(args, self.optimizer.get_lr())
+            return self._call_window(rows(args, True), None)
+        return self._dispatch_single(rows(args, False),
+                                     self.optimizer.get_lr())
 
     def _device(self):
         return next(_params(self.model)).device

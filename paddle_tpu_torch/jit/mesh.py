@@ -1,0 +1,223 @@
+"""The mesh side of ``CompiledTrainStep(mesh=...)``: which rows of the
+batch a rank takes, and how the gradients, the optimizer state and the
+parameters meet across ranks (the port of the JAX step's mesh plumbing,
+``paddle_tpu/jit/__init__.py`` ``_init_mesh`` and the GSPMD collectives
+it leaves to XLA).
+
+* **batch** — every batch tensor of the step is split on its row axis
+  over the data axes ``batch_axes`` (default: ``dp`` and ``sharding``
+  where their degree is above 1, else ``dp``); a batch whose tensors do
+  not all divide stays whole on every rank (replicated), as the JAX
+  step leaves an indivisible leaf unconstrained.
+* **gradients** — summed over the data axes and divided by their
+  degree (the mean over the global batch: every rank's rows are as
+  many), one all-reduce a parameter; so is the loss the step returns.
+* **storage sharding** — a parameter that the model holds whole gets a
+  storage spec: the first ``shard_rules`` entry that matches its name,
+  else its ``annotate_param`` placements, else ``P("sharding")`` on its
+  first axis when the ``sharding`` degree is above 1.  Its optimizer
+  state and fp32 master hold only this rank's slice, its gradient
+  arrives as that slice (a reduce-scatter over the spec's axes when
+  they are data axes, else the all-reduced gradient cut), and after the
+  update the slices are all-gathered back into the parameter.
+* **tensor parallelism** — parameters the model splits itself
+  (``is_distributed``: the tensor-parallel GPT, ``fleet``'s parallel
+  layers) keep their shards; their collectives run inside the model.
+  Their squares are summed over the axes they are split on before the
+  global-norm clip, and so are storage slices'.
+* **GradScaler** — the overflow flag is the maximum over every rank.
+
+A world of one runs the same code: every collective goes over a group
+of one.  Each collective ticks ``dist.collective_launches`` (under
+CUDA graphs: the captured ones count at each replay).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from ..distributed.sharding_utils import (P, _axes_of, gather_shard,
+                                          infer_partition_specs,
+                                          local_shard, validate_spec)
+from ..nn.clip import sum_sq
+from ..profiler import counters
+
+
+def _tick(n=1):
+    counters.inc("dist.collective_launches", n)
+
+
+def _view_of(spec, mesh):
+    """A function giving this rank's slice of a tensor under ``spec`` as a
+    view (``narrow`` along each split dimension)."""
+    cuts = [(d, e) for d, e in enumerate(spec) if _axes_of(e)]
+
+    def view(t):
+        for d, e in cuts:
+            n = mesh.degree(_axes_of(e))
+            size = t.shape[d] // n
+            t = t.narrow(d, mesh.index(_axes_of(e)) * size, size)
+        return t
+    return view
+
+
+class MeshPlan:
+    def __init__(self, mesh, model, optimizer, shard_rules=None,
+                 batch_axes=None):
+        for axis, item in (("pp", "A7e (pipeline parallelism)"),
+                           ("sep", "A7c (sequence parallelism)")):
+            if mesh.shape.get(axis, 1) > 1:
+                raise NotImplementedError(
+                    f"CompiledTrainStep on a mesh with {axis} > 1 is not "
+                    f"ported yet: ROADMAP.md {item}")
+        self.mesh = mesh
+        if batch_axes is None:
+            batch_axes = tuple(a for a in ("dp", "sharding")
+                               if mesh.shape[a] > 1)
+        elif isinstance(batch_axes, str):
+            batch_axes = (batch_axes,)
+        self.batch_axes = tuple(batch_axes)
+        #: the axes the gradients and the loss are averaged over
+        self.data_axes = self.batch_axes or ("dp",)
+        self.n_data = mesh.degree(self.data_axes)
+        self.data_group = mesh.group(self.data_axes)
+        named = list(torch.nn.Module.named_parameters(model))
+        ruled = infer_partition_specs({n: p for n, p in named}, mesh,
+                                      shard_rules or (), default=None)
+        self.storage = {}   # id(p) -> spec of its storage sharding
+        self.split = {}     # id(p) -> axes its model-held shard splits on
+        for name, p in named:
+            if getattr(p, "is_distributed", False):
+                if ruled[name] is not None and any(ruled[name]):
+                    raise ValueError(
+                        f"shard_rules split {name!r}, which the model "
+                        "already holds as a tensor-parallel shard")
+                axes = tuple(a for e in getattr(p, "placements", ())
+                             for a in _axes_of(e))
+                if axes and mesh.degree(axes) > 1:
+                    self.split[id(p)] = axes
+                continue
+            spec = ruled[name]
+            placed = getattr(p, "placements", None)
+            if spec is None and placed is not None and any(placed):
+                spec = validate_spec(placed, p.shape, mesh, name=name)
+            if spec is None:
+                spec = (validate_spec(P("sharding"), p.shape, mesh,
+                                      name=name, quiet=True)
+                        if mesh.shape["sharding"] > 1 and p.dim() else P())
+            if any(e is not None for e in spec):
+                self.storage[id(p)] = spec
+        self.params = [p for _, p in named]
+        self.optimizer = optimizer
+        optimizer._shard_views = {pid: _view_of(spec, mesh)
+                                  for pid, spec in self.storage.items()}
+
+    # -- batch -------------------------------------------------------------
+    def rows(self, args, stacked):
+        """This rank's rows of every batch tensor (dimension 1 of a
+        window's stacked tensors), or the batch whole when some tensor
+        does not divide or already holds this rank's rows."""
+        n = self.mesh.degree(self.batch_axes) if self.batch_axes else 1
+        d = 1 if stacked else 0
+        ts = [a for a in args if isinstance(a, torch.Tensor) and a.dim() > d]
+        if n == 1 or not ts or any(t.shape[d] % n for t in ts) or any(
+                getattr(t, "_local_rows", False) for t in ts):
+            # (a sharded prefetcher's tensors hold this rank's rows)
+            return args
+        i = self.mesh.index(self.batch_axes)
+        return tuple(a.narrow(d, i * (a.shape[d] // n), a.shape[d] // n)
+                     if isinstance(a, torch.Tensor) and a.dim() > d else a
+                     for a in args)
+
+    # -- inside the step ---------------------------------------------------
+    def mean_loss(self, loss):
+        _tick()
+        loss = loss.detach().float().clone()
+        dist.all_reduce(loss, group=self.data_group)
+        return loss / self.n_data
+
+    def _reduce_scatter(self, g, spec):
+        """This rank's slice of the data-axes sum of ``g``, when its only
+        split is over data axes: an all-reduce over the other data axes,
+        then a reduce-scatter.  None when the spec is of another kind."""
+        cuts = [(d, _axes_of(e)) for d, e in enumerate(spec) if _axes_of(e)]
+        if len(cuts) != 1 or not set(cuts[0][1]) <= set(self.data_axes):
+            return None
+        dim, axes = cuts[0]
+        rest = tuple(a for a in self.data_axes if a not in axes)
+        if rest:
+            _tick()
+            dist.all_reduce(g, group=self.mesh.group(rest))
+        n = self.mesh.degree(axes)
+        chunks = [c.contiguous() for c in g.movedim(dim, 0).chunk(n)]
+        out = torch.empty_like(chunks[0])
+        _tick()
+        dist.reduce_scatter(out, chunks, group=self.mesh.group(axes))
+        return out.movedim(0, dim)
+
+    def sync_grads(self):
+        """Average every gradient over the data axes; a storage-sharded
+        parameter's lands as its slice in the optimizer's
+        ``_shard_grads``.  Returns the gradients the update will read,
+        ``{id(p): tensor}``."""
+        opt = self.optimizer
+        opt._shard_grads = {}
+        out = {}
+        for p in self.params:
+            g = p.grad
+            if g is None:
+                continue
+            spec = self.storage.get(id(p))
+            local = None if spec is None else self._reduce_scatter(g, spec)
+            if local is None:
+                _tick()
+                dist.all_reduce(g, group=self.data_group)
+                local = g if spec is None else local_shard(g, spec,
+                                                           self.mesh)
+            local.div_(self.n_data)
+            if spec is not None:
+                opt._shard_grads[id(p)] = local
+            out[id(p)] = local
+        return out
+
+    def found_inf(self, found):
+        """The overflow flag as the maximum over every rank."""
+        f = found.to(torch.float32)
+        _tick()
+        dist.all_reduce(f, op=dist.ReduceOp.MAX)
+        return f > 0
+
+    def sum_squares(self, grads):
+        """``{id(p): fp32 sum of squares}`` of the full gradients: a
+        slice's or a shard's sum added up over the axes it splits on."""
+        sq = {}
+        for p in self.params:
+            g = grads.get(id(p))
+            if g is None:
+                continue
+            s = sum_sq(g)
+            spec = self.storage.get(id(p))
+            axes = (tuple(a for e in spec for a in _axes_of(e))
+                    if spec is not None else self.split.get(id(p)))
+            if axes:
+                _tick()
+                dist.all_reduce(s, group=self.mesh.group(axes))
+            sq[id(p)] = s
+        return sq
+
+    def gather_params(self):
+        """After the update: every storage-sharded parameter rebuilt from
+        the ranks' slices."""
+        opt = self.optimizer
+        opt._shard_grads = {}
+        with torch.no_grad():
+            for p in self.params:
+                spec = self.storage.get(id(p))
+                if spec is None:
+                    continue
+                _tick()
+                p.detach().copy_(gather_shard(opt._view(p), spec, self.mesh))
+
+
+__all__ = ["MeshPlan"]

@@ -352,6 +352,24 @@ paged_decode_attention.launches = 0
 paged_decode_attention.quant_launches = dict.fromkeys(KV_DTYPES, 0)
 
 
+def sharded_paged_decode_attention(mesh, axis, q, pool_k, pool_v, bt, pos,
+                                   scale_k=None, scale_v=None, *, scale):
+    """Head-sharded :func:`paged_decode_attention` (the JAX version's
+    ``shard_map`` over ``axis``).  ``q [B, nh/n, hd]`` and the pools
+    ``[n_blocks, bs, nh/n, hd]`` are this rank's head slice (the serving
+    arena holds them so), block tables, positions and scales are
+    replicated: each rank launches K4 (K4q over int8/fp8 pools) on its
+    slice and returns its ``[B, nh/n, hd]``.  No collective: the
+    tensor-parallel all-reduce comes after the projection."""
+    if q.shape[1] != pool_k.shape[2]:
+        raise ValueError(f"sharded_paged_decode_attention: q holds "
+                         f"{q.shape[1]} heads, the pool slice "
+                         f"{pool_k.shape[2]} (mesh {axis}="
+                         f"{mesh.degree(axis)})")
+    return paged_decode_attention(q, pool_k, pool_v, bt, pos, scale_k,
+                                  scale_v, scale=scale)
+
+
 def reset_launch_counts():
     """Set K4's and K4q's launch counters to 0."""
     paged_decode_attention.launches = 0

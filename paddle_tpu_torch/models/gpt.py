@@ -56,7 +56,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.dispatch import apply_op
-from ..core.tensor import Tensor
+from ..core.tensor import Tensor, _to_torch
+from ..distributed import mp_ops
+from ..distributed.env import get_mesh
+from ..distributed.sharding_utils import (P, gather_shard, local_shard,
+                                          validate_spec)
 from ..kernels import paged_attention as _pa
 from ..kernels._shapes import NEG_INF
 from ..kernels.flash_attention import flash_attention_fwd, reference_attention
@@ -274,6 +278,141 @@ def _resolve_device(device):
     return torch.device(device)
 
 
+#: the JAX package's placements of the parameters (``gpt.py`` ``mk``):
+#: column-parallel qkv/fc1, row-parallel proj/fc2, the vocabulary of the
+#: tied embedding and of an untied head; everything else replicated
+PLACEMENTS = {
+    "wte": P("mp", None), "qkv_w": P(None, None, "mp"),
+    "qkv_b": P(None, "mp"), "proj_w": P(None, "mp", None),
+    "fc1_w": P(None, None, "mp"), "fc1_b": P(None, "mp"),
+    "fc2_w": P(None, "mp", None), "lm_head": P(None, "mp"),
+}
+
+#: leaves whose split dimension is the fused ``[q | k | v]`` columns:
+#: rank r keeps its heads of q, of k and of v, so it computes locally
+_FUSED = {"qkv_w": 3, "qkv_b": 3, "qkv_w__scale": 3}
+
+#: leaves that split together or not at all: attention by heads (its
+#: shard must hold whole heads), the FFN by its hidden units
+_GROUPS = (("qkv_w", "qkv_b", "proj_w", "qkv_w__scale"),
+           ("fc1_w", "fc1_b", "fc2_w", "fc1_w__scale"))
+
+
+def _split(spec):
+    return any(e is not None for e in (spec or ()))
+
+
+def resolve_tp_specs(specs, num_heads, mesh, axis="mp", on_fallback=None):
+    """Make ``specs`` (``{leaf name: P}``) computable with local shards:
+    the attention leaves split only when ``num_heads`` divides by the
+    ``axis`` degree (a shard holds whole heads), and each group of
+    :data:`_GROUPS` splits as a whole or not at all.  A leaf that had a
+    split and loses it calls ``on_fallback(message)``.  Returns a new
+    dict."""
+    out = dict(specs)
+    n = mesh.degree(axis)
+    for i, group in enumerate(_GROUPS):
+        present = [k for k in group if k in out]
+        ok = all(_split(out[k]) for k in present)
+        if i == 0 and num_heads % n:
+            ok = False
+        if ok:
+            continue
+        for k in present:
+            if _split(out[k]) and on_fallback is not None:
+                on_fallback(f"{k!r} spec {out[k]} dropped: its group "
+                            f"{group} cannot split over {axis}={n}")
+            out[k] = P()
+    return out
+
+
+class TensorParallel:
+    """How a GPT weight set is split over mesh axis ``axis`` and the
+    Megatron forward over it.  ``specs`` maps leaf names (``wte``,
+    ``wpe``, ``head``/``lm_head`` and the stacked layer names) to their
+    :class:`P`.  Column-parallel inputs pass :func:`mp_ops.copy_to_mp`
+    (the gradient's all-reduce), row-parallel outputs
+    :func:`mp_ops.reduce_from_mp` (one all-reduce in the model dtype,
+    the bias added once after it).  The embedding and the logits
+    follow their spec: a vocabulary split looks up through
+    ``vocab_parallel_embedding`` and gathers the logits, a hidden split
+    gathers the embedding and all-reduces the logits.  At degree 1 the
+    same collectives run over a group of one."""
+
+    def __init__(self, mesh, specs, axis="mp"):
+        self.mesh, self.axis, self.specs = mesh, axis, dict(specs)
+        self.degree = mesh.degree(axis)
+        self.attn = _split(self.specs.get("qkv_w"))
+        self.ffn = _split(self.specs.get("fc1_w"))
+
+    def spec(self, name):
+        return self.specs.get(name, P())
+
+    def local(self, name, full):
+        """This rank's shard of the full leaf ``name``."""
+        return local_shard(full, self.spec(name), self.mesh,
+                           _FUSED.get(name, 1))
+
+    def full(self, name, x):
+        """The full leaf ``name`` from every rank's shard ``x`` (every
+        rank calls)."""
+        return gather_shard(x, self.spec(name), self.mesh,
+                            _FUSED.get(name, 1))
+
+    def col_in(self, x, on):
+        return mp_ops.copy_to_mp(x, self.axis, self.mesh) if on else x
+
+    def row_out(self, y, on):
+        return mp_ops.reduce_from_mp(y, self.axis, self.mesh) if on else y
+
+    def embed(self, wte, wpe, ids, pos):
+        """``wte[ids] (+ wpe[pos])`` in full, from the shards."""
+        sw = self.spec("wte")
+        if not _split(sw):
+            h = wte[ids]
+        elif sw == P(self.axis, None):
+            h = mp_ops.vocab_parallel_embedding(ids, wte, self.axis,
+                                                self.mesh)
+        else:
+            h = wte[ids]
+            if wpe is not None and _split(self.spec("wpe")):
+                return mp_ops.gather_from_mp(h + wpe[pos], self.axis,
+                                             self.mesh)
+            h = mp_ops.gather_from_mp(h, self.axis, self.mesh)
+        if wpe is None:
+            return h
+        p = wpe[pos]
+        if _split(self.spec("wpe")):
+            p = mp_ops.gather_from_mp(p, self.axis, self.mesh)
+        return h + p
+
+    def logits(self, h, head, name):
+        """``h @ head`` in full (``head`` is ``wte.T`` for ``name ==
+        "wte"``, whose vocabulary is its first dimension)."""
+        spec = self.spec(name)
+        if not _split(spec):
+            return torch.matmul(h, head)
+        vocab = spec == (P(self.axis, None) if name == "wte"
+                         else P(None, self.axis))
+        if vocab:
+            return mp_ops.gather_from_mp(
+                torch.matmul(self.col_in(h, True), head), self.axis,
+                self.mesh)
+        part = mp_ops.scatter_to_mp(h, self.axis, self.mesh)
+        return mp_ops.reduce_from_mp(torch.matmul(part, head), self.axis,
+                                     self.mesh)
+
+
+def _tp_io(tp):
+    """``(col_in, row_out)``: the column-parallel input and row-parallel
+    output of a block part (``"attn"`` or ``"ffn"``) under ``tp``;
+    identities without it."""
+    if tp is None:
+        return (lambda x, part: x), (lambda y, part: y)
+    return (lambda x, part: tp.col_in(x, getattr(tp, part)),
+            lambda y, part: tp.row_out(y, getattr(tp, part)))
+
+
 class GPTForCausalLM(Layer):
     """GPT causal LM with stacked ``[L, ...]`` parameters.
 
@@ -296,16 +435,18 @@ class GPTForCausalLM(Layer):
         if c.num_experts > 0:
             raise NotImplementedError(
                 "MoE GPT (num_experts > 0) is not ported yet: ROADMAP.md "
-                "A7 (distributed and MoE)")
-        for flag, on in (("sequence_parallel", c.sequence_parallel),
-                         ("context_parallel", c.context_parallel),
-                         ("pipeline parallel (pp_schedule/virtual_pp_degree)",
-                          c.pp_schedule != "gpipe"
-                          or c.virtual_pp_degree != 1)):
+                "A7b (MoE and expert parallelism)")
+        for flag, on, item in (
+                ("sequence_parallel", c.sequence_parallel,
+                 "A7c (sequence parallelism)"),
+                ("context_parallel", c.context_parallel,
+                 "A7d (context parallelism and ring attention)"),
+                ("pipeline parallel (pp_schedule/virtual_pp_degree)",
+                 c.pp_schedule != "gpipe" or c.virtual_pp_degree != 1,
+                 "A7e (pipeline parallelism)")):
             if on:
                 raise NotImplementedError(
-                    f"{flag} is not ported yet: ROADMAP.md A7 (distributed "
-                    "and MoE)")
+                    f"{flag} is not ported yet: ROADMAP.md {item}")
         if c.recompute not in _RECOMPUTE:
             raise ValueError(f"GPTConfig.recompute {c.recompute!r}: expected "
                              f"one of {_RECOMPUTE}")
@@ -319,40 +460,80 @@ class GPTForCausalLM(Layer):
         H, L, V, S = c.hidden_size, c.num_layers, c.vocab_size, c.max_seq_len
         F_ = c.ffn_hidden_size
         std = c.initializer_range
+        shapes = {"wte": (V, H), "wpe": (S, H), "ln1_w": (L, H),
+                  "ln1_b": (L, H), "qkv_w": (L, H, 3 * H),
+                  "qkv_b": (L, 3 * H), "proj_w": (L, H, H), "proj_b": (L, H),
+                  "ln2_w": (L, H), "ln2_b": (L, H), "fc1_w": (L, H, F_),
+                  "fc1_b": (L, F_), "fc2_w": (L, F_, H), "fc2_b": (L, H),
+                  "lnf_w": (H,), "lnf_b": (H,), "lm_head": (H, V)}
+        # under a global mesh each rank holds its shard of every split
+        # parameter (the JAX placements, degraded where they do not
+        # divide) and runs the Megatron forward (TensorParallel)
+        mesh = get_mesh()
+        self._tp = None
+        if mesh is not None:
+            specs = {n: validate_spec(sp, shapes[n], mesh, name=n)
+                     for n, sp in PLACEMENTS.items()}
+            specs = resolve_tp_specs(specs, c.num_heads, mesh)
+            specs["head"] = specs["lm_head"]
+            self._tp = TensorParallel(mesh, specs)
+        tp = self._tp
 
-        def normal(shape):
+        def local(name, full, stacked):
+            # this rank's shard of one layer's slice (or of the whole
+            # parameter when it is not stacked)
+            if tp is None:
+                return full
+            spec = tp.spec(name)
+            return local_shard(full, P(*spec[1:]) if stacked else spec,
+                               mesh, _FUSED.get(name, 1))
+
+        def local_shape(name):
+            return tuple(local(name, torch.empty(shapes[name],
+                                                 device="meta"), False).shape)
+
+        def normal(name):
             # filled slice by slice on the generator's device, so a large
-            # stacked weight never needs an fp32 copy of itself
-            p = torch.empty(shape, dtype=dt, device=dev)
-            for part in (p if len(shape) == 3 else (p,)):
-                r = torch.empty(part.shape, dtype=torch.float32,
-                                device=generator.device)
-                part.copy_(r.normal_(0.0, std, generator=generator))
+            # stacked weight never needs an fp32 copy of itself; a shard
+            # keeps its piece of the same draw
+            shape = shapes[name]
+            stacked = len(shape) == 3
+            p = torch.empty(local_shape(name), dtype=dt, device=dev)
+            for part in (p if stacked else (p,)):
+                r = torch.empty(shape[1:] if stacked else shape,
+                                dtype=torch.float32, device=generator.device)
+                part.copy_(local(name, r.normal_(0.0, std,
+                                                 generator=generator),
+                                 stacked))
             return nn.Parameter(p)
 
-        def const(shape, value):
-            return nn.Parameter(torch.full(shape, value, dtype=dt,
-                                           device=dev))
+        def const(name, value):
+            return nn.Parameter(torch.full(local_shape(name), value,
+                                           dtype=dt, device=dev))
 
-        self.wte = normal((V, H))
+        self.wte = normal("wte")
         if not c.use_rope:
-            self.wpe = normal((S, H))
-        self.ln1_w = const((L, H), 1.0)
-        self.ln1_b = const((L, H), 0.0)
-        self.qkv_w = normal((L, H, 3 * H))
-        self.qkv_b = const((L, 3 * H), 0.0)
-        self.proj_w = normal((L, H, H))
-        self.proj_b = const((L, H), 0.0)
-        self.ln2_w = const((L, H), 1.0)
-        self.ln2_b = const((L, H), 0.0)
-        self.fc1_w = normal((L, H, F_))
-        self.fc1_b = const((L, F_), 0.0)
-        self.fc2_w = normal((L, F_, H))
-        self.fc2_b = const((L, H), 0.0)
-        self.lnf_w = const((H,), 1.0)
-        self.lnf_b = const((H,), 0.0)
+            self.wpe = normal("wpe")
+        self.ln1_w = const("ln1_w", 1.0)
+        self.ln1_b = const("ln1_b", 0.0)
+        self.qkv_w = normal("qkv_w")
+        self.qkv_b = const("qkv_b", 0.0)
+        self.proj_w = normal("proj_w")
+        self.proj_b = const("proj_b", 0.0)
+        self.ln2_w = const("ln2_w", 1.0)
+        self.ln2_b = const("ln2_b", 0.0)
+        self.fc1_w = normal("fc1_w")
+        self.fc1_b = const("fc1_b", 0.0)
+        self.fc2_w = normal("fc2_w")
+        self.fc2_b = const("fc2_b", 0.0)
+        self.lnf_w = const("lnf_w", 1.0)
+        self.lnf_b = const("lnf_b", 0.0)
         if not c.tie_word_embeddings:
-            self.lm_head = normal((H, V))
+            self.lm_head = normal("lm_head")
+        if tp is not None:
+            for n, t in self._weights().items():
+                t.placements = tp.spec(n)
+                t.is_distributed = _split(t.placements)
         self.dropout_generator = torch.Generator(device=dev).manual_seed(0)
 
     @property
@@ -364,6 +545,39 @@ class GPTForCausalLM(Layer):
         wrappers; every reader inside the model takes the torch
         parameters)."""
         return {n: t for n, t in self._parameters.items() if t is not None}
+
+    @torch.no_grad()
+    def load_numpy_state(self, state):
+        """Load the JAX model's full ``{name: array}``; under a mesh each
+        rank keeps its shard (the ``[q | k | v]`` columns of its heads for
+        ``qkv_w``/``qkv_b``)."""
+        if self._tp is None:
+            return super().load_numpy_state(state)
+        own = self._weights()
+        missing = sorted(set(own) - set(state))
+        unexpected = sorted(set(state) - set(own))
+        if missing or unexpected:
+            raise KeyError(f"load_numpy_state: missing {missing}, "
+                           f"unexpected {unexpected}")
+        for n, t in own.items():
+            v = state[n]
+            full = (v._data if isinstance(v, Tensor) else v
+                    if isinstance(v, torch.Tensor)
+                    else _to_torch(np.asarray(v), device=t.device))
+            t.copy_(self._tp.local(n, full.to(t.device)))
+        return self
+
+    @torch.no_grad()
+    def gather_numpy_state(self):
+        """``{name: numpy array}`` copies of the full parameters in the
+        JAX layout (every rank takes part in the gathers; every rank gets
+        the arrays).  bf16 comes back as fp32."""
+        out = {}
+        for n, t in self._weights().items():
+            full = (t if self._tp is None else self._tp.full(n, t)).detach()
+            out[n] = (full.float() if full.dtype == torch.bfloat16
+                      else full).cpu().numpy().copy()
+        return out
 
     # -- training forward ---------------------------------------------------
     def forward(self, input_ids, *, generator=None, kernel=True):
@@ -404,9 +618,15 @@ class GPTForCausalLM(Layer):
     def _forward(self, input_ids, w, generator, kernel):
         c = self.config
         L = c.num_layers
-        h = w["wte"][input_ids]
-        if not c.use_rope:
-            h = h + w["wpe"][:input_ids.shape[1]]
+        tp = self._tp
+        if tp is None:
+            h = w["wte"][input_ids]
+            if not c.use_rope:
+                h = h + w["wpe"][:input_ids.shape[1]]
+        else:
+            h = tp.embed(w["wte"], w.get("wpe"), input_ids,
+                         torch.arange(input_ids.shape[1],
+                                      device=input_ids.device))
         drop = self.training and c.dropout > 0
         gen = self.dropout_generator if generator is None else generator
         layers = {n: w[n].unbind(0) for n in _STACKED}
@@ -417,7 +637,10 @@ class GPTForCausalLM(Layer):
             h = self._block(h, lw, keep, kernel)
         h = _norm(h, w["lnf_w"], w["lnf_b"], c.layer_norm_epsilon)
         head = w["wte"].T if c.tie_word_embeddings else w["lm_head"]
-        return torch.matmul(h, head)
+        if tp is None:
+            return torch.matmul(h, head)
+        return tp.logits(h, head, "wte" if c.tie_word_embeddings
+                         else "lm_head")
 
     def _block(self, h, lw, keep, kernel):
         """One transformer block, cut into stages at the activations that
@@ -428,15 +651,17 @@ class GPTForCausalLM(Layer):
         eps = c.layer_norm_epsilon
         drop = (None if keep is None else
                 lambda x, i: _dropout(x, c.dropout, keep[i]))
+        tp = self._tp
+        col_in, row_out = _tp_io(tp)
 
         def qkv_of(h):
-            x = _norm(h, lw["ln1_w"], lw["ln1_b"], eps)
+            x = col_in(_norm(h, lw["ln1_w"], lw["ln1_b"], eps), "attn")
             return torch.matmul(x, lw["qkv_w"]) + lw["qkv_b"]
 
         def attend(qkv):
             b, s, H3 = qkv.shape
-            nh = c.num_heads
-            hd = H3 // 3 // nh
+            hd = c.hidden_size // c.num_heads
+            nh = H3 // 3 // hd
             q, k, v = (t.reshape(b, s, nh, hd) for t in qkv.split(H3 // 3, -1))
             if c.use_rope:
                 q, k = apply_rope(q), apply_rope(k)
@@ -447,15 +672,16 @@ class GPTForCausalLM(Layer):
             return o.reshape(b, s, H3 // 3)
 
         def post_attn(h, o):
-            a = torch.matmul(o, lw["proj_w"]) + lw["proj_b"]
+            a = row_out(torch.matmul(o, lw["proj_w"]), "attn") + lw["proj_b"]
             return h + (a if drop is None else drop(a, 0))
 
         def up_of(h2):
-            x = _norm(h2, lw["ln2_w"], lw["ln2_b"], eps)
+            x = col_in(_norm(h2, lw["ln2_w"], lw["ln2_b"], eps), "ffn")
             return torch.matmul(x, lw["fc1_w"]) + lw["fc1_b"]
 
         def ffn(h2, up):
-            f = (torch.matmul(F.gelu(up, approximate="tanh"), lw["fc2_w"])
+            f = (row_out(torch.matmul(F.gelu(up, approximate="tanh"),
+                                      lw["fc2_w"]), "ffn")
                  + lw["fc2_b"])
             return h2 + (f if drop is None else drop(f, 1))
 
@@ -497,13 +723,16 @@ class GPTForCausalLM(Layer):
             "lnf_w": w["lnf_w"],
             "lnf_b": w["lnf_b"],
             "head": w.get("lm_head"),
+            "tp": self._tp,
         }
 
-    def _ffn(self, h, lw, al=None, aids=None):
+    def _ffn(self, h, lw, al=None, aids=None, tp=None):
+        _, row_out = _tp_io(tp)
         x = _norm(h, lw["ln2_w"], lw["ln2_b"], self.config.layer_norm_epsilon)
         up = _mm_lora(x, lw, "fc1_w", al, aids) + lw["fc1_b"]
-        return h + (_mm_lora(F.gelu(up, approximate="tanh"), lw, "fc2_w",
-                             al, aids) + lw["fc2_b"])
+        return h + (row_out(_mm_lora(F.gelu(up, approximate="tanh"), lw,
+                                     "fc2_w", al, aids), "ffn")
+                    + lw["fc2_b"])
 
     def _layers(self, w, ids, pos, attend, adapters=None, adapter_ids=None):
         """Embed ``ids[B, T]``, whose tokens sit at positions ``pos``
@@ -520,32 +749,45 @@ class GPTForCausalLM(Layer):
         (:func:`_mm_lora`; 0 = the base model).  Returns ``h[B, T, H]``
         before the final norm."""
         c = self.config
-        nh, H = c.num_heads, c.hidden_size
+        hd = c.hidden_size // c.num_heads
         B, T = ids.shape
-        h = w["wte"][ids]
-        if w["wpe"] is not None:
-            h = h + w["wpe"][pos.clamp(max=w["wpe"].shape[0] - 1)]
+        tp = w.get("tp")
+        _, row_out = _tp_io(tp)
+        wpos = (None if w["wpe"] is None
+                else pos.clamp(max=w["wpe"].shape[0] - 1))
+        if tp is None:
+            h = w["wte"][ids]
+            if w["wpe"] is not None:
+                h = h + w["wpe"][wpos]
+        else:
+            h = tp.embed(w["wte"], w["wpe"], ids, wpos)
         for l in range(c.num_layers):
             lw = {n: t[l] for n, t in w["lws"].items()}
             al = (None if adapters is None
                   else {n: t[l] for n, t in adapters.items()})
             x = _norm(h, lw["ln1_w"], lw["ln1_b"], c.layer_norm_epsilon)
             qkv = _mm_lora(x, lw, "qkv_w", al, adapter_ids) + lw["qkv_b"]
-            q, k, v = (t.reshape(B, T, nh, H // nh)
+            H = qkv.shape[-1] // 3     # this rank's heads under tp
+            q, k, v = (t.reshape(B, T, H // hd, hd)
                        for t in qkv.split(H, dim=-1))
             if c.use_rope:
                 q, k = _rope_grid(q, pos), _rope_grid(k, pos)
             o = attend(l, q, k, v)
-            h = h + (_mm_lora(o.reshape(B, T, H).to(h.dtype), lw, "proj_w",
-                              al, adapter_ids) + lw["proj_b"])
-            h = self._ffn(h, lw, al, adapter_ids)
+            h = h + (row_out(_mm_lora(o.reshape(B, T, H).to(h.dtype), lw,
+                                      "proj_w", al, adapter_ids), "attn")
+                     + lw["proj_b"])
+            h = self._ffn(h, lw, al, adapter_ids, tp)
         return h
 
     def _logits(self, w, h):
         """Final norm + LM head in the model dtype, then fp32 logits."""
         h = _norm(h, w["lnf_w"], w["lnf_b"], self.config.layer_norm_epsilon)
-        head = w["wte"].T if self.config.tie_word_embeddings else w["head"]
-        return torch.matmul(h, head).float()
+        tied = self.config.tie_word_embeddings
+        head = w["wte"].T if tied else w["head"]
+        tp = w.get("tp")
+        if tp is None:
+            return torch.matmul(h, head).float()
+        return tp.logits(h, head, "wte" if tied else "head").float()
 
     def _cached_layers(self, w, ids, cache_k, cache_v, pos):
         """Run every block over ``ids[B, T]``, whose tokens sit at
@@ -685,6 +927,12 @@ class GPTForCausalLM(Layer):
         scale = 1.0 / math.sqrt(c.hidden_size // c.num_heads)
         decode_attention = (_pa.paged_decode_attention if kernel
                             else _pa.paged_decode_attention_reference)
+        tp = w.get("tp")
+        if kernel and tp is not None and tp.attn:
+            # each rank launches the kernel on its head slice
+            def decode_attention(*a, scale):
+                return _pa.sharded_paged_decode_attention(
+                    tp.mesh, tp.axis, *a, scale=scale)
         pos_l = pos.long()
         rows = torch.arange(tok.shape[0], device=tok.device)
         blk = bt.long()[rows, pos_l // pool_k.shape[2]]             # [B]
@@ -797,8 +1045,9 @@ class GPTForCausalLM(Layer):
         knobs = dict(do_sample=bool(do_sample), temperature=float(temperature),
                      top_k=int(top_k), top_p=float(top_p))
         w = self.decode_state()
-        nh = c.num_heads
-        shape = (c.num_layers, B, S, nh, c.hidden_size // nh)
+        hd = c.hidden_size // c.num_heads
+        nh = w["lws"]["qkv_w"].shape[-1] // 3 // hd   # this rank's heads
+        shape = (c.num_layers, B, S, nh, hd)
         ck = torch.zeros(shape, dtype=w["wte"].dtype, device=dev)
         cv = torch.zeros_like(ck)
 

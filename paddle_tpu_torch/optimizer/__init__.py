@@ -118,6 +118,11 @@ class Optimizer:
         self._accumulators: dict[str, dict[int, torch.Tensor]] = {}
         self._master_weights: dict[int, torch.Tensor] = {}
         self._step_count = 0
+        #: parameters whose update this rank makes on a slice only (the
+        #: mesh train step's storage sharding): ``id -> view function``
+        #: of the slice, and that slice's gradient for the next update
+        self._shard_views = {}
+        self._shard_grads = {}
         dev = (self._parameter_list[0].device if self._parameter_list
                else torch.device("cpu"))
         #: one 0-d fp32 lr a group (its factor applied), on the device
@@ -194,18 +199,25 @@ class Optimizer:
     def _uses_master(self, p):
         return self._multi_precision and p.dtype != torch.float32
 
+    def _view(self, p):
+        """What an update of ``p`` writes: the parameter, or the view of
+        this rank's slice of it when its state is sharded."""
+        view = self._shard_views.get(id(p))
+        return p.detach() if view is None else view(p.detach())
+
     def _master(self, p):
         """fp32 master weight of a low-precision parameter (the parameter
-        itself otherwise, so in-place updates land in it)."""
+        itself otherwise, so in-place updates land in it); this rank's
+        slice of either when its state is sharded."""
         if not self._uses_master(p):
-            return p.detach()
+            return self._view(p)
         if id(p) not in self._master_weights:
-            self._master_weights[id(p)] = p.detach().float()
+            self._master_weights[id(p)] = self._view(p).float()
         return self._master_weights[id(p)]
 
     def _write_back(self, p, master):
         if self._uses_master(p):
-            p.detach().copy_(master)
+            self._view(p).copy_(master)
 
     def _state_of(self, p):
         """Every tensor an update of ``p`` writes that exists now."""
@@ -231,7 +243,9 @@ class Optimizer:
         gradients' sums of squares for the clip (``nn.clip``), when the
         caller has them."""
         counters.inc("optimizer.steps")
-        pg = [(p, g) for p, g in ((p, grad_of(p))
+        pg = [(p, g) for p, g in ((p, self._shard_grads[id(p)]
+                                   if id(p) in self._shard_grads
+                                   else grad_of(p))
                                   for p in self._parameter_list
                                   if p.requires_grad) if g is not None]
         if self._grad_clip is not None:

@@ -74,14 +74,26 @@ def ptq_int8_decode_state(model, observer="absmax", percentile=99.99):
     :data:`PTQ_WEIGHTS` replaced by its int8 tensor plus a
     ``<name>__scale`` fp32 per-output-channel companion, on the model's
     device.  Embeddings, the LM head, biases and norms stay as they
-    are."""
+    are.
+
+    A model built under a mesh holds shards (``w["tp"]``): a row-parallel
+    weight's scales are taken from the whole input dimension (gathered
+    from every rank, which all call), so each rank's int8 shard is the
+    unsharded quantization's."""
     w = model.decode_state()
+    tp = w.get("tp")
     lws = dict(w["lws"])
     for name in PTQ_WEIGHTS:
         v = lws.get(name)
         if v is None or v.dim() != 3:
             continue
-        q, scale = quantize_weight_int8(v, observer, percentile)
+        spec = tuple(tp.spec(name)) if tp is not None else ()
+        if len(spec) > 1 and spec[1] is not None:
+            scale = channel_scales(tp.full(name, v), observer, percentile)
+            q = torch.round(v.float() / scale).clamp(-127, 127)
+            q = q.to(torch.int8)
+        else:
+            q, scale = quantize_weight_int8(v, observer, percentile)
         lws[name] = q
         lws[name + "__scale"] = scale
     w["lws"] = lws

@@ -21,8 +21,23 @@ matmuls (``quantization.ptq_int8_decode_state``).  The paged engine's
 LoRA adapters (``adapter_slots``, ``adapter_rank``), host-RAM KV tier
 (``host_kv_blocks``, ``spill_idle_steps``) and held requests for KV
 migration (``add_request(hold_after_prefill=True)``) are described in
-``serving.paged``.  ``mesh`` raises ``NotImplementedError`` naming its
-ROADMAP item.
+``serving.paged``.
+
+``mesh=`` (``distributed.build_mesh``) serves tensor-parallel: the
+engine's ``StateArena`` (``serving.arena``) keeps this rank's shard of
+the weights and of the KV storage (heads split over ``mp``), the
+model's Megatron forward all-reduces after the row-parallel
+projections, and the paged decode launches K4/K4q on the rank's heads
+(``kernels.paged_attention.sharded_paged_decode_attention``).  Every
+rank runs the same engine on the same requests; the token every rank
+emits is the one mesh rank 0 chose, broadcast each step, so the ranks'
+host decisions (admission, chunking, blocks, prefix hits, sampling)
+stay identical.  ``deadline_s`` is refused on a mesh of more than one
+rank (the ranks' clocks would decide differently), as are the paged
+engine's LoRA adapters, host-RAM tier and KV migration, the
+speculative engine and the fleet (ROADMAP.md A7).  A mesh of one rank
+runs the same code, collectives included, and gives the same tokens as
+no mesh.
 
 The engine follows the model's device.  Each sampled request carries its
 own ``torch.Generator``, seeded from the request's ``seed``.
@@ -59,10 +74,20 @@ from ..profiler import trace as rtrace
 from ..profiler.host_tracer import span
 from ..quantization import ptq_int8_decode_state
 from ..resilience import faultinject as _fi
+from .arena import KV_POOL_SPEC, StateArena
 from .sampling import sample_tokens
 
 _TODO = {
-    "mesh": "ROADMAP.md A7 (tensor-parallel serving)",
+    "mesh+adapters": "ROADMAP.md A7f (LoRA, host tier and migration on a "
+                     "mesh)",
+    "mesh+host_kv_blocks": "ROADMAP.md A7f (LoRA, host tier and migration "
+                           "on a mesh)",
+    "mesh+migration": "ROADMAP.md A7f (LoRA, host tier and migration on a "
+                      "mesh)",
+    "mesh+draft_model": "ROADMAP.md A7f (the speculative engine and the "
+                        "fleet on a mesh)",
+    "mesh+fleet": "ROADMAP.md A7f (the speculative engine and the fleet on "
+                  "a mesh)",
 }
 
 
@@ -212,7 +237,8 @@ class LLMEngine:
                  block_size=16, n_blocks=None, prefill_chunk=None,
                  prefix_cache=True, kv_dtype=None, weight_dtype=None,
                  host_kv_blocks=0, spill_idle_steps=0, mesh=None,
-                 adapter_slots=0, adapter_rank=8, tenant_buckets=8):
+                 shard_rules=None, adapter_slots=0, adapter_rank=8,
+                 tenant_buckets=8):
         if kv_layout not in ("slots", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; "
                              "want 'slots' or 'paged'")
@@ -225,8 +251,11 @@ class LLMEngine:
         if weight_dtype not in (None, "int8"):
             raise ValueError(f"weight_dtype must be None or 'int8', "
                              f"got {weight_dtype!r}")
-        if mesh is not None:
-            raise _not_ported("mesh")
+        if mesh is not None and mesh.size > 1:
+            if int(adapter_slots or 0) > 0:
+                raise _not_ported("mesh+adapters")
+            if int(host_kv_blocks or 0) > 0:
+                raise _not_ported("mesh+host_kv_blocks")
         if int(adapter_slots or 0) > 0 and kv_layout != "paged":
             raise ValueError("adapter_slots requires kv_layout='paged' "
                              "(adapter ids ride the paged calls)")
@@ -261,10 +290,13 @@ class LLMEngine:
         self.queue_size = int(queue_size)
         self.min_bucket = int(min_bucket)
         self.eos_token_id = eos_token_id  # default for requests
-        if weight_dtype == "int8":
-            self._w = ptq_int8_decode_state(model)
-        else:
-            self._w = model.decode_state()
+        # the arena keeps this rank's shards under a mesh; without one it
+        # passes the weights through untouched
+        self.arena = StateArena(mesh=mesh, shard_rules=shard_rules)
+        self._disagreed = None   # see _agree
+        self._w = self.arena.declare_tree(
+            "weights", ptq_int8_decode_state(model) if weight_dtype == "int8"
+            else model.decode_state(), c.num_heads)
 
         B, S = self.max_slots, self.max_seq_len
         nh = c.num_heads
@@ -327,14 +359,41 @@ class LLMEngine:
         """Allocate the device KV storage: the slot arena ``[L, B, S, nh,
         hd]`` in the model dtype here, a block pool in the PagedLLMEngine
         override."""
-        shape = (c.num_layers, B, S, nh, hd)
-        self._ck = torch.zeros(shape, dtype=self.model.wte.dtype,
-                               device=self.device)
-        self._cv = torch.zeros_like(self._ck)
+        dt = self.model.wte.dtype
+        self._ck, self._cv = (self._kv_zeros(n, (c.num_layers, B, S, nh, hd),
+                                             dt) for n in ("cache_k",
+                                                           "cache_v"))
+
+    def _kv_zeros(self, name, shape, dtype):
+        """Zeroed KV storage ``[L, *, *, nh, hd]`` through the arena:
+        this rank's heads when the attention weights split."""
+        tp = self._w.get("tp")
+        return self.arena.declare_zeros(
+            name, shape, dtype, self.device, KV_POOL_SPEC,
+            split=tp is not None and tp.attn)
+
+    def _agree(self, tok):
+        """``tok`` (device int64) as mesh rank 0 chose it: broadcast over
+        the mesh, so every rank emits the same tokens and takes the same
+        host decisions.  Without a mesh, ``tok`` itself."""
+        if self.arena.mesh is None:
+            return tok
+        from ..distributed.communication import broadcast
+        mine = tok.contiguous()
+        tok = mine.clone()
+        broadcast(tok, src=0)
+        if self.arena.multi_device:
+            # what this rank chose itself and rank 0 did not, summed on
+            # the device and read by stats()
+            d = (mine != tok).sum()
+            self._disagreed = d if self._disagreed is None \
+                else self._disagreed + d
+        return tok
 
     def release_kv(self):
         """Drop the device KV arena (a dead replica's arena is garbage)."""
         self._ck = self._cv = None
+        self.arena.release("cache_k", "cache_v")
 
     def prefix_peek(self, prompt, tenant=None):
         """Tokens of ``prompt`` a prefix cache could serve without
@@ -393,6 +452,9 @@ class LLMEngine:
         eos = eos_token_id if eos_token_id is not None else self.eos_token_id
         if seed is None:
             seed = int(np.random.randint(0, 2**31 - 1))
+        if deadline_s is not None and self.arena.multi_device:
+            raise ValueError("deadline_s on a mesh of more than one rank: "
+                             "the ranks' clocks would evict differently")
         deadline = (time.monotonic() + float(deadline_s)
                     if deadline_s is not None else None)
         req = Request(next(self._rid), ids, int(max_new_tokens),
@@ -542,7 +604,7 @@ class LLMEngine:
                     logits[s:s + 1], req.generator, do_sample=True,
                     temperature=req.temperature, top_k=req.top_k,
                     top_p=req.top_p)[0]
-        return nxt.cpu().numpy()
+        return self._agree(nxt).cpu().numpy()
 
     # -- the slot layout -----------------------------------------------------
     def _prefill_insert(self, slot, req):
@@ -563,10 +625,10 @@ class LLMEngine:
                 self._w, torch.from_numpy(ids).to(self.device), T,
                 self._ck[:, slot:slot + 1], self._cv[:, slot:slot + 1])
             _devicetime.observe(_dt, logits)
-            tok = int(sample_tokens(
+            tok = int(self._agree(sample_tokens(
                 logits, req.generator, do_sample=req.do_sample,
                 temperature=req.temperature, top_k=req.top_k,
-                top_p=req.top_p)[0])
+                top_p=req.top_p))[0])
         if tr is not None:
             tr.add_span("prefill", t0_tr, time.perf_counter_ns(),
                         bucket=bucket, tokens=T)
@@ -733,4 +795,10 @@ class LLMEngine:
                 "closed": self._closed,
                 "outstanding_tokens": self._outstanding,
                 "decode_tps_ema": self._tps_ema,
+                "mesh_tag": self.arena.tag or None,
+                # tokens this rank chose that rank 0's broadcast replaced
+                # (0 when every rank's logits agree; a multi-rank mesh
+                # only)
+                "rank_disagreements": (0 if self._disagreed is None
+                                       else int(self._disagreed)),
             }

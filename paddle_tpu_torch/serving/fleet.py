@@ -263,7 +263,7 @@ class ServingFleet:
                  restore_cost=0.5, mesh=None, shard_rules=None,
                  adapter_slots=0, adapter_rank=8):
         if mesh is not None or shard_rules is not None:
-            raise _not_ported("mesh")
+            raise _not_ported("mesh+fleet")
         self.model = model
         prefill_replicas = int(prefill_replicas)
         if prefill_replicas:

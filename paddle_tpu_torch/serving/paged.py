@@ -74,7 +74,7 @@ from ..profiler.host_tracer import span
 from ..resilience import faultinject as _fi
 from .adapters import AdapterArena, AdapterArenaExhausted
 from .engine import (EngineBackpressure, EngineClosed, LLMEngine, Request,
-                     bucket_length, prompt_ids)
+                     _not_ported, bucket_length, prompt_ids)
 from .kvcache import (TRASH_BLOCK, BlockPool, BlockPoolExhausted,
                       HostKVTier, HostTierLost, PrefixCache,
                       blocks_for_tokens)
@@ -132,15 +132,20 @@ class PagedLLMEngine(LLMEngine):
         shape = (c.num_layers, self.n_blocks, bs, nh, hd)
         dt = self.model.wte.dtype
         adt = KV_DTYPES[self.kv_dtype] if self.kv_dtype else dt
-        self.pool_k = torch.zeros(shape, dtype=adt, device=self.device)
-        self.pool_v = torch.zeros(shape, dtype=adt, device=self.device)
+        # this rank's heads under a mesh (the arena splits them)
+        self.pool_k = self._kv_zeros("pool_k", shape, adt)
+        self.pool_v = self._kv_zeros("pool_v", shape, adt)
+        shape = self.pool_k.shape
+        nh = shape[3]
         # per-token fp32 scales at the same (layer, block, position) as the
-        # quantized tiles; empty tuple for unquantized pools
+        # quantized tiles (no head axis: replicated on a mesh); empty
+        # tuple for unquantized pools
         self.scales = ()
         if self.kv_dtype:
             self.scales = tuple(
-                torch.zeros(shape[:3], dtype=torch.float32,
-                            device=self.device) for _ in range(2))
+                self.arena.declare_zeros(n, shape[:3], torch.float32,
+                                         self.device)
+                for n in ("scale_k", "scale_v"))
             raw = 2 * math.prod(shape) * dt.itemsize
             quant = self._pool_bytes()
             counters.set_gauge("serving.kv.quant.arena_bytes", quant)
@@ -186,6 +191,7 @@ class PagedLLMEngine(LLMEngine):
     def release_kv(self):
         self.pool_k = self.pool_v = None
         self.scales = ()
+        self.arena.release("pool_k", "pool_v", "scale_k", "scale_v")
         if self.adapters is not None:
             self.adapters.release_slabs()
 
@@ -473,6 +479,8 @@ class PagedLLMEngine(LLMEngine):
 
     # -- request intake ------------------------------------------------------
     def add_request(self, prompt, max_new_tokens=32, **kw):
+        if kw.get("hold_after_prefill") and self.arena.multi_device:
+            raise _not_ported("mesh+migration")
         tenant = kw.get("adapter")
         if tenant is not None:
             # refuse unregistered tenants here, synchronously: admission
@@ -669,10 +677,10 @@ class PagedLLMEngine(LLMEngine):
         st["done"] = start + take_n
         if last:
             # only the final chunk's logits are sampled: the first token
-            tok = int(sample_tokens(
+            tok = int(self._agree(sample_tokens(
                 logits, req.generator, do_sample=req.do_sample,
                 temperature=req.temperature, top_k=req.top_k,
-                top_p=req.top_p)[0])
+                top_p=req.top_p))[0])
             del self._prefill_state[slot]
             counters.inc("serving.prefill_batches")
             self._tok[slot] = tok
@@ -821,6 +829,8 @@ class PagedLLMEngine(LLMEngine):
         token continues the source's.  ``trace_ctx`` (the fleet handle's
         trace) rides the installed request and gets a ``kv.adopt``
         span."""
+        if self.arena.multi_device:
+            raise _not_ported("mesh+migration")
         if (self.pool.block_size != mig["block_size"]
                 or self.kv_dtype != mig["kv_dtype"]):
             raise ValueError(
@@ -1074,6 +1084,12 @@ class PagedLLMEngine(LLMEngine):
                                  else self.prefix.nodes),
                 "prefilling": len(self._prefill_state),
                 "kv_pool_bytes": self._pool_bytes(),
+                # what this rank holds: under an mp mesh the KV pools and
+                # the weight matrices divide by the axis degree
+                "kv_pool_bytes_per_chip": self.arena.device_bytes(
+                    "pool_k", "pool_v", "scale_k", "scale_v"),
+                "weight_bytes_per_chip": self.arena.device_bytes(
+                    "weights"),
                 "host_tier_capacity": 0 if tier is None else tier.capacity,
                 "host_tier_blocks": 0 if tier is None else tier.resident,
                 "host_arena_bytes": 0 if tier is None else tier.arena_bytes,

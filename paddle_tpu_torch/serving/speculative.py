@@ -144,6 +144,9 @@ class SpeculativeLLMEngine(PagedLLMEngine):
         draft = kw.pop("draft_model", None)
         if draft is None:
             raise ValueError("SpeculativeLLMEngine requires draft_model=")
+        if kw.get("mesh") is not None:
+            from .engine import _not_ported
+            raise _not_ported("mesh+draft_model")
         if kw.get("kv_layout", "paged") != "paged":
             raise ValueError(
                 "draft_model= requires kv_layout='paged' (speculative "

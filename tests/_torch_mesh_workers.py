@@ -1,0 +1,581 @@
+"""Rank functions for the port's multi-process tests (not collected).
+
+``tests/test_torch_distributed_api.py``, ``test_torch_mesh_serving.py``
+and ``test_torch_mesh_train.py`` run the JAX package in the pytest
+process and the port's ranks in processes spawned here: each child
+imports ``torch`` and ``paddle_tpu_torch`` only (the test files import
+JAX, so the ranks' code lives in this module), joins a gloo group
+through a ``FileStore`` under the test's temporary directory, runs one
+function of this module and sends its result back as numpy arrays and
+plain Python values.  Every child resets the port's global mesh and
+destroys its process group when its function returns.
+
+:func:`spawn` starts the ranks and returns at once, so the pytest
+process computes the JAX side while they run; ``.results()`` joins
+them (a rank that fails makes every result raise, with its traceback).
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+import queue as _queue
+import time
+import traceback
+
+import numpy as np
+import torch
+
+TIMEOUT_S = 240
+
+
+class Spawned:
+    def __init__(self, target, world, tmpdir, payload):
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.q = ctx.Queue()
+        self.world = world
+        base = os.path.join(str(tmpdir), f"{target}_{world}")
+        store = base + ".store"
+        # the payload goes through a file: a large argument would block
+        # each start() until its child has imported torch
+        with open(base + ".payload", "wb") as f:
+            pickle.dump(payload, f)
+        self.procs = [ctx.Process(target=_child, args=(
+            target, r, world, store, base + ".payload", self.q), daemon=True)
+            for r in range(world)]
+        for p in self.procs:
+            p.start()
+        self._out = None
+
+    def results(self):
+        """Per-rank results, rank order."""
+        if self._out is None:
+            got, errors = {}, []
+            deadline = time.monotonic() + TIMEOUT_S
+            while len(got) < self.world and not errors:
+                try:
+                    rank, status, value = self.q.get(timeout=2)
+                except _queue.Empty:
+                    dead = [p.exitcode for p in self.procs
+                            if p.exitcode not in (None, 0)]
+                    if dead or time.monotonic() > deadline:
+                        errors.append(f"ranks exited {dead} or timed out "
+                                      f"after {TIMEOUT_S} s (results from "
+                                      f"{sorted(got)})")
+                    continue
+                if status == "ok":
+                    got[rank] = value
+                else:
+                    errors.append(f"rank {rank}:\n{value}")
+            for p in self.procs:
+                p.join(timeout=30 if not errors else 1)
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+            self._out = (got, errors)
+        got, errors = self._out
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        return [got[r] for r in range(self.world)]
+
+
+def spawn(target, world, tmpdir, payload):
+    return Spawned(target, world, tmpdir, payload)
+
+
+def _child(target, rank, world, store, payload_path, q):
+    torch.set_num_threads(1)
+    with open(payload_path, "rb") as f:
+        payload = pickle.load(f)
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as D
+    paddle.set_device("cpu")
+    try:
+        D.init_parallel_env(backend="gloo", rank=rank, world_size=world,
+                            init_method="file://" + store,
+                            timeout=datetime.timedelta(seconds=TIMEOUT_S))
+        out = globals()[target](rank, world, payload)
+        q.put((rank, "ok", out))
+    except BaseException:  # noqa: BLE001 — reported to the pytest process
+        q.put((rank, "error", traceback.format_exc()))
+    finally:
+        from paddle_tpu_torch.distributed import fleet
+        fleet._reset()
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+def _np(t):
+    t = t._data if hasattr(t, "_data") else t
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def _gpt(cfg, state, device="cpu"):
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    m = GPTForCausalLM(GPTConfig(**cfg), device=device)
+    m.load_numpy_state(state)
+    return m
+
+
+def _serve(model, prompts, mesh=None, sampled=None, **kw):
+    from paddle_tpu_torch.serving import LLMEngine
+    kw.setdefault("kv_layout", "paged")
+    eng = LLMEngine(model, mesh=mesh, **{
+        "max_slots": 3, "max_seq_len": 32, "min_bucket": 4,
+        "block_size": 4, "prefill_chunk": 8, **kw})
+    hs = [eng.add_request(p, max_new_tokens=5, seed=21 + i,
+                          **(sampled or {}))
+          for i, p in enumerate(prompts)]
+    n = 0
+    while not all(h.is_finished for h in hs):
+        eng.step()
+        n += 1
+        assert n < 300, "engine did not converge"
+    return [list(map(int, h.tokens)) for h in hs], eng
+
+
+def _raises(fn):
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 — the message is the result
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_mesh_serving.py
+# ---------------------------------------------------------------------------
+
+def serving_mp2(rank, world, pl):
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.profiler import counters
+    from paddle_tpu_torch.serving import LLMEngine, ServingFleet
+    prompts, sample = pl["prompts"], pl["sample"]
+    model = _gpt(pl["cfg"], pl["state"])
+    model.eval()
+    mesh = D.build_mesh({"mp": world})
+    out = {}
+    c0 = counters.snapshot()
+    out["greedy"], eng = _serve(model, prompts, mesh)
+    out["collectives"] = counters.delta(c0).get("dist.collective_launches", 0)
+    st = eng.stats()
+    out["shard_shape"] = eng.arena.shard_shape("pool_k")
+    out["kv_head_axis"] = eng.arena.kv_head_axis
+    out["mesh_tag"] = st["mesh_tag"]
+    out["disagreements"] = [st["rank_disagreements"]]
+    # a token only this rank would choose: rank 0's broadcast replaces it
+    # and the engine counts it
+    eng._agree(torch.tensor([7, 100 + rank]))
+    out["disagreements"].append(eng.stats()["rank_disagreements"])
+    out["bytes"] = (st["kv_pool_bytes_per_chip"],
+                    st["weight_bytes_per_chip"])
+    single = _serve(model, prompts[:1])[1].stats()
+    out["bytes_single"] = (single["kv_pool_bytes_per_chip"],
+                           single["weight_bytes_per_chip"])
+    out["sampled"] = _serve(model, prompts, mesh, sample)[0]
+    out["sampled_single"] = _serve(model, prompts, None, sample)[0]
+    q8 = dict(kv_dtype="int8", weight_dtype="int8")
+    out["int8_greedy"], e8 = _serve(model, prompts, mesh, **q8)
+    out["int8_sampled"] = _serve(model, prompts, mesh, sample, **q8)[0]
+    out["int8_sampled_single"] = _serve(model, prompts, None, sample,
+                                        **q8)[0]
+    out["slots_greedy"] = _serve(model, prompts, mesh,
+                                 kv_layout="slots")[0]
+    # a model built under the mesh holds its shards already (the
+    # training placements: vocabulary-split embedding); the arena keeps
+    # them
+    split = _gpt(pl["cfg"], pl["state"])
+    split.eval()
+    out["split_model_greedy"], e = _serve(split, prompts, mesh)
+    out["split_model_shapes"] = (tuple(split.wte.shape),
+                                 e.arena.shard_shape("pool_k"))
+    out["split_model_int8_greedy"], s8 = _serve(split, prompts, mesh, **q8)
+    # the int8 leaves the split model's engine holds, against the shards
+    # the arena cut from the whole model's int8 tree
+    out["split_model_int8_leaves_differ"] = sorted(
+        k for k, v in s8._w["lws"].items()
+        if v is not None and not torch.equal(v, e8._w["lws"][k]))
+    # indivisible heads: nh=3 over mp=2
+    m3 = _gpt(pl["cfg3"], pl["state3"])
+    m3.eval()
+    before = counters.get("serving.mesh.spec_degraded")
+    out["indiv_greedy"], e3 = _serve(m3, prompts, mesh)
+    out["indiv_degraded"] = counters.get("serving.mesh.spec_degraded") \
+        - before
+    out["indiv_head_axis"] = e3.arena.kv_head_axis
+    out["indiv_shape"] = e3.arena.shard_shape("pool_k")
+    # the kernel wrapper on each rank's head slice
+    a = pl["pa"]
+    hs = a["q"].shape[1] // world
+    sl = slice(rank * hs, (rank + 1) * hs)
+    for kind in ("bf16", "int8"):
+        q = torch.from_numpy(a["q"])
+        k = torch.from_numpy(a["k"])
+        v = torch.from_numpy(a["v"])
+        bt, pos = torch.from_numpy(a["bt"]), torch.from_numpy(a["pos"])
+        if kind == "bf16":
+            q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+            args = (k, v)
+        else:
+            (kq, ks), (vq, vs) = (pa.quantize_kv(t, "int8") for t in (k, v))
+            args = (kq, vq, bt, pos, ks, vs)
+        full_args = (q,) + (args if kind == "int8" else (k, v, bt, pos))
+        want = pa.paged_decode_attention(*full_args, scale=a["scale"])
+        mine = pa.sharded_paged_decode_attention(
+            mesh, "mp", q[:, sl].contiguous(),
+            *(t[:, :, sl].contiguous() for t in full_args[1:3]),
+            *full_args[3:], scale=a["scale"])
+        parts = [torch.empty_like(mine) for _ in range(world)]
+        torch.distributed.all_gather(parts, mine)
+        out[f"pa_{kind}"] = (_np(torch.cat(parts, 1)), _np(want))
+    # what a two-rank mesh still refuses
+    out["refused"] = {
+        "deadline": _raises(lambda: LLMEngine(
+            model, kv_layout="paged", mesh=mesh, max_seq_len=32).add_request(
+                [1, 2], max_new_tokens=2, deadline_s=5.0)),
+        "adapters": _raises(lambda: LLMEngine(
+            model, kv_layout="paged", mesh=mesh, max_seq_len=32,
+            adapter_slots=2)),
+        "host_tier": _raises(lambda: LLMEngine(
+            model, kv_layout="paged", mesh=mesh, max_seq_len=32,
+            host_kv_blocks=4)),
+        "migration": _raises(lambda: LLMEngine(
+            model, kv_layout="paged", mesh=mesh, max_seq_len=32).add_request(
+                [1, 2], max_new_tokens=2, hold_after_prefill=True)),
+        "draft": _raises(lambda: LLMEngine(
+            model, kv_layout="paged", mesh=mesh, max_seq_len=32,
+            draft_model=model)),
+        "fleet": _raises(lambda: ServingFleet(
+            model, replicas=1, kv_layout="paged", max_seq_len=32,
+            mesh=mesh)),
+    }
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_mesh_train.py
+# ---------------------------------------------------------------------------
+
+def _train(pl, mesh, steps=None, fused=1, scaler=None, rules=None,
+           weighted=False, batch=None):
+    """The GPT of ``pl`` trained ``steps`` AdamW steps on ``pl``'s
+    batches through the mesh step; returns (losses, gathered state,
+    step, model, optimizer)."""
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    model = _gpt(pl["cfg"], pl["state"])
+    crit = GPTPretrainingCriterion()
+    opt = AdamW(pl["lr"], parameters=model.parameters())
+
+    def loss_fn(m, ids, labels, *w):
+        loss = crit(m(ids), labels)
+        return loss * w[0].mean() if w else loss
+    step = CompiledTrainStep(model, loss_fn, opt, mesh=mesh,
+                             shard_rules=rules, fused_steps=fused,
+                             scaler=scaler)
+    ids, labels = batch or (pl["ids"], pl["labels"])
+    n = len(ids) if steps is None else steps
+    losses = []
+    for i in range(n):
+        args = [torch.from_numpy(ids[i]), torch.from_numpy(labels[i])]
+        if weighted:
+            args.append(torch.from_numpy(pl["weights"][i]))
+        losses.append(float(step(*args)))
+    return losses, model.gather_numpy_state(), step, model, opt
+
+
+def _train_checks(pl, mesh):
+    from paddle_tpu_torch.profiler import counters
+    out = {}
+    losses, state, step, model, _ = _train(pl, mesh)
+    out["losses"], out["state"] = losses, state
+    # the steady counter contract: one dispatch a call, no sync, and
+    # host-issued collectives
+    before = counters.snapshot()
+    for i in range(2):
+        step(torch.from_numpy(pl["ids"][i]),
+             torch.from_numpy(pl["labels"][i]))
+    d = counters.delta(before)
+    out["steady"] = {k: d.get(k, 0) for k in (
+        "jit.host.dispatches", "jit.steps", "jit.syncs",
+        "dist.collective_launches")}
+    return out
+
+
+def _train_dp2(pl):
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.distributed.sharding_utils import P
+    mesh = D.build_mesh({"dp": 2})
+    out = _train_checks(pl, mesh)
+    # an indivisible batch (5 rows over dp=2) stays whole: the meshless
+    # step's loss
+    five = (pl["ids5"], pl["labels5"])
+    out["indiv_losses"] = [_train(pl, m, steps=1, batch=five)[0]
+                           for m in (mesh, None)]
+    # GradScaler: an inf loss weight in one rank's rows skips the step on
+    # every rank, as the meshless step skips it
+    out["scaler"] = []
+    for m in (mesh, None):
+        sc = amp.GradScaler(init_loss_scaling=2.0 ** 10)
+        losses = _train(pl, m, scaler=sc, weighted=True)[0]
+        out["scaler"].append((losses, float(sc._state["scale"])))
+    # the sharded prefetchers: this rank's rows, bit for bit
+    ds = tio.TensorDataset([torch.from_numpy(pl["x"]),
+                            torch.from_numpy(pl["y"])])
+    loader = tio.DataLoader(ds, batch_size=4, shuffle=False)
+    out["pref"] = [[_np(t) for t in b]
+                   for b in tio.DevicePrefetcher(loader, sharding=P("dp"))]
+    out["pref_local_rows"] = all(
+        getattr(getattr(t, "_data", t), "_local_rows", False)
+        for b in tio.DevicePrefetcher(loader, sharding=P("dp")) for t in b)
+    loader3 = tio.DataLoader(ds, batch_size=3, shuffle=False)
+    out["pref_indiv"] = [[_np(t) for t in b] for b in tio.DevicePrefetcher(
+        loader3, sharding=P("dp"))]
+    out["stack"] = [[_np(t) for t in w] for w in tio.StackingPrefetcher(
+        loader, k=2, sharding=P("dp"))]
+    # the sampler reads its rank and replicas from the process group
+    s = tio.DistributedBatchSampler(list(range(10)), 2)
+    out["sampler"] = (s.nranks, s.local_rank, list(s))
+    # a window from the sharded stacking prefetcher trains as the step's
+    # own row split of the whole batch does
+    lo_ds = tio.TensorDataset([torch.from_numpy(np.concatenate(
+        pl["ids"][:4])), torch.from_numpy(np.concatenate(
+            pl["labels"][:4]))])
+    lo = tio.DataLoader(lo_ds, batch_size=pl["ids"].shape[1],
+                        shuffle=False)
+    _, _, wstep, _, _ = _train(pl, mesh, steps=0, fused=2)
+    out["window_losses"] = [float(x) for w in tio.StackingPrefetcher(
+        lo, k=2, sharding=P("dp")) for x in wstep(w)]
+    return out
+
+
+def _train_mp2(pl):
+    from paddle_tpu_torch import distributed as D
+    mesh = D.build_mesh({"mp": 2})
+    out = _train_checks(pl, mesh)
+    model = _gpt(pl["cfg"], pl["state"])
+    out["roundtrip"] = model.gather_numpy_state()
+    out["qkv_w_local"] = _np(model.qkv_w)
+    out["shapes"] = {n: tuple(t.shape) for n, t in model._weights().items()}
+    return out
+
+
+def train_2ranks(rank, world, pl):
+    """dp2, then mp2, over one group of two ranks."""
+    from paddle_tpu_torch import distributed as D
+    out = {"dp2": _train_dp2(pl)}
+    D.set_mesh(None)   # the mp2 models are built under their own mesh
+    out["mp2"] = _train_mp2(pl)
+    return out
+
+
+def train_dp2mp2(rank, world, pl):
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.sharding_utils import P
+    mesh = D.build_mesh({"dp": 2, "mp": 2})
+    out = _train_checks(pl, mesh)
+    # storage sharding from rules: wpe (held whole by the model) split
+    # over mp; its Adam moments hold this rank's slice
+    losses, state, _, model, opt = _train(pl, mesh, rules=[
+        (r"wpe$", P(None, "mp"))])
+    out["rules_losses"], out["rules_state"] = losses, state
+    out["rules_moment_shape"] = tuple(
+        opt._accumulators["moment1"][id(model._parameters["wpe"])].shape)
+    # the sharding axis: every parameter the model holds whole keeps its
+    # optimizer state split over `sharding`, its gradient reduce-scattered
+    mesh = D.build_mesh({"sharding": 2, "mp": 2})
+    losses, state, _, model, opt = _train(pl, mesh)
+    out["sharding_losses"], out["sharding_state"] = losses, state
+    out["sharding_moment_shape"] = tuple(
+        opt._accumulators["moment1"][id(model._parameters["ln1_w"])].shape)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_distributed_api.py
+# ---------------------------------------------------------------------------
+
+def _load_layer(layer, full, mesh):
+    from paddle_tpu_torch.distributed.sharding_utils import local_shard
+    for name, p in torch.nn.Module.named_parameters(layer):
+        spec = getattr(p, "placements", ())
+        with torch.no_grad():
+            p.copy_(local_shard(torch.from_numpy(full[name]), spec, mesh)
+                    if any(e is not None for e in spec) else
+                    torch.from_numpy(full[name]))
+
+
+def api_dp2mp2(rank, world, pl):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import fleet, mp_ops
+    from paddle_tpu_torch.distributed.sharding_utils import gather_shard
+    from paddle_tpu_torch.profiler import counters
+    out = {}
+    env = D.ParallelEnv()
+    out["env"] = (D.get_rank(), D.get_world_size(), env.rank, env.world_size,
+                  D.is_initialized())
+    m = D.build_mesh({"dp": 2, "mp": -1})
+    out["degrees"] = D.hybrid_degrees()
+    out["coord"] = dict(m.coord)
+    out["data_axes"] = D.data_axes()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 2, "mp_degree": 2}
+    hcg = fleet.init(is_collective=True, strategy=strategy)
+    mesh = D.get_mesh()
+    out["hcg"] = dict(
+        dp=(hcg.get_data_parallel_world_size(), hcg.get_data_parallel_rank(),
+            hcg.get_data_parallel_group().ranks),
+        mp=(hcg.get_model_parallel_world_size(),
+            hcg.get_model_parallel_rank(),
+            hcg.get_model_parallel_group().ranks),
+        stage=hcg.get_stage_id(), first=hcg.is_first_stage(),
+        workers=(fleet.worker_num(), fleet.worker_index(),
+                 fleet.is_first_worker()))
+    out["comm_list"] = {a: hcg.topology().get_comm_list(a)
+                        for a in ("dp", "mp")}
+    # -- the eager collectives
+    c0 = counters.snapshot()
+    x = torch.arange(4, dtype=torch.float32) + 10 * rank
+    r = {}
+    t = x.clone()
+    D.all_reduce(t)
+    r["all_reduce"] = _np(t)
+    t = x.clone()
+    D.all_reduce(t, op=D.ReduceOp.MAX, group="mp")
+    r["all_reduce_max_mp"] = _np(t)
+    t = x.clone()
+    D.all_reduce(t, op=D.ReduceOp.AVG, group=hcg.get_data_parallel_group())
+    r["all_reduce_avg_dp"] = _np(t)
+    lst = []
+    D.all_gather(lst, paddle.to_tensor(x.numpy()))
+    r["all_gather"] = [_np(v) for v in lst]
+    objs = []
+    D.all_gather_object(objs, {"rank": rank})
+    r["all_gather_object"] = objs
+    t = x.clone()
+    D.broadcast(t, src=3)
+    r["broadcast"] = _np(t)
+    t = x.clone()
+    D.reduce(t, dst=1)
+    r["reduce"] = _np(t)
+    t = torch.zeros(2)
+    D.reduce_scatter(t, [x[:2].clone(), x[2:].clone(), x[:2] * 2, x[2:] * 2])
+    r["reduce_scatter"] = _np(t)
+    t = torch.zeros(2)
+    D.scatter(t, [torch.full((2,), float(i)) for i in range(4)]
+              if rank == 0 else None, src=0)
+    r["scatter"] = _np(t)
+    outs = []
+    D.all_to_all(outs, [torch.full((1,), float(10 * rank + i))
+                        for i in range(4)])
+    r["all_to_all"] = [_np(v) for v in outs]
+    peer = rank ^ 1
+    t = torch.zeros(4)
+    if rank % 2 == 0:
+        D.send(x, dst=peer)
+        D.recv(t, src=peer)
+    else:
+        D.recv(t, src=peer)
+        D.send(x, dst=peer)
+    r["sendrecv"] = _np(t)
+    t = torch.zeros(4)
+    tasks = D.batch_isend_irecv([D.P2POp(D.isend, x, peer),
+                                 D.P2POp(D.irecv, t, peer)])
+    for task in tasks:
+        task.wait()
+    r["batch_p2p"] = _np(t)
+    D.barrier()
+    r["launches"] = counters.delta(c0).get("dist.collective_launches", 0)
+    out["comm"] = r
+    # -- mp_ops over the mp group
+    mr = mesh.index("mp")
+    a = torch.from_numpy(pl["a"]).requires_grad_()
+    ct = torch.from_numpy(pl["ct"])
+    g = mp_ops.gather_from_mp(mp_ops.copy_to_mp(a) * (mr + 1))
+    (g * ct).sum().backward()
+    out["mp_ops"] = {"gather": _np(g), "grad": _np(a.grad)}
+    h = torch.from_numpy(pl["a"]).requires_grad_()
+    s = mp_ops.reduce_from_mp(mp_ops.scatter_to_mp(h) * (mr + 1))
+    (s * ct[..., :s.shape[-1]]).sum().backward()
+    out["mp_ops"].update(reduce=_np(s), grad2=_np(h.grad))
+    V = pl["logits"].shape[-1]
+    lg = torch.from_numpy(pl["logits"][..., mr * V // 2:(mr + 1) * V // 2])
+    lg.requires_grad_()
+    ce = mp_ops.vocab_parallel_ce_sum(lg, torch.from_numpy(pl["labels"]))
+    ce.backward()
+    out["ce"] = (float(ce.detach()), _np(lg.grad))
+    wte = torch.from_numpy(pl["wte"])
+    vl = wte.shape[0] // 2
+    emb = mp_ops.vocab_parallel_embedding(
+        torch.from_numpy(pl["ids"]), wte[mr * vl:(mr + 1) * vl])
+    out["emb"] = _np(emb)
+    # -- the tensor-parallel layers against the JAX layers' numbers
+    paddle.seed(0)
+    lay = {"col": fleet.ColumnParallelLinear(8, 16, has_bias=True,
+                                             gather_output=True),
+           "row": fleet.RowParallelLinear(16, 8, has_bias=True),
+           "emb": fleet.VocabParallelEmbedding(32, 8)}
+    res = {}
+    for name, layer in lay.items():
+        w = pl["layers"][name]
+        _load_layer(layer, w["params"], mesh)
+        xin = paddle.to_tensor(w["x"])
+        if name != "emb":
+            xin.stop_gradient = False
+        y = layer(xin)
+        (y._data * torch.from_numpy(w["ct"])).sum().backward()
+        grads = {n: _np(gather_shard(p.grad, p.placements, mesh))
+                 for n, p in torch.nn.Module.named_parameters(layer)}
+        res[name] = {"y": _np(y), "grads": grads,
+                     "xgrad": None if name == "emb" else _np(xin._data.grad)}
+    pce = fleet.ParallelCrossEntropy()
+    w = pl["layers"]["pce"]
+    lgl = w["logits"][..., mr * 16:(mr + 1) * 16]
+    li = paddle.to_tensor(lgl)
+    li.stop_gradient = False
+    loss = pce(li, paddle.to_tensor(w["labels"]))
+    loss._data.sum().backward()
+    res["pce"] = {"y": _np(loss), "grad": _np(gather_shard(
+        li._data.grad, (None, None, "mp"), mesh))}
+    out["layers"] = res
+    # -- the RNG tracker: global streams agree, local ones differ
+    fleet.model_parallel_random_seed(7)
+    tr = fleet.get_rng_state_tracker()
+    with tr.rng_state("global_seed"):
+        gl = _np(paddle.rand([4]))
+    with tr.rng_state("local_seed"):
+        lo = _np(paddle.rand([4]))
+    out["rng"] = (gl, lo)
+    # -- DataParallel: the gradients' mean over the world
+    lin = paddle.nn.Linear(4, 2)
+    dp = D.DataParallel(lin)
+    xin = paddle.to_tensor(np.full((2, 4), float(rank + 1), np.float32))
+    dp(xin)._data.sum().backward()
+    dp.apply_collective_grads()
+    out["dp_grad"] = _np(lin.weight.grad)
+    # -- the hybrid optimizer: dp mean, clip over mp shards
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import SGD
+    col = fleet.ColumnParallelLinear(8, 16, has_bias=True,
+                                     gather_output=True)
+    _load_layer(col, pl["layers"]["col"]["params"], mesh)
+    opt = fleet.distributed_optimizer(SGD(
+        0.1, parameters=col.parameters(),
+        grad_clip=ClipGradByGlobalNorm(0.01)))
+    xin = paddle.to_tensor(pl["layers"]["col"]["x"] * (mesh.index("dp") + 1))
+    col(xin)._data.sum().backward()
+    opt.step()
+    out["hybrid_weight"] = _np(gather_shard(col.weight._data,
+                                            col.weight._data.placements,
+                                            mesh))
+    return out

@@ -17,6 +17,8 @@ Sampling is held by distribution (the two packages' random streams
 differ), never token by token across packages.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -190,17 +192,24 @@ def test_sample_tokens_follow_filtered_softmax():
     assert stat < df + 3.1 * np.sqrt(2 * df) + 12, (stat, df)
 
 
+#: what the engine reads of a mesh before it refuses a knob: its size
+_TWO_RANKS = types.SimpleNamespace(size=2)
+
+
 @pytest.mark.parametrize("knob", [
-    dict(mesh=object(), adapter_slots=2),
-    dict(mesh=object(), host_kv_blocks=8), dict(mesh=object())])
+    dict(mesh=_TWO_RANKS, adapter_slots=2),
+    dict(mesh=_TWO_RANKS, host_kv_blocks=8),
+    dict(mesh=_TWO_RANKS, draft_model="draft")])
 def test_later_slices_raise_not_implemented(models, knob):
-    """``mesh`` (tensor-parallel serving) raises naming its ROADMAP item,
-    also beside the adapter and host-tier knobs, which construct."""
+    """On a mesh of more than one rank, the adapter and host-tier knobs
+    and a draft model (the speculative engine) raise naming their
+    ROADMAP item (A7f); without the mesh the first two construct."""
     _, tm = models
     kw = dict(ENGINE, **knob)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7f"):
         LLMEngine(tm, **kw)
     del kw["mesh"]
+    kw.pop("draft_model", None)
     st = LLMEngine(tm, **kw).stats()
     assert (st["adapter_slots"], st["host_tier_capacity"]) == (
         knob.get("adapter_slots", 0), knob.get("host_kv_blocks", 0))

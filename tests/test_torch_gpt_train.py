@@ -24,6 +24,8 @@ Tolerances (each stated where it is used):
   masters only to its bound.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -418,12 +420,18 @@ def test_dropout_mask_rate_and_scale():
     torch.testing.assert_close(m(ids), plain(ids), rtol=0, atol=0)
 
 
+#: what the train step reads of a mesh before it refuses a pipeline axis
+_PP2 = types.SimpleNamespace(shape={"pp": 2, "dp": 1, "sharding": 1,
+                                    "sep": 1, "mp": 1})
+
+
 @pytest.mark.parametrize("kw,item", [
     (dict(lazy_mode=True), "A4"), (dict(optimizer="LBFGS"), "A4"),
-    (dict(mesh=object()), "A7"), (dict(sparse_grad=True), "A4")])
+    (dict(mesh=_PP2), "A7"), (dict(sparse_grad=True), "A4")])
 def test_unported_train_step_options_name_their_roadmap_item(kw, item):
     """What the training loop still refuses names its ROADMAP item: a
-    mesh (A7).  The three A4 options it once refused now train the
+    mesh with a pipeline axis (A7e; ``mesh=`` itself trains since the
+    mesh slice, ``tests/test_torch_mesh_train.py``).  The three A4 options it once refused now train the
     dygraph GPT as the JAX package does, in fp32 from the same weights
     (plain attention in both: the loop is the point), two steps:
     ``AdamW(lazy_mode=True)`` over dense gradients (the dense rule, in

@@ -165,12 +165,21 @@ def test_distributed_batch_sampler_per_rank_and_epoch(shuffle, drop_last):
 
 
 def test_what_a7_owns_raises_naming_it():
+    """What A7 owned in ``io`` works since the mesh slice: a
+    ``DistributedBatchSampler`` without ``num_replicas``/``rank`` asks
+    the process group (none here: one replica, rank 0, as the JAX
+    sampler answers in one process), and ``sharding=`` takes a partition
+    spec on a mesh; a ``sharding=`` that is no spec raises ``TypeError``
+    naming what it wants.  The sharded values are held against the JAX
+    prefetchers in ``tests/test_torch_mesh_train.py``."""
     ds = _dataset(tio, 4, "array")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tio.DistributedBatchSampler(ds, 2)
+    s = tio.DistributedBatchSampler(ds, 2)
+    js = jio.DistributedBatchSampler(_dataset(jio, 4, "array"), 2)
+    assert (s.nranks, s.local_rank) == (js.nranks, js.local_rank) == (1, 0)
+    assert list(s) == list(js)
     for cls in (tio.DevicePrefetcher, tio.StackingPrefetcher):
         args = (2,) if cls is tio.StackingPrefetcher else ()
-        with pytest.raises(NotImplementedError, match="A7"):
+        with pytest.raises(TypeError, match="partition spec"):
             cls(tio.DataLoader(ds), *args, sharding=object())
 
 
