@@ -258,6 +258,26 @@ script exits non-zero:
     one-process step, K1–K3 launches == steps x 12 x their per-layer
     count on each rank, and K1–K3 at 16 x 1024, 6 x 64 against their
     plain versions and timed.
+20c. moe_serve — GPT-3 760M widths with 8 experts a layer (top-2,
+    capacity factor 1.25), bf16, servemp's 8 requests through the paged
+    engine (K4), int8 KV + weights (K4q; the expert stacks stay bf16)
+    and the slot layout: K4/K4q launches == decode steps x 24, layer 0's
+    indexed MoE FFN against the dense ``[T, E, C]`` route at T 128 and 8
+    (dispatch bit-equal in fp32, bf16 within 2 ulps, with drops), a
+    2-layer model's decode step through K4 and its plain version by
+    ``_self_calibrated``, the 24-layer model's in fp32 within the floor;
+    decode drop share printed.
+20d. moe_train — GPT-3 125M widths with 8 experts, bf16, 8 x 1024,
+    8 single steps against a priming and a captured window of 4 (bit
+    for bit), K1–K3 launches counted, first-step loss and aux through
+    the kernels and their plain versions in bf16 and fp32.
+20e. moe_ep_2rank — moe_train's model at dp2 in two gloo processes (4
+    experts a rank, the token all-to-all) against one process on the
+    global batch beside two controls that must each fail a gate, and
+    moe_serve's model at mp2 (experts' hidden units split; its 24-layer
+    fp32 decode-step logits within the floor of the unsharded model's);
+    then K1–K3 at moe_train's shape against their plain versions and
+    timed.
 21. bert_train — BERT-large pretraining on the paddle-style surface
     (``paddle.seed(0)``, ``BertForPretraining`` at full width and depth,
     hidden dropout 0.1, recompute, ``amp.decorate`` O2 bf16,
@@ -301,8 +321,9 @@ last is the ``kernels`` JSON (K4's and K4q-int8's launches summed over
 the engine, LoRA, host-tier, migration and fleet runs; each K1–K3 row's
 ``gpt125m`` entry holds the ckpt phases' launches and the times at their
 shape; K4's and K4q-int8's rows hold the servemp shapes (16 and 8 heads
-of 96) and each K1–K3 row the 125M mp2 slice, each with its launches,
-error, times and bound); the last line is
+of 96) and moe_serve's, each K1–K3 row the 125M mp2 slice and
+moe_train's shape, each with its launches, error, times and bound); the
+last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1226,7 +1247,7 @@ def _fp32_state(w):
     compute in the dtype of the weights and K/V they are given, so one
     model object runs the same step in fp32."""
     return {k: ({n: t.float() for n, t in v.items()} if k == "lws"
-                else None if v is None else v.float())
+                else v.float() if isinstance(v, torch.Tensor) else v)
             for k, v in w.items()}
 
 
@@ -6007,6 +6028,684 @@ def mesh_train_2rank_phase():
     return rows
 
 
+# -- MoE and expert parallelism ----------------------------------------------
+
+#: every layer of the MoE phases' models has 8 experts, top-2, capacity
+#: factor 1.25 (the JAX package's defaults); the training objective adds
+#: 0.01 x the load-balancing loss (``tests/test_moe.py:184``'s objective)
+MOE_E, MOE_AUX = 8, 0.01
+#: moe_ep_2rank: the dp2 run and its two controls, each of which must
+#: fail one gate; the limits of its losses against one process on the
+#: global batch, and of each fp32 master's change (``MESH2_*``'s
+#: measures).  A bf16 MoE model routes near-ties apart between any two
+#: runs, so the sound dp2 run reads larger than a dense model's.  On an
+#: NVIDIA H100 80GB HBM3, 700.00 W: sound loss 4.66e-4, update 0.120
+#: (``fc1_w``); each rank capacitating its own tokens, loss 3.07e-3; the
+#: expert stacks' gradients all-reduced, update 0.889.  The limits lie
+#: between
+MOE_EP_RUNS = ("dp2", "local_capacity", "experts_allreduced")
+MOE_EP_LOSS_ATOL, MOE_EP_UPDATE_RTOL = 1e-3, 0.3
+#: moe_train: batch 8 x 1024, 8 single steps against a priming window and
+#: a captured window of 4
+MOE_B, MOE_STEPS = 8, 8
+#: the indexed MoE layer against the dense ``[T, E, C]`` route in bf16:
+#: the routing is the same (the same gates), the dispatch is exact, and
+#: the outputs differ only by the order of the combine's fp32 sums before
+#: the one rounding to bf16: two bf16 ulps of the output scale
+MOE_ROUTE_ULPS = 2
+#: moe_train's first step: each path's bf16 aux (a sum over the layers of
+#: bf16 values each rounded about four times: mean, count share, product
+#: and sum) within two bf16 ulps of its fp32 aux
+MOE_AUX_ULPS = 2
+
+
+def _moe_serve_cfg(num_layers=None):
+    cfg = GPTConfig.gpt3_760m(vocab_size=50304, max_seq_len=SERVEMP_S,
+                              dtype="bfloat16", num_experts=MOE_E)
+    if num_layers is not None:
+        cfg.num_layers = num_layers
+    return cfg
+
+
+def _moe_serve_model(num_layers=None):
+    """GPT-3 760M widths, 8 experts a layer, bf16, weights drawn on the
+    card from seed 0 (3.9 B parameters); under a global mesh each rank
+    keeps its shards of the same draw."""
+    return GPTForCausalLM(_moe_serve_cfg(num_layers), device="cuda",
+                          generator=torch.Generator(
+                              device="cuda").manual_seed(0))
+
+
+def _moe_train_cfg():
+    return GPTConfig.gpt3_125m(vocab_size=50304, max_seq_len=TRAIN_S,
+                               dtype="bfloat16", recompute="selective",
+                               num_experts=MOE_E)
+
+
+def _moe_train_model():
+    return GPTForCausalLM(_moe_train_cfg(), device="cuda",
+                          generator=torch.Generator(
+                              device="cuda").manual_seed(0))
+
+
+def _moe_loss():
+    crit = GPTPretrainingCriterion()
+    return lambda m, x, y: crit(m(x), y) + MOE_AUX * m.moe_aux_loss()
+
+
+def _moe_run(model, prompts, phase, mesh=None, base=0, **kw):
+    """:func:`_servemp_run` with the model's MoE drop counts gathered over
+    the counted run (``model.moe_stats``, on the device); adds
+    ``dropped_share_decode``: the share of the decode steps' routed
+    choices (T = 8 slot rows) that capacity dropped."""
+    eng = _servemp_engine(model, mesh, **kw)
+    eng.generate([prompts[0][:16]], max_new_tokens=2)
+    gc.collect()
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - base
+    model.moe_stats = {}
+    try:
+        record, handles, snap = _serve_counted(eng, prompts, SERVEMP_NEW,
+                                               phase)
+        stats = {T: (int(d), n) for T, (d, n) in model.moe_stats.items()}
+    finally:
+        model.moe_stats = None
+    st = eng.stats()
+    dec = stats.get(eng.max_slots, (0, 0))
+    record.update(kv_pool_bytes_per_chip=st["kv_pool_bytes_per_chip"],
+                  weight_bytes_per_chip=st["weight_bytes_per_chip"],
+                  mesh_tag=st["mesh_tag"], allocated_bytes=allocated,
+                  rank_disagreements=st["rank_disagreements"],
+                  moe_dropped_by_tokens={str(T): v for T, v in
+                                         sorted(stats.items())},
+                  dropped_share_decode=dec[0] / dec[1] if dec[1] else None)
+    return record, [list(map(int, h.tokens)) for h in handles], snap, eng
+
+
+@torch.no_grad()
+def _moe_route_check(lw, T, seed):
+    """Layer 0's indexed ``moe_ffn`` against the dense ``[T, E, C]`` route
+    (``moe_ffn_dense``) at ``T`` tokens: in fp32 copies of the weights
+    the dispatch must be bit-equal, in bf16 the outputs within
+    ``MOE_ROUTE_ULPS`` bf16 ulps of their scale and the aux equal; both
+    timed (CUDA events per call).  The tokens are drawn around one common
+    vector, so the router concentrates and capacity drops choices (as it
+    does in the engine's deeper layers); the check needs drops."""
+    from paddle_tpu_torch.incubate import moe
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    H = lw["gate_w"].shape[1]
+    x = (torch.randn(1, H, generator=gen, device="cuda")
+         + 0.5 * torch.randn(T, H, generator=gen, device="cuda"))
+    names = ("gate_w", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
+    w16 = [lw[n][0] for n in names]
+    w32 = [t.float() for t in w16]
+    E = w16[0].shape[-1]
+    C = moe.moe_capacity(T, E, 2, 1.25)
+    gates = torch.softmax(torch.matmul(x, w32[0]), -1)
+    dense_dispatch = moe.topk_gating(gates, 2, C)[0]
+    r = moe.route(gates, 2, C)
+    dispatch_equal = torch.equal(moe.dispatch(x, r), torch.einsum(
+        "tec,th->ech", dense_dispatch, x))
+    x16 = x.to(torch.bfloat16)
+    y, aux = moe.moe_ffn(x16, *w16)
+    yd, auxd = moe.moe_ffn_dense(x16, *w16)
+    scale = float(yd.float().abs().max())
+    err = float((y.float() - yd.float()).abs().max())
+    tol = MOE_ROUTE_ULPS * 2.0 ** -8 * scale
+    ms = {name: _time_ms(lambda i, f=f: f(x16, *w16), 10) for name, f in
+          (("indexed", moe.moe_ffn), ("dense", moe.moe_ffn_dense))}
+    out = {"T": T, "capacity": C, "dispatch_bit_equal_fp32": dispatch_equal,
+           "max_abs_err_bf16": err, "atol": tol, "output_scale": scale,
+           "aux_equal": torch.equal(aux, auxd),
+           "dropped_choices": int((r.slots == E * C).sum()),
+           "layer_ms": ms}
+    if not (dispatch_equal and err <= tol and out["aux_equal"]
+            and out["dropped_choices"] > 0 and torch.isfinite(y).all()):
+        raise AssertionError(f"moe_serve: the indexed route differs from "
+                             f"the dense one: {out}")
+    return out
+
+
+def _moe_step_logits(model, seed=4):
+    """One decode step of the MoE GPT ``model`` (a rank's shards under a
+    mesh) over 8 rows prefilled through ``prefill_paged`` from empty
+    pools: the logits through K4 and through its plain version, in bf16
+    and on fp32 copies of the same weights and K/V (``{"bf16": (k4,
+    plain), "fp32": (k4, plain)}``)."""
+    cfg = model.config
+    V, L = cfg.vocab_size, cfg.num_layers
+    hd = cfg.hidden_size // cfg.num_heads
+    nh = model.decode_state()["lws"]["qkv_w"].shape[-1] // 3 // hd
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(32, 129, 8)
+    S, bs, chunk = SERVEMP_S, 16, 128
+    max_blocks = S // bs
+    bt = torch.arange(1, 8 * max_blocks + 1, dtype=torch.int32,
+                      device="cuda").reshape(8, max_blocks)
+    tok = torch.from_numpy(rng.integers(0, V, 8).astype(np.int32)).cuda()
+    pos = torch.from_numpy(lens.astype(np.int32)).cuda()
+    prompts = [rng.integers(0, V, int(n)) for n in lens]
+    out = {}
+    for name, w, dt in (("bf16", model.decode_state(), torch.bfloat16),
+                        ("fp32", _fp32_state(model.decode_state()),
+                         torch.float32)):
+        pools = [torch.zeros((L, 8 * max_blocks + 1, bs, nh, hd), dtype=dt,
+                             device="cuda") for _ in "kv"]
+        for b, p in enumerate(prompts):
+            ids = np.zeros((1, bucket_length(len(p), 8, chunk)), np.int64)
+            ids[0, :len(p)] = p
+            model.prefill_paged(w, torch.from_numpy(ids).cuda(), 0, len(p),
+                                bt[b], *pools)
+        out[name] = [model.decode_paged(w, tok, pos, bt,
+                                        *[t.clone() for t in pools],
+                                        kernel=kernel)
+                     for kernel in (True, False)]
+        del pools, w
+    torch.cuda.synchronize()
+    return out
+
+
+def _fp32_within_floor(rec):
+    """The fp32 half of ``_self_calibrated``'s gate on one of its records:
+    the two fp32 paths' logits within ``SELF_CALIBRATED_FLOOR`` of their
+    scale.  In fp32 the 24-layer MoE model's routing holds between two
+    correct paths (their logits differ by sum order, 1e-6 of the scale),
+    so a wrong kernel or a wrong shard fails it; in bf16 the router flips
+    near-ties, and the bf16 numbers are printed."""
+    return (math.isfinite(rec["max_abs_err_fp32"])
+            and rec["max_abs_err_fp32"] <= rec["floor"])
+
+
+def _moe_in_model(logits, phase, layers):
+    """:func:`_moe_step_logits`' K4 path (a) against its plain path (b):
+    ``_self_calibrated_record``'s numbers and whether its gates pass."""
+    rec, ok = _self_calibrated_record(*logits["bf16"], *logits["fp32"],
+                                      SELF_CALIBRATED_FLOOR, "max")
+    rec.update(phase=phase, layers=layers, rows=8,
+               check="K4 (a) vs plain attention (b), bf16 and fp32",
+               passes=ok)
+    return rec, ok
+
+
+def moe_serve_phase():
+    """The MoE GPT served through the normal entry points: GPT-3 760M
+    widths (24 layers, 16 heads of 96) with 8 experts a layer, top-2,
+    capacity factor 1.25, bf16, servemp's 8 requests (32-128 prompt
+    tokens, 24 new, 8 slots, blocks of 16, chunks of 128) through
+    ``LLMEngine(kv_layout="paged")`` (K4), then with ``kv_dtype="int8"``
+    and ``weight_dtype="int8"`` (K4q; the expert stacks stay bf16), then
+    the slot layout.  Gates: K4/K4q launches == decode steps x 24 (the
+    counted runs); layer 0's indexed MoE FFN against the dense route at
+    the phase's prefill and decode T; a 2-layer model at this width held
+    by ``_self_calibrated`` (K4 vs plain, bf16 vs fp32); the 24-layer
+    model's fp32 logits through K4 and through plain attention within the
+    floor (:func:`_fp32_within_floor`; its bf16 numbers printed).  Prints decode tokens/s, step
+    ms p50, weight bytes and the share of decode choices dropped."""
+    _free_cuda()
+    m0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = _moe_serve_model()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = _servemp_prompts(model.config.vocab_size)
+    rec, toks, snap, eng = _moe_run(model, prompts, "moe_serve", base=m0)
+    route = [_moe_route_check(eng._w["lws"], T, seed)
+             for T, seed in ((128, 1), (eng.max_slots, 2))]
+    del eng
+    q8 = dict(kv_dtype="int8", weight_dtype="int8")
+    rec8, toks8, snap8, eng = _moe_run(model, prompts, "moe_serve_int8",
+                                       base=m0, **q8)
+    experts_bf16 = all(eng._w["lws"][n].dtype == torch.bfloat16
+                       for n in ("fc1_w", "fc2_w", "gate_w"))
+    quantized = sorted(k for k in eng._w["lws"] if k.endswith("__scale"))
+    del eng, snap8
+    slot = LLMEngine(model, max_slots=8, max_seq_len=SERVEMP_S)
+    slot.generate([prompts[0][:16]], max_new_tokens=2)
+    _, slot_handles, _ = _serve_counted(slot, prompts, SERVEMP_NEW,
+                                        "moe_serve_slots")
+    bar = float(np.mean([x == y for h, b in zip(slot_handles, toks)
+                         for x, y in zip(h.tokens, b)]))
+    del slot, slot_handles
+    _free_cuda()
+    step = {"24_layers": _moe_step_logits(model)}
+    full, _ = _moe_in_model(step["24_layers"], "moe_in_model_24_layers", 24)
+    two_layer = _moe_serve_model(2)
+    step["2_layers"] = _moe_step_logits(two_layer)
+    two, two_ok = _moe_in_model(step["2_layers"], "moe_in_model", 2)
+    del two_layer
+    _free_cuda()
+    record = {"phase": "moe_serve", "card": CARD,
+              "model": "gpt3_760m widths, 8 experts top-2 cf 1.25, bf16",
+              "parameters": sum(t.numel() for t in
+                                model._weights().values()),
+              "init_s": init_s, "requests": SERVEMP_N,
+              "new_tokens": SERVEMP_NEW,
+              "launches": {**rec["launches"],
+                           "paged_decode_attention_int8":
+                               rec8["launches"]["paged_decode_attention_int8"]},
+              "decode_steps": rec["decode_steps"],
+              "decode_tokens_per_s": rec["decode_tokens_per_s"],
+              "decode_step_ms_p50": rec["decode_step_ms_p50"],
+              "int8_decode_tokens_per_s": rec8["decode_tokens_per_s"],
+              "int8_decode_step_ms_p50": rec8["decode_step_ms_p50"],
+              "weight_bytes_per_chip": rec["weight_bytes_per_chip"],
+              "int8_weight_bytes_per_chip": rec8["weight_bytes_per_chip"],
+              "int8_quantized": quantized,
+              "int8_experts_left_bf16": experts_bf16,
+              "dropped_share_decode": rec["dropped_share_decode"],
+              "int8_dropped_share_decode": rec8["dropped_share_decode"],
+              "dropped_by_tokens": rec["moe_dropped_by_tokens"],
+              "slot_vs_paged_agreement": bar,
+              "int8_vs_bf16_agreement": float(np.mean(
+                  [x == y for a, b in zip(toks8, toks)
+                   for x, y in zip(a, b)])),
+              "route_vs_dense": route, "in_model_2_layers": two,
+              "in_model_24_layers_reported": full,
+              "peak_mem_gb": rec["peak_mem_gb"]}
+    emit(record)
+    if not two_ok:
+        raise AssertionError(f"moe_serve: the 2-layer in-model check "
+                             f"failed: {two}")
+    if not _fp32_within_floor(full):
+        raise AssertionError(f"moe_serve: the 24-layer model's fp32 logits "
+                             f"through K4 and through plain attention "
+                             f"differ: {full}")
+    if not experts_bf16 or any(k.split("__")[0] not in ("qkv_w", "proj_w")
+                               for k in quantized):
+        raise AssertionError(f"moe_serve: int8 PTQ touched the expert "
+                             f"stacks: {quantized}")
+    if not record["dropped_share_decode"]:
+        raise AssertionError("moe_serve: no decode step dropped a choice "
+                             f"({record['dropped_by_tokens']})")
+    rows = _head_slice_times(snap, 16, record["launches"])
+    emit({"phase": "moe_serve_times", "card": CARD, "heads": "16 x 96",
+          "kernels": rows})
+    return {"model": model, "prompts": prompts, "tokens": toks, "bar": bar,
+            "step_logits": {t: {k: v[0].cpu() for k, v in d.items()}
+                            for t, d in step.items()},
+            "unsharded_bytes": (rec["kv_pool_bytes_per_chip"]
+                                + rec["weight_bytes_per_chip"]),
+            "unsharded_allocated": rec["allocated_bytes"], "rows": rows,
+            "record": record}
+
+
+def _moe_first_step_gates(first):
+    """moe_train's first-step gates on :func:`_moe_train_first_step`'s
+    runs, self-calibrated where MoE routing allows it.  A router's top-k
+    flips on a near-tie for any perturbation, and a flip moves a token's
+    output (and, past capacity, which tokens drop), so two paths of one
+    step agree token by token in neither dtype (per-token fp32 losses of
+    the kernel and plain paths differ by up to 0.098 on an NVIDIA H100
+    80GB HBM3, 700.00 W).  Gated:
+
+    * fp32: the batch-mean loss and the aux of the kernel path (a) and
+      the plain path (b) within ``SELF_CALIBRATED_FLOOR`` of the scale
+      (the mean averages the flips away);
+    * bf16: the RMS distance of a path's per-token bf16 losses from its
+      own fp32 run, over the batch's 8192 tokens, within
+      ``ROW_RMS_FACTOR`` times the other path's (a kernel that adds error
+      in bf16 stands out against the other path's rounding and routing
+      noise; by sequence, 1024 tokens, the two paths' noise differed by
+      up to 15 %);
+    * each path's bf16 aux within ``MOE_AUX_ULPS`` bf16 ulps of its fp32
+      aux."""
+    means = {k: float(v[0].mean()) for k, v in first.items()}
+    aux = {k: float(v[1]) for k, v in first.items()}
+    floor = {n: SELF_CALIBRATED_FLOOR * max(1.0, abs(d["b32"]))
+             for n, d in (("loss", means), ("aux", aux))}
+    aux_tol = MOE_AUX_ULPS * 2.0 ** -8 * abs(aux["b32"])
+    rms = {p: (first[p + "16"][0] - first[p + "32"][0]).pow(2).mean().sqrt()
+           for p in "ab"}
+    ratio = {p: float((rms[p] / (ROW_RMS_FACTOR * rms[q]
+                                  + floor["loss"])).max())
+             for p, q in (("a", "b"), ("b", "a"))}
+    out = {"mean_loss": means, "aux": aux, "floor": floor,
+           "aux_tol": aux_tol,
+           "bf16_rms_noise": {p: float(rms[p]) for p in "ab"},
+           "noise_over_bound": ratio,
+           "fp32_token_max_abs_err": float(
+               (first["a32"][0] - first["b32"][0]).abs().max())}
+    ok = (abs(means["a32"] - means["b32"]) <= floor["loss"]
+          and abs(aux["a32"] - aux["b32"]) <= floor["aux"]
+          and all(r <= 1.0 for r in ratio.values())
+          and all(abs(aux[p + "16"] - aux[p + "32"]) <= aux_tol
+                  for p in "ab"))
+    if not ok:
+        raise AssertionError(f"moe_train first step: {out}")
+    return out
+
+
+def _moe_train_first_step(model, ids, labels):
+    """The first batch's per-token losses ``[B, S]`` and aux through the
+    kernels (a) and their plain versions (b), in bf16 and on an fp32 copy
+    of the same weights."""
+    cfg = _moe_train_cfg()
+    cfg.dtype = "float32"
+    f32 = GPTForCausalLM(cfg, device="cuda",
+                         generator=torch.Generator(
+                             device="cuda").manual_seed(0))
+    with torch.no_grad():
+        for n, t in f32._weights().items():
+            t.copy_(model._weights()[n].float())
+        out = {}
+        for tag, m in (("16", model), ("32", f32)):
+            for path, kernel in (("a", True), ("b", False)):
+                lg = m(ids, kernel=kernel).float()
+                tok = (torch.logsumexp(lg, -1)
+                       - lg.gather(-1, labels[..., None])[..., 0])
+                out[path + tag] = (tok, m.moe_aux_loss().float())
+                del lg
+    del f32
+    _free_cuda()
+    return out
+
+
+def moe_train_phase():
+    """MoE GPT training through ``CompiledTrainStep``: GPT-3 125M widths
+    (12 layers, 12 heads of 64) with 8 experts a layer (0.52 B
+    parameters), bf16, ``recompute="selective"`` (the MoE FFN replays),
+    batch 8 x 1024, :func:`_loop`'s AdamW, loss ``crit + 0.01 * aux``.
+    8 single steps, then from the same weights a priming window and a
+    captured window of ``fused_steps=4``: losses, parameters and
+    optimizer state bit for bit the single steps'.  K1–K3 launches ==
+    steps x 12 x their per-layer count in every single step and in both
+    windows (their sum is the row's count); losses finite; the first batch's
+    loss and aux through the kernels and their plain versions in bf16 and
+    fp32 held by ``_self_calibrated``.  Prints step ms p50, tokens/s,
+    peak memory and the aux."""
+    cfg = _moe_train_cfg()
+    K, L = FUSED_K, cfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    args = tuple(torch.randint(0, cfg.vocab_size, (MOE_STEPS, MOE_B,
+                                                   TRAIN_S),
+                               generator=gen, device="cuda")
+                 for _ in range(2))
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    model = _moe_train_model()
+    first = _moe_train_first_step(model, args[0][0], args[1][0])
+    calib = _moe_first_step_gates(first)
+    del first
+    runs = {}
+    for k in (1, K):
+        if k == K:
+            model = _moe_train_model()
+        sched, opt, step = _loop(model, "gpt3_125m", k=k,
+                                 loss_fn=_moe_loss(), metrics=False)
+        losses, launches, step_s, auxs = [], [], [], []
+        bounds = ([(i, i + 1) for i in range(MOE_STEPS)] if k == 1
+                  else [(0, K), (K, 2 * K)])
+        for lo, hi in bounds:
+            _reset_flash_counts()
+            before = counters.snapshot()
+            t = time.perf_counter()
+            if k == 1:
+                losses.append(step(*(a[lo] for a in args))[None])
+                auxs.append(model.moe_aux_loss().detach().float())
+            else:
+                losses.append(step(_window(args, lo, hi)))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            launches.append((counters.delta(before), _flash_counts()))
+            for _ in range(hi - lo):
+                sched.step()
+        runs[k] = (torch.cat(losses), _snapshot(model, opt), launches,
+                   step_s, auxs)
+        del model, opt, step
+        _free_cuda()
+    (l1, s1, n1, t1, auxs), (l4, s4, n4, _, _) = runs[1], runs[K]
+    per = _flash_per_layer_step(cfg.recompute)
+    want1 = {n: c * L for n, c in per.items()}
+    wantK = {n: c * L * K for n, c in per.items()}
+    step_ms = float(np.median(t1[2:])) * 1e3
+    record = {"phase": "moe_train", "card": CARD,
+              "model": "gpt3_125m widths, 8 experts top-2 cf 1.25, bf16, "
+                       "selective", "layers": L, "batch": [MOE_B, TRAIN_S],
+              "parameters": sum(t.numel() for t in s1[0]),
+              "losses": l1.tolist(), "aux": [float(a) for a in auxs],
+              "fused_bit_identical": {
+                  "losses": torch.equal(l1, l4),
+                  "state": _same_state(s1, s4)},
+              "captured_window": n4[1][0].get("jit.captures", 0),
+              "window_dispatches": n4[1][0].get("jit.host.dispatches"),
+              "launches_single": [f for _, f in n1],
+              "launches_windows": [f for _, f in n4],
+              "launches_want": {"single": want1, "window": wantK},
+              "step_ms_p50": step_ms,
+              "tokens_per_s": MOE_B * TRAIN_S / (step_ms / 1e3),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "first_step_self_calibrated": calib}
+    emit(record)
+    if not bool(torch.isfinite(l1).all()):
+        raise AssertionError(f"moe_train: non-finite losses {record}")
+    if not all(record["fused_bit_identical"].values()):
+        raise AssertionError(f"moe_train: the captured window differs "
+                             f"from 4 single steps: {record}")
+    if record["captured_window"] != 1 or record["window_dispatches"] != 1:
+        raise AssertionError(f"moe_train: no captured window: {record}")
+    if any(f != want1 for f in record["launches_single"]) \
+            or any(f != wantK for f in record["launches_windows"]):
+        raise AssertionError(f"moe_train: K1-K3 launches {record}")
+    # the launches counted in this run: every single step and both windows
+    return {n: sum(f[n] for f in record["launches_single"]
+                   + record["launches_windows"]) for n in per}
+
+
+def _moe_ep_rank(rank, world, pl):
+    """One rank of moe_ep_2rank: moe_train's model built under a dp2 mesh
+    (this rank's 4 experts of 8), 3 steps of :func:`_loop` on its rows of
+    the global batch, and two controls: the model built whole before the
+    mesh, so each rank routes and capacitates its own tokens
+    (``local_capacity``), and the expert stacks' gradients all-reduced
+    over dp as a replicated parameter's are (``experts_allreduced``);
+    then the moe_serve model built under an mp2 mesh serving moe_serve's
+    requests."""
+    from paddle_tpu_torch import distributed as D
+    ids, labels = (torch.from_numpy(pl[k]).cuda() for k in ("ids", "labels"))
+    out = {}
+    for name in MOE_EP_RUNS:
+        D.set_mesh(None)
+        if name == "local_capacity":
+            model = _moe_train_model()
+            mesh = D.build_mesh({"dp": world})
+        else:
+            mesh = D.build_mesh({"dp": world})
+            model = _moe_train_model()
+        init = model.gather_numpy_state()
+        sched, opt, step = _loop(model, "gpt3_125m", k=1, mesh=mesh,
+                                 loss_fn=_moe_loss(), metrics=False)
+        if name == "experts_allreduced":
+            step._mesh.experts = {}
+        _reset_flash_counts()
+        c0 = counters.get("dist.ep_collectives")
+        losses = []
+        for i in range(MESH2_STEPS):
+            losses.append(float(step(ids[i], labels[i])))
+            sched.step()
+        out[name] = {"losses": losses, "launches": _flash_counts(),
+                     "update_rel_err": _update_rel_err(
+                         init, _masters(model, opt), pl["d_ref"]),
+                     "fc1_w": list(model.fc1_w.shape),
+                     "ep_collectives": counters.get("dist.ep_collectives")
+                     - c0}
+        del model, opt, step, init
+        _free_cuda()
+    D.set_mesh(None)
+    mesh = D.build_mesh({"mp": world})
+    m0 = torch.cuda.memory_allocated()
+    model = _moe_serve_model()
+    rec, toks, _, eng = _moe_run(model, pl["prompts"],
+                                 f"moe_serve_mp2_rank{rank}", mesh=mesh,
+                                 base=m0)
+    del eng
+    calib = {}
+    for tag, m in (("24_layers", model), ("2_layers", None)):
+        m = m or _moe_serve_model(2)
+        step = _moe_step_logits(m)
+        want = pl["step_logits"][tag]
+        calib[tag] = _self_calibrated_record(
+            step["bf16"][0], want["bf16"].cuda(), step["fp32"][0],
+            want["fp32"].cuda(), SELF_CALIBRATED_FLOOR, "max")
+        del step, m
+    out["mp2"] = {"tokens": toks, "launches": rec["launches"],
+                  "vs_unsharded_step": calib,
+                  "vs_unsharded_passes": calib["2_layers"][1],
+                  "decode_steps": rec["decode_steps"],
+                  "decode_tokens_per_s": rec["decode_tokens_per_s"],
+                  "bytes": (rec["kv_pool_bytes_per_chip"]
+                            + rec["weight_bytes_per_chip"]),
+                  "allocated": rec["allocated_bytes"],
+                  "fc1_w": list(model.decode_state()["lws"]["fc1_w"].shape),
+                  "mesh_tag": rec["mesh_tag"],
+                  "rank_disagreements": rec["rank_disagreements"]}
+    return out
+
+
+def moe_ep_2rank_phase(ms):
+    """Expert parallelism across two processes on this card (gloo: a
+    correctness run; ``fused_steps=1``).  dp2: moe_train's model and
+    global batch of 8 x 1024 rows, each rank its 4 rows and its 4
+    experts (``fc1_w [12, 4, 768, 3072]``), 3 steps of :func:`_loop` with
+    the schedule stepped (two updates): losses within
+    ``MOE_EP_LOSS_ATOL`` of this process's one-process step on the global
+    batch, every fp32 master's change within ``MOE_EP_UPDATE_RTOL``; the
+    control that capacitates each rank's own tokens must exceed the loss
+    limit and the one that all-reduces the expert stacks' gradients the
+    update limit; K1–K3 launches == steps x 12 x their per-layer count.
+    mp2 serving: moe_serve's model built under the mesh (the experts'
+    hidden units split), its 8 requests: one decode step's logits of a
+    2-layer model at this width against the unsharded model's held by
+    ``_self_calibrated``, the 24-layer model's fp32 logits within its
+    floor of the unsharded model's (:func:`_fp32_within_floor`; its bf16
+    numbers printed), greedy agreement with the unsharded MoE engine >=
+    moe_serve's slot-vs-paged agreement (a weak bar: bf16 routing flips
+    make two correct engines of this model agree on few tokens), no rank
+    disagreement, K4 launches == decode steps x 24, per-rank KV + weight
+    bytes and device memory <= ``SERVEMP_MAX_HBM_FRAC`` of unsharded."""
+    cfg = _moe_train_cfg()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    ids, labels = (torch.randint(0, cfg.vocab_size,
+                                 (MESH2_STEPS, MOE_B, TRAIN_S),
+                                 generator=gen, device="cuda")
+                   for _ in range(2))
+    model = _moe_train_model()
+    init = model.gather_numpy_state()
+    sched, opt, step = _loop(model, "gpt3_125m", k=1, loss_fn=_moe_loss(),
+                             metrics=False)
+    ref = []
+    for i in range(MESH2_STEPS):
+        ref.append(float(step(ids[i], labels[i])))
+        sched.step()
+    d_ref = {n: v - init[n] for n, v in _masters(model, opt).items()}
+    del model, opt, step, init
+    _free_cuda()
+    res = _spawn_ranks("_moe_ep_rank", 2, {
+        "ids": ids.cpu().numpy(), "labels": labels.cpu().numpy(),
+        "d_ref": d_ref, "prompts": ms["prompts"],
+        "step_logits": ms["step_logits"]})
+    del d_ref
+    per = _flash_per_layer_step(cfg.recompute)
+    want = {n: c * cfg.num_layers * MESH2_STEPS for n, c in per.items()}
+    record = {"phase": "moe_ep_2rank", "card": CARD,
+              "model": "gpt3_125m widths, 8 experts, bf16 selective",
+              "mesh": "dp2 (gloo, 2 processes)", "batch": [MOE_B, TRAIN_S],
+              "one_process_losses": ref, "loss_atol": MOE_EP_LOSS_ATOL,
+              "update_rtol": MOE_EP_UPDATE_RTOL, "launches_want": want}
+    for name in MOE_EP_RUNS:
+        errs = [r[name]["update_rel_err"] for r in res]
+        worst_n = max((n for n in errs[0] if n != NOISE_ONLY),
+                      key=lambda n: max(e[n] for e in errs))
+        record[name] = {
+            "losses": [r[name]["losses"] for r in res],
+            "max_loss_err": max(abs(a - b) for r in res
+                                for a, b in zip(r[name]["losses"], ref)),
+            "max_update_rel_err": max(e[worst_n] for e in errs),
+            "worst_param": worst_n,
+            "noise_only_rel_err": max(e[NOISE_ONLY] for e in errs),
+            "update_rel_err_rank0": errs[0],
+            "launches": [r[name]["launches"] for r in res],
+            "ep_collectives": [r[name]["ep_collectives"] for r in res],
+            "fc1_w_shard": res[0][name]["fc1_w"]}
+    mp2 = [r["mp2"] for r in res]
+    record["mp2"] = {
+        "mesh": "mp2 (gloo, 2 processes)",
+        "agreement_with_unsharded": float(np.mean(
+            [x == y for a, b in zip(mp2[0]["tokens"], ms["tokens"])
+             for x, y in zip(a, b)])),
+        "bar": ms["bar"],
+        "rank_disagreements": [r["rank_disagreements"] for r in mp2],
+        "hbm_frac": [r["bytes"] / ms["unsharded_bytes"] for r in mp2],
+        "allocated_frac": [r["allocated"] / ms["unsharded_allocated"]
+                           for r in mp2],
+        "fc1_w_shard": mp2[0]["fc1_w"], "launches": [r["launches"]
+                                                      for r in mp2],
+        "decode_steps": mp2[0]["decode_steps"],
+        "decode_tokens_per_s": [r["decode_tokens_per_s"] for r in mp2],
+        "mesh_tag": mp2[0]["mesh_tag"],
+        "vs_unsharded_step": [r["vs_unsharded_step"] for r in mp2]}
+    emit(record)
+    r = record["dp2"]
+    if r["max_loss_err"] > MOE_EP_LOSS_ATOL \
+            or r["max_update_rel_err"] > MOE_EP_UPDATE_RTOL:
+        raise AssertionError(f"moe_ep_2rank dp2: differs from one process "
+                             f"on the global batch: {r} vs {ref}")
+    if any(l != want for l in r["launches"]) \
+            or r["fc1_w_shard"] != [cfg.num_layers, 4, 768, 3072] \
+            or not all(r["ep_collectives"]):
+        raise AssertionError(f"moe_ep_2rank dp2: launches, shards or "
+                             f"exchanges: {r}")
+    if record["local_capacity"]["max_loss_err"] <= MOE_EP_LOSS_ATOL \
+            or record["experts_allreduced"]["max_update_rel_err"] \
+            <= MOE_EP_UPDATE_RTOL:
+        raise AssertionError(
+            "moe_ep_2rank: a control passes the gate it must fail: "
+            f"{record['local_capacity']} {record['experts_allreduced']}")
+    m = record["mp2"]
+    if any(m["rank_disagreements"]) or m["mesh_tag"] != "[mp2]" \
+            or m["fc1_w_shard"] != [24, MOE_E, 1536, 3072]:
+        raise AssertionError(f"moe_ep_2rank mp2: {m}")
+    if not all(r["vs_unsharded_passes"] for r in mp2) \
+            or not all(_fp32_within_floor(r["vs_unsharded_step"]
+                                          ["24_layers"][0]) for r in mp2):
+        raise AssertionError(f"moe_ep_2rank mp2: a decode step's logits "
+                             f"against the unsharded engine's: {m}")
+    if m["agreement_with_unsharded"] < ms["bar"]:
+        raise AssertionError(f"moe_ep_2rank mp2: agreement "
+                             f"{m['agreement_with_unsharded']} < the bar "
+                             f"{ms['bar']}")
+    if max(m["hbm_frac"] + m["allocated_frac"]) > SERVEMP_MAX_HBM_FRAC:
+        raise AssertionError(f"moe_ep_2rank mp2: per-rank bytes {m}")
+    # rank 0's counts (each rank's equal ``want``, checked above)
+    return {n: record["dp2"]["launches"][0][n] for n in per}
+
+
+def moe_flash_rows(train_launches, ep_launches):
+    """K1–K3 at moe_train's shape (8 x 12 heads of 64, S 1024, causal),
+    which is each EP rank's too (its rows: 4 x 12 x 64), against their
+    plain versions and timed; returns rows by kernel."""
+    worst = dict.fromkeys(("flash_fwd", "flash_fwd_lse", "flash_bwd_dq",
+                           "flash_bwd_dkv"), 0.0)
+    ratio = dict(worst)
+    _flash_check(torch.Generator(device="cuda").manual_seed(37),
+                 [(MOE_B, 12, TRAIN_S, 64, torch.bfloat16, True)], worst,
+                 ratio)
+    errs = {"flash_fwd": max(worst["flash_fwd"], worst["flash_fwd_lse"]),
+            "flash_bwd_dq": worst["flash_bwd_dq"],
+            "flash_bwd_dkv": worst["flash_bwd_dkv"]}
+    rows = {}
+    for n, t in _flash_shape_times(MOE_B, 12, TRAIN_S, 64, True,
+                                   seed=38).items():
+        emit(t)
+        rows[n] = {"shape": t["shape"], "launches": train_launches[n],
+                   "ep_2rank_launches_per_rank": ep_launches[n],
+                   "max_abs_err": errs[n], "ms": t["kernel_us"] / 1e3,
+                   "plain_ms": t["plain_us"] / 1e3,
+                   "bound_ms": t["bound_us"] / 1e3,
+                   "bound_by": t["bound_by"],
+                   "library_ms": t["library_us"] / 1e3,
+                   "share_of_bound": t["share_of_bound"]}
+    return rows
+
 
 def _free_cuda():
     gc.collect()
@@ -6089,6 +6788,17 @@ def main():
     _free_cuda()
     mesh2_rows = mesh_train_2rank_phase()
     _free_cuda()
+    ms = moe_serve_phase()
+    moe_serve_rows = ms.pop("rows")
+    del ms["model"]
+    _free_cuda()
+    moe_train_launches = moe_train_phase()
+    _free_cuda()
+    moe_ep_launches = moe_ep_2rank_phase(ms)
+    del ms
+    _free_cuda()
+    moe_flash = moe_flash_rows(moe_train_launches, moe_ep_launches)
+    _free_cuda()
     bert = bert_train_phase()
     _free_cuda()
     bert_in_model_phase()
@@ -6107,8 +6817,12 @@ def main():
         if row["name"] in sm_rows:
             row["servemp_760m_16x96"] = sm_rows[row["name"]]
             row["servemp_mp2_8x96"] = mp2_rows[row["name"]]
+        if row["name"] in moe_serve_rows:
+            row["moe_serve_760m_8experts_16x96"] = moe_serve_rows[
+                row["name"]]
     for row in flash_rows:
         row["gpt125m_mp2_6x64"] = mesh2_rows[row["name"]]
+        row["moe_train_125m_8experts_8x12x64"] = moe_flash[row["name"]]
         row["mesh_train_one_rank_launches"] = mesh_launches[row["name"]]
     torch.cuda.synchronize()
     emit({"phase": "total", "run_s": time.perf_counter() - t_start})

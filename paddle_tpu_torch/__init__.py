@@ -44,7 +44,11 @@ far it holds, with every Pallas kernel of the reference:
   (one process a rank over ``torch.distributed``), the eager
   collectives, ``fleet``, the tensor-parallel GPT,
   ``LLMEngine(mesh=...)`` (K4/K4q on each rank's heads) and
-  ``CompiledTrainStep(mesh=...)``.
+  ``CompiledTrainStep(mesh=...)``;
+* Mixture-of-Experts — ``incubate.moe`` (the GShard top-k MoE FFN,
+  ``MoELayer``), the MoE GPT (``GPTConfig(num_experts=E)``) trained and
+  served through the same entry points, its experts split over ``dp``
+  on the mesh (expert parallelism) and their hidden units over ``mp``.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"`` or calls ``set_device("cpu")``; without a GPU and
@@ -52,7 +56,7 @@ without an explicit device the model raises instead of landing on the
 CPU.
 """
 
-from . import amp, distributed, flags, io, nn, optimizer
+from . import amp, distributed, flags, incubate, io, nn, optimizer
 from .core.autograd import grad
 from .core.dtype import (bfloat16, bool_, float16, float32, float64, int8,
                          int16, int32, int64, uint8)
@@ -81,7 +85,7 @@ __all__ = ["Adam", "AdamW", "BertConfig", "BertForPretraining", "BertModel",
            "bernoulli", "bfloat16", "bool_", "concat", "distributed",
            "enable_grad", "expand", "flags", "float16", "float32", "float64",
            "full", "full_like", "get_device", "get_rng_state", "grad",
-           "int16", "int32", "int64", "int8", "io", "matmul", "nn",
+           "incubate", "int16", "int32", "int64", "int8", "io", "matmul", "nn",
            "no_grad", "normal", "ones", "ones_like", "optimizer", "rand",
            "randint", "randn", "reshape", "seed", "set_device",
            "set_rng_state", "to_tensor", "transpose", "uint8", "uniform",

@@ -7,9 +7,11 @@ the eager collectives (``communication``), partition specs and their
 rules (``sharding_utils``), Megatron's tensor-parallel primitives
 (``mp_ops``), ``fleet`` (``init``, the hybrid communicate group, the
 tensor-parallel layers, the hybrid optimizer, ``recompute``),
-``DataParallel``, and the one-process ``checkpoint``.  MoE, sequence,
+``DataParallel``, and the one-process ``checkpoint``.  Expert
+parallelism (MoE experts split over ``dp``, their token all-to-all) is
+``incubate.moe``'s, run by the MoE GPT and ``jit.mesh``.  Sequence,
 context and pipeline parallelism, multi-process checkpoints and the
-launchers are ROADMAP.md A7b–A7h.
+launchers are ROADMAP.md A7c–A7h.
 """
 
 from . import checkpoint, fleet

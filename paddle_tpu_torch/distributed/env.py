@@ -24,6 +24,7 @@ rendezvouses through an in-process ``HashStore`` (no network).
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 
@@ -36,6 +37,7 @@ AXIS_ORDER = ("pp", "dp", "sharding", "sep", "mp")
 _GLOBAL_MESH = [None]
 _HYBRID_DEGREES = dict.fromkeys(AXIS_ORDER, 1)
 _INITIALIZED = [False]
+_ROW_AXES = [()]
 
 
 def is_initialized():
@@ -277,3 +279,22 @@ def data_axes():
     their degree is above 1, else ``("dp",)``."""
     axes = [a for a in ("dp", "sharding") if _HYBRID_DEGREES.get(a, 1) > 1]
     return tuple(axes) if axes else ("dp",)
+
+
+def row_axes():
+    """The mesh axes over which the batch the running forward sees is
+    split, each rank holding its own rows: ``()`` (every rank holds the
+    whole batch) unless the innermost :func:`rows_split_over` says
+    otherwise.  The mesh train step sets it from the rows it hands its
+    rank; the MoE layers read it to route the global batch."""
+    return _ROW_AXES[0]
+
+
+@contextlib.contextmanager
+def rows_split_over(axes):
+    """Within the block, :func:`row_axes` is ``axes``."""
+    prev, _ROW_AXES[0] = _ROW_AXES[0], tuple(axes)
+    try:
+        yield
+    finally:
+        _ROW_AXES[0] = prev

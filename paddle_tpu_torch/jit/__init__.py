@@ -99,6 +99,7 @@ import torch
 from .. import flags
 from ..core.state import STATE
 from ..core.tensor import unwrap
+from ..distributed.env import rows_split_over
 from ..io import Window
 from ..kernels import count_launch, launch_counted
 from ..nn.clip import sum_sq
@@ -190,8 +191,10 @@ class CompiledTrainStep:
         # the body takes the dense path where eager code makes SelectedRows
         # (a CUDA graph records shapes; JAX traces the same way)
         STATE.tracing_depth += 1
+        tokens = (contextlib.nullcontext() if self._mesh is None
+                  else rows_split_over(self._mesh.row_axes))
         try:
-            with torch.enable_grad():
+            with torch.enable_grad(), tokens:
                 loss = unwrap(self.loss_fn(model, *args))
                 (loss if scaler is None else scaler.scale(loss)).backward()
         finally:

@@ -25,6 +25,15 @@ it leaves to XLA).
   layers) keep their shards; their collectives run inside the model.
   Their squares are summed over the axes they are split on before the
   global-norm clip, and so are storage slices'.
+* **expert parallelism** — a shard split over a data axis (an MoE
+  model's expert stacks over ``dp``) holds experts no other rank of
+  that axis holds; the reverse all-to-all of its layer has already
+  summed every rank's tokens into its gradient, so it is all-reduced
+  only over the other data axes before the division by their degree.
+  The MoE layers see the tokens as split over the batch axes when the
+  step split the batch or a sharded prefetcher handed it this rank's
+  rows, over none when it stayed whole (:meth:`MeshPlan.rows` decides;
+  the step runs its forward under ``distributed.env.rows_split_over``).
 * **GradScaler** — the overflow flag is the maximum over every rank.
 
 A world of one runs the same code: every collective goes over a group
@@ -87,6 +96,9 @@ class MeshPlan:
                                       shard_rules or (), default=None)
         self.storage = {}   # id(p) -> spec of its storage sharding
         self.split = {}     # id(p) -> axes its model-held shard splits on
+        self.experts = {}   # id(p) -> data axes its shard splits on
+        #: the batch axes this rank's rows of the last call split over
+        self.row_axes = ()
         for name, p in named:
             if getattr(p, "is_distributed", False):
                 if ruled[name] is not None and any(ruled[name]):
@@ -97,6 +109,10 @@ class MeshPlan:
                              for a in _axes_of(e))
                 if axes and mesh.degree(axes) > 1:
                     self.split[id(p)] = axes
+                ep = tuple(a for a in axes if a in self.data_axes
+                           and mesh.degree(a) > 1)
+                if ep:
+                    self.experts[id(p)] = ep
                 continue
             spec = ruled[name]
             placed = getattr(p, "placements", None)
@@ -121,10 +137,12 @@ class MeshPlan:
         n = self.mesh.degree(self.batch_axes) if self.batch_axes else 1
         d = 1 if stacked else 0
         ts = [a for a in args if isinstance(a, torch.Tensor) and a.dim() > d]
-        if n == 1 or not ts or any(t.shape[d] % n for t in ts) or any(
-                getattr(t, "_local_rows", False) for t in ts):
+        local = any(getattr(t, "_local_rows", False) for t in ts)
+        if n == 1 or not ts or any(t.shape[d] % n for t in ts) or local:
             # (a sharded prefetcher's tensors hold this rank's rows)
+            self.row_axes = self.batch_axes if local else ()
             return args
+        self.row_axes = self.batch_axes
         i = self.mesh.index(self.batch_axes)
         return tuple(a.narrow(d, i * (a.shape[d] // n), a.shape[d] // n)
                      if isinstance(a, torch.Tensor) and a.dim() > d else a
@@ -170,6 +188,13 @@ class MeshPlan:
                 continue
             spec = self.storage.get(id(p))
             local = None if spec is None else self._reduce_scatter(g, spec)
+            ep = self.experts.get(id(p))
+            if ep is not None:
+                rest = tuple(a for a in self.data_axes if a not in ep)
+                if rest:
+                    _tick()
+                    dist.all_reduce(g, group=self.mesh.group(rest))
+                local = g
             if local is None:
                 _tick()
                 dist.all_reduce(g, group=self.data_group)

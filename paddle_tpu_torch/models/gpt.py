@@ -43,6 +43,19 @@ stands behind it).
 
 Every serving entry point runs one layer loop (``_layers``); they
 differ only in how a layer writes its new K/V and attends.
+
+Mixture-of-Experts: ``GPTConfig(num_experts=E)`` makes every layer's FFN
+a GShard top-k MoE FFN (``incubate.moe.moe_ffn``; the JAX package reads
+no ``moe_every``) over the stacks ``gate_w [L, H, E]``, ``fc1_w [L, E,
+H, F]``, ``fc1_b [L, E, F]``, ``fc2_w [L, E, F, H]`` and ``fc2_b [L, E,
+H]``.  The training forward sums the layers' load-balancing losses
+(:meth:`GPTForCausalLM.moe_aux_loss`); the serving entry points drop
+them, and every row of a launch routes and takes capacity (prefill
+padding, idle decode rows), as in the JAX package.  Built under a mesh,
+the experts split over ``dp`` when ``E`` divides its degree (expert
+parallelism: the tokens meet their experts by all-to-all, and routing,
+capacity and the loss are the global batch's) and their hidden units
+over ``mp``.
 """
 
 from __future__ import annotations
@@ -58,9 +71,10 @@ from torch.utils.checkpoint import checkpoint
 from ..core.dispatch import apply_op
 from ..core.tensor import Tensor, _to_torch
 from ..distributed import mp_ops
-from ..distributed.env import get_mesh
-from ..distributed.sharding_utils import (P, gather_shard, local_shard,
-                                          validate_spec)
+from ..distributed.env import get_mesh, row_axes
+from ..distributed.sharding_utils import (P, _axes_of, gather_shard,
+                                          local_shard, validate_spec)
+from ..incubate import moe as _moe
 from ..kernels import paged_attention as _pa
 from ..kernels._shapes import NEG_INF
 from ..kernels.flash_attention import flash_attention_fwd, reference_attention
@@ -137,6 +151,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 #: per-layer parameters stacked on a leading [L] axis
 _STACKED = ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
             "ln2_w", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
+#: an MoE model's stacks: the router last, as in the JAX ``_stacked``
+_STACKED_MOE = _STACKED + ("gate_w",)
 
 
 def _norm(x, w, b, eps):
@@ -288,6 +304,20 @@ PLACEMENTS = {
     "fc2_w": P(None, "mp", None), "lm_head": P(None, "mp"),
 }
 
+
+def moe_placements(num_experts, ffn_hidden, mesh):
+    """The JAX placements of an MoE model's expert stacks (``gpt.py``
+    ``mk``): the expert axis over ``dp`` when ``num_experts`` divides its
+    degree (expert parallelism), the hidden axis over ``mp`` when
+    ``ffn_hidden`` divides its degree (column-parallel ``fc1``,
+    row-parallel ``fc2``), each all or nothing across the stacks; the
+    router replicated."""
+    ep = "dp" if num_experts % mesh.degree("dp") == 0 else None
+    mp = "mp" if ffn_hidden % mesh.degree("mp") == 0 else None
+    return {"gate_w": P(), "fc1_w": P(None, ep, None, mp),
+            "fc1_b": P(None, ep, mp), "fc2_w": P(None, ep, mp, None),
+            "fc2_b": P(None, ep, None)}
+
 #: leaves whose split dimension is the fused ``[q | k | v]`` columns:
 #: rank r keeps its heads of q, of k and of v, so it computes locally
 _FUSED = {"qkv_w": 3, "qkv_b": 3, "qkv_w__scale": 3}
@@ -343,7 +373,12 @@ class TensorParallel:
         self.mesh, self.axis, self.specs = mesh, axis, dict(specs)
         self.degree = mesh.degree(axis)
         self.attn = _split(self.specs.get("qkv_w"))
-        self.ffn = _split(self.specs.get("fc1_w"))
+        fc1 = self.specs.get("fc1_w") or P()
+        # the FFN's hidden units split over ``axis``; an MoE stack [L, E,
+        # H, F] may also split its experts (``expert_axis``)
+        self.ffn = bool(fc1) and axis in _axes_of(fc1[-1])
+        self.expert_axis = (fc1[1] if len(fc1) == 4 and fc1[1] is not None
+                            else None)
 
     def spec(self, name):
         return self.specs.get(name, P())
@@ -428,14 +463,14 @@ class GPTForCausalLM(Layer):
     #: masks from when the caller passes none (an instance attribute,
     #: set in ``__init__``, in place of ``Layer``'s property)
     dropout_generator = None
+    #: a dict that gathers each MoE call's dropped and routed choices by
+    #: token count on the device (``incubate.moe.moe_ffn``'s ``stats``);
+    #: None (the default) gathers nothing
+    moe_stats = None
 
     def __init__(self, config: GPTConfig, device=None, generator=None):
         super().__init__()
         c = self.config = config
-        if c.num_experts > 0:
-            raise NotImplementedError(
-                "MoE GPT (num_experts > 0) is not ported yet: ROADMAP.md "
-                "A7b (MoE and expert parallelism)")
         for flag, on, item in (
                 ("sequence_parallel", c.sequence_parallel,
                  "A7c (sequence parallelism)"),
@@ -459,6 +494,7 @@ class GPTForCausalLM(Layer):
             generator = torch.Generator().manual_seed(0)
         H, L, V, S = c.hidden_size, c.num_layers, c.vocab_size, c.max_seq_len
         F_ = c.ffn_hidden_size
+        E = c.num_experts
         std = c.initializer_range
         shapes = {"wte": (V, H), "wpe": (S, H), "ln1_w": (L, H),
                   "ln1_b": (L, H), "qkv_w": (L, H, 3 * H),
@@ -466,14 +502,24 @@ class GPTForCausalLM(Layer):
                   "ln2_w": (L, H), "ln2_b": (L, H), "fc1_w": (L, H, F_),
                   "fc1_b": (L, F_), "fc2_w": (L, F_, H), "fc2_b": (L, H),
                   "lnf_w": (H,), "lnf_b": (H,), "lm_head": (H, V)}
+        if E > 0:
+            # every layer's FFN is a GShard MoE over E experts (the JAX
+            # package reads no ``moe_every``)
+            shapes.update(gate_w=(L, H, E), fc1_w=(L, E, H, F_),
+                          fc1_b=(L, E, F_), fc2_w=(L, E, F_, H),
+                          fc2_b=(L, E, H))
+        self._stacked = _STACKED_MOE if E > 0 else _STACKED
         # under a global mesh each rank holds its shard of every split
         # parameter (the JAX placements, degraded where they do not
         # divide) and runs the Megatron forward (TensorParallel)
         mesh = get_mesh()
         self._tp = None
         if mesh is not None:
+            place = dict(PLACEMENTS)
+            if E > 0:
+                place.update(moe_placements(E, F_, mesh))
             specs = {n: validate_spec(sp, shapes[n], mesh, name=n)
-                     for n, sp in PLACEMENTS.items()}
+                     for n, sp in place.items()}
             specs = resolve_tp_specs(specs, c.num_heads, mesh)
             specs["head"] = specs["lm_head"]
             self._tp = TensorParallel(mesh, specs)
@@ -497,7 +543,7 @@ class GPTForCausalLM(Layer):
             # stacked weight never needs an fp32 copy of itself; a shard
             # keeps its piece of the same draw
             shape = shapes[name]
-            stacked = len(shape) == 3
+            stacked = len(shape) >= 3
             p = torch.empty(local_shape(name), dtype=dt, device=dev)
             for part in (p if stacked else (p,)):
                 r = torch.empty(shape[1:] if stacked else shape,
@@ -526,6 +572,8 @@ class GPTForCausalLM(Layer):
         self.fc1_b = const("fc1_b", 0.0)
         self.fc2_w = normal("fc2_w")
         self.fc2_b = const("fc2_b", 0.0)
+        if E > 0:
+            self.gate_w = normal("gate_w")
         self.lnf_w = const("lnf_w", 1.0)
         self.lnf_b = const("lnf_b", 0.0)
         if not c.tie_word_embeddings:
@@ -603,7 +651,7 @@ class GPTForCausalLM(Layer):
         # the JAX op's operand order: wte, lnf_w, lnf_b, wpe, the stacked
         # weights, lm_head
         w = self._weights()
-        names = [n for n in ("wte", "lnf_w", "lnf_b", "wpe", *_STACKED,
+        names = [n for n in ("wte", "lnf_w", "lnf_b", "wpe", *self._stacked,
                              "lm_head") if n in w]
 
         def fn(ids, *ws):
@@ -611,9 +659,45 @@ class GPTForCausalLM(Layer):
                                  kernel)
 
         ws = [w[n] for n in names]
-        if isinstance(input_ids, Tensor):
-            return apply_op("gpt_forward", fn, input_ids, *ws)
-        return fn(input_ids, *ws)
+        wrap = isinstance(input_ids, Tensor)
+        out = (apply_op("gpt_forward", fn, input_ids, *ws) if wrap
+               else fn(input_ids, *ws))
+        self._moe_wrap = wrap
+        if isinstance(out, tuple):
+            out, self._moe_aux = out
+            return out
+        self._moe_aux = None
+        return out
+
+    def moe_aux_loss(self):
+        """The MoE load-balancing loss of the last forward, summed over
+        the layers (fp32, unweighted), or a zero scalar for a dense model,
+        as in the JAX package: add ``model.moe_aux_loss() * coeff`` to
+        the training loss.  A ``Tensor`` after a ``Tensor`` forward, a
+        torch tensor after a torch one."""
+        aux = getattr(self, "_moe_aux", None)
+        wrap = getattr(self, "_moe_wrap", True)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=self.device)
+            return Tensor._wrap(aux) if wrap else aux
+        return aux
+
+    def _moe_parallel(self, tp, tokens):
+        """The :class:`incubate.moe.ExpertParallel` of this model's MoE
+        layers under ``tp`` (None without a mesh): the experts' axis and
+        their hidden units' axis from the placements, the tokens split
+        over ``tokens``."""
+        if tp is None or self.config.num_experts == 0:
+            return None
+        return _moe.ExpertParallel(tp.mesh, tokens, tp.expert_axis,
+                                   tp.axis if tp.ffn else None)
+
+    def _moe(self, x, lw, ep):
+        c = self.config
+        return _moe.moe_ffn(x, lw["gate_w"], lw["fc1_w"], lw["fc1_b"],
+                            lw["fc2_w"], lw["fc2_b"], top_k=c.moe_top_k,
+                            capacity_factor=c.moe_capacity_factor, ep=ep,
+                            stats=self.moe_stats)
 
     def _forward(self, input_ids, w, generator, kernel):
         c = self.config
@@ -629,24 +713,37 @@ class GPTForCausalLM(Layer):
                                       device=input_ids.device))
         drop = self.training and c.dropout > 0
         gen = self.dropout_generator if generator is None else generator
-        layers = {n: w[n].unbind(0) for n in _STACKED}
+        layers = {n: w[n].unbind(0) for n in self._stacked}
+        ep = (None if tp is None
+              else self._moe_parallel(tp, row_axes()))
+        auxs = []
         for l in range(L):
             lw = {n: t[l] for n, t in layers.items()}
             keep = (tuple(_keep_mask(h.shape, c.dropout, gen, h.device)
                           for _ in range(2)) if drop else None)
-            h = self._block(h, lw, keep, kernel)
+            h = self._block(h, lw, keep, kernel, ep)
+            if c.num_experts > 0:
+                h, aux = h
+                auxs.append(aux)
         h = _norm(h, w["lnf_w"], w["lnf_b"], c.layer_norm_epsilon)
         head = w["wte"].T if c.tie_word_embeddings else w["lm_head"]
         if tp is None:
-            return torch.matmul(h, head)
-        return tp.logits(h, head, "wte" if c.tie_word_embeddings
-                         else "lm_head")
+            logits = torch.matmul(h, head)
+        else:
+            logits = tp.logits(h, head, "wte" if c.tie_word_embeddings
+                               else "lm_head")
+        if auxs:
+            return logits, torch.stack(auxs).sum()
+        return logits
 
-    def _block(self, h, lw, keep, kernel):
+    def _block(self, h, lw, keep, kernel, ep=None):
         """One transformer block, cut into stages at the activations that
         recompute keeps: ``qkv``, ``attn_out`` and ``ffn_up`` (JAX
         ``checkpoint_name``s).  A checkpointed stage saves only its
-        inputs and replays the rest in the backward."""
+        inputs and replays the rest in the backward.  An MoE block
+        returns ``(h, aux)``; its FFN has no ``ffn_up`` to keep, so
+        ``"selective"`` replays it as ``"selective_lean"`` does (routing
+        and dropout replay identically: the same inputs and masks)."""
         c = self.config
         eps = c.layer_norm_epsilon
         drop = (None if keep is None else
@@ -685,9 +782,16 @@ class GPTForCausalLM(Layer):
                  + lw["fc2_b"])
             return h2 + (f if drop is None else drop(f, 1))
 
+        moe = self.config.num_experts > 0
+
+        def moe_ffn(h2):
+            x = _norm(h2, lw["ln2_w"], lw["ln2_b"], eps)
+            f, aux = self._moe(x, lw, ep)
+            return h2 + (f if drop is None else drop(f, 1)), aux
+
         def after_attn(h, o):
             h2 = post_attn(h, o)
-            return ffn(h2, up_of(h2))
+            return moe_ffn(h2) if moe else ffn(h2, up_of(h2))
 
         def whole(h):
             return after_attn(h, attend(qkv_of(h)))
@@ -704,7 +808,7 @@ class GPTForCausalLM(Layer):
         if mode is True:
             return ckpt(whole, h)
         o = ckpt(attend, ckpt(qkv_of, h))
-        if mode == "selective_lean":
+        if mode == "selective_lean" or moe:
             return ckpt(after_attn, h, o)
         # keeping ffn_up but not the residual stream between the two
         # stages, so each stage replays the projection from attn_out
@@ -717,7 +821,7 @@ class GPTForCausalLM(Layer):
         parameters themselves (no copies)."""
         w = self._weights()
         return {
-            "lws": {n: w[n] for n in _STACKED},
+            "lws": {n: w[n] for n in self._stacked},
             "wte": w["wte"],
             "wpe": w.get("wpe"),
             "lnf_w": w["lnf_w"],
@@ -729,6 +833,12 @@ class GPTForCausalLM(Layer):
     def _ffn(self, h, lw, al=None, aids=None, tp=None):
         _, row_out = _tp_io(tp)
         x = _norm(h, lw["ln2_w"], lw["ln2_b"], self.config.layer_norm_epsilon)
+        if self.config.num_experts > 0:
+            # every row of the launch routes (padding and idle rows
+            # included) and the loss is dropped, as JAX's ``_aux``; the
+            # serving tokens are replicated over the mesh
+            f, _ = self._moe(x, lw, self._moe_parallel(tp, ()))
+            return h + f
         up = _mm_lora(x, lw, "fc1_w", al, aids) + lw["fc1_b"]
         return h + (row_out(_mm_lora(F.gelu(up, approximate="tanh"), lw,
                                      "fc2_w", al, aids), "ffn")

@@ -6,7 +6,8 @@ pools (and their scale pools) — and decides, leaf by leaf, what this
 rank holds:
 
 * **placement** — with a mesh, every declared leaf gets a spec from
-  :data:`DEFAULT_SHARD_RULES` (or the caller's rules in front of them)
+  :data:`DEFAULT_SHARD_RULES` (an MoE model's expert stacks from
+  :data:`EXPERT_SHARD_RULES`; the caller's rules in front of either)
   through ``distributed.sharding_utils.infer_partition_specs`` /
   ``validate_spec``, and the arena keeps **this rank's local shard**;
   the model's ``TensorParallel`` then runs the Megatron forward over
@@ -62,6 +63,23 @@ DEFAULT_SHARD_RULES = (
     (r"head$", P("mp", None)),
 )
 
+#: The defaults of an MoE model's expert stacks ``fc1_w [L, E, H, F]``,
+#: ``fc1_b [L, E, F]`` and ``fc2_w [L, E, F, H]``, which take them in
+#: place of the dense rules of the same names: their hidden units ``F``
+#: split over ``mp`` (a local shard computes what it cuts); the router
+#: ``gate_w`` and ``fc2_b`` replicate.  The JAX rules, written for 3-D
+#: stacks, name other dimensions of a 4-D one; GSPMD keeps the math
+#: whatever the placement, local shards do not.  A caller's rules stand
+#: in front of these as of the dense ones.
+EXPERT_SHARD_RULES = (
+    (r"fc1_w$", P(None, None, None, "mp")),
+    (r"fc1_b$", P(None, None, "mp")),
+    (r"fc2_w$", P(None, None, "mp", None)),
+)
+
+#: the rank of each expert stack (a dense model's stacks have one less)
+_EXPERT_DIMS = {"fc1_w": 4, "fc1_b": 3, "fc2_w": 4}
+
 #: KV pools ``[L, n_blocks, bs, nh, hd]`` (and the slot arena ``[L, B,
 #: S, nh, hd]``) split their head axis
 KV_POOL_SPEC = P(None, None, None, "mp", None)
@@ -81,8 +99,8 @@ class StateArena:
 
     def __init__(self, mesh=None, shard_rules=None):
         self.mesh = mesh
-        self.shard_rules = (tuple(shard_rules) + tuple(DEFAULT_SHARD_RULES)
-                            if shard_rules else DEFAULT_SHARD_RULES)
+        self.user_rules = tuple(shard_rules or ())
+        self.shard_rules = self.user_rules + DEFAULT_SHARD_RULES
         self._state = {}
         #: True once a declared KV pool's head axis actually split
         self.kv_head_axis = False
@@ -161,9 +179,16 @@ class StateArena:
             self._state[name] = tree
             return tree
         from ..models.gpt import TensorParallel, resolve_tp_specs
+        lws = tree["lws"]
+        experts = {k: v for k, v in lws.items() if v is not None
+                   and v.dim() == _EXPERT_DIMS.get(k)}
+        rest = {k: v for k, v in tree.items() if k != "tp"}
+        rest["lws"] = {k: v for k, v in lws.items() if k not in experts}
         specs = _flatten(infer_partition_specs(
-            {k: v for k, v in tree.items() if k != "tp"}, self.mesh,
-            self.shard_rules, on_fallback=self._degraded))
+            rest, self.mesh, self.shard_rules, on_fallback=self._degraded))
+        specs.update(infer_partition_specs(
+            experts, self.mesh, self.user_rules + EXPERT_SHARD_RULES,
+            on_fallback=self._degraded))
         specs = resolve_tp_specs(specs, num_heads, self.mesh,
                                  on_fallback=self._degraded)
         tp = TensorParallel(self.mesh, specs)
@@ -203,4 +228,5 @@ class StateArena:
         return None if entry is None else tuple(entry.shape)
 
 
-__all__ = ["DEFAULT_SHARD_RULES", "KV_POOL_SPEC", "StateArena"]
+__all__ = ["DEFAULT_SHARD_RULES", "EXPERT_SHARD_RULES", "KV_POOL_SPEC",
+           "StateArena"]

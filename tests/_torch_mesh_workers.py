@@ -579,3 +579,86 @@ def api_dp2mp2(rank, world, pl):
                                             col.weight._data.placements,
                                             mesh))
     return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_moe_mesh.py
+# ---------------------------------------------------------------------------
+
+def _moe_loss(crit):
+    def loss_fn(m, ids, labels):
+        return crit(m(ids), labels) + 0.01 * m.moe_aux_loss()
+    return loss_fn
+
+
+def _moe_train(pl, mesh, control=False):
+    """The MoE GPT of ``pl`` built under ``mesh`` and trained
+    ``len(pl["ids"])`` AdamW steps on the global batches through the
+    mesh step (``control``: the expert stacks' gradients all-reduced over
+    dp as a replicated parameter's are)."""
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    model = _gpt(pl["cfg"], pl["state"])
+    opt = AdamW(pl["lr"], parameters=model.parameters())
+    step = CompiledTrainStep(model, _moe_loss(GPTPretrainingCriterion()),
+                             opt, mesh=mesh)
+    if control:
+        step._mesh.experts = {}
+    losses = [float(step(torch.from_numpy(x), torch.from_numpy(y)))
+              for x, y in zip(pl["ids"], pl["labels"])]
+    return losses, model.gather_numpy_state(), model
+
+
+def moe_2ranks(rank, world, pl):
+    """dp2 expert-parallel training, then mp2 MoE serving, over one group
+    of two ranks."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.env import rows_split_over
+    from paddle_tpu_torch.profiler import counters
+    out = {}
+    mesh = D.build_mesh({"dp": world})
+    c0 = counters.snapshot()
+    out["losses"], out["state"], model = _moe_train(pl, mesh)
+    out["ep_collectives"] = counters.delta(c0).get("dist.ep_collectives", 0)
+    out["shapes"] = {n: tuple(t.shape) for n, t in model._weights().items()}
+    out["placements"] = {n: tuple(getattr(t, "placements", ()))
+                         for n, t in model._weights().items()}
+    # the first batch's aux at the initial weights, from this rank's rows
+    # (an eager forward says that its rows are this rank's own)
+    fresh = _gpt(pl["cfg"], pl["state"])
+    half = pl["ids"].shape[1] // world
+    rows = torch.from_numpy(pl["ids"][0][rank * half:(rank + 1) * half])
+    out["whole_batch_refused"] = _raises(lambda: fresh(rows))
+    with rows_split_over(("dp",)):
+        fresh(rows)
+    out["aux0"] = float(fresh.moe_aux_loss().detach())
+    out["control_losses"], out["control_state"], _ = _moe_train(
+        pl, mesh, control=True)
+    # serving an expert-parallel model: its tokens would be replicated
+    # over the experts' axis, which the port refuses (the JAX serving
+    # mesh splits mp only)
+    model.eval()
+    out["ep_serving"] = _raises(lambda: model.generate(
+        np.asarray([pl["prompts"][0]]), max_new_tokens=2))
+    # mp2 serving: the whole model's shards cut by the arena, and a
+    # model built under the mesh
+    D.set_mesh(None)
+    whole = _gpt(pl["serve_cfg"], pl["serve_state"])
+    whole.eval()
+    prompts = pl["prompts"]
+    out["unsharded"] = _serve(whole, prompts)[0]
+    out["unsharded_slots"] = _serve(whole, prompts, kv_layout="slots")[0]
+    mesh = D.build_mesh({"mp": world})
+    out["mp2"], eng = _serve(whole, prompts, mesh)
+    out["mp2_fc1_shard"] = tuple(eng._w["lws"]["fc1_w"].shape)
+    out["mp2_int8"] = _serve(whole, prompts, mesh, kv_dtype="int8",
+                             weight_dtype="int8")[0]
+    out["unsharded_int8"] = _serve(whole, prompts, kv_dtype="int8",
+                                   weight_dtype="int8")[0]
+    out["mp2_slots"] = _serve(whole, prompts, mesh, kv_layout="slots")[0]
+    split = _gpt(pl["serve_cfg"], pl["serve_state"])
+    split.eval()
+    out["split_model"], e = _serve(split, prompts, mesh)
+    out["split_fc1_shard"] = tuple(e._w["lws"]["fc1_w"].shape)
+    return out

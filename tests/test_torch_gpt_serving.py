@@ -198,8 +198,3 @@ def test_init_from_explicit_generator():
     assert torch.all(a["ln1_w"] == 1) and torch.all(a["qkv_b"] == 0)
     std = float(a["fc1_w"].detach().std())
     assert abs(std - CFG["initializer_range"]) < 0.02
-
-
-def test_moe_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GPTForCausalLM(GPTConfig(num_experts=2, **CFG), device="cpu")

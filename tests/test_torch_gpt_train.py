@@ -501,8 +501,7 @@ def test_unported_train_step_options_name_their_roadmap_item(kw, item):
 
 @pytest.mark.parametrize("cfg", [dict(sequence_parallel=True),
                                  dict(context_parallel=True),
-                                 dict(pp_schedule="1f1b"),
-                                 dict(num_experts=4)])
+                                 dict(pp_schedule="1f1b")])
 def test_unported_model_parallelism_names_a7(cfg):
     with pytest.raises(NotImplementedError, match="A7"):
         GPTForCausalLM(GPTConfig(**{**CFG, **cfg}), device="cpu")
