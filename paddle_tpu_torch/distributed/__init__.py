@@ -9,9 +9,12 @@ rules (``sharding_utils``), Megatron's tensor-parallel primitives
 tensor-parallel layers, the hybrid optimizer, ``recompute``),
 ``DataParallel``, and the one-process ``checkpoint``.  Expert
 parallelism (MoE experts split over ``dp``, their token all-to-all) is
-``incubate.moe``'s, run by the MoE GPT and ``jit.mesh``.  Sequence,
-context and pipeline parallelism, multi-process checkpoints and the
-launchers are ROADMAP.md A7c–A7h.
+``incubate.moe``'s, run by the MoE GPT and ``jit.mesh``.  Sequence and
+context parallelism over ``sep`` (the sequence split of
+``env.sequence_split``, ``communication.ring_shift`` under
+``kernels.ring_attention``) run in the GPT and ``jit.mesh``; Megatron's
+sequence-parallel linears are ``fleet``'s.  Pipeline parallelism,
+multi-process checkpoints and the launchers are ROADMAP.md A7e–A7h.
 """
 
 from . import checkpoint, fleet
@@ -21,12 +24,12 @@ from .communication import (Group, P2POp, ReduceOp, all_gather,
                             all_gather_object, all_reduce, all_to_all,
                             axis_group, barrier, batch_isend_irecv,
                             broadcast, get_group, irecv, isend, new_group,
-                            recv, reduce, reduce_scatter, scatter, send,
-                            stream)
+                            recv, reduce, reduce_scatter, ring_shift,
+                            scatter, send, stream)
 from .env import (AXIS_ORDER, Mesh, ParallelEnv, build_mesh, data_axes,
                   get_mesh, get_rank, get_world_size, hybrid_degrees,
                   init_parallel_env, is_initialized, reset_parallel_env,
-                  set_mesh)
+                  sequence_split, set_mesh)
 from .parallel import DataParallel, fused_allreduce_gradients
 from .sharding_utils import P
 
@@ -45,5 +48,6 @@ __all__ = ["AXIS_ORDER", "CheckpointCorrupt", "DataParallel", "Group",
            "get_world_size", "hybrid_degrees", "init_parallel_env", "irecv",
            "is_initialized", "isend", "load_state_dict", "new_group",
            "recv", "reduce", "reduce_scatter", "reset_parallel_env",
-           "save_state_dict", "scatter", "send", "set_mesh", "stream",
+           "ring_shift", "save_state_dict", "scatter", "send",
+           "sequence_split", "set_mesh", "stream",
            "wait_async_save"]

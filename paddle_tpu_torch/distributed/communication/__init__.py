@@ -16,7 +16,10 @@ world).  Where the two packages differ:
   size (the JAX version rendezvouses through an all-gather and holds
   for two processes only);
 * ``reduce_scatter(tensor, tensor_list)`` takes a list of chunks or one
-  tensor split on dim 0, as the JAX version does.
+  tensor split on dim 0, as the JAX version does;
+* :func:`ring_shift` is the JAX ring attention's ``lax.ppermute`` over
+  ``sep``: member r's tensor goes to member r + 1 (cyclically), as a
+  differentiable function whose backward shifts the gradient back.
 
 Every call ticks ``dist.collectives``, ``dist.collective_launches``
 and ``dist.<op>`` (the JAX names) and opens a host-tracer span of that
@@ -327,6 +330,50 @@ for _n in ("all_reduce", "all_gather", "all_gather_object", "broadcast",
 del _n
 
 
+def _shift(x, axis, mesh, step):
+    """``x`` sent to member ``r + step`` of ``axis``'s group and the
+    tensor of member ``r - step`` received (cyclically): one
+    ``all_to_all_single`` whose split sizes are zero but toward those two
+    members, so gloo (which takes CUDA tensors there) and NCCL run the
+    same call."""
+    n, r = mesh.degree(axis), mesh.index(axis)
+    x = x.contiguous()
+    send, recv = [0] * n, [0] * n
+    send[(r + step) % n] = recv[(r - step) % n] = x.shape[0]
+    out = torch.empty_like(x)
+    _counters.inc("dist.collective_launches")
+    _counters.inc("dist.ring_shifts")
+    with _tracer.span("dist.ring_shift"):
+        _run("ring_shift", lambda: dist.all_to_all_single(
+            out, x, output_split_sizes=recv, input_split_sizes=send,
+            group=mesh.group(axis)))
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return _shift(x, axis, mesh, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.axis, ctx.mesh, -1), None, None
+
+
+def ring_shift(x, axis="sep", mesh=None):
+    """This rank's ``x`` (a torch tensor, split sizes taken on dim 0) to
+    the next member of mesh axis ``axis`` (default: the global mesh's),
+    and the previous member's tensor back.  Differentiable: the gradient
+    travels the other way.  Every shift, forward or backward, ticks
+    ``dist.collective_launches`` and ``dist.ring_shifts``."""
+    mesh = mesh or get_mesh()
+    if mesh is None:
+        raise RuntimeError(f"ring_shift over {axis!r} without a mesh: "
+                           "build_mesh() first")
+    return _RingShift.apply(x, axis, mesh)
+
+
 def stream_all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True,
                       use_calc_stream=False):
     return all_reduce(tensor, op, group, sync_op)
@@ -350,4 +397,4 @@ __all__ = ["Group", "P2POp", "ReduceOp", "all_gather", "all_gather_object",
            "all_reduce", "all_to_all", "axis_group", "barrier",
            "batch_isend_irecv", "broadcast", "get_group", "irecv",
            "is_initialized", "isend", "new_group", "recv", "reduce",
-           "reduce_scatter", "scatter", "send", "stream"]
+           "reduce_scatter", "ring_shift", "scatter", "send", "stream"]

@@ -38,6 +38,7 @@ _GLOBAL_MESH = [None]
 _HYBRID_DEGREES = dict.fromkeys(AXIS_ORDER, 1)
 _INITIALIZED = [False]
 _ROW_AXES = [()]
+_SEQ_SPLIT = [None]
 
 
 def is_initialized():
@@ -298,3 +299,48 @@ def rows_split_over(axes):
         yield
     finally:
         _ROW_AXES[0] = prev
+
+
+class SequenceSplit:
+    """Every sequence the running forward sees is cut into ``degree``
+    equal chunks along mesh axis ``axis`` (the JAX package's ``sep``),
+    chunk ``index`` on this rank, in global order: a local sequence of
+    ``S`` tokens starts at position :meth:`offset` ``(S)``."""
+
+    def __init__(self, mesh, axis="sep"):
+        self.mesh, self.axis = mesh, axis
+        self.degree = mesh.degree(axis)
+        self.index = mesh.index(axis)
+
+    def offset(self, local_len):
+        return self.index * local_len
+
+
+def sequence_split():
+    """The :class:`SequenceSplit` of the running forward, or None when it
+    sees whole sequences.  The mesh train step sets it on a mesh with
+    ``sep > 1``; the GPT forward reads it (positions, RoPE, attention
+    across the chunks) and so does the loss (its token count)."""
+    return _SEQ_SPLIT[0]
+
+
+def token_axes():
+    """The axes the tokens of the running forward are split over: the
+    rows' (:func:`row_axes`), then the sequence's."""
+    sp = _SEQ_SPLIT[0]
+    return row_axes() + (() if sp is None else (sp.axis,))
+
+
+@contextlib.contextmanager
+def sequence_split_over(axis, mesh=None):
+    """Within the block, :func:`sequence_split` cuts the sequence over
+    ``axis`` of ``mesh`` (default: the global mesh); ``axis=None`` or a
+    degree of 1 leaves the sequences whole."""
+    mesh = mesh or get_mesh()
+    split = (None if axis is None or mesh is None or mesh.degree(axis) == 1
+             else SequenceSplit(mesh, axis))
+    prev, _SEQ_SPLIT[0] = _SEQ_SPLIT[0], split
+    try:
+        yield split
+    finally:
+        _SEQ_SPLIT[0] = prev

@@ -7,8 +7,8 @@ distributed_optimizer:1326).
 group when none is running and builds the global mesh from
 ``strategy.hybrid_configs`` (all ranks on ``dp`` when no degree is
 given); ``get_hybrid_communicate_group()`` answers each rank's place;
-``distributed_model`` returns the model (tensor-parallel layers split
-themselves; a ``sharding`` degree above 1 is the mesh train step's
+``distributed_model`` returns the model (tensor-parallel and
+sequence-parallel layers split themselves; a ``sharding`` degree above 1 is the mesh train step's
 storage sharding) and ``distributed_optimizer`` wraps the optimizer in
 ``HybridParallelOptimizer``.  The parameter-server role makers raise
 (ROADMAP.md A7h); ``recompute`` is the port's activation recompute.
@@ -23,9 +23,12 @@ from .distributed_strategy import DistributedStrategy
 from .hybrid_optimizer import (HybridParallelClipGrad,
                                HybridParallelGradScaler,
                                HybridParallelOptimizer)
-from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,
-                        RNGStatesTracker, RowParallelLinear,
-                        VocabParallelEmbedding, get_rng_state_tracker,
+from .mp_layers import (ColumnParallelLinear, ColumnSequenceParallelLinear,
+                        GatherOp, ParallelCrossEntropy, RNGStatesTracker,
+                        RowParallelLinear, RowSequenceParallelLinear,
+                        ScatterOp, VocabParallelEmbedding,
+                        get_rng_state_tracker,
+                        mark_as_sequence_parallel_parameter,
                         model_parallel_random_seed)
 from .recompute import recompute
 from .topology import CommunicateTopology, HybridCommunicateGroup
@@ -111,14 +114,17 @@ class UserDefinedRoleMaker(PaddleCloudRoleMaker):
     pass
 
 
-__all__ = ["ColumnParallelLinear", "CommunicateTopology",
-           "DistributedStrategy", "HybridCommunicateGroup",
-           "HybridParallelClipGrad", "HybridParallelGradScaler",
-           "HybridParallelOptimizer", "PaddleCloudRoleMaker",
-           "ParallelCrossEntropy", "RNGStatesTracker", "RowParallelLinear",
+__all__ = ["ColumnParallelLinear", "ColumnSequenceParallelLinear",
+           "CommunicateTopology", "DistributedStrategy", "GatherOp",
+           "HybridCommunicateGroup", "HybridParallelClipGrad",
+           "HybridParallelGradScaler", "HybridParallelOptimizer",
+           "PaddleCloudRoleMaker", "ParallelCrossEntropy",
+           "RNGStatesTracker", "RowParallelLinear",
+           "RowSequenceParallelLinear", "ScatterOp",
            "UserDefinedRoleMaker", "VocabParallelEmbedding",
            "barrier_worker", "distributed_model", "distributed_optimizer",
            "distributed_scaler", "get_hybrid_communicate_group",
            "get_rng_state_tracker", "init", "init_parallel_env",
-           "is_first_worker", "is_initialized", "model_parallel_random_seed",
+           "is_first_worker", "is_initialized",
+           "mark_as_sequence_parallel_parameter", "model_parallel_random_seed",
            "recompute", "worker_index", "worker_num"]

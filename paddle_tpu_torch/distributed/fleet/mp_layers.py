@@ -10,8 +10,18 @@ initializer over the full shape) and keeps this rank's shard over the
 when the dimension does not divide); the Megatron collectives of
 ``distributed.mp_ops`` run in the forward and the backward.  The
 weights carry ``placements`` and ``is_distributed``, which the mesh
-train step reads.  The sequence-parallel layers wait for ROADMAP.md
-A7c.
+train step reads.
+
+Megatron sequence parallelism (reference:
+fleet/utils/sequence_parallel_utils.py:427, 562) reuses the ``mp`` ranks
+for the sequence: between the linears the activations ``[b, s/mp, h]``
+hold this rank's chunk of the sequence.  ``ColumnSequenceParallelLinear``
+all-gathers the sequence before its column matmul,
+``RowSequenceParallelLinear`` reduce-scatters its partial sums onto the
+sequence (half the bytes of the row linear's all-reduce), and
+``ScatterOp``/``GatherOp`` enter and leave the split.  The row linear's
+bias is marked sequence-parallel (each rank adds it to its own tokens):
+its gradient is summed over ``mp`` inside the backward.
 """
 
 from __future__ import annotations
@@ -232,6 +242,132 @@ class ParallelCrossEntropy(Layer):
         return apply_op("c_softmax_with_cross_entropy", fn, input, label)
 
 
+def mark_as_sequence_parallel_parameter(param):
+    """Mark a parameter that each ``mp`` rank applies to its own chunk of
+    the sequence (reference: sequence_parallel_utils.py
+    ``mark_as_sequence_parallel_parameter``): the sequence-parallel layers
+    pass it through :func:`mp_ops.copy_to_mp`, whose backward sums its
+    gradient over ``mp``.  Returns ``param``."""
+    unwrap(param).sequence_parallel = True
+    return param
+
+
+def _seq_parallel(param):
+    return getattr(unwrap(param), "sequence_parallel", False)
+
+
+def _mp_split():
+    """Whether the global mesh splits over ``mp`` (the sequence-parallel
+    ops are identities otherwise, as the JAX constraints are)."""
+    mesh = get_mesh()
+    return mesh is not None and mesh.degree("mp") > 1
+
+
+class ColumnSequenceParallelLinear(Layer):
+    """Weight ``[in, out]`` split on ``out``; the input holds this rank's
+    chunk of the sequence ``[b, s/mp, in]``: all-gathered (reduce-scatter
+    of its gradient) before the column matmul.  The output holds the
+    whole sequence and this rank's columns ``[b, s, out/mp]``, or every
+    column with ``gather_output``."""
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 has_bias=None, gather_output=False, fuse_matmul_bias=False,
+                 mp_group=None, name=None):
+        super().__init__()
+        self._in_features = in_features
+        self._out_features = out_features
+        self.gather_output = gather_output
+        self.weight = _mp_param(self, (in_features, out_features),
+                                weight_attr, False, XavierUniform(),
+                                P(None, "mp"))
+        self.bias = (_mp_param(self, (out_features,), None, True,
+                               Constant(0.0), P("mp"))
+                     if has_bias else None)
+        self.is_mp = _mp_on(self.weight)
+
+    def forward(self, x):
+        on, gather = self.is_mp, self.gather_output
+
+        def fn(x, w, *b):
+            if on:
+                x = mp_ops.all_gather_seq(x)
+            y = torch.matmul(x, w)
+            if b:
+                y = y + b[0]
+            return mp_ops.gather_from_mp(y) if on and gather else y
+        args = (x, self.weight) + (() if self.bias is None else (self.bias,))
+        return apply_op("linear", fn, *args)
+
+
+class RowSequenceParallelLinear(Layer):
+    """Weight ``[in, out]`` split on ``in``; the partial products are
+    reduce-scattered onto the sequence (``[b, s/mp, out]``) and the bias,
+    marked sequence-parallel, added to this rank's tokens."""
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 has_bias=True, input_is_parallel=True,
+                 fuse_matmul_bias=False, mp_group=None, name=None):
+        super().__init__()
+        self._in_features = in_features
+        self._out_features = out_features
+        self.input_is_parallel = input_is_parallel
+        self.weight = _mp_param(self, (in_features, out_features),
+                                weight_attr, False, XavierUniform(),
+                                P("mp", None))
+        self.bias = None
+        if has_bias:
+            self.bias = _mp_param(self, (out_features,), None, True,
+                                  Constant(0.0), P())
+            mark_as_sequence_parallel_parameter(self.bias)
+        self.is_mp = _mp_on(self.weight)
+
+    def forward(self, x):
+        on, parallel = self.is_mp, self.input_is_parallel
+        marked = self.bias is not None and _seq_parallel(self.bias)
+
+        def fn(x, w, *b):
+            if on and not parallel:
+                x = mp_ops.scatter_to_mp(x)
+            y = torch.matmul(x, w)
+            if on:
+                y = mp_ops.reduce_scatter_seq(y)
+            if not b:
+                return y
+            return y + (mp_ops.copy_to_mp(b[0]) if on and marked else b[0])
+        args = (x, self.weight) + (() if self.bias is None else (self.bias,))
+        return apply_op("linear", fn, *args)
+
+
+class GatherOp(Layer):
+    """All-gather along the sequence over ``mp`` (reference:
+    sequence_parallel_utils.py ``GatherOp``): the whole sequence on every
+    rank; backward keeps this rank's chunk of the gradient."""
+
+    @staticmethod
+    def apply(x):
+        if not _mp_split():
+            return x
+        return apply_op("sequence_gather", mp_ops.gather_seq, x, amp=False)
+
+    def forward(self, x):
+        return self.apply(x)
+
+
+class ScatterOp(Layer):
+    """This rank's chunk of the sequence over ``mp`` (reference:
+    sequence_parallel_utils.py ``ScatterOp``); backward all-gathers."""
+
+    @staticmethod
+    def apply(x):
+        if not _mp_split():
+            return x
+        return apply_op("sequence_scatter", mp_ops.scatter_seq, x,
+                        amp=False)
+
+    def forward(self, x):
+        return self.apply(x)
+
+
 # mp_ops-style helpers (reference: fleet/layers/mpu/mp_ops.py)
 def _c_identity(tensor, group=None):
     """Identity forward, all-reduce of the gradient over ``mp``."""
@@ -253,6 +389,9 @@ def _mp_allreduce(tensor, op=None, group=None, use_calc_stream=True):
     return apply_op("mp_allreduce", mp_ops.reduce_from_mp, tensor)
 
 
-__all__ = ["ColumnParallelLinear", "ParallelCrossEntropy",
-           "RNGStatesTracker", "RowParallelLinear", "VocabParallelEmbedding",
-           "get_rng_state_tracker", "model_parallel_random_seed"]
+__all__ = ["ColumnParallelLinear", "ColumnSequenceParallelLinear",
+           "GatherOp", "ParallelCrossEntropy", "RNGStatesTracker",
+           "RowParallelLinear", "RowSequenceParallelLinear", "ScatterOp",
+           "VocabParallelEmbedding", "get_rng_state_tracker",
+           "mark_as_sequence_parallel_parameter",
+           "model_parallel_random_seed"]

@@ -16,8 +16,8 @@ backward call the collective on the group of mesh axis ``axis``:
   dimension forward, all-gather of the gradient backward;
 * :func:`vocab_parallel_embedding` and :func:`vocab_parallel_ce_sum`.
 
-Each collective ticks ``dist.mp_collectives`` and
-``dist.collective_launches``.  The backward's collectives run inside
+Each collective ticks ``dist.<axis>_collectives`` (``dist.mp_collectives``
+over ``mp``) and ``dist.collective_launches``.  The backward's collectives run inside
 autograd, so a captured training step records them in its CUDA graph.
 """
 
@@ -38,20 +38,20 @@ def _mesh(mesh, axis):
     return mesh
 
 
-def _tick():
-    _counters.inc("dist.mp_collectives")
+def _tick(axis):
+    _counters.inc(f"dist.{axis}_collectives")
     _counters.inc("dist.collective_launches")
 
 
 def _all_reduce(x, axis, mesh):
-    _tick()
+    _tick(axis)
     x = x.contiguous()
     dist.all_reduce(x, group=mesh.group(axis))
     return x
 
 
 def _all_gather_last(x, axis, mesh):
-    _tick()
+    _tick(axis)
     parts = [torch.empty_like(x) for _ in range(mesh.degree(axis))]
     dist.all_gather(parts, x.contiguous(), group=mesh.group(axis))
     return torch.cat(parts, -1)
@@ -60,6 +60,73 @@ def _all_gather_last(x, axis, mesh):
 def _slice_last(x, axis, mesh):
     w = x.shape[-1] // mesh.degree(axis)
     return x.narrow(-1, mesh.index(axis) * w, w).contiguous()
+
+
+def _all_gather_seq(x, axis, mesh, dim):
+    _tick(axis)
+    parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+             for _ in range(mesh.degree(axis))]
+    dist.all_gather(parts, x.contiguous(), group=mesh.group(axis))
+    return torch.cat(parts, dim)
+
+
+def _chunk_seq(x, axis, mesh, dim):
+    w = x.shape[dim] // mesh.degree(axis)
+    return x.narrow(dim, mesh.index(axis) * w, w).contiguous()
+
+
+def _reduce_scatter_seq(x, axis, mesh, dim):
+    """Chunk r of ``dim`` summed over the ranks lands on rank r."""
+    n = mesh.degree(axis)
+    _tick(axis)
+    chunks = torch.stack(x.chunk(n, dim))        # [n, ..., S/n, ...]
+    out = torch.empty_like(chunks)
+    dist.all_to_all_single(out, chunks, group=mesh.group(axis))
+    return out.sum(0)
+
+
+class _AllGatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, dim):
+        ctx.args = axis, mesh, dim
+        return _all_gather_seq(x, axis, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_seq(g, *ctx.args), None, None, None
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, dim):
+        ctx.args = axis, mesh, dim
+        return _reduce_scatter_seq(x, axis, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_seq(g, *ctx.args), None, None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, dim):
+        ctx.args = axis, mesh, dim
+        return _chunk_seq(x, axis, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_seq(g, *ctx.args), None, None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, dim):
+        ctx.args = axis, mesh, dim
+        return _all_gather_seq(x, axis, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _chunk_seq(g, *ctx.args), None, None, None
 
 
 class _Copy(torch.autograd.Function):
@@ -126,6 +193,30 @@ def scatter_to_mp(x, axis="mp", mesh=None):
     return _Scatter.apply(x, axis, _mesh(mesh, axis))
 
 
+def all_gather_seq(x, axis="mp", mesh=None, dim=1):
+    """The whole sequence from every rank's chunk (all-gather along
+    ``dim``); backward: the gradient summed over the ranks, this rank's
+    chunk kept (reduce-scatter)."""
+    return _AllGatherSeq.apply(x, axis, _mesh(mesh, axis), dim)
+
+
+def reduce_scatter_seq(x, axis="mp", mesh=None, dim=1):
+    """``x`` summed over the ranks, this rank's chunk of ``dim`` kept;
+    backward all-gathers."""
+    return _ReduceScatterSeq.apply(x, axis, _mesh(mesh, axis), dim)
+
+
+def scatter_seq(x, axis="mp", mesh=None, dim=1):
+    """This rank's chunk of ``dim``; backward all-gathers."""
+    return _ScatterSeq.apply(x, axis, _mesh(mesh, axis), dim)
+
+
+def gather_seq(x, axis="mp", mesh=None, dim=1):
+    """All-gather along ``dim``; backward keeps this rank's chunk of the
+    gradient (every rank holds the same one)."""
+    return _GatherSeq.apply(x, axis, _mesh(mesh, axis), dim)
+
+
 def vocab_parallel_embedding(ids, wte_local, axis="mp", mesh=None):
     """Lookup into a vocab-row-sharded table ``wte_local [V/mp, H]``:
     ids outside this rank's rows give zeros and the all-reduce
@@ -155,7 +246,7 @@ def vocab_parallel_ce(logits_local, labels, axis="mp", mesh=None):
     lg = logits_local.float()
     vloc = lg.shape[-1]
     zmax = lg.detach().amax(-1)
-    _tick()
+    _tick(axis)
     dist.all_reduce(zmax, op=dist.ReduceOp.MAX, group=mesh.group(axis))
     sumexp = reduce_from_mp(torch.exp(lg - zmax[..., None]).sum(-1), axis,
                             mesh)
@@ -167,6 +258,7 @@ def vocab_parallel_ce(logits_local, labels, axis="mp", mesh=None):
     return lse - picked
 
 
-__all__ = ["copy_to_mp", "gather_from_mp", "reduce_from_mp",
+__all__ = ["all_gather_seq", "copy_to_mp", "gather_from_mp", "gather_seq",
+           "reduce_from_mp", "reduce_scatter_seq", "scatter_seq",
            "scatter_to_mp", "vocab_parallel_ce", "vocab_parallel_ce_sum",
            "vocab_parallel_embedding"]

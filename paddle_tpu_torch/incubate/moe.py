@@ -53,7 +53,8 @@ import torch.nn.functional as F
 
 from ..core.dispatch import apply_op
 from ..distributed import mp_ops
-from ..distributed.env import get_mesh, hybrid_degrees, row_axes
+from ..distributed.env import (get_mesh, hybrid_degrees, row_axes,
+                               sequence_split)
 from ..distributed.sharding_utils import P
 from ..nn.layer.layers import Layer
 from ..profiler import counters as _counters
@@ -361,6 +362,14 @@ def moe_ffn(x, gate_w, fc1_w, fc1_b, fc2_w, fc2_b, top_k=2,
     ``activation`` defaults to GELU-tanh (``jax.nn.gelu``'s default).
     ``stats``, a dict, gathers ``{T: [dropped choices, routed choices]}``
     on the device (no sync)."""
+    if sequence_split() is not None:
+        # the global routing order is row-major over [B, S]; a rank's
+        # tokens are one chunk of each of its rows, which this routing
+        # (a rank's tokens after the lower ranks') does not place
+        raise NotImplementedError(
+            "moe_ffn under a sequence split (a mesh with sep > 1) is not "
+            "ported yet: ROADMAP.md A7c-moe (global-batch routing over "
+            "the dp x sep tokens)")
     activation = activation or _gelu
     lead, H = x.shape[:-1], x.shape[-1]
     E = gate_w.shape[-1]

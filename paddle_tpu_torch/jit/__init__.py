@@ -72,12 +72,15 @@ are dropped), so the next window primes and captures afresh
 
 ``mesh=`` (``distributed.build_mesh``), ``shard_rules=``,
 ``batch_axes=``: the mesh step of ``jit/mesh.py`` — each rank takes its
-rows of the batch, the gradients and the loss are averaged over the data
-axes, parameters the model holds whole may keep their optimizer state
+rows of the batch (with ``sep > 1`` also its chunk of every sequence,
+and the forward runs under ``distributed.env.sequence_split_over``), the
+gradients and the loss are averaged over the data axes and ``sep``,
+parameters the model holds whole may keep their optimizer state
 sharded (reduce-scattered gradients, all-gathered parameters), and the
 collectives run inside the step body, so a fused window's CUDA graph
-captures them (NCCL; gloo's cannot be captured: use ``fused_steps=1``
-there).  A mesh of one rank gives the meshless step's bits.
+captures them (NCCL; gloo's cannot be captured: a window on CUDA over
+gloo raises, use ``fused_steps=1`` there).  A mesh of one rank gives
+the meshless step's bits.
 
 Counters, under the JAX names: ``jit.steps``, ``jit.host.dispatches``,
 ``jit.fused_windows``, ``jit.fused_fallback_steps``, ``jit.syncs``,
@@ -95,11 +98,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import flags
 from ..core.state import STATE
 from ..core.tensor import unwrap
-from ..distributed.env import rows_split_over
+from ..distributed.env import rows_split_over, sequence_split_over
 from ..io import Window
 from ..kernels import count_launch, launch_counted
 from ..nn.clip import sum_sq
@@ -191,15 +195,18 @@ class CompiledTrainStep:
         # the body takes the dense path where eager code makes SelectedRows
         # (a CUDA graph records shapes; JAX traces the same way)
         STATE.tracing_depth += 1
-        tokens = (contextlib.nullcontext() if self._mesh is None
-                  else rows_split_over(self._mesh.row_axes))
+        mesh = self._mesh
         try:
-            with torch.enable_grad(), tokens:
+            with torch.enable_grad(), contextlib.ExitStack() as split:
+                if mesh is not None:
+                    # the rows and the sequence chunk this rank holds
+                    split.enter_context(rows_split_over(mesh.row_axes))
+                    split.enter_context(sequence_split_over(mesh.seq_axis,
+                                                            mesh.mesh))
                 loss = unwrap(self.loss_fn(model, *args))
                 (loss if scaler is None else scaler.scale(loss)).backward()
         finally:
             STATE.tracing_depth -= 1
-        mesh = self._mesh
         named = [(n, p) for n, p in torch.nn.Module.named_parameters(model)
                  if p.grad is not None]
         # the gradients the update reads: the parameters' own, or on a
@@ -368,13 +375,24 @@ class CompiledTrainStep:
         increments of one replay."""
         opt = self.optimizer
         dev = self._device()
+        if self._mesh is not None and dist.get_backend() == "gloo":
+            raise RuntimeError(
+                "CompiledTrainStep(fused_steps>1) on CUDA over a gloo group: "
+                "a CUDA graph cannot capture gloo's collectives (the "
+                "gradient all-reduces, and with sep > 1 the ring's K/V "
+                "shifts inside every step); use fused_steps=1 over gloo, "
+                "or NCCL, whose collectives the window captures")
         static = tuple(a.to(dev, copy=True) if isinstance(a, torch.Tensor)
                        else a for a in args)
         lrs = torch.zeros(k, dtype=torch.float32, device=dev)
         graph = torch.cuda.CUDAGraph()
-        gen = getattr(self.model, "dropout_generator", None)
-        if gen is not None and gen.device.type == "cuda":
-            graph.register_generator_state(gen)
+        # the dropout generators, a sequence chunk's too (the primed
+        # steps made it)
+        chunk_gens = getattr(self.model, "chunk_generators", None) or {}
+        for gen in (getattr(self.model, "dropout_generator", None),
+                    *chunk_gens.values()):
+            if gen is not None and gen.device.type == "cuda":
+                graph.register_generator_state(gen)
         kernels = launch_counted()
         launches0 = {fn: fn.launches for fn in kernels}
         ticks0 = counters.snapshot()

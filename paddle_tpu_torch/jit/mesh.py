@@ -9,9 +9,25 @@ it leaves to XLA).
   where their degree is above 1, else ``dp``); a batch whose tensors do
   not all divide stays whole on every rank (replicated), as the JAX
   step leaves an indivisible leaf unconstrained.
-* **gradients** — summed over the data axes and divided by their
-  degree (the mean over the global batch: every rank's rows are as
-  many), one all-reduce a parameter; so is the loss the step returns.
+* **sequence** — with ``sep > 1`` every batch tensor of two or more
+  dimensions is also cut along its sequence (dimension 1) into ``sep``
+  chunks, chunk r to member r (the JAX step's batch spec ``P(dp,
+  sep)``); the step runs its forward under
+  ``distributed.env.sequence_split_over``, so the GPT places its chunk
+  and attends across the chunks (ring attention, or the sequence
+  all-gather).  A sequence that does not divide raises.  Only a model
+  that says it handles the split (``handles_sequence_split``, the
+  GPT's) trains on such a mesh: any other would attend within its chunk
+  and restart its positions at 0, so it is refused.
+* **gradients** — summed over the data axes and ``sep`` (the sync axes)
+  and divided by their degree ``n``, one all-reduce a parameter; so is
+  the loss the step returns.  That is the mean over the global batch
+  when every rank's tokens count alike.  A criterion whose counts
+  differ across the ranks (a ``loss_mask``: padding lands in the last
+  chunk) returns its rank's masked sum times ``n`` over the global
+  count, which it all-reduces over ``distributed.env.token_axes``
+  itself (the GPT's does): the mean over the ranks is then the global
+  masked mean.
 * **storage sharding** — a parameter that the model holds whole gets a
   storage spec: the first ``shard_rules`` entry that matches its name,
   else its ``annotate_param`` placements, else ``P("sharding")`` on its
@@ -74,12 +90,18 @@ def _view_of(spec, mesh):
 class MeshPlan:
     def __init__(self, mesh, model, optimizer, shard_rules=None,
                  batch_axes=None):
-        for axis, item in (("pp", "A7e (pipeline parallelism)"),
-                           ("sep", "A7c (sequence parallelism)")):
-            if mesh.shape.get(axis, 1) > 1:
-                raise NotImplementedError(
-                    f"CompiledTrainStep on a mesh with {axis} > 1 is not "
-                    f"ported yet: ROADMAP.md {item}")
+        if mesh.shape.get("pp", 1) > 1:
+            raise NotImplementedError(
+                "CompiledTrainStep on a mesh with pp > 1 is not ported "
+                "yet: ROADMAP.md A7e (pipeline parallelism)")
+        if (mesh.shape.get("sep", 1) > 1
+                and not getattr(model, "handles_sequence_split", False)):
+            raise NotImplementedError(
+                f"CompiledTrainStep on a mesh with sep > 1 trains a model "
+                f"that handles the sequence split (handles_sequence_split: "
+                f"the GPT's); {type(model).__name__} would attend within "
+                f"its chunk only: ROADMAP.md A7c-models (the sequence "
+                f"split for other models)")
         self.mesh = mesh
         if batch_axes is None:
             batch_axes = tuple(a for a in ("dp", "sharding")
@@ -87,10 +109,14 @@ class MeshPlan:
         elif isinstance(batch_axes, str):
             batch_axes = (batch_axes,)
         self.batch_axes = tuple(batch_axes)
-        #: the axes the gradients and the loss are averaged over
         self.data_axes = self.batch_axes or ("dp",)
-        self.n_data = mesh.degree(self.data_axes)
-        self.data_group = mesh.group(self.data_axes)
+        #: the axis the sequence is cut over (None at sep 1)
+        self.seq_axis = "sep" if mesh.shape.get("sep", 1) > 1 else None
+        #: the axes the gradients and the loss are averaged over
+        self.sync_axes = self.data_axes + ((self.seq_axis,)
+                                           if self.seq_axis else ())
+        self.n_sync = mesh.degree(self.sync_axes)
+        self.sync_group = mesh.group(self.sync_axes)
         named = list(torch.nn.Module.named_parameters(model))
         ruled = infer_partition_specs({n: p for n, p in named}, mesh,
                                       shard_rules or (), default=None)
@@ -133,37 +159,54 @@ class MeshPlan:
     def rows(self, args, stacked):
         """This rank's rows of every batch tensor (dimension 1 of a
         window's stacked tensors), or the batch whole when some tensor
-        does not divide or already holds this rank's rows."""
+        does not divide or already holds this rank's rows; then, with
+        ``sep > 1``, this rank's chunk of each sequence."""
         n = self.mesh.degree(self.batch_axes) if self.batch_axes else 1
         d = 1 if stacked else 0
         ts = [a for a in args if isinstance(a, torch.Tensor) and a.dim() > d]
         local = any(getattr(t, "_local_rows", False) for t in ts)
-        if n == 1 or not ts or any(t.shape[d] % n for t in ts) or local:
-            # (a sharded prefetcher's tensors hold this rank's rows)
-            self.row_axes = self.batch_axes if local else ()
+        split = not (n == 1 or not ts or any(t.shape[d] % n for t in ts)
+                     or local)
+        # (a sharded prefetcher's tensors hold this rank's rows)
+        self.row_axes = self.batch_axes if split or local else ()
+        if split:
+            i = self.mesh.index(self.batch_axes)
+            args = tuple(a.narrow(d, i * (a.shape[d] // n), a.shape[d] // n)
+                         if isinstance(a, torch.Tensor) and a.dim() > d
+                         else a for a in args)
+        if self.seq_axis is None:
             return args
-        self.row_axes = self.batch_axes
-        i = self.mesh.index(self.batch_axes)
-        return tuple(a.narrow(d, i * (a.shape[d] // n), a.shape[d] // n)
-                     if isinstance(a, torch.Tensor) and a.dim() > d else a
-                     for a in args)
+        return tuple(self._chunk(a, d + 1)
+                     if isinstance(a, torch.Tensor) and a.dim() > d + 1
+                     else a for a in args)
+
+    def _chunk(self, a, dim):
+        """This rank's chunk of ``a``'s sequence (dimension ``dim``)."""
+        n = self.mesh.degree(self.seq_axis)
+        if a.shape[dim] % n:
+            raise ValueError(
+                f"a batch tensor of shape {tuple(a.shape)}: its sequence "
+                f"(dimension {dim}, {a.shape[dim]}) does not divide into "
+                f"sep={n} equal chunks")
+        size = a.shape[dim] // n
+        return a.narrow(dim, self.mesh.index(self.seq_axis) * size, size)
 
     # -- inside the step ---------------------------------------------------
     def mean_loss(self, loss):
         _tick()
         loss = loss.detach().float().clone()
-        dist.all_reduce(loss, group=self.data_group)
-        return loss / self.n_data
+        dist.all_reduce(loss, group=self.sync_group)
+        return loss / self.n_sync
 
     def _reduce_scatter(self, g, spec):
-        """This rank's slice of the data-axes sum of ``g``, when its only
-        split is over data axes: an all-reduce over the other data axes,
+        """This rank's slice of the sync-axes sum of ``g``, when its only
+        split is over sync axes: an all-reduce over the other sync axes,
         then a reduce-scatter.  None when the spec is of another kind."""
         cuts = [(d, _axes_of(e)) for d, e in enumerate(spec) if _axes_of(e)]
-        if len(cuts) != 1 or not set(cuts[0][1]) <= set(self.data_axes):
+        if len(cuts) != 1 or not set(cuts[0][1]) <= set(self.sync_axes):
             return None
         dim, axes = cuts[0]
-        rest = tuple(a for a in self.data_axes if a not in axes)
+        rest = tuple(a for a in self.sync_axes if a not in axes)
         if rest:
             _tick()
             dist.all_reduce(g, group=self.mesh.group(rest))
@@ -175,7 +218,7 @@ class MeshPlan:
         return out.movedim(0, dim)
 
     def sync_grads(self):
-        """Average every gradient over the data axes; a storage-sharded
+        """Average every gradient over the sync axes; a storage-sharded
         parameter's lands as its slice in the optimizer's
         ``_shard_grads``.  Returns the gradients the update will read,
         ``{id(p): tensor}``."""
@@ -190,17 +233,17 @@ class MeshPlan:
             local = None if spec is None else self._reduce_scatter(g, spec)
             ep = self.experts.get(id(p))
             if ep is not None:
-                rest = tuple(a for a in self.data_axes if a not in ep)
+                rest = tuple(a for a in self.sync_axes if a not in ep)
                 if rest:
                     _tick()
                     dist.all_reduce(g, group=self.mesh.group(rest))
                 local = g
             if local is None:
                 _tick()
-                dist.all_reduce(g, group=self.data_group)
+                dist.all_reduce(g, group=self.sync_group)
                 local = g if spec is None else local_shard(g, spec,
                                                            self.mesh)
-            local.div_(self.n_data)
+            local.div_(self.n_sync)
             if spec is not None:
                 opt._shard_grads[id(p)] = local
             out[id(p)] = local

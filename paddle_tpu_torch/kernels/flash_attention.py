@@ -458,12 +458,14 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-def flash_attention_with_lse(q, k, v, causal, scale):
+def flash_attention_with_lse(q, k, v, causal, scale, *, kernel=True):
     """``(out, lse)`` flash attention in the ``[B, H, S, D]`` layout,
     differentiable through both outputs; lse is ``[B, H, S]`` fp32.  Its
-    cotangent folds into the backward as δ − dlse (ring attention needs
-    it)."""
-    return _FlashAttention.apply(q, k, v, causal, scale, True)
+    cotangent folds into the backward as δ − dlse (ring attention's
+    merge gives every chunk one).  The launches count in K1–K3's
+    ``.launches``; ``kernel=False`` swaps K1–K3 for their plain
+    versions, as :func:`flash_attention_fwd`'s does."""
+    return _FlashAttention.apply(q, k, v, causal, scale, kernel)
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None, *, kernel=True):

@@ -21,7 +21,11 @@ whose AMP cast applies), a torch tensor for a torch input; attention
 goes through ``kernels.flash_attention`` (the CUDA kernels K1–K3 on a
 CUDA device), recompute through ``torch.utils.checkpoint``.
 :class:`GPTPretrainingCriterion` is the fp32 causal-LM loss
-(``"gpt_loss"``).
+(``"gpt_loss"``).  Under the mesh step's sequence split (``sep > 1``,
+``distributed.env.sequence_split``) a rank holds one chunk of every
+row: ``context_parallel`` attends across the chunks by ring attention
+(``kernels.ring_attention``), otherwise by an all-gather of qkv along
+the sequence (see :meth:`GPTForCausalLM._block`).
 
 Serving: the paged KV pools ``[L, n_blocks, bs, nh, hd]`` are updated
 **in place** (``index_put_``) by :meth:`GPTForCausalLM.prefill_paged`
@@ -70,14 +74,16 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.dispatch import apply_op
 from ..core.tensor import Tensor, _to_torch
-from ..distributed import mp_ops
-from ..distributed.env import get_mesh, row_axes
+from ..distributed import communication, mp_ops
+from ..distributed.env import (get_mesh, row_axes, sequence_split,
+                               token_axes)
 from ..distributed.sharding_utils import (P, _axes_of, gather_shard,
                                           local_shard, validate_spec)
 from ..incubate import moe as _moe
 from ..kernels import paged_attention as _pa
 from ..kernels._shapes import NEG_INF
 from ..kernels.flash_attention import flash_attention_fwd, reference_attention
+from ..kernels.ring_attention import ring_attention
 from ..kernels.rope import apply_rope
 from ..nn.layer.layers import Layer
 from ..serving.sampling import sample_tokens
@@ -162,6 +168,11 @@ def _norm(x, w, b, eps):
     mean = xf.mean(-1, keepdim=True)
     var = xf.var(-1, keepdim=True, unbiased=False)
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
+
+
+#: the seed step between the dropout streams of two sequence chunks
+#: (``GPTForCausalLM.chunk_generator``): 2**64 over the golden ratio
+_CHUNK_SEED_STRIDE = 0x9E3779B97F4A7C15
 
 
 def _keep_mask(shape, p, generator, device):
@@ -463,6 +474,10 @@ class GPTForCausalLM(Layer):
     #: masks from when the caller passes none (an instance attribute,
     #: set in ``__init__``, in place of ``Layer``'s property)
     dropout_generator = None
+    #: True: under the mesh step's sequence split the forward places its
+    #: chunk and attends across the chunks (``jit.mesh.MeshPlan`` trains
+    #: no other model on a mesh with ``sep > 1``)
+    handles_sequence_split = True
     #: a dict that gathers each MoE call's dropped and routed choices by
     #: token count on the device (``incubate.moe.moe_ffn``'s ``stats``);
     #: None (the default) gathers nothing
@@ -471,17 +486,10 @@ class GPTForCausalLM(Layer):
     def __init__(self, config: GPTConfig, device=None, generator=None):
         super().__init__()
         c = self.config = config
-        for flag, on, item in (
-                ("sequence_parallel", c.sequence_parallel,
-                 "A7c (sequence parallelism)"),
-                ("context_parallel", c.context_parallel,
-                 "A7d (context parallelism and ring attention)"),
-                ("pipeline parallel (pp_schedule/virtual_pp_degree)",
-                 c.pp_schedule != "gpipe" or c.virtual_pp_degree != 1,
-                 "A7e (pipeline parallelism)")):
-            if on:
-                raise NotImplementedError(
-                    f"{flag} is not ported yet: ROADMAP.md {item}")
+        if c.pp_schedule != "gpipe" or c.virtual_pp_degree != 1:
+            raise NotImplementedError(
+                "pipeline parallel (pp_schedule/virtual_pp_degree) is not "
+                "ported yet: ROADMAP.md A7e (pipeline parallelism)")
         if c.recompute not in _RECOMPUTE:
             raise ValueError(f"GPTConfig.recompute {c.recompute!r}: expected "
                              f"one of {_RECOMPUTE}")
@@ -583,6 +591,25 @@ class GPTForCausalLM(Layer):
                 t.placements = tp.spec(n)
                 t.is_distributed = _split(t.placements)
         self.dropout_generator = torch.Generator(device=dev).manual_seed(0)
+        #: the generators sequence chunks draw their dropout masks from
+        #: (:meth:`chunk_generator`); a CUDA-graph capture of the mesh
+        #: step registers them beside ``dropout_generator``
+        self.chunk_generators = {}
+
+    def chunk_generator(self, gen, index):
+        """The generator sequence chunk ``index`` draws its dropout masks
+        from in place of ``gen``: one of its own on ``gen``'s device,
+        seeded ``gen``'s seed offset by the chunk index (as the
+        tensor-parallel RNG tracker's local seed is offset by the rank),
+        made on first use.  A chunk draws its own masks only: they take a
+        chunk's memory and differ from the other chunks'."""
+        key = (str(gen.device), gen.initial_seed(), index)
+        g = self.chunk_generators.get(key)
+        if g is None:
+            seed = (gen.initial_seed() + _CHUNK_SEED_STRIDE * (index + 1))
+            g = self.chunk_generators[key] = torch.Generator(
+                device=gen.device).manual_seed(seed % 2 ** 63)
+        return g
 
     @property
     def device(self):
@@ -630,7 +657,9 @@ class GPTForCausalLM(Layer):
     # -- training forward ---------------------------------------------------
     def forward(self, input_ids, *, generator=None, kernel=True):
         """Logits ``[B, S, V]`` in the model dtype for ``input_ids [B, S]``
-        (positions ``0..S-1``), through the tied head.  A ``Tensor``
+        (positions ``0..S-1``; under a sequence split, this rank's chunk
+        of each row, at its positions in the whole sequence), through the
+        tied head.  A ``Tensor``
         input runs as the op ``"gpt_forward"`` over the ids and every
         parameter (so ``amp.auto_cast`` casts them as JAX's does) and
         gives a ``Tensor``; a torch input gives a torch tensor.
@@ -640,7 +669,8 @@ class GPTForCausalLM(Layer):
         projection, GELU-tanh FFN, with residuals.  In training mode with
         ``dropout > 0`` each block's two keep masks are drawn from
         ``generator`` (a ``torch.Generator`` on the model's device;
-        default ``self.dropout_generator``) before the block runs, so a
+        default ``self.dropout_generator``; under a sequence split the
+        chunk's own, :meth:`chunk_generator`) before the block runs, so a
         recomputed stage reuses them.  ``config.recompute`` replays
         activations in the backward through ``torch.utils.checkpoint``:
         ``True`` keeps only each block's input, ``"selective"`` also
@@ -703,16 +733,22 @@ class GPTForCausalLM(Layer):
         c = self.config
         L = c.num_layers
         tp = self._tp
+        # under a sequence split this rank holds tokens [off, off + S) of
+        # every row (distributed.env.sequence_split)
+        sp = sequence_split()
+        S = input_ids.shape[1]
+        off = 0 if sp is None else sp.offset(S)
         if tp is None:
             h = w["wte"][input_ids]
             if not c.use_rope:
-                h = h + w["wpe"][:input_ids.shape[1]]
+                h = h + w["wpe"][off:off + S]
         else:
             h = tp.embed(w["wte"], w.get("wpe"), input_ids,
-                         torch.arange(input_ids.shape[1],
-                                      device=input_ids.device))
+                         torch.arange(off, off + S, device=input_ids.device))
         drop = self.training and c.dropout > 0
         gen = self.dropout_generator if generator is None else generator
+        if drop and sp is not None:
+            gen = self.chunk_generator(gen, sp.index)
         layers = {n: w[n].unbind(0) for n in self._stacked}
         ep = (None if tp is None
               else self._moe_parallel(tp, row_axes()))
@@ -721,7 +757,7 @@ class GPTForCausalLM(Layer):
             lw = {n: t[l] for n, t in layers.items()}
             keep = (tuple(_keep_mask(h.shape, c.dropout, gen, h.device)
                           for _ in range(2)) if drop else None)
-            h = self._block(h, lw, keep, kernel, ep)
+            h = self._block(h, lw, keep, kernel, ep, sp)
             if c.num_experts > 0:
                 h, aux = h
                 auxs.append(aux)
@@ -736,14 +772,24 @@ class GPTForCausalLM(Layer):
             return logits, torch.stack(auxs).sum()
         return logits
 
-    def _block(self, h, lw, keep, kernel, ep=None):
+    def _block(self, h, lw, keep, kernel, ep=None, sp=None):
         """One transformer block, cut into stages at the activations that
         recompute keeps: ``qkv``, ``attn_out`` and ``ffn_up`` (JAX
         ``checkpoint_name``s).  A checkpointed stage saves only its
         inputs and replays the rest in the backward.  An MoE block
         returns ``(h, aux)``; its FFN has no ``ffn_up`` to keep, so
         ``"selective"`` replays it as ``"selective_lean"`` does (routing
-        and dropout replay identically: the same inputs and masks)."""
+        and dropout replay identically: the same inputs and masks).
+
+        Under a sequence split ``sp`` the block holds this rank's chunk
+        of every row; only attention crosses the chunks.  With
+        ``context_parallel`` it is the ring (K1 on chunk pairs); else
+        (``sequence_parallel``, or neither flag: the values GSPMD gives
+        the JAX package) qkv is all-gathered along the sequence
+        (reduce-scattered in the backward), K1 runs over the whole
+        sequence and the block keeps this rank's rows of its output.
+        LayerNorm, the FFN, dropout and the residual run on the local
+        rows: the JAX ``P(dp, sep, None)`` residual."""
         c = self.config
         eps = c.layer_norm_epsilon
         drop = (None if keep is None else
@@ -755,17 +801,29 @@ class GPTForCausalLM(Layer):
             x = col_in(_norm(h, lw["ln1_w"], lw["ln1_b"], eps), "attn")
             return torch.matmul(x, lw["qkv_w"]) + lw["qkv_b"]
 
+        ring = sp is not None and c.context_parallel
+        gather = sp is not None and not c.context_parallel
+
         def attend(qkv):
             b, s, H3 = qkv.shape
             hd = c.hidden_size // c.num_heads
             nh = H3 // 3 // hd
-            q, k, v = (t.reshape(b, s, nh, hd) for t in qkv.split(H3 // 3, -1))
+            if gather:
+                qkv = mp_ops.all_gather_seq(qkv, sp.axis, sp.mesh)
+            q, k, v = (t.reshape(b, -1, nh, hd)
+                       for t in qkv.split(H3 // 3, -1))
             if c.use_rope:
-                q, k = apply_rope(q), apply_rope(k)
-            if c.use_flash_attention:
+                off = sp.offset(s) if ring else 0
+                q, k = apply_rope(q, offset=off), apply_rope(k, offset=off)
+            if ring:
+                o = ring_attention(q, k, v, causal=True, axis=sp.axis,
+                                   mesh=sp.mesh, kernel=kernel)
+            elif c.use_flash_attention:
                 o = flash_attention_fwd(q, k, v, causal=True, kernel=kernel)
             else:
                 o = reference_attention(q, k, v, causal=True)
+            if gather:
+                o = o.narrow(1, sp.offset(s), s)
             return o.reshape(b, s, H3 // 3)
 
         def post_attn(h, o):
@@ -1177,6 +1235,20 @@ class GPTForCausalLM(Layer):
         return torch.cat([ids, torch.stack(out, dim=1)], dim=1)
 
 
+def _token_split():
+    """``(mesh, axes, n)``: the axes the running forward's tokens are split
+    over (``distributed.env.token_axes``: the mesh step's rows, then its
+    sequence chunks) and their count of ranks; None when each rank sees
+    every token."""
+    axes = token_axes()
+    if not axes:
+        return None
+    sp = sequence_split()
+    mesh = sp.mesh if sp is not None else get_mesh()
+    n = mesh.degree(axes)
+    return None if n == 1 else (mesh, axes, n)
+
+
 def _causal_lm_loss(logits, labels, loss_mask=None):
     lg = logits.float()
     picked = lg.gather(-1, labels.long()[..., None])[..., 0]
@@ -1184,14 +1256,27 @@ def _causal_lm_loss(logits, labels, loss_mask=None):
     if loss_mask is None:
         return loss.mean()
     m = loss_mask.float()
-    return (loss * m).sum() / m.sum().clamp_min(1.0)
+    split = _token_split()
+    if split is None:
+        return (loss * m).sum() / m.sum().clamp_min(1.0)
+    # the tokens are split over n ranks, whose masks may count unequally:
+    # this rank's masked sum over the GLOBAL count, times n, so that the
+    # mesh step's mean over the ranks (of the loss and of the gradients)
+    # is the global masked mean the JAX step computes
+    mesh, axes, n = split
+    count = m.sum().detach().clone()
+    communication.all_reduce(count, group=mesh.group(axes))
+    return (loss * m).sum() * n / count.clamp_min(1.0)
 
 
 class GPTPretrainingCriterion(Layer):
     """Causal-LM loss over ``logits [B, S, V]`` and ``labels [B, S]``: fp32
     ``logsumexp - picked`` per token, averaged, or averaged over
     ``loss_mask`` (at least one token) when it is given.  ``Tensor``
-    inputs run as the op ``"gpt_loss"`` and give a ``Tensor``."""
+    inputs run as the op ``"gpt_loss"`` and give a ``Tensor``.  Inside
+    the mesh train step, whose ranks each hold some rows or a chunk of
+    the sequence, the masked average is the global batch's: one
+    all-reduce of the mask's count."""
 
     def __init__(self, config=None):
         super().__init__()

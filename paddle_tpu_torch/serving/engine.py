@@ -88,6 +88,9 @@ _TODO = {
                         "fleet on a mesh)",
     "mesh+fleet": "ROADMAP.md A7f (the speculative engine and the fleet on "
                   "a mesh)",
+    "mesh+sep": "ROADMAP.md A7c (serving over a mesh with sep > 1; a "
+                "model built with sequence_parallel or context_parallel "
+                "serves without one)",
 }
 
 
@@ -256,6 +259,8 @@ class LLMEngine:
                 raise _not_ported("mesh+adapters")
             if int(host_kv_blocks or 0) > 0:
                 raise _not_ported("mesh+host_kv_blocks")
+            if mesh.shape.get("sep", 1) > 1:
+                raise _not_ported("mesh+sep")
         if int(adapter_slots or 0) > 0 and kv_layout != "paged":
             raise ValueError("adapter_slots requires kv_layout='paged' "
                              "(adapter ids ride the paged calls)")

@@ -1,7 +1,9 @@
 """Rank functions for the port's multi-process tests (not collected).
 
-``tests/test_torch_distributed_api.py``, ``test_torch_mesh_serving.py``
-and ``test_torch_mesh_train.py`` run the JAX package in the pytest
+``tests/test_torch_distributed_api.py``, ``test_torch_mesh_serving.py``,
+``test_torch_mesh_train.py``, ``test_torch_moe_mesh.py``,
+``test_torch_ring_attention.py``, ``test_torch_sequence_parallel.py``
+and ``test_torch_cp_train.py`` run the JAX package in the pytest
 process and the port's ranks in processes spawned here: each child
 imports ``torch`` and ``paddle_tpu_torch`` only (the test files import
 JAX, so the ranks' code lives in this module), joins a gloo group
@@ -661,4 +663,215 @@ def moe_2ranks(rank, world, pl):
     split.eval()
     out["split_model"], e = _serve(split, prompts, mesh)
     out["split_fc1_shard"] = tuple(e._w["lws"]["fc1_w"].shape)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_ring_attention.py
+# ---------------------------------------------------------------------------
+
+def _chunk(a, rank, world, dim=1):
+    n = a.shape[dim] // world
+    return np.take(a, np.arange(rank * n, (rank + 1) * n), axis=dim)
+
+
+def _ring_case(case, rank, world, attend):
+    """``attend(q, k, v, causal)`` on this rank's chunks of ``case``'s
+    global q/k/v (loss ``sum(o**2)`` over the whole sequence): the output
+    chunk and the chunks' gradients."""
+    from paddle_tpu_torch.profiler import counters
+    q, k, v = (torch.from_numpy(_chunk(case[n], rank, world)).requires_grad_()
+               for n in "qkv")
+    c0 = counters.snapshot()
+    o = attend(q, k, v, causal=case["causal"])
+    (o.float() ** 2).sum().backward()
+    d = counters.delta(c0)
+    return {"o": _np(o), "dq": _np(q.grad), "dk": _np(k.grad),
+            "dv": _np(v.grad), "shifts": d.get("dist.ring_shifts", 0),
+            "fallbacks": d.get("kernels.flash.reference_fallbacks", 0)}
+
+
+def ring_sep(rank, world, pl):
+    """Every case of ``pl`` through the ring over ``sep = world``, and
+    its control: a ring that does not rotate, each rank attending within
+    its own chunk (``flash_attention_fwd`` on it)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention_fwd
+    from paddle_tpu_torch.kernels.ring_attention import ring_attention
+    D.build_mesh({"sep": world})
+    return {name: {"ring": _ring_case(case, rank, world, ring_attention),
+                   "control": _ring_case(case, rank, world,
+                                         flash_attention_fwd)}
+            for name, case in pl["cases"].items()}
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_sequence_parallel.py
+# ---------------------------------------------------------------------------
+
+def sp_linears_mp2(rank, world, pl):
+    """ScatterOp -> ColumnSequenceParallelLinear -> gelu ->
+    RowSequenceParallelLinear -> GatherOp at mp 2 on ``pl``'s weights:
+    the output, the input's gradient and every full parameter gradient
+    of ``sum(y**2)``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.sharding_utils import gather_shard
+    from paddle_tpu_torch.profiler import counters
+    mesh = D.build_mesh({"mp": world})
+    col = fleet.ColumnSequenceParallelLinear(8, 16, has_bias=True)
+    row = fleet.RowSequenceParallelLinear(16, 8, has_bias=True)
+    _load_layer(col, {"weight": pl["w1"], "bias": pl["b1"]}, mesh)
+    _load_layer(row, {"weight": pl["w2"], "bias": pl["b2"]}, mesh)
+    x = paddle.to_tensor(pl["x"], stop_gradient=False)
+    c0 = counters.snapshot()
+    mid = col(fleet.ScatterOp.apply(x))
+    part = row(paddle.nn.functional.gelu(mid))
+    y = fleet.GatherOp.apply(part)
+    (y._data ** 2).sum().backward()
+    moved = counters.delta(c0)
+
+    def full(p):
+        t = p._data if hasattr(p, "_data") else p
+        spec = getattr(t, "placements", ())
+        g = t.grad
+        return _np(gather_shard(g, spec, mesh) if any(
+            e is not None for e in spec) else g)
+    return {"y": _np(y), "dx": _np(x.grad), "mid_shape": tuple(mid.shape),
+            "part_shape": tuple(part.shape),
+            "grads": {"w1": full(col.weight), "b1": full(col.bias),
+                      "w2": full(row.weight), "b2": full(row.bias)},
+            "marked": bool(getattr(row.bias._data, "sequence_parallel",
+                                   False)),
+            "mp_collectives": moved.get("dist.mp_collectives", 0)}
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_cp_train.py
+# ---------------------------------------------------------------------------
+
+def _cp_train(pl, mesh, cfg, state, batch, steps=None):
+    """The GPT ``cfg`` (``state``'s weights) trained AdamW steps on the
+    global ``batch`` (ids, labels, loss masks) through the mesh step;
+    returns (losses, gathered state, the counters one step moved)."""
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import counters
+    model = _gpt(cfg, state)
+    crit = GPTPretrainingCriterion()
+    opt = AdamW(pl["lr"], parameters=model.parameters())
+    step = CompiledTrainStep(model, lambda m, x, y, w: crit(m(x), y, w), opt,
+                             mesh=mesh)
+    losses, moved = [], None
+    for i in range(len(batch[0]) if steps is None else steps):
+        c0 = counters.snapshot()
+        losses.append(float(step(*(torch.from_numpy(t[i]) for t in batch))))
+        moved = moved or counters.delta(c0)
+    return losses, model.gather_numpy_state(), moved
+
+
+def _dropout_masks(pl, mesh):
+    """The keep masks of one training forward with dropout under the sep
+    split (this rank's), and the same number of masks of their shape
+    drawn afresh from a generator seeded as the chunk's stream: ``(masks,
+    redrawn, seed)``."""
+    from paddle_tpu_torch.distributed.env import sequence_split_over
+    from paddle_tpu_torch.models import gpt
+    cfg = {**pl["cfg"], "dropout": 0.5, "context_parallel": True}
+    seen, drop = [], gpt._dropout
+
+    def record(x, p, keep):
+        seen.append(keep.clone())
+        return drop(x, p, keep)
+    gpt._dropout = record
+    try:
+        ids = torch.from_numpy(pl["ids"][0])
+        n = ids.shape[1] // mesh.degree("sep")
+        me = mesh.index("sep")
+        model = _gpt(cfg, pl["state"])
+        with sequence_split_over("sep", mesh):
+            model(ids[:, me * n:(me + 1) * n])
+    finally:
+        gpt._dropout = drop
+    (gen,) = model.chunk_generators.values()
+    again = torch.Generator().manual_seed(gen.initial_seed())
+    redrawn = [torch.rand(m.shape, generator=again) < 0.5 for m in seen]
+    return ([_np(m) for m in seen], [_np(m) for m in redrawn],
+            gen.initial_seed())
+
+
+def _refusals(mesh):
+    """A BERT and a plain linear layer handed to the mesh step on a sep
+    mesh: the errors (neither handles the sequence split)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    bert = BertForPretraining(BertConfig(
+        vocab_size=64, hidden_size=32, num_hidden_layers=2,
+        num_attention_heads=4, intermediate_size=64))
+    models = {"bert": bert, "linear": paddle.nn.Linear(8, 8)}
+    return {name: _raises(lambda: CompiledTrainStep(
+        m, lambda m, x: m(x).sum(), AdamW(1e-3, parameters=m.parameters()),
+        mesh=mesh)) for name, m in models.items()}
+
+
+def cp_sep2(rank, world, pl):
+    """sep 2 over the two ranks: the context-parallel GPT (with and
+    without sequence_parallel, learned positions and RoPE), the
+    sequence_parallel-only route, sep with neither flag, each 3 AdamW
+    steps under loss masks of unequal counts per chunk; the dropout
+    masks; MoE, mesh serving and models that do not handle the split
+    refused; then dp2 with the same masks
+    (unequal counts per row)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.serving import LLMEngine
+    mesh = D.build_mesh({"sep": world})
+    batch = (pl["ids"], pl["labels"], pl["masks"])
+    out = {}
+    for name, flags in pl["runs"].items():
+        state = pl["rope_state"] if flags.get("use_rope") else pl["state"]
+        out[name] = _cp_train(pl, mesh, {**pl["cfg"], **flags}, state,
+                              batch)
+    out["masks"], out["masks_redrawn"], out["mask_seed"] = _dropout_masks(
+        pl, mesh)
+    out["refused"] = _refusals(mesh)
+    moe = {**pl["cfg"], "num_experts": 4, "context_parallel": True}
+    out["moe"] = _raises(lambda: _cp_train(
+        pl, mesh, moe, pl["moe_state"], batch, steps=1))
+    model = _gpt({**pl["cfg"], "context_parallel": True}, pl["state"])
+    model.eval()
+    out["serve_mesh"] = _raises(lambda: LLMEngine(
+        model, kv_layout="paged", mesh=mesh, max_seq_len=32))
+    D.set_mesh(None)
+    out["dp2"] = _cp_train(pl, D.build_mesh({"dp": world}), pl["cfg"],
+                           pl["state"], batch)
+    return out
+
+
+def cp_dp2sep2(rank, world, pl):
+    """dp 2 x sep 2 over four ranks: the context- and sequence-parallel
+    GPT, 3 AdamW steps under loss masks of unequal counts per row and
+    per chunk; then the pieces the mesh step cuts from a batch and from
+    a window's stacked batch, and its error on a sequence that does not
+    divide."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.jit.mesh import MeshPlan
+    from paddle_tpu_torch.optimizer import AdamW
+    mesh = D.build_mesh({"dp": 2, "sep": 2})
+    flags = pl["runs"]["cp_sp"]
+    cfg = {**pl["cfg"], **flags}
+    out = {"train": _cp_train(pl, mesh, cfg, pl["state"],
+                              (pl["ids"], pl["labels"], pl["masks"]))}
+    model = _gpt(cfg, pl["state"])
+    plan = MeshPlan(mesh, model, AdamW(1e-3, parameters=model.parameters()))
+    batch = torch.arange(4 * 32).reshape(4, 32)
+    window = torch.arange(2 * 4 * 32).reshape(2, 4, 32)
+    out["rows"] = _np(plan.rows((batch, 7), False)[0])
+    out["window_rows"] = _np(plan.rows((window,), True)[0])
+    out["index"] = (mesh.index("dp"), mesh.index("sep"))
+    out["odd_sequence"] = _raises(
+        lambda: plan.rows((torch.zeros(4, 31),), False))
     return out

@@ -499,9 +499,31 @@ def test_unported_train_step_options_name_their_roadmap_item(kw, item):
             atol=1e-4 * step + 1e-6 * float(np.abs(init0[n]).max()))
 
 
-@pytest.mark.parametrize("cfg", [dict(sequence_parallel=True),
-                                 dict(context_parallel=True),
-                                 dict(pp_schedule="1f1b")])
+@pytest.mark.parametrize("cfg", [dict(pp_schedule="1f1b")])
 def test_unported_model_parallelism_names_a7(cfg):
-    with pytest.raises(NotImplementedError, match="A7"):
+    """Pipeline parallelism is still refused, naming ROADMAP.md A7e."""
+    with pytest.raises(NotImplementedError, match="A7e"):
         GPTForCausalLM(GPTConfig(**{**CFG, **cfg}), device="cpu")
+
+
+@pytest.mark.parametrize("flag", ["sequence_parallel", "context_parallel"])
+def test_parallel_flags_train_without_a_mesh_as_without_them(flag):
+    """``sequence_parallel`` and ``context_parallel`` build, and without a
+    mesh (sep 1, as in the JAX package) the model trains exactly as
+    without the flag: three ``CompiledTrainStep`` + AdamW steps under a
+    loss mask, the same losses and parameters bit for bit (the flags act
+    only on a sequence split: ``tests/test_torch_cp_train.py``)."""
+    ids, labels, mask = (torch.from_numpy(t) for t in _batch())
+    runs = []
+    for cfg in ({}, {flag: True}):
+        m = GPTForCausalLM(GPTConfig(**{**CFG, **cfg}), device="cpu")
+        crit = GPTPretrainingCriterion()
+        step = CompiledTrainStep(m, lambda m, x, y, w: crit(m(x), y, w),
+                                 AdamW(LR, parameters=m.parameters()))
+        losses = [float(step(ids, labels, mask)) for _ in range(STEPS)]
+        runs.append((losses, {n: t.detach().clone()
+                              for n, t in m._weights().items()}))
+    (l0, w0), (l1, w1) = runs
+    assert l0 == l1
+    for n in w0:
+        assert torch.equal(w0[n], w1[n]), n
