@@ -3343,17 +3343,22 @@ def _flash_per_layer_step(recompute):
 
 
 def _loop(model, size, k=1, scaler=None, loss_fn=None, metrics=True,
-          mesh=None):
+          mesh=None, pipeline=None):
     """The training loop as a user runs GPT pretraining: AdamW over a
     warmup + cosine schedule, global-norm clipping at 1.0, weight decay
     0.1 on all but biases and norms, train metrics; ``mesh``: the mesh
-    step."""
+    step; ``pipeline``: a ``Pipeline1F1BTrainStep`` of that schedule
+    over ``mesh`` (``PP_M`` microbatches) in its place."""
     crit = GPTPretrainingCriterion()
     top = LOOP_LR[size]
     sched = lr.CosineAnnealingWithWarmupDecay(top, top / 10, 2, 1000)
     opt = AdamW(sched, parameters=model.named_parameters(),
                 grad_clip=ClipGradByGlobalNorm(1.0),
                 apply_decay_param_fun=_decays, weight_decay=0.1)
+    if pipeline is not None:
+        from paddle_tpu_torch.distributed import Pipeline1F1BTrainStep
+        return sched, opt, Pipeline1F1BTrainStep(
+            model, opt, num_microbatches=PP_M, mesh=mesh, schedule=pipeline)
     fn = loss_fn or (lambda m, x, y: crit(m(x), y))
     step = CompiledTrainStep(model, fn, opt, scaler=scaler, fused_steps=k,
                              metrics=metrics, mesh=mesh)
@@ -5903,12 +5908,13 @@ def _update_rel_err(init, after, d_ref):
 def _masters(model, opt):
     """The optimizer's fp32 master weights (a parameter's own value where
     it has none), whole and in the JAX layout (every rank calls: a
-    tensor-parallel model gathers its shards)."""
-    tp, masters = model._tp, opt.state_dict()["master_weights"]
+    tensor-parallel model gathers its shards, a pipelined one its
+    stages' rows)."""
+    masters = opt.state_dict()["master_weights"]
     out = {}
     for n, t in model._weights().items():
         t = masters.get(n, t).detach().float()
-        out[n] = (t if tp is None else tp.full(n, t)).cpu().numpy()
+        out[n] = model.full_weight(n, t).cpu().numpy()
     return out
 
 
@@ -7142,6 +7148,230 @@ def cp_train_2rank_phase():
     return rows
 
 
+# -- pipeline-parallel training over pp --------------------------------------
+
+#: pp_train_2rank: GPT-3 125M at full width and depth (12 layers, 6 a
+#: stage), batch 8 x 1024 in M = 4 microbatches of 2, 2 AdamW steps a
+#: schedule through :func:`_loop` (its schedule stepped: the first step's
+#: lr is 0, so the losses read the pipelined forward and the updates its
+#: backward)
+PP_B, PP_M, PP_STEPS = 8, 4, 2
+#: the schedules: GPipe through ``CompiledTrainStep(mesh=)``, the
+#: interleaved one (``virtual_pp_degree=2``, 3 layers a chunk), 1F1B and
+#: zero-bubble through ``Pipeline1F1BTrainStep``
+PP_RUNS = ("gpipe", "interleaved", "1f1b", "zero_bubble")
+#: the controls, GPipe each: stage 1 receives zeros in place of the
+#: shifted activation (must miss both limits), and the embedding's and
+#: head's gradients are not summed over pp (its losses are the sound
+#: run's, as the first update has lr 0: it must miss the update limit)
+PP_CONTROLS = ("no_shift", "no_pp_sum")
+#: the limits of each schedule's losses against one process on the
+#: whole batch, and of each fp32 master's change (``MESH2_*``'s
+#: measures), between the sound runs and the controls
+PP_LOSS_ATOL, PP_UPDATE_RTOL = 1e-3, 0.1
+
+
+def _pp_cfg(run):
+    cfg = _fused_cfg()
+    if run == "interleaved":
+        cfg.pp_schedule, cfg.virtual_pp_degree = "interleaved", 2
+    return cfg
+
+
+def _pp_launches_want(run, rank):
+    """K1–K3 launches of one pp-2 rank over ``PP_STEPS`` steps: each of
+    its 6 layers runs K1 once a microbatch forward and, under selective
+    recompute, once more in each backward pass, which runs K2 and K3
+    once.  A step has one backward pass a microbatch, but zero-bubble's
+    last stage runs two (dX, then W, each through the whole stage)."""
+    passes = 2 if run == "zero_bubble" and rank == 1 else 1
+    per = {"flash_fwd": 1 + passes, "flash_bwd_dq": passes,
+           "flash_bwd_dkv": passes}
+    return {n: c * 6 * PP_M * PP_STEPS for n, c in per.items()}
+
+
+def _pp_run(pl, mesh, run, init):
+    """One rank's ``run`` (a schedule of :data:`PP_RUNS` or a GPipe
+    control) from seed-0 weights built under ``mesh``: losses, each fp32
+    master's change against the one-process change, the K1–K3 launches,
+    the pipeline shifts, the in-flight gauge and this process's peak
+    memory over what it held before the model."""
+    from paddle_tpu_torch.distributed import pipeline
+    ids, labels = (torch.from_numpy(pl[k]).cuda() for k in ("ids", "labels"))
+    m0 = torch.cuda.memory_allocated()
+    model = GPTForCausalLM(_pp_cfg(run), device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    sched, opt, step = _loop(model, "gpt3_125m", k=1, mesh=mesh,
+                             pipeline=run if run in ("1f1b", "zero_bubble")
+                             else None)
+    shift = pipeline._shift_pp
+    if run == "no_shift":
+        def no_shift(x, mesh, step):
+            y = shift(x, mesh, step)
+            return torch.zeros_like(y) if step == 1 else y
+        pipeline._shift_pp = no_shift
+    if run == "no_pp_sum":
+        step._mesh.sum_pp = False
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_counts()
+    c0 = counters.snapshot()
+    t0 = time.perf_counter()
+    try:
+        losses = []
+        for i in range(PP_STEPS):
+            losses.append(float(step(ids[i], labels[i])))
+            sched.step()
+    finally:
+        pipeline._shift_pp = shift
+    torch.cuda.synchronize()
+    rec = {"losses": losses, "seconds": time.perf_counter() - t0,
+           "launches": _flash_counts(),
+           "peak_bytes": torch.cuda.max_memory_allocated() - m0,
+           "pp_shifts": counters.delta(c0).get("dist.pp_shifts", 0),
+           "max_in_flight": counters.get("pipeline.max_in_flight", None)
+           if run in ("1f1b", "zero_bubble") else None,
+           "update_rel_err": _update_rel_err(init, _masters(model, opt),
+                                             pl["d_ref"])}
+    del model, opt, step
+    _free_cuda()
+    return rec
+
+
+def _pp_rank(rank, world, pl):
+    """One rank of pp_train_2rank: every schedule and control in turn
+    over the pp-2 mesh."""
+    from paddle_tpu_torch import distributed as D
+    mesh = D.build_mesh({"pp": world})
+    init = GPTForCausalLM(_pp_cfg("gpipe"), device="cuda",
+                          generator=torch.Generator().manual_seed(0)
+                          ).gather_numpy_state()
+    _free_cuda()
+    return {run: _pp_run(pl, mesh, run, init)
+            for run in PP_RUNS + PP_CONTROLS}
+
+
+def pp_train_2rank_phase():
+    """Pipeline-parallel GPT training over pp 2 across two processes on
+    this card (gloo; ``fused_steps=1``): GPT-3 125M at full width and
+    depth, bf16, ``recompute="selective"``, batch 8 x 1024 in 4
+    microbatches of 2, 2 steps through :func:`_loop` with its schedule
+    stepped, for each of GPipe (``CompiledTrainStep(mesh=build_mesh(
+    {"pp": 2}))``), the interleaved schedule (V 2), 1F1B and zero-bubble
+    (``Pipeline1F1BTrainStep``), against this process's one-process run
+    from the same weights and batches: losses within ``PP_LOSS_ATOL``,
+    every fp32 master's change within ``PP_UPDATE_RTOL`` (``qkv_b``'s key
+    third apart: :data:`NOISE_ONLY`); the controls of :data:`PP_CONTROLS`
+    must miss them; K1–K3 launches a rank by :func:`_pp_launches_want`;
+    each rank's peak memory below one process's, and stage 0's under
+    1F1B below its GPipe peak (M 4 > P 2); the 1F1B in-flight gauge P -
+    s.  Then K1–K3 at the microbatch's shape (B 2, 12 heads of 64, S
+    1024, causal) held to their plain versions and timed beside SDPA.
+    Returns the flash rows' additions by kernel."""
+    cfg = _pp_cfg("gpipe")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    ids, labels = (torch.randint(0, cfg.vocab_size,
+                                 (PP_STEPS, PP_B, TRAIN_S), generator=gen,
+                                 device="cuda") for _ in range(2))
+    m0 = torch.cuda.memory_allocated()
+    model = GPTForCausalLM(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    init = model.gather_numpy_state()
+    sched, opt, step = _loop(model, "gpt3_125m", k=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ref, lrs = [], []
+    t0 = time.perf_counter()
+    for i in range(PP_STEPS):
+        lrs.append(sched())
+        ref.append(float(step(ids[i], labels[i])))
+        sched.step()
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    one_peak = torch.cuda.max_memory_allocated() - m0
+    d_ref = {n: v - init[n] for n, v in _masters(model, opt).items()}
+    del model, opt, step, init
+    _free_cuda()
+    res = _spawn_ranks("_pp_rank", 2, {"ids": ids.cpu().numpy(),
+                                       "labels": labels.cpu().numpy(),
+                                       "d_ref": d_ref})
+    del d_ref
+    record = {"phase": "pp_train_2rank", "card": CARD,
+              "model": "gpt3_125m bf16 selective, 12 layers, 6 a stage",
+              "batch": [PP_B, TRAIN_S], "microbatches": PP_M,
+              "mesh": "pp2 (gloo, two processes)", "lrs": lrs,
+              "one_process_losses": ref, "one_process_seconds": one_s,
+              "one_process_peak_bytes": one_peak,
+              "loss_atol": PP_LOSS_ATOL, "update_rtol": PP_UPDATE_RTOL}
+    for run in PP_RUNS + PP_CONTROLS:
+        errs = [r[run]["update_rel_err"] for r in res]
+        worst_n = max((n for n in errs[0] if n != NOISE_ONLY),
+                      key=lambda n: max(e[n] for e in errs))
+        record[run] = {
+            "max_loss_err": max(abs(a - b) for r in res
+                                for a, b in zip(r[run]["losses"], ref)),
+            "max_update_rel_err": max(e[worst_n] for e in errs),
+            "worst_param": worst_n,
+            "noise_only_rel_err": max(e[NOISE_ONLY] for e in errs),
+            "launches_want": [_pp_launches_want(run, r) for r in range(2)],
+            **{k: [r[run][k] for r in res] for k in (
+                "losses", "launches", "peak_bytes", "pp_shifts",
+                "max_in_flight", "seconds")}}
+    emit(record)
+    for run in PP_RUNS:
+        r = record[run]
+        if (r["max_loss_err"] > PP_LOSS_ATOL
+                or r["max_update_rel_err"] > PP_UPDATE_RTOL):
+            raise AssertionError(f"pp_train_2rank {run}: against one "
+                                 f"process {ref}: {r}")
+        if r["launches"] != r["launches_want"]:
+            raise AssertionError(f"pp_train_2rank {run}: K1-K3 launches "
+                                 f"{r['launches']}, want "
+                                 f"{r['launches_want']}")
+        if any(p >= one_peak for p in r["peak_bytes"]):
+            raise AssertionError(f"pp_train_2rank {run}: a rank's peak "
+                                 f"memory is not below one process's "
+                                 f"{one_peak}: {r['peak_bytes']}")
+    if record["1f1b"]["max_in_flight"] != [2, 1]:
+        raise AssertionError(f"pp_train_2rank: 1F1B in flight "
+                             f"{record['1f1b']['max_in_flight']}")
+    if record["1f1b"]["peak_bytes"][0] >= record["gpipe"]["peak_bytes"][0]:
+        raise AssertionError("pp_train_2rank: stage 0's 1F1B peak is not "
+                             "below its GPipe peak: "
+                             f"{record['1f1b']['peak_bytes']} vs "
+                             f"{record['gpipe']['peak_bytes']}")
+    ns, nps = record["no_shift"], record["no_pp_sum"]
+    if (ns["max_loss_err"] <= PP_LOSS_ATOL
+            or ns["max_update_rel_err"] <= PP_UPDATE_RTOL
+            or nps["max_update_rel_err"] <= PP_UPDATE_RTOL):
+        raise AssertionError(f"pp_train_2rank: a control passes a gate: "
+                             f"no_shift {ns}, no_pp_sum {nps}")
+    # the microbatch's K1-K3, held to their plain versions and timed
+    worst = dict.fromkeys(("flash_fwd", "flash_fwd_lse", "flash_bwd_dq",
+                           "flash_bwd_dkv"), 0.0)
+    ratio = dict(worst)
+    mb = (PP_B // PP_M, 12, TRAIN_S, 64)
+    _flash_check(torch.Generator(device="cuda").manual_seed(53),
+                 [(*mb, torch.bfloat16, True)], worst, ratio)
+    errs = {"flash_fwd": max(worst["flash_fwd"], worst["flash_fwd_lse"]),
+            "flash_bwd_dq": worst["flash_bwd_dq"],
+            "flash_bwd_dkv": worst["flash_bwd_dkv"]}
+    rows = {}
+    for n, t in _flash_shape_times(*mb, True, seed=54).items():
+        emit(t)
+        per = {run: [l[n] for l in record[run]["launches"]]
+               for run in PP_RUNS}
+        rows[n] = {"shape": t["shape"], "launches_per_rank": per,
+                   "launches": sum(sum(v) for v in per.values()),
+                   "max_abs_err": errs[n], "ms": t["kernel_us"] / 1e3,
+                   "plain_ms": t["plain_us"] / 1e3,
+                   "bound_ms": t["bound_us"] / 1e3,
+                   "bound_by": t["bound_by"],
+                   "library_ms": t["library_us"] / 1e3,
+                   "share_of_bound": t["share_of_bound"]}
+    return rows
+
+
 def _free_cuda():
     gc.collect()
     torch.cuda.empty_cache()
@@ -7248,6 +7478,8 @@ def main():
     _free_cuda()
     cp_rows = _timed(cp_train_2rank_phase)
     _free_cuda()
+    pp_rows = _timed(pp_train_2rank_phase)
+    _free_cuda()
     bert = _timed(bert_train_phase)
     _free_cuda()
     _timed(bert_in_model_phase)
@@ -7262,7 +7494,7 @@ def main():
     hd_rows = _timed(flash_hd_times_phase, flash_hd_err, hd_launches)
     # the mesh paths' shapes beside each row: 760M serving's 16 x 96 heads
     # and its mp2 slice of 8, 125M training's mp2 slice of 6 x 64, the
-    # sep2 ring's chunk pairs
+    # sep2 ring's chunk pairs, the pp2 microbatch (2 x 12 heads of 64)
     for row in paged_rows:
         if row["name"] in sm_rows:
             row["servemp_760m_16x96"] = sm_rows[row["name"]]
@@ -7276,6 +7508,7 @@ def main():
         row["mesh_train_one_rank_launches"] = mesh_launches[row["name"]]
         row["cp_sep2_125m_s8192_chunk_pairs_2x12x4096x64"] = cp_rows[
             row["name"]]
+        row["gpt125m_pp2_mb2_12x64"] = pp_rows[row["name"]]
     torch.cuda.synchronize()
     emit({"phase": "total", "run_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": [*paged_rows, *fp16_rows, *flash_rows,

@@ -13,11 +13,16 @@ parallelism (MoE experts split over ``dp``, their token all-to-all) is
 context parallelism over ``sep`` (the sequence split of
 ``env.sequence_split``, ``communication.ring_shift`` under
 ``kernels.ring_attention``) run in the GPT and ``jit.mesh``; Megatron's
-sequence-parallel linears are ``fleet``'s.  Pipeline parallelism,
-multi-process checkpoints and the launchers are ROADMAP.md A7e–A7h.
+sequence-parallel linears are ``fleet``'s.  Pipeline parallelism over
+``pp`` (``pipeline``: GPipe, interleaved, 1F1B and zero-bubble) runs in
+the GPT, ``jit.mesh`` and ``engine``'s ``DistributedTrainStep``,
+``Pipeline1F1BTrainStep`` and ``DistributedEvalStep`` (imported on first
+use: ``engine`` builds on ``jit``); ``fleet.PipelineLayer`` describes a
+model in stages.  Multi-process checkpoints and the launchers are
+ROADMAP.md A7g–A7h.
 """
 
-from . import checkpoint, fleet
+from . import checkpoint, fleet, pipeline
 from .checkpoint import (CheckpointCorrupt, load_state_dict,
                          save_state_dict, wait_async_save)
 from .communication import (Group, P2POp, ReduceOp, all_gather,
@@ -34,20 +39,34 @@ from .parallel import DataParallel, fused_allreduce_gradients
 from .sharding_utils import P
 
 
+_ENGINE = ("DistributedEvalStep", "DistributedTrainStep",
+           "Pipeline1F1BTrainStep")
+
+
+def __getattr__(name):
+    if name in _ENGINE:
+        from . import engine
+        return getattr(engine, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def get_backend():
     import torch.distributed as dist
     return dist.get_backend() if dist.is_initialized() else None
 
 
-__all__ = ["AXIS_ORDER", "CheckpointCorrupt", "DataParallel", "Group",
-           "Mesh", "P", "P2POp", "ParallelEnv", "ReduceOp", "all_gather",
+__all__ = ["AXIS_ORDER", "CheckpointCorrupt", "DataParallel",
+           "DistributedEvalStep", "DistributedTrainStep", "Group",
+           "Mesh", "P", "P2POp", "ParallelEnv", "Pipeline1F1BTrainStep",
+           "ReduceOp", "all_gather",
            "all_gather_object", "all_reduce", "all_to_all", "axis_group",
            "barrier", "batch_isend_irecv", "broadcast", "build_mesh",
            "checkpoint", "data_axes", "fleet", "fused_allreduce_gradients",
            "get_backend", "get_group", "get_mesh", "get_rank",
            "get_world_size", "hybrid_degrees", "init_parallel_env", "irecv",
            "is_initialized", "isend", "load_state_dict", "new_group",
-           "recv", "reduce", "reduce_scatter", "reset_parallel_env",
+           "pipeline", "recv", "reduce", "reduce_scatter",
+           "reset_parallel_env",
            "ring_shift", "save_state_dict", "scatter", "send",
            "sequence_split", "set_mesh", "stream",
            "wait_async_save"]

@@ -330,19 +330,19 @@ for _n in ("all_reduce", "all_gather", "all_gather_object", "broadcast",
 del _n
 
 
-def _shift(x, axis, mesh, step):
+def _shift(x, axis, mesh, step, counter="dist.ring_shifts"):
     """``x`` sent to member ``r + step`` of ``axis``'s group and the
     tensor of member ``r - step`` received (cyclically): one
     ``all_to_all_single`` whose split sizes are zero but toward those two
     members, so gloo (which takes CUDA tensors there) and NCCL run the
-    same call."""
+    same call.  Ticks ``dist.collective_launches`` and ``counter``."""
     n, r = mesh.degree(axis), mesh.index(axis)
     x = x.contiguous()
     send, recv = [0] * n, [0] * n
     send[(r + step) % n] = recv[(r - step) % n] = x.shape[0]
     out = torch.empty_like(x)
     _counters.inc("dist.collective_launches")
-    _counters.inc("dist.ring_shifts")
+    _counters.inc(counter)
     with _tracer.span("dist.ring_shift"):
         _run("ring_shift", lambda: dist.all_to_all_single(
             out, x, output_split_sizes=recv, input_split_sizes=send,

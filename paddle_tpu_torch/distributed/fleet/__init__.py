@@ -8,9 +8,12 @@ group when none is running and builds the global mesh from
 ``strategy.hybrid_configs`` (all ranks on ``dp`` when no degree is
 given); ``get_hybrid_communicate_group()`` answers each rank's place;
 ``distributed_model`` returns the model (tensor-parallel and
-sequence-parallel layers split themselves; a ``sharding`` degree above 1 is the mesh train step's
-storage sharding) and ``distributed_optimizer`` wraps the optimizer in
-``HybridParallelOptimizer``.  The parameter-server role makers raise
+sequence-parallel layers split themselves; at a ``sharding`` degree
+above 1 it records the ZeRO specs, ``apply_fsdp_annotations``, that the
+mesh train step's storage sharding reads) and ``distributed_optimizer``
+wraps the optimizer in ``HybridParallelOptimizer``.  ``PipelineLayer``,
+``LayerDesc``, ``SharedLayerDesc`` and ``SegmentLayers`` describe a
+model in stages.  The parameter-server role makers raise
 (ROADMAP.md A7h); ``recompute`` is the port's activation recompute.
 """
 
@@ -30,6 +33,9 @@ from .mp_layers import (ColumnParallelLinear, ColumnSequenceParallelLinear,
                         get_rng_state_tracker,
                         mark_as_sequence_parallel_parameter,
                         model_parallel_random_seed)
+from .parallel_apply import apply_fsdp_annotations
+from .pp_layers import (LayerDesc, PipelineLayer, SegmentLayers,
+                        SharedLayerDesc)
 from .recompute import recompute
 from .topology import CommunicateTopology, HybridCommunicateGroup
 
@@ -89,8 +95,18 @@ def barrier_worker():
 
 
 def distributed_model(model):
-    """reference: fleet/model.py:32.  The model as it is: its
-    tensor-parallel layers already hold their shards."""
+    """reference: fleet/model.py:32.  The model, its tensor-parallel
+    layers already holding their shards; at a ``sharding`` degree above
+    1 its parameters get the ZeRO annotations of the strategy's
+    ``sharding_configs["stage"]`` (1 in the default strategy;
+    :func:`parallel_apply.apply_fsdp_annotations`), which the mesh
+    train step's storage sharding reads."""
+    from ..env import hybrid_degrees
+    if hybrid_degrees().get("sharding", 1) > 1:
+        strategy = _FLEET["strategy"] or DistributedStrategy()
+        stage = strategy.hybrid_configs.get("sharding_configs", {}).get(
+            "stage", 3)
+        apply_fsdp_annotations(model, stage=stage)
     return model
 
 
@@ -118,10 +134,11 @@ __all__ = ["ColumnParallelLinear", "ColumnSequenceParallelLinear",
            "CommunicateTopology", "DistributedStrategy", "GatherOp",
            "HybridCommunicateGroup", "HybridParallelClipGrad",
            "HybridParallelGradScaler", "HybridParallelOptimizer",
-           "PaddleCloudRoleMaker", "ParallelCrossEntropy",
-           "RNGStatesTracker", "RowParallelLinear",
-           "RowSequenceParallelLinear", "ScatterOp",
-           "UserDefinedRoleMaker", "VocabParallelEmbedding",
+           "LayerDesc", "PaddleCloudRoleMaker", "ParallelCrossEntropy",
+           "PipelineLayer", "RNGStatesTracker", "RowParallelLinear",
+           "RowSequenceParallelLinear", "ScatterOp", "SegmentLayers",
+           "SharedLayerDesc", "UserDefinedRoleMaker",
+           "VocabParallelEmbedding", "apply_fsdp_annotations",
            "barrier_worker", "distributed_model", "distributed_optimizer",
            "distributed_scaler", "get_hybrid_communicate_group",
            "get_rng_state_tracker", "init", "init_parallel_env",

@@ -39,7 +39,7 @@ class HybridParallelClipGrad:
             if id(p) in sq or g is None:
                 continue
             s = sum_sq(g)
-            if getattr(p, "is_distributed", False):
+            if getattr(p, "is_distributed", False) is True:
                 dist.all_reduce(s, group=mesh.group("mp"))
             sq[id(p)] = s
         return self._clip(params_grads, sq)

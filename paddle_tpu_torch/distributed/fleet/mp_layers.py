@@ -122,7 +122,7 @@ def _mp_param(layer, shape, attr, is_bias, init, spec):
 
 
 def _mp_on(param):
-    return getattr(unwrap(param), "is_distributed", False)
+    return getattr(unwrap(param), "is_distributed", False) is True
 
 
 class VocabParallelEmbedding(Layer):

@@ -203,10 +203,11 @@ class CompiledTrainStep:
                     split.enter_context(rows_split_over(mesh.row_axes))
                     split.enter_context(sequence_split_over(mesh.seq_axis,
                                                             mesh.mesh))
-                loss = unwrap(self.loss_fn(model, *args))
-                (loss if scaler is None else scaler.scale(loss)).backward()
+                loss = self._loss_and_grads(args)
         finally:
             STATE.tracing_depth -= 1
+        if mesh is not None:
+            mesh.fill_grads()
         named = [(n, p) for n, p in torch.nn.Module.named_parameters(model)
                  if p.grad is not None]
         # the gradients the update reads: the parameters' own, or on a
@@ -251,6 +252,13 @@ class CompiledTrainStep:
             row = torch.stack(row)
         bits = torch.stack(bits) if check else None
         return loss.detach(), names, bits, row, found
+
+    def _loss_and_grads(self, args):
+        """The step's loss on ``args``, its gradients left in the
+        parameters' ``.grad`` (scaled under a GradScaler)."""
+        loss = unwrap(self.loss_fn(self.model, *args))
+        (loss if self.scaler is None else self.scaler.scale(loss)).backward()
+        return loss
 
     # -- dispatch ----------------------------------------------------------
     def __call__(self, *args):

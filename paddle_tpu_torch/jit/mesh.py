@@ -30,16 +30,19 @@ it leaves to XLA).
   masked mean.
 * **storage sharding** — a parameter that the model holds whole gets a
   storage spec: the first ``shard_rules`` entry that matches its name,
-  else its ``annotate_param`` placements, else ``P("sharding")`` on its
+  else its ``_opt_state_spec`` or ``annotate_param`` placements
+  (``fleet.distributed_model``'s ZeRO annotations), else
+  ``P("sharding")`` on its
   first axis when the ``sharding`` degree is above 1.  Its optimizer
   state and fp32 master hold only this rank's slice, its gradient
   arrives as that slice (a reduce-scatter over the spec's axes when
   they are data axes, else the all-reduced gradient cut), and after the
   update the slices are all-gathered back into the parameter.
 * **tensor parallelism** — parameters the model splits itself
-  (``is_distributed``: the tensor-parallel GPT, ``fleet``'s parallel
-  layers) keep their shards; their collectives run inside the model.
-  Their squares are summed over the axes they are split on before the
+  (``is_distributed`` set to True: the tensor-parallel GPT, ``fleet``'s
+  parallel layers; a torch parameter's own ``is_distributed`` is a
+  method, which marks nothing) keep their shards; their collectives
+  run inside the model.  Their squares are summed over the axes they are split on before the
   global-norm clip, and so are storage slices'.
 * **expert parallelism** — a shard split over a data axis (an MoE
   model's expert stacks over ``dp``) holds experts no other rank of
@@ -50,6 +53,18 @@ it leaves to XLA).
   step split the batch or a sharded prefetcher handed it this rank's
   rows, over none when it stayed whole (:meth:`MeshPlan.rows` decides;
   the step runs its forward under ``distributed.env.rows_split_over``).
+* **pipeline parallelism** — with ``pp > 1`` only a model built under
+  the mesh that runs the pipeline schedule trains (``pipeline_stages``:
+  the GPT's, whose ranks hold their stages' rows, split over ``pp`` in
+  their placements).  A stage's rows are averaged over the sync axes
+  as any parameter; a parameter every stage holds whole (the
+  embedding, the final norm, the head) is also summed over ``pp``, in
+  the same all-reduce, so the first stage's embedding gradient and the
+  last stage's head gradient meet once.  The loss is the same on every
+  stage and is averaged over the sync axes only; the global-norm clip
+  adds a stage's squares over ``pp`` and the whole ones' once.  ``sep``
+  and storage sharding do not compose with ``pp`` yet (ROADMAP.md
+  A7e-sep).
 * **GradScaler** — the overflow flag is the maximum over every rank.
 
 A world of one runs the same code: every collective goes over a group
@@ -90,10 +105,20 @@ def _view_of(spec, mesh):
 class MeshPlan:
     def __init__(self, mesh, model, optimizer, shard_rules=None,
                  batch_axes=None):
-        if mesh.shape.get("pp", 1) > 1:
+        pp = mesh.shape.get("pp", 1)
+        if pp > 1 and mesh.shape.get("sep", 1) > 1:
             raise NotImplementedError(
-                "CompiledTrainStep on a mesh with pp > 1 is not ported "
-                "yet: ROADMAP.md A7e (pipeline parallelism)")
+                "CompiledTrainStep on a mesh with pp > 1 and sep > 1 is not "
+                "ported yet: ROADMAP.md A7e-sep (pipeline parallelism with "
+                "the sequence split)")
+        if pp > 1 and getattr(model, "pipeline_stages", None) is None:
+            raise NotImplementedError(
+                f"CompiledTrainStep on a mesh with pp > 1 trains a model "
+                f"built under that mesh that runs the pipeline schedule "
+                f"(the GPT's, built after build_mesh); "
+                f"{type(model).__name__} would run every layer on every "
+                f"stage: ROADMAP.md A7e-models (pipeline parallelism for "
+                f"other models)")
         if (mesh.shape.get("sep", 1) > 1
                 and not getattr(model, "handles_sequence_split", False)):
             raise NotImplementedError(
@@ -117,6 +142,13 @@ class MeshPlan:
                                            if self.seq_axis else ())
         self.n_sync = mesh.degree(self.sync_axes)
         self.sync_group = mesh.group(self.sync_axes)
+        #: with pp > 1: the parameters every stage holds whole (the
+        #: embedding, the final norm, the head), whose gradients each stage
+        #: holds its part of, so they are summed over pp too; a pipeline
+        #: step whose schedule sums them itself sets ``sum_pp`` False
+        self.pp_whole, self.sum_pp = set(), True
+        self.sync_pp_group = (mesh.group(self.sync_axes + ("pp",))
+                              if pp > 1 else None)
         named = list(torch.nn.Module.named_parameters(model))
         ruled = infer_partition_specs({n: p for n, p in named}, mesh,
                                       shard_rules or (), default=None)
@@ -126,13 +158,15 @@ class MeshPlan:
         #: the batch axes this rank's rows of the last call split over
         self.row_axes = ()
         for name, p in named:
-            if getattr(p, "is_distributed", False):
+            axes = tuple(a for e in getattr(p, "placements", None) or ()
+                         for a in _axes_of(e))
+            if pp > 1 and "pp" not in axes:
+                self.pp_whole.add(id(p))
+            if getattr(p, "is_distributed", False) is True:
                 if ruled[name] is not None and any(ruled[name]):
                     raise ValueError(
                         f"shard_rules split {name!r}, which the model "
                         "already holds as a tensor-parallel shard")
-                axes = tuple(a for e in getattr(p, "placements", ())
-                             for a in _axes_of(e))
                 if axes and mesh.degree(axes) > 1:
                     self.split[id(p)] = axes
                 ep = tuple(a for a in axes if a in self.data_axes
@@ -141,7 +175,10 @@ class MeshPlan:
                     self.experts[id(p)] = ep
                 continue
             spec = ruled[name]
-            placed = getattr(p, "placements", None)
+            # ZeRO 1/2 (fleet.apply_fsdp_annotations) records the state's
+            # spec beside a replicated placement
+            placed = (getattr(p, "_opt_state_spec", None)
+                      or getattr(p, "placements", None))
             if spec is None and placed is not None and any(placed):
                 spec = validate_spec(placed, p.shape, mesh, name=name)
             if spec is None:
@@ -150,6 +187,11 @@ class MeshPlan:
                         if mesh.shape["sharding"] > 1 and p.dim() else P())
             if any(e is not None for e in spec):
                 self.storage[id(p)] = spec
+        if pp > 1 and self.storage:
+            raise NotImplementedError(
+                "CompiledTrainStep on a mesh with pp > 1 and storage "
+                "sharding (shard_rules, annotated placements or a sharding "
+                "degree above 1) is not ported yet: ROADMAP.md A7e-sep")
         self.params = [p for _, p in named]
         self.optimizer = optimizer
         optimizer._shard_views = {pid: _view_of(spec, mesh)
@@ -217,6 +259,15 @@ class MeshPlan:
         dist.reduce_scatter(out, chunks, group=self.mesh.group(axes))
         return out.movedim(0, dim)
 
+    def fill_grads(self):
+        """With pp > 1: a zero gradient for each parameter every stage
+        holds whole that this stage left without one (the head off the
+        last stage, the embedding off the first), so every stage joins
+        its all-reduce and updates it alike."""
+        for p in self.params:
+            if p.grad is None and id(p) in self.pp_whole:
+                p.grad = torch.zeros_like(p)
+
     def sync_grads(self):
         """Average every gradient over the sync axes; a storage-sharded
         parameter's lands as its slice in the optimizer's
@@ -240,7 +291,9 @@ class MeshPlan:
                 local = g
             if local is None:
                 _tick()
-                dist.all_reduce(g, group=self.sync_group)
+                dist.all_reduce(g, group=(
+                    self.sync_pp_group if self.sum_pp
+                    and id(p) in self.pp_whole else self.sync_group))
                 local = g if spec is None else local_shard(g, spec,
                                                            self.mesh)
             local.div_(self.n_sync)

@@ -25,7 +25,13 @@ CUDA device), recompute through ``torch.utils.checkpoint``.
 ``distributed.env.sequence_split``) a rank holds one chunk of every
 row: ``context_parallel`` attends across the chunks by ring attention
 (``kernels.ring_attention``), otherwise by an all-gather of qkv along
-the sequence (see :meth:`GPTForCausalLM._block`).
+the sequence (see :meth:`GPTForCausalLM._block`).  Built under a mesh
+with ``pp > 1`` a rank holds its pipeline stages' rows of every stacked
+parameter (:class:`PipelineStages`) and the forward runs GPipe or the
+interleaved schedule over ``pp`` (``distributed.pipeline.
+pipeline_apply``, every rank calling, the logits on every rank);
+:meth:`GPTForCausalLM.pipeline_parts` cuts the model for the 1F1B and
+zero-bubble steps.
 
 Serving: the paged KV pools ``[L, n_blocks, bs, nh, hd]`` are updated
 **in place** (``index_put_``) by :meth:`GPTForCausalLM.prefill_paged`
@@ -65,9 +71,11 @@ over ``mp``.
 from __future__ import annotations
 
 import math
+import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -77,6 +85,7 @@ from ..core.tensor import Tensor, _to_torch
 from ..distributed import communication, mp_ops
 from ..distributed.env import (get_mesh, row_axes, sequence_split,
                                token_axes)
+from ..distributed.pipeline import pipeline_apply
 from ..distributed.sharding_utils import (P, _axes_of, gather_shard,
                                           local_shard, validate_spec)
 from ..incubate import moe as _moe
@@ -449,6 +458,47 @@ class TensorParallel:
                                      self.mesh)
 
 
+class PipelineStages:
+    """The layers one rank holds under a mesh with ``pp > 1`` (the JAX
+    pipeline's split of the stacked ``[L, ...]`` parameters): ``pp x V``
+    logical stages of ``per_chunk`` layers, ``V`` being
+    ``virtual_pp_degree`` for the interleaved schedule and 1 otherwise;
+    logical stage ``v * pp + p`` is chunk ``v`` of rank ``p``.  ``rows``
+    are this rank's layers in the order it holds them: contiguous for
+    GPipe and 1F1B, its ``V`` chunks for the interleaved schedule."""
+
+    def __init__(self, mesh, config):
+        c = config
+        self.mesh = mesh
+        self.pp, self.p = mesh.degree("pp"), mesh.index("pp")
+        self.last = self.p == self.pp - 1
+        self.V = (c.virtual_pp_degree if c.pp_schedule == "interleaved"
+                  else 1)
+        n = self.pp * self.V
+        if c.num_layers % n:
+            raise ValueError(f"pipeline parallel requires num_layers "
+                             f"({c.num_layers}) divisible by pp*virtual_pp "
+                             f"({n})")
+        self.per_chunk = c.num_layers // n
+        self.rows = self.rows_of(self.p)
+
+    def rows_of(self, p):
+        k = self.per_chunk
+        return [(v * self.pp + p) * k + i for v in range(self.V)
+                for i in range(k)]
+
+    def full(self, t):
+        """The ``[L, ...]`` stack from every rank's rows ``t`` (an
+        all-gather over ``pp``; every rank calls)."""
+        parts = [torch.empty_like(t) for _ in range(self.pp)]
+        dist.all_gather(parts, t.contiguous(), group=self.mesh.group("pp"))
+        out = torch.empty((self.pp * t.shape[0], *t.shape[1:]),
+                          dtype=t.dtype, device=t.device)
+        for q, part in enumerate(parts):
+            out[self.rows_of(q)] = part
+        return out
+
+
 def _tp_io(tp):
     """``(col_in, row_out)``: the column-parallel input and row-parallel
     output of a block part (``"attn"`` or ``"ffn"``) under ``tp``;
@@ -486,10 +536,6 @@ class GPTForCausalLM(Layer):
     def __init__(self, config: GPTConfig, device=None, generator=None):
         super().__init__()
         c = self.config = config
-        if c.pp_schedule != "gpipe" or c.virtual_pp_degree != 1:
-            raise NotImplementedError(
-                "pipeline parallel (pp_schedule/virtual_pp_degree) is not "
-                "ported yet: ROADMAP.md A7e (pipeline parallelism)")
         if c.recompute not in _RECOMPUTE:
             raise ValueError(f"GPTConfig.recompute {c.recompute!r}: expected "
                              f"one of {_RECOMPUTE}")
@@ -532,6 +578,12 @@ class GPTForCausalLM(Layer):
             specs["head"] = specs["lm_head"]
             self._tp = TensorParallel(mesh, specs)
         tp = self._tp
+        # under a mesh with pp > 1 each rank holds the rows of its stages
+        # of every stacked parameter (the JAX pipeline's placements)
+        self._pp = (PipelineStages(mesh, c) if mesh is not None
+                    and mesh.degree("pp") > 1 else None)
+        rows = range(L) if self._pp is None else self._pp.rows
+        pos = {l: i for i, l in enumerate(rows)}
 
         def local(name, full, stacked):
             # this rank's shard of one layer's slice (or of the whole
@@ -543,22 +595,27 @@ class GPTForCausalLM(Layer):
                                mesh, _FUSED.get(name, 1))
 
         def local_shape(name):
-            return tuple(local(name, torch.empty(shapes[name],
-                                                 device="meta"), False).shape)
+            shape = tuple(local(name, torch.empty(shapes[name],
+                                                  device="meta"), False).shape)
+            return ((len(rows),) + shape[1:] if name in self._stacked
+                    else shape)
 
         def normal(name):
             # filled slice by slice on the generator's device, so a large
             # stacked weight never needs an fp32 copy of itself; a shard
-            # keeps its piece of the same draw
+            # keeps its piece of the same draw, and a pipeline stage its
+            # rows of every layer drawn in order
             shape = shapes[name]
-            stacked = len(shape) >= 3
+            stacked = name in self._stacked
             p = torch.empty(local_shape(name), dtype=dt, device=dev)
-            for part in (p if stacked else (p,)):
+            for l in range(shape[0] if stacked else 1):
                 r = torch.empty(shape[1:] if stacked else shape,
                                 dtype=torch.float32, device=generator.device)
-                part.copy_(local(name, r.normal_(0.0, std,
-                                                 generator=generator),
-                                 stacked))
+                r.normal_(0.0, std, generator=generator)
+                if not stacked:
+                    p.copy_(local(name, r, False))
+                elif l in pos:
+                    p[pos[l]].copy_(local(name, r, True))
             return nn.Parameter(p)
 
         def const(name, value):
@@ -589,6 +646,8 @@ class GPTForCausalLM(Layer):
         if tp is not None:
             for n, t in self._weights().items():
                 t.placements = tp.spec(n)
+                if self._pp is not None and n in self._stacked:
+                    t.placements = P("pp", *t.placements[1:])
                 t.is_distributed = _split(t.placements)
         self.dropout_generator = torch.Generator(device=dev).manual_seed(0)
         #: the generators sequence chunks draw their dropout masks from
@@ -615,6 +674,13 @@ class GPTForCausalLM(Layer):
     def device(self):
         return self._parameters["wte"].device
 
+    @property
+    def pipeline_stages(self):
+        """The :class:`PipelineStages` this rank holds when the model was
+        built under a mesh with ``pp > 1`` (its forward then runs the
+        pipeline, every rank calling), else None."""
+        return self._pp
+
     def _weights(self):
         """``{name: torch parameter}`` (the attributes are the paddle-style
         wrappers; every reader inside the model takes the torch
@@ -639,8 +705,21 @@ class GPTForCausalLM(Layer):
             full = (v._data if isinstance(v, Tensor) else v
                     if isinstance(v, torch.Tensor)
                     else _to_torch(np.asarray(v), device=t.device))
+            if self._pp is not None and n in self._stacked:
+                full = full[self._pp.rows]
             t.copy_(self._tp.local(n, full.to(t.device)))
         return self
+
+    def full_weight(self, name, t):
+        """The whole parameter ``name`` in the JAX layout from this rank's
+        piece ``t`` of it (its shard, its stages' rows): every rank
+        calls, every rank gets it."""
+        if self._tp is None:
+            return t
+        t = self._tp.full(name, t)
+        if self._pp is not None and name in self._stacked:
+            t = self._pp.full(t)
+        return t
 
     @torch.no_grad()
     def gather_numpy_state(self):
@@ -649,7 +728,7 @@ class GPTForCausalLM(Layer):
         the arrays).  bf16 comes back as fp32."""
         out = {}
         for n, t in self._weights().items():
-            full = (t if self._tp is None else self._tp.full(n, t)).detach()
+            full = self.full_weight(n, t).detach()
             out[n] = (full.float() if full.dtype == torch.bfloat16
                       else full).cpu().numpy().copy()
         return out
@@ -677,7 +756,10 @@ class GPTForCausalLM(Layer):
         keeps qkv, the attention output and the FFN up-projection,
         ``"selective_lean"`` keeps qkv and the attention output.
         ``kernel=False`` swaps the flash kernels K1–K3 for their plain
-        versions (used to hold the kernels against them in the model)."""
+        versions (used to hold the kernels against them in the model).
+        A model built under a mesh with ``pp > 1`` runs its layers as the
+        pipeline over ``pp``: every rank calls, and every rank gets the
+        logits."""
         # the JAX op's operand order: wte, lnf_w, lnf_b, wpe, the stacked
         # weights, lm_head
         w = self._weights()
@@ -731,7 +813,6 @@ class GPTForCausalLM(Layer):
 
     def _forward(self, input_ids, w, generator, kernel):
         c = self.config
-        L = c.num_layers
         tp = self._tp
         # under a sequence split this rank holds tokens [off, off + S) of
         # every row (distributed.env.sequence_split)
@@ -749,28 +830,203 @@ class GPTForCausalLM(Layer):
         gen = self.dropout_generator if generator is None else generator
         if drop and sp is not None:
             gen = self.chunk_generator(gen, sp.index)
-        layers = {n: w[n].unbind(0) for n in self._stacked}
         ep = (None if tp is None
               else self._moe_parallel(tp, row_axes()))
-        auxs = []
-        for l in range(L):
-            lw = {n: t[l] for n, t in layers.items()}
-            keep = (tuple(_keep_mask(h.shape, c.dropout, gen, h.device)
-                          for _ in range(2)) if drop else None)
-            h = self._block(h, lw, keep, kernel, ep, sp)
-            if c.num_experts > 0:
-                h, aux = h
-                auxs.append(aux)
-        h = _norm(h, w["lnf_w"], w["lnf_b"], c.layer_norm_epsilon)
+        stage = self._stage_fn(kernel, ep, sp, gen if drop else None)
+        lws = {n: w[n] for n in self._stacked}
+        if self._pp is None:
+            h = stage(lws, h)
+        else:
+            h = self._pipelined(stage, lws, h)
+        aux = None
+        if c.num_experts > 0:
+            h, aux = h
+        lnf_w, lnf_b = w["lnf_w"], w["lnf_b"]
         head = w["wte"].T if c.tie_word_embeddings else w["lm_head"]
+        if self._pp is not None and not self._pp.last:
+            # every rank runs the head on the replicated output; only the
+            # last stage's copy takes the head's gradient, so their sum
+            # over pp counts it once (and a tied wte gets the first
+            # stage's embedding gradient beside it)
+            lnf_w, lnf_b, head = lnf_w.detach(), lnf_b.detach(), \
+                head.detach()
+        h = _norm(h, lnf_w, lnf_b, c.layer_norm_epsilon)
         if tp is None:
             logits = torch.matmul(h, head)
         else:
             logits = tp.logits(h, head, "wte" if c.tie_word_embeddings
                                else "lm_head")
-        if auxs:
-            return logits, torch.stack(auxs).sum()
+        if aux is not None:
+            return logits, aux
         return logits
+
+    def _stage_fn(self, kernel, ep, sp, gen):
+        """``stage(lws, h)``: the blocks of the stacked layer weights
+        ``lws`` (``{name: [n, ...]}``) run in order on ``h``; an MoE model's
+        returns ``(h, aux summed over them)``.  With ``gen``, each block's
+        two dropout keep masks are drawn from it before the block runs."""
+        c = self.config
+
+        def stage(lws, h):
+            auxs = []
+            layers = {n: t.unbind(0) for n, t in lws.items()}
+            for l in range(len(next(iter(layers.values())))):
+                lw = {n: t[l] for n, t in layers.items()}
+                keep = (None if gen is None else tuple(
+                    _keep_mask(h.shape, c.dropout, gen, h.device)
+                    for _ in range(2)))
+                h = self._block(h, lw, keep, kernel, ep, sp)
+                if c.num_experts > 0:
+                    h, aux = h
+                    auxs.append(aux)
+            return (h, torch.stack(auxs).sum()) if auxs else h
+        return stage
+
+    def _pipelined(self, stage, lws, h):
+        """``stage`` over this rank's rows as the pipeline of the config's
+        schedule (``distributed.pipeline.pipeline_apply``: GPipe, or the
+        interleaved one at ``virtual_pp_degree`` chunks), ``M = 2 * pp``
+        microbatches lowered until they divide the batch (with the JAX
+        warning); the output replicated over ``pp``."""
+        st = self._pp
+        M = 2 * st.pp
+        while h.shape[0] % M and M > 1:
+            M -= 1
+        if M < 2 * st.pp:
+            warnings.warn(
+                f"pipeline microbatches degraded to {M} (batch "
+                f"{h.shape[0]} not divisible by {2 * st.pp}); bubble "
+                f"fraction increases — prefer batch % {2 * st.pp} == 0",
+                RuntimeWarning, stacklevel=4)
+        chunks = {n: t.reshape(st.V, st.per_chunk, *t.shape[1:])
+                  for n, t in lws.items()}
+        return pipeline_apply(
+            stage, chunks, h, M, mesh=st.mesh, remat=False,
+            schedule="interleaved" if st.V > 1 else "gpipe",
+            num_chunks=st.V, with_aux=self.config.num_experts > 0)
+
+    # -- the 1F1B / zero-bubble decomposition -------------------------------
+    def pipeline_parts(self, tp_axis=None):
+        """The model cut for ``distributed.pipeline.pipeline_value_and_grad``
+        (``Pipeline1F1BTrainStep``): the embedding in the first stage,
+        this rank's blocks in every stage, the final norm, head and
+        token-sum cross entropy in the last.
+
+        Returns ``(first_fn, mid_fn, last_fn, stage_params, extras,
+        grad_names, specs, grad_fixup)`` as the JAX method does:
+        ``stage_params`` are this rank's rows of the stacked parameters
+        (the parameters themselves), ``extras`` the embedding and head
+        weights (whole, or this rank's tensor-parallel shards), ``specs``
+        and ``grad_fixup`` None (the shards are the parameters' own, so
+        nothing is permuted).  With dropout (``mb_aware``) each block's
+        masks come from ``dropout_generator`` as its forward runs, and a
+        microbatch's backward uses its forward's graph, masks included.
+        An MoE model's ``mid_fn`` returns ``(h, aux * moe_aux_weight)``
+        (``aux_aware``).  ``tp_axis``: the manual tensor-parallel stage
+        bodies (:meth:`_pipeline_parts_tp`)."""
+        if self._pp is not None and self._pp.V > 1:
+            raise ValueError(
+                "pipeline_parts: this model holds the interleaved "
+                "schedule's chunks (pp_schedule='interleaved'); the 1F1B "
+                "and zero-bubble steps run contiguous stages")
+        if tp_axis is not None:
+            return self._pipeline_parts_tp(tp_axis)
+        tp = self._tp
+        first_fn, mid_fn, stage_params, extras = self._pipeline_common()
+
+        def last_fn(ex, h, labels):
+            h = _norm(h, ex["lnf_w"], ex["lnf_b"],
+                      self.config.layer_norm_epsilon)
+            tie = self.config.tie_word_embeddings
+            head = ex["wte"].T if tie else ex["head"]
+            logits = (torch.matmul(h, head) if tp is None else
+                      tp.logits(h, head, "wte" if tie else "lm_head"))
+            lg = logits.float()
+            picked = lg.gather(-1, labels.long()[..., None])[..., 0]
+            return torch.sum(torch.logsumexp(lg, -1) - picked)
+
+        return (first_fn, mid_fn, last_fn, stage_params, extras,
+                list(stage_params), None, None)
+
+    def _pipeline_common(self):
+        """``(first_fn, mid_fn, stage_params, extras)`` of
+        :meth:`pipeline_parts`."""
+        c = self.config
+        tp = self._tp
+        w = self._weights()
+        stage_params = {n: w[n] for n in self._stacked}
+        extras = {"wte": w["wte"], "lnf_w": w["lnf_w"], "lnf_b": w["lnf_b"]}
+        if not c.use_rope:
+            extras["wpe"] = w["wpe"]
+        if not c.tie_word_embeddings:
+            extras["head"] = w["lm_head"]
+        drop = self.training and c.dropout > 0
+        stage = self._stage_fn(True, self._moe_parallel(tp, row_axes()),
+                               None, self.dropout_generator if drop else None)
+
+        def first_fn(ex, ids):
+            S = ids.shape[1]
+            if tp is None:
+                h = ex["wte"][ids]
+                return h if c.use_rope else h + ex["wpe"][:S]
+            return tp.embed(ex["wte"], ex.get("wpe"), ids,
+                            torch.arange(S, device=ids.device))
+
+        first_fn.like = lambda ids: torch.empty(
+            (*ids.shape, c.hidden_size), dtype=_DTYPES[c.dtype],
+            device=ids.device)
+
+        def mid_fn(sp, h, m=0):
+            out = stage(sp, h)
+            if c.num_experts > 0:
+                return out[0], out[1] * c.moe_aux_weight
+            return out
+
+        mid_fn.mb_aware = drop
+        mid_fn.aux_aware = c.num_experts > 0
+        return first_fn, mid_fn, stage_params, extras
+
+    def _pipeline_parts_tp(self, axis):
+        """:meth:`pipeline_parts` with manual tensor-parallel bodies over
+        mesh axis ``axis``: the blocks' column/row splits (``copy_to_mp``,
+        ``reduce_from_mp``, as every forward of the tensor-parallel GPT),
+        the vocabulary-parallel embedding and the vocabulary-parallel
+        cross entropy on the local logits (``mp_ops``), the JAX
+        ``_pipeline_parts_tp``'s.  Each rank already holds its heads'
+        ``[q | k | v]`` columns, so no permutation and no
+        ``grad_fixup``."""
+        c = self.config
+        if c.num_experts > 0:
+            raise NotImplementedError(
+                "MoE blocks under the manual-TP 1F1B path are not "
+                "supported; use incubate.MoELayer with the GSPMD schedules")
+        mesh = self._tp.mesh
+        mp = mesh.degree(axis)
+        if c.num_heads % mp or c.ffn_hidden_size % mp or c.vocab_size % mp:
+            raise ValueError(
+                f"tensor parallel degree {mp} must divide num_heads "
+                f"{c.num_heads}, ffn_hidden {c.ffn_hidden_size} and vocab "
+                f"{c.vocab_size}")
+        embed, mid_fn, stage_params, extras = self._pipeline_common()
+        tie = c.tie_word_embeddings
+
+        def first_fn(ex, ids):
+            h = mp_ops.vocab_parallel_embedding(ids, ex["wte"], axis, mesh)
+            if not c.use_rope:
+                h = h + ex["wpe"][:ids.shape[1]]
+            return h
+
+        first_fn.like = embed.like
+
+        def last_fn(ex, h, labels):
+            hn = mp_ops.copy_to_mp(_norm(h, ex["lnf_w"], ex["lnf_b"],
+                                         c.layer_norm_epsilon), axis, mesh)
+            head = ex["wte"].T if tie else ex["head"]   # local [H, V/mp]
+            return mp_ops.vocab_parallel_ce_sum(torch.matmul(hn, head),
+                                                labels, axis, mesh)
+
+        return (first_fn, mid_fn, last_fn, stage_params, extras,
+                list(stage_params), None, None)
 
     def _block(self, h, lw, keep, kernel, ep=None, sp=None):
         """One transformer block, cut into stages at the activations that
@@ -877,6 +1133,12 @@ class GPTForCausalLM(Layer):
     def decode_state(self):
         """The weights the serving entry points read, as one dict of the
         parameters themselves (no copies)."""
+        if self._pp is not None:
+            raise NotImplementedError(
+                "serving a GPT built under a mesh with pp > 1 (each rank "
+                "holds its stages' layers only) is not ported yet: "
+                "ROADMAP.md A7e-models; build the model without the mesh "
+                "(set_mesh(None)) to serve it")
         w = self._weights()
         return {
             "lws": {n: w[n] for n in self._stacked},

@@ -2,8 +2,9 @@
 
 ``tests/test_torch_distributed_api.py``, ``test_torch_mesh_serving.py``,
 ``test_torch_mesh_train.py``, ``test_torch_moe_mesh.py``,
-``test_torch_ring_attention.py``, ``test_torch_sequence_parallel.py``
-and ``test_torch_cp_train.py`` run the JAX package in the pytest
+``test_torch_ring_attention.py``, ``test_torch_sequence_parallel.py``,
+``test_torch_cp_train.py``, ``test_torch_pp_train.py`` and
+``test_torch_gpt_train.py`` run the JAX package in the pytest
 process and the port's ranks in processes spawned here: each child
 imports ``torch`` and ``paddle_tpu_torch`` only (the test files import
 JAX, so the ranks' code lives in this module), joins a gloo group
@@ -875,3 +876,206 @@ def cp_dp2sep2(rank, world, pl):
     out["odd_sequence"] = _raises(
         lambda: plan.rows((torch.zeros(4, 31),), False))
     return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_pp_train.py and tests/test_torch_gpt_train.py
+# ---------------------------------------------------------------------------
+
+def _pp_step(pl, mesh, over=None, state="state", kind="step", control=None,
+             steps=None):
+    """The GPT of ``pl["cfg"]`` + ``over`` (``pl[state]``'s weights) built
+    under ``mesh`` and trained AdamW steps on ``pl``'s batches through
+    ``kind``: ``"step"`` (``CompiledTrainStep(mesh=)``), ``"dist"``
+    (``DistributedTrainStep``) or a ``Pipeline1F1BTrainStep`` schedule.
+    ``control``: ``"no_shift"`` (stage p + 1 receives zeros in place of
+    the shifted activation) or ``"no_pp_sum"`` (the embedding's and the
+    head's gradients not summed over pp).  Returns (losses, gathered
+    state, ``dist.pp_shifts`` a step, the in-flight gauge)."""
+    from paddle_tpu_torch.distributed import pipeline
+    from paddle_tpu_torch.distributed.engine import (DistributedTrainStep,
+                                                     Pipeline1F1BTrainStep)
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import counters
+    cfg = {**pl["cfg"], **(over or {})}
+    model = _gpt(cfg, pl[state])
+    opt = AdamW(pl["lr"], parameters=model.parameters())
+    crit = GPTPretrainingCriterion()
+    aux = cfg.get("num_experts", 0) > 0
+
+    def loss_fn(m, x, y):
+        loss = crit(m(x), y)
+        return loss + pl["aux_w"] * m.moe_aux_loss() if aux else loss
+
+    if kind == "step":
+        step = CompiledTrainStep(model, loss_fn, opt, mesh=mesh)
+    elif kind == "dist":
+        step = DistributedTrainStep(model, loss_fn, opt, mesh=mesh)
+    else:
+        step = Pipeline1F1BTrainStep(model, opt, num_microbatches=pl["M"],
+                                     mesh=mesh, schedule=kind)
+    if control == "no_pp_sum":
+        step._mesh.sum_pp = False
+    shift = pipeline._shift_pp
+
+    def no_shift(x, mesh, step):
+        y = shift(x, mesh, step)
+        return torch.zeros_like(y) if step == 1 else y
+
+    if control == "no_shift":
+        pipeline._shift_pp = no_shift
+    losses, shifts = [], []
+    try:
+        for i in range(len(pl["ids"]) if steps is None else steps):
+            c0 = counters.snapshot()
+            losses.append(float(step(torch.from_numpy(pl["ids"][i]),
+                                     torch.from_numpy(pl["labels"][i]))))
+            shifts.append(counters.delta(c0).get("dist.pp_shifts", 0))
+    finally:
+        pipeline._shift_pp = shift
+    return (losses, model.gather_numpy_state(), shifts,
+            counters.get("pipeline.max_in_flight", None))
+
+
+def _pp_apply(pl, mesh, rank, with_aux):
+    """``pipeline_apply`` GPipe on this rank's stage of ``pl["chain_w"]``
+    (two tanh layers a stage): the output, the aux, and the gradients of
+    ``(out ** 2).sum() + 0.5 * aux`` with respect to the stage's rows and
+    the input."""
+    from paddle_tpu_torch.distributed.pipeline import pipeline_apply
+    P_ = mesh.degree("pp")
+    w = torch.from_numpy(pl["chain_w"]).reshape(P_, -1, *pl[
+        "chain_w"].shape[1:])[rank:rank + 1].clone().requires_grad_()
+    x = torch.from_numpy(pl["chain_x"]).requires_grad_()
+
+    def stage(sp, h):
+        for i in range(sp["w"].shape[0]):
+            h = torch.tanh(h @ sp["w"][i])
+        return (h, (h ** 2).sum()) if with_aux else h
+
+    out = pipeline_apply(stage, {"w": w}, x, pl["M"], mesh=mesh,
+                         with_aux=with_aux)
+    out, aux = out if with_aux else (out, torch.zeros(()))
+    ((out ** 2).sum() + 0.5 * aux).backward()
+    return (_np(out), float(aux.detach()), _np(w.grad[0]),
+            None if x.grad is None else _np(x.grad))
+
+
+def pp_2ranks(rank, world, pl):
+    """pp 2 over the two ranks: ``pipeline_apply`` with and without aux;
+    GPipe through ``CompiledTrainStep(mesh=)`` (tied) and
+    ``DistributedTrainStep`` (untied), the interleaved schedule at V 2,
+    ``Pipeline1F1BTrainStep`` 1F1B, each against the JAX step of the
+    same schedule, GPipe and 1F1B under recompute; the two controls;
+    dropout 0.1 twice under GPipe and under 1F1B; the logits of
+    ``DistributedEvalStep``."""
+    from paddle_tpu_torch import distributed as D
+    mesh = D.build_mesh({"pp": world})
+    out = {"apply": {a: _pp_apply(pl, mesh, rank, a) for a in (False, True)}}
+    runs = {"gpipe": ({}, "state", "step"),
+            "gpipe_untied": ({"tie_word_embeddings": False}, "state_untied",
+                             "dist"),
+            "interleaved": ({"pp_schedule": "interleaved",
+                             "virtual_pp_degree": 2}, "state", "step"),
+            "1f1b": ({}, "state", "1f1b"),
+            "gpipe_recompute": ({"recompute": "selective"}, "state", "step"),
+            "1f1b_recompute": ({"recompute": True}, "state", "1f1b")}
+    for name, (over, state, kind) in runs.items():
+        out[name] = _pp_step(pl, mesh, over, state, kind)
+    from paddle_tpu_torch.distributed.engine import DistributedEvalStep
+    model = _gpt(pl["cfg"], pl["state"])
+    model.eval()
+    out["eval"] = _np(DistributedEvalStep(model)(torch.from_numpy(
+        pl["ids"][0])))
+    for control in ("no_shift", "no_pp_sum"):
+        out[control] = _pp_step(pl, mesh, control=control)
+    drop = {"dropout": 0.1}
+    out["dropout"] = {kind: [_pp_step(pl, mesh, drop, kind=kind, steps=2)[0]
+                             for _ in range(2)]
+                      for kind in ("step", "1f1b")}
+    return out
+
+
+def pp_moe_2ranks(rank, world, pl):
+    """pp 2: an MoE GPT (2 experts) under GPipe through
+    ``DistributedTrainStep``, its aux in the objective."""
+    from paddle_tpu_torch import distributed as D
+    return _pp_step(pl, D.build_mesh({"pp": world}), {"num_experts": 2},
+                    "state_moe", "dist")
+
+
+def pp_4ranks(rank, world, pl):
+    """Four ranks: 1F1B over pp 2 x mp 2 (the manual tensor-parallel
+    stages), zero-bubble over pp 4, then a pp 2 x sep 2 mesh, which the
+    mesh step and the 1F1B step refuse, a pp 2 x sharding 2 mesh, which
+    the mesh step refuses, and the ZeRO annotations at sharding 4."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.engine import Pipeline1F1BTrainStep
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    out = {"1f1b_mp2": _pp_step(pl, D.build_mesh({"pp": 2, "mp": 2}),
+                                kind="1f1b")}
+    D.set_mesh(None)
+    out["zb_pp4"] = _pp_step(pl, D.build_mesh({"pp": 4}),
+                             kind="zero_bubble")
+    D.set_mesh(None)
+    mesh = D.build_mesh({"pp": 2, "sep": 2})
+    model = _gpt(pl["cfg"], pl["state"])
+    opt = AdamW(1e-3, parameters=model.parameters())
+    out["sep_refused"] = [
+        _raises(lambda: CompiledTrainStep(model, lambda m, x: m(x).sum(),
+                                          opt, mesh=mesh)),
+        _raises(lambda: Pipeline1F1BTrainStep(model, opt, mesh=mesh))]
+    D.set_mesh(None)
+    mesh = D.build_mesh({"pp": 2, "sharding": 2})
+    model = _gpt(pl["cfg"], pl["state"])
+    out["sharding_refused"] = _raises(lambda: CompiledTrainStep(
+        model, lambda m, x: m(x).sum(),
+        AdamW(1e-3, parameters=model.parameters()), mesh=mesh))
+    D.set_mesh(None)
+    out["zero_storage"] = _zero_storage(D.build_mesh({"sharding": world}))
+    return out
+
+
+def _zero_storage(mesh):
+    """For ZeRO stages 1 and 3 (``fleet.apply_fsdp_annotations`` at the
+    mesh's sharding degree): each parameter's recorded specs and the
+    storage spec ``MeshPlan`` takes from them, ``{stage: {name:
+    (placements, _opt_state_spec, storage)}}``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.jit.mesh import MeshPlan
+    from paddle_tpu_torch.optimizer import AdamW
+    out = {}
+    for stage in (1, 3):
+        nn = paddle.nn
+        model = nn.LayerList([nn.Embedding(64, 32), nn.Linear(32, 48),
+                              nn.Linear(48, 8)])
+        fleet.apply_fsdp_annotations(model, stage=stage)
+        plan = MeshPlan(mesh, model, AdamW(1e-3,
+                                           parameters=model.parameters()))
+        out[stage] = {n: tuple(None if s is None else tuple(s) for s in (
+            getattr(p._data, "placements", None),
+            getattr(p._data, "_opt_state_spec", None),
+            plan.storage.get(id(p._data))))
+            for n, p in model.named_parameters()}
+    return out
+
+
+def pp_gpipe_smoke(rank, world, pl):
+    """GPipe through ``CompiledTrainStep(mesh=build_mesh(pl["degrees"]))``,
+    ``pl``'s steps: the losses, the gathered state, and the error of the
+    mesh step handed a model built without the mesh."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    mesh = D.build_mesh(pl["degrees"])
+    losses, state = _pp_step(pl, mesh)[:2]
+    D.set_mesh(None)
+    whole = _gpt(pl["cfg"], pl["state"])
+    refused = _raises(lambda: CompiledTrainStep(
+        whole, lambda m, x: m(x).sum(),
+        AdamW(1e-3, parameters=whole.parameters()), mesh=mesh))
+    return losses, state, refused

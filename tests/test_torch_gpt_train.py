@@ -24,8 +24,6 @@ Tolerances (each stated where it is used):
   masters only to its bound.
 """
 
-import types
-
 import numpy as np
 import pytest
 import torch
@@ -46,6 +44,8 @@ from paddle_tpu_torch import (Adam, AdamW, CompiledTrainStep, GPTConfig,
 from paddle_tpu_torch import device as tdevice
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.profiler import counters
+
+import _torch_mesh_workers as W
 
 CFG = dict(vocab_size=64, hidden_size=64, num_layers=2, num_heads=2,
            max_seq_len=128, initializer_range=0.1)
@@ -420,30 +420,49 @@ def test_dropout_mask_rate_and_scale():
     torch.testing.assert_close(m(ids), plain(ids), rtol=0, atol=0)
 
 
-#: what the train step reads of a mesh before it refuses a pipeline axis
-_PP2 = types.SimpleNamespace(shape={"pp": 2, "dp": 1, "sharding": 1,
-                                    "sep": 1, "mp": 1})
+#: the degrees of the pipeline mesh the train step now trains over
+_PP2 = {"pp": 2}
 
 
 @pytest.mark.parametrize("kw,item", [
     (dict(lazy_mode=True), "A4"), (dict(optimizer="LBFGS"), "A4"),
     (dict(mesh=_PP2), "A7"), (dict(sparse_grad=True), "A4")])
-def test_unported_train_step_options_name_their_roadmap_item(kw, item):
-    """What the training loop still refuses names its ROADMAP item: a
-    mesh with a pipeline axis (A7e; ``mesh=`` itself trains since the
-    mesh slice, ``tests/test_torch_mesh_train.py``).  The three A4 options it once refused now train the
-    dygraph GPT as the JAX package does, in fp32 from the same weights
-    (plain attention in both: the loop is the point), two steps:
-    ``AdamW(lazy_mode=True)`` over dense gradients (the dense rule, in
-    both), ``LBFGS`` with a closure, and a SelectedRows gradient set on
-    the tied embedding (AdamW densifies it).  Parameters within 1e-5 of
-    their scale (the same fp32 math in another order)."""
+def test_unported_train_step_options_name_their_roadmap_item(kw, item,
+                                                              tmp_path):
+    """The options the training loop once refused now train.  A mesh
+    with a pipeline axis: two gloo ranks (``tests/_torch_mesh_workers.py``
+    ``pp_gpipe_smoke``) build the GPT under ``build_mesh({"pp": 2})``
+    (one layer a stage) and train it two ``CompiledTrainStep(mesh=)``
+    steps through GPipe (M lowered to the 2 rows, with the JAX
+    warning), losses within rtol 1e-5 and parameters within
+    :func:`_assert_params`' bounds of this process's meshless steps from
+    the same weights; what the mesh step still refuses there (a model
+    built without the mesh) names its ROADMAP item (A7e-models; the JAX
+    parity is ``tests/test_torch_pp_train.py``'s).  The three A4
+    options train the dygraph GPT as the JAX package does, in fp32 from
+    the same weights (plain attention in both: the loop is the point),
+    two steps: ``AdamW(lazy_mode=True)`` over dense gradients (the dense
+    rule, in both), ``LBFGS`` with a closure, and a SelectedRows gradient
+    set on the tied embedding (AdamW densifies it).  Parameters within
+    1e-5 of their scale (the same fp32 math in another order)."""
     cfg = {**CFG, "use_flash_attention": False}
     m = GPTForCausalLM(GPTConfig(**cfg), device="cpu")
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match=item):
-            CompiledTrainStep(m, _loss_fn(GPTPretrainingCriterion()),
-                              AdamW(LR, parameters=m.parameters()), **kw)
+        ids, labels, _ = _batch()
+        pl = {"cfg": cfg, "lr": LR, "state": m.gather_numpy_state(),
+              "degrees": kw["mesh"], "ids": np.stack([ids, ids]),
+              "labels": np.stack([labels, labels])}
+        ranks = W.spawn("pp_gpipe_smoke", 2, tmp_path, pl)
+        step = CompiledTrainStep(m, _loss_fn(GPTPretrainingCriterion()),
+                                 AdamW(LR, parameters=m.parameters()))
+        want = [float(step(torch.from_numpy(ids), torch.from_numpy(labels)))
+                for _ in range(2)]
+        ref = m.gather_numpy_state()
+        for losses, state, refused in ranks.results():
+            np.testing.assert_allclose(losses, want, rtol=1e-5)
+            _assert_params(state, ref, "pp2 GPipe vs meshless")
+            assert refused.startswith("NotImplementedError"), refused
+            assert item in refused and "A7e-models" in refused, refused
         return
     from paddle_tpu.core.selected_rows import SelectedRows as JSR
     from paddle_tpu_torch.core.selected_rows import SelectedRows as TSR
@@ -501,9 +520,25 @@ def test_unported_train_step_options_name_their_roadmap_item(kw, item):
 
 @pytest.mark.parametrize("cfg", [dict(pp_schedule="1f1b")])
 def test_unported_model_parallelism_names_a7(cfg):
-    """Pipeline parallelism is still refused, naming ROADMAP.md A7e."""
-    with pytest.raises(NotImplementedError, match="A7e"):
-        GPTForCausalLM(GPTConfig(**{**CFG, **cfg}), device="cpu")
+    """The pipeline options build (they once raised, naming ROADMAP.md
+    A7e), and without a mesh (pp 1, as in the JAX package) the model
+    trains exactly as without them: three ``CompiledTrainStep`` + AdamW
+    steps, the same losses and parameters bit for bit (the schedules act
+    on a pp mesh only: ``tests/test_torch_pp_train.py``)."""
+    ids, labels, _ = (torch.from_numpy(t) for t in _batch())
+    runs = []
+    for over in ({}, cfg):
+        m = GPTForCausalLM(GPTConfig(**{**CFG, **over}), device="cpu")
+        assert m.pipeline_stages is None
+        step = CompiledTrainStep(m, _loss_fn(GPTPretrainingCriterion()),
+                                 AdamW(LR, parameters=m.parameters()))
+        losses = [float(step(ids, labels)) for _ in range(STEPS)]
+        runs.append((losses, {n: t.detach().clone()
+                              for n, t in m._weights().items()}))
+    (l0, w0), (l1, w1) = runs
+    assert l0 == l1
+    for n in w0:
+        assert torch.equal(w0[n], w1[n]), n
 
 
 @pytest.mark.parametrize("flag", ["sequence_parallel", "context_parallel"])
