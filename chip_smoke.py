@@ -286,14 +286,14 @@ script exits non-zero:
     heads of 64, causal and not) against ``flash_attention_with_lse``
     over the whole sequence in one process, in bf16 and fp32
     (``_self_calibrated`` on O, dQ, dK, dV), and the kernel ring against
-    the plain ring at S 2048; (b) GPT-3 125M at full width and depth,
-    ``max_seq_len`` 8192, ``context_parallel`` + ``sequence_parallel``,
+    the plain ring at S 2048; (b) GPT-3 125M at full width and 6 of its
+    12 layers (cut for the time limit), ``max_seq_len`` 8192, ``context_parallel`` + ``sequence_parallel``,
     bf16, ``selective``, B 2 x 8192 at sep 2 through the loop, 3 steps,
     against one process over the whole sequence (losses, fp32 master
     updates) beside a control whose ring does not rotate, which must miss
     both limits; each rank's peak memory below the one process's; one
     step of the ``sequence_parallel``-only route (the qkv all-gather);
-    (c) K1–K3 launches a rank == (rank + 1) x 12 x 3 x their per-layer
+    (c) K1–K3 launches a rank == (rank + 1) x 6 x 3 x their per-layer
     count, collectives and ring shifts issued, no plain fallback; (e) the
     sequence-parallel linears at mp 2 in fp32 against the dense chain;
     then (d) K1–K3 at the chunk pair's shape (B 2, 12 x 64, 4096 x
@@ -364,6 +364,19 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from importlib import import_module
+
+if __name__ == "__main__":
+    # Where the installed torch ships no bytecode and the environment
+    # forbids writing it, every process of this script (each rank that
+    # _spawn_ranks starts, and each rank's first recompute step, which
+    # imports torch._dynamo) compiles torch's modules from source again:
+    # over 10 s a process.  Cache the bytecode once under the checkout's
+    # build/ (which .gitignore lists); the ranks inherit the setting.
+    _PYCACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix = _PYCACHE
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.dont_write_bytecode = False
 
 import numpy as np
 import torch
@@ -3123,35 +3136,45 @@ FLASH_DEVICE_NAMES = {"flash_fwd": "flash_fwd_wgmma_kernel",
                       "flash_bwd_dkv": "flash_bwd_dkv_wgmma_kernel"}
 
 
-def _profile(fn, top=12, names=None, warmup=False):
-    """``torch.profiler`` over one call of ``fn`` (synchronised): its
+#: tiny kernels that :func:`_profile` launches inside its trace before
+#: the call it traces.  Deep into a process, ``torch.profiler`` on an H100
+#: drops the first kernels of a trace: a prefix that grows with the
+#: process's age (``trace_prefix_probe.py``: none at 32 s, the first 22
+#: at 300 s, the first 32 at 420 s; this script's bert_train trace lost
+#: 236 once, past a step's first K1 launch), whatever time margin the
+#: trace leaves around the call, and after a warm-up step too.  The
+#: pre-roll takes that loss.
+PREROLL_KERNELS = 2048
+#: the pre-roll's device function (``torch.cuda._sleep``'s)
+PREROLL_DEVICE_NAME = "spin_kernel"
+
+
+def _profile(fn, top=12, names=None):
+    """``torch.profiler`` over one call of ``fn`` (synchronised), after a
+    pre-roll of ``PREROLL_KERNELS`` tiny kernels in the same trace: its
     wall time, the device time, the device's busy share of the wall
     time, device time by kind of op, the ``top`` device ops, and the
-    K1–K3 kernels the device ran, counted in the trace.  ``warmup``:
-    ``fn`` runs once more before, under the profiler's warm-up step, so
-    the traced call's first kernels are not lost while tracing starts
-    (on an H100 a trace without it once showed 23 of a step's 24 K1
-    launches); its kernel counts are the traced call's, but its device
-    times take in more than the traced call: use them only for the
-    counts."""
+    K1–K3 kernels the device ran, counted in the trace.  The pre-roll is
+    left out of every number; a trace that kept none of it may have
+    lost more than the pre-roll and raises."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    sched = (torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-             if warmup else None)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
-        if warmup:
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(PREROLL_KERNELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-        if warmup:
-            prof.step()
-    ops = sorted((e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kept = sum(e.count for e in device if PREROLL_DEVICE_NAME in e.key)
+    if not kept:
+        raise RuntimeError(f"_profile: the trace kept none of its "
+                           f"{PREROLL_KERNELS} pre-roll kernels")
+    ops = sorted((e for e in device if PREROLL_DEVICE_NAME not in e.key),
                  key=_dev_us, reverse=True)
     busy = sum(_dev_us(e) for e in ops)
     by_kind = {}
@@ -3161,6 +3184,7 @@ def _profile(fn, top=12, names=None, warmup=False):
     return {"wall_us": wall_us, "device_us": busy,
             "device_busy_share": busy / wall_us if busy else None,
             "device_us_by_kind": by_kind,
+            "preroll_kernels_kept": kept,
             "top_device_ops": [{"name": e.key[:80], "us": _dev_us(e),
                                 "calls": e.count} for e in ops[:top]
                                if _dev_us(e) > 0],
@@ -3488,53 +3512,6 @@ def _same_state(a, b):
     return all(torch.equal(x, y) for x, y in pairs)
 
 
-def _fused_traces():
-    """The body of :func:`_fused_traces_in_fresh_process`: GPT-3 125M as
-    train_fused runs it, a priming window and a captured one, then one
-    replay and 4 single steps each traced after a warm-up call; prints
-    their ``_profile`` counts as one JSON line."""
-    cfg = _fused_cfg(num_layers=FUSED_LAYERS)
-    K = FUSED_K
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    args = tuple(torch.randint(0, cfg.vocab_size, (2 * K, FUSED_B, TRAIN_S),
-                               generator=gen, device="cuda")
-                 for _ in range(2))
-    steps = []
-    for k in (K, 1):
-        model = GPTForCausalLM(cfg, device="cuda",
-                               generator=torch.Generator().manual_seed(0))
-        steps.append(_loop(model, "gpt3_125m", k=k)[2])
-    st4, st1 = steps
-    st4(_window(args, 0, K))
-    st4(_window(args, K, 2 * K))            # the capture
-    win = _window(args, K, 2 * K)
-    keep = ("flash_kernels_run", "flash_events_any_device")
-    traces = {
-        "replay": _profile(lambda: st4(win), top=0, warmup=True),
-        "single_steps": _profile(
-            lambda: [st1(*(a[K + i] for a in args)) for i in range(K)],
-            top=0, warmup=True)}
-    print(json.dumps({k: {n: v[n] for n in keep}
-                      for k, v in traces.items()}), flush=True)
-
-
-def _fused_traces_in_fresh_process():
-    """train_fused's trace counts, taken in a child process that has
-    traced nothing before: deep into this script the profiler twice
-    dropped one of a replay's 96 K1 events (a warm-up trace first did
-    not help once), while a fresh process traced 96 of 96 in every trial
-    on the same card."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.run(
-        [sys.executable, "-c", "import chip_smoke as cs; cs.device_phase(); "
-         "cs._fused_traces()"],
-        cwd=here, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"train_fused: the trace process failed:\n"
-                           f"{proc.stderr[-4000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
-
-
 def train_fused_phase():
     """GPT-3 125M bf16 at ``FUSED_LAYERS`` layers (``bench.py:2019-2035``:
     recompute "selective", batch 16 x 1024) through :func:`_loop` with
@@ -3611,7 +3588,7 @@ def train_fused_phase():
     single_ms = float(np.median(single_s)) * 1e3
     del runs, m4, m1, o4, o1, st4, st1
     _free_cuda()
-    traces = _fused_traces_in_fresh_process()
+    traces = {"replay": fused_busy, "single_steps": single_busy}
     ran = {k: v["flash_kernels_run"] for k, v in traces.items()}
     any_device = {k: v["flash_events_any_device"] for k, v in traces.items()}
     dropout = _fresh_masks_check()
@@ -4360,18 +4337,18 @@ def bert_train_phase():
             "kernels.flash.reference_fallbacks", 0):
         raise AssertionError(f"bert_train: counters {moved}")
 
-    # one more step under the profiler for the record; then the gate: the
-    # trace of a step (after a warm-up step) must show the kernels the
-    # counters (set to 0 just before) say were launched
-    prof = _profile(lambda: _bert_step(model, crit, opt, batch), top=15)
+    # one more step under the profiler, for the record and for the gate:
+    # its trace must show the kernels the counters (set to 0 just before)
+    # say were launched
     _reset_flash_counts()
-    traced = _profile(lambda: _bert_step(model, crit, opt, batch), top=0,
-                      warmup=True)["flash_kernels_run"]
-    counted = {fn.__name__: fn.launches // 2 for fn in FLASH_KERNELS}
+    prof = _profile(lambda: _bert_step(model, crit, opt, batch), top=15)
+    traced = prof["flash_kernels_run"]
+    counted = {fn.__name__: fn.launches for fn in FLASH_KERNELS}
     if traced != per_step or counted != per_step:
         raise AssertionError(
             f"bert_train: one step ran {traced} in the trace and "
-            f"{counted} by the counters, want {per_step}")
+            f"{counted} by the counters, want {per_step} (the trace kept "
+            f"{prof['preroll_kernels_kept']} of its pre-roll kernels)")
     p50 = float(np.median(step_s))
     tokens = BERT_B * BERT_S
     record = {
@@ -4994,16 +4971,16 @@ def gpt_dygraph_phase():
             "kernels.flash.reference_fallbacks", 0):
         raise AssertionError(f"gpt_dygraph: launches {launches}, counters "
                              f"{moved}")
-    # one step profiled for the record (as bert_train), then the gate on a
-    # trace whose warm-up step absorbs the start of tracing
-    prof = _profile(dygraph_step, top=12)
+    # one step profiled, for the record and for the gate (as bert_train)
     _reset_flash_counts()
-    traced = _profile(dygraph_step, top=0, warmup=True)["flash_kernels_run"]
-    counted = {fn.__name__: fn.launches // 2 for fn in FLASH_KERNELS}
+    prof = _profile(dygraph_step, top=12)
+    traced = prof["flash_kernels_run"]
+    counted = {fn.__name__: fn.launches for fn in FLASH_KERNELS}
     if traced != per_step or counted != per_step:
         raise AssertionError(
             f"gpt_dygraph: one step ran {traced} in the trace and "
-            f"{counted} by the counters, want {per_step}")
+            f"{counted} by the counters, want {per_step} (the trace kept "
+            f"{prof['preroll_kernels_kept']} of its pre-roll kernels)")
     p50 = float(np.median(step_s))
     tokens = TRAIN_B * TRAIN_S
     record = {
@@ -5145,8 +5122,7 @@ def flash_hd_in_model_phase():
             floor_share=(SELF_CALIBRATED_FLOOR if i == 0
                          else BERT_GRAD_FLOOR), row_stat="rms")
     traced = _profile(lambda: run("O2", False), top=0,
-                      names=FLASH_D256_DEVICE_NAMES,
-                      warmup=True)["flash_kernels_run"]
+                      names=FLASH_D256_DEVICE_NAMES)["flash_kernels_run"]
     if traced != want:
         raise AssertionError(f"flash_hd_in_model: the trace shows "
                              f"{traced}, want {want}")
@@ -5793,6 +5769,329 @@ def servemp_mp2_phase(sm):
     emit({"phase": "servemp_mp2_times", "card": CARD, "heads": "8 x 96",
           "kernels": rows})
     return rows
+
+
+# -- the serving extras on a mesh (slice 15) ---------------------------------
+#: the legs of serve_extras_mp1/serve_extras_mp2, in their order: (a)
+#: speculative decoding with the GPT-3 125M draft, and self-drafted (the
+#: random 125M draft's proposals are never accepted; the target's own
+#: are, so rounds emit blocks and rank 0's broadcast carries their
+#: lengths; at mp2 only, 12 new tokens), (b) LoRA (3 tenants of
+#: rank 8 beside base rows), (c) the host tier with a pool cut to spill,
+#: bf16 and int8 KV + weights, (d) migration of every request between two
+#: engines, (e) a disaggregated fleet (1 prefill + 1 decode replica),
+#: threaded and then pumped
+EXTRAS_LEGS = ("spec", "spec_self", "lora", "tier", "tier_int8",
+               "migration",
+               "fleet_threaded", "fleet_pumped")
+EXTRAS_Q8 = dict(kv_dtype="int8", weight_dtype="int8")
+#: the legs serve_extras_mp1 holds bit-equal to no mesh (one of each
+#: extra; int8 and the pumped fleet run at mp2)
+EXTRAS_MP1_LEGS = ("spec", "lora", "tier", "migration", "fleet_threaded")
+
+
+def _extras_draft():
+    """GPT-3 125M bf16 (12 heads of 64), weights from seed 1; under a
+    global mesh each rank holds its shards (6 heads at mp2)."""
+    return GPTForCausalLM(GPTConfig.gpt3_125m(
+        vocab_size=50304, max_seq_len=SERVEMP_S, dtype="bfloat16"),
+        device="cuda", generator=torch.Generator().manual_seed(1))
+
+
+def _extras_tenants(n):
+    return [(None, *LORA_TENANTS)[i % 4] for i in range(n)]
+
+
+def _extras_tier_blocks(prompts, new):
+    """A pool that holds half the requests at once: the second half's
+    admissions spill the first half's donated prefixes to the host, and
+    the first half served again restores them."""
+    need = max(blocks_for_tokens(len(p) + new - 1, 16) for p in prompts)
+    return max(1, len(prompts) // 2) * need + 1
+
+
+def _extras_leg(leg, model, draft, mesh, prompts, new, phase, warm=True):
+    """One leg of the serving extras through the user's entry points
+    (``LLMEngine(mesh=...)``, ``ServingFleet(mesh=...)``), its K4/K4q
+    launch counts set to 0 just before its counted run and read just
+    after (``_serve_counted`` and the fleet's gates want them ==
+    decode or draft steps x layers); ``warm``: serve one short request
+    first, off the counted run.  Returns the leg's record and the engines
+    it built (the caller drops them)."""
+    V = model.config.vocab_size
+    L = model.config.num_layers
+    t0 = time.perf_counter()
+    first = [prompts[0][:16]]
+    out = {}
+    if leg in ("spec", "spec_self", "lora") or leg.startswith("tier"):
+        if leg.startswith("spec"):
+            eng = _servemp_engine(
+                model, mesh, draft_model=model if leg == "spec_self"
+                else draft, spec_k=SPEC_K)
+        elif leg == "lora":
+            eng = _servemp_engine(model, mesh, adapter_slots=4,
+                                  adapter_rank=LORA_RANK)
+            for i, t in enumerate(LORA_TENANTS):
+                eng.register_adapter(t, random_lora_factors(
+                    model.config, LORA_RANK, seed=i + 1))
+        else:
+            eng = _servemp_engine(
+                model, mesh, n_blocks=_extras_tier_blocks(prompts, new),
+                host_kv_blocks=1024,
+                **(EXTRAS_Q8 if leg == "tier_int8" else {}))
+        if warm:
+            eng.generate(first, max_new_tokens=2)
+        torch.cuda.synchronize()
+        if leg.startswith("tier"):
+            # pass 2 serves the first half again: their prefixes went to
+            # the host while the second half ran, and come back from it
+            half = prompts[:max(1, len(prompts) // 2)]
+            runs = [_serve_counted(eng, p, new, f"{phase}_pass{i + 1}")
+                    for i, p in enumerate((prompts, half))]
+            moved = {k: sum(r["counters"].get(k, 0) for r, _, _ in runs)
+                     for k in ("serving.kv.tier.spilled_blocks",
+                               "serving.kv.tier.restored_blocks")}
+            if min(moved.values()) <= 0:
+                raise AssertionError(f"{phase}: the tier moved {moved}")
+            rec, hs = runs[1][0], runs[1][1]
+            launches = {k: sum(r["launches"][k] for r, _, _ in runs)
+                        for k in rec["launches"]}
+            steps = sum(r["decode_steps"] for r, _, _ in runs)
+            out.update(tier=moved, pass1_tokens=[
+                list(map(int, h.tokens)) for h in runs[0][1]],
+                host_tier_bytes_per_rank=eng.stats()["host_arena_bytes"])
+        else:
+            rec, hs, _ = _serve_counted(
+                eng, prompts, new, phase,
+                adapters=_extras_tenants(len(prompts))
+                if leg == "lora" else None)
+            launches, steps = rec["launches"], rec["decode_steps"]
+        st = eng.stats()
+        engines = [eng]
+        kv_bytes = st["kv_pool_bytes_per_chip"]
+        if leg.startswith("spec"):
+            kv_bytes += st["draft_kv_pool_bytes_per_chip"]
+            c = rec["counters"]
+            out.update(draft_kv_shard=list(eng.arena.shard_shape(
+                "draft_pool_k")), draft_steps=c.get(
+                    "serving.spec.draft_steps", 0),
+                drafted=c.get("serving.spec.drafted", 0),
+                accepted=c.get("serving.spec.accepted", 0))
+        if leg == "lora":
+            out["adapter_bytes_per_rank"] = st["adapters"]["arena_bytes"]
+    elif leg == "migration":
+        engines = [_servemp_engine(model, mesh) for _ in range(2)]
+        for e in engines if warm else ():
+            e.generate(first, max_new_tokens=2)
+        torch.cuda.synchronize()
+        pa.reset_launch_counts()
+        before = counters.snapshot()
+        hs, infos, ms = _migrate_stream(*engines, prompts, new, phase)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        steps = counters.delta(before).get("serving.decode_steps", 0)
+        for k, n in launches.items():
+            want = steps * L if k == "paged_decode_attention" else 0
+            if n != want or (want and n <= 0):
+                raise AssertionError(f"{phase}: {k} launched {n}, want "
+                                     f"{want}")
+        kv_bytes = sum(e.stats()["kv_pool_bytes_per_chip"] for e in engines)
+        out.update(migrations=len(infos),
+                   blocks_copied=sum(i["blocks_copied"] for i in infos),
+                   blocks_shared=sum(i["blocks_shared"] for i in infos),
+                   ms_per_migration_p50=float(np.median(ms)))
+    else:
+        fleet = ServingFleet(model, replicas=2, prefill_replicas=1,
+                             mesh=mesh, threaded=leg == "fleet_threaded",
+                             max_slots=8, max_seq_len=SERVEMP_S,
+                             min_bucket=8, kv_layout="paged",
+                             block_size=16, prefill_chunk=128)
+        if warm:
+            _fleet_warm(fleet, V)
+        hs, moved, launches, wall, _ = _fleet_counted(fleet, prompts, new,
+                                                      phase)
+        _fleet_gates(phase, fleet, hs, moved, launches, L, None)
+        if moved.get("serving.fleet.migrate.requests", 0) != len(prompts):
+            raise AssertionError(f"{phase}: migrations {moved}")
+        steps = moved.get("serving.decode_steps", 0)
+        engines = [r.engine for r in fleet._alive()]
+        kv_bytes = sum(e.stats()["kv_pool_bytes_per_chip"] for e in engines)
+        out["migrations"] = moved["serving.fleet.migrate.requests"]
+        fleet.drain()
+    out.update(tokens=[list(map(int, h.tokens)) for h in hs],
+               launches=launches, decode_steps=steps,
+               kv_bytes_per_rank=kv_bytes,
+               rank_disagreements=sum(e.stats()["rank_disagreements"]
+                                      for e in engines),
+               seconds=time.perf_counter() - t0)
+    return out, engines
+
+
+def serve_extras_mp1_phase(sm):
+    """The serving extras at one rank over NCCL (this process), each leg
+    of ``EXTRAS_MP1_LEGS`` on 4 of servemp's requests and 4 new tokens,
+    on a mesh of one rank and without a mesh: the tokens must be the same
+    (the collectives run over a group of one, nothing else changes).  Before the mesh: the
+    unsharded speculative and LoRA engines on servemp's 8 requests and 24
+    new tokens, the references serve_extras_mp2 holds its legs to, and
+    K4 at the draft's mp2 slice (its first 6 of 12 heads of 64, the
+    fullest servemp batch's tables) against its plain version, timed."""
+    from paddle_tpu_torch import distributed as D
+    model, prompts = sm["model"], sm["prompts"]
+    draft = _extras_draft()
+    ref = {}
+    for leg in ("spec", "lora"):
+        rec, engines = _extras_leg(leg, model, draft, None, prompts,
+                                   SERVEMP_NEW, f"serve_extras_{leg}_"
+                                   "unsharded")
+        ref[leg] = rec["tokens"]
+        if leg == "spec":
+            eng = engines[0]
+            ref["draft_rows"] = _head_slice_times(
+                {"pools": (eng.dpool_k, eng.dpool_v), "bt": sm["snap"]["bt"],
+                 "pos": sm["snap"]["pos"]}, 6, {}, kv_dtypes=(None,))
+        del engines
+        _free_cuda()
+    short = dict(prompts=prompts[:4], new=4)
+    D.init_parallel_env()
+    equal, legs = {}, {}
+    try:
+        mesh = D.build_mesh({"mp": 1})
+        for leg in EXTRAS_MP1_LEGS:
+            got = []
+            for m in (None, mesh):
+                rec, engines = _extras_leg(
+                    leg, model, draft, m, short["prompts"], short["new"],
+                    f"serve_extras_mp1_{leg}" + ("" if m else "_unsharded"),
+                    warm=False)
+                got.append(rec)
+                del engines
+            equal[leg] = got[0]["tokens"] == got[1]["tokens"]
+            legs[leg] = {k: got[1][k] for k in ("launches", "seconds",
+                                                "rank_disagreements")}
+    finally:
+        D.reset_parallel_env()
+    del draft
+    _free_cuda()
+    emit({"phase": "serve_extras_mp1", "card": CARD,
+          "model": "gpt3_760m bf16, draft gpt3_125m bf16",
+          "mesh": "mp1 (nccl, one rank)", "requests": 4, "new_tokens": 4,
+          "tokens_equal_unsharded": equal, "legs": legs,
+          "draft_mp2_slice_6x64": ref["draft_rows"]})
+    if not all(equal.values()):
+        raise AssertionError(f"serve_extras_mp1: the one-rank mesh's tokens "
+                             f"differ from no mesh's: {equal}")
+    return ref
+
+
+def _serve_extras_rank(rank, world, pl):
+    """One rank of serve_extras_mp2: the 760M model and the 125M draft
+    built under the mp2 mesh (this rank's shards), every leg of
+    ``EXTRAS_LEGS`` on servemp's 8 requests and 24 new tokens, and K4 at
+    the rank's 6 draft heads of 64 against its plain version on the spec
+    leg's draft pools (the fullest servemp batch's tables)."""
+    from paddle_tpu_torch import distributed as D
+    mesh = D.build_mesh({"mp": world})
+    model = _servemp_model()
+    draft = _extras_draft()
+    out = {}
+    for leg in EXTRAS_LEGS:
+        # the self-drafted leg checks accepted blocks: half the tokens do
+        rec, engines = _extras_leg(leg, model, draft, mesh, pl["prompts"],
+                                   SERVEMP_NEW // 2 if leg == "spec_self"
+                                   else SERVEMP_NEW,
+                                   f"serve_extras_mp2_{leg}_rank{rank}")
+        if leg == "spec":
+            eng = engines[0]
+            bt = torch.from_numpy(pl["bt"].astype(np.int32)).cuda()
+            pos = torch.from_numpy(pl["pos"].astype(np.int32)).cuda()
+            gen = torch.Generator(device="cuda").manual_seed(rank)
+            q = torch.randn(bt.shape[0], *eng.dpool_k.shape[3:],
+                            generator=gen, device="cuda").to(torch.bfloat16)
+            rec["draft_max_abs_err"] = _wrapper_vs_plain(
+                q, (eng.dpool_k[0], eng.dpool_v[0]), bt, pos)
+        out[leg] = rec
+        del engines
+        torch.cuda.empty_cache()
+    out["wte_shard"] = list(model.wte.shape)
+    out["draft_wte_shard"] = list(draft.wte.shape)
+    return out
+
+
+def serve_extras_mp2_phase(sm, ref):
+    """The serving extras at mp2: two processes on this card in one gloo
+    group (a correctness run), GPT-3 760M bf16 at full width and depth on
+    servemp's requests and engine settings, every leg of
+    ``EXTRAS_LEGS``.  Gates, on every leg: greedy tokens agree with the
+    same engine without a mesh (``ref``: the unsharded speculative and
+    LoRA engines; servemp's unsharded paged engine, bf16 or int8, for the
+    self-drafted leg, whose greedy tokens drafting leaves as they are,
+    the tier, migration and the fleet) at least as well as the slot
+    layout agrees with the paged one (servemp's bf16 bar); no rank chose
+    a token other than rank 0's before the broadcast; K4/K4q launched on
+    each rank (== decode or draft steps x layers).  The self-drafted leg
+    accepted drafted tokens on each rank; the draft's KV shard holds 6
+    heads of 64; K4 at that slice equals its plain version.  Prints the
+    KV bytes a rank holds on each leg."""
+    res = _spawn_ranks("_serve_extras_rank", 2, {
+        "prompts": sm["prompts"], "bt": sm["snap"]["bt"],
+        "pos": sm["snap"]["pos"]})
+    want = {"spec": ref["spec"], "spec_self": sm["tokens"],
+            "lora": ref["lora"], "tier": sm["tokens"],
+            "tier_int8": sm["tokens_int8"], "migration": sm["tokens"],
+            "fleet_threaded": sm["tokens"], "fleet_pumped": sm["tokens"]}
+    record = {"phase": "serve_extras_mp2", "card": CARD,
+              "model": "gpt3_760m bf16, draft gpt3_125m bf16",
+              "mesh": "mp2 (gloo, 2 processes)", "bar": sm["bar"],
+              "wte_shard": res[0]["wte_shard"],
+              "draft_wte_shard": res[0]["draft_wte_shard"]}
+    for leg in EXTRAS_LEGS:
+        r0 = res[0][leg]
+        # a tier leg: both passes (pass 2 is the first half, restored)
+        got = r0.get("pass1_tokens", []) + r0["tokens"]
+        ref_toks = (want[leg] if "pass1_tokens" not in r0
+                    else want[leg] + want[leg][:len(r0["tokens"])])
+        record[leg] = {
+            "agreement_with_unsharded": float(np.mean([
+                x == y for a, b in zip(got, ref_toks)
+                for x, y in zip(a, b)])),
+            **{k: [r[leg][k] for r in res] for k in (
+                "rank_disagreements", "launches", "decode_steps",
+                "kv_bytes_per_rank", "seconds")},
+            **{k: v for k, v in r0.items() if k not in (
+                "tokens", "pass1_tokens", "rank_disagreements", "launches",
+                "decode_steps", "kv_bytes_per_rank", "seconds")}}
+    emit(record)
+    for leg in EXTRAS_LEGS:
+        r = record[leg]
+        name = ("paged_decode_attention_int8" if leg == "tier_int8"
+                else "paged_decode_attention")
+        if any(r["rank_disagreements"]):
+            raise AssertionError(f"serve_extras_mp2 {leg}: ranks disagree "
+                                 f"before the broadcast: {r}")
+        if min(x[name] for x in r["launches"]) <= 0:
+            raise AssertionError(f"serve_extras_mp2 {leg}: {name} never "
+                                 f"launched: {r['launches']}")
+        if r["agreement_with_unsharded"] < sm["bar"]:
+            raise AssertionError(
+                f"serve_extras_mp2 {leg}: agreement with the unsharded "
+                f"engine {r['agreement_with_unsharded']} < the bf16 bar "
+                f"{sm['bar']}")
+    if min(r["spec_self"]["accepted"] for r in res) <= 0:
+        raise AssertionError("serve_extras_mp2 spec_self: no drafted token "
+                             "was accepted")
+    if record["spec"]["draft_kv_shard"][3:] != [6, 64]:
+        raise AssertionError(f"serve_extras_mp2: draft KV shard "
+                             f"{record['spec']['draft_kv_shard']}")
+    rows = ref["draft_rows"]
+    k4 = rows["paged_decode_attention"]
+    k4["launches"] = record["spec"]["launches"][0]["paged_decode_attention"]
+    k4["max_abs_err"] = max(k4["max_abs_err"], *(
+        r["spec"]["draft_max_abs_err"] for r in res))
+    emit({"phase": "serve_extras_mp2_times", "card": CARD,
+          "heads": "6 x 64 (GPT-3 125M draft, mp2 slice)", "kernels": rows})
+    return {"draft_6x64": k4, "launches": {
+        leg: record[leg]["launches"][0] for leg in EXTRAS_LEGS}}
 
 
 def mesh_train_phase():
@@ -6754,10 +7053,11 @@ def moe_flash_rows(train_launches, ep_launches):
 
 # -- long-context training over sep: ring attention, the sequence split -------
 
-#: cp_train_2rank: GPT-3 125M at full width and depth over a sequence of
-#: 8192 tokens (its learned position table grows to 8192 rows), batch 2,
-#: 3 AdamW steps through :func:`_loop`, sep 2 (chunks of 4096)
-CP_S, CP_B, CP_STEPS = 8192, 2, 3
+#: cp_train_2rank: GPT-3 125M at full width and ``CP_LAYERS`` of its 12
+#: layers (cut for the script's time limit) over a sequence of 8192
+#: tokens (its learned position table grows to 8192 rows), batch 2, 3
+#: AdamW steps through :func:`_loop`, sep 2 (chunks of 4096)
+CP_S, CP_B, CP_STEPS, CP_LAYERS = 8192, 2, 3, 6
 #: the limits of the sep-2 losses against one process over the whole
 #: sequence, and of each fp32 master's change (``MESH2_*``'s measures),
 #: between the sound run and the control without rotation (each rank
@@ -6782,10 +7082,12 @@ CP_RING_RMS_FACTOR = 2.0
 
 
 def _cp_cfg(context_parallel=True, dropout=0.0):
-    return GPTConfig.gpt3_125m(
+    cfg = GPTConfig.gpt3_125m(
         vocab_size=50304, max_seq_len=CP_S, dtype="bfloat16",
         recompute="selective", context_parallel=context_parallel,
         sequence_parallel=True, dropout=dropout)
+    cfg.num_layers = CP_LAYERS
+    return cfg
 
 
 def _cp_ring_run(qkv, do, dtype, causal, mesh, rank, world, kernel=True):
@@ -6979,7 +7281,8 @@ def _cp_launches_want(rank):
     rank r visits r + 1 chunks a layer (its diagonal, then the older
     ones); selective recompute replays each K1 once; K2/K3 once each."""
     per = _flash_per_layer_step("selective")
-    return {n: c * (rank + 1) * 12 * CP_STEPS for n, c in per.items()}
+    return {n: c * (rank + 1) * CP_LAYERS * CP_STEPS
+            for n, c in per.items()}
 
 
 def _cp_one_process_dropout(ids, labels):
@@ -7003,7 +7306,8 @@ def _cp_one_process_dropout(ids, labels):
 def cp_train_2rank_phase():
     """Long-context GPT training over the ``sep`` axis across two
     processes on this card (gloo; ``fused_steps=1``): GPT-3 125M at full
-    width and depth, ``context_parallel`` and ``sequence_parallel``, bf16,
+    width and ``CP_LAYERS`` of its 12 layers, ``context_parallel`` and
+    ``sequence_parallel``, bf16,
     ``recompute="selective"``, batch 2 x 8192, sep 2 (chunks of 4096)
     through :func:`_loop` with its schedule stepped, 3 steps, against one
     process over the whole sequence: losses within ``CP_LOSS_ATOL``, every
@@ -7052,7 +7356,8 @@ def cp_train_2rank_phase():
     record = {"phase": "cp_train_2rank", "card": CARD,
               "model": "gpt3_125m bf16 selective, context_parallel + "
                        "sequence_parallel, max_seq_len 8192",
-              "batch": [CP_B, CP_S], "mesh": "sep2 (gloo, two processes)",
+              "layers": CP_LAYERS, "batch": [CP_B, CP_S],
+              "mesh": "sep2 (gloo, two processes)",
               "lrs": lrs, "one_process_losses": ref,
               "one_process_grad_norms": ref_norms,
               "loss_atol": CP_LOSS_ATOL, "update_rtol": CP_UPDATE_RTOL,
@@ -7150,14 +7455,14 @@ def cp_train_2rank_phase():
 
 # -- pipeline-parallel training over pp --------------------------------------
 
-#: pp_train_2rank: GPT-3 125M at full width and depth (12 layers, 6 a
-#: stage), batch 8 x 1024 in M = 4 microbatches of 2, 2 AdamW steps a
+#: pp_train_2rank: GPT-3 125M at full width and ``PP_LAYERS`` of its 12
+#: layers (2 a stage; cut for the script's time limit), batch 8 x 1024 in M = 4 microbatches of 2, 2 AdamW steps a
 #: schedule through :func:`_loop` (its schedule stepped: the first step's
 #: lr is 0, so the losses read the pipelined forward and the updates its
 #: backward)
-PP_B, PP_M, PP_STEPS = 8, 4, 2
+PP_B, PP_M, PP_STEPS, PP_LAYERS = 8, 4, 2, 4
 #: the schedules: GPipe through ``CompiledTrainStep(mesh=)``, the
-#: interleaved one (``virtual_pp_degree=2``, 3 layers a chunk), 1F1B and
+#: interleaved one (``virtual_pp_degree=2``, 1 layer a chunk), 1F1B and
 #: zero-bubble through ``Pipeline1F1BTrainStep``
 PP_RUNS = ("gpipe", "interleaved", "1f1b", "zero_bubble")
 #: the controls, GPipe each: stage 1 receives zeros in place of the
@@ -7172,7 +7477,7 @@ PP_LOSS_ATOL, PP_UPDATE_RTOL = 1e-3, 0.1
 
 
 def _pp_cfg(run):
-    cfg = _fused_cfg()
+    cfg = _fused_cfg(num_layers=PP_LAYERS)
     if run == "interleaved":
         cfg.pp_schedule, cfg.virtual_pp_degree = "interleaved", 2
     return cfg
@@ -7180,14 +7485,15 @@ def _pp_cfg(run):
 
 def _pp_launches_want(run, rank):
     """K1–K3 launches of one pp-2 rank over ``PP_STEPS`` steps: each of
-    its 6 layers runs K1 once a microbatch forward and, under selective
-    recompute, once more in each backward pass, which runs K2 and K3
-    once.  A step has one backward pass a microbatch, but zero-bubble's
+    its ``PP_LAYERS / 2`` layers runs K1 once a microbatch forward and,
+    under selective recompute, once more in each backward pass, which
+    runs K2 and K3 once.  A step has one backward pass a microbatch, but zero-bubble's
     last stage runs two (dX, then W, each through the whole stage)."""
     passes = 2 if run == "zero_bubble" and rank == 1 else 1
     per = {"flash_fwd": 1 + passes, "flash_bwd_dq": passes,
            "flash_bwd_dkv": passes}
-    return {n: c * 6 * PP_M * PP_STEPS for n, c in per.items()}
+    return {n: c * PP_LAYERS // 2 * PP_M * PP_STEPS
+            for n, c in per.items()}
 
 
 def _pp_run(pl, mesh, run, init):
@@ -7254,7 +7560,8 @@ def _pp_rank(rank, world, pl):
 def pp_train_2rank_phase():
     """Pipeline-parallel GPT training over pp 2 across two processes on
     this card (gloo; ``fused_steps=1``): GPT-3 125M at full width and
-    depth, bf16, ``recompute="selective"``, batch 8 x 1024 in 4
+    ``PP_LAYERS`` of its 12 layers, bf16, ``recompute="selective"``,
+    batch 8 x 1024 in 4
     microbatches of 2, 2 steps through :func:`_loop` with its schedule
     stepped, for each of GPipe (``CompiledTrainStep(mesh=build_mesh(
     {"pp": 2}))``), the interleaved schedule (V 2), 1F1B and zero-bubble
@@ -7297,7 +7604,8 @@ def pp_train_2rank_phase():
                                        "d_ref": d_ref})
     del d_ref
     record = {"phase": "pp_train_2rank", "card": CARD,
-              "model": "gpt3_125m bf16 selective, 12 layers, 6 a stage",
+              "model": f"gpt3_125m bf16 selective, {PP_LAYERS} layers, "
+                       f"{PP_LAYERS // 2} a stage",
               "batch": [PP_B, TRAIN_S], "microbatches": PP_M,
               "mesh": "pp2 (gloo, two processes)", "lrs": lrs,
               "one_process_losses": ref, "one_process_seconds": one_s,
@@ -7425,6 +7733,9 @@ def main():
     _free_cuda()
     sm = _timed(servemp_phase)
     mp2_rows = _timed(servemp_mp2_phase, sm)
+    extras_ref = _timed(serve_extras_mp1_phase, sm)
+    extras = _timed(serve_extras_mp2_phase, sm, extras_ref)
+    del extras_ref
     sm_rows = sm["rows"]
     del sm
     _free_cuda()
@@ -7499,6 +7810,12 @@ def main():
         if row["name"] in sm_rows:
             row["servemp_760m_16x96"] = sm_rows[row["name"]]
             row["servemp_mp2_8x96"] = mp2_rows[row["name"]]
+            # the serving extras' mp2 legs run at that 8 x 96 slice
+            row["serve_extras_mp2_launches_a_rank"] = {
+                leg: n[row["name"]] for leg, n in
+                extras["launches"].items() if n[row["name"]]}
+        if row["name"] == "paged_decode_attention":
+            row["draft125m_mp2_6x64"] = extras["draft_6x64"]
         if row["name"] in moe_serve_rows:
             row["moe_serve_760m_8experts_16x96"] = moe_serve_rows[
                 row["name"]]

@@ -417,6 +417,28 @@ class TensorParallel:
     def col_in(self, x, on):
         return mp_ops.copy_to_mp(x, self.axis, self.mesh) if on else x
 
+    def lora_local(self, adapters):
+        """This rank's cut of LoRA factors ``a_<t> [..., d_in, R]`` /
+        ``b_<t> [..., R, d_out]`` (``serving.adapters.AdapterArena`` cuts
+        a tenant's once, when it registers), so that :func:`_mm_lora`
+        adds the rank's part of ``x @ A @ B``: a column-parallel weight
+        (qkv, fc1) keeps the columns of ``B`` its shard computes (qkv's
+        per q/k/v block, as the weight is cut), a row-parallel one (proj,
+        fc2) the rows of ``A`` its input features meet, so its update
+        joins the partial sum before the all-reduce and counts once.
+        Factors of a part that does not split stay whole."""
+        cut = {"b_qkv_w": (self.attn, -1), "a_proj_w": (self.attn, -2),
+               "b_fc1_w": (self.ffn, -1), "a_fc2_w": (self.ffn, -2)}
+        out = dict(adapters)
+        for name, (on, dim) in cut.items():
+            t = out.get(name)
+            if on and t is not None:
+                spec = [None] * t.dim()
+                spec[dim] = self.axis
+                out[name] = local_shard(t, P(*spec), self.mesh,
+                                        _FUSED.get(name[2:], 1))
+        return out
+
     def row_out(self, y, on):
         return mp_ops.reduce_from_mp(y, self.axis, self.mesh) if on else y
 
@@ -1175,9 +1197,10 @@ class GPTForCausalLM(Layer):
         always get their own; RoPE turns each token by its own position.
         LoRA: ``adapters`` holds the slabs ``a_<t> [L, n_slots, d_in, R]``
         / ``b_<t> [L, n_slots, R, d_out]`` for ``t`` in qkv_w, proj_w,
-        fc1_w, fc2_w and ``adapter_ids [B]`` each row's slot
-        (:func:`_mm_lora`; 0 = the base model).  Returns ``h[B, T, H]``
-        before the final norm."""
+        fc1_w, fc2_w (under ``tp``, this rank's cut:
+        :meth:`TensorParallel.lora_local`) and ``adapter_ids [B]`` each
+        row's slot (:func:`_mm_lora`; 0 = the base model).  Returns
+        ``h[B, T, H]`` before the final norm."""
         c = self.config
         hd = c.hidden_size // c.num_heads
         B, T = ids.shape

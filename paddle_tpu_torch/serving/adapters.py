@@ -25,6 +25,14 @@ which the paged engine turns into the same deferred admission as KV
 exhaustion.  The ``adapter_load_drop`` fault fails a page-in *before*
 any slab write, so a dropped load never leaves another tenant's weights
 behind the slot.
+
+On a tensor-parallel mesh (``tp``, the engine's
+``models.gpt.TensorParallel``) each rank's arena holds only the cut of
+the slabs its matmul shards meet: ``B``'s columns of the
+column-parallel qkv (per q/k/v block) and fc1, ``A``'s rows of the
+row-parallel proj and fc2, the other factor whole.  A tenant's factors
+are cut once, when it registers, so page-in copies this rank's cut and a
+model call reads the slabs as they are.
 """
 
 from __future__ import annotations
@@ -97,7 +105,7 @@ class AdapterArena:
     calls every mutating method under its lock, as for the block pool.
     """
 
-    def __init__(self, model, slots, rank):
+    def __init__(self, model, slots, rank, tp=None):
         c = model.config
         if getattr(c, "num_experts", 0) > 0:
             raise ValueError(
@@ -113,16 +121,16 @@ class AdapterArena:
         self.peek_tokens = ADAPTER_PEEK_TOKENS
         self._dims = _target_dims(c)
         self._dt = model.wte.dtype
+        self._tp = tp
         L, R, rows = c.num_layers, self.rank, self.slots + 1
-        self._slabs = {}
+        shapes = {}
         for t in ADAPTER_TARGETS:
             di, do = self._dims[t]
-            self._slabs["a_" + t] = torch.zeros((L, rows, di, R),
-                                                dtype=self._dt,
-                                                device=model.device)
-            self._slabs["b_" + t] = torch.zeros((L, rows, R, do),
-                                                dtype=self._dt,
-                                                device=model.device)
+            shapes["a_" + t] = torch.empty((L, rows, di, R), device="meta")
+            shapes["b_" + t] = torch.empty((L, rows, R, do), device="meta")
+        self._slabs = {n: torch.zeros(v.shape, dtype=self._dt,
+                                      device=model.device)
+                       for n, v in self._local(shapes).items()}
         self._registry = {}             # tenant -> padded host factors
         self._resident = OrderedDict()  # tenant -> slot, LRU order
         self._refs = {}                 # tenant -> live request count
@@ -176,7 +184,12 @@ class AdapterArena:
                 bp[:, :r, :] = b
             out["a_" + t] = ap
             out["b_" + t] = bp
-        return out
+        return self._local(out)
+
+    def _local(self, factors):
+        """This rank's cut of a factor or slab dict (``TensorParallel.
+        lora_local``), the dict itself without a mesh."""
+        return factors if self._tp is None else self._tp.lora_local(factors)
 
     def register(self, tenant, factors):
         """Install (or replace) one tenant's host-side factors.  A

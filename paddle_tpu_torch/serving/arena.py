@@ -16,7 +16,19 @@ rank holds:
   without an arena.  A model built under a mesh already holds its
   shards (its training placements); the arena keeps them as they are.
 * **accounting** — :meth:`StateArena.device_bytes` and
-  :meth:`StateArena.shard_shape` read what this rank holds.
+  :meth:`StateArena.shard_shape` read what this rank holds, by name:
+  ``weights``, ``pool_k``/``pool_v`` (``cache_k``/``cache_v`` in the
+  slot layout), ``scale_k``/``scale_v``; the speculative engine's
+  ``draft_weights``, ``draft_pool_k``/``draft_pool_v`` and
+  ``draft_scale_k``/``draft_scale_v``; the LoRA arena's ``adapters``.
+
+The draft model's tree and pools take the same rules as the target's:
+they split over ``mp`` when the draft's heads divide it and degrade to
+replicated otherwise (``serving.mesh.spec_degraded``).  The LoRA arena
+holds each rank's cut of the slabs, the columns or rows its shard of a
+matmul meets, cut once when a tenant registers
+(``models.gpt.TensorParallel.lora_local``); the JAX arena keeps them
+replicated and lets GSPMD cut them at each call.
 
 The JAX arena also fronts a compile cache (``program``), rebinds donated
 pools (``bind``/``get``), wraps per-step operands (``operand``) and names
@@ -83,6 +95,11 @@ _EXPERT_DIMS = {"fc1_w": 4, "fc1_b": 3, "fc2_w": 4}
 #: KV pools ``[L, n_blocks, bs, nh, hd]`` (and the slot arena ``[L, B,
 #: S, nh, hd]``) split their head axis
 KV_POOL_SPEC = P(None, None, None, "mp", None)
+
+#: the KV storage whose head axis :attr:`StateArena.kv_head_axis` reports
+_KV_POOLS = ("pool_k", "pool_v", "cache_k", "cache_v", "draft_pool_k",
+             "draft_pool_v")
+
 
 def _flatten(tree):
     """``{leaf name: leaf}`` of the decode-state tree (layer leaves by
@@ -163,8 +180,7 @@ class StateArena:
         return value
 
     def _note_pool(self, name, rspec):
-        if name in ("pool_k", "pool_v", "cache_k", "cache_v") \
-                and any(e is not None for e in (rspec or ())):
+        if name in _KV_POOLS and any(e is not None for e in (rspec or ())):
             self.kv_head_axis = True
 
     def declare_tree(self, name, tree, num_heads):

@@ -30,14 +30,21 @@ model's Megatron forward all-reduces after the row-parallel
 projections, and the paged decode launches K4/K4q on the rank's heads
 (``kernels.paged_attention.sharded_paged_decode_attention``).  Every
 rank runs the same engine on the same requests; the token every rank
-emits is the one mesh rank 0 chose, broadcast each step, so the ranks'
-host decisions (admission, chunking, blocks, prefix hits, sampling)
-stay identical.  ``deadline_s`` is refused on a mesh of more than one
-rank (the ranks' clocks would decide differently), as are the paged
-engine's LoRA adapters, host-RAM tier and KV migration, the
-speculative engine and the fleet (ROADMAP.md A7).  A mesh of one rank
-runs the same code, collectives included, and gives the same tokens as
-no mesh.
+emits is the one mesh rank 0 chose, broadcast each step (the
+speculative engine broadcasts each proposal and each round's accepted
+block the same way), so the ranks' host decisions (admission, chunking,
+blocks, prefix hits, spills, sampling) stay identical.  The paged
+engine's extras serve on a mesh as without one: LoRA adapters (each
+rank's arena holds the cut of the slabs its matmul shards meet, and
+each shard adds its part of the update), the host-RAM tier (each rank spills and restores its own head
+shard; the quantized pools' scale planes whole), KV migration between
+two engines over the same mesh and head split (each rank copies its
+shard), the speculative engine (the draft's weights and pools split
+like the target's when its heads divide ``mp``) and the fleet
+(``serving.fleet``).  ``deadline_s`` is refused on a mesh of more than
+one rank (the ranks' clocks would decide differently), as is a mesh
+with ``sep > 1`` (ROADMAP.md A7c-moe).  A mesh of one rank runs the
+same code, collectives included, and gives the same tokens as no mesh.
 
 The engine follows the model's device.  Each sampled request carries its
 own ``torch.Generator``, seeded from the request's ``seed``.
@@ -78,19 +85,13 @@ from .arena import KV_POOL_SPEC, StateArena
 from .sampling import sample_tokens
 
 _TODO = {
-    "mesh+adapters": "ROADMAP.md A7f (LoRA, host tier and migration on a "
-                     "mesh)",
-    "mesh+host_kv_blocks": "ROADMAP.md A7f (LoRA, host tier and migration "
-                           "on a mesh)",
-    "mesh+migration": "ROADMAP.md A7f (LoRA, host tier and migration on a "
-                      "mesh)",
-    "mesh+draft_model": "ROADMAP.md A7f (the speculative engine and the "
-                        "fleet on a mesh)",
-    "mesh+fleet": "ROADMAP.md A7f (the speculative engine and the fleet on "
-                  "a mesh)",
     "mesh+sep": "ROADMAP.md A7c (serving over a mesh with sep > 1; a "
                 "model built with sequence_parallel or context_parallel "
                 "serves without one)",
+    "mesh+fleet_control": "ROADMAP.md A7f-control (the fleet's fault "
+                          "injection and autoscaler on a mesh of more "
+                          "than one rank: their decisions are not yet "
+                          "taken on rank 0 and applied on every rank)",
 }
 
 
@@ -254,13 +255,8 @@ class LLMEngine:
         if weight_dtype not in (None, "int8"):
             raise ValueError(f"weight_dtype must be None or 'int8', "
                              f"got {weight_dtype!r}")
-        if mesh is not None and mesh.size > 1:
-            if int(adapter_slots or 0) > 0:
-                raise _not_ported("mesh+adapters")
-            if int(host_kv_blocks or 0) > 0:
-                raise _not_ported("mesh+host_kv_blocks")
-            if mesh.shape.get("sep", 1) > 1:
-                raise _not_ported("mesh+sep")
+        if mesh is not None and mesh.shape.get("sep", 1) > 1:
+            raise _not_ported("mesh+sep")
         if int(adapter_slots or 0) > 0 and kv_layout != "paged":
             raise ValueError("adapter_slots requires kv_layout='paged' "
                              "(adapter ids ride the paged calls)")
@@ -369,18 +365,21 @@ class LLMEngine:
                                              dt) for n in ("cache_k",
                                                            "cache_v"))
 
-    def _kv_zeros(self, name, shape, dtype):
+    def _kv_zeros(self, name, shape, dtype, weights=None):
         """Zeroed KV storage ``[L, *, *, nh, hd]`` through the arena:
-        this rank's heads when the attention weights split."""
-        tp = self._w.get("tp")
+        this rank's heads when the attention weights of ``weights`` (the
+        target's decode state by default) split."""
+        tp = (self._w if weights is None else weights).get("tp")
         return self.arena.declare_zeros(
             name, shape, dtype, self.device, KV_POOL_SPEC,
             split=tp is not None and tp.attn)
 
     def _agree(self, tok):
-        """``tok`` (device int64) as mesh rank 0 chose it: broadcast over
-        the mesh, so every rank emits the same tokens and takes the same
-        host decisions.  Without a mesh, ``tok`` itself."""
+        """``tok`` (a device integer tensor) as mesh rank 0 chose it:
+        broadcast over the mesh, so every rank emits the same tokens and
+        takes the same host decisions; every element this rank chose
+        apart from rank 0 is counted (``rank_disagreements``).  Without
+        a mesh, ``tok`` itself."""
         if self.arena.mesh is None:
             return tok
         from ..distributed.communication import broadcast

@@ -32,6 +32,25 @@ health checks and fault-driven drain and respawn.
   :class:`serving.autoscale.FleetAutoscaler` reads the health plane's
   burn-rate alerts each scheduler tick and rebalances the split.
 
+* **On a mesh** (``mesh=``) every replica builds its engine over the
+  same mesh (``LLMEngine(mesh=)``: this rank's shards), and every rank
+  builds the same fleet and receives the same ``submit`` calls.  What
+  reads a clock or thread timing is decided on mesh rank 0 and applied
+  on every rank (:class:`_RankZero`, object broadcasts over a gloo group
+  of the fleet's own): each replica pick with its ``RetryAfter`` and the
+  seed it draws when ``submit`` was given none, the stall verdicts, and
+  how many submitted requests a scheduler tick admits, so every
+  replica's engine starts each step from the same admitted set on every
+  rank.  The replicas' engines share the mesh's communicators, so
+  ``threaded=True`` runs one scheduler thread that ticks the fleet as
+  :meth:`pump` does (no monitor thread, no thread per replica): their
+  collectives never interleave, and ``submit`` posts its request to the
+  next tick, which picks the replica and admits it, and waits for it.
+  ``deadline_s`` is refused on a mesh of more than one rank, as by the
+  engine, and so are fault injection and ``autoscale=True``; a replica
+  whose step raises there fails the fleet instead of being respawned on
+  one rank alone (ROADMAP.md A7f-control).
+
 Every replica shares the model's weights; only the pools are per
 replica.  All replicas queue their work on the device's current stream
 (the default stream of every thread), so a migration's gather from the
@@ -83,6 +102,42 @@ __all__ = ["FleetRequest", "Replica", "ServingFleet"]
 # decode share in its trace; short enough to stay far from the heartbeat
 # stall detector.
 SLOW_DECODE_STALL_S = 0.02
+
+
+class _RankZero:
+    """Decisions a multi-rank mesh fleet takes on mesh rank 0 and applies
+    on every rank, over a gloo group of the mesh's ranks.  Only the
+    thread that ticks the fleet (the caller's under :meth:`ServingFleet.
+    pump`, else the scheduler thread) decides, so the broadcasts of the
+    ranks meet in one order."""
+
+    #: seconds a rank's scheduler waits for its caller to post what rank
+    #: 0's caller posted (the same program runs on every rank)
+    POST_WAIT_S = 600.0
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+        self._dist = dist
+        ranks = mesh.group_ranks(mesh.axis_names)
+        self.src = ranks[0]
+        self.is_src = mesh.rank == self.src
+        self.group = dist.new_group(ranks, backend="gloo")
+
+    def decide(self, fn):
+        """``fn()`` on rank 0, broadcast: every rank returns its value,
+        or raises the exception it raised there."""
+        val = None
+        if self.is_src:
+            try:
+                val = ("ok", fn())
+            except Exception as e:  # noqa: BLE001 - every rank raises it
+                val = ("raise", e)
+        box = [val]
+        self._dist.broadcast_object_list(box, src=self.src, group=self.group)
+        kind, v = box[0]
+        if kind == "raise":
+            raise v
+        return v
 
 
 class FleetRequest:
@@ -262,8 +317,9 @@ class ServingFleet:
                  health_kw=None, host_kv_blocks=0, spill_idle_steps=0,
                  restore_cost=0.5, mesh=None, shard_rules=None,
                  adapter_slots=0, adapter_rank=8):
-        if mesh is not None or shard_rules is not None:
-            raise _not_ported("mesh+fleet")
+        multi = mesh is not None and mesh.size > 1
+        if multi and autoscale:
+            raise _not_ported("mesh+fleet_control")
         self.model = model
         prefill_replicas = int(prefill_replicas)
         if prefill_replicas:
@@ -287,6 +343,19 @@ class ServingFleet:
                                weight_dtype=weight_dtype,
                                host_kv_blocks=host_kv_blocks,
                                spill_idle_steps=spill_idle_steps)
+        if mesh is not None:
+            # every replica builds a mesh engine over the same mesh: its
+            # own StateArena keeps this rank's shards of the pools and of
+            # the weights
+            self._engine_kw.update(mesh=mesh, shard_rules=shard_rules)
+        # a multi-rank mesh takes its timing-dependent decisions on rank
+        # 0; a threaded mesh fleet ticks from one scheduler thread (the
+        # replicas share the mesh's communicators), and submit posts to it
+        self._rz = _RankZero(mesh) if multi else None
+        self._posted = deque() if mesh is not None and threaded else None
+        self._posted_cv = threading.Condition()
+        self._sched_thread = None
+        self._sched_error = None
         if draft_model is not None:
             # every replica runs draft/verify speculative decoding over
             # the one draft model
@@ -341,7 +410,12 @@ class ServingFleet:
         self._publish_roles()
         self._monitor_stop = threading.Event()
         self._monitor_thread = None
-        if self.threaded:
+        if self.threaded and self._posted is not None:
+            self._sched_thread = threading.Thread(
+                target=self._scheduler_loop, name="fleet-scheduler",
+                daemon=True)
+            self._sched_thread.start()
+        elif self.threaded:
             self._monitor_thread = threading.Thread(
                 target=self._monitor_loop, name="fleet-monitor", daemon=True)
             self._monitor_thread.start()
@@ -409,6 +483,8 @@ class ServingFleet:
 
     def spawn_replica(self, role=None):
         """Grow the fleet by one warmed replica (autoscaler/public API)."""
+        if self._rz is not None:
+            raise _not_ported("mesh+fleet_control")
         if self._closed:
             return None
         rep = self._spawn(role=role)
@@ -420,7 +496,7 @@ class ServingFleet:
         with self._lock:
             self._replicas.append(rep)
         counters.set_gauge("serving.fleet.replicas", len(self._alive()))
-        if self.threaded:
+        if self.threaded and self._posted is None:
             rep.thread = threading.Thread(
                 target=self._worker, args=(rep,),
                 name=f"fleet-replica-{rep.idx}", daemon=True)
@@ -454,6 +530,8 @@ class ServingFleet:
         death counters — a retire is an operator decision, not a fault.
         The autoscaler only retires idle replicas, so the requeue set is
         normally empty."""
+        if self._rz is not None:
+            raise _not_ported("mesh+fleet_control")
         with self._lock:
             if not rep.alive:
                 return
@@ -575,7 +653,14 @@ class ServingFleet:
         if self._closed:
             raise EngineClosed("fleet is drained; no new requests")
         ids = prompt_ids(prompt)
-        if seed is None:
+        if self._rz is not None:
+            if deadline_s is not None:
+                raise ValueError("deadline_s on a mesh of more than one "
+                                 "rank: the ranks' clocks would evict "
+                                 "differently")
+            if faultinject.active():
+                raise _not_ported("mesh+fleet_control")
+        if seed is None and self._rz is None:
             seed = int(np.random.randint(0, 2**31 - 1))
         rid = next(self._rid)
         try:
@@ -597,24 +682,25 @@ class ServingFleet:
                                "on this fleet (register_adapter first)")
             # riding kw means every retry/redispatch carries the tenant
             kw["adapter"] = adapter
-        freq = FleetRequest(rid, ids, kw, int(seed), deadline_s)
+        freq = FleetRequest(rid, ids, kw, None if seed is None else int(seed),
+                            deadline_s)
         freq.trace = rtrace.new_trace(rid)
         est = int(ids.shape[0]) + int(max_new_tokens)
         t0_tr = (time.perf_counter_ns() if freq.trace is not None else 0)
+        # disaggregated fleet: new admissions land on a prefill replica;
+        # the KV hand-off routes them to decode afterwards
+        pick_kw = dict(est_tokens=est, deadline_s=deadline_s, prompt=ids,
+                       role="prefill" if self._has_role("prefill") else None,
+                       adapter=adapter)
         try:
-            # disaggregated fleet: new admissions land on a prefill
-            # replica; the KV hand-off routes them to decode afterwards
-            rep = self.router.pick(
-                self._candidates(), est_tokens=est,
-                deadline_s=deadline_s, prompt=ids,
-                role="prefill" if self._has_role("prefill") else None,
-                adapter=adapter)
+            if self._posted is not None:
+                rep = self._post(freq, pick_kw)
+            else:
+                rep = self._admit(freq, pick_kw)
         except RetryAfter:
             if freq.trace is not None:
                 rtrace.finish(freq.trace, "shed")
             raise
-        try:
-            self._dispatch(freq, rep)
         except EngineBackpressure as e:
             # lost the queue-room race with another submitter
             if freq.trace is not None:
@@ -627,15 +713,13 @@ class ServingFleet:
                                 replica=rep.idx)
         with self._lock:
             self._requests.append(freq)
-        self._warm_lens.add(bucket_length(int(ids.shape[0]),
-                                          self._min_bucket, self._seq_len))
         counters.inc("serving.fleet.dispatched")
         return freq
 
     def _dispatch(self, freq, rep=None):
         """Hand a fleet request to a replica engine (fresh or retry)."""
         if rep is None:
-            rep = self.router.pick(
+            rep, _ = self._pick(
                 self._candidates(),
                 est_tokens=freq.kw["max_new_tokens"] - len(freq.tokens),
                 shed=False,    # requeues were admitted: never shed
@@ -673,6 +757,77 @@ class ServingFleet:
         except (RetryAfter, EngineBackpressure, EngineClosed):
             with self._lock:
                 self._pending.append(freq)
+
+    def _admit(self, freq, pick_kw):
+        """Pick a submitted request's replica (``Router.pick`` with
+        ``pick_kw``; a seedless request's seed drawn after it) and hand
+        the request to it; returns the replica."""
+        rep, drawn = self._pick(self._candidates(),
+                                draw_seed=freq.seed is None, **pick_kw)
+        if freq.seed is None:
+            # a mesh fleet: the seed rank 0 drew, the same on every rank
+            freq.seed = drawn
+        self._dispatch(freq, rep)
+        # a respawn warms this bucket; added on the thread that ticks, so
+        # a mesh fleet's ranks warm the same buckets
+        self._warm_lens.add(bucket_length(int(freq.prompt.shape[0]),
+                                          self._min_bucket, self._seq_len))
+        return rep
+
+    def _pick(self, candidates, draw_seed=False, **kw):
+        """``(replica, seed)``: ``Router.pick`` over ``candidates`` and,
+        with ``draw_seed``, a request seed drawn after it (else None); on
+        a multi-rank mesh rank 0's, broadcast.  Called only from the
+        thread that ticks the fleet when it has a mesh, where every
+        rank's replica list is the same."""
+        def pick():
+            rep = self.router.pick(candidates, **kw)
+            if not draw_seed:
+                return rep.idx, None
+            return rep.idx, int(np.random.randint(0, 2**31 - 1))
+        if self._rz is None:
+            idx, seed = pick()
+        else:
+            idx, seed = self._rz.decide(pick)
+        return next(r for r in candidates if r.idx == idx), seed
+
+    def _post(self, freq, pick_kw):
+        """A threaded mesh fleet's submit: the scheduler's next tick
+        admits the request (:meth:`_admit`); wait for it and return the
+        replica, or raise what the admission raised there."""
+        post = {"freq": freq, "pick_kw": pick_kw, "done": threading.Event()}
+        with self._posted_cv:
+            self._posted.append(post)
+            self._posted_cv.notify_all()
+        while not post["done"].wait(0.05):
+            self._check_scheduler()
+        if "error" in post:
+            raise post["error"]
+        return post["rep"]
+
+    def _admit_posted(self, n):
+        """Admit the first ``n`` posted submits (rank 0's count: wait
+        until this rank's caller has posted as many), in post order, and
+        wake their callers."""
+        if not n:
+            return
+        deadline = time.monotonic() + _RankZero.POST_WAIT_S
+        with self._posted_cv:
+            while len(self._posted) < n:
+                if not self._posted_cv.wait(
+                        max(0.0, deadline - time.monotonic())):
+                    raise RuntimeError(
+                        f"fleet: rank 0 admitted {n} posted requests, "
+                        f"this rank's caller posted {len(self._posted)} "
+                        f"in {_RankZero.POST_WAIT_S} s")
+            posts = [self._posted.popleft() for _ in range(n)]
+        for post in posts:
+            try:
+                post["rep"] = self._admit(post["freq"], post["pick_kw"])
+            except Exception as e:  # noqa: BLE001 - raised by its submit
+                post["error"] = e
+            finally:
+                post["done"].set()
 
     def _flush_pending(self, rep):
         """Drain the fleet-level retry overflow into ``rep`` while it has
@@ -816,7 +971,7 @@ class ServingFleet:
             return    # finished/evicted between emit and absorb: not held
         try:
             faultinject.maybe_fault("kv_migrate_drop", freq.rid)
-            dest = self.router.pick(
+            dest, _ = self._pick(
                 [r for r in self._candidates() if r is not src],
                 est_tokens=freq.kw["max_new_tokens"] - len(freq.tokens),
                 shed=False, role="decode")
@@ -926,14 +1081,33 @@ class ServingFleet:
             counters.inc("serving.fleet.retried")
             self._requeue(freq)
 
-    def check_health(self):
+    def _stalled(self):
+        """Indices of the replicas the stall detector declares dead: with
+        outstanding work (or hung) and a heartbeat older than
+        ``heartbeat_timeout_s``."""
+        now = time.monotonic()
+        return [r.idx for r in self._alive()
+                if (r.hung or r.engine.has_work())
+                and now - r.last_beat > self.heartbeat_timeout_s]
+
+    def _supervise(self, stalled):
+        """Drain and replace the ``stalled`` replicas, then tick the
+        health plane and the autoscaler."""
+        self.check_health(stalled)
+        self.health.maybe_tick()
+        if self.autoscaler is not None:
+            self.autoscaler.maybe_scale()
+
+    def check_health(self, stalled=None):
         """The stall detector: a replica with outstanding work whose
         heartbeat is older than ``heartbeat_timeout_s`` is declared dead
-        (``serving.fleet.heartbeat_misses``), drained, and replaced."""
-        now = time.monotonic()
+        (``serving.fleet.heartbeat_misses``), drained, and replaced.
+        ``stalled``: the verdicts to apply (indices; a multi-rank mesh's
+        are rank 0's), by default this rank's (:meth:`_stalled`)."""
+        if stalled is None:
+            stalled = self._stalled()
         for rep in self._alive():
-            busy = rep.hung or rep.engine.has_work()
-            if busy and now - rep.last_beat > self.heartbeat_timeout_s:
+            if rep.idx in stalled:
                 counters.inc("serving.fleet.heartbeat_misses")
                 self._replica_died(rep, "stall")
 
@@ -953,20 +1127,64 @@ class ServingFleet:
         for rep in self._alive():
             if not rep.hung:
                 rep.last_beat = now
-        self.check_health()
-        self.health.maybe_tick()
-        if self.autoscaler is not None:
-            self.autoscaler.maybe_scale()
-        progressed = False
+        return self._tick()[0]
+
+    def _tick(self):
+        """The fleet's scheduler tick (:meth:`pump`, and a threaded mesh
+        fleet's scheduler thread).  Decides how many posted submits to
+        admit, which replicas stalled and whether the closed fleet has
+        drained (rank 0's view, broadcast, on a multi-rank mesh); admits
+        them, drains the stalled replicas, ticks the health plane and the
+        autoscaler, then steps every alive replica once in index order.
+        Returns ``(progressed, drained)``."""
+        def decide():
+            n = 0
+            if self._posted is not None:
+                with self._posted_cv:
+                    n = len(self._posted)
+            drained = self._closed and n == 0 and not self.has_work()
+            return n, self._stalled(), drained
+        n, stalled, drained = (decide() if self._rz is None
+                               else self._rz.decide(decide))
+        self._admit_posted(n)
+        self._supervise(stalled)
+        progressed = n > 0
         for rep in self._alive():
             try:
                 progressed |= self._step_replica(rep)
             except (KeyboardInterrupt, SystemExit):
                 raise
             except BaseException as e:   # incl. injected SimulatedCrash
+                if self._rz is not None:
+                    # the other ranks cannot take this verdict with us
+                    # (ROADMAP.md A7f-control): the fleet fails
+                    raise
                 self._replica_died(rep, "crash", e)
                 progressed = True
-        return progressed
+        return progressed, drained
+
+    def _scheduler_loop(self):
+        """A threaded mesh fleet's one scheduler thread: tick until the
+        closed fleet has drained (rank 0's verdict); when idle, wait
+        briefly for a post."""
+        try:
+            while True:
+                progressed, drained = self._tick()
+                if drained:
+                    return
+                if not progressed:
+                    with self._posted_cv:
+                        if not self._posted and not self._closed:
+                            self._posted_cv.wait(0.002)
+        except Exception as e:  # noqa: BLE001 - surfaced by submit/join
+            self._sched_error = e
+            counters.inc("serving.fleet.monitor_errors")
+
+    def _check_scheduler(self):
+        if self._sched_error is not None:
+            raise RuntimeError("the fleet's scheduler thread failed: "
+                               f"{self._sched_error!r}") \
+                from self._sched_error
 
     def _worker(self, rep):
         """Threaded replica loop: step while there is work, sleep-wait
@@ -990,10 +1208,7 @@ class ServingFleet:
         tick = max(0.01, min(0.25, self.heartbeat_timeout_s / 4))
         while not self._monitor_stop.wait(tick):
             try:
-                self.check_health()
-                self.health.maybe_tick()
-                if self.autoscaler is not None:
-                    self.autoscaler.maybe_scale()
+                self._supervise(self._stalled())
                 if self._pending:
                     for rep in self._candidates():
                         self._flush_pending(rep)
@@ -1002,6 +1217,8 @@ class ServingFleet:
 
     # -- conveniences --------------------------------------------------------
     def has_work(self):
+        if self._posted:
+            return True
         with self._lock:
             if self._pending:
                 return True
@@ -1015,6 +1232,7 @@ class ServingFleet:
         t0 = time.monotonic()
         while not all(h.is_finished for h in handles):
             if self.threaded:
+                self._check_scheduler()
                 time.sleep(0.002)
             else:
                 self.pump()
@@ -1052,7 +1270,13 @@ class ServingFleet:
         at 0).  Returns every FleetRequest ever admitted.  Idempotent."""
         self._closed = True
         t0 = time.monotonic()
-        while self.has_work():
+        if self._sched_thread is not None:
+            # a threaded mesh fleet's scheduler stops at the tick that
+            # finds the closed fleet drained
+            with self._posted_cv:
+                self._posted_cv.notify_all()
+            self._sched_thread.join(timeout=600.0)
+        while self._sched_thread is None and self.has_work():
             if self.threaded:
                 time.sleep(0.002)
                 self.check_health()

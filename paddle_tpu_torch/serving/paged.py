@@ -41,6 +41,14 @@ mapping its logical block index to a physical pool block:
   blocks adopted by refcount from the destination's own tree, only the
   unshared tail copied) and ``finish_migrated`` releases the source.
 
+On a mesh every rank runs the same engine (``serving.engine``): the LoRA
+slabs stay whole on each rank, the host tier's buffers and a
+migration's copies hold the rank's own head shard of the pools (the
+quantized pools' scale planes, which have no head axis, whole), and the
+decisions that move blocks (reservations, spills, restores, adoptions)
+read only state every rank shares.  A migration between engines whose
+meshes or head splits differ is refused.
+
 The pools are updated in place by the model's ``prefill_paged`` /
 ``decode_paged``, by the COW copy, by restores and by migration; this
 replaces the reference's donation of the pools through every program.
@@ -74,7 +82,7 @@ from ..profiler.host_tracer import span
 from ..resilience import faultinject as _fi
 from .adapters import AdapterArena, AdapterArenaExhausted
 from .engine import (EngineBackpressure, EngineClosed, LLMEngine, Request,
-                     _not_ported, bucket_length, prompt_ids)
+                     bucket_length, prompt_ids)
 from .kvcache import (TRASH_BLOCK, BlockPool, BlockPoolExhausted,
                       HostKVTier, HostTierLost, PrefixCache,
                       blocks_for_tokens)
@@ -173,8 +181,12 @@ class PagedLLMEngine(LLMEngine):
         self._req_host = {}    # rid -> {"idx": set[int], "lost": bool}
         self._held_idle = {}   # rid -> idle scheduler steps while held
         self.adapters = (AdapterArena(self.model, self.adapter_slots,
-                                      self.adapter_rank)
+                                      self.adapter_rank,
+                                      tp=self._w.get("tp"))
                          if self.adapter_slots > 0 else None)
+        if self.adapters is not None:
+            # on a mesh, the cut of the slabs this rank's shards meet
+            self.arena.declare("adapters", self.adapters.slabs())
         # per-slot adapter arena row (host mirror; 0 = the base model)
         self._aid = np.zeros(B, np.int32)
         # per-engine prefix-cache accounting (the same events also feed
@@ -191,7 +203,8 @@ class PagedLLMEngine(LLMEngine):
     def release_kv(self):
         self.pool_k = self.pool_v = None
         self.scales = ()
-        self.arena.release("pool_k", "pool_v", "scale_k", "scale_v")
+        self.arena.release("pool_k", "pool_v", "scale_k", "scale_v",
+                           "adapters")
         if self.adapters is not None:
             self.adapters.release_slabs()
 
@@ -479,8 +492,6 @@ class PagedLLMEngine(LLMEngine):
 
     # -- request intake ------------------------------------------------------
     def add_request(self, prompt, max_new_tokens=32, **kw):
-        if kw.get("hold_after_prefill") and self.arena.multi_device:
-            raise _not_ported("mesh+migration")
         tenant = kw.get("adapter")
         if tenant is not None:
             # refuse unregistered tenants here, synchronously: admission
@@ -800,6 +811,16 @@ class PagedLLMEngine(LLMEngine):
                 "adapter": req.adapter,
             }
 
+    def _kv_split(self):
+        """``(mp degree, this rank's mp index, heads held)``: what a
+        migration's block copies assume the two engines share (no mesh
+        and a mesh of one rank hold the same whole pools)."""
+        mesh = self.arena.mesh
+        if mesh is None:
+            return (1, 0, int(self.pool_k.shape[3]))
+        return (mesh.degree("mp"), mesh.index("mp"),
+                int(self.pool_k.shape[3]))
+
     def _migrate_blocks(self, src, src_ids, dst_ids):
         """Copy blocks ``src_ids`` of ``src``'s pools into this engine's
         blocks ``dst_ids``, in every layer of K, V and the scale pools:
@@ -829,8 +850,6 @@ class PagedLLMEngine(LLMEngine):
         token continues the source's.  ``trace_ctx`` (the fleet handle's
         trace) rides the installed request and gets a ``kv.adopt``
         span."""
-        if self.arena.multi_device:
-            raise _not_ported("mesh+migration")
         if (self.pool.block_size != mig["block_size"]
                 or self.kv_dtype != mig["kv_dtype"]):
             raise ValueError(
@@ -842,6 +861,12 @@ class PagedLLMEngine(LLMEngine):
             raise ValueError(f"KV migration from {src.device} to "
                              f"{self.device}: both engines must share a "
                              "device")
+        if src._kv_split() != self._kv_split():
+            raise ValueError(
+                "KV migration between engines of different meshes or head "
+                f"splits (source {src._kv_split()}, destination "
+                f"{self._kv_split()}: mp degree, this rank's mp index, "
+                "heads held)")
         bs = self.pool.block_size
         pos = int(mig["pos"])
         total = len(mig["table"])
@@ -1092,6 +1117,8 @@ class PagedLLMEngine(LLMEngine):
                     "weights"),
                 "host_tier_capacity": 0 if tier is None else tier.capacity,
                 "host_tier_blocks": 0 if tier is None else tier.resident,
+                # this rank's host buffers: under an mp mesh its head
+                # shard of each spilled block, the scale rows whole
                 "host_arena_bytes": 0 if tier is None else tier.arena_bytes,
                 "tier_spilled": self.kv_tier_spilled,
                 "tier_restored": self.kv_tier_restored,

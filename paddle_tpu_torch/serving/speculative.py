@@ -30,6 +30,16 @@ writes to it); the draft's table grows ahead of each round and is
 rolled back after a rejection by truncating the table (stale K/V is
 masked until a later write overwrites it, so nothing is copied).
 
+On a mesh (``mesh=``) the draft's weights and pools are declared on the
+engine's ``StateArena`` beside the target's: they split over ``mp``
+when the draft's heads divide it (each draft step launches K4/K4q on
+the rank's slice of the draft's heads) and degrade to replicated
+otherwise (``serving.mesh.spec_degraded``).  Every rank drafts and
+verifies the same rows; each draft step's proposals and each round's
+accepted block and its length are rank 0's, broadcast
+(``LLMEngine._agree``), so a sampled row whose generators differ
+between ranks still takes one outcome everywhere.
+
 LoRA adapters: the draft proposes on the base model and the verify pass
 scores under each row's adapter, so acceptance keeps the tenant's
 distribution.  KV migration: the draft namespace never migrates; an
@@ -144,9 +154,6 @@ class SpeculativeLLMEngine(PagedLLMEngine):
         draft = kw.pop("draft_model", None)
         if draft is None:
             raise ValueError("SpeculativeLLMEngine requires draft_model=")
-        if kw.get("mesh") is not None:
-            from .engine import _not_ported
-            raise _not_ported("mesh+draft_model")
         if kw.get("kv_layout", "paged") != "paged":
             raise ValueError(
                 "draft_model= requires kv_layout='paged' (speculative "
@@ -176,8 +183,12 @@ class SpeculativeLLMEngine(PagedLLMEngine):
                 f"max_seq_len {S} exceeds the draft model's "
                 f"learned-position table ({dc.max_seq_len})")
         super()._init_kv(c, B, S, nh, hd)
-        self._dw = (ptq_int8_decode_state(draft)
-                    if self.weight_dtype == "int8" else draft.decode_state())
+        # declared on the arena like the target's: this rank's shards
+        # under a mesh (the draft's own head split), themselves without
+        self._dw = self.arena.declare_tree(
+            "draft_weights", ptq_int8_decode_state(draft)
+            if self.weight_dtype == "int8" else draft.decode_state(),
+            dc.num_heads)
         # the draft's pools share the pool's block ids, not its storage:
         # the same n_blocks/block_size, the draft model's own layer and
         # head shape
@@ -185,13 +196,15 @@ class SpeculativeLLMEngine(PagedLLMEngine):
         shape = (dc.num_layers, self.n_blocks, self.pool.block_size, dnh,
                  dc.hidden_size // dnh)
         adt = KV_DTYPES[self.kv_dtype] if self.kv_dtype else draft.wte.dtype
-        self.dpool_k = torch.zeros(shape, dtype=adt, device=self.device)
-        self.dpool_v = torch.zeros_like(self.dpool_k)
+        self.dpool_k = self._kv_zeros("draft_pool_k", shape, adt, self._dw)
+        self.dpool_v = self._kv_zeros("draft_pool_v", shape, adt, self._dw)
         self.dscales = ()
         if self.kv_dtype:
+            # per-token scales have no head axis: whole on every rank
             self.dscales = tuple(
-                torch.zeros(shape[:3], dtype=torch.float32,
-                            device=self.device) for _ in range(2))
+                self.arena.declare_zeros(n, self.dpool_k.shape[:3],
+                                         torch.float32, self.device)
+                for n in ("draft_scale_k", "draft_scale_v"))
         self._dbt = np.zeros((B, self.max_blocks), np.int32)
         self._dslot_blocks = [None] * B
         self._dgen = [None] * B       # per-slot draft generator (sampled)
@@ -394,8 +407,9 @@ class SpeculativeLLMEngine(PagedLLMEngine):
         """One draft decode step (``decode_paged``: K4, or K4q over
         quantized pools) and the proposal draw: argmax for greedy rows,
         a draw from the filtered distribution ``q`` with the row's draft
-        generator for sampled rows.  Returns ``(proposals [B], q [B, V] or
-        None when no row samples)``."""
+        generator for sampled rows; on a mesh the proposals are rank
+        0's.  Returns ``(proposals [B], q [B, V] or None when no row
+        samples)``."""
         _dt = _devicetime.note(self._prog_key("serving.draft_paged"))
         logits = self.draft_model.decode_paged(
             self._dw, tok, pos, bt, self.dpool_k, self.dpool_v,
@@ -410,7 +424,7 @@ class SpeculativeLLMEngine(PagedLLMEngine):
                 q = torch.zeros_like(logits)
             q[b] = _filtered_probs(logits[b], req)
             nxt[b] = torch.multinomial(q[b], 1, generator=self._dgen[b])[0]
-        return nxt, q
+        return self._agree(nxt), q
 
     def _decode_step(self, events):
         """One speculative round for every running slot: K+1 draft steps
@@ -472,8 +486,10 @@ class SpeculativeLLMEngine(PagedLLMEngine):
                 q = torch.stack([torch.zeros_like(logits[:, 0]) if x is None
                                  else x for x in qs], dim=1)
             emit, n_emit = _acceptance(logits, toks, q, nv_t, reqs)
-            # the one read-back of the round
-            out = torch.cat([emit, n_emit[:, None]], dim=1).cpu().numpy()
+            # the one read-back of the round: on a mesh rank 0's accepted
+            # blocks and their lengths, which every rank then applies
+            out = self._agree(torch.cat([emit, n_emit[:, None]],
+                                        dim=1)).cpu().numpy()
             emit, n_emit = out[:, :-1], out[:, -1]
         self._trace_decode(active, t0_tr)
         counters.inc("serving.spec.verify_steps")
@@ -505,6 +521,8 @@ class SpeculativeLLMEngine(PagedLLMEngine):
         super().release_kv()
         self.dpool_k = self.dpool_v = None
         self.dscales = ()
+        self.arena.release("draft_pool_k", "draft_pool_v", "draft_scale_k",
+                           "draft_scale_v")
 
     def _release_slot_kv(self, slot, req, reason):
         super()._release_slot_kv(slot, req, reason)
@@ -527,5 +545,10 @@ class SpeculativeLLMEngine(PagedLLMEngine):
                 "spec_yield_ema": self._yield_ema,
                 "spec_drafted": self._spec_drafted,
                 "spec_accepted": self._spec_accepted,
+                "draft_kv_pool_bytes_per_chip": self.arena.device_bytes(
+                    "draft_pool_k", "draft_pool_v", "draft_scale_k",
+                    "draft_scale_v"),
+                "draft_weight_bytes_per_chip": self.arena.device_bytes(
+                    "draft_weights"),
             })
         return st

@@ -1,7 +1,7 @@
 """Rank functions for the port's multi-process tests (not collected).
 
 ``tests/test_torch_distributed_api.py``, ``test_torch_mesh_serving.py``,
-``test_torch_mesh_train.py``, ``test_torch_moe_mesh.py``,
+``test_torch_mesh_serving_extras.py``, ``test_torch_mesh_train.py``, ``test_torch_moe_mesh.py``,
 ``test_torch_ring_attention.py``, ``test_torch_sequence_parallel.py``,
 ``test_torch_cp_train.py``, ``test_torch_pp_train.py`` and
 ``test_torch_gpt_train.py`` run the JAX package in the pytest
@@ -158,7 +158,7 @@ def serving_mp2(rank, world, pl):
     from paddle_tpu_torch import distributed as D
     from paddle_tpu_torch.kernels import paged_attention as pa
     from paddle_tpu_torch.profiler import counters
-    from paddle_tpu_torch.serving import LLMEngine, ServingFleet
+    from paddle_tpu_torch.serving import LLMEngine
     prompts, sample = pl["prompts"], pl["sample"]
     model = _gpt(pl["cfg"], pl["state"])
     model.eval()
@@ -242,23 +242,329 @@ def serving_mp2(rank, world, pl):
         "deadline": _raises(lambda: LLMEngine(
             model, kv_layout="paged", mesh=mesh, max_seq_len=32).add_request(
                 [1, 2], max_new_tokens=2, deadline_s=5.0)),
-        "adapters": _raises(lambda: LLMEngine(
-            model, kv_layout="paged", mesh=mesh, max_seq_len=32,
-            adapter_slots=2)),
-        "host_tier": _raises(lambda: LLMEngine(
-            model, kv_layout="paged", mesh=mesh, max_seq_len=32,
-            host_kv_blocks=4)),
-        "migration": _raises(lambda: LLMEngine(
-            model, kv_layout="paged", mesh=mesh, max_seq_len=32).add_request(
-                [1, 2], max_new_tokens=2, hold_after_prefill=True)),
-        "draft": _raises(lambda: LLMEngine(
-            model, kv_layout="paged", mesh=mesh, max_seq_len=32,
-            draft_model=model)),
-        "fleet": _raises(lambda: ServingFleet(
-            model, replicas=1, kv_layout="paged", max_seq_len=32,
-            mesh=mesh)),
     }
     return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_mesh_serving_extras.py: scenarios that take the engine
+# and fleet classes, so the test process runs the same ones on the JAX
+# package's
+# ---------------------------------------------------------------------------
+
+EXTRAS_ENGINE = dict(kv_layout="paged", max_slots=3, max_seq_len=32,
+                     min_bucket=4, block_size=4, prefill_chunk=8)
+EXTRAS_TENANTS = [None, "t1", "t2", "t1"]
+#: a pool of 10 blocks over two slots spills a stream of nine-token
+#: prompts served twice
+EXTRAS_TIER = dict(EXTRAS_ENGINE, max_slots=2, n_blocks=10,
+                   host_kv_blocks=32)
+
+
+def _tokens(hs):
+    return [list(map(int, h.tokens)) for h in hs]
+
+
+def _drive(eng, hs, limit=400):
+    n = 0
+    while not all(h.is_finished for h in hs):
+        eng.step()
+        n += 1
+        assert n < limit, "engine did not converge"
+    return _tokens(hs)
+
+
+def extras_spec(Engine, model, draft, mesh, prompts, sampled=None, k=2):
+    """Speculative greedy (or sampled) tokens and the engine."""
+    eng = Engine(model, mesh=mesh, draft_model=draft, spec_k=k,
+                 **EXTRAS_ENGINE)
+    hs = [eng.add_request(p, max_new_tokens=5, seed=21 + i,
+                          **(sampled or {}))
+          for i, p in enumerate(prompts)]
+    return _drive(eng, hs), eng
+
+
+def extras_lora(Engine, model, mesh, prompts, factors, sampled=None):
+    """Tenants t1 and t2 (two slots of rank 4) beside base rows, in one
+    batch."""
+    eng = Engine(model, mesh=mesh, adapter_slots=2, adapter_rank=4,
+                 **EXTRAS_ENGINE)
+    for t in sorted(factors):
+        eng.register_adapter(t, factors[t])
+    hs = [eng.add_request(p, max_new_tokens=5, seed=21 + i, adapter=t,
+                          **(sampled or {}))
+          for i, (p, t) in enumerate(zip(prompts, EXTRAS_TENANTS))]
+    return _drive(eng, hs), eng
+
+
+def extras_tier(Engine, model, mesh, stream, kv_dtype=None):
+    """A stream served twice, one request at a time, through a pool that
+    spills (pass 2 restores what pass 1 spilled); tokens, ``(spilled,
+    restored)`` and the engine."""
+    eng = Engine(model, mesh=mesh, kv_dtype=kv_dtype, **EXTRAS_TIER)
+    toks = []
+    for _ in range(2):
+        for i, p in enumerate(stream):
+            toks += _drive(eng, [eng.add_request(p, max_new_tokens=4,
+                                                 seed=i)])
+    st = eng.stats()
+    return toks, (st["tier_spilled"], st["tier_restored"]), eng
+
+
+def extras_migration(Engine, model, mesh, prompts, kv_dtype=None):
+    """Every request prefilled and held on one engine, exported, adopted
+    by a second engine over the same mesh and decoded there."""
+    src = Engine(model, mesh=mesh, kv_dtype=kv_dtype, **EXTRAS_ENGINE)
+    dst = Engine(model, mesh=mesh, kv_dtype=kv_dtype, **EXTRAS_ENGINE)
+    out, copied = [], 0
+    for i, p in enumerate(prompts):
+        req = src.add_request(p, max_new_tokens=5, seed=21 + i,
+                              hold_after_prefill=True)
+        while req.state != "held":
+            src.step()
+        new, info = dst.adopt_migration(src.export_request(req), src)
+        src.finish_migrated(req)
+        copied += info["blocks_copied"]
+        out += _drive(dst, [new])
+    return out, copied, (src, dst)
+
+
+EXTRAS_FLEET = dict(max_slots=3, max_seq_len=32, min_bucket=4,
+                    kv_layout="paged", block_size=4, prefill_chunk=8)
+
+
+def extras_fleet(Fleet, model, mesh, prompts, prefill_replicas=0,
+                 threaded=False, new=5):
+    """A fleet of one replica, or of one prefill and one decode replica
+    (the KV migrated between them); tokens and the fleet's migrations."""
+    fleet = Fleet(model, replicas=1 + prefill_replicas,
+                  prefill_replicas=prefill_replicas, mesh=mesh,
+                  threaded=threaded, **EXTRAS_FLEET)
+    try:
+        before = fleet.stats()["migrated"]
+        hs = [fleet.submit(p, max_new_tokens=new, seed=21 + i)
+              for i, p in enumerate(prompts)]
+        fleet.join(hs)
+        toks = _tokens(hs)
+        migrated = fleet.stats()["migrated"] - before
+    finally:
+        fleet.drain()
+    return toks, migrated
+
+
+def extras_fleet_stall(Fleet, model, mesh, prompts, rank, new=20):
+    """A threaded two-replica fleet whose replica 0 stalls while the
+    caller goes on submitting: once replica 0 has work, mesh rank 0
+    alone sets its heartbeat back until its stall detector fires; the
+    verdict drains and respawns the replica on every rank, its requests
+    replay, and a second round of submits lands on the new replica list.
+    Tokens of both rounds, and the heartbeat misses and respawns."""
+    from paddle_tpu_torch.profiler import counters
+    fleet = Fleet(model, replicas=2, mesh=mesh, threaded=True,
+                  max_retries=2, **EXTRAS_FLEET)
+    before = counters.snapshot()
+    try:
+        hs = [fleet.submit(p, max_new_tokens=new, seed=21 + i)
+              for i, p in enumerate(prompts)]
+        if rank == 0:
+            rep, t0 = fleet._alive()[0], time.monotonic()
+            while not counters.delta(before).get(
+                    "serving.fleet.heartbeat_misses"):
+                rep.last_beat = time.monotonic() - 1e6
+                time.sleep(0.001)
+                assert time.monotonic() - t0 < 120, "no stall verdict"
+        hs += [fleet.submit(p, max_new_tokens=new, seed=21 + i)
+               for i, p in enumerate(prompts)]
+        fleet.join(hs)
+        toks = _tokens(hs)
+    finally:
+        fleet.drain()
+    d = counters.delta(before)
+    return toks, (d.get("serving.fleet.heartbeat_misses", 0),
+                  d.get("serving.fleet.respawns", 0))
+
+
+def _fleet_crash_raises(Fleet, model, mesh, prompts):
+    """A replica whose step raises on a two-rank mesh: ``pump`` raises
+    it on every rank and nothing respawns.  The error and the respawn
+    count."""
+    from paddle_tpu_torch.profiler import counters
+    fleet = Fleet(model, replicas=1, mesh=mesh, threaded=False,
+                  **EXTRAS_FLEET)
+    before = counters.snapshot()
+    eng = fleet._alive()[0].engine
+    try:
+        fleet.submit(prompts[0], max_new_tokens=3, seed=1)
+
+        def boom():
+            raise RuntimeError("replica step failed")
+        eng.step = boom
+        msg = _raises(fleet.pump)
+    finally:
+        del eng.step
+        fleet.drain()
+    return msg, counters.delta(before).get("serving.fleet.respawns", 0)
+
+
+def _lora_tp_check(eng, single, model, rank, world):
+    """The LoRA update under ``TensorParallel``: a column-parallel (qkv)
+    and a row-parallel (proj) product on this rank's shards and this
+    rank's arena's cut of the slabs, gathered or all-reduced, against
+    the unsharded ``_mm_lora`` on the whole weights and the slabs of the
+    same tenants' unsharded arena (``single``); base rows (slot 0)
+    bitwise those of the adapter-free product."""
+    from paddle_tpu_torch.models.gpt import _mm, _mm_lora
+    tp = eng._w["tp"]
+    full = model.decode_state()["lws"]
+    al_full = {n: t[0] for n, t in single.adapters.slabs().items()}
+    al_mine = {n: t[0] for n, t in eng.adapters.slabs().items()}
+    gen = torch.Generator().manual_seed(3)
+    H = model.config.hidden_size
+    x = torch.randn(3, 2, H, generator=gen)
+    aids = torch.tensor([0, 1, 2])
+    out = {}
+    mine = {"qkv_w": eng._w["lws"]["qkv_w"][0],
+            "proj_w": eng._w["lws"]["proj_w"][0]}
+    y = _mm_lora(x, mine, "qkv_w", al_mine, aids)
+    base = _mm(x, mine, "qkv_w")
+    got = tp.full("qkv_w", y.contiguous())
+    want = _mm_lora(x, {"qkv_w": full["qkv_w"][0]}, "qkv_w", al_full, aids)
+    out["qkv"] = (_np(got), _np(want), bool(torch.equal(y[0], base[0])))
+    cols = H // world
+    xr = x[..., rank * cols:(rank + 1) * cols].contiguous()
+    y = _mm_lora(xr, mine, "proj_w", al_mine, aids)
+    base = _mm(xr, mine, "proj_w")
+    part0 = bool(torch.equal(y[0], base[0]))
+    torch.distributed.all_reduce(y)
+    want = _mm_lora(x, {"proj_w": full["proj_w"][0]}, "proj_w", al_full,
+                    aids)
+    out["proj"] = (_np(y), _np(want), part0)
+    return out
+
+
+def serving_extras_mp2(rank, world, pl):
+    """The serving extras on an mp2 mesh (``tests/
+    test_torch_mesh_serving_extras.py``): each scenario at mp2 beside the
+    same scenario without a mesh where the test holds the port to
+    itself."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.profiler import counters
+    from paddle_tpu_torch.serving import LLMEngine, ServingFleet
+    prompts, sample = pl["prompts"], pl["sample"]
+    model = _gpt(pl["cfg"], pl["state"])
+    draft = _gpt(pl["draft_cfg"], pl["draft_state"])
+    draft3 = _gpt(pl["draft3_cfg"], pl["draft3_state"])
+    for m in (model, draft, draft3):
+        m.eval()
+    mesh = D.build_mesh({"mp": world})
+    out = {}
+    c0 = counters.snapshot()
+    out["spec"], eng = extras_spec(LLMEngine, model, draft, mesh, prompts)
+    st = eng.stats()
+    d = counters.delta(c0)
+    out["spec_stats"] = {
+        "draft_shard": eng.arena.shard_shape("draft_pool_k"),
+        "draft_qkv": tuple(eng._dw["lws"]["qkv_w"].shape),
+        "drafted": d.get("serving.spec.drafted", 0),
+        "accepted": d.get("serving.spec.accepted", 0),
+        "disagreements": st["rank_disagreements"],
+        "draft_bytes": st["draft_kv_pool_bytes_per_chip"],
+        "draft_bytes_single": None}
+    out["spec_stats"]["draft_bytes_single"] = extras_spec(
+        LLMEngine, model, draft, None, prompts[:1])[1].stats()[
+            "draft_kv_pool_bytes_per_chip"]
+    # self-drafted: the draft proposes what the target picks, so rounds
+    # accept blocks and rank 0's broadcast carries their lengths
+    c0 = counters.snapshot()
+    out["spec_self"], se = extras_spec(LLMEngine, model, model, mesh,
+                                       prompts)
+    d = counters.delta(c0)
+    out["spec_self_stats"] = {
+        "drafted": d.get("serving.spec.drafted", 0),
+        "accepted": d.get("serving.spec.accepted", 0),
+        "draft_heads": se.arena.shard_shape("draft_pool_k")[3],
+        "disagreements": se.stats()["rank_disagreements"]}
+    out["spec_sampled"] = extras_spec(LLMEngine, model, draft, mesh,
+                                      prompts, sample)[0]
+    out["spec_sampled_single"] = extras_spec(LLMEngine, model, draft, None,
+                                             prompts, sample)[0]
+    before = counters.get("serving.mesh.spec_degraded")
+    out["spec3"], e3 = extras_spec(LLMEngine, model, draft3, mesh, prompts)
+    out["spec3_stats"] = {
+        "degraded": counters.get("serving.mesh.spec_degraded") - before,
+        "draft_shard": e3.arena.shard_shape("draft_pool_k"),
+        "target_shard": e3.arena.shard_shape("pool_k")}
+    out["lora"], le = extras_lora(LLMEngine, model, mesh, prompts,
+                                  pl["factors"])
+    out["lora_sampled"] = extras_lora(LLMEngine, model, mesh, prompts,
+                                      pl["factors"], sample)[0]
+    out["lora_sampled_single"], single = extras_lora(
+        LLMEngine, model, None, prompts, pl["factors"], sample)
+    out["lora_stats"] = {
+        "disagreements": le.stats()["rank_disagreements"],
+        "slabs": {n: tuple(t.shape) for n, t in le.adapters.slabs().items()},
+        "slabs_single": {n: tuple(t.shape)
+                         for n, t in single.adapters.slabs().items()}}
+    out["lora_tp"] = _lora_tp_check(le, single, model, rank, world)
+    for kv in ("f32", "int8"):
+        kvd = None if kv == "f32" else kv
+        toks, moved, te = extras_tier(LLMEngine, model, mesh, pl["stream"],
+                                      kvd)
+        single = extras_tier(LLMEngine, model, None, pl["stream"][:1],
+                             kvd)[2]
+        out[f"tier_{kv}"] = toks
+        out[f"tier_{kv}_stats"] = {
+            "moved": moved,
+            "host_bytes": te.stats()["host_arena_bytes"],
+            "host_spec": [tuple(sh) for sh, _ in te._host_spec],
+            "host_spec_single": [tuple(sh) for sh, _ in single._host_spec],
+            "disagreements": te.stats()["rank_disagreements"]}
+        toks, copied, _ = extras_migration(LLMEngine, model, mesh, prompts,
+                                           kvd)
+        out[f"migration_{kv}"] = toks
+        out[f"migration_{kv}_copied"] = copied
+    # a migration into an engine of another head split is refused
+    src = LLMEngine(model, mesh=mesh, **EXTRAS_ENGINE)
+    dst = LLMEngine(model, **EXTRAS_ENGINE)
+    req = src.add_request(prompts[0], max_new_tokens=3,
+                          hold_after_prefill=True)
+    while req.state != "held":
+        src.step()
+    out["migration_refused"] = _raises(
+        lambda: dst.adopt_migration(src.export_request(req), src))
+    for tag, pre, thr in (("fleet", 0, False), ("fleet_disagg", 1, False),
+                          ("fleet_threaded", 0, True),
+                          ("fleet_disagg_threaded", 1, True)):
+        out[tag] = extras_fleet(ServingFleet, model, mesh, prompts, pre,
+                                thr)
+    out["fleet_stall"] = extras_fleet_stall(ServingFleet, model, mesh,
+                                            prompts, rank)
+    out["fleet_stall_ref"] = extras_fleet(ServingFleet, model, None,
+                                          prompts, new=20)
+    out["refused"] = {
+        "deadline": _raises(lambda: LLMEngine(
+            model, kv_layout="paged", mesh=mesh, max_seq_len=32).add_request(
+                [1, 2], max_new_tokens=2, deadline_s=5.0)),
+        "fleet_autoscale": _raises(lambda: ServingFleet(
+            model, replicas=2, prefill_replicas=1, kv_layout="paged",
+            max_seq_len=32, mesh=mesh, threaded=False, autoscale=True)),
+        "fleet_chaos": _raises(lambda: _chaos_submit(ServingFleet, model,
+                                                     mesh)),
+    }
+    out["fleet_crash"] = _fleet_crash_raises(ServingFleet, model, mesh,
+                                             prompts)
+    return out
+
+
+def _chaos_submit(Fleet, model, mesh):
+    from paddle_tpu_torch.resilience import faultinject
+    fleet = Fleet(model, replicas=1, kv_layout="paged", max_seq_len=32,
+                  mesh=mesh, threaded=False)
+    try:
+        with faultinject.fault_schedule("replica_crash@0"):
+            fleet.submit([1, 2], max_new_tokens=2)
+    finally:
+        fleet.drain()
 
 
 # ---------------------------------------------------------------------------

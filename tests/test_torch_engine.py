@@ -193,20 +193,25 @@ def test_sample_tokens_follow_filtered_softmax():
 
 
 #: what the engine reads of a mesh before it refuses a knob: its size
-_TWO_RANKS = types.SimpleNamespace(size=2)
+#: and its axes (serving over a mesh with sep > 1 is a later slice)
+_TWO_RANKS = types.SimpleNamespace(size=2, shape={"mp": 1, "sep": 2})
 
 
 @pytest.mark.parametrize("knob", [
     dict(mesh=_TWO_RANKS, adapter_slots=2),
     dict(mesh=_TWO_RANKS, host_kv_blocks=8),
-    dict(mesh=_TWO_RANKS, draft_model="draft")])
+    dict(mesh=_TWO_RANKS, draft_model="target")])
 def test_later_slices_raise_not_implemented(models, knob):
-    """On a mesh of more than one rank, the adapter and host-tier knobs
-    and a draft model (the speculative engine) raise naming their
-    ROADMAP item (A7f); without the mesh the first two construct."""
+    """On a mesh with sep > 1, the adapter and host-tier knobs and a
+    draft model (the speculative engine) raise naming their ROADMAP item
+    (A7c: serving over sep; on an ``mp`` mesh they serve,
+    ``tests/test_torch_mesh_serving_extras.py``); without the mesh the
+    first two construct."""
     _, tm = models
     kw = dict(ENGINE, **knob)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7f"):
+    if kw.get("draft_model") == "target":
+        kw["draft_model"] = tm          # self-drafted
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
         LLMEngine(tm, **kw)
     del kw["mesh"]
     kw.pop("draft_model", None)
