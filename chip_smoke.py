@@ -3349,6 +3349,10 @@ LOOP_LR = {"gpt3_760m": 2.5e-4, "gpt3_125m": 6e-4}
 #: ckpt_resume (4); the rest keeps 12
 FUSED_B, FUSED_K = 16, 4
 FUSED_LAYERS, MESH2_LAYERS, CKPT_LAYERS = 6, 6, 4
+#: mesh_train (one rank) runs 6 of the 12 layers since it took its
+#: checkpoint save and restore, cut for the script's time limit (its
+#: gates are bit-equalities, which hold at any depth)
+MESH1_LAYERS = 6
 
 
 def _decays(name):
@@ -4091,7 +4095,16 @@ def ckpt_overhead_phase():
         t = time.perf_counter()
         arrays, _ = mgr._snapshot(step, gs, None, None)
         parts = {"snapshot_ms": (time.perf_counter() - t) * 1e3}
-        host = {k: dck.to_numpy(v) for k, v in arrays.items()}
+        # the arrays the save writes: a tensor's bytes, a rank's own
+        # streams (ShardChunks) chunk by chunk, the JAX keys as they are
+        host = {}
+        for k, v in arrays.items():
+            if isinstance(v, dck.ShardChunks):
+                host.update((f"{k}##{i}", dck.to_numpy(c))
+                            for i, (_, _, c) in enumerate(v.chunks))
+            else:
+                host[k] = v if isinstance(v, np.ndarray) else \
+                    dck.to_numpy(v)
         t = time.perf_counter()
         for v in host.values():
             dck._crc32(v)
@@ -5405,6 +5418,10 @@ SERVEMP_MAX_HBM_FRAC = 0.6
 #: gradient all-reduce: loss 8.05e-3, update 0.196 on its best tensor,
 #: 0.892 on its worst), and the control must exceed both
 MESH2_STEPS, MESH2_LOSS_ATOL, MESH2_UPDATE_RTOL = 3, 1e-3, 0.1
+#: the mp2 run saves after this many steps; restored on mp2 (the same
+#: mesh: its third loss bit-equal), on dp2 and in one process without a
+#: mesh (reshardings: within MESH2_LOSS_ATOL of the mp2 run's third loss)
+MESH2_SAVE_AT = 2
 
 
 def _servemp_cfg():
@@ -6096,22 +6113,32 @@ def serve_extras_mp2_phase(sm, ref):
 
 def mesh_train_phase():
     """bench.py's mesh leg at one rank (NCCL, this process): GPT-3 125M
-    bf16, 16 x 1024, ``recompute="selective"``, the training loop of
+    bf16 at full width and ``MESH1_LAYERS`` of its 12 layers, 16 x 1024,
+    ``recompute="selective"``, the training loop of
     :func:`_loop` with ``fused_steps=4``, once without a mesh and once
     built and stepped under ``build_mesh({"dp": 1, "mp": 1})`` (the
     tensor-parallel GPT and the mesh step, every collective over a group
     of one): a priming window, a captured one and a replay.  Losses,
     parameters and optimizer state bit-equal; one dispatch a steady
     window; K1–K3 counted; the collectives issued inside the captured
-    window (counted at capture, added at each replay)."""
+    window (counted at capture, added at each replay).  The mesh run saves
+    through ``CheckpointManager`` after its second window (the manifest
+    records the one-rank mesh); at the end it restores that save and
+    runs the third window again: the same losses bit for bit, K1–K3
+    counted on it."""
+    import tempfile
     from paddle_tpu_torch import distributed as D
-    cfg = _fused_cfg()
+    from paddle_tpu_torch.distributed.env import AXIS_ORDER
+    from paddle_tpu_torch.resilience import CheckpointManager
+    cfg = _fused_cfg(num_layers=MESH1_LAYERS)
     K, L = FUSED_K, cfg.num_layers
     gen = torch.Generator(device="cuda").manual_seed(7)
     args = tuple(torch.randint(0, cfg.vocab_size, (3 * K, FUSED_B, TRAIN_S),
                                generator=gen, device="cuda")
                  for _ in range(2))
     runs = {}
+    ckpt = tempfile.mkdtemp(prefix="mesh1_ckpt_",
+                            dir=os.environ.get("TMPDIR"))
     for mesh in (False, True):
         if mesh:
             D.init_parallel_env()
@@ -6121,6 +6148,7 @@ def mesh_train_phase():
                                    generator=torch.Generator().manual_seed(0))
             sched, opt, step = _loop(model, "gpt3_125m", k=K,
                                      mesh=D.get_mesh())
+            mgr = CheckpointManager(ckpt)
             losses, moved = [], []
             for w in range(3):
                 _reset_flash_counts()
@@ -6129,18 +6157,35 @@ def mesh_train_phase():
                 moved.append((counters.delta(before), _flash_counts()))
                 for _ in range(K):
                     sched.step()
+                if mesh and w == 1:
+                    mgr.save(step, 2 * K)
             torch.cuda.synchronize()
             snap = _snapshot(model, opt)
             # one more replay, traced, after the snapshot
             trace = (_profile(lambda: step(_window(args, K, 2 * K)), top=8)
                      if mesh else None)
-            runs[mesh] = (torch.cat(losses), snap, moved, trace)
+            resumed = None
+            if mesh:
+                info = mgr.restore(step)
+                _reset_flash_counts()
+                again = step(_window(args, 2 * K, 3 * K))
+                with open(os.path.join(info["path"], "MANIFEST.json")) as f:
+                    manifest_mesh = json.load(f)["mesh"]
+                resumed = {"losses_bit_equal": torch.equal(again,
+                                                           losses[2]),
+                           "launches": _flash_counts(),
+                           "manifest_mesh": manifest_mesh,
+                           "resharded": info["resharded"],
+                           "save": mgr.last_save, "restore_ms": info["ms"]}
+            runs[mesh] = (torch.cat(losses), snap, moved, trace, resumed)
         finally:
             if mesh:
                 D.reset_parallel_env()
-        del model, opt, step
+                shutil.rmtree(ckpt, ignore_errors=True)
+        del model, opt, step, mgr
         _free_cuda()
-    (l0, s0, _, _), (l1, s1, moved, trace) = runs[False], runs[True]
+    (l0, s0, _, _, _), (l1, s1, moved, trace, resumed) = (runs[False],
+                                                          runs[True])
     per = _flash_per_layer_step(cfg.recompute)
     want = {n: c * L * K for n, c in per.items()}
     steady = [m for m, _ in moved[1:]]
@@ -6160,7 +6205,7 @@ def mesh_train_phase():
               "launches_want_per_window": want,
               "replay_nccl_kernels": nccl,
               "replay_busy_share": trace["device_busy_share"],
-              "losses": l1.tolist()}
+              "losses": l1.tolist(), "checkpoint": resumed}
     emit(record)
     if not (record["losses_bit_equal"] and record["state_bit_equal"]):
         raise AssertionError(f"mesh_train: the one-rank mesh differs from "
@@ -6173,7 +6218,15 @@ def mesh_train_phase():
     if any(f != want for f in record["steady_launches"]):
         raise AssertionError(f"mesh_train: K1-K3 launches "
                              f"{record['steady_launches']}, want {want}")
-    return {n: want[n] * 2 for n in want}
+    if not (resumed["losses_bit_equal"] and resumed["launches"] == want
+            and not resumed["resharded"]
+            and resumed["manifest_mesh"] == {
+                "axis_names": list(AXIS_ORDER),
+                "shape": [1] * len(AXIS_ORDER)}):
+        raise AssertionError(f"mesh_train: the checkpoint's resumed window "
+                             f"{resumed}, want its losses bit-equal and "
+                             f"K1-K3 {want}")
+    return {n: want[n] * 3 for n in want}
 
 
 #: the key third of ``qkv_b``: a bias added to every key shifts each
@@ -6224,14 +6277,42 @@ def _skip_dp_sync(plan):
     return {id(p): p.grad for p in plan.params if p.grad is not None}
 
 
+def _resume_step(degrees, ckpt, ids, labels):
+    """A fresh GPT-3 125M (``MESH2_LAYERS``) built under ``degrees`` (or
+    without a mesh) restores ``ckpt``'s checkpoint through :func:`_loop`'s
+    step and runs the third step on its batch, K1–K3 counted from 0 just
+    before it: (its loss, the counts, the restore's info)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.resilience import CheckpointManager
+    D.set_mesh(None)
+    mesh = D.build_mesh(degrees) if degrees else None
+    model = GPTForCausalLM(_fused_cfg(num_layers=MESH2_LAYERS),
+                           device="cuda",
+                           generator=torch.Generator().manual_seed(5))
+    _, _, step = _loop(model, "gpt3_125m", k=1, mesh=mesh)
+    info = CheckpointManager(ckpt).restore(step)
+    _reset_flash_counts()
+    loss = float(step(ids, labels))
+    launches = _flash_counts()
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss, launches, {k: info[k] for k in (
+        "step", "resharded", "streams_restored", "ms")}
+
+
 def _mesh_train_rank(rank, world, pl):
     """One rank of mesh_train_2rank: GPT-3 125M (seed 0) at dp2, mp2 and
     the dp2 control (the gradient all-reduce skipped), 3 steps each on
     the global batch through :func:`_loop` with its schedule stepped;
     the gathered fp32 masters' changes held against the one-process run's
-    (``pl["d_ref"]``); K1–K3 counted."""
+    (``pl["d_ref"]``); K1–K3 counted.  The mp2 run saves through
+    ``CheckpointManager`` after its second step (under ``pl["ckpt"]``);
+    then a fresh mp2 model and a fresh dp2 one restore that save and run
+    the third step."""
     from paddle_tpu_torch import distributed as D
     from paddle_tpu_torch.jit.mesh import MeshPlan
+    from paddle_tpu_torch.resilience import CheckpointManager
     ids, labels = (torch.from_numpy(pl[k]).cuda() for k in ("ids", "labels"))
     out = {}
     for name, degrees in (("dp2", {"dp": world}), ("mp2", {"mp": world}),
@@ -6252,6 +6333,10 @@ def _mesh_train_rank(rank, world, pl):
             for i in range(MESH2_STEPS):
                 losses.append(float(step(ids[i], labels[i])))
                 sched.step()
+                if name == "mp2" and i == MESH2_SAVE_AT - 1:
+                    mgr = CheckpointManager(pl["ckpt"])
+                    mgr.save(step, MESH2_SAVE_AT)
+                    out["save"] = mgr.last_save
         finally:
             MeshPlan.sync_grads = sync
         launches = _flash_counts()
@@ -6262,7 +6347,64 @@ def _mesh_train_rank(rank, world, pl):
         del model, opt, step, init
         gc.collect()
         torch.cuda.empty_cache()
+    i = MESH2_SAVE_AT
+    for name, degrees in (("mp2_resumed", {"mp": world}),
+                          ("dp2_resumed", {"dp": world})):
+        out[name] = _resume_step(degrees, pl["ckpt"], ids[i], labels[i])
     return out
+
+
+def _mesh_checkpoint_gates(res, one, want):
+    """mesh_train_2rank's checkpoint gates, from the ranks' results and
+    this process's one-process resume (``one``); ``want``: K1–K3 a
+    resumed step.  Prints the save's bytes and times a rank and each
+    restore's time beside the card."""
+    i = MESH2_SAVE_AT
+    third = [r["mp2"]["losses"][i] for r in res]
+    record = {"phase": "mesh_checkpoint", "card": CARD,
+              "model": "gpt3_125m bf16 selective", "layers": MESH2_LAYERS,
+              "saved": "mp2 after step 2 (gloo, 2 processes)",
+              "save_bytes_per_rank": [r["save"]["bytes"] for r in res],
+              "save_snapshot_ms": [r["save"]["snapshot_ms"] for r in res],
+              "save_write_ms": [r["save"]["write_ms"] for r in res],
+              "uninterrupted_third_loss": third,
+              "loss_atol": MESH2_LOSS_ATOL, "launches_want": want}
+    legs = {"mp2_resumed": [r["mp2_resumed"] for r in res],
+            "dp2_resumed": [r["dp2_resumed"] for r in res],
+            "one_process_resumed": [one]}
+    for name, runs in legs.items():
+        record[name] = {"losses": [x[0] for x in runs],
+                        "launches": [x[1] for x in runs],
+                        "restore_ms": [x[2]["ms"] for x in runs],
+                        "resharded": [x[2]["resharded"] for x in runs],
+                        "streams_restored": [x[2]["streams_restored"]
+                                             for x in runs],
+                        "step": [x[2]["step"] for x in runs]}
+    emit(record)
+    for name, r in ((n, record[n]) for n in legs):
+        if any(s != i for s in r["step"]):
+            raise AssertionError(f"mesh_checkpoint {name}: restored steps "
+                                 f"{r['step']}, want {i}")
+        if any(l != want for l in r["launches"]):
+            raise AssertionError(f"mesh_checkpoint {name}: K1-K3 launches "
+                                 f"{r['launches']} on the resumed step, "
+                                 f"want {want}")
+        resharded = name != "mp2_resumed"
+        if any(x != resharded for x in r["resharded"]) or any(
+                x == resharded for x in r["streams_restored"]):
+            raise AssertionError(f"mesh_checkpoint {name}: resharded "
+                                 f"{r['resharded']}, streams restored "
+                                 f"{r['streams_restored']}")
+    if record["mp2_resumed"]["losses"] != third:
+        raise AssertionError(f"mesh_checkpoint: the same-mesh resume's third "
+                             f"loss {record['mp2_resumed']['losses']} is not "
+                             f"the uninterrupted {third}")
+    for name in ("dp2_resumed", "one_process_resumed"):
+        err = max(abs(x - third[0]) for x in record[name]["losses"])
+        if err > MESH2_LOSS_ATOL:
+            raise AssertionError(f"mesh_checkpoint {name}: third loss "
+                                 f"{record[name]['losses']} vs {third[0]}: "
+                                 f"{err} > {MESH2_LOSS_ATOL}")
 
 
 def mesh_train_2rank_phase():
@@ -6279,7 +6421,13 @@ def mesh_train_2rank_phase():
     all-reduce skipped must exceed both limits (so each gate can fail);
     K1–K3 launches == steps x layers x their per-layer count on each rank,
     and at the mp2 head slice held against their plain versions and
-    timed."""
+    timed.  Checkpoints (:func:`_mesh_checkpoint_gates`): the mp2 run
+    saves after its second step; a fresh mp2 model restores it on each
+    rank (its third loss bit-equal to the uninterrupted third loss), a
+    fresh dp2 model and this process without a mesh restore it as
+    reshardings (within ``MESH2_LOSS_ATOL``), K1–K3 counted on every
+    resumed step."""
+    import tempfile
     cfg = _fused_cfg(num_layers=MESH2_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(9)
     ids, labels = (torch.randint(0, cfg.vocab_size,
@@ -6298,10 +6446,18 @@ def mesh_train_2rank_phase():
     d_ref = {n: v - init[n] for n, v in _masters(model, opt).items()}
     del model, opt, step, init
     _free_cuda()
-    res = _spawn_ranks("_mesh_train_rank", 2,
-                       {"ids": ids.cpu().numpy(),
-                        "labels": labels.cpu().numpy(), "d_ref": d_ref})
-    del d_ref
+    ckpt = tempfile.mkdtemp(prefix="mesh_ckpt_",
+                            dir=os.environ.get("TMPDIR"))
+    try:
+        res = _spawn_ranks("_mesh_train_rank", 2,
+                           {"ids": ids.cpu().numpy(),
+                            "labels": labels.cpu().numpy(), "d_ref": d_ref,
+                            "ckpt": ckpt})
+        del d_ref
+        i = MESH2_SAVE_AT
+        one = _resume_step(None, ckpt, ids[i], labels[i])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
     per = _flash_per_layer_step(cfg.recompute)
     want = {n: c * cfg.num_layers * MESH2_STEPS for n, c in per.items()}
     record = {"phase": "mesh_train_2rank", "card": CARD,
@@ -6354,6 +6510,8 @@ def mesh_train_2rank_phase():
     if record["mp2"]["qkv_w_shard"] != [cfg.num_layers, 768, 3 * 384]:
         raise AssertionError(f"mesh_train_2rank: mp2 qkv shard "
                              f"{record['mp2']['qkv_w_shard']}")
+    _mesh_checkpoint_gates(res, one, {n: c * cfg.num_layers
+                                      for n, c in per.items()})
     times = _flash_shape_times(FUSED_B, 6, TRAIN_S, 64, True, seed=14)
     errs = {"flash_fwd": max(worst["flash_fwd"], worst["flash_fwd_lse"]),
             "flash_bwd_dq": worst["flash_bwd_dq"],
@@ -6389,6 +6547,10 @@ MOE_E, MOE_AUX = 8, 0.01
 #: between
 MOE_EP_RUNS = ("dp2", "local_capacity", "experts_allreduced")
 MOE_EP_LOSS_ATOL, MOE_EP_UPDATE_RTOL = 1e-3, 0.3
+#: moe_ep_2rank's training runs moe_train's model at 6 of its 12 layers
+#: (cut for the script's time limit when mesh_train_2rank took its
+#: checkpoint gates; its one-process reference runs at the same depth)
+MOE_EP_LAYERS = 6
 #: moe_train: batch 8 x 1024, 8 single steps against a priming window and
 #: a captured window of 4
 MOE_B, MOE_STEPS = 8, 8
@@ -6420,14 +6582,17 @@ def _moe_serve_model(num_layers=None):
                               device="cuda").manual_seed(0))
 
 
-def _moe_train_cfg():
-    return GPTConfig.gpt3_125m(vocab_size=50304, max_seq_len=TRAIN_S,
-                               dtype="bfloat16", recompute="selective",
-                               num_experts=MOE_E)
+def _moe_train_cfg(num_layers=None):
+    cfg = GPTConfig.gpt3_125m(vocab_size=50304, max_seq_len=TRAIN_S,
+                              dtype="bfloat16", recompute="selective",
+                              num_experts=MOE_E)
+    if num_layers is not None:
+        cfg.num_layers = num_layers
+    return cfg
 
 
-def _moe_train_model():
-    return GPTForCausalLM(_moe_train_cfg(), device="cuda",
+def _moe_train_model(num_layers=None):
+    return GPTForCausalLM(_moe_train_cfg(num_layers), device="cuda",
                           generator=torch.Generator(
                               device="cuda").manual_seed(0))
 
@@ -6850,11 +7015,11 @@ def _moe_ep_rank(rank, world, pl):
     for name in MOE_EP_RUNS:
         D.set_mesh(None)
         if name == "local_capacity":
-            model = _moe_train_model()
+            model = _moe_train_model(MOE_EP_LAYERS)
             mesh = D.build_mesh({"dp": world})
         else:
             mesh = D.build_mesh({"dp": world})
-            model = _moe_train_model()
+            model = _moe_train_model(MOE_EP_LAYERS)
         init = model.gather_numpy_state()
         sched, opt, step = _loop(model, "gpt3_125m", k=1, mesh=mesh,
                                  loss_fn=_moe_loss(), metrics=False)
@@ -6925,14 +7090,15 @@ def moe_ep_2rank_phase(ms):
     moe_serve's slot-vs-paged agreement (a weak bar: bf16 routing flips
     make two correct engines of this model agree on few tokens), no rank
     disagreement, K4 launches == decode steps x 24, per-rank KV + weight
-    bytes and device memory <= ``SERVEMP_MAX_HBM_FRAC`` of unsharded."""
-    cfg = _moe_train_cfg()
+    bytes and device memory <= ``SERVEMP_MAX_HBM_FRAC`` of unsharded.
+    The training runs ``MOE_EP_LAYERS`` layers."""
+    cfg = _moe_train_cfg(MOE_EP_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(19)
     ids, labels = (torch.randint(0, cfg.vocab_size,
                                  (MESH2_STEPS, MOE_B, TRAIN_S),
                                  generator=gen, device="cuda")
                    for _ in range(2))
-    model = _moe_train_model()
+    model = _moe_train_model(MOE_EP_LAYERS)
     init = model.gather_numpy_state()
     sched, opt, step = _loop(model, "gpt3_125m", k=1, loss_fn=_moe_loss(),
                              metrics=False)

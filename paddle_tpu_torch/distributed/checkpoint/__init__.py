@@ -1,29 +1,50 @@
-"""Versioned, checksummed checkpoints of one process (port of
+"""Versioned, checksummed, sharded checkpoints (port of
 ``paddle_tpu/distributed/checkpoint/__init__.py``).
 
-The files are the JAX package's: ``{rank}_0.{sid}.distcp.npz`` holds the
-chunk arrays, keyed ``<tensor>##<chunk>``, and ``{rank}.{sid}.metadata.
-json`` describes each chunk (offset, shape, file, key, crc32 of its
-bytes) under a monotonically increasing save id ``sid``.  A save never
-overwrites an earlier save's files: it writes to ``.tmp`` names, fsyncs
-and renames them into place, and only then removes the older saves, so
-a crash leaves the previous save loadable; a load takes the newest save
-whose metadata set is complete.  bf16 chunks are written as numpy's
-2-byte void arrays (``|V2``, what ``np.savez`` makes of the JAX
-package's ``ml_dtypes`` bf16 arrays) with the dtype named in the
-metadata, so either package reads the other's files.  A chunk whose
-bytes fail their crc32 (or the archive's own CRC, for bytes changed in
-place) raises :class:`CheckpointCorrupt` naming it.
+The files are the JAX package's: ``{rank}_0.{sid}.distcp.npz`` holds a
+rank's chunk arrays, keyed ``<tensor>##<chunk>``, and ``{rank}.{sid}.
+metadata.json`` describes each chunk (offset in the whole tensor,
+shape, file, key, crc32 of its bytes) under a save id ``sid`` that
+every rank agrees on (the coordinator's, broadcast) and a
+``world_size``.  A save never overwrites an earlier save's files: each
+rank writes to ``.tmp`` names, fsyncs and renames them into place; the
+ranks then agree that every one of them wrote (a barrier that carries
+each rank's success), and only then does the coordinator remove the
+older saves, so a crash leaves the previous save loadable; a load takes
+the newest save whose metadata set is complete (as many files as its
+``world_size``).  bf16 chunks are written as numpy's 2-byte void arrays
+(``|V2``, what ``np.savez`` makes of the JAX package's ``ml_dtypes``
+bf16 arrays) with the dtype named in the metadata, so either package
+reads the other's files.  A chunk whose bytes fail their crc32 (or the
+archive's own CRC, for bytes changed in place) raises
+:class:`CheckpointCorrupt` naming it.
+
+**Shards.**  A rank's piece of a tensor is a :class:`LocalShard`: the
+local tensor and where it lies in the whole one (a partition spec over
+the mesh, GPT's fused ``[q | k | v]`` columns, a pipeline stage's
+rows; ``distributed.sharding_utils.shard_boxes``).  Saving one writes
+its boxes as chunks with their global offsets, each box once: of the
+ranks that hold the same boxes, the one whose index is 0 on every axis
+the spec does not split writes them (``writes_shard``, the JAX
+``replica_id == 0``).  Loading into one fills each of its boxes from
+whatever chunks cover it, so a save on any mesh (the JAX package's
+included) loads onto any other.  A plain tensor or numpy array is
+whole and the same on every rank: the coordinator alone writes it, and
+every rank loads it whole.  :class:`ShardChunks` is a shard already
+copied to the host (``capture``).
 
 Tensors are read to the host when ``save_state_dict`` is called (on a
 CUDA tensor that is a device-to-host copy), so with ``async_save=True``
-only the checksums and the disk write run on the writer thread;
-:func:`wait_async_save` joins it and raises every error it met.  Loading
-writes each target tensor in place.
+only the checksums, the disk write and the ranks' agreement run on the
+writer thread; that agreement runs over a gloo group of the
+checkpoint's own, so it never meets the training collectives of the
+same ranks.  :func:`wait_async_save` joins the writer and raises every
+error it met.  Loading writes each target tensor in place and issues
+no collective.
 
-One process only: a ``process_group``, a world size above 1, sharded
-chunk capture (``ShardChunks``) and loading onto another sharding are
-ROADMAP.md A7.
+``process_group`` (default: the whole world) gives the rank and the
+world size; ``coordinator_rank`` is a rank of that group.  Every member
+calls ``save_state_dict`` with the same keys.
 """
 
 from __future__ import annotations
@@ -40,6 +61,7 @@ import numpy as np
 import torch
 
 from ...core.tensor import Tensor
+from ..sharding_utils import global_shape, shard_boxes, writes_shard
 
 _ASYNC_THREADS = []
 _ASYNC_ERRORS = []
@@ -58,37 +80,145 @@ _TORCH_DTYPES = {"float64": torch.float64, "float32": torch.float32,
                  "uint8": torch.uint8, "uint32": torch.uint32,
                  "bool": torch.bool}
 
-
 class CheckpointCorrupt(RuntimeError):
     """A saved chunk failed its checksum on load: the bytes on disk are
     not the bytes that were written.  The message names the chunk."""
 
 
-def _a7(what):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md A7 (distributed)")
+# -- the ranks -------------------------------------------------------------
+_COORD = {}   # (world group, ranks) -> the checkpoint's own gloo group
 
 
-def _world(process_group):
-    if process_group is not None:
-        raise _a7("a checkpoint over a process_group")
+def rank_world(process_group=None):
+    """``(rank, world size)`` of this process in ``process_group``
+    (default: the whole world); ``(0, 1)`` without a process group."""
     dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise _a7(f"a checkpoint of {dist.get_world_size()} processes")
-    return 0, 1
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0, 1
+    return (dist.get_rank(process_group),
+            dist.get_world_size(process_group))
+
+
+def coord_group(process_group=None):
+    """The gloo group over ``process_group``'s ranks that checkpoints
+    coordinate on (save ids, barriers, agreement): one of their own, so a
+    writer thread's collectives never meet the training collectives of
+    the same ranks, and gloo, so they take host tensors whatever the
+    training backend.  Made on first use, by every member (each save and
+    restore is called on every rank); None at one rank."""
+    dist = torch.distributed
+    if rank_world(process_group)[1] <= 1:
+        return None
+    ranks = tuple(dist.get_process_group_ranks(process_group)
+                  if process_group is not None
+                  else range(dist.get_world_size()))
+    key = ranks
+    hit = _COORD.get(key)
+    if hit is None or hit[0] is not dist.group.WORLD:
+        hit = _COORD[key] = (dist.group.WORLD, dist.new_group(
+            list(ranks), backend="gloo", use_local_synchronization=True))
+    return hit[1]
+
+
+def agree(ok, group):
+    """True when ``ok`` holds on every rank of ``group`` (an all-reduce of
+    the flags: also a barrier); ``ok`` itself at one rank."""
+    if group is None:
+        return bool(ok)
+    t = torch.tensor([1 if ok else 0], dtype=torch.int32)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MIN,
+                                 group=group)
+    return bool(t.item())
+
+
+def broadcast_int(value, group, src=0):
+    """``value`` on group rank ``src``, on every rank of ``group``."""
+    if group is None:
+        return int(value)
+    t = torch.tensor([int(value)], dtype=torch.int64)
+    torch.distributed.broadcast(
+        t, src=torch.distributed.get_global_rank(group, src), group=group)
+    return int(t.item())
+
+
+# -- shards ------------------------------------------------------------------
+class LocalShard:
+    """A rank's piece ``tensor`` of a whole tensor, for saving and
+    loading: its boxes are ``shard_boxes(shape, spec, mesh, fused,
+    rows)``, laid end to end in ``tensor``.  ``whole=True``: the rank
+    holds the whole tensor, and ``spec`` says which part of it the rank
+    writes (a parameter held whole whose optimizer state is split: each
+    rank writes its slice) while a load fills all of it.  ``shape`` is
+    the whole tensor's; ``writes`` whether this rank writes its boxes."""
+
+    def __init__(self, tensor, spec=None, mesh=None, fused=1, rows=None,
+                 whole=False):
+        t = tensor._data if isinstance(tensor, Tensor) else tensor
+        self.tensor, self.spec, self.mesh = t, spec, mesh
+        self.fused, self.rows, self.whole = fused, rows, whole
+        self.shape = (tuple(t.shape) if whole or mesh is None
+                      else global_shape(t.shape, spec, mesh))
+        self.writes = writes_shard(spec, mesh)
+
+    def boxes(self):
+        """``[(offset, shape, local offset)]`` of the boxes this rank
+        writes."""
+        if self.mesh is None:
+            return [((0,) * len(self.shape), self.shape,
+                     (0,) * len(self.shape))]
+        out = shard_boxes(self.shape, self.spec, self.mesh, self.fused,
+                          self.rows)
+        return [(o, s, o) for o, s, _ in out] if self.whole else out
+
+    def load_boxes(self):
+        """The boxes a load fills: all of a whole tensor, else
+        :meth:`boxes`."""
+        if self.whole:
+            zero = (0,) * len(self.shape)
+            return [(zero, self.shape, zero)]
+        return self.boxes()
+
+    def view(self, local_offset, shape):
+        """The part of ``tensor`` at ``local_offset`` of ``shape``."""
+        t = self.tensor
+        for d, (o, n) in enumerate(zip(local_offset, shape)):
+            if n != t.shape[d]:
+                t = t.narrow(d, o, n)
+        return t
 
 
 class ShardChunks:
-    """The JAX package's per-shard capture of a mesh-sharded array.  A
-    tensor on one device has one chunk; sharded saves are A7."""
+    """A shard copied to the host: the whole tensor's ``shape`` and
+    ``dtype`` name, the ``spec`` it was split by (recorded, not read),
+    and ``chunks``, ``[(offset, shape, host tensor or ndarray)]``, the
+    boxes this rank writes (none when another rank writes them)."""
 
-    def __init__(self, *args, **kwargs):
-        raise _a7("ShardChunks (sharded checkpoint chunks)")
+    __slots__ = ("shape", "dtype", "spec", "chunks")
+
+    def __init__(self, shape, dtype, chunks, spec=None):
+        self.shape = tuple(int(d) for d in shape)
+        self.dtype = dtype if isinstance(dtype, str) else dtype_name(dtype)
+        self.spec = spec
+        self.chunks = chunks
 
     @classmethod
-    def capture(cls, arr, spec=None):
-        raise _a7("ShardChunks (sharded checkpoint chunks)")
+    def capture(cls, shard, copy=None):
+        """The boxes of the :class:`LocalShard` ``shard`` this rank
+        writes, each copied to the host: by ``copy(index, view)`` when
+        given (a caller that queues the copies into buffers of its own
+        and synchronizes once), else synchronously."""
+        chunks = []
+        if shard.writes:
+            for i, (off, shp, loc) in enumerate(shard.boxes()):
+                view = shard.view(loc, shp).detach()
+                host = (copy(i, view) if copy is not None
+                        else view.to("cpu", copy=True))
+                chunks.append((off, shp, host))
+        return cls(shard.shape, shard.tensor.dtype, chunks, spec=shard.spec)
+
+    @property
+    def nbytes(self):
+        return sum(int(c.nbytes) for _, _, c in self.chunks)
 
 
 def dtype_name(t):
@@ -122,8 +252,11 @@ def _host_array(v, copy):
             host = host.clone()
         return to_numpy(host), dtype_name(v.dtype)
     arr = np.array(v, copy=True) if copy else np.asarray(v)
-    return arr, ("bfloat16" if arr.dtype.name == "bfloat16"
-                 else str(arr.dtype))
+    return arr, _np_dtype_name(arr)
+
+
+def _np_dtype_name(arr):
+    return "bfloat16" if arr.dtype.name == "bfloat16" else str(arr.dtype)
 
 
 def _crc32(arr):
@@ -180,13 +313,52 @@ def _existing_save_ids(path):
     return sids
 
 
+def _save_id(path, unique_id):
+    """This save's id under ``path`` (``unique_id``, checked, or one past
+    the newest); ValueError on a collision."""
+    existing = _existing_save_ids(path)
+    if unique_id is None:
+        return (max(existing) + 1) if existing else 0
+    sid = int(unique_id)
+    if existing and sid <= max(existing):
+        # reusing a sid would overwrite that save in place, and a lower
+        # one could never be loaded (the newest complete wins)
+        raise ValueError(
+            f"unique_id={sid} collides with or predates existing save ids "
+            f"{sorted(existing)} at {path}; pass a strictly larger id or "
+            "omit unique_id for auto-increment")
+    return sid
+
+
+def _agreed_save_id(path, unique_id, rank, group, coordinator_rank):
+    """The coordinator's :func:`_save_id`, on every rank (a ValueError on
+    the coordinator raises on every rank)."""
+    sid, err = -1, None
+    if rank == coordinator_rank:
+        try:
+            sid = _save_id(path, unique_id)
+        except ValueError as e:
+            err = e
+    sid = broadcast_int(sid, group, coordinator_rank)
+    if err is not None:
+        raise err
+    if sid < 0:
+        raise ValueError(f"unique_id={unique_id} collides with or predates "
+                         f"an existing save id at {path} (the "
+                         "coordinator's check)")
+    return sid
+
+
 def save_state_dict(state_dict, path, process_group=None,
                     coordinator_rank=0, unique_id=None, async_save=False):
-    """Write ``state_dict`` (nested dicts of tensors, ``Tensor``s, numpy
-    arrays and JSON scalars) as save ``unique_id`` (default: one past
-    the newest) under ``path``; see the module docstring for the
-    layout.  Older saves are removed once this one is on disk."""
-    rank, world = _world(process_group)
+    """Write ``state_dict`` (nested dicts of :class:`LocalShard`\\ s,
+    :class:`ShardChunks`, tensors, ``Tensor``\\ s, numpy arrays and JSON
+    scalars) as save ``unique_id`` (default: one past the newest) under
+    ``path``; see the module docstring for the layout.  Every rank of
+    ``process_group`` calls.  Older saves are removed once every rank's
+    files of this one are on disk."""
+    rank, world = rank_world(process_group)
+    group = coord_group(process_group)
     wait_async_save()
     os.makedirs(path, exist_ok=True)
     # remove our own staging files left by a crashed run
@@ -197,58 +369,75 @@ def save_state_dict(state_dict, path, process_group=None,
                 os.remove(os.path.join(path, fname))
             except OSError:
                 pass
-    existing = _existing_save_ids(path)
-    if unique_id is not None:
-        sid = int(unique_id)
-        if existing and sid <= max(existing):
-            # reusing a sid would overwrite that save in place, and a
-            # lower one could never be loaded (the newest complete wins)
-            raise ValueError(
-                f"unique_id={sid} collides with or predates existing save "
-                f"ids {sorted(existing)} at {path}; pass a strictly larger "
-                "id or omit unique_id for auto-increment")
-    else:
-        sid = (max(existing) + 1) if existing else 0
+    sid = _agreed_save_id(path, unique_id, rank, group, coordinator_rank)
     shard_file = f"{rank}_0.{sid}.distcp.npz"
     arrays = {}
     meta = {"world_size": world, "save_id": sid, "tensors": {}}
     for k, v in _flatten(state_dict).items():
+        if isinstance(v, LocalShard):
+            v = ShardChunks.capture(v)
         if isinstance(v, ShardChunks):
-            raise _a7("saving ShardChunks")
-        if isinstance(v, (Tensor, torch.Tensor, np.ndarray)):
-            # async: own the bytes now; the caller may write the tensor
-            # in place while the writer thread runs
-            arr, dt = _host_array(v, copy=async_save)
-            key = f"{k}##0"
-            arrays[key] = arr
-            meta["tensors"][k] = {
-                "shape": list(arr.shape), "dtype": dt,
-                "chunks": [{"offset": [0] * arr.ndim,
-                            "shape": list(arr.shape), "file": shard_file,
-                            "key": key}]}
+            entry = {"shape": list(v.shape), "dtype": v.dtype, "chunks": []}
+            for i, (offset, cshape, data) in enumerate(v.chunks):
+                key = f"{k}##{i}"
+                arrays[key] = (to_numpy(data) if isinstance(
+                    data, torch.Tensor) else data)
+                entry["chunks"].append({"offset": list(offset),
+                                        "shape": list(cshape),
+                                        "file": shard_file, "key": key})
+            meta["tensors"][k] = entry
+        elif isinstance(v, (Tensor, torch.Tensor, np.ndarray)):
+            # whole and alike on every rank: the coordinator writes it
+            entry = {"chunks": []}
+            if rank == coordinator_rank:
+                # async: own the bytes now; the caller may write the
+                # tensor in place while the writer thread runs
+                arr, dt = _host_array(v, copy=async_save)
+                key = f"{k}##0"
+                arrays[key] = arr
+                entry["chunks"].append({"offset": [0] * arr.ndim,
+                                        "shape": list(arr.shape),
+                                        "file": shard_file, "key": key})
+            else:
+                t = v._data if isinstance(v, Tensor) else v
+                dt = (dtype_name(t.dtype) if isinstance(t, torch.Tensor)
+                      else _np_dtype_name(t))
+            meta["tensors"][k] = {"shape": list(v.shape), "dtype": dt,
+                                  **entry}
         else:
             meta["tensors"][k] = {"value": v.item() if isinstance(
                 v, np.generic) else v}
 
     def _write():
-        for entry in meta["tensors"].values():
-            for chunk in entry.get("chunks", ()):
-                chunk["crc32"] = _crc32(arrays[chunk["key"]])
-        # stage to tmp names, then rename into place: versioned names mean
-        # nothing of an older save id is touched
-        shard_tmp = os.path.join(path, shard_file + ".tmp")
-        meta_name = f"{rank}.{sid}.metadata.json"
-        meta_tmp = os.path.join(path, meta_name + ".tmp")
-        with open(shard_tmp, "wb") as f:
-            np.savez(f, **arrays)
-            f.flush()
-            os.fsync(f.fileno())
-        with open(meta_tmp, "w") as f:
-            json.dump(meta, f)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(shard_tmp, os.path.join(path, shard_file))
-        os.replace(meta_tmp, os.path.join(path, meta_name))
+        err = None
+        try:
+            for entry in meta["tensors"].values():
+                for chunk in entry.get("chunks", ()):
+                    chunk["crc32"] = _crc32(arrays[chunk["key"]])
+            # stage to tmp names, then rename into place: versioned names
+            # mean nothing of an older save id is touched
+            shard_tmp = os.path.join(path, shard_file + ".tmp")
+            meta_name = f"{rank}.{sid}.metadata.json"
+            meta_tmp = os.path.join(path, meta_name + ".tmp")
+            with open(shard_tmp, "wb") as f:
+                np.savez(f, **arrays)
+                f.flush()
+                os.fsync(f.fileno())
+            with open(meta_tmp, "w") as f:
+                json.dump(meta, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(shard_tmp, os.path.join(path, shard_file))
+            os.replace(meta_tmp, os.path.join(path, meta_name))
+        except Exception as e:  # noqa: BLE001 - agreed on, then raised
+            err = e
+        # every rank learns whether every rank wrote (and waits for them)
+        everyone = agree(err is None, group)
+        if err is not None:
+            raise err
+        if not everyone:
+            raise OSError(f"save {sid} under {path}: another rank failed to "
+                          "write its files")
         if rank == coordinator_rank:
             _gc_old_saves(path, sid, world)
 
@@ -330,9 +519,12 @@ class _ChunkReader:
     def __init__(self, path):
         self.path = path
         self._files = {}
+        self._decoded = {}   # an NpzFile reads a member again on each []
 
     def get(self, chunk):
         fname, key = chunk["file"], chunk["key"]
+        if (fname, key) in self._decoded:
+            return self._decoded[(fname, key)]
         fpath = os.path.join(self.path, fname)
         if fname not in self._files:
             self._files[fname] = np.load(fpath)
@@ -353,25 +545,37 @@ class _ChunkReader:
                     f"checksum mismatch for chunk {key!r} in {fpath}: "
                     f"stored crc32={int(want)}, computed crc32={got}: the "
                     "checkpoint bytes on disk are corrupt")
+        self._decoded[(fname, key)] = arr
         return arr
+
+    def clear_cache(self):
+        self._decoded.clear()
 
     def close(self):
         for f in self._files.values():
             f.close()
 
 
-def _assemble(shape, dtype, chunks, reader):
-    """The whole tensor from its chunk boxes (a JAX save of a sharded
-    array has several)."""
-    if len(chunks) == 1 and list(chunks[0]["shape"]) == list(shape):
-        return from_numpy(reader.get(chunks[0]), dtype)
+def _assemble(dtype, chunks, reader, offset, shape):
+    """The box at ``offset`` of ``shape`` of a saved tensor, filled from
+    the chunk boxes that cover it (the reshard-on-load arithmetic)."""
+    for chunk in chunks:
+        if (tuple(chunk["offset"]) == tuple(offset)
+                and tuple(chunk["shape"]) == tuple(shape)):
+            return from_numpy(reader.get(chunk), dtype)
     out = torch.empty(shape, dtype=_TORCH_DTYPES[dtype])
     filled = torch.zeros(shape, dtype=torch.bool)
     for chunk in chunks:
-        box = tuple(slice(o, o + s)
-                    for o, s in zip(chunk["offset"], chunk["shape"]))
-        out[box] = from_numpy(reader.get(chunk), dtype)
-        filled[box] = True
+        lo = [max(a, c) for a, c in zip(offset, chunk["offset"])]
+        hi = [min(a + n, c + m) for a, n, c, m in zip(
+            offset, shape, chunk["offset"], chunk["shape"])]
+        if any(l >= h for l, h in zip(lo, hi)):
+            continue
+        dst = tuple(slice(l - a, h - a) for l, h, a in zip(lo, hi, offset))
+        src = tuple(slice(l - c, h - c)
+                    for l, h, c in zip(lo, hi, chunk["offset"]))
+        out[dst] = from_numpy(reader.get(chunk), dtype)[src]
+        filled[dst] = True
     if not bool(filled.all()):
         raise RuntimeError(
             "checkpoint is missing chunks of a tensor (multi-process "
@@ -381,11 +585,14 @@ def _assemble(shape, dtype, chunks, reader):
 
 def load_state_dict(state_dict, path, process_group=None,
                     coordinator_rank=0, unique_id=None, offload=False):
-    """Fill the tensors of ``state_dict`` (``torch.Tensor``s or
-    ``Tensor``s, nested in dicts) in place from the newest complete save
-    under ``path``, cast to each target's dtype; a shape mismatch raises
-    ``ValueError``, a corrupt chunk :class:`CheckpointCorrupt`."""
-    _world(process_group)
+    """Fill the targets of ``state_dict`` (nested dicts of tensors,
+    ``Tensor``\\ s and :class:`LocalShard`\\ s) in place from the newest
+    complete save under ``path``, whatever mesh it was saved on, cast to
+    each target's dtype: a tensor takes the whole saved tensor, a
+    :class:`LocalShard` its boxes of it.  A shape mismatch (of the whole
+    tensors) raises ``ValueError``, a corrupt chunk
+    :class:`CheckpointCorrupt`.  No collective: each rank reads what it
+    needs."""
     wait_async_save()  # a pending async save to `path` may be mid-write
     meta = _read_metadata(path)
     reader = _ChunkReader(path)
@@ -396,20 +603,24 @@ def load_state_dict(state_dict, path, process_group=None,
                 continue
             if isinstance(tgt, Tensor):
                 tgt = tgt._data
-            if not isinstance(tgt, torch.Tensor):
+            if isinstance(tgt, torch.Tensor):
+                tgt = LocalShard(tgt)
+            if not isinstance(tgt, LocalShard):
                 continue
             shape = tuple(info["shape"])
-            if tuple(tgt.shape) != shape:
+            if tgt.shape != shape:
                 raise ValueError(
                     f"checkpoint tensor {k!r} has shape {shape}, target "
-                    f"has {tuple(tgt.shape)}")
-            src = _assemble(shape, info["dtype"], info["chunks"], reader)
+                    f"has {tgt.shape}")
             with torch.no_grad():
-                tgt.copy_(src)
+                for off, shp, loc in tgt.load_boxes():
+                    tgt.view(loc, shp).copy_(_assemble(
+                        info["dtype"], info["chunks"], reader, off, shp))
+            reader.clear_cache()   # host memory bound to one tensor's
     finally:
         reader.close()
     return state_dict
 
 
-__all__ = ["CheckpointCorrupt", "ShardChunks", "load_state_dict",
-           "save_state_dict", "wait_async_save"]
+__all__ = ["CheckpointCorrupt", "LocalShard", "ShardChunks",
+           "load_state_dict", "save_state_dict", "wait_async_save"]

@@ -76,8 +76,10 @@ class Pipeline1F1BTrainStep(DistributedTrainStep):
         if mesh is not None and mesh.shape.get("sep", 1) > 1:
             raise NotImplementedError(
                 "Pipeline1F1BTrainStep does not compose with sep > 1 yet: "
-                "ROADMAP.md A7e-sep; use pp_schedule='gpipe' with ring "
-                "attention for long sequences")
+                "ROADMAP.md A7e-sep (pipeline parallelism with the "
+                "sequence split); until it lands no pipeline schedule "
+                "trains on a mesh with pp > 1 and sep > 1, so train long "
+                "sequences over sep without pp")
         super().__init__(model, None, optimizer, mesh=mesh, donate=donate,
                          batch_spec=batch_spec)
         # the schedule sums the embedding's and the head's gradients over

@@ -13,6 +13,7 @@ with a ``shape`` mapping of axis degrees (a dict works too).
 
 from __future__ import annotations
 
+import itertools
 import re
 import warnings
 
@@ -197,6 +198,92 @@ def gather_shard(x, spec, mesh, fused=1):
     return x
 
 
-__all__ = ["P", "annotate_param", "gather_shard", "infer_partition_specs",
-           "local_shard", "mesh_extent", "param_sharding", "shard_constraint",
-           "validate_spec"]
+def _runs(rows):
+    """``[(start, length)]`` of the contiguous runs of the row indices
+    ``rows``, in their order."""
+    out = []
+    for r in rows:
+        if out and out[-1][0] + out[-1][1] == r:
+            out[-1] = (out[-1][0], out[-1][1] + 1)
+        else:
+            out.append((int(r), 1))
+    return out
+
+
+def _pieces(global_shape, spec, mesh, fused=1, rows=None):
+    """Per dimension, the ``[(global start, length)]`` pieces this rank
+    holds, in the order its local tensor lays them end to end (the
+    arithmetic of :func:`local_shard`); ``rows`` (a pipeline stage's
+    layer indices) replace dimension 0's."""
+    spec = tuple(spec or ())
+    split = [d for d, e in enumerate(spec) if _axes_of(e)]
+    out = []
+    for d, size in enumerate(global_shape):
+        entry = spec[d] if d < len(spec) else None
+        if d == 0 and rows is not None:
+            out.append(_runs(rows))
+            continue
+        if not _axes_of(entry):
+            out.append([(0, int(size))])
+            continue
+        n = mesh_extent(mesh, entry)
+        k = fused if d == split[-1] else 1
+        part = size // k
+        chunk = part // n
+        i = mesh.index(_axes_of(entry)) if n > 1 else 0
+        pieces = []
+        for j in range(k):
+            start = j * part + i * chunk
+            if pieces and pieces[-1][0] + pieces[-1][1] == start:
+                pieces[-1] = (pieces[-1][0], pieces[-1][1] + chunk)
+            else:
+                pieces.append((start, chunk))
+        out.append(pieces)
+    return out
+
+
+def global_shape(local_shape, spec, mesh):
+    """The shape of the whole tensor whose piece of shape ``local_shape``
+    a rank holds under ``spec``: each split dimension times its extent."""
+    spec = tuple(spec or ())
+    return tuple(int(n) * (mesh_extent(mesh, spec[d]) if d < len(spec)
+                           else 1) for d, n in enumerate(local_shape))
+
+
+def shard_boxes(global_shape, spec, mesh, fused=1, rows=None):
+    """This rank's boxes of a tensor of ``global_shape`` under ``spec``
+    (the inverse arithmetic of :func:`local_shard`): ``[(offset, shape,
+    local_offset)]``, the box's corner in the whole tensor, its shape,
+    and its corner in the rank's local tensor.  ``fused=k`` (GPT's
+    ``[q | k | v]`` columns) makes the last split dimension ``k`` boxes,
+    one a part; ``rows`` (a pipeline stage's layer indices, several runs
+    under the interleaved schedule) make dimension 0 one box a run of
+    contiguous rows.  Boxes that touch in both the whole and the local
+    tensor are one box."""
+    per_dim = []
+    for pieces in _pieces(global_shape, spec, mesh, fused, rows):
+        local, at = [], 0
+        for start, n in pieces:
+            local.append((start, n, at))
+            at += n
+        per_dim.append(local)
+    return [(tuple(p[0] for p in combo), tuple(p[1] for p in combo),
+             tuple(p[2] for p in combo))
+            for combo in itertools.product(*per_dim)]
+
+
+def writes_shard(spec, mesh):
+    """Whether this rank writes its boxes of a tensor under ``spec``:
+    exactly one rank of the ranks holding the same boxes does, the one
+    whose index is 0 on every axis ``spec`` does not split (the JAX
+    package's ``replica_id == 0``); with no mesh, this rank."""
+    if mesh is None:
+        return True
+    used = {a for e in (spec or ()) for a in _axes_of(e)}
+    return all(i == 0 for a, i in mesh.coord.items() if a not in used)
+
+
+__all__ = ["P", "annotate_param", "gather_shard", "global_shape",
+           "infer_partition_specs", "local_shard", "mesh_extent",
+           "param_sharding", "shard_boxes", "shard_constraint",
+           "validate_spec", "writes_shard"]

@@ -574,7 +574,8 @@ class DevicePrefetcher:
     ``start_offset`` on a fresh prefetcher over a deterministic loader
     replays the epoch to that position: skipped batches are pulled from
     the loader but neither copied nor handed out, and are counted under
-    ``io.skipped_batches``.
+    ``io.skipped_batches`` (and in ``skipped``, this prefetcher's own
+    count).
 
     Counters, under the JAX names: ``io.device_put_calls`` and
     ``io.device_put_bytes`` (one a leaf placed), ``io.reader_ns``, the
@@ -592,6 +593,7 @@ class DevicePrefetcher:
         self.device = device
         self.start_offset = max(0, int(start_offset))
         self.consumed = self.start_offset
+        self.skipped = 0
         self._stream = None
 
     def __len__(self):
@@ -673,6 +675,7 @@ class DevicePrefetcher:
                     except StopIteration:
                         break
                     skipped += 1
+                self.skipped += skipped
                 _counters.inc("io.skipped_batches", skipped)
         while True:
             with _trace.span("io.prefetcher"):

@@ -63,12 +63,14 @@ The device scalars wait on the device until :meth:`metrics_flush` or
 
 Checkpoints (``resilience.CheckpointManager``): :meth:`sync` is the
 boundary a save reads the state at (one ``jit.syncs`` after any
-dispatch); :meth:`export_resume_state` syncs once and returns the
-model's dropout generator state (the port's form of the JAX in-graph RNG
-carry); :meth:`restore_resume_state` drops the captured graphs, since a
-restore replaces tensors they write (accumulators the checkpoint lacks
-are dropped), so the next window primes and captures afresh
-(``jit.captures`` counts captures), and installs that generator state.
+dispatch); :meth:`export_resume_state` syncs once and returns this
+rank's dropout streams (the port's form of the JAX in-graph RNG carry):
+the model's dropout generator and, under a sequence split, the
+generators its chunks draw from; :meth:`restore_resume_state` drops the
+captured graphs, since a restore replaces tensors they write
+(accumulators the checkpoint lacks are dropped), so the next window
+primes and captures afresh (``jit.captures`` counts captures), and
+installs those streams.
 
 ``mesh=`` (``distributed.build_mesh``), ``shard_rules=``,
 ``batch_axes=``: the mesh step of ``jit/mesh.py`` — each rank takes its
@@ -506,24 +508,43 @@ class CompiledTrainStep:
         self._drop_graphs()
 
     def export_resume_state(self):
-        """Checkpoint hook: one counted :meth:`sync`, then the state of
-        the model's dropout generator as a uint8 array (the JAX in-graph
-        RNG carry's counterpart; empty when the model has none)."""
+        """Checkpoint hook: one counted :meth:`sync`, then this rank's
+        dropout streams as ``{name: uint8 array}`` (the JAX in-graph RNG
+        carry's counterpart): ``"dropout"``, the model's dropout
+        generator, and ``"chunk:<device>:<seed>:<index>"`` for each
+        generator a sequence chunk draws from
+        (``GPTForCausalLM.chunk_generators``); empty when the model has
+        none."""
         self.sync()
+        out = {}
         gen = getattr(self.model, "dropout_generator", None)
-        if gen is None:
-            return np.zeros(0, np.uint8)
-        return gen.get_state().numpy().copy()
+        if gen is not None:
+            out["dropout"] = gen.get_state().numpy().copy()
+        for (dev, seed, index), g in (getattr(
+                self.model, "chunk_generators", None) or {}).items():
+            out[f"chunk:{dev}:{seed}:{index}"] = g.get_state().numpy().copy()
+        return out
 
-    def restore_resume_state(self, rng_carry=None):
+    def restore_resume_state(self, streams=None):
         """After a restore: drop the captured graphs (the restore replaced
-        tensors they write), install the saved dropout generator state
-        (:meth:`export_resume_state`'s array) and start the metric
+        tensors they write), install the saved dropout streams
+        (:meth:`export_resume_state`'s dict; a chunk's generator is made
+        if the model has not made it yet) and start the metric
         accumulators afresh."""
         self._drop_graphs()
-        gen = getattr(self.model, "dropout_generator", None)
-        if gen is not None and rng_carry is not None and len(rng_carry):
-            gen.set_state(torch.from_numpy(np.asarray(rng_carry, np.uint8)))
+        for name, state in (streams or {}).items():
+            state = torch.from_numpy(np.asarray(state, np.uint8))
+            if name == "dropout":
+                gen = getattr(self.model, "dropout_generator", None)
+            else:
+                dev, seed, index = name[len("chunk:"):].rsplit(":", 2)
+                chunks = self.model.chunk_generators
+                key = (dev, int(seed), int(index))
+                gen = chunks.get(key)
+                if gen is None:
+                    gen = chunks[key] = torch.Generator(device=dev)
+            if gen is not None:
+                gen.set_state(state)
         self._pending = []
         self._totals = dict.fromkeys(self._totals, 0.0)
         self._last_dispatch_t = None

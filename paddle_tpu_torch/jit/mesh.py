@@ -66,6 +66,13 @@ it leaves to XLA).
   and storage sharding do not compose with ``pp`` yet (ROADMAP.md
   A7e-sep).
 * **GradScaler** — the overflow flag is the maximum over every rank.
+* **checkpoints** — :meth:`MeshPlan.shard` says which part of the whole
+  tensor a rank's parameter (or optimizer state) holds, as a
+  ``distributed.checkpoint.LocalShard``: a storage-sharded parameter
+  is held whole and its state is its storage slice; a model-held shard
+  carries the model's spec, its fused ``[q | k | v]`` parts
+  (``shard_fused``) and its pipeline rows (``shard_rows``); anything
+  else is whole, written by one rank.
 
 A world of one runs the same code: every collective goes over a group
 of one.  Each collective ticks ``dist.collective_launches`` (under
@@ -77,6 +84,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..distributed.checkpoint import LocalShard
 from ..distributed.sharding_utils import (P, _axes_of, gather_shard,
                                           infer_partition_specs,
                                           local_shard, validate_spec)
@@ -196,6 +204,32 @@ class MeshPlan:
         self.optimizer = optimizer
         optimizer._shard_views = {pid: _view_of(spec, mesh)
                                   for pid, spec in self.storage.items()}
+        optimizer._shard_specs = dict(self.storage)
+        optimizer._shard_mesh = mesh
+
+    # -- checkpoints -------------------------------------------------------
+    def shard(self, p, t=None, state=False):
+        """The :class:`LocalShard` of ``t`` (default ``p``): parameter (or
+        buffer) ``p`` itself, or with ``state`` one of its optimizer's
+        tensors of ``p``'s per-element layout (a storage slice where its
+        state is sharded)."""
+        t = p if t is None else t
+        spec = self.storage.get(id(p))
+        if spec is not None:
+            return LocalShard(t, spec, self.mesh, whole=not state)
+        if getattr(p, "is_distributed", False) is True:
+            return LocalShard(t, P(*p.placements), self.mesh,
+                              fused=getattr(p, "shard_fused", 1),
+                              rows=getattr(p, "shard_rows", None))
+        return LocalShard(t, P(), self.mesh)
+
+    def state_shard(self, p, t):
+        """The :class:`LocalShard` of optimizer tensor ``t`` of ``p``: of
+        ``p``'s layout when it has the shape of ``p``'s update (a moment,
+        a master), whole otherwise (Adam's beta powers)."""
+        if tuple(t.shape) == tuple(self.optimizer._view(p).shape):
+            return self.shard(p, t, state=True)
+        return LocalShard(t, P(), self.mesh)
 
     # -- batch -------------------------------------------------------------
     def rows(self, args, stacked):

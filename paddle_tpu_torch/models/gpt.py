@@ -403,6 +403,11 @@ class TensorParallel:
     def spec(self, name):
         return self.specs.get(name, P())
 
+    def fused(self, name):
+        """The parts laid end to end along leaf ``name``'s split dimension:
+        3 for the ``[q | k | v]`` columns when they split, else 1."""
+        return _FUSED.get(name, 1) if _split(self.spec(name)) else 1
+
     def local(self, name, full):
         """This rank's shard of the full leaf ``name``."""
         return local_shard(full, self.spec(name), self.mesh,
@@ -666,10 +671,16 @@ class GPTForCausalLM(Layer):
         if not c.tie_word_embeddings:
             self.lm_head = normal("lm_head")
         if tp is not None:
+            # where each shard lies in the whole parameter (checkpoints
+            # read it: jit.mesh.MeshPlan.shard): the spec, the fused
+            # parts of the split dimension, a pipeline stage's rows
             for n, t in self._weights().items():
                 t.placements = tp.spec(n)
+                t.shard_fused = tp.fused(n)
+                t.shard_rows = None
                 if self._pp is not None and n in self._stacked:
                     t.placements = P("pp", *t.placements[1:])
+                    t.shard_rows = list(self._pp.rows)
                 t.is_distributed = _split(t.placements)
         self.dropout_generator = torch.Generator(device=dev).manual_seed(0)
         #: the generators sequence chunks draw their dropout masks from

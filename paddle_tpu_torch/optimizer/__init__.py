@@ -123,6 +123,10 @@ class Optimizer:
         #: of the slice, and that slice's gradient for the next update
         self._shard_views = {}
         self._shard_grads = {}
+        #: the same parameters' storage specs over ``_shard_mesh``
+        #: (:meth:`state_dict` gathers their slices whole)
+        self._shard_specs = {}
+        self._shard_mesh = None
         dev = (self._parameter_list[0].device if self._parameter_list
                else torch.device("cpu"))
         #: one 0-d fp32 lr a group (its factor applied), on the device
@@ -309,19 +313,32 @@ class Optimizer:
         return {id(p): n for p, n in zip(self._parameter_list,
                                          self._param_names)}
 
+    def _whole(self, p, v):
+        """A copy of state tensor ``v`` of parameter ``p`` as a whole
+        tensor: a storage slice (the mesh step's sharded state) gathered
+        from every rank's, anything else cloned."""
+        spec = self._shard_specs.get(id(p))
+        if spec is None or tuple(v.shape) != tuple(self._view(p).shape):
+            return v.detach().clone()    # whole, or a per-parameter scalar
+        from ..distributed.sharding_utils import gather_shard
+        return gather_shard(v.detach(), spec, self._shard_mesh)
+
     def state_dict(self):
         """The JAX layout ``{"master_weights": {name: t}, "accumulators":
         {acc: {name: t}}, "step": n, "LR_Scheduler": {...}}``, keyed by
         parameter name, plus ``"lr"``: the group lr tensors.  Tensors are
-        copies: the optimizer goes on updating its own in place."""
+        whole copies, as JAX's are: the optimizer goes on updating its own
+        in place, and a mesh step's storage-sharded state is gathered from
+        every rank's slice (so every rank of the mesh calls)."""
         names = self._names()
+        params = {id(p): p for p in self._parameter_list}
         sched = self._learning_rate
         return {
-            "master_weights": {names[pid]: v.detach().clone()
+            "master_weights": {names[pid]: self._whole(params[pid], v)
                                for pid, v in self._master_weights.items()},
             "LR_Scheduler": (sched.state_dict()
                              if isinstance(sched, LRScheduler) else {}),
-            "accumulators": {acc: {names[pid]: v.detach().clone()
+            "accumulators": {acc: {names[pid]: self._whole(params[pid], v)
                                    for pid, v in store.items()}
                              for acc, store in self._accumulators.items()},
             "step": self._step_count,
@@ -332,7 +349,9 @@ class Optimizer:
         """Load a :meth:`state_dict` (tensors or numpy arrays); unknown
         names are ignored, as in JAX.  A tensor the optimizer already
         holds is overwritten in place, so a captured train step keeps
-        writing the tensors the optimizer reads."""
+        writing the tensors the optimizer reads.  Where a mesh step
+        shards a parameter's state, a whole tensor is cut to this rank's
+        slice (a tensor of the slice's shape is taken as it is)."""
         by_name = dict(zip(self._param_names, self._parameter_list))
 
         def put(store, key, v, p):
@@ -343,6 +362,10 @@ class Optimizer:
                 if arr.dtype.name == "bfloat16":  # numpy has no bf16
                     arr = arr.astype(np.float32)
                 src = torch.from_numpy(np.array(arr))
+            view = self._shard_views.get(id(p))
+            if (view is not None and tuple(src.shape) == tuple(p.shape)
+                    and tuple(view(p.detach()).shape) != tuple(p.shape)):
+                src = view(src.to(p.device)).contiguous()
             if key in store:
                 store[key].copy_(src)
             else:

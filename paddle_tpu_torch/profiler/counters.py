@@ -40,6 +40,8 @@ health plane ticks ``health.ticks``, ``health.alerts.fired[.<rule>]``,
 ``.kept``, ``.kept.head``, ``.kept.tail``, ``.dropped``, ``.spans``; the
 device-time ledger ``jit.devicetime.dispatches`` and
 ``jit.devicetime.sampled_syncs``.  All under the JAX names.
+
+:func:`allreduce` sums every rank's registry (every rank calls).
 """
 
 from __future__ import annotations
@@ -86,4 +88,24 @@ def delta(before: dict, after: dict | None = None) -> dict:
         d = v - before.get(k, 0)
         if d != 0:
             out[k] = d
+    return out
+
+
+def allreduce(group=None) -> dict:
+    """Every rank's counters and gauges summed name by name (the fleet
+    view; every member of ``group``, default the whole world, calls).
+    One process, or no process group: :func:`snapshot`."""
+    import torch.distributed as dist
+    local = snapshot()
+    if not (dist.is_available() and dist.is_initialized()):
+        return local
+    from ..distributed.communication import _nranks, all_gather_object
+    if _nranks(group) <= 1:
+        return local
+    gathered: list = []
+    all_gather_object(gathered, local, group=group)
+    out: dict = {}
+    for snap in gathered:
+        for k, v in snap.items():
+            out[k] = out.get(k, 0) + v
     return out

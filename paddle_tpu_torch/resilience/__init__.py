@@ -10,7 +10,8 @@ Three pieces:
   cursor) at one counted ``sync()`` a save, writes it through
   ``distributed.checkpoint`` with an atomic directory commit, per-chunk
   crc32 checked on load, retry with backoff, keep-last-N GC, and async
-  writes that overlap the next window;
+  writes that overlap the next window; on a mesh every rank writes its
+  shards and a restore onto another mesh reshards;
 * :class:`FaultTolerantTrainer` (``trainer.py``): a loop that catches
   faults, restores the last good checkpoint, replays the data iterator
   to the saved offset and continues bit for bit;
@@ -19,9 +20,10 @@ Three pieces:
   every recovery path; the serving engine and fleet fire their own
   sites from it too.
 
-Counters: ``resilience.saves / save_ms / restores / retries /
-corrupt_detected / recoveries / save_failures / faults_injected /
-gc_removed`` (+ ``io.skipped_batches`` from the replay).
+Counters: ``resilience.saves / save_ms / restores /
+resharded_restores / retries / corrupt_detected / recoveries /
+save_failures / faults_injected / gc_removed`` (+
+``io.skipped_batches`` from the replay).
 """
 
 from . import faultinject  # noqa: F401

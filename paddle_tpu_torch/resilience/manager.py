@@ -44,8 +44,36 @@ parameter's position (auto-generated names differ between processes).
 A restore writes the parameters in place, drops the accumulators and
 masters the checkpoint lacks (as a fresh optimizer has none), and has
 the step drop its captured CUDA graphs (``restore_resume_state``).
-Random states are saved under port keys (``rng/device/<device>``,
-``rng/dropout``); a JAX save's ``rng/*`` keys are not read.
+
+**On a mesh** (a step built with ``mesh=``; every rank runs the same
+calls).  The manifest records the mesh (its axes and degrees) and each
+array's spec, and the shapes are the whole tensors'.  Each rank writes
+the chunks of its shards (``jit.mesh.MeshPlan.shard``: the model's
+tensor-parallel, expert and pipeline shards, the storage-sharded
+optimizer state) into the step's staging directory, each box once;
+the ranks agree that every one of them wrote, then rank 0 writes
+``MANIFEST.json``, commits by the rename and alone collects old saves,
+and the ranks agree once more, so a save has committed on every rank
+when it returns.  A rank's own random streams (its device generators,
+its dropout generator and its sequence chunks' generators) are saved
+under keys that name it, ``rng/rank<r>/device/<device>`` and
+``rng/rank<r>/stream/<name>``.  On restore rank 0 picks the step (the
+newest committed, falling back past one any rank cannot load) and every
+rank restores it.  A restore onto a mesh of other degrees than the
+saved one (the JAX package's saves included) is a resharding: each
+rank reads its boxes from whatever chunks cover them, it counts
+``resilience.resharded_restores``, and the streams, which belong to the
+saved layout, stay as they are (``streams_restored`` in the returned
+info).  A leaf whose whole shape differs raises
+:class:`CheckpointLayoutError`.  The ranks coordinate over a gloo group
+of the checkpoint's own (``distributed.checkpoint.coord_group``), so an
+async writer's barriers never meet the training collectives.
+
+``rng/carry`` and ``rng/host`` are the JAX package's keys: a port save
+writes them as the JAX keys of its dropout and CPU generators' seeds
+(the JAX ``PRNGKey``'s words), so the JAX manager restores a port save
+too, its random chains starting afresh from them; the port reads
+neither.
 
 Counters, histograms, flight records and spans under the JAX names:
 ``resilience.saves``, ``.retries``, ``.save_failures``, ``.gc_removed``,
@@ -53,7 +81,8 @@ Counters, histograms, flight records and spans under the JAX names:
 (the write) and ``resilience.restore_ms``, and the port's
 ``resilience.snapshot_ms`` (the host copies); flight ``ckpt.save`` and
 ``ckpt.restore``; spans ``resilience.snapshot``, ``resilience.save``,
-``resilience.restore``.
+``resilience.restore``.  ``last_save`` holds the last save's
+``{"step", "bytes", "snapshot_ms", "write_ms"}`` (this rank's).
 """
 
 from __future__ import annotations
@@ -69,6 +98,7 @@ import numpy as np
 import torch
 
 from ..distributed import checkpoint as _dckpt
+from ..distributed.checkpoint import LocalShard, ShardChunks
 from ..profiler import counters as _counters
 from ..profiler import flight as _flight
 from ..profiler import host_tracer as _trace
@@ -89,9 +119,9 @@ class CheckpointWriteError(RuntimeError):
 
 class CheckpointLayoutError(RuntimeError):
     """The checkpoint's array layout does not fit the live training state
-    (a leaf's shape differs: a different model).  Not a reason to fall
-    back to an older checkpoint: every save of the run would mismatch
-    alike, so the manager raises at once."""
+    (a leaf's whole shape differs: a different model, not another mesh).
+    Not a reason to fall back to an older checkpoint: every save of the
+    run would mismatch alike, so the manager raises at once."""
 
 
 def model_state(model):
@@ -109,18 +139,75 @@ def _dev_key(dev):
     return str(dev).replace(":", "_")
 
 
+def _dev_of(key):
+    """The device a ``_dev_key`` names ("cuda_0" -> "cuda:0")."""
+    return re.sub(r"_(\d+)$", r":\1", key)
+
+
+def _mesh_desc(mesh):
+    """The mesh's axes and degrees as the manifest records them (the JAX
+    ``_mesh_desc``), None without one."""
+    if mesh is None:
+        return None
+    return {"axis_names": [str(a) for a in mesh.axis_names],
+            "shape": [int(mesh.shape[a]) for a in mesh.axis_names]}
+
+
+def _degrees(desc):
+    """A recorded mesh's axes of degree above 1: two meshes lay tensors
+    out alike when these are equal (axes of degree 1 split nothing)."""
+    if not desc:
+        return {}
+    return {a: n for a, n in zip(desc["axis_names"], desc["shape"]) if n > 1}
+
+
+def _spec_json(spec):
+    """A partition spec as JSON (None, an axis name or a list of them per
+    dimension), the JAX ``_spec_json``."""
+    if spec is None:
+        return None
+    return [None if e is None else (e if isinstance(e, str) else list(e))
+            for e in spec]
+
+
+def _jax_key(seed):
+    """The two uint32 words of the JAX ``PRNGKey(seed)``."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return np.array([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+
+
+def _own(t):
+    """``t`` as a whole tensor this rank writes itself (a rank's own
+    stream: the coordinator-only rule for whole tensors would drop the
+    other ranks')."""
+    return ShardChunks(t.shape, t.dtype, [((0,) * t.dim(), tuple(t.shape),
+                                           t)])
+
+
+def _plan(train_step):
+    return getattr(train_step, "_mesh", None)
+
+
 def _live_tensors(train_step):
-    """Every device tensor of a snapshot, by checkpoint key."""
+    """Every device tensor of a snapshot, by checkpoint key: a tensor, or
+    on a mesh the :class:`LocalShard` of this rank's piece."""
     opt = train_step.optimizer
-    out = {f"model/{n}": t for n, t in model_state(train_step.model).items()}
+    plan = _plan(train_step)
+    out = {f"model/{n}": (t if plan is None else plan.shard(t))
+           for n, t in model_state(train_step.model).items()}
+    params = {id(p): p for p in opt._parameter_list}
     pos = {id(p): f"p{i}" for i, p in enumerate(opt._parameter_list)}
+
+    def state(pid, t):
+        return t if plan is None else plan.state_shard(params[pid], t)
     for acc, store in opt._accumulators.items():
         for pid, t in store.items():
-            out[f"opt/acc/{acc}/{pos[pid]}"] = t
+            out[f"opt/acc/{acc}/{pos[pid]}"] = state(pid, t)
     for pid, t in opt._master_weights.items():
-        out[f"opt/master/{pos[pid]}"] = t
+        out[f"opt/master/{pos[pid]}"] = state(pid, t)
     for i, t in enumerate(opt._lr_tensors):
-        out[f"opt/lr/{i}"] = t
+        out[f"opt/lr/{i}"] = t if plan is None else LocalShard(
+            t, (), plan.mesh)
     return out
 
 
@@ -149,6 +236,19 @@ class CheckpointManager:
         self._error = None
         self._save_ordinal = 0  # deterministic index for fault schedules
         self._host = {}         # key -> host (pinned) buffer, reused
+        self.last_save = None
+
+    # -- the ranks -----------------------------------------------------------
+    def _ranks(self):
+        """``(rank, world, gloo group or None)``; every rank calls."""
+        rank, world = _dckpt.rank_world()
+        return rank, world, _dckpt.coord_group()
+
+    def _join(self):
+        """Wait for the writer thread, keeping its error for :meth:`wait`
+        (its collectives and ours share the checkpoint's group)."""
+        if self._thread is not None:
+            self._thread.join()
 
     # -- discovery -----------------------------------------------------------
     def _committed(self):
@@ -164,9 +264,15 @@ class CheckpointManager:
         return os.path.join(self.root, f"step-{step_no:08d}")
 
     def latest(self):
-        """Newest committed checkpoint's global step, or None."""
+        """Newest committed checkpoint's global step, or None (over
+        several processes rank 0's view, which every rank calls for)."""
+        rank, world, group = self._ranks()
         steps = self._committed()
-        return steps[-1] if steps else None
+        if group is None:
+            return steps[-1] if steps else None
+        self._join()
+        last = _dckpt.broadcast_int(steps[-1] if steps else -1, group)
+        return None if last < 0 else last
 
     # -- save ----------------------------------------------------------------
     def save(self, train_step, global_step, *, scheduler=None, cursor=None,
@@ -188,8 +294,13 @@ class CheckpointManager:
         with _trace.span("resilience.snapshot"):
             arrays, manifest = self._snapshot(train_step, int(global_step),
                                               scheduler, cursor)
-        _metrics.observe("resilience.snapshot_ms",
-                         (time.perf_counter() - t0) * 1000, unit="ms")
+        snapshot_ms = (time.perf_counter() - t0) * 1000
+        _metrics.observe("resilience.snapshot_ms", snapshot_ms, unit="ms")
+        self.last_save = {"step": int(global_step), "bytes": sum(
+            int(v.nbytes if isinstance(v, ShardChunks)
+                else v.numel() * v.element_size())
+            for v in arrays.values() if not isinstance(v, np.ndarray)),
+            "snapshot_ms": snapshot_ms}
         if blocking:
             self._write(arrays, manifest, int(global_step), ordinal)
         else:
@@ -211,18 +322,37 @@ class CheckpointManager:
         return buf
 
     def _snapshot(self, train_step, global_step, scheduler, cursor):
-        """``(arrays, manifest)``: host tensors by key, and the manifest.
+        """``(arrays, manifest)``: host tensors (a shard's as
+        ``ShardChunks``) by key, and the manifest.
         ``export_resume_state`` is the one counted sync."""
-        carry = train_step.export_resume_state()
+        rank, world, group = self._ranks()
+        streams = train_step.export_resume_state()
         opt = train_step.optimizer
+        plan = _plan(train_step)
         live = _live_tensors(train_step)
-        arrays = {k: self._host_copy(k, t) for k, t in live.items()}
-        if any(t.is_cuda for t in live.values()):
+        arrays, specs, cuda = {}, {}, False
+        for k, x in live.items():
+            if isinstance(x, LocalShard):
+                cuda = cuda or x.tensor.is_cuda
+                arrays[k] = ShardChunks.capture(
+                    x, lambda i, v, k=k: self._host_copy(f"{k}##{i}", v))
+                specs[k] = _spec_json(x.spec)
+            else:
+                cuda = cuda or x.is_cuda
+                arrays[k] = self._host_copy(k, x)
+        if cuda:
             torch.cuda.current_stream().synchronize()
         for dev, gen in _random._GENERATORS.items():
-            arrays[f"rng/device/{_dev_key(dev)}"] = gen.get_state()
-        if len(carry):
-            arrays["rng/dropout"] = torch.from_numpy(carry)
+            arrays[f"rng/rank{rank}/device/{_dev_key(dev)}"] = _own(
+                gen.get_state())
+        for name, state in streams.items():
+            arrays[f"rng/rank{rank}/stream/{name}"] = _own(
+                torch.from_numpy(state))
+        gen = getattr(train_step.model, "dropout_generator", None)
+        arrays["rng/carry"] = _jax_key(0 if gen is None
+                                       else gen.initial_seed())
+        arrays["rng/host"] = _jax_key(
+            _random.default_generator("cpu").initial_seed())
         sched = opt._learning_rate
         host = {"global_step": global_step,
                 "cursor": dict(cursor or {}),
@@ -234,65 +364,91 @@ class CheckpointManager:
                 "scaler": (train_step.scaler.state_dict()
                            if train_step.scaler is not None else None),
                 "fused_steps": int(getattr(train_step, "fused_steps", 1)),
-                "rng_devices": {_dev_key(d): str(d)
-                                for d in _random._GENERATORS}}
+                "world_size": world}
+        table = {k: {"shape": list(v.shape),
+                     "dtype": (v.dtype if isinstance(v, ShardChunks)
+                               else str(v.dtype) if isinstance(v, np.ndarray)
+                               else _dckpt.dtype_name(v.dtype)),
+                     "spec": specs.get(k)}
+                 for k, v in arrays.items()}
+        if group is not None:
+            # the manifest lists every rank's arrays (each rank's streams)
+            tables = [None] * world
+            torch.distributed.all_gather_object(tables, table, group=group)
+            table = {k: v for t in tables for k, v in t.items()}
         manifest = {"format": 1, "step": global_step, "host": host,
-                    "mesh": None,
-                    "arrays": {k: {"shape": list(v.shape),
-                                   "dtype": _dckpt.dtype_name(v.dtype),
-                                   "spec": None}
-                               for k, v in arrays.items()}}
+                    "mesh": _mesh_desc(None if plan is None else plan.mesh),
+                    "arrays": table}
         return arrays, manifest
 
     def _write(self, arrays, manifest, step_no, ordinal):
+        rank, _, group = self._ranks()
         final = self._dir(step_no)
         tmp = os.path.join(self.root, f"{_TMP_PREFIX}step-{step_no:08d}")
         t0 = time.perf_counter()
         attempt = 0
         with _trace.span("resilience.save"):
             while True:
+                # every rank takes each decision together: a rank's
+                # failure makes every rank retry (or give up)
+                err = None
                 try:
                     _fi.maybe_fault("ckpt_write", ordinal)
-                    if os.path.isdir(tmp):
-                        shutil.rmtree(tmp)
-                    os.makedirs(tmp)
-                    _dckpt.save_state_dict(arrays, tmp)
-                    # a writer killed HERE (chunks on disk, no manifest, no
-                    # rename) leaves only an ignored .tmp dir
-                    _fi.maybe_fault("ckpt_crash", ordinal)
-                    mtmp = os.path.join(tmp, _MANIFEST + ".tmp")
-                    with open(mtmp, "w") as f:
-                        json.dump(manifest, f)
-                        f.flush()
-                        os.fsync(f.fileno())
-                    os.replace(mtmp, os.path.join(tmp, _MANIFEST))
-                    if os.path.isdir(final):
-                        shutil.rmtree(final)
-                    os.replace(tmp, final)  # the commit point
-                    break
+                    if rank == 0:
+                        if os.path.isdir(tmp):
+                            shutil.rmtree(tmp)
+                        os.makedirs(tmp)
                 except OSError as e:
-                    attempt += 1
-                    if attempt > self.retries:
-                        _counters.inc("resilience.save_failures")
-                        raise CheckpointWriteError(
-                            f"checkpoint save at step {step_no} failed "
-                            f"after {attempt} attempts: {e}") from e
-                    _counters.inc("resilience.retries")
-                    time.sleep(self.backoff_s * (2 ** (attempt - 1)))
-        try:
-            dfd = os.open(self.root, os.O_RDONLY)
+                    err = e
+                if _dckpt.agree(err is None, group):
+                    try:
+                        _dckpt.save_state_dict(arrays, tmp)
+                        # a writer killed HERE (chunks on disk, no
+                        # manifest, no rename) leaves an ignored .tmp dir
+                        _fi.maybe_fault("ckpt_crash", ordinal)
+                        if rank == 0:
+                            mtmp = os.path.join(tmp, _MANIFEST + ".tmp")
+                            with open(mtmp, "w") as f:
+                                json.dump(manifest, f)
+                                f.flush()
+                                os.fsync(f.fileno())
+                            os.replace(mtmp, os.path.join(tmp, _MANIFEST))
+                            if os.path.isdir(final):
+                                shutil.rmtree(final)
+                            os.replace(tmp, final)  # the commit point
+                    except OSError as e:
+                        err = e
+                    if _dckpt.agree(err is None, group):
+                        break
+                attempt += 1
+                err = err or OSError("another rank's checkpoint write "
+                                     "failed")
+                if attempt > self.retries:
+                    _counters.inc("resilience.save_failures")
+                    raise CheckpointWriteError(
+                        f"checkpoint save at step {step_no} failed "
+                        f"after {attempt} attempts: {err}") from err
+                _counters.inc("resilience.retries")
+                time.sleep(self.backoff_s * (2 ** (attempt - 1)))
+        if rank == 0:
             try:
-                os.fsync(dfd)  # persist the rename itself
-            finally:
-                os.close(dfd)
-        except OSError:
-            pass
+                dfd = os.open(self.root, os.O_RDONLY)
+                try:
+                    os.fsync(dfd)  # persist the rename itself
+                finally:
+                    os.close(dfd)
+            except OSError:
+                pass
         _counters.inc("resilience.saves")
-        save_ms = int((time.perf_counter() - t0) * 1000)
+        write_ms = (time.perf_counter() - t0) * 1000
+        save_ms = int(write_ms)
         _metrics.observe("resilience.save_ms", save_ms, unit="ms",
                          sum_counter=True)
         _flight.record("ckpt.save", step=step_no, ms=save_ms)
-        self._gc()
+        if self.last_save is not None and self.last_save["step"] == step_no:
+            self.last_save["write_ms"] = write_ms
+        if rank == 0:
+            self._gc()
 
     def _gc(self):
         steps = self._committed()
@@ -320,30 +476,47 @@ class CheckpointManager:
     def restore(self, train_step, *, scheduler=None):
         """Restore the newest loadable checkpoint into ``train_step``'s
         model, optimizer and scaler and the random generators, falling
-        back to older checkpoints on corruption.  Returns ``{"step",
-        "cursor", "path", ...}``, or None when there is no checkpoint."""
+        back to older checkpoints on corruption (over several processes:
+        rank 0's choice, past any step a rank cannot load).  Returns
+        ``{"step", "cursor", "path", "resharded", "saved_mesh",
+        "streams_restored", "ms"}``, or None when there is no
+        checkpoint."""
         self.wait(suppress=True)
+        rank, world, group = self._ranks()
+        steps = self._committed()
+        if group is not None:
+            box = [steps]
+            torch.distributed.broadcast_object_list(
+                box, src=torch.distributed.get_global_rank(group, 0),
+                group=group)
+            steps = box[0]
         last_exc = None
-        for step_no in reversed(self._committed()):
+        for step_no in reversed(steps):
             path = self._dir(step_no)
+            t0 = time.perf_counter()
+            err = None
             try:
-                t0 = time.perf_counter()
                 with _trace.span("resilience.restore"):
                     info = self._restore_from(path, train_step, scheduler)
-                _counters.inc("resilience.restores")
-                restore_ms = (time.perf_counter() - t0) * 1000
-                _metrics.observe("resilience.restore_ms", restore_ms,
-                                 unit="ms")
-                _flight.record("ckpt.restore", step=info["step"],
-                               ms=int(restore_ms))
-                return info
             except (CheckpointCorrupt, ValueError, KeyError, OSError,
                     json.JSONDecodeError) as e:
                 if not isinstance(e, CheckpointCorrupt):
                     # crc failures are counted by the reader
                     _counters.inc("resilience.corrupt_detected")
-                last_exc = e
-                continue
+                err = e
+            if _dckpt.agree(err is None, group):
+                _counters.inc("resilience.restores")
+                if info["resharded"]:
+                    _counters.inc("resilience.resharded_restores")
+                restore_ms = (time.perf_counter() - t0) * 1000
+                _metrics.observe("resilience.restore_ms", restore_ms,
+                                 unit="ms")
+                _flight.record("ckpt.restore", step=info["step"],
+                               ms=int(restore_ms))
+                info["ms"] = restore_ms
+                return info
+            last_exc = err or CheckpointCorrupt(
+                f"another rank could not load {path}")
         if last_exc is not None:
             raise CheckpointCorrupt(
                 f"no loadable checkpoint under {self.root}; newest failure: "
@@ -354,11 +527,15 @@ class CheckpointManager:
         with open(os.path.join(path, _MANIFEST)) as f:
             manifest = json.load(f)
         host = manifest["host"]
-        if manifest.get("mesh") is not None:
-            raise NotImplementedError(
-                f"checkpoint {path} was saved on the mesh "
-                f"{manifest['mesh']}: restoring a sharded checkpoint is not "
-                "ported yet: ROADMAP.md A7 (distributed)")
+        rank, _, _ = self._ranks()
+        plan = _plan(train_step)
+        saved_mesh = manifest.get("mesh")
+        live_mesh = _mesh_desc(None if plan is None else plan.mesh)
+        # another layout of the same tensors: each rank reads its boxes
+        # from the chunks that cover them; the random streams belong to
+        # the saved layout and stay as they are
+        resharded = _degrees(saved_mesh) != _degrees(live_mesh)
+        mine = f"rng/rank{rank}/"
         train_step.invalidate()
         opt = train_step.optimizer
         live = model_state(train_step.model)
@@ -370,39 +547,41 @@ class CheckpointManager:
                 if name not in live:
                     raise KeyError(f"checkpoint tensor {key!r} has no "
                                    "target in the live model")
-                if tuple(live[name].shape) != shape:
+                t = live[name]
+                tgt = LocalShard(t) if plan is None else plan.shard(t)
+                if tgt.shape != shape:
                     raise CheckpointLayoutError(
-                        f"checkpoint leaf {key!r} has shape {shape}, but "
-                        f"the live model tensor is "
-                        f"{tuple(live[name].shape)}: a different model; "
-                        "refusing to restore")
-                targets[key] = live[name]
-            elif key.startswith(("opt/", "rng/device/", "rng/dropout")):
+                        f"checkpoint leaf {key!r} has shape {shape} (saved "
+                        f"on mesh {saved_mesh}, spec {spec.get('spec')}), "
+                        f"but the live model tensor is {tgt.shape} on mesh "
+                        f"{live_mesh}: a different model, not a "
+                        "resharding; refusing to restore")
+                targets[key] = tgt
+            elif key.startswith("opt/"):
+                targets[key] = self._opt_target(key, shape, spec["dtype"],
+                                                opt, plan)
+            elif key.startswith(mine) and not resharded:
                 targets[key] = torch.empty(
                     shape, dtype=_dckpt._TORCH_DTYPES[spec["dtype"]])
         _dckpt.load_state_dict(targets, path)  # checks each chunk's crc32
-        # the optimizer's state dict, its positional "p<i>" keys turned
-        # back into this process's parameter names
-        names = opt._param_names
 
-        def pname(tok):
-            if not (tok[:1] == "p" and tok[1:].isdigit()
-                    and int(tok[1:]) < len(names)):
-                raise KeyError(f"checkpoint optimizer entry {tok!r} names "
-                               "no parameter position of the optimizer")
-            return names[int(tok[1:])]
+        def local(key):
+            t = targets[key]
+            return t.tensor if isinstance(t, LocalShard) else t
         opt_sd = {"accumulators": {}, "master_weights": {},
                   "step": int(host.get("opt_step", 0)),
                   "LR_Scheduler": host.get("lr_scheduler") or {}}
         lrs = {}
-        for key, t in targets.items():
+        for key in targets:
             if key.startswith("opt/acc/"):
                 _, _, acc, tok = key.split("/", 3)
-                opt_sd["accumulators"].setdefault(acc, {})[pname(tok)] = t
+                opt_sd["accumulators"].setdefault(acc, {})[
+                    opt._param_names[_position(tok, opt)]] = local(key)
             elif key.startswith("opt/master/"):
-                opt_sd["master_weights"][pname(key.split("/", 2)[2])] = t
+                opt_sd["master_weights"][opt._param_names[_position(
+                    key.split("/", 2)[2], opt)]] = local(key)
             elif key.startswith("opt/lr/"):
-                lrs[int(key.split("/", 2)[2])] = t
+                lrs[int(key.split("/", 2)[2])] = local(key)
         if lrs:
             opt_sd["lr"] = [lrs[i] for i in sorted(lrs)]
         # a full-state restore is authoritative: set_state_dict merges, so
@@ -416,19 +595,45 @@ class CheckpointManager:
             train_step.scaler.load_state_dict(host["scaler"])
         if scheduler is not None and host.get("scheduler"):
             scheduler.set_state_dict(host["scheduler"])
-        carry = targets.get("rng/dropout")
-        train_step.restore_resume_state(
-            None if carry is None else carry.numpy())
-        devices = host.get("rng_devices") or {}
-        for k, dev in devices.items():
-            state = targets.get(f"rng/device/{k}")
-            if state is not None and _device_present(dev):
-                _random.default_generator(dev).set_state(state)
+        streams = {k[len(mine + "stream/"):]: targets[k].numpy()
+                   for k in targets if k.startswith(mine + "stream/")}
+        train_step.restore_resume_state(streams)
+        devices = [k for k in targets if k.startswith(mine + "device/")]
+        for k in devices:
+            dev = _dev_of(k[len(mine + "device/"):])
+            if _device_present(dev):
+                _random.default_generator(dev).set_state(targets[k])
         return {"step": int(manifest["step"]),
                 "cursor": dict(host.get("cursor") or {}),
                 "path": path,
-                "resharded": False,
-                "saved_mesh": None}
+                "resharded": bool(resharded),
+                "saved_mesh": saved_mesh,
+                "streams_restored": bool(streams or devices)}
+
+    @staticmethod
+    def _opt_target(key, shape, dtype, opt, plan):
+        """The tensor an optimizer entry loads into: without a mesh the
+        whole tensor; on one a tensor of the parameter's update layout
+        (its slice where its state is sharded) when the entry has the
+        parameter's whole shape, else whole (Adam's beta powers)."""
+        dt = _dckpt._TORCH_DTYPES[dtype]
+        parts = key.split("/")
+        if plan is None or parts[1] == "lr":
+            return torch.empty(shape, dtype=dt)
+        p = opt._parameter_list[_position(parts[-1], opt)]
+        if plan.shard(p).shape != shape:
+            return torch.empty(shape, dtype=dt)
+        return plan.state_shard(p, torch.empty(
+            opt._view(p).shape, dtype=dt, device=p.device))
+
+
+def _position(tok, opt):
+    """The parameter position a checkpoint's ``p<i>`` names."""
+    if not (tok[:1] == "p" and tok[1:].isdigit()
+            and int(tok[1:]) < len(opt._parameter_list)):
+        raise KeyError(f"checkpoint optimizer entry {tok!r} names no "
+                       "parameter position of the optimizer")
+    return int(tok[1:])
 
 
 def _device_present(dev):

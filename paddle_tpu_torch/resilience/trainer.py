@@ -21,6 +21,17 @@ Fault sites (``resilience.faultinject``): ``loader`` (raises fetching
 step k's batch), ``preempt`` (``SimulatedPreemption`` after step k),
 ``nan_loss`` (NaN-fills step k's float batch leaves; integer leaves such
 as token ids pass through, so it poisons nothing on a GPT batch).
+
+**Over a mesh** (a step built with ``mesh=``): every rank runs the
+trainer on the same loader (the step takes each rank's rows).  The
+fault schedules are indexed by step, not by clock, so a fault fires at
+the same step on every rank; a non-finite loss is the mean over the
+ranks, so every rank sees it.  Every rank restores the step rank 0
+chose (``CheckpointManager.restore``), and the manager's saves and
+restores are collective, so the ranks stay in step.  A rank process
+that dies (a crash, a lost card) is not recovered here: the others wait
+in their next collective until its timeout; elastic training is
+ROADMAP.md A7h.
 """
 
 from __future__ import annotations
@@ -104,6 +115,14 @@ class FaultTolerantTrainer:
         # wall-clock goodput accounting over run() (profiler.goodput)
         self.goodput = GoodputLedger()
         self._compiled_once = False
+        self._prefetchers = []
+
+    @property
+    def replayed_batches(self):
+        """Batches this trainer's prefetchers pulled from the loader to
+        replay to a saved offset (its own share of the process-wide
+        ``io.skipped_batches``)."""
+        return sum(p.skipped for p in self._prefetchers)
 
     # -- plumbing ------------------------------------------------------------
     def _make_loader(self, epoch):
@@ -114,10 +133,14 @@ class FaultTolerantTrainer:
         k = int(getattr(self.step, "fused_steps", 1))
         dev = self.step._device()
         if k > 1:
-            return StackingPrefetcher(loader, k, device=dev,
+            pref = StackingPrefetcher(loader, k, device=dev,
                                       start_offset=offset)
-        return DevicePrefetcher(loader, depth=self.prefetch_depth,
-                                device=dev, start_offset=offset)
+            self._prefetchers.append(pref._pref)
+        else:
+            pref = DevicePrefetcher(loader, depth=self.prefetch_depth,
+                                    device=dev, start_offset=offset)
+            self._prefetchers.append(pref)
+        return pref
 
     def _save(self, offset, blocking=None):
         self.manager.save(self.step, self.global_step,
@@ -161,29 +184,38 @@ class FaultTolerantTrainer:
         entries with the same values)."""
         self.goodput.start()
         try:
-            if self.manager.latest() is not None:
-                with self.goodput.bucket("restore_replay"):
-                    info = self.manager.restore(self.step,
-                                                scheduler=self.scheduler)
-                self._apply(info)
-            else:
-                with self.goodput.bucket("ckpt_sync"):
-                    self._save(self._offset, blocking=True)
-            while True:
-                try:
-                    self._train()
-                    break
-                except self.recoverable as exc:
-                    self.recoveries += 1
-                    if self.recoveries > self.max_recoveries:
-                        raise
-                    with self.goodput.bucket("recovery"):
-                        self._recover(exc)
-            with self.goodput.bucket("ckpt_sync"):
-                self.manager.wait()
+            # the whole run under "idle" (the buckets inside take their
+            # own time out of it), so that what runs between them, such
+            # as the unwinding of a faulted window and its prefetcher's
+            # teardown, is attributed and the accounting closes however
+            # the host schedules the process
+            with self.goodput.bucket("idle"):
+                self._run()
         finally:
             self.goodput.stop()
         return self.losses
+
+    def _run(self):
+        if self.manager.latest() is not None:
+            with self.goodput.bucket("restore_replay"):
+                info = self.manager.restore(self.step,
+                                            scheduler=self.scheduler)
+            self._apply(info)
+        else:
+            with self.goodput.bucket("ckpt_sync"):
+                self._save(self._offset, blocking=True)
+        while True:
+            try:
+                self._train()
+                break
+            except self.recoverable as exc:
+                self.recoveries += 1
+                if self.recoveries > self.max_recoveries:
+                    raise
+                with self.goodput.bucket("recovery"):
+                    self._recover(exc)
+        with self.goodput.bucket("ckpt_sync"):
+            self.manager.wait()
 
     def _done(self):
         return self.max_steps is not None and self.global_step >= self.max_steps

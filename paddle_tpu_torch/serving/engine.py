@@ -85,8 +85,8 @@ from .arena import KV_POOL_SPEC, StateArena
 from .sampling import sample_tokens
 
 _TODO = {
-    "mesh+sep": "ROADMAP.md A7c (serving over a mesh with sep > 1; a "
-                "model built with sequence_parallel or context_parallel "
+    "mesh+sep": "ROADMAP.md A7c-moe (serving over a mesh with sep > 1; "
+                "a model built with sequence_parallel or context_parallel "
                 "serves without one)",
     "mesh+fleet_control": "ROADMAP.md A7f-control (the fleet's fault "
                           "injection and autoscaler on a mesh of more "

@@ -3,8 +3,9 @@
 ``tests/test_torch_distributed_api.py``, ``test_torch_mesh_serving.py``,
 ``test_torch_mesh_serving_extras.py``, ``test_torch_mesh_train.py``, ``test_torch_moe_mesh.py``,
 ``test_torch_ring_attention.py``, ``test_torch_sequence_parallel.py``,
-``test_torch_cp_train.py``, ``test_torch_pp_train.py`` and
-``test_torch_gpt_train.py`` run the JAX package in the pytest
+``test_torch_cp_train.py``, ``test_torch_pp_train.py``,
+``test_torch_gpt_train.py`` and ``test_torch_mesh_checkpoint.py`` run
+the JAX package in the pytest
 process and the port's ranks in processes spawned here: each child
 imports ``torch`` and ``paddle_tpu_torch`` only (the test files import
 JAX, so the ranks' code lives in this module), joins a gloo group
@@ -1385,3 +1386,224 @@ def pp_gpipe_smoke(rank, world, pl):
         whole, lambda m, x: m(x).sum(),
         AdamW(1e-3, parameters=whole.parameters()), mesh=mesh))
     return losses, state, refused
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_mesh_checkpoint.py
+# ---------------------------------------------------------------------------
+
+def _mse(m, x, y):
+    from paddle_tpu_torch.core.tensor import unwrap
+    return ((unwrap(m(x)) - y) ** 2).mean()
+
+
+def ck_mlp(pl, mesh=None):
+    """The MLP of ``pl`` (``Linear(8, 16)``, GELU, ``Linear(16, 4)``, the
+    JAX net's weights) with AdamW, through the mesh step; at mp > 1 the
+    weights' optimizer state splits over mp (the JAX test's rule).
+    Returns (net, step)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.sharding_utils import P
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.resilience.manager import model_state
+    net = torch.nn.Sequential(nn.Linear(8, 16), nn.GELU(), nn.Linear(16, 4))
+    with torch.no_grad():
+        for k, t in model_state(net).items():
+            t.copy_(torch.from_numpy(pl["mlp_state"][k]))
+    opt = AdamW(pl["mlp_lr"], parameters=net.parameters())
+    rules = ([(r"\.weight$", P(None, "mp"))]
+             if mesh is not None and mesh.degree("mp") > 1 else None)
+    return net, CompiledTrainStep(net, _mse, opt, mesh=mesh,
+                                  shard_rules=rules)
+
+
+def ck_mlp_run(step, pl, lo, hi):
+    return [float(step(torch.from_numpy(pl["xs"][i]),
+                       torch.from_numpy(pl["ys"][i]))) for i in range(lo, hi)]
+
+
+def ck_mlp_params(net):
+    from paddle_tpu_torch.resilience.manager import model_state
+    return {k: _np(t) for k, t in model_state(net).items()}
+
+
+def ck_gpt(pl, mesh=None, over=None, state="state"):
+    """The GPT of ``pl["cfg"]`` + ``over`` (``pl[state]``'s weights; built
+    under the global mesh, a rank holds its shards) with AdamW, through
+    the mesh step; an MoE model's aux joins the loss.  Returns (model,
+    step)."""
+    from paddle_tpu_torch.jit import CompiledTrainStep
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = {**pl["cfg"], **(over or {})}
+    model = _gpt(cfg, pl[state])
+    opt = AdamW(pl["lr"], parameters=model.parameters())
+    crit = GPTPretrainingCriterion()
+    loss = (_moe_loss(crit) if cfg.get("num_experts", 0) > 0
+            else lambda m, x, y: crit(m(x), y))
+    return model, CompiledTrainStep(model, loss, opt, mesh=mesh)
+
+
+def ck_gpt_run(step, pl, lo, hi):
+    return [float(step(torch.from_numpy(pl["ids"][i]),
+                       torch.from_numpy(pl["labels"][i])))
+            for i in range(lo, hi)]
+
+
+def _ck_restore(step, root):
+    """Restore ``root``'s newest checkpoint into ``step``: (info, the
+    counters it moved)."""
+    from paddle_tpu_torch.profiler import counters
+    from paddle_tpu_torch.resilience import CheckpointManager
+    c0 = counters.snapshot()
+    info = CheckpointManager(root).restore(step)
+    d = counters.delta(c0)
+    info = {k: v for k, v in info.items() if k != "ms"}
+    return info, {k: d.get(k, 0) for k in (
+        "resilience.restores", "resilience.resharded_restores",
+        "jit.syncs")}
+
+
+def _ck_save(step, root, at):
+    """Save ``step`` as step ``at`` under ``root``: the counters it moved
+    and the bytes this rank wrote."""
+    from paddle_tpu_torch.profiler import counters
+    from paddle_tpu_torch.resilience import CheckpointManager
+    c0 = counters.snapshot()
+    mgr = CheckpointManager(root)
+    mgr.save(step, at)
+    d = counters.delta(c0)
+    return {"syncs": d.get("jit.syncs", 0), "saves":
+            d.get("resilience.saves", 0), "bytes": mgr.last_save["bytes"]}
+
+
+def _ck_gpt_leg(pl, degrees, root, over=None, state="state"):
+    """The GPT built under ``degrees``: 2 steps, a save (step 2) under
+    ``root``, 2 more; then a fresh model under the same mesh restores
+    and repeats the 2 (same-mesh).  Returns the record."""
+    from paddle_tpu_torch import distributed as D
+    D.set_mesh(None)
+    mesh = D.build_mesh(degrees)
+    model, step = ck_gpt(pl, mesh, over, state)
+    out = {"first": ck_gpt_run(step, pl, 0, 2)}
+    opt = step.optimizer
+    attr = dict(zip(opt._param_names, (
+        n for n, _ in torch.nn.Module.named_parameters(model))))
+    out["state_dict"] = {
+        acc: {attr[n]: _np(v) for n, v in store.items()}
+        for acc, store in opt.state_dict()["accumulators"].items()}
+    out["saved_state"] = model.gather_numpy_state()
+    out["save"] = _ck_save(step, root, 2)
+    out["cont"] = ck_gpt_run(step, pl, 2, 4)
+    out["final"] = model.gather_numpy_state()
+    model2, step2 = ck_gpt(pl, mesh, over, state)
+    out["same_info"], out["same_counts"] = _ck_restore(step2, root)
+    out["same_cont"] = ck_gpt_run(step2, pl, 2, 4)
+    out["same_final"] = model2.gather_numpy_state()
+    return out
+
+
+def _ck_trainer(pl, mesh, root, schedule=None):
+    """``FaultTolerantTrainer`` over the dp2 MLP: 6 steps of the global
+    batches, a save every 2, under ``schedule``."""
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.resilience import (CheckpointManager,
+                                             FaultTolerantTrainer,
+                                             faultinject)
+    import contextlib
+    net, step = ck_mlp(pl, mesh)
+    ds = tio.TensorDataset([torch.from_numpy(np.concatenate(pl["xs"])),
+                            torch.from_numpy(np.concatenate(pl["ys"]))])
+    trainer = FaultTolerantTrainer(
+        step, lambda e: tio.DataLoader(ds, batch_size=pl["xs"].shape[1],
+                                       shuffle=False),
+        CheckpointManager(root, keep_last=2), epochs=2, max_steps=6,
+        save_every=2)
+    with (faultinject.fault_schedule(schedule) if schedule
+          else contextlib.nullcontext()):
+        losses = trainer.run()
+    return {"losses": losses, "params": ck_mlp_params(net),
+            "recoveries": trainer.recoveries}
+
+
+def ck_2ranks(rank, world, pl):
+    """Two ranks: the JAX dp2 x mp2 saves restored at mp2 and their
+    continuations; the port's mp2 saves (MLP, GPT); the GPT at
+    ``sharding`` 2 saved, restored on the same mesh and at mp2; the sep2
+    GPT with dropout saved and restored; the dp2 trainer with and
+    without a preemption; ``counters.allreduce``."""
+    import os
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.profiler import counters
+    root = pl["root"]
+    out = {}
+    mesh = D.build_mesh({"mp": world})
+    # JAX -> port at mp2
+    net, step = ck_mlp(pl, mesh)
+    info, counts = _ck_restore(step, pl["jax_mlp_dir"])
+    out["jax_mlp"] = {"info": info, "counts": counts,
+                      "cont": ck_mlp_run(step, pl, 3, 5),
+                      "params": ck_mlp_params(net)}
+    model, step = ck_gpt(pl, mesh)
+    info, counts = _ck_restore(step, pl["jax_gpt_dir"])
+    out["jax_gpt"] = {"info": info, "counts": counts,
+                      "cont": ck_gpt_run(step, pl, 2, 4),
+                      "state": model.gather_numpy_state()}
+    # the port's mp2 saves, for the JAX package to restore
+    net, step = ck_mlp(pl, mesh)
+    first = ck_mlp_run(step, pl, 0, 3)
+    save = _ck_save(step, os.path.join(root, "mlp_mp2"), 3)
+    out["port_mlp"] = {"first": first, "save": save,
+                       "cont": ck_mlp_run(step, pl, 3, 5),
+                       "params": ck_mlp_params(net)}
+    model, step = ck_gpt(pl, mesh)
+    first = ck_gpt_run(step, pl, 0, 2)
+    saved = model.gather_numpy_state()
+    save = _ck_save(step, os.path.join(root, "gpt_mp2"), 2)
+    out["port_gpt"] = {"first": first, "save": save, "saved_state": saved,
+                       "qkv_w_shard": tuple(model.qkv_w.shape),
+                       "cont": ck_gpt_run(step, pl, 2, 4),
+                       "state": model.gather_numpy_state()}
+    # storage sharding: saved, restored on the same mesh and at mp2
+    out["sharding2"] = _ck_gpt_leg(pl, {"sharding": world},
+                                   os.path.join(root, "sharding2"))
+    D.set_mesh(None)
+    mesh = D.build_mesh({"mp": world})
+    model, step = ck_gpt(pl, mesh)
+    info, counts = _ck_restore(step, os.path.join(root, "sharding2"))
+    out["sharding2_to_mp2"] = {"info": info, "counts": counts,
+                               "cont": ck_gpt_run(step, pl, 2, 4),
+                               "state": model.gather_numpy_state()}
+    # the sequence split with dropout: every rank's streams
+    out["sep2"] = _ck_gpt_leg(pl, {"sep": world},
+                              os.path.join(root, "sep2"),
+                              {"dropout": 0.1, "context_parallel": True})
+    # the trainer over dp2
+    D.set_mesh(None)
+    mesh = D.build_mesh({"dp": world})
+    out["trainer"] = _ck_trainer(pl, mesh, os.path.join(root, "tr_base"))
+    out["trainer_preempt"] = _ck_trainer(
+        pl, mesh, os.path.join(root, "tr_preempt"), "preempt@3")
+    counters.inc("test.mesh_checkpoint.rank_plus_one", rank + 1)
+    out["allreduce"] = counters.allreduce()[
+        "test.mesh_checkpoint.rank_plus_one"]
+    return out
+
+
+def ck_pp_moe_2ranks(rank, world, pl):
+    """Two ranks: the pp2 GPT under GPipe and the interleaved schedule
+    (V 2), and the dp2 expert-parallel MoE GPT, each saved after 2 steps
+    and restored on the same mesh."""
+    import os
+    root = pl["root"]
+    out = {}
+    for name, degrees, over, state in (
+            ("pp_gpipe", {"pp": world}, None, "state"),
+            ("pp_interleaved", {"pp": world},
+             {"pp_schedule": "interleaved", "virtual_pp_degree": 2},
+             "state"),
+            ("moe_dp2", {"dp": world}, pl["moe_over"], "moe_state")):
+        out[name] = _ck_gpt_leg(pl, degrees, os.path.join(root, name),
+                                over, state)
+    return out

@@ -14,8 +14,8 @@ package's files.
   flipped in place (the archive's own CRC).
 * An interrupted re-save keeps the previous save loadable; the newest
   complete save wins and older ones are collected; async saves, their
-  errors and concurrent waiters; a world size above 1, a process group
-  and sharded chunks raise naming A7.
+  errors and concurrent waiters.  Saves over several processes and onto
+  other meshes are ``tests/test_torch_mesh_checkpoint.py``'s.
 
 Every comparison is exact (bytes).
 """
@@ -256,23 +256,6 @@ def test_concurrent_waiters_all_complete():
     assert not any(t.is_alive() for t in waiters)
     assert results == ["ok"] * 4
     assert not tck._ASYNC_THREADS
-
-
-def test_more_than_one_process_raises_naming_a7(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="A7"):
-        tck.save_state_dict({"w": torch.ones(2)}, str(tmp_path),
-                            process_group=object())
-    with pytest.raises(NotImplementedError, match="A7"):
-        tck.load_state_dict({"w": torch.ones(2)}, str(tmp_path),
-                            process_group=object())
-    with pytest.raises(NotImplementedError, match="A7"):
-        tck.ShardChunks.capture(torch.ones(2))
-    dist = torch.distributed
-    monkeypatch.setattr(dist, "is_available", lambda: True)
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="2 processes.*A7"):
-        tck.save_state_dict({"w": torch.ones(2)}, str(tmp_path))
 
 
 def test_jax_save_of_a_sharded_array_assembles_in_the_port(tmp_path):

@@ -219,13 +219,13 @@ def test_models_that_do_not_handle_the_split_refuse_a_sep_mesh(trained):
 def test_moe_and_mesh_serving_under_sep_refused(trained):
     """MoE's global-batch routing over dp x sep tokens is not ported (the
     ``ROADMAP.md`` item A7c-moe) and serving over a sep mesh is not
-    (A7c): each raises, naming its item."""
+    (the same item): each raises, naming it."""
     _, _, res2, _ = trained
     for out in res2:
         assert out["moe"].startswith("NotImplementedError")
         assert "A7c-moe" in out["moe"]
         assert out["serve_mesh"].startswith("NotImplementedError")
-        assert "A7c" in out["serve_mesh"]
+        assert "A7c-moe" in out["serve_mesh"]
 
 
 @pytest.mark.parametrize("flag", ["context_parallel", "sequence_parallel"])

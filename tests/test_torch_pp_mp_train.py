@@ -87,6 +87,10 @@ def test_sep_with_pp_refused(trained):
         for err in out["sep_refused"]:
             assert err.startswith("NotImplementedError"), err
             assert "A7e-sep" in err, err
+            # the advice names no route the mesh step refuses
+            assert "gpipe" not in err, err
+        assert "train long sequences over sep without pp" in \
+            out["sep_refused"][1], out["sep_refused"][1]
 
 
 def test_storage_sharding_with_pp_refused(trained):

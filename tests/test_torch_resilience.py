@@ -418,6 +418,7 @@ class _Baseline:
         assert d.get("resilience.recoveries", 0) == expect_recoveries
         assert d.get("resilience.restores", 0) == expect_recoveries
         assert trainer.goodput.report(publish=False)["accounted"] >= 0.99
+        self.faulted = trainer
         return net, opt, losses, d
 
 
@@ -442,7 +443,9 @@ class TestBitIdenticalResume:
         base = _Baseline(tmp_path / "base")
         _, _, losses, d = base.faulted_run(tmp_path / "faulted", "preempt@6")
         assert losses == base.losses
-        assert d.get("io.skipped_batches", 0) == 4   # replay from offset 4
+        # replay from offset 4: the batches this run's prefetchers skipped
+        # (the process-wide io.skipped_batches adds any other run's)
+        assert base.faulted.replayed_batches == 4
 
     @pytest.mark.parametrize("fused_steps", [1, 2])
     def test_loader_fault_recovery(self, tmp_path, fused_steps):
@@ -616,7 +619,9 @@ def test_jax_checkpoint_restores_into_the_port(tmp_path):
 
 def test_manifest_names_the_state_as_jax_does(tmp_path):
     """The port's manifest keeps the JAX layout: model/<name>,
-    opt/acc/<acc>/p<i>, opt/master/p<i> (none in fp32), the host block."""
+    opt/acc/<acc>/p<i>, opt/master/p<i> (none in fp32), the JAX random
+    keys rng/carry and rng/host (uint32 [2]), the host block; the port
+    adds its lr tensors and this rank's generators."""
     _, _, jstep, _, weights = _jax_build(use_sched=False)
     for x, y in list(JLoader(_jax_dataset(2), batch_size=4))[:1]:
         jstep(x, y)
@@ -629,11 +634,10 @@ def test_manifest_names_the_state_as_jax_does(tmp_path):
         with open(os.path.join(root, "step-00000001", "MANIFEST.json")) as f:
             return json.load(f)
     jm, tm = manifest(tmp_path / "jax"), manifest(tmp_path / "torch")
-    shared = {k: v for k, v in jm["arrays"].items()
-              if not k.startswith("rng/")}
+    shared = jm["arrays"]
     assert {k: tm["arrays"][k] for k in shared} == shared
     assert {k for k in tm["arrays"] if k not in shared} == {
-        "opt/lr/0", "rng/device/cpu"}
+        "opt/lr/0", "rng/rank0/device/cpu"}
     for k in ("global_step", "cursor", "opt_step", "scheduler", "scaler",
               "fused_steps"):
         assert tm["host"][k] == jm["host"][k], k
