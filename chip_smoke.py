@@ -5934,6 +5934,7 @@ def _extras_leg(leg, model, draft, mesh, prompts, new, phase, warm=True):
         engines = [r.engine for r in fleet._alive()]
         kv_bytes = sum(e.stats()["kv_pool_bytes_per_chip"] for e in engines)
         out["migrations"] = moved["serving.fleet.migrate.requests"]
+        out["wall_s"] = wall
         fleet.drain()
     out.update(tokens=[list(map(int, h.tokens)) for h in hs],
                launches=launches, decode_steps=steps,
@@ -6006,13 +6007,16 @@ def _serve_extras_rank(rank, world, pl):
     built under the mp2 mesh (this rank's shards), every leg of
     ``EXTRAS_LEGS`` on servemp's 8 requests and 24 new tokens, and K4 at
     the rank's 6 draft heads of 64 against its plain version on the spec
-    leg's draft pools (the fullest servemp batch's tables)."""
+    leg's draft pools (the fullest servemp batch's tables); then the
+    control plane's legs (``CONTROL_LEGS``, :func:`_control_leg`).
+    ``pl["legs"]``, when given, runs only those of ``EXTRAS_LEGS`` (the
+    control legs need ``fleet_pumped``)."""
     from paddle_tpu_torch import distributed as D
     mesh = D.build_mesh({"mp": world})
     model = _servemp_model()
     draft = _extras_draft()
     out = {}
-    for leg in EXTRAS_LEGS:
+    for leg in pl.get("legs", EXTRAS_LEGS):
         # the self-drafted leg checks accepted blocks: half the tokens do
         rec, engines = _extras_leg(leg, model, draft, mesh, pl["prompts"],
                                    SERVEMP_NEW // 2 if leg == "spec_self"
@@ -6032,6 +6036,20 @@ def _serve_extras_rank(rank, world, pl):
         torch.cuda.empty_cache()
     out["wte_shard"] = list(model.wte.shape)
     out["draft_wte_shard"] = list(draft.wte.shape)
+    del draft
+    _flight_to_build()      # both ranks' replica_died bundles, one place
+    ref = {"tokens": out["fleet_pumped"]["tokens"],
+           "wall_s": out["fleet_pumped"]["wall_s"]}
+    for leg in CONTROL_LEGS:
+        n, new = CONTROL_CUT.get(leg, (SERVEMP_N, SERVEMP_NEW))
+        out[leg] = _control_leg(leg, model, mesh, rank, pl["prompts"][:n],
+                                new, ref, f"serve_extras_mp2_{leg}_rank{rank}")
+        if leg == "fleet_int8":
+            ref["int8_tokens"] = out[leg]["tokens"]
+        if rank == 0:
+            emit({"phase": "serve_extras_mp2_control_leg", "leg": leg,
+                  "seconds": out[leg]["seconds"]})
+        torch.cuda.empty_cache()
     return out
 
 
@@ -6049,7 +6067,9 @@ def serve_extras_mp2_phase(sm, ref):
     each rank (== decode or draft steps x layers).  The self-drafted leg
     accepted drafted tokens on each rank; the draft's KV shard holds 6
     heads of 64; K4 at that slice equals its plain version.  Prints the
-    KV bytes a rank holds on each leg."""
+    KV bytes a rank holds on each leg.  Then the control plane's legs
+    (``CONTROL_LEGS``), gated on each rank (:func:`_control_leg`) and
+    across the ranks (:func:`_control_gates`)."""
     res = _spawn_ranks("_serve_extras_rank", 2, {
         "prompts": sm["prompts"], "bt": sm["snap"]["bt"],
         "pos": sm["snap"]["pos"]})
@@ -6100,6 +6120,7 @@ def serve_extras_mp2_phase(sm, ref):
     if record["spec"]["draft_kv_shard"][3:] != [6, 64]:
         raise AssertionError(f"serve_extras_mp2: draft KV shard "
                              f"{record['spec']['draft_kv_shard']}")
+    control = _control_gates(res)
     rows = ref["draft_rows"]
     k4 = rows["paged_decode_attention"]
     k4["launches"] = record["spec"]["launches"][0]["paged_decode_attention"]
@@ -6108,7 +6129,222 @@ def serve_extras_mp2_phase(sm, ref):
     emit({"phase": "serve_extras_mp2_times", "card": CARD,
           "heads": "6 x 64 (GPT-3 125M draft, mp2 slice)", "kernels": rows})
     return {"draft_6x64": k4, "launches": {
-        leg: record[leg]["launches"][0] for leg in EXTRAS_LEGS}}
+        **{leg: record[leg]["launches"][0] for leg in EXTRAS_LEGS},
+        **{leg: control[leg]["launches"] for leg in CONTROL_LEGS}}}
+
+
+# -- the fleet's control plane on a mesh (slice 17) --------------------------
+#: the control plane's legs of serve_extras_mp2, after ``EXTRAS_LEGS``:
+#: pumped fleets at mp2 on servemp's requests, rank 0 deciding.  (a)
+#: fleet_chaos: two unified replicas under ``replica_crash@0;
+#: decode_stall@1``, installed on rank 0 alone, the hung replica's
+#: heartbeat set back on rank 0 alone; fleet_chaos_disagg: a prefill +
+#: decode pair under ``kv_migrate_drop@0,kv_migrate_drop@2``; fleet_int8
+#: and fleet_chaos_int8: the unified pair with int8 KV + weights (K4q),
+#: clean (the int8 reference) and then under the crash and stall.  (b)
+#: fleet_autoscale: the pair with ``FLAGS_health`` on and the autoscaler
+#: (``max_replicas=3``), a TTFT burn recorded on rank 0 alone: one grow,
+#: then a retire.  (c) fleet_deadline: two unified replicas, every other
+#: request with a deadline of half the fleet_pumped leg's wall time
+CONTROL_LEGS = ("fleet_chaos", "fleet_chaos_disagg", "fleet_int8",
+                "fleet_chaos_int8", "fleet_autoscale", "fleet_deadline")
+#: requests (servemp's first) and new tokens of the chaos legs and the
+#: clean int8 fleet, cut for the time limit; the autoscale and deadline
+#: legs take servemp's 8 x 24 (the deadline is set from fleet_pumped's
+#: wall time at that size)
+CONTROL_CUT = {leg: (4, 12) for leg in CONTROL_LEGS[:4]}
+#: each faulted leg's schedule and the deaths and respawns it injects
+_CRASH_STALL = ("replica_crash@0;decode_stall@1",
+                {"serving.fleet.replica_deaths": 2,
+                 "serving.fleet.respawns": 2})
+CONTROL_FAULTS = {"fleet_chaos": _CRASH_STALL,
+                  "fleet_chaos_int8": _CRASH_STALL,
+                  "fleet_chaos_disagg": ("kv_migrate_drop@0,"
+                                         "kv_migrate_drop@2", {})}
+#: the counters a control leg's record prints and the ranks must share
+CONTROL_COUNTERS = ("serving.fleet.", "serving.autoscale.",
+                    "resilience.faults_injected", "serving.deadline_expired")
+
+
+def _control_autoscale(fleet, rank, submit):
+    """The autoscale leg's ticks t = 0..5: the health plane ticked here
+    only, a TTFT burn of 40 samples of 100 s recorded on rank 0 alone
+    before t = 1; the requests submitted and served before t = 0, and
+    again before t = 3 (the alert resolved at t = 2, on the grown fleet,
+    whose spawned replica the autoscaler retires at t = 3).  The handles and the roles
+    and alive count after each tick's pump."""
+    from paddle_tpu_torch.profiler import metrics
+    fleet.health.maybe_tick = lambda now=None: None
+    flags.set_flags({"FLAGS_health": True, "FLAGS_health_interval_s": 0.0})
+    hs, trail = [], []
+    try:
+        for t in range(6):
+            if t in (0, 3):
+                hs += submit()
+                while not all(h.is_finished for h in hs):
+                    fleet.pump()
+            if t == 1 and rank == 0:
+                hist = metrics.get_histogram("serving.ttft_ns", "ns")
+                for _ in range(40):
+                    hist.record(1e11)
+            fleet.health.tick(now=float(t))
+            fleet.pump()
+            st = fleet.stats()
+            trail.append((st["roles"], st["alive"]))
+    finally:
+        flags.set_flags({"FLAGS_health": False,
+                         "FLAGS_health_interval_s": 1.0})
+    return hs, trail
+
+
+def _control_leg(leg, model, mesh, rank, prompts, new, ref, phase):
+    """One control-plane leg on this rank (``CONTROL_LEGS``): a fresh
+    pumped fleet over the mesh, K4/K4q counts set to 0 just before its
+    counted run and read just after.  Gates on this rank: the faults'
+    deaths and respawns, zero lost, K4 (K4q) == decode steps x 24, every
+    pool reconciles, and the tokens equal the clean fleet's (``ref``: the
+    fleet_pumped leg's; the fleet_int8 leg's for fleet_chaos_int8) where
+    no deadline cut them (a cut request's are a prefix of them, and one
+    at least was cut mid-decode).  Returns the leg's record (with the
+    tokens of fleet_int8, the int8 reference)."""
+    from paddle_tpu_torch.profiler.health import SLO
+    L = model.config.num_layers
+    kv = "int8" if leg.endswith("int8") else None
+    kw = dict(replicas=2, **(EXTRAS_Q8 if kv else {}))
+    if leg in ("fleet_chaos_disagg", "fleet_autoscale"):
+        kw["prefill_replicas"] = 1
+    if leg == "fleet_autoscale":
+        kw.update(autoscale=True, autoscale_kw=dict(
+            cooldown_ticks=0, ok_streak=2, max_replicas=3),
+            health_kw=dict(rules=[SLO(
+                "ttft_burn", ("hist_p95", "serving.ttft_ns"), 1e10,
+                windows=((1.0, 1.0),), min_count=4)]))
+    t0 = time.perf_counter()
+    # no prefix cache: a replay (or the autoscale leg's second round)
+    # that hit the prefix its first prefill donated would prefill only
+    # the rest of the prompt, at other shapes, which moves bf16 logits;
+    # without it every prefill is the clean fleet's, bit for bit (whose
+    # random prompts share no prefix)
+    fleet = ServingFleet(model, mesh=mesh, threaded=False,
+                         heartbeat_timeout_s=30.0, max_retries=2,
+                         max_slots=8, max_seq_len=SERVEMP_S, min_bucket=8,
+                         kv_layout="paged", block_size=16,
+                         prefill_chunk=128, prefix_cache=False, **kw)
+    schedule, faults = CONTROL_FAULTS.get(leg, (None, {}))
+    # half the clean fleet's wall time for as many new tokens
+    deadline = (0.5 * ref["wall_s"] * new / SERVEMP_NEW
+                if leg == "fleet_deadline" else None)
+
+    def submit():
+        return [fleet.submit(p, max_new_tokens=new, seed=i,
+                             deadline_s=deadline if i % 2 else None)
+                for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    pa.reset_launch_counts()
+    before = counters.snapshot()
+    if rank == 0:
+        faultinject.set_schedule(schedule)
+    trail = None
+    try:
+        if leg == "fleet_autoscale":
+            hs, trail = _control_autoscale(fleet, rank, submit)
+        else:
+            hs = submit()
+            while not all(h.is_finished for h in hs):
+                fleet.pump()
+                for rep in fleet._alive():
+                    if rep.hung and rank == 0:
+                        rep.last_beat -= fleet.heartbeat_timeout_s + 1.0
+        torch.cuda.synchronize()
+        fired = sorted(faultinject.fired)
+    finally:
+        if rank == 0:
+            faultinject.clear()
+    moved = counters.delta(before)
+    launches = _launch_counts()
+    toks = [list(map(int, h.tokens)) for h in hs]
+    want = (None if leg == "fleet_int8" else
+            [w[:new] for w in (ref["int8_tokens"] if kv
+                               else ref["tokens"])[:len(prompts)]])
+    if leg == "fleet_deadline":
+        _fleet_gates(phase, fleet, [], moved, launches, L, None)
+        cut = [i for i, h in enumerate(hs) if h.finish_reason == "deadline"]
+        bad = [i for i, (h, w) in enumerate(zip(hs, want))
+               if h.finish_reason not in ("length", "deadline")
+               or toks[i] != w[:len(toks[i])]
+               or (h.finish_reason == "length" and toks[i] != w)]
+        if bad or not any(0 < len(toks[i]) < new for i in cut):
+            raise AssertionError(f"{phase}: requests {bad} differ from the "
+                                 f"reference, or none of {cut} was cut "
+                                 f"mid-decode ({[len(t) for t in toks]})")
+    else:
+        _fleet_gates(phase, fleet, hs, moved, launches, L, kv,
+                     want=want and want * (len(hs) // len(prompts)),
+                     faults=faults)
+    rec = {"seconds": time.perf_counter() - t0, "requests": len(prompts),
+           "new_tokens": new, "schedule": schedule,
+           "fired": fired, "launches": launches,
+           "decode_steps": moved.get("serving.decode_steps", 0),
+           "reasons": [h.finish_reason for h in hs],
+           "token_counts": [len(t) for t in toks],
+           "retries": [h.retries for h in hs], "deadline_s": deadline,
+           "rank_disagreements": sum(r.engine.stats()["rank_disagreements"]
+                                     for r in fleet._alive()),
+           "moved": {k: v for k, v in moved.items()
+                     if k.startswith(CONTROL_COUNTERS)
+                     and k not in counters._GAUGES}}
+    if fleet.autoscaler is not None:
+        rec.update(trail=trail, history=fleet.autoscaler.summary()[
+            "history"])
+    if leg == "fleet_int8":
+        rec["tokens"] = toks
+    fleet.drain()
+    del fleet
+    return rec
+
+
+def _control_gates(res):
+    """The control legs across the two ranks: no rank chose a token apart
+    from rank 0's; the faults fired, deaths, respawns, migrate drops,
+    autoscaler actions and history, finish reasons and token counts the
+    same on both ranks, the faults as scheduled and the autoscaler's
+    actions a grow and a retire.  Prints each leg's seconds and the
+    counters it moved; returns the records."""
+    fired_want = {"fleet_chaos": [("decode_stall", 1), ("replica_crash", 0)],
+                  "fleet_chaos_int8": [("decode_stall", 1),
+                                       ("replica_crash", 0)],
+                  "fleet_chaos_disagg": [("kv_migrate_drop", 0),
+                                         ("kv_migrate_drop", 2)]}
+    record = {"phase": "serve_extras_mp2_control", "card": CARD,
+              "model": "gpt3_760m bf16 (24 layers)", "mesh": "mp2 (gloo)"}
+    for leg in CONTROL_LEGS:
+        r0, r1 = (r[leg] for r in res)
+        record[leg] = {"seconds": [r0["seconds"], r1["seconds"]],
+                       **{k: v for k, v in r0.items()
+                          if k not in ("seconds", "tokens")}}
+    emit(record)
+    for leg in CONTROL_LEGS:
+        r0, r1 = (r[leg] for r in res)
+        same = ("fired", "reasons", "token_counts", "retries", "moved",
+                "history", "trail", "decode_steps", "launches")
+        diff = [k for k in same if r0.get(k) != r1.get(k)]
+        if diff or r0["rank_disagreements"] or r1["rank_disagreements"]:
+            raise AssertionError(f"serve_extras_mp2 {leg}: the ranks differ "
+                                 f"in {diff} or disagree: {r0} {r1}")
+        if r0["fired"] != fired_want.get(leg, []):
+            raise AssertionError(f"serve_extras_mp2 {leg}: fired "
+                                 f"{r0['fired']}")
+        if leg == "fleet_chaos_disagg" and r0["moved"].get(
+                "serving.fleet.migrate.dropped", 0) != 2:
+            raise AssertionError(f"serve_extras_mp2 {leg}: {r0['moved']}")
+        if leg == "fleet_autoscale" and (
+                [h["action"] for h in r0["history"]] != ["grow_prefill",
+                                                         "retire"]
+                or r0["moved"].get("serving.autoscale.spawns", 0) != 1
+                or r0["moved"].get("serving.autoscale.retires", 0) != 1):
+            raise AssertionError(f"serve_extras_mp2 {leg}: {r0['history']} "
+                                 f"{r0['moved']}")
+    return record
 
 
 def mesh_train_phase():

@@ -14,7 +14,9 @@ alert firing (``reason="health_<rule>"``), or an explicit
 ``flight.dump(reason, {...})``.
 
 Bundles land in ``FLAGS_flight_dir`` (default: a per-process directory
-under the temp dir); :func:`last_dump_path` names the latest.
+under the temp dir) as ``flight-<reason>-<seq>.json``, a rank above 0 of
+a process group as ``flight-<reason>-rank<r>-<seq>.json`` (ranks may
+share the directory); :func:`last_dump_path` names the latest.
 """
 
 from __future__ import annotations
@@ -154,14 +156,28 @@ def dump(reason, context=None, path=None):
         if path is None:
             d = dump_dir()
             os.makedirs(d, exist_ok=True)
+            # ranks that share FLAGS_flight_dir: a rank above 0 names its
+            # bundles by its rank, rank 0 (and one process) as the JAX
+            # recorder does
+            r = _rank()
+            tag = f"rank{r}-" if r else ""
             path = os.path.join(
-                d, f"flight-{_slug(reason)}-{next(_SEQ):04d}.json")
+                d, f"flight-{_slug(reason)}-{tag}{next(_SEQ):04d}.json")
         with open(path, "w") as f:
             json.dump(bundle, f, indent=1)
         _LAST_DUMP[0] = path
         _counters.inc("flight.dumps")
         _counters.inc(f"flight.dumps.{_slug(reason)}")
     return path
+
+
+def _rank():
+    """This process's rank in the default process group, 0 without
+    one."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
 
 
 def _slug(s):

@@ -30,6 +30,13 @@ every :meth:`pump` when not threaded); elsewhere::
     mon = HealthMonitor().attach(engine)
     mon.maybe_tick()        # from any periodic loop
 
+On a serving fleet over a mesh of more than one rank, the monitor of
+mesh rank 0 decides: it ticks inside the fleet's decision of each tick,
+and its alerts feed the router's health actions (the pick is rank 0's)
+and the autoscaler (rank 0 evaluates the policy, every rank applies its
+action).  A rank above 0 ticks its own monitor for its own counters and
+decides nothing from it.
+
 With ``FLAGS_health`` off ``maybe_tick`` is one cached-bool check: no
 snapshot, no ``health.*`` counter.  Time is the caller's: ``tick(now=)``
 and ``maybe_tick(now=)`` take it explicitly (``time.monotonic()`` by

@@ -101,6 +101,15 @@ Well-known sites
 Every fired fault is appended to :data:`fired` (``(site, index)`` tuples)
 and counted under ``resilience.faults_injected`` so tests and gates can
 assert exactly which faults fired.
+
+On a serving fleet over a mesh of more than one rank the schedule of
+mesh rank 0 governs: :func:`version` moves with every change (a new
+schedule, a clear, a firing), and whenever rank 0's has moved or is
+active the fleet's tick carries :func:`state` and every other rank
+installs it (:func:`install`) before it steps, so every rank fires the same
+entries at the same point and keeps the same :data:`fired` and
+``resilience.faults_injected.*``.  A schedule set on another rank alone
+is replaced at the next tick and fires nothing.
 """
 
 from __future__ import annotations
@@ -116,7 +125,8 @@ __all__ = [
     "InjectedFault", "InjectedWriteError", "InjectedLoaderError",
     "SimulatedCrash", "SimulatedPreemption",
     "set_schedule", "clear", "active", "maybe_fault", "take", "fired",
-    "fault_schedule", "install_sigterm_handler",
+    "fault_schedule", "install_sigterm_handler", "version", "state",
+    "install",
 ]
 
 
@@ -162,6 +172,7 @@ _EXC = {
 _LOCK = threading.Lock()
 _SCHEDULE: dict = {}   # (site, index) -> remaining fire count
 fired: list = []       # (site, index) log of every fault that fired
+_VERSION = [0]         # moves with every change of the schedule or fired
 
 
 def _parse(spec):
@@ -198,6 +209,7 @@ def set_schedule(spec):
         else:
             _SCHEDULE = _parse(spec)
         del fired[:]
+        _VERSION[0] += 1
 
 
 def clear():
@@ -224,9 +236,39 @@ def take(site, index):
         else:
             _SCHEDULE[key] = remaining - 1
         fired.append(key)
+        _VERSION[0] += 1
     _counters.inc("resilience.faults_injected")
     _counters.inc(f"resilience.faults_injected.{site}")
     return True
+
+
+def version():
+    """A number that moves with every change of the schedule or of
+    :data:`fired`."""
+    return _VERSION[0]
+
+
+def state():
+    """``(schedule, fired)``: copies of what :func:`install` takes."""
+    with _LOCK:
+        return dict(_SCHEDULE), list(fired)
+
+
+def install(schedule, fired_by_src):
+    """Take another rank's :func:`state`: its schedule, and its
+    :data:`fired`; each firing it holds beyond this rank's own is
+    counted here too, under ``resilience.faults_injected``."""
+    global _SCHEDULE
+    with _LOCK:
+        _SCHEDULE = dict(schedule)
+        mine = list(fired)
+        fired[:] = fired_by_src
+    for key in fired_by_src:
+        if key in mine:
+            mine.remove(key)
+        else:
+            _counters.inc("resilience.faults_injected")
+            _counters.inc(f"resilience.faults_injected.{key[0]}")
 
 
 def maybe_fault(site, index):

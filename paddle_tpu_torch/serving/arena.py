@@ -30,6 +30,15 @@ matmul meets, cut once when a tenant registers
 (``models.gpt.TensorParallel.lora_local``); the JAX arena keeps them
 replicated and lets GSPMD cut them at each call.
 
+On a mesh of more than one rank the arena also holds the mesh's
+:class:`RankZero` channel (:attr:`StateArena.rank_zero`): the decisions
+that read a clock, a thread's timing or a rank's own state (a fleet's
+picks, faults, crash verdicts and autoscaler actions; the deadline
+verdicts of an engine serving alone) are taken on mesh rank 0 and
+applied on every rank, over one gloo group built once per mesh and
+shared by a fleet and its replicas' engines.  The JAX package runs in
+one process with one clock and has no counterpart.
+
 The JAX arena also fronts a compile cache (``program``), rebinds donated
 pools (``bind``/``get``), wraps per-step operands (``operand``) and names
 the in-graph collectives its auditor allows (``expected_collectives``).
@@ -48,6 +57,8 @@ failing.
 """
 
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -101,6 +112,66 @@ _KV_POOLS = ("pool_k", "pool_v", "cache_k", "cache_v", "draft_pool_k",
              "draft_pool_v")
 
 
+class RankZero:
+    """Decisions taken on mesh rank 0 and applied on every rank, over a
+    gloo group of the mesh's ranks (:meth:`of`: one a mesh).  Every rank
+    calls the same methods in the same order, from the one thread that
+    drives its engines, so the object collectives of the ranks meet.
+    Each call counts one ``dist.collective_launches``."""
+
+    _BY_MESH = weakref.WeakKeyDictionary()
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+        self._dist = dist
+        ranks = mesh.group_ranks(mesh.axis_names)
+        self.src = ranks[0]
+        self.is_src = mesh.rank == self.src
+        self.group = dist.new_group(ranks, backend="gloo")
+
+    @classmethod
+    def of(cls, mesh):
+        """The channel of ``mesh``, built on first use (every rank of the
+        mesh builds it at the same point: ``new_group`` is collective)."""
+        rz = cls._BY_MESH.get(mesh)
+        if rz is None:
+            rz = cls._BY_MESH[mesh] = cls(mesh)
+        return rz
+
+    @staticmethod
+    def _run(fn):
+        try:
+            return ("ok", fn())
+        except Exception as e:  # noqa: BLE001 - every rank raises it
+            return ("raise", e)
+
+    @staticmethod
+    def _unbox(val):
+        kind, v = val
+        if kind == "raise":
+            raise v
+        return v
+
+    def decide(self, fn):
+        """``fn()`` on rank 0, broadcast: every rank returns its value,
+        or raises the exception it raised there."""
+        box = [self._run(fn) if self.is_src else None]
+        counters.inc("dist.collective_launches")
+        self._dist.broadcast_object_list(box, src=self.src, group=self.group)
+        return self._unbox(box[0])
+
+    def gather(self, mine, fn):
+        """``(fn() on rank 0, [mine of every rank])`` in one collective:
+        every rank contributes ``mine`` and gets every rank's, and rank
+        0's value of ``fn()`` (or raises the exception it raised)."""
+        box = (mine, self._run(fn) if self.is_src else None)
+        got = [None] * self._dist.get_world_size(self.group)
+        counters.inc("dist.collective_launches")
+        self._dist.all_gather_object(got, box, group=self.group)
+        return (self._unbox(got[self._dist.get_group_rank(
+            self.group, self.src)][1]), [g[0] for g in got])
+
+
 def _flatten(tree):
     """``{leaf name: leaf}`` of the decode-state tree (layer leaves by
     their own names)."""
@@ -137,6 +208,12 @@ class StateArena:
         inner = "".join(f"{a}{n}" for a, n in self.mesh.shape.items()
                         if n > 1)
         return f"[{inner}]"
+
+    @property
+    def rank_zero(self):
+        """The mesh's :class:`RankZero` on a mesh of more than one rank,
+        else None."""
+        return RankZero.of(self.mesh) if self.multi_device else None
 
     # -- spec resolution --------------------------------------------------
     def _degraded(self, msg):
@@ -245,4 +322,4 @@ class StateArena:
 
 
 __all__ = ["DEFAULT_SHARD_RULES", "EXPERT_SHARD_RULES", "KV_POOL_SPEC",
-           "StateArena"]
+           "RankZero", "StateArena"]

@@ -41,10 +41,16 @@ shard; the quantized pools' scale planes whole), KV migration between
 two engines over the same mesh and head split (each rank copies its
 shard), the speculative engine (the draft's weights and pools split
 like the target's when its heads divide ``mp``) and the fleet
-(``serving.fleet``).  ``deadline_s`` is refused on a mesh of more than
-one rank (the ranks' clocks would decide differently), as is a mesh
-with ``sep > 1`` (ROADMAP.md A7c-moe).  A mesh of one rank runs the
-same code, collectives included, and gives the same tokens as no mesh.
+(``serving.fleet``).  ``deadline_s`` serves on a mesh of more than one
+rank by mesh rank 0's clock: in a step where a queued or running
+request has a deadline, rank 0 names the requests past theirs and every
+rank evicts those (``arena.RankZero``; under a fleet the verdict rides
+in the fleet's tick).  Cancels act at the step after the caller's
+``cancel()``, so every rank's caller cancels between the same two steps
+(a fleet on such a mesh posts them and applies rank 0's count at a
+tick).  A mesh with ``sep > 1`` is refused (ROADMAP.md A7c-moe).  A
+mesh of one rank runs the same code, collectives included, and gives the
+same tokens as no mesh.
 
 The engine follows the model's device.  Each sampled request carries its
 own ``torch.Generator``, seeded from the request's ``seed``.
@@ -88,10 +94,6 @@ _TODO = {
     "mesh+sep": "ROADMAP.md A7c-moe (serving over a mesh with sep > 1; "
                 "a model built with sequence_parallel or context_parallel "
                 "serves without one)",
-    "mesh+fleet_control": "ROADMAP.md A7f-control (the fleet's fault "
-                          "injection and autoscaler on a mesh of more "
-                          "than one rank: their decisions are not yet "
-                          "taken on rank 0 and applied on every rank)",
 }
 
 
@@ -295,6 +297,11 @@ class LLMEngine:
         # passes the weights through untouched
         self.arena = StateArena(mesh=mesh, shard_rules=shard_rules)
         self._disagreed = None   # see _agree
+        # a multi-rank mesh's deadline verdicts (see _deadline_verdict):
+        # this step's, and the one a fleet's tick hands in (None: the
+        # engine asks rank 0 itself)
+        self._expired = None
+        self._fleet_verdict = None
         self._w = self.arena.declare_tree(
             "weights", ptq_int8_decode_state(model) if weight_dtype == "int8"
             else model.decode_state(), c.num_heads)
@@ -456,9 +463,6 @@ class LLMEngine:
         eos = eos_token_id if eos_token_id is not None else self.eos_token_id
         if seed is None:
             seed = int(np.random.randint(0, 2**31 - 1))
-        if deadline_s is not None and self.arena.multi_device:
-            raise ValueError("deadline_s on a mesh of more than one rank: "
-                             "the ranks' clocks would evict differently")
         deadline = (time.monotonic() + float(deadline_s)
                     if deadline_s is not None else None)
         req = Request(next(self._rid), ids, int(max_new_tokens),
@@ -545,22 +549,58 @@ class LLMEngine:
                 rtrace.finish(tr, reason, breached=breached)
         return True
 
+    def expired_rids(self):
+        """Ids of the queued and running requests past their deadline by
+        this rank's clock."""
+        now = time.monotonic()
+        with self._cond:
+            reqs = [r for r in self._slots if r is not None] \
+                + list(self._queue)
+        return sorted(r.rid for r in reqs
+                      if r.deadline is not None and now > r.deadline)
+
+    def _deadline_verdict(self):
+        """This step's deadline verdict on a mesh of more than one rank:
+        the ids of the requests past their deadline by mesh rank 0's
+        clock (a rank's own clock would evict at other steps), the one a
+        fleet's tick handed in, else asked of rank 0 in a step where a
+        queued or running request has a deadline (every rank's caller
+        gave the same ``deadline_s``, so every rank asks in the same
+        steps; a step without one issues no collective).  None off such
+        a mesh: each check reads this process's clock."""
+        if not self.arena.multi_device:
+            return None
+        if self._fleet_verdict is not None:
+            v, self._fleet_verdict = self._fleet_verdict, frozenset()
+            return v
+        with self._cond:
+            timed = any(r is not None and r.deadline is not None
+                        for r in (*self._slots, *self._queue))
+        if not timed:
+            return frozenset()
+        return frozenset(self.arena.rank_zero.decide(self.expired_rids))
+
+    def _past_deadline(self, req, now):
+        if self._expired is not None:
+            return req.rid in self._expired
+        return req.deadline is not None and now > req.deadline
+
     def _sweep(self, events):
         """Evict cancelled / past-deadline requests — active slots AND the
         admission queue, so a request whose deadline lapsed while queued
         never spends a prefill launch."""
+        self._expired = self._deadline_verdict()
         now = time.monotonic()
         for req in list(self._slots):
             if req is None:
                 continue
             if req._cancel:
                 self._finish(req, "cancelled", events)
-            elif req.deadline is not None and now > req.deadline:
+            elif self._past_deadline(req, now):
                 self._finish(req, "deadline", events)
         with self._cond:
             dead = [r for r in self._queue
-                    if r._cancel or (r.deadline is not None
-                                     and now > r.deadline)]
+                    if r._cancel or self._past_deadline(r, now)]
             for r in dead:
                 self._queue.remove(r)
             if dead:
@@ -649,7 +689,7 @@ class LLMEngine:
             if req._cancel:
                 self._finish(req, "cancelled", events)
                 continue
-            if req.deadline is not None and now > req.deadline:
+            if self._past_deadline(req, now):
                 counters.inc("serving.deadline_expired")
                 self._finish(req, "deadline", events)
                 continue

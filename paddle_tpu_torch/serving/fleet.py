@@ -34,22 +34,39 @@ health checks and fault-driven drain and respawn.
 
 * **On a mesh** (``mesh=``) every replica builds its engine over the
   same mesh (``LLMEngine(mesh=)``: this rank's shards), and every rank
-  builds the same fleet and receives the same ``submit`` calls.  What
-  reads a clock or thread timing is decided on mesh rank 0 and applied
-  on every rank (:class:`_RankZero`, object broadcasts over a gloo group
-  of the fleet's own): each replica pick with its ``RetryAfter`` and the
-  seed it draws when ``submit`` was given none, the stall verdicts, and
-  how many submitted requests a scheduler tick admits, so every
-  replica's engine starts each step from the same admitted set on every
-  rank.  The replicas' engines share the mesh's communicators, so
-  ``threaded=True`` runs one scheduler thread that ticks the fleet as
-  :meth:`pump` does (no monitor thread, no thread per replica): their
-  collectives never interleave, and ``submit`` posts its request to the
-  next tick, which picks the replica and admits it, and waits for it.
-  ``deadline_s`` is refused on a mesh of more than one rank, as by the
-  engine, and so are fault injection and ``autoscale=True``; a replica
-  whose step raises there fails the fleet instead of being respawned on
-  one rank alone (ROADMAP.md A7f-control).
+  builds the same fleet and receives the same calls.  The replicas'
+  engines share the mesh's communicators, so ``threaded=True`` runs one
+  scheduler thread that ticks the fleet as :meth:`pump` does (no
+  monitor thread, no thread per replica): their collectives never
+  interleave, and ``submit`` posts its request to the next tick, which
+  picks the replica and admits it, and waits for it.
+
+  On a mesh of more than one rank whatever reads a clock, a thread's
+  timing, a rank's own health plane or its own fault schedule is
+  decided on mesh rank 0 and applied on every rank at the same tick
+  (:class:`serving.arena.RankZero`, over the mesh's one gloo group).
+  Each replica pick is rank 0's, with its ``RetryAfter``, the
+  ``router_queue`` fault, the router's counters and the seed it draws
+  when ``submit`` was given none.  Each tick issues one object
+  collective (an all-gather) that carries rank 0's decisions and every
+  rank's crash reports: how many posted calls to apply (threaded
+  submits; cancels, which are always posted there, so a rank's caller
+  cancelling at another tick than rank 0's changes nothing; the user's
+  ``spawn_replica``, ``retire_replica`` and ``set_role``), the stall
+  verdicts, rank 0's fault schedule whenever it is active or moved
+  (every rank installs it before it steps, and the sites then fire
+  alike on every rank), the autoscaler's action (rank 0 ticks its
+  health plane and evaluates the policy; every rank applies the
+  action), each replica's deadline verdict (the requests past their
+  deadline by rank 0's clock), and whether a closed fleet drained.  A
+  replica whose step raised on a rank (an injected ``replica_crash`` or
+  any exception out of its step) is reported at the next tick and dies
+  on every rank when any rank reports it: drained, respawned (the new
+  engine built and warmed on every rank in the same order) and its
+  requests replayed at most once, as without a mesh.  A rank that
+  raises inside a collective of a step, or whose process dies, is not
+  covered: the other ranks wait in that collective until its timeout
+  (elastic serving, ROADMAP.md A7h).
 
 Every replica shares the model's weights; only the pools are per
 replica.  All replicas queue their work on the device's current stream
@@ -87,9 +104,10 @@ from ..profiler import health as _health
 from ..profiler import trace as rtrace
 from ..profiler.host_tracer import span
 from ..resilience import faultinject
+from .arena import RankZero
 from .autoscale import FleetAutoscaler
 from .engine import (EngineBackpressure, EngineClosed, LLMEngine,
-                     _not_ported, bucket_length, prompt_ids)
+                     bucket_length, prompt_ids)
 from .kvcache import BlockPoolExhausted, HostTierLost
 from .router import RetryAfter, Router
 
@@ -103,41 +121,14 @@ __all__ = ["FleetRequest", "Replica", "ServingFleet"]
 # stall detector.
 SLOW_DECODE_STALL_S = 0.02
 
+#: seconds a rank's scheduler waits for its caller to post what rank 0's
+#: caller posted (the same program runs on every rank)
+POST_WAIT_S = 600.0
 
-class _RankZero:
-    """Decisions a multi-rank mesh fleet takes on mesh rank 0 and applies
-    on every rank, over a gloo group of the mesh's ranks.  Only the
-    thread that ticks the fleet (the caller's under :meth:`ServingFleet.
-    pump`, else the scheduler thread) decides, so the broadcasts of the
-    ranks meet in one order."""
-
-    #: seconds a rank's scheduler waits for its caller to post what rank
-    #: 0's caller posted (the same program runs on every rank)
-    POST_WAIT_S = 600.0
-
-    def __init__(self, mesh):
-        import torch.distributed as dist
-        self._dist = dist
-        ranks = mesh.group_ranks(mesh.axis_names)
-        self.src = ranks[0]
-        self.is_src = mesh.rank == self.src
-        self.group = dist.new_group(ranks, backend="gloo")
-
-    def decide(self, fn):
-        """``fn()`` on rank 0, broadcast: every rank returns its value,
-        or raises the exception it raised there."""
-        val = None
-        if self.is_src:
-            try:
-                val = ("ok", fn())
-            except Exception as e:  # noqa: BLE001 - every rank raises it
-                val = ("raise", e)
-        box = [val]
-        self._dist.broadcast_object_list(box, src=self.src, group=self.group)
-        kind, v = box[0]
-        if kind == "raise":
-            raise v
-        return v
+#: the counters ``Router.pick`` moves: on a multi-rank mesh the pick is
+#: rank 0's, and every other rank moves them by as much
+_PICK_COUNTERS = ("serving.fleet.shed", "serving.fleet.health_shed",
+                  "serving.fleet.prefix_routed", "serving.fleet.adapter_routed")
 
 
 class FleetRequest:
@@ -152,7 +143,8 @@ class FleetRequest:
 
     __slots__ = ("rid", "prompt", "kw", "seed", "deadline_s", "deadline",
                  "state", "finish_reason", "error", "tokens", "retries",
-                 "replica_idx", "trace", "_er", "_lock", "_done", "_cancel")
+                 "replica_idx", "trace", "_er", "_lock", "_done", "_cancel",
+                 "_fleet")
 
     def __init__(self, rid, prompt, kw, seed, deadline_s):
         self.rid = rid
@@ -174,6 +166,7 @@ class FleetRequest:
         self._lock = threading.Lock()
         self._done = threading.Event()
         self._cancel = False
+        self._fleet = None            # a multi-rank mesh fleet: posts cancels
 
     @property
     def is_finished(self):
@@ -182,7 +175,15 @@ class FleetRequest:
     def cancel(self):
         """Thread-safe cancellation: flags this handle and the current
         engine attempt; a retry of a cancelled request finishes
-        immediately."""
+        immediately.  On a multi-rank mesh fleet the cancel is posted and
+        takes effect at the tick rank 0's count of posted calls reaches
+        it, on every rank alike."""
+        if self._fleet is not None:
+            self._fleet._post_op({"op": "cancel", "freq": self}, wait=False)
+            return
+        self._apply_cancel()
+
+    def _apply_cancel(self):
         self._cancel = True
         er = self._er
         if er is not None:
@@ -318,8 +319,6 @@ class ServingFleet:
                  restore_cost=0.5, mesh=None, shard_rules=None,
                  adapter_slots=0, adapter_rank=8):
         multi = mesh is not None and mesh.size > 1
-        if multi and autoscale:
-            raise _not_ported("mesh+fleet_control")
         self.model = model
         prefill_replicas = int(prefill_replicas)
         if prefill_replicas:
@@ -350,10 +349,16 @@ class ServingFleet:
             self._engine_kw.update(mesh=mesh, shard_rules=shard_rules)
         # a multi-rank mesh takes its timing-dependent decisions on rank
         # 0; a threaded mesh fleet ticks from one scheduler thread (the
-        # replicas share the mesh's communicators), and submit posts to it
-        self._rz = _RankZero(mesh) if multi else None
-        self._posted = deque() if mesh is not None and threaded else None
+        # replicas share the mesh's communicators), and submit posts to
+        # it; calls posted to the next tick (see _post_op) wait here
+        self._rz = RankZero.of(mesh) if multi else None
+        self._sched = mesh is not None and bool(threaded)
+        self._posted = deque()
         self._posted_cv = threading.Condition()
+        # replicas whose step raised on this rank: a multi-rank mesh's
+        # next tick gathers every rank's and drains them on every rank
+        self._crashed = {}
+        self._fi_seen = None     # rank 0's fault-schedule version carried
         self._sched_thread = None
         self._sched_error = None
         if draft_model is not None:
@@ -393,7 +398,7 @@ class ServingFleet:
         self._idx = itertools.count()
         self._rid = itertools.count()
         # probe one engine for the resolved S_max (max_seq_len may be None)
-        probe = LLMEngine(model, **self._engine_kw)
+        probe = self._engine()
         self._seq_len = probe.max_seq_len
         self._min_bucket = probe.min_bucket
         self._warm_lens = {bucket_length(int(n), self._min_bucket,
@@ -410,7 +415,7 @@ class ServingFleet:
         self._publish_roles()
         self._monitor_stop = threading.Event()
         self._monitor_thread = None
-        if self.threaded and self._posted is not None:
+        if self._sched:
             self._sched_thread = threading.Thread(
                 target=self._scheduler_loop, name="fleet-scheduler",
                 daemon=True)
@@ -426,13 +431,23 @@ class ServingFleet:
             return [r for r in self._replicas if r.alive]
 
     def _candidates(self):
-        return [r for r in self._alive() if r.warmed]
+        return [r for r in self._alive()
+                if r.warmed and r.idx not in self._crashed]
+
+    def _replica(self, idx):
+        """The alive replica ``idx``, else None."""
+        return next((r for r in self._alive() if r.idx == idx), None)
+
+    def _engine(self):
+        eng = LLMEngine(self.model, **self._engine_kw)
+        if self._rz is not None:
+            # its deadline verdicts ride in the fleet's tick
+            eng._fleet_verdict = frozenset()
+        return eng
 
     def _spawn(self, role=None):
         """Create + warm a replica, then let it join dispatch."""
-        rep = Replica(next(self._idx), LLMEngine(self.model,
-                                                 **self._engine_kw),
-                      role=role)
+        rep = Replica(next(self._idx), self._engine(), role=role)
         self._replay_adapters(rep)
         self._warm(rep)
         self._install(rep)
@@ -477,14 +492,28 @@ class ServingFleet:
         """Flip one replica's fleet role (the autoscaler's rebalance
         primitive).  In-flight requests are untouched — they finish where
         they run; only FUTURE routing and hold-after-prefill decisions
-        see the new role."""
+        see the new role.  On a multi-rank mesh the call is posted to the
+        next tick (:meth:`_post_op`)."""
+        if self._rz is not None:
+            return self._post_op({"op": "role", "idx": rep.idx,
+                                  "role": role})
+        return self._set_role(rep, role)
+
+    def _set_role(self, rep, role):
         rep.role = role
         self._publish_roles()
 
     def spawn_replica(self, role=None):
-        """Grow the fleet by one warmed replica (autoscaler/public API)."""
+        """Grow the fleet by one warmed replica (autoscaler/public API).
+        On a multi-rank mesh the call is posted to the next tick
+        (:meth:`_post_op`): a threaded fleet returns the replica once that
+        tick built it on every rank, a pumped one returns None and the
+        replica joins at the next :meth:`pump`."""
         if self._rz is not None:
-            raise _not_ported("mesh+fleet_control")
+            return self._post_op({"op": "spawn", "role": role})
+        return self._spawn_replica(role)
+
+    def _spawn_replica(self, role=None):
         if self._closed:
             return None
         rep = self._spawn(role=role)
@@ -496,7 +525,7 @@ class ServingFleet:
         with self._lock:
             self._replicas.append(rep)
         counters.set_gauge("serving.fleet.replicas", len(self._alive()))
-        if self.threaded and self._posted is None:
+        if self.threaded and not self._sched:
             rep.thread = threading.Thread(
                 target=self._worker, args=(rep,),
                 name=f"fleet-replica-{rep.idx}", daemon=True)
@@ -529,9 +558,13 @@ class ServingFleet:
         work it still held is requeued WITHOUT burning retry budget or
         death counters — a retire is an operator decision, not a fault.
         The autoscaler only retires idle replicas, so the requeue set is
-        normally empty."""
+        normally empty.  On a multi-rank mesh the call is posted to the
+        next tick (:meth:`_post_op`)."""
         if self._rz is not None:
-            raise _not_ported("mesh+fleet_control")
+            return self._post_op({"op": "retire", "idx": rep.idx})
+        return self._retire_replica(rep)
+
+    def _retire_replica(self, rep):
         with self._lock:
             if not rep.alive:
                 return
@@ -653,25 +686,15 @@ class ServingFleet:
         if self._closed:
             raise EngineClosed("fleet is drained; no new requests")
         ids = prompt_ids(prompt)
-        if self._rz is not None:
-            if deadline_s is not None:
-                raise ValueError("deadline_s on a mesh of more than one "
-                                 "rank: the ranks' clocks would evict "
-                                 "differently")
-            if faultinject.active():
-                raise _not_ported("mesh+fleet_control")
         if seed is None and self._rz is None:
             seed = int(np.random.randint(0, 2**31 - 1))
         rid = next(self._rid)
-        try:
-            faultinject.maybe_fault("router_queue", rid)
-        except faultinject.InjectedFault as e:
-            counters.inc("serving.fleet.shed")
-            raise RetryAfter(
-                f"router queue fault for request {rid}: {e}",
-                queue_depth=sum(r.engine.stats()["queued"]
-                                for r in self._alive()),
-                retry_after_hint=0.0, reason="router_queue") from e
+        if self._rz is None:
+            # a multi-rank mesh fires this fault in rank 0's pick
+            try:
+                faultinject.maybe_fault("router_queue", rid)
+            except faultinject.InjectedFault as e:
+                raise self._queue_fault(rid, e) from e
         kw = dict(max_new_tokens=int(max_new_tokens),
                   do_sample=bool(do_sample), temperature=float(temperature),
                   top_k=int(top_k), top_p=float(top_p),
@@ -684,6 +707,8 @@ class ServingFleet:
             kw["adapter"] = adapter
         freq = FleetRequest(rid, ids, kw, None if seed is None else int(seed),
                             deadline_s)
+        if self._rz is not None:
+            freq._fleet = self
         freq.trace = rtrace.new_trace(rid)
         est = int(ids.shape[0]) + int(max_new_tokens)
         t0_tr = (time.perf_counter_ns() if freq.trace is not None else 0)
@@ -693,10 +718,13 @@ class ServingFleet:
                        role="prefill" if self._has_role("prefill") else None,
                        adapter=adapter)
         try:
-            if self._posted is not None:
-                rep = self._post(freq, pick_kw)
-            else:
-                rep = self._admit(freq, pick_kw)
+            try:
+                rep = (self._post_op({"op": "submit", "freq": freq,
+                                      "pick_kw": pick_kw})
+                       if self._sched else self._admit(freq, pick_kw))
+            except faultinject.InjectedFault as e:
+                # a multi-rank mesh: rank 0's pick fired router_queue
+                raise self._queue_fault(rid, e) from e
         except RetryAfter:
             if freq.trace is not None:
                 rtrace.finish(freq.trace, "shed")
@@ -715,6 +743,14 @@ class ServingFleet:
             self._requests.append(freq)
         counters.inc("serving.fleet.dispatched")
         return freq
+
+    def _queue_fault(self, rid, e):
+        """The ``RetryAfter`` of a ``router_queue`` fault."""
+        counters.inc("serving.fleet.shed")
+        return RetryAfter(f"router queue fault for request {rid}: {e}",
+                          queue_depth=sum(r.engine.stats()["queued"]
+                                          for r in self._alive()),
+                          retry_after_hint=0.0, reason="router_queue")
 
     def _dispatch(self, freq, rep=None):
         """Hand a fleet request to a replica engine (fresh or retry)."""
@@ -763,7 +799,8 @@ class ServingFleet:
         ``pick_kw``; a seedless request's seed drawn after it) and hand
         the request to it; returns the replica."""
         rep, drawn = self._pick(self._candidates(),
-                                draw_seed=freq.seed is None, **pick_kw)
+                                draw_seed=freq.seed is None,
+                                fault_rid=freq.rid, **pick_kw)
         if freq.seed is None:
             # a mesh fleet: the seed rank 0 drew, the same on every rank
             freq.seed = drawn
@@ -774,60 +811,103 @@ class ServingFleet:
                                           self._min_bucket, self._seq_len))
         return rep
 
-    def _pick(self, candidates, draw_seed=False, **kw):
+    def _pick(self, candidates, draw_seed=False, fault_rid=None, **kw):
         """``(replica, seed)``: ``Router.pick`` over ``candidates`` and,
         with ``draw_seed``, a request seed drawn after it (else None); on
-        a multi-rank mesh rank 0's, broadcast.  Called only from the
+        a multi-rank mesh rank 0's, broadcast, with the ``router_queue``
+        fault of a submit (``fault_rid``) fired in it and the router's
+        counters moved on every rank as on rank 0.  Called only from the
         thread that ticks the fleet when it has a mesh, where every
         rank's replica list is the same."""
         def pick():
+            if fault_rid is not None and self._rz is not None:
+                faultinject.maybe_fault("router_queue", fault_rid)
             rep = self.router.pick(candidates, **kw)
             if not draw_seed:
                 return rep.idx, None
             return rep.idx, int(np.random.randint(0, 2**31 - 1))
+
+        def mirrored():
+            before = [counters.get(k) for k in _PICK_COUNTERS]
+            try:
+                out, err = pick(), None
+            except Exception as e:  # noqa: BLE001 - raised on every rank
+                out, err = None, e
+            return out, err, [counters.get(k) - b for k, b in
+                              zip(_PICK_COUNTERS, before)]
         if self._rz is None:
             idx, seed = pick()
         else:
-            idx, seed = self._rz.decide(pick)
+            out, err, moved = self._rz.decide(mirrored)
+            if not self._rz.is_src:
+                for k, m in zip(_PICK_COUNTERS, moved):
+                    if m:
+                        counters.inc(k, m)
+            if err is not None:
+                raise err
+            idx, seed = out
         return next(r for r in candidates if r.idx == idx), seed
 
-    def _post(self, freq, pick_kw):
-        """A threaded mesh fleet's submit: the scheduler's next tick
-        admits the request (:meth:`_admit`); wait for it and return the
-        replica, or raise what the admission raised there."""
-        post = {"freq": freq, "pick_kw": pick_kw, "done": threading.Event()}
+    def _post_op(self, post, wait=True):
+        """Post a call to the next tick: a threaded mesh fleet's submit,
+        and on a multi-rank mesh a cancel or the user's ``spawn_replica``,
+        ``retire_replica`` or ``set_role``.  The tick applies as many
+        posted calls as rank 0's caller has posted, in post order, on
+        every rank (:meth:`_apply_posted`).  With ``wait`` on a threaded
+        fleet, wait for that tick and return what the call returned there
+        (or raise what it raised); else return None."""
+        post["done"] = threading.Event()
         with self._posted_cv:
             self._posted.append(post)
             self._posted_cv.notify_all()
+        if not (wait and self._sched):
+            return None
         while not post["done"].wait(0.05):
             self._check_scheduler()
         if "error" in post:
             raise post["error"]
-        return post["rep"]
+        return post.get("rep")
 
-    def _admit_posted(self, n):
-        """Admit the first ``n`` posted submits (rank 0's count: wait
-        until this rank's caller has posted as many), in post order, and
-        wake their callers."""
+    def _apply_posted(self, n):
+        """Apply the first ``n`` posted calls (rank 0's count: a threaded
+        fleet waits until this rank's caller has posted as many), in post
+        order, and wake their callers."""
         if not n:
             return
-        deadline = time.monotonic() + _RankZero.POST_WAIT_S
+        deadline = time.monotonic() + POST_WAIT_S
         with self._posted_cv:
             while len(self._posted) < n:
-                if not self._posted_cv.wait(
-                        max(0.0, deadline - time.monotonic())):
+                left = deadline - time.monotonic()
+                if not self.threaded or not self._posted_cv.wait(
+                        max(0.0, left)):
                     raise RuntimeError(
-                        f"fleet: rank 0 admitted {n} posted requests, "
-                        f"this rank's caller posted {len(self._posted)} "
-                        f"in {_RankZero.POST_WAIT_S} s")
+                        f"fleet: rank 0 applied {n} posted calls, this "
+                        f"rank's caller posted {len(self._posted)}"
+                        + (f" in {POST_WAIT_S} s"
+                           if self.threaded else " before this pump"))
             posts = [self._posted.popleft() for _ in range(n)]
         for post in posts:
             try:
-                post["rep"] = self._admit(post["freq"], post["pick_kw"])
-            except Exception as e:  # noqa: BLE001 - raised by its submit
+                post["rep"] = self._apply_op(post)
+            except Exception as e:  # noqa: BLE001 - raised by its caller
                 post["error"] = e
             finally:
                 post["done"].set()
+
+    def _apply_op(self, post):
+        op = post["op"]
+        if op == "submit":
+            return self._admit(post["freq"], post["pick_kw"])
+        if op == "cancel":
+            return post["freq"]._apply_cancel()
+        if op == "spawn":
+            return self._spawn_replica(post["role"])
+        rep = self._replica(post["idx"])
+        if rep is None:
+            return None
+        if op == "retire":
+            return self._retire_replica(rep)
+        return self._set_role(rep, post["role"])
 
     def _flush_pending(self, rep):
         """Drain the fleet-level retry overflow into ``rep`` while it has
@@ -1123,32 +1203,75 @@ class ServingFleet:
         as a replica stall — only a replica that stopped progressing
         inside the scheduler (``hung``) keeps its old beat and trips the
         detector."""
+        self._stamp()
+        return self._tick()[0]
+
+    def _stamp(self):
         now = time.monotonic()
         for rep in self._alive():
             if not rep.hung:
                 rep.last_beat = now
-        return self._tick()[0]
+
+    def _decide(self):
+        """This tick's decisions as this process sees them: how many
+        posted calls to apply, the stalled replicas, whether the closed
+        fleet has drained.  On a multi-rank mesh (run on rank 0) also the
+        health plane's tick, the autoscaler's action, the fault schedule
+        (when active or moved since it was last carried) and each
+        replica's deadline verdict."""
+        with self._posted_cv:
+            n = len(self._posted)
+        dec = {"n": n, "stalled": self._stalled(),
+               "drained": self._closed and n == 0 and not self.has_work()}
+        if self._rz is None:
+            return dec
+        self.health.maybe_tick()
+        v = faultinject.version()
+        dec.update(
+            plan=(self.autoscaler.plan() if self.autoscaler is not None
+                  else None),
+            faults=(faultinject.state() if faultinject.active()
+                    or v != self._fi_seen else None),
+            expired={r.idx: e for r in self._alive()
+                     for e in (r.engine.expired_rids(),) if e})
+        self._fi_seen = v
+        return dec
 
     def _tick(self):
         """The fleet's scheduler tick (:meth:`pump`, and a threaded mesh
-        fleet's scheduler thread).  Decides how many posted submits to
-        admit, which replicas stalled and whether the closed fleet has
-        drained (rank 0's view, broadcast, on a multi-rank mesh); admits
-        them, drains the stalled replicas, ticks the health plane and the
-        autoscaler, then steps every alive replica once in index order.
-        Returns ``(progressed, drained)``."""
-        def decide():
-            n = 0
-            if self._posted is not None:
-                with self._posted_cv:
-                    n = len(self._posted)
-            drained = self._closed and n == 0 and not self.has_work()
-            return n, self._stalled(), drained
-        n, stalled, drained = (decide() if self._rz is None
-                               else self._rz.decide(decide))
-        self._admit_posted(n)
-        self._supervise(stalled)
-        progressed = n > 0
+        fleet's scheduler thread).  Decides (:meth:`_decide`; on a
+        multi-rank mesh rank 0's view with every rank's crash reports,
+        one all-gather), applies the decisions — crashed replicas
+        drained, posted calls applied, stalled replicas drained, the
+        health plane and the autoscaler ticked — then steps every alive
+        replica once in index order.  Returns ``(progressed, drained)``."""
+        crashed = ()
+        if self._rz is None:
+            dec = self._decide()
+        else:
+            dec, reports = self._rz.gather(sorted(self._crashed),
+                                           self._decide)
+            crashed = sorted(set().union(*reports))
+            self._apply_faults(dec["faults"])
+            for idx in crashed:
+                rep = self._replica(idx)
+                exc = self._crashed.pop(idx, None)
+                if rep is not None:
+                    self._replica_died(rep, "crash", exc)
+            self._crashed.clear()
+        self._apply_posted(dec["n"])
+        if self._rz is None:
+            self._supervise(dec["stalled"])
+        else:
+            self.check_health(dec["stalled"])
+            if not self._rz.is_src:
+                self.health.maybe_tick()    # this rank's own counters
+            if self.autoscaler is not None:
+                self.autoscaler.apply(dec["plan"])
+            for rep in self._alive():
+                rep.engine._fleet_verdict = frozenset(
+                    dec["expired"].get(rep.idx, ()))
+        progressed = dec["n"] > 0 or bool(crashed)
         for rep in self._alive():
             try:
                 progressed |= self._step_replica(rep)
@@ -1156,12 +1279,23 @@ class ServingFleet:
                 raise
             except BaseException as e:   # incl. injected SimulatedCrash
                 if self._rz is not None:
-                    # the other ranks cannot take this verdict with us
-                    # (ROADMAP.md A7f-control): the fleet fails
-                    raise
-                self._replica_died(rep, "crash", e)
+                    # the next tick's verdict, taken with the other ranks
+                    self._crashed[rep.idx] = e
+                else:
+                    self._replica_died(rep, "crash", e)
                 progressed = True
-        return progressed, drained
+        return progressed, dec["drained"] and not crashed
+
+    def _apply_faults(self, faults):
+        """Take rank 0's fault schedule (``faults``: its state, or None
+        when rank 0's is empty and unchanged since it was last carried)
+        before this tick steps, on a rank above 0."""
+        if self._rz.is_src:
+            return
+        if faults is not None:
+            faultinject.install(*faults)
+        elif faultinject.active():
+            faultinject.install({}, faultinject.state()[1])
 
     def _scheduler_loop(self):
         """A threaded mesh fleet's one scheduler thread: tick until the
@@ -1217,7 +1351,7 @@ class ServingFleet:
 
     # -- conveniences --------------------------------------------------------
     def has_work(self):
-        if self._posted:
+        if self._posted or self._crashed:
             return True
         with self._lock:
             if self._pending:
@@ -1276,7 +1410,15 @@ class ServingFleet:
             with self._posted_cv:
                 self._posted_cv.notify_all()
             self._sched_thread.join(timeout=600.0)
-        while self._sched_thread is None and self.has_work():
+        if self._sched_thread is None and self._rz is not None:
+            # a pumped multi-rank fleet: rank 0's verdict ends the ticks
+            # on every rank at once
+            while time.monotonic() - t0 <= 600.0:
+                self._stamp()
+                if self._tick()[1]:
+                    break
+        while self._sched_thread is None and self.has_work() \
+                and self._rz is None:
             if self.threaded:
                 time.sleep(0.002)
                 self.check_health()

@@ -629,7 +629,7 @@ class PagedLLMEngine(LLMEngine):
             if req._cancel:
                 self._finish(req, "cancelled", events)
                 continue
-            if req.deadline is not None and now > req.deadline:
+            if self._past_deadline(req, now):
                 counters.inc("serving.deadline_expired")
                 self._finish(req, "deadline", events)
                 continue
@@ -798,7 +798,10 @@ class PagedLLMEngine(LLMEngine):
                 "top_p": req.top_p,
                 "eos_token_id": req.eos_token_id,
                 "seed": req.seed,
-                "deadline": req.deadline,
+                # the seconds left, so another process's clock (the
+                # adopting engine's) does not shift the deadline
+                "deadline_left_s": (None if req.deadline is None
+                                    else req.deadline - time.monotonic()),
                 "arrival_ns": req.arrival_ns,
                 "last_emit_ns": req.last_emit_ns,
                 "tok": int(self._tok[slot]),
@@ -955,7 +958,10 @@ class PagedLLMEngine(LLMEngine):
                           int(mig["max_new_tokens"]), bool(mig["do_sample"]),
                           float(mig["temperature"]), int(mig["top_k"]),
                           float(mig["top_p"]), mig["eos_token_id"],
-                          int(mig["seed"]), mig["deadline"], self)
+                          int(mig["seed"]),
+                          (None if mig["deadline_left_s"] is None
+                           else time.monotonic() + mig["deadline_left_s"]),
+                          self)
             req.tokens = list(mig["tokens"])
             req.arrival_ns = mig["arrival_ns"]
             req.last_emit_ns = mig["last_emit_ns"]

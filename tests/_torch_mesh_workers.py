@@ -4,8 +4,8 @@
 ``test_torch_mesh_serving_extras.py``, ``test_torch_mesh_train.py``, ``test_torch_moe_mesh.py``,
 ``test_torch_ring_attention.py``, ``test_torch_sequence_parallel.py``,
 ``test_torch_cp_train.py``, ``test_torch_pp_train.py``,
-``test_torch_gpt_train.py`` and ``test_torch_mesh_checkpoint.py`` run
-the JAX package in the pytest
+``test_torch_gpt_train.py``, ``test_torch_mesh_checkpoint.py`` and
+``test_torch_mesh_fleet_control.py`` run the JAX package in the pytest
 process and the port's ranks in processes spawned here: each child
 imports ``torch`` and ``paddle_tpu_torch`` only (the test files import
 JAX, so the ranks' code lives in this module), joins a gloo group
@@ -21,6 +21,7 @@ them (a rank that fails makes every result raise, with its traceback).
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import pickle
@@ -238,12 +239,6 @@ def serving_mp2(rank, world, pl):
         parts = [torch.empty_like(mine) for _ in range(world)]
         torch.distributed.all_gather(parts, mine)
         out[f"pa_{kind}"] = (_np(torch.cat(parts, 1)), _np(want))
-    # what a two-rank mesh still refuses
-    out["refused"] = {
-        "deadline": _raises(lambda: LLMEngine(
-            model, kv_layout="paged", mesh=mesh, max_seq_len=32).add_request(
-                [1, 2], max_new_tokens=2, deadline_s=5.0)),
-    }
     return out
 
 
@@ -385,28 +380,6 @@ def extras_fleet_stall(Fleet, model, mesh, prompts, rank, new=20):
                   d.get("serving.fleet.respawns", 0))
 
 
-def _fleet_crash_raises(Fleet, model, mesh, prompts):
-    """A replica whose step raises on a two-rank mesh: ``pump`` raises
-    it on every rank and nothing respawns.  The error and the respawn
-    count."""
-    from paddle_tpu_torch.profiler import counters
-    fleet = Fleet(model, replicas=1, mesh=mesh, threaded=False,
-                  **EXTRAS_FLEET)
-    before = counters.snapshot()
-    eng = fleet._alive()[0].engine
-    try:
-        fleet.submit(prompts[0], max_new_tokens=3, seed=1)
-
-        def boom():
-            raise RuntimeError("replica step failed")
-        eng.step = boom
-        msg = _raises(fleet.pump)
-    finally:
-        del eng.step
-        fleet.drain()
-    return msg, counters.delta(before).get("serving.fleet.respawns", 0)
-
-
 def _lora_tp_check(eng, single, model, rank, world):
     """The LoRA update under ``TensorParallel``: a column-parallel (qkv)
     and a row-parallel (proj) product on this rank's shards and this
@@ -542,30 +515,440 @@ def serving_extras_mp2(rank, world, pl):
                                             prompts, rank)
     out["fleet_stall_ref"] = extras_fleet(ServingFleet, model, None,
                                           prompts, new=20)
-    out["refused"] = {
-        "deadline": _raises(lambda: LLMEngine(
-            model, kv_layout="paged", mesh=mesh, max_seq_len=32).add_request(
-                [1, 2], max_new_tokens=2, deadline_s=5.0)),
-        "fleet_autoscale": _raises(lambda: ServingFleet(
-            model, replicas=2, prefill_replicas=1, kv_layout="paged",
-            max_seq_len=32, mesh=mesh, threaded=False, autoscale=True)),
-        "fleet_chaos": _raises(lambda: _chaos_submit(ServingFleet, model,
-                                                     mesh)),
-    }
-    out["fleet_crash"] = _fleet_crash_raises(ServingFleet, model, mesh,
-                                             prompts)
     return out
 
 
-def _chaos_submit(Fleet, model, mesh):
-    from paddle_tpu_torch.resilience import faultinject
-    fleet = Fleet(model, replicas=1, kv_layout="paged", max_seq_len=32,
-                  mesh=mesh, threaded=False)
+# ---------------------------------------------------------------------------
+# tests/test_torch_mesh_fleet_control.py: the fleet's control plane at
+# mp2.  Scenarios take the fleet (or engine) class, so the test process
+# runs the same ones on the JAX package's over its two-device mesh;
+# ``rank`` is the mesh rank (0 for the JAX run): what only rank 0 does
+# (install a fault schedule, set a heartbeat back, record a burn) models
+# what a rank sees alone
+# ---------------------------------------------------------------------------
+
+def _pkg(cls):
+    """The fault injection, counters, flags, health, metrics and flight
+    modules of the package ``cls`` comes from."""
+    import importlib
+    import types
+    root = cls.__module__.split(".")[0]
+
+    def mod(name):
+        return importlib.import_module(f"{root}.{name}")
+    return types.SimpleNamespace(
+        fi=mod("resilience.faultinject"), counters=mod("profiler.counters"),
+        flags=mod("core.flags" if root == "paddle_tpu" else "flags"),
+        health=mod("profiler.health"), metrics=mod("profiler.metrics"),
+        flight=mod("profiler.flight"), RetryAfter=mod("serving").RetryAfter)
+
+
+def _moved(P, before, prefixes=("serving.fleet.",
+                                "resilience.faults_injected")):
+    """Counter (not gauge) movement under ``prefixes`` since ``before``."""
+    return {k: v for k, v in P.counters.delta(before).items()
+            if k.startswith(prefixes) and k not in P.counters._GAUGES}
+
+
+def control_chaos(Fleet, model, mesh, rank, prompts, schedule, kw=None,
+                  stall=False, new=6):
+    """A pumped fleet under ``schedule``, installed by rank 0 alone;
+    ``stall``: after the second pump rank 0 alone sets the hung replica's
+    heartbeat back past the timeout (``tests/test_torch_fleet.py``'s
+    chaos tests).  Tokens, finish reasons, retries, the faults fired,
+    the counters moved and the hung replicas each rank saw."""
+    P = _pkg(Fleet)
+    fleet = Fleet(model, mesh=mesh, threaded=False, heartbeat_timeout_s=30.0,
+                  **dict(dict(replicas=2), **(kw or {})), **EXTRAS_FLEET)
+    before = P.counters.snapshot()
+    if rank == 0:
+        P.fi.set_schedule(schedule)
+    hung = []
     try:
-        with faultinject.fault_schedule("replica_crash@0"):
-            fleet.submit([1, 2], max_new_tokens=2)
+        hs = [fleet.submit(p, max_new_tokens=new, seed=i)
+              for i, p in enumerate(prompts)]
+        fleet.pump()
+        if stall:
+            fleet.pump()
+            hung = [r.idx for r in fleet._alive() if r.hung]
+            for r in fleet._alive():
+                if r.hung and rank == 0:
+                    r.last_beat -= fleet.heartbeat_timeout_s + 1.0
+        fleet.join(hs, timeout_s=120)
+        fired = sorted(P.fi.fired)
+    finally:
+        if rank == 0:
+            P.fi.clear()
+        fleet.drain()
+    return {"tokens": _tokens(hs), "reasons": [h.finish_reason for h in hs],
+            "retries": [h.retries for h in hs], "fired": fired,
+            "moved": _moved(P, before), "hung": hung}
+
+
+def control_router_queue(Fleet, model, mesh, rank):
+    """``router_queue@1`` installed by rank 0 alone: the second submit
+    sheds.  The ``RetryAfter``'s reason and hint, the first request's
+    tokens, the faults fired and the counters moved."""
+    P = _pkg(Fleet)
+    fleet = Fleet(model, replicas=2, mesh=mesh, threaded=False,
+                  **EXTRAS_FLEET)
+    before = P.counters.snapshot()
+    if rank == 0:
+        P.fi.set_schedule("router_queue@1")
+    try:
+        h0 = fleet.submit([1, 2, 3], max_new_tokens=2, seed=0)
+        try:
+            fleet.submit([4, 5, 6], max_new_tokens=2, seed=1)
+            shed = None
+        except P.RetryAfter as e:
+            shed = (e.reason, e.retry_after_hint)
+        fleet.join([h0])
+        fired = sorted(P.fi.fired)
+    finally:
+        if rank == 0:
+            P.fi.clear()
+        fleet.drain()
+    return {"shed": shed, "tokens": _tokens([h0]), "fired": fired,
+            "moved": _moved(P, before)}
+
+
+def control_autoscale(Fleet, model, mesh, rank, prompts, hist, pattern,
+                      kw, submit_at=(0,), threaded=False):
+    """``tests/test_torch_fleet.py``'s ``_drive_autoscale``: the health
+    plane ticked only here, at t = 0, 1, ... (each rank its own), and
+    ``pattern[t]`` burns fed into ``hist`` before tick t on rank 0 alone;
+    requests submitted before the ticks in ``submit_at`` and served to
+    the end between ticks.  A threaded fleet is read once its autoscaler
+    evaluated each tick.  Each tick's firing alerts, roles and alive
+    count, the autoscaler's history, the counters moved and the finish
+    reasons."""
+    P = _pkg(Fleet)
+    slo = P.health.SLO(hist.split(".")[1].replace("_ns", "") + "_burn",
+                       ("hist_p95", hist), 1e10, windows=((1.0, 1.0),),
+                       min_count=4)
+    fleet = Fleet(model, mesh=mesh, threaded=threaded, autoscale=True,
+                  health_kw=dict(rules=[slo]), **kw, **EXTRAS_FLEET)
+    try:
+        # ticked below only (the plane turned on after, so a threaded
+        # fleet's scheduler cannot tick it first)
+        fleet.health.maybe_tick = lambda now=None: None
+        P.flags.set_flags({"FLAGS_health": True,
+                           "FLAGS_health_interval_s": 0.0})
+        before = P.counters.snapshot()
+        trail, hs = [], []
+        for t, burn in enumerate(pattern):
+            if t in submit_at:
+                hs += [fleet.submit(p, max_new_tokens=6, seed=i)
+                       for i, p in enumerate(prompts)]
+                fleet.join(hs)
+            if burn and rank == 0:
+                h = P.metrics.get_histogram(hist, "ns")
+                for _ in range(40):
+                    h.record(1e11)
+            fleet.health.tick(now=float(t))
+            if threaded:
+                t0 = time.monotonic()
+                while fleet.autoscaler._last_ticks < t + 1:
+                    time.sleep(0.002)
+                    assert time.monotonic() - t0 < 60, "no evaluation"
+            else:
+                fleet.pump()
+            st = fleet.stats()
+            trail.append((sorted(fleet.health.firing_names()),
+                          (st["roles"], st["alive"])))
+        fleet.join(hs)
+        history = fleet.autoscaler.summary()["history"]
     finally:
         fleet.drain()
+        P.flags.set_flags({"FLAGS_health": False,
+                           "FLAGS_health_interval_s": 1.0})
+    moved = _moved(P, before, ("serving.autoscale.", "serving.fleet.lost"))
+    return {"trail": trail, "history": history, "moved": moved,
+            "reasons": [h.finish_reason for h in hs]}
+
+
+def control_user_calls(Fleet, model, mesh, prompts):
+    """``spawn_replica``, ``set_role`` and ``retire_replica`` called on
+    every rank between pumps of a disaggregated fleet, then the prompts
+    served: the replicas (index, role) after each call's pump, and the
+    tokens."""
+    P = _pkg(Fleet)
+    fleet = Fleet(model, replicas=2, prefill_replicas=1, mesh=mesh,
+                  threaded=False, **EXTRAS_FLEET)
+    before = P.counters.snapshot()
+
+    def view():
+        fleet.pump()
+        return [(r.idx, r.role) for r in fleet._alive()]
+    try:
+        views = []
+        fleet.spawn_replica(role="decode")
+        views.append(view())
+        fleet.set_role(fleet._alive()[2], "prefill")
+        views.append(view())
+        fleet.retire_replica(fleet._alive()[0])
+        views.append(view())
+        hs = [fleet.submit(p, max_new_tokens=6, seed=i)
+              for i, p in enumerate(prompts)]
+        fleet.join(hs)
+    finally:
+        fleet.drain()
+    return {"views": views, "tokens": _tokens(hs), "moved": _moved(P, before)}
+
+
+class FakeClock:
+    """A stand-in for the ``time`` module of the serving modules:
+    ``monotonic()`` reads ``t`` (moved by the test) plus ``skew`` and a
+    microsecond more at every read; every other name is the real
+    module's."""
+
+    def __init__(self):
+        self.t, self.skew, self._reads = 1000.0, 0.0, 0
+
+    def monotonic(self):
+        self._reads += 1
+        return self.t + self.skew + 1e-6 * self._reads
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+@contextlib.contextmanager
+def fake_clock(cls):
+    """Stub the module-level ``time`` of the serving modules of the
+    package ``cls`` comes from (the ``time`` module itself untouched)."""
+    import importlib
+    root = cls.__module__.split(".")[0]
+    mods = [importlib.import_module(f"{root}.serving.{m}")
+            for m in ("engine", "paged", "fleet", "speculative")]
+    saved = [m.time for m in mods]
+    clock = FakeClock()
+    for m in mods:
+        m.time = clock
+    try:
+        yield clock
+    finally:
+        for m, t in zip(mods, saved):
+            m.time = t
+
+
+def _deadline_stream(submit, step, rank, clock, prompts):
+    """Three requests: one whose deadline passed before its prefill (0
+    s), one without a deadline, one with 60 s that runs; once it has a
+    token the clock moves 61 s.  On rank 1 the clock runs an hour ahead
+    once they are submitted, so a rank that read its own clock would
+    expire every deadline at once."""
+    hs = [submit(prompts[0], 8, 0, 0.0), submit(prompts[1], 4, 1, None),
+          submit(prompts[2], 20, 2, 60.0)]
+    if rank:
+        clock.skew = 3600.0
+    while not hs[2].tokens:
+        step()
+    first = len(hs[2].tokens)
+    clock.t += 61.0
+    return hs, first
+
+
+def control_engine_deadlines(Engine, model, mesh, rank, prompts, kv_layout):
+    """``tests/test_serving.py``'s deadline tests on one engine (``"spec"``:
+    the paged engine drafting with the model itself): tokens, finish
+    reasons, the running request's tokens at its eviction and the serving
+    counters moved."""
+    P = _pkg(Engine)
+    kw = (dict(EXTRAS_ENGINE, draft_model=model, spec_k=2)
+          if kv_layout == "spec" else dict(EXTRAS_ENGINE, kv_layout=kv_layout))
+    eng = Engine(model, mesh=mesh, **kw)
+    with fake_clock(Engine) as clock:
+        before = P.counters.snapshot()
+        hs, first = _deadline_stream(
+            lambda p, n, s, d: eng.add_request(p, max_new_tokens=n, seed=s,
+                                               deadline_s=d),
+            eng.step, rank, clock, prompts)
+        _drive(eng, hs)
+    d = P.counters.delta(before)
+    return {"tokens": _tokens(hs), "reasons": [h.finish_reason for h in hs],
+            "first": first, "counters": {k: d.get(k, 0) for k in (
+                "serving.deadline_expired", "serving.evictions.deadline",
+                "serving.prefill_batches")}}
+
+
+def control_fleet_deadlines(Fleet, model, mesh, rank, prompts):
+    """The deadline stream through a pumped two-replica fleet's
+    ``submit(deadline_s=)``."""
+    P = _pkg(Fleet)
+    fleet = Fleet(model, replicas=2, mesh=mesh, threaded=False,
+                  **EXTRAS_FLEET)
+    with fake_clock(Fleet) as clock:
+        before = P.counters.snapshot()
+        try:
+            hs, first = _deadline_stream(
+                lambda p, n, s, d: fleet.submit(p, max_new_tokens=n, seed=s,
+                                                deadline_s=d),
+                fleet.pump, rank, clock, prompts)
+            fleet.join(hs)
+        finally:
+            fleet.drain()
+    d = P.counters.delta(before)
+    return {"tokens": _tokens(hs), "reasons": [h.finish_reason for h in hs],
+            "first": first, "counters": {k: d.get(k, 0) for k in (
+                "serving.deadline_expired", "serving.evictions.deadline",
+                "serving.fleet.completed.deadline")}}
+
+
+def control_cancel_race(Fleet, model, mesh, rank, prompts, new=8):
+    """Request 0 of a pumped one-replica fleet is cancelled while it
+    runs, by rank 1's caller one pump before rank 0's (the race of two
+    threads, made deterministic).  Tokens and finish reasons."""
+    fleet = Fleet(model, replicas=1, mesh=mesh, threaded=False,
+                  **EXTRAS_FLEET)
+    try:
+        hs = [fleet.submit(p, max_new_tokens=new, seed=i)
+              for i, p in enumerate(prompts[:2])]
+        fleet.pump()
+        fleet.pump()
+        if rank == 1:
+            hs[0].cancel()
+        fleet.pump()
+        if rank == 0:
+            hs[0].cancel()
+        fleet.join(hs, timeout_s=120)
+    finally:
+        fleet.drain()
+    return {"tokens": _tokens(hs), "reasons": [h.finish_reason for h in hs]}
+
+
+def control_cancel_churn(Fleet, model, mesh, prompt):
+    """``tests/test_fleet.py``'s cancel during churn on a threaded fleet:
+    the replica crashes on the request (rank 0's schedule), and the
+    caller cancels it while it replays.  Its finish reason and the
+    requests the drain found lost."""
+    from paddle_tpu_torch.profiler import counters
+    from paddle_tpu_torch.resilience import faultinject
+    fleet = Fleet(model, replicas=2, mesh=mesh, threaded=True,
+                  **EXTRAS_FLEET)
+    before = counters.snapshot()
+    try:
+        if mesh.rank == 0:
+            faultinject.set_schedule("replica_crash@0")
+        h = fleet.submit(prompt, max_new_tokens=8, seed=0)
+        t0 = time.monotonic()
+        while not counters.delta(before).get("serving.fleet.respawns"):
+            time.sleep(0.001)
+            assert time.monotonic() - t0 < 60, "no respawn"
+        h.cancel()
+        assert h.wait(60)
+    finally:
+        faultinject.clear()
+        fleet.drain()
+    return {"reason": h.finish_reason,
+            "lost": counters.delta(before).get("serving.fleet.lost", 0)}
+
+
+def _fleet_crash_respawns(Fleet, model, mesh, prompts):
+    """A replica whose engine step raises on every rank: reported at the
+    next tick, drained and respawned once on every rank; its request
+    replays.  Tokens, and the deaths and respawns."""
+    from paddle_tpu_torch.profiler import counters
+    fleet = Fleet(model, replicas=1, mesh=mesh, threaded=False,
+                  **EXTRAS_FLEET)
+    before = counters.snapshot()
+    try:
+        h = fleet.submit(prompts[0], max_new_tokens=5, seed=1)
+        fleet.pump()
+
+        def boom():
+            raise RuntimeError("replica step failed")
+        fleet._alive()[0].engine.step = boom
+        fleet.join([h], timeout_s=120)
+    finally:
+        fleet.drain()
+    d = counters.delta(before)
+    return {"tokens": _tokens([h]), "reason": h.finish_reason,
+            "deaths": d.get("serving.fleet.replica_deaths.crash", 0),
+            "respawns": d.get("serving.fleet.respawns", 0)}
+
+
+def _decode_collectives(model, mesh, prompts, kv_layout):
+    """Collectives (``dist.collective_launches``) of one mesh engine's
+    decode step, without a deadline and with one."""
+    from paddle_tpu_torch.profiler import counters
+    from paddle_tpu_torch.serving import LLMEngine
+    out = []
+    for deadline in (None, 600.0):
+        eng = LLMEngine(model, mesh=mesh,
+                        **dict(EXTRAS_ENGINE, kv_layout=kv_layout))
+        eng.add_request(prompts[0], max_new_tokens=8, seed=1,
+                        deadline_s=deadline)
+        eng.step()
+        eng.step()
+        c0 = counters.snapshot()
+        eng.step()
+        d = counters.delta(c0)
+        out.append((d.get("dist.collective_launches", 0),
+                    d.get("serving.decode_steps", 0)))
+    return out
+
+
+def _flight_bundles(Fleet, model, mesh, root, prompts):
+    """One replica death on a fleet whose ranks share ``FLAGS_flight_dir``:
+    the ``replica_died`` bundles the directory then holds."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.resilience import faultinject
+    flags.set_flags({"FLAGS_flight_dir": root})
+    fleet = Fleet(model, replicas=1, mesh=mesh, threaded=False,
+                  **EXTRAS_FLEET)
+    try:
+        if mesh.rank == 0:
+            faultinject.set_schedule("replica_crash@0")
+        h = fleet.submit(prompts[0], max_new_tokens=4, seed=0)
+        fleet.join([h], timeout_s=120)
+    finally:
+        faultinject.clear()
+        fleet.drain()
+        flags.set_flags({"FLAGS_flight_dir": ""})
+    torch.distributed.barrier()
+    return sorted(f for f in os.listdir(root)
+                  if f.startswith("flight-replica_died"))
+
+
+def fleet_control_mp2(rank, world, pl):
+    """The fleet's control plane on an mp2 mesh
+    (``tests/test_torch_mesh_fleet_control.py``): every scenario above
+    at mp2, and the port-only checks beside them."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.serving import LLMEngine, ServingFleet
+    prompts = pl["prompts"]
+    model = _gpt(pl["cfg"], pl["state"])
+    model.eval()
+    mesh = D.build_mesh({"mp": world})
+    out = {}
+    for name, args in pl["chaos"].items():
+        out[name] = control_chaos(ServingFleet, model, mesh, rank, **args)
+    out["router_queue"] = control_router_queue(ServingFleet, model, mesh,
+                                               rank)
+    for name, args in pl["autoscale"].items():
+        out[name] = control_autoscale(ServingFleet, model, mesh, rank,
+                                      **args)
+    out["user_calls"] = control_user_calls(ServingFleet, model, mesh,
+                                           prompts)
+    for layout in ("paged", "slots", "spec"):
+        out[f"deadline_{layout}"] = control_engine_deadlines(
+            LLMEngine, model, mesh, rank, prompts, layout)
+    for layout in ("paged", "slots"):
+        out[f"collectives_{layout}"] = _decode_collectives(
+            model, mesh, prompts, layout)
+    out["deadline_fleet"] = control_fleet_deadlines(ServingFleet, model,
+                                                    mesh, rank, prompts)
+    out["cancel_race"] = control_cancel_race(ServingFleet, model, mesh,
+                                             rank, prompts)
+    out["cancel_churn"] = control_cancel_churn(ServingFleet, model, mesh,
+                                               prompts[0])
+    out["crash"] = _fleet_crash_respawns(ServingFleet, model, mesh, prompts)
+    out["crash_ref"] = extras_fleet(ServingFleet, model, mesh, prompts[:1],
+                                    new=5)[0]
+    out["flight"] = _flight_bundles(ServingFleet, model, mesh,
+                                    pl["flight_dir"], prompts)
+    return out
 
 
 # ---------------------------------------------------------------------------

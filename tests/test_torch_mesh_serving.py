@@ -30,9 +30,10 @@ What is held, with its JAX counterpart:
   ``paged_decode_attention`` on the whole pool, bf16 and int8, and the
   JAX kernel's plain version;
 * a mesh of one rank is bit-identical to no mesh, with the same
-  counters (``test_mesh1_int8_engine_bit_identical_with_counter_parity``);
-* ``deadline_s`` on a mesh of more than one rank is refused (the ranks'
-  clocks would evict differently).
+  counters (``test_mesh1_int8_engine_bit_identical_with_counter_parity``).
+
+``deadline_s`` at mp2 (rank 0's clock decides) is held in
+``tests/test_torch_mesh_fleet_control.py``.
 
 The paged engine's extras on a mesh (speculative decoding, LoRA, the
 host-RAM tier, KV migration, the fleet) are held in
@@ -231,14 +232,6 @@ def test_sharded_paged_decode_attention_equals_whole_pool(served, kind):
         got, whole = out[f"pa_{kind}"]
         np.testing.assert_array_equal(got, whole)
         np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
-
-
-@pytest.mark.parametrize("what", ["deadline"])
-def test_mesh_refusals_name_their_roadmap_item(served, what):
-    _, _, res = served
-    for out in res:
-        msg = out["refused"][what]
-        assert msg.startswith("ValueError") and "clocks" in msg
 
 
 @pytest.fixture

@@ -37,9 +37,11 @@ What is held, with its JAX counterpart:
   (rank 0's stall verdict, applied on every rank) serves every request
   with the tokens of a fleet that did not stall;
 * a mesh of one rank is bit-identical to no mesh, with the serving
-  counters equal, the autoscaler's included;
-* what a two-rank mesh still refuses names its ROADMAP item, and a
-  replica whose step raises there fails the fleet on every rank.
+  counters equal, the autoscaler's included.
+
+The fleet's control plane at mp2 (faults, crash respawn, the autoscaler,
+deadlines and cancels) is held in
+``tests/test_torch_mesh_fleet_control.py``.
 """
 
 import datetime
@@ -309,27 +311,6 @@ def test_mp2_threaded_fleet_stall_during_submits(served):
         toks, moved = out["fleet_stall"]
         assert toks == 2 * out["fleet_stall_ref"][0]
         assert moved == (1, 1)
-
-
-def test_mp2_fleet_replica_crash_fails_the_fleet(served):
-    _, res = served
-    for out in res:
-        msg, respawns = out["fleet_crash"]
-        assert msg == "RuntimeError: replica step failed"
-        assert respawns == 0
-
-
-@pytest.mark.parametrize("what", ["deadline", "fleet_autoscale",
-                                  "fleet_chaos"])
-def test_mesh_refusals_name_their_roadmap_item(served, what):
-    _, res = served
-    for out in res:
-        msg = out["refused"][what]
-        if what == "deadline":
-            assert msg.startswith("ValueError") and "clocks" in msg
-        else:
-            assert msg.startswith("NotImplementedError") \
-                and "A7f-control" in msg
 
 
 # ---------------------------------------------------------------------------
