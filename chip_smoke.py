@@ -260,7 +260,17 @@ script exits non-zero:
     on the global batch: losses and fp32 master updates against this
     process's one-process steps beside a control, K1–K3 launches ==
     steps x 6 x their per-layer count on each rank, and K1–K3 at 16 x
-    1024, 6 x 64 against their plain versions and timed.
+    1024, 6 x 64 against their plain versions and timed.  In the same
+    ranks, auto_parallel_mp2: the model built without a mesh, placed by
+    ``shard_layer`` with Shard/Replicate placements on
+    ``ProcessMesh([0, 1], ["mp"])`` as fleet's tensor-parallel layers
+    split it, trained 3 steps by ``to_static(loss=, optimizer=)``
+    (losses and fp32 updates against the fleet-built mp2 run's, K1–K3
+    counted), and ``reshard``'s four moves on a 768 x 3072 bf16 weight
+    (bit-equal).  The placements split the optimizer state and fp32
+    masters only (ZeRO-style): each rank keeps the whole parameters and
+    runs all 12 heads on the same batch, so this is not tensor
+    parallelism (ROADMAP.md A7h-mp).
 20c. moe_serve — GPT-3 760M widths with 8 experts a layer (top-2,
     capacity factor 1.25), bf16, servemp's 8 requests through the paged
     engine (K4), int8 KV + weights (K4q; the expert stacks stay bf16)
@@ -300,6 +310,19 @@ script exits non-zero:
     4096), the diagonal causal and the older pair full, K2/K3 with a
     nonzero LSE cotangent, against their plain versions and timed
     beside SDPA.
+20g. elastic_2rank — GPT-3 125M at 6 of its 12 layers (cut for the time
+    limit), B 4 x 1024, over mp2 in worlds that
+    ``python -m paddle_tpu_torch.distributed.launch`` starts (two gloo
+    ranks on card 0, each running this script with ``--elastic-worker``,
+    ``FaultTolerantTrainer`` + ``CheckpointManager``): an uninterrupted
+    run, agent run A (rank 1 dies after the step-2 checkpoint; the world
+    is relaunched and resumes) and agent run B with ``--min_nproc 1``
+    (rank 1 dies again at its next start; the world shrinks to one
+    process, which restores the mp2 save resharded), started together:
+    A's losses bit-equal to the uninterrupted run's, B's shrunk losses
+    within ``ELASTIC_SHRINK_ATOL`` while a control that drops the
+    optimizer's moments must miss it, the agents' events, each
+    incarnation's K1–K3 == its steps x 6 x their per-layer count.
 21. bert_train — BERT-large pretraining on the paddle-style surface
     (``paddle.seed(0)``, ``BertForPretraining`` at full width and depth,
     hidden dropout 0.1, recompute, ``amp.decorate`` O2 bf16,
@@ -326,6 +349,12 @@ script exits non-zero:
     4096 x 26 Zipf ids a step, ``Adam(lazy_mode=True)`` + the global-norm
     clip, 10 steps: untouched rows bit-equal, touched rows against a
     plain row-wise update, ``lazy_mode=False`` against ``sparse=False``.
+22b'. ps_sparse — sparse_embedding's data with the table on two
+    parameter-server processes (started through ``TRAINING_ROLE=PSERVER``
+    and ``fleet``'s role maker), this process the worker:
+    ``ps.SparseEmbedding`` pulls each batch's rows onto the card, SGD on
+    the servers, 10 steps, against a dense twin on the card (losses and
+    rows), a save/clobber/load round trip; pull and push ms printed.
 22c. lbfgs — least squares at 8192 x 1024 fp32, 20 ``step(closure)``
     calls, x against the CPU run's, the loss falls.
 23. times (K1–K3) — µs per launch at the training shape and at
@@ -377,6 +406,12 @@ if __name__ == "__main__":
     os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix = _PYCACHE
     os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     sys.dont_write_bytecode = False
+    # elastic_2rank's run B: rank 1 of incarnation 1 is a process that
+    # fails at its start, before any import (as one whose card is lost)
+    if sys.argv[1:2] == ["--elastic-worker"] and sys.argv[3] == "B" \
+            and os.environ.get("PADDLE_RESTART_COUNT") == "1" \
+            and os.environ.get("PADDLE_TRAINER_ID") == "1":
+        os._exit(19)
 
 import numpy as np
 import torch
@@ -3370,6 +3405,18 @@ def _flash_per_layer_step(recompute):
             "flash_bwd_dkv": 1}
 
 
+def _loop_optimizer(model, size):
+    """:func:`_loop`'s schedule, optimizer and criterion: AdamW over a
+    warmup + cosine schedule, global-norm clipping at 1.0, weight decay
+    0.1 on all but biases and norms."""
+    top = LOOP_LR[size]
+    sched = lr.CosineAnnealingWithWarmupDecay(top, top / 10, 2, 1000)
+    opt = AdamW(sched, parameters=model.named_parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0),
+                apply_decay_param_fun=_decays, weight_decay=0.1)
+    return sched, opt, GPTPretrainingCriterion()
+
+
 def _loop(model, size, k=1, scaler=None, loss_fn=None, metrics=True,
           mesh=None, pipeline=None):
     """The training loop as a user runs GPT pretraining: AdamW over a
@@ -3377,12 +3424,7 @@ def _loop(model, size, k=1, scaler=None, loss_fn=None, metrics=True,
     0.1 on all but biases and norms, train metrics; ``mesh``: the mesh
     step; ``pipeline``: a ``Pipeline1F1BTrainStep`` of that schedule
     over ``mesh`` (``PP_M`` microbatches) in its place."""
-    crit = GPTPretrainingCriterion()
-    top = LOOP_LR[size]
-    sched = lr.CosineAnnealingWithWarmupDecay(top, top / 10, 2, 1000)
-    opt = AdamW(sched, parameters=model.named_parameters(),
-                grad_clip=ClipGradByGlobalNorm(1.0),
-                apply_decay_param_fun=_decays, weight_decay=0.1)
+    sched, opt, crit = _loop_optimizer(model, size)
     if pipeline is not None:
         from paddle_tpu_torch.distributed import Pipeline1F1BTrainStep
         return sched, opt, Pipeline1F1BTrainStep(
@@ -6551,6 +6593,7 @@ def _mesh_train_rank(rank, world, pl):
     from paddle_tpu_torch.resilience import CheckpointManager
     ids, labels = (torch.from_numpy(pl[k]).cuda() for k in ("ids", "labels"))
     out = {}
+    fleet_mp2 = None
     for name, degrees in (("dp2", {"dp": world}), ("mp2", {"mp": world}),
                           ("dp2_control", {"dp": world})):
         D.set_mesh(None)
@@ -6576,18 +6619,186 @@ def _mesh_train_rank(rank, world, pl):
         finally:
             MeshPlan.sync_grads = sync
         launches = _flash_counts()
-        errs = _update_rel_err(init, _masters(model, opt), pl["d_ref"])
+        after = _masters(model, opt)
+        errs = _update_rel_err(init, after, pl["d_ref"])
+        if name == "mp2":
+            fleet_mp2 = (losses, {n: v - init[n] for n, v in after.items()})
         out[name] = {"losses": losses, "launches": launches,
                      "update_rel_err": errs,
                      "qkv_w": list(model.qkv_w.shape)}
-        del model, opt, step, init
+        del model, opt, step, init, after
         gc.collect()
         torch.cuda.empty_cache()
+    out["auto_parallel"] = _auto_parallel_mp2(rank, world, ids, labels,
+                                              *fleet_mp2)
+    del fleet_mp2
     i = MESH2_SAVE_AT
     for name, degrees in (("mp2_resumed", {"mp": world}),
                           ("dp2_resumed", {"dp": world})):
         out[name] = _resume_step(degrees, pl["ckpt"], ids[i], labels[i])
     return out
+
+
+#: auto_parallel_mp2: the JAX GPT's placements of its weights (``gpt.py``
+#: ``mk``) as ``Shard`` dims on a one-axis ``mp`` ProcessMesh, the way
+#: fleet's tensor-parallel layers split them (columns of qkv and fc1,
+#: rows of proj and fc2, the vocabulary of wte); the rest replicated
+AP_MP_SHARD_DIMS = {"wte": 0, "qkv_w": 2, "qkv_b": 1, "proj_w": 1,
+                    "fc1_w": 2, "fc1_b": 1, "fc2_w": 1}
+#: auto_parallel_mp2's reshard moves on a 768 x 3072 bf16 weight (the
+#: 125M model's fc1 shape); the Partial summands are the weight on both
+#: ranks, so the all-reduced whole is exactly twice it
+AP_MOVES = ("shard0_to_replicate", "replicate_to_shard1",
+            "shard0_to_shard1", "partial_to_replicate")
+
+
+def _ap_shard_fn(ap):
+    def shard_fn(name, layer, mesh):
+        for pname, p in layer.named_parameters(include_sublayers=False):
+            dim = AP_MP_SHARD_DIMS.get(pname)
+            ap.shard_tensor(p, mesh, [ap.Replicate() if dim is None
+                                      else ap.Shard(dim)])
+    return shard_fn
+
+
+def _ap_reshards(ap, pmesh, rank, world):
+    """The four moves of :data:`AP_MOVES`: each result's local piece
+    against the slice of the whole it must be (bit-equal), and the ms of
+    each ``reshard`` (synchronised, host clock)."""
+    w = torch.randn(768, 3072, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(21)
+                    ).to(torch.bfloat16)
+    moves = {"shard0_to_replicate": ([ap.Shard(0)], [ap.Replicate()], w),
+             "replicate_to_shard1": ([ap.Replicate()], [ap.Shard(1)],
+                                     w.chunk(world, 1)[rank]),
+             "shard0_to_shard1": ([ap.Shard(0)], [ap.Shard(1)],
+                                  w.chunk(world, 1)[rank]),
+             "partial_to_replicate": ([ap.Partial()], [ap.Replicate()],
+                                      w * 2)}
+    out = {}
+    for name in AP_MOVES:
+        src, dst, want = moves[name]
+        a = (ap.dtensor_from_local(w, pmesh, src) if name.startswith(
+            "partial") else ap.shard_tensor(w, pmesh, src))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = ap.reshard(a, pmesh, dst)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = ap.dtensor_to_local(b)._data
+        out[name] = {"bit_equal": bool(torch.equal(got, want)), "ms": ms,
+                     "local_shape": list(got.shape)}
+    return out
+
+
+def _auto_parallel_mp2(rank, world, ids, labels, fleet_losses, d_fleet):
+    """auto_parallel_mp2 on one rank: GPT-3 125M (``MESH2_LAYERS``, seed
+    0) built without a mesh, placed by :func:`_ap_shard_fn` on
+    ``ProcessMesh([0, 1], ["mp"])`` through ``shard_layer``, trained
+    ``MESH2_STEPS`` steps by ``to_static(loss=, optimizer=)`` with
+    :func:`_loop_optimizer`'s AdamW, K1–K3 counted; its losses and fp32
+    master updates (the storage slices all-gathered) against the
+    fleet-built mp2 run's (``fleet_losses``, ``d_fleet``); then
+    :func:`_ap_reshards`.  The parameters stay whole: the placements
+    split their optimizer state and masters, not the products."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import auto_parallel as ap
+    from paddle_tpu_torch.distributed.sharding_utils import gather_shard
+    t0 = time.perf_counter()
+    D.set_mesh(None)
+    model = GPTForCausalLM(_fused_cfg(num_layers=MESH2_LAYERS),
+                           device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    init = model.gather_numpy_state()
+    pmesh = ap.ProcessMesh(list(range(world)), ["mp"])
+    ap.shard_layer(model, pmesh, _ap_shard_fn(ap))
+    sched, opt, crit = _loop_optimizer(model, "gpt3_125m")
+    step = ap.to_static(model, loss=crit, optimizer=ap.shard_optimizer(opt))
+    _reset_flash_counts()
+    losses = []
+    for i in range(MESH2_STEPS):
+        losses.append(float(step(ids[i], labels[i])))
+        sched.step()
+    launches = _flash_counts()
+    plan = step._mesh
+    masters = opt.state_dict()["master_weights"]
+    after = {}
+    for n, t in model._weights().items():
+        m = masters.get(n, t).detach().float()
+        spec = plan.storage.get(id(t))
+        if spec is not None and tuple(m.shape) != tuple(t.shape):
+            m = gather_shard(m.contiguous(), spec, plan.mesh)
+        after[n] = m.cpu().numpy()
+    errs = _update_rel_err(init, after, d_fleet)
+    qkv = model._parameters["qkv_w"]
+    rec = {"step": type(step).__name__, "losses": losses,
+           "fleet_mp2_losses": fleet_losses,
+           "max_loss_err": max(abs(a - b) for a, b in zip(losses,
+                                                           fleet_losses)),
+           "launches": launches,
+           "update_rel_err": errs,
+           "storage_specs": {n: list(plan.storage[id(t)]) for n, t in
+                             model._weights().items()
+                             if id(t) in plan.storage},
+           "qkv_w_moment": list(opt._accumulators["moment1"][id(qkv)].shape),
+           "qkv_w": list(qkv.shape)}
+    del model, opt, step, init, after, masters
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["reshard"] = _ap_reshards(ap, pmesh, rank, world)
+    D.set_mesh(None)
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def _auto_parallel_gates(res, want):
+    """auto_parallel_mp2's gates over the ranks' records (``want``: K1–K3
+    over its steps); prints them beside the card."""
+    recs = [r["auto_parallel"] for r in res]
+    worst = {}
+    for r in recs:
+        for n, e in r["update_rel_err"].items():
+            if n != NOISE_ONLY:
+                worst[n] = max(worst.get(n, 0.0), e)
+    worst_n = max(worst, key=worst.get)
+    emit({"phase": "auto_parallel_mp2", "card": CARD,
+          "model": "gpt3_125m bf16 selective", "layers": MESH2_LAYERS,
+          "batch": [FUSED_B, TRAIN_S], "step": recs[0]["step"],
+          "placements": {n: f"Shard({d})" for n, d in
+                         AP_MP_SHARD_DIMS.items()},
+          "losses": [r["losses"] for r in recs],
+          "fleet_mp2_losses": recs[0]["fleet_mp2_losses"],
+          "max_loss_err": max(r["max_loss_err"] for r in recs),
+          "loss_atol": MESH2_LOSS_ATOL,
+          "max_update_rel_err": worst[worst_n], "worst_param": worst_n,
+          "update_rtol": MESH2_UPDATE_RTOL,
+          "launches": [r["launches"] for r in recs], "launches_want": want,
+          "qkv_w_moment": recs[0]["qkv_w_moment"],
+          "reshard_768x3072_bf16": [r["reshard"] for r in recs],
+          "seconds_a_rank": [r["seconds"] for r in recs]})
+    for r in recs:
+        if r["step"] != "DistributedTrainStep":
+            raise AssertionError(f"auto_parallel_mp2: to_static gave {r}")
+        if r["max_loss_err"] > MESH2_LOSS_ATOL:
+            raise AssertionError("auto_parallel_mp2: losses "
+                                 f"{r['losses']} vs the fleet's mp2 "
+                                 f"{r['fleet_mp2_losses']}")
+        if r["launches"] != want:
+            raise AssertionError(f"auto_parallel_mp2: K1-K3 launches "
+                                 f"{r['launches']}, want {want}")
+        q = r["qkv_w"]
+        if r["qkv_w_moment"] != [q[0], q[1], q[2] // 2]:
+            raise AssertionError("auto_parallel_mp2: qkv_w's moment "
+                                 f"{r['qkv_w_moment']} is not its mp2 slice")
+        bad = [m for m, v in r["reshard"].items() if not v["bit_equal"]]
+        if bad:
+            raise AssertionError(f"auto_parallel_mp2: reshard {bad} gave "
+                                 "other values than the slices they move")
+    if worst[worst_n] > MESH2_UPDATE_RTOL:
+        raise AssertionError(f"auto_parallel_mp2: {worst_n}'s update "
+                             f"differs from the fleet's mp2 by "
+                             f"{worst[worst_n]}")
+    return recs[0]["launches"]
 
 
 def _mesh_checkpoint_gates(res, one, want):
@@ -6748,6 +6959,7 @@ def mesh_train_2rank_phase():
                              f"{record['mp2']['qkv_w_shard']}")
     _mesh_checkpoint_gates(res, one, {n: c * cfg.num_layers
                                       for n, c in per.items()})
+    ap_launches = _auto_parallel_gates(res, want)
     times = _flash_shape_times(FUSED_B, 6, TRAIN_S, 64, True, seed=14)
     errs = {"flash_fwd": max(worst["flash_fwd"], worst["flash_fwd_lse"]),
             "flash_bwd_dq": worst["flash_bwd_dq"],
@@ -6762,7 +6974,8 @@ def mesh_train_2rank_phase():
                    "bound_ms": t["bound_us"] / 1e3,
                    "bound_by": t["bound_by"],
                    "library_ms": t["library_us"] / 1e3,
-                   "share_of_bound": t["share_of_bound"]}
+                   "share_of_bound": t["share_of_bound"],
+                   "auto_parallel_mp2_launches_a_rank": ap_launches[n]}
     return rows
 
 
@@ -8082,6 +8295,502 @@ def pp_train_2rank_phase():
     return rows
 
 
+# -- elastic training under the launcher, and the parameter server (A7h) -----
+
+#: elastic_2rank: GPT-3 125M at full width over mp2 (two gloo processes
+#: on card 0 under ``python -m paddle_tpu_torch.distributed.launch``),
+#: batch 4 x 1024; the uninterrupted run and agent run A take
+#: ``ELASTIC_STEPS``, run B stops at ``ELASTIC_B_STEPS`` (its shrunk
+#: world resumes from step 2); A and B's worlds of two save every 2
+#: steps, the uninterrupted run only at its start and B's shrunk world
+#: not at all (no run reads those saves).  6 of the 12
+#: layers: at 12 the leg took 81-84 s on an NVIDIA H100 80GB HBM3,
+#: 700.00 W, most of it checkpoint writes and process start-up, over its
+#: share of the script's time
+ELASTIC_LAYERS, ELASTIC_B, ELASTIC_STEPS, ELASTIC_B_STEPS = 6, 4, 6, 4
+#: the step after whose checkpoint rank 1 exits in incarnation 0
+ELASTIC_CRASH_AT = 2
+#: B's shrunk world against the uninterrupted mp2 run, on the loss: between
+#: its sound readings (2.38e-5 and 3.43e-5 on an NVIDIA H100 80GB HBM3,
+#: 700.00 W) and its control's, which drops the optimizer's moments
+#: (2.43e-3 at step 4)
+ELASTIC_SHRINK_ATOL = 3e-4
+ELASTIC_RUNS = {
+    "A": ["launch", "failure", "launch", "done"],
+    "B": ["launch", "failure", "launch", "failure", "shrink", "launch",
+          "done"]}
+
+
+def _elastic_record(out, mode, restart, rank, world, losses, marks):
+    launches = _flash_counts()
+    with open(os.path.join(out, f"rec.{mode}.r{restart}.{rank}.json"),
+              "w") as f:
+        json.dump({"world": world, "losses": {str(k): v for k, v in
+                                              losses.items()},
+                   "launches": launches,
+                   "marks": {**marks, "recorded": time.time()}}, f)
+
+
+def _elastic_worker(out, mode, steps, layers):
+    """One rank of elastic_2rank, started by the launcher (its rank, world,
+    rendezvous, card and incarnation from the environment): GPT-3 125M at
+    ``layers`` built under the mp mesh of its world, ``_loop_optimizer``'s
+    AdamW through ``DistributedTrainStep``, driven by
+    ``FaultTolerantTrainer`` with ``CheckpointManager`` (a save every 2
+    steps, written in the background; mode ``ref`` saves only its start
+    and a shrunk world, which resumes, nothing: no run reads those saves)
+    under ``out/ckpt``; the trainer restores the newest checkpoint at its
+    start.  Its losses and K1–K3 counts go to ``out`` after every save
+    and at the end.  Mode ``A`` and ``B``: rank 1 exits 17 right after the
+    checkpoint of step ``ELASTIC_CRASH_AT`` in incarnation 0; ``B``: rank
+    1 also exits 19 at its start in incarnation 1 (the script's first
+    lines), and the shrunk world runs :func:`_elastic_control` after its
+    run."""
+    import datetime
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.resilience import (CheckpointManager,
+                                             FaultTolerantTrainer)
+    marks = {"entry": time.time()}
+    steps, layers = int(steps), int(layers)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    restart = int(os.environ.get("PADDLE_RESTART_COUNT", 0))
+    D.init_parallel_env(timeout=datetime.timedelta(seconds=120))
+    marks["rendezvous"] = time.time()
+    rank, world = D.get_rank(), D.get_world_size()
+    trainer = None
+
+    def record():
+        _elastic_record(out, mode, restart, rank, world,
+                        trainer.losses if trainer is not None else {},
+                        marks)
+
+    D.build_mesh({"mp": world})
+    model = GPTForCausalLM(_fused_cfg(num_layers=layers), device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    sched, opt, crit = _loop_optimizer(model, "gpt3_125m")
+    step = D.DistributedTrainStep(model, lambda m, x, y: crit(m(x), y), opt)
+    # every run draws the same ELASTIC_STEPS batches; ``steps`` ends it
+    g = torch.Generator().manual_seed(9)
+    V = model.config.vocab_size
+    ids, labels = (torch.randint(0, V, (ELASTIC_STEPS * ELASTIC_B, TRAIN_S),
+                                 generator=g) for _ in range(2))
+    ds = tio.TensorDataset([ids, labels])
+
+    class Manager(CheckpointManager):
+        def save(self, train_step, at, **kw):
+            super().save(train_step, at, **kw)
+            if mode in ("A", "B") and restart == 0 and rank == 1 \
+                    and at == ELASTIC_CRASH_AT:
+                self.wait()
+                record()
+                os._exit(17)
+            record()
+
+    marks["built"] = time.time()
+    trainer = FaultTolerantTrainer(
+        step, lambda e: tio.DataLoader(ds, batch_size=ELASTIC_B,
+                                       shuffle=False),
+        Manager(os.path.join(out, "ckpt"), async_save=True),
+        scheduler=sched, max_steps=steps,
+        save_every=0 if mode == "ref" or world == 1 else 2)
+    trainer.run()
+    marks["trained"] = time.time()
+    record()
+    if mode == "B" and world == 1:
+        _elastic_control(out, step, sched, ds, steps)
+    D.reset_parallel_env()
+
+
+def _elastic_control(out, step, sched, ds, steps):
+    """elastic_2rank B's control, in its shrunk world after the world's
+    run: ``step`` restores the save of step ``ELASTIC_CRASH_AT`` (the mp2
+    save the world resumed from, resharded) with the optimizer's moments
+    dropped, trains to ``steps`` again and saves nothing.  Its losses go
+    to ``out/control.B.json``; the incarnation's record is written
+    before it, so its K1–K3 counts are the world's run's alone."""
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.resilience import (CheckpointManager,
+                                             FaultTolerantTrainer)
+
+    class Dropped(CheckpointManager):
+        def _committed(self):
+            return [s for s in super()._committed()
+                    if s <= ELASTIC_CRASH_AT]
+
+        def restore(self, train_step, **kw):
+            info = super().restore(train_step, **kw)
+            train_step.optimizer._accumulators.clear()
+            train_step.invalidate()
+            return info
+
+        def save(self, *args, **kw):
+            pass
+
+    losses = FaultTolerantTrainer(
+        step, lambda e: tio.DataLoader(ds, batch_size=ELASTIC_B,
+                                       shuffle=False),
+        Dropped(os.path.join(out, "ckpt")), scheduler=sched,
+        max_steps=steps, save_every=2).run()
+    with open(os.path.join(out, "control.B.json"), "w") as f:
+        json.dump({str(k): v for k, v in losses.items()}, f)
+
+
+def _elastic_launch(root, mode, steps, layers):
+    """Start ``mode``'s world through the launcher (elastic for A and B)
+    in the background; returns (process, its directory)."""
+    d = os.path.join(root, mode)
+    os.makedirs(d)
+    here = os.path.dirname(os.path.abspath(__file__))
+    args = ["--nproc_per_node", "2", "--devices", "0,0", "--log_dir",
+            os.path.join(d, "log")]
+    if mode != "ref":
+        args += ["--elastic", "--max_restarts", "3", "--heartbeat_timeout",
+                 "120"] + (["--min_nproc", "1"] if mode == "B" else [])
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           *args, os.path.abspath(__file__), "--elastic-worker", d, mode,
+           str(steps), str(layers)]
+    log = open(os.path.join(d, "launcher.log"), "w")
+    proc = subprocess.Popen(cmd, cwd=here, stdout=log,
+                            stderr=subprocess.STDOUT,
+                            env={**os.environ,
+                                 "PADDLE_DISTRI_BACKEND": "gloo"})
+    return proc, log, d
+
+
+def _elastic_read(d, mode):
+    recs = {}
+    for name in os.listdir(d):
+        if name.startswith(f"rec.{mode}."):
+            _, _, r, rank, _ = name.split(".")
+            with open(os.path.join(d, name)) as f:
+                recs[(int(r[1:]), int(rank))] = json.load(f)
+    events = []
+    path = os.path.join(d, "log", "elastic_events.jsonl")
+    if os.path.exists(path):
+        with open(path) as f:
+            events = [json.loads(line) for line in f]
+    return recs, events
+
+
+def _elastic_tail(d):
+    """The last lines of a run's launcher and worker logs (for a
+    failure's message)."""
+    out = []
+    for root, _, files in os.walk(d):
+        for name in sorted(files):
+            if name.startswith(("workerlog", "launcher")):
+                with open(os.path.join(root, name), errors="replace") as f:
+                    out.append(f"== {name}\n" + "".join(f.readlines()[-15:]))
+    return "\n".join(out)[-6000:]
+
+
+def elastic_2rank_phase():
+    """A7h's elastic training on the card: the uninterrupted mp2 run
+    (the launcher, no agent), agent run A (rank 1 dies after the step-2
+    checkpoint; the agent kills rank 0 out of its collective and
+    relaunches; the world resumes from that checkpoint) and agent run B
+    with ``--min_nproc 1`` (rank 1 dies after the step-2 checkpoint and
+    again before its first step, so the agent shrinks the world to one
+    process, which restores the mp2 save resharded and finishes), all
+    three started together.  Gates: A's losses equal the uninterrupted
+    run's bit for bit; B's shrunk losses within ``ELASTIC_SHRINK_ATOL``
+    of the uninterrupted run's, while B's control (:func:`_elastic_control`,
+    the same restore with the optimizer's moments dropped) must exceed it;
+    the agents' events; every incarnation's K1–K3 counts == its steps x
+    layers x the recompute factor."""
+    import tempfile
+    t0, t_wall = time.perf_counter(), time.time()
+    root = tempfile.mkdtemp(prefix="elastic_", dir=os.environ.get("TMPDIR"))
+    runs = {}
+    try:
+        for mode, steps in (("ref", ELASTIC_STEPS), ("A", ELASTIC_STEPS),
+                            ("B", ELASTIC_B_STEPS)):
+            runs[mode] = _elastic_launch(root, mode, steps, ELASTIC_LAYERS)
+        codes = {}
+        for mode, (proc, log, d) in runs.items():
+            try:
+                codes[mode] = proc.wait(timeout=400)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        got = {mode: _elastic_read(d, mode) for mode, (_, _, d) in
+               runs.items()}
+        control = {}
+        path = os.path.join(runs["B"][2], "control.B.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                control = json.load(f)
+        tails = {m: _elastic_tail(d) for m, (_, _, d) in runs.items()
+                 if codes[m] != 0}
+    finally:
+        for proc, log, _ in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    if any(codes.values()):
+        raise AssertionError(f"elastic_2rank: launcher exit codes {codes}\n"
+                             + "\n".join(tails.values()))
+    per = _flash_per_layer_step(_fused_cfg().recompute)
+    ref = got["ref"][0]
+    want = {r: ref[(0, r)]["losses"] for r in (0, 1)}
+    record = {"phase": "elastic_2rank", "card": CARD,
+              "model": "gpt3_125m bf16 selective", "layers": ELASTIC_LAYERS,
+              "batch": [ELASTIC_B, TRAIN_S], "mesh": "mp2, gloo, card 0 x 2",
+              "uninterrupted_losses": want[0], "seconds": seconds,
+              "loss_atol_shrunk": ELASTIC_SHRINK_ATOL}
+    problems = []
+    for mode in ("A", "B"):
+        recs, timed = got[mode]
+        events = [e[1:] for e in timed]
+        kinds = [k for k, _ in events]
+        resumed = {}
+        for (restart, rank), rec in sorted(recs.items()):
+            if restart > 0:
+                resumed.setdefault(rank, {}).update(rec["losses"])
+        first = {rank: recs[(0, rank)]["losses"] for rank in (0, 1)
+                 if (0, rank) in recs}
+        record[mode] = {
+            "events": events,
+            "event_s": [round(e[0] - t_wall, 3) for e in timed],
+            "worker_marks_s": {f"r{r}.rank{k}": {
+                m: round(t - t_wall, 3) for m, t in v["marks"].items()}
+                for (r, k), v in sorted(recs.items())},
+            "incarnations": {f"r{r}.rank{k}": {
+                "world": v["world"], "steps": sorted(map(int, v["losses"])),
+                "launches": v["launches"]} for (r, k), v in
+                sorted(recs.items())},
+            "losses_incarnation0": first, "losses_resumed": resumed}
+        if kinds != ELASTIC_RUNS[mode]:
+            problems.append(f"{mode}: agent events {kinds}")
+        for (restart, rank), rec in recs.items():
+            n = len(rec["losses"])
+            want_l = {k: c * ELASTIC_LAYERS * n for k, c in per.items()}
+            if rec["launches"] != want_l:
+                problems.append(f"{mode} incarnation {restart} rank {rank}: "
+                                f"K1-K3 {rec['launches']} over {n} steps, "
+                                f"want {want_l}")
+        for rank, losses in first.items():
+            if any(losses[k] != want[rank][k] for k in losses) or \
+                    len(losses) != ELASTIC_CRASH_AT:
+                problems.append(f"{mode} incarnation 0 rank {rank}: "
+                                f"losses {losses} vs {want[rank]}")
+    # A: the resumed steps are the uninterrupted run's, bit for bit
+    recsA = record["A"]["losses_resumed"]
+    for rank in (0, 1):
+        tail = {k: v for k, v in want[rank].items()
+                if int(k) > ELASTIC_CRASH_AT}
+        if recsA.get(rank) != tail:
+            problems.append(f"A rank {rank}: resumed losses "
+                            f"{recsA.get(rank)} vs uninterrupted {tail}")
+    # B: the shrunk world of one process resumes from the mp2 save
+    recsB, _ = got["B"]
+    last = max(r for r, _ in recsB)
+    shrunk = recsB.get((last, 0), {"world": None, "losses": {}})
+    errs = {k: abs(v - want[0][k]) for k, v in shrunk["losses"].items()}
+    ctl = {k: abs(v - want[0][k]) for k, v in control.items()}
+    record["B"]["shrunk_world"] = shrunk["world"]
+    record["B"]["shrunk_loss_err"] = errs
+    record["B"]["control_moments_dropped_loss_err"] = ctl
+    resumed_steps = list(range(ELASTIC_CRASH_AT + 1, ELASTIC_B_STEPS + 1))
+    if shrunk["world"] != 1 or sorted(map(int, shrunk["losses"])) != \
+            resumed_steps:
+        problems.append(f"B: the last incarnation {shrunk}")
+    if any(e > ELASTIC_SHRINK_ATOL for e in errs.values()):
+        problems.append(f"B: shrunk losses off by {errs}")
+    if sorted(map(int, ctl)) != resumed_steps or \
+            max(ctl.values()) <= ELASTIC_SHRINK_ATOL:
+        problems.append("B: the control with the optimizer's moments "
+                        f"dropped passes the shrink gate: {ctl}")
+    record["launches_all_incarnations"] = {k: sum(
+        rec["launches"][k] for mode in ("A", "B")
+        for rec in got[mode][0].values()) for k in per}
+    emit(record)
+    if problems:
+        raise AssertionError("elastic_2rank: " + "; ".join(problems))
+    return record
+
+
+#: ps_sparse: sparse_embedding's data (4096 x 26 Zipf ids over 1,000,000,
+#: dim 256, click labels) with the table on two parameter-server
+#: processes; plain SGD on the servers and for the card's head
+PS_LR = 1.0
+PS_TABLE = "ctr_emb"
+PS_SERVER = """
+from paddle_tpu_torch.distributed import fleet
+fleet.init(fleet.PaddleCloudRoleMaker())
+server = fleet.init_server()
+print(server.endpoint, flush=True)
+fleet.run_server()
+"""
+
+
+def _ps_servers(n):
+    """Start ``n`` parameter-server processes through the role path
+    (``TRAINING_ROLE=PSERVER``, ``fleet.init(PaddleCloudRoleMaker())``,
+    ``init_server``, ``run_server``); each prints its endpoint when it
+    serves (:func:`_ps_endpoints`)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return [subprocess.Popen(
+        [sys.executable, "-c", PS_SERVER], cwd=here, stdout=subprocess.PIPE,
+        text=True, env={**os.environ, "TRAINING_ROLE": "PSERVER",
+                        "PADDLE_PORT": "0", "CUDA_VISIBLE_DEVICES": ""})
+        for _ in range(n)]
+
+
+def _ps_endpoints(procs):
+    eps = [p.stdout.readline().strip() for p in procs]
+    if not all(eps):
+        raise AssertionError(f"ps_sparse: a server did not start: {eps}, "
+                             f"exit codes {[p.poll() for p in procs]}")
+    return eps
+
+
+def _ps_head_step(head_w, head_b, e, labels):
+    logit = e.sum(1) @ head_w + head_b
+    loss = F.binary_cross_entropy_with_logits(logit[:, 0], labels)
+    return loss
+
+
+def ps_sparse_phase():
+    """The parameter-server mode on the card: the embedding table on two
+    server processes (rows by ``id % 2``), the chip process the worker
+    (``fleet.init_worker``): ``SparseEmbedding`` pulls each batch's
+    unique rows onto the card, the card's head and BCE run there,
+    ``push_step`` sends the rows' gradient back (plain SGD on the
+    servers), 10 steps.  The dense twin: an embedding of the whole table
+    on the card whose touched rows were pulled from the servers once
+    before step 0, the same SGD.  Gates: the losses equal the twin's
+    within fp32 rounding (rtol 1e-5); the rows pulled after training
+    equal the twin's rows (atol 1e-6); ``save_tables``/``load_tables``
+    (the servers' ``save``/``load``) give back the saved rows bit for
+    bit after a clobbering push.  Pull and push ms p50 a step printed."""
+    import tempfile
+    from paddle_tpu_torch.distributed import fleet, ps
+    t0 = time.perf_counter()
+    marks = {}
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t0
+
+    procs = _ps_servers(2)
+    tmp = tempfile.mkdtemp(prefix="ps_", dir=os.environ.get("TMPDIR"))
+    try:
+        # the data while the servers start
+        batches = _sparse_batches(17)
+        gen = torch.Generator(device="cuda").manual_seed(18)
+        head0 = torch.randn(SPARSE_DIM, 1, generator=gen,
+                            device="cuda") * 0.05
+        touched = np.unique(np.concatenate(
+            [i.reshape(-1).cpu().numpy() for i, _ in batches]))
+        twin = torch.zeros(SPARSE_V, SPARSE_DIM, device="cuda")
+        client = fleet.init_worker(_ps_endpoints(procs))
+        mark("servers_up")
+        emb = ps.SparseEmbedding(PS_TABLE, SPARSE_V, SPARSE_DIM,
+                                 optimizer="sgd", init_scale=0.01)
+        twin[torch.from_numpy(touched).cuda()] = torch.from_numpy(
+            client.pull_sparse(PS_TABLE, touched)).cuda()
+        twin.requires_grad_(True)
+        mark("twin_pulled")
+
+        def run(lookup, after_backward):
+            w = head0.clone().requires_grad_(True)
+            b = torch.zeros(1, device="cuda", requires_grad=True)
+            losses, pull_ms, push_ms = [], [], []
+            for ids, labels in batches:
+                torch.cuda.synchronize()
+                ta = time.perf_counter()
+                e = lookup(ids)
+                torch.cuda.synchronize()
+                pull_ms.append((time.perf_counter() - ta) * 1e3)
+                loss = _ps_head_step(w, b, e, labels)
+                loss.backward()
+                ta = time.perf_counter()
+                after_backward()
+                torch.cuda.synchronize()
+                push_ms.append((time.perf_counter() - ta) * 1e3)
+                with torch.no_grad():
+                    for p in (w, b):
+                        p -= PS_LR * p.grad
+                        p.grad = None
+                losses.append(float(loss.detach()))
+            return losses, pull_ms, push_ms
+
+        def twin_sgd():
+            with torch.no_grad():
+                twin.sub_(PS_LR * twin.grad)
+                twin.grad = None
+
+        ps_losses, pull_ms, push_ms = run(
+            lambda ids: emb(ids)._data, lambda: emb.push_step(PS_LR))
+        mark("ps_steps")
+        twin_losses, _, twin_ms = run(
+            lambda ids: F.embedding(ids, twin), twin_sgd)
+        mark("twin_steps")
+        rows = client.pull_sparse(PS_TABLE, touched)
+        want = twin.detach()[torch.from_numpy(touched).cuda()].cpu().numpy()
+        row_err = float(np.abs(rows - want).max())
+        # save, clobber, load: the saved rows come back bit for bit
+        client.save(tmp)
+        some = touched[:4096]
+        client.push_sparse(PS_TABLE, some, np.ones((some.size, SPARSE_DIM),
+                                                   np.float32), 1.0)
+        clobbered = not np.array_equal(client.pull_sparse(PS_TABLE, some),
+                                       rows[:some.size])
+        client.load(tmp)
+        reloaded = client.pull_sparse(PS_TABLE, touched)
+        mark("save_load")
+        size = client.sparse_table_size(PS_TABLE)
+        fleet.stop_worker()
+        codes = [p.wait(timeout=60) for p in procs]
+        mark("stopped")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"phase": "ps_sparse", "card": CARD, "servers": 2,
+           "table": [SPARSE_V, SPARSE_DIM], "batch": [SPARSE_B,
+                                                      SPARSE_FIELDS],
+           "steps": SPARSE_STEPS, "sgd_lr": PS_LR,
+           "touched_rows": int(touched.size), "table_rows": size,
+           "losses": ps_losses, "twin_losses": twin_losses,
+           "max_row_err_vs_twin": row_err,
+           "rows_reloaded_bit_equal": bool(np.array_equal(reloaded, rows)),
+           "clobbered_before_load": clobbered,
+           "pull_ms_p50": float(np.median(pull_ms[1:])),
+           "push_ms_p50": float(np.median(push_ms[1:])),
+           "twin_update_ms_p50": float(np.median(twin_ms[1:])),
+           "step_times": "host clock around each synchronised pull "
+                         "(unique ids, RPC, host-to-card copy) and push "
+                         "(card-to-host copy, RPC, the servers' SGD), p50 "
+                         "of steps 2-10",
+           "server_exit_codes": codes, "marks_s": marks,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not np.allclose(ps_losses, twin_losses, rtol=1e-5, atol=0):
+        raise AssertionError(f"ps_sparse: losses {ps_losses} vs the dense "
+                             f"twin's {twin_losses}")
+    if row_err > 1e-6:
+        raise AssertionError(f"ps_sparse: pulled rows off the twin's by "
+                             f"{row_err}")
+    if not (rec["rows_reloaded_bit_equal"] and clobbered):
+        raise AssertionError(f"ps_sparse: save/load round trip {rec}")
+    if size != touched.size or any(codes):
+        raise AssertionError(f"ps_sparse: table size {size} vs "
+                             f"{touched.size} touched, servers {codes}")
+    if not ps_losses[-1] < ps_losses[0]:
+        raise AssertionError(f"ps_sparse: the loss did not fall "
+                             f"{ps_losses}")
+    return rec
+
+
 def _free_cuda():
     gc.collect()
     torch.cuda.empty_cache()
@@ -8193,12 +8902,16 @@ def main():
     _free_cuda()
     pp_rows = _timed(pp_train_2rank_phase)
     _free_cuda()
+    elastic = _timed(elastic_2rank_phase)
+    _free_cuda()
     bert = _timed(bert_train_phase)
     _free_cuda()
     _timed(bert_in_model_phase)
     _free_cuda()
     hd_launches = _timed(flash_hd_in_model_phase)
     _timed(sparse_embedding_phase)
+    _timed(ps_sparse_phase)
+    _free_cuda()
     _timed(lbfgs_phase)
     flash_rows = _timed(flash_times_phase, flash_err, train["launches"],
                         bert["launches"],
@@ -8228,6 +8941,8 @@ def main():
         row["cp_sep2_125m_s8192_chunk_pairs_2x12x4096x64"] = cp_rows[
             row["name"]]
         row["gpt125m_pp2_mb2_12x64"] = pp_rows[row["name"]]
+        row["elastic_2rank_launches"] = elastic[
+            "launches_all_incarnations"][row["name"]]
     torch.cuda.synchronize()
     emit({"phase": "total", "run_s": time.perf_counter() - t_start})
     print(json.dumps({"kernels": [*paged_rows, *fp16_rows, *flash_rows,
@@ -8238,4 +8953,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--elastic-worker"]:
+        _elastic_worker(*sys.argv[2:])
+    else:
+        main()

@@ -61,8 +61,10 @@ def init_parallel_env(backend=None, rank=None, world_size=None,
     says; ``rank``/``world_size`` default to ``PADDLE_TRAINER_ID`` /
     ``PADDLE_TRAINERS_NUM`` (0 / 1); ``init_method`` (``tcp://...`` or
     ``file://...``) or ``store`` to ``PADDLE_MASTER``, else, for a world
-    of one, a ``HashStore``.  Under NCCL each rank takes the card
-    ``PADDLE_LOCAL_RANK`` (default: rank modulo the card count)."""
+    of one, a ``HashStore``.  A rank takes the card
+    ``FLAGS_selected_gpus`` (the launcher's and the elastic agent's
+    slot, under any backend), else under NCCL ``PADDLE_LOCAL_RANK``
+    (default: rank modulo the card count)."""
     if dist.is_initialized():
         _INITIALIZED[0] = True
         return ParallelEnv()
@@ -82,9 +84,11 @@ def init_parallel_env(backend=None, rank=None, world_size=None,
                 f"init_parallel_env: world size {world_size} needs a "
                 "rendezvous: pass init_method= or store=, or set "
                 "PADDLE_MASTER")
-    if backend == "nccl":
-        local = int(os.environ.get("PADDLE_LOCAL_RANK",
-                                   rank % max(torch.cuda.device_count(), 1)))
+    selected = os.environ.get("FLAGS_selected_gpus")
+    if backend == "nccl" or (selected and torch.cuda.is_available()):
+        local = int(selected.split(",")[0]) if selected else int(
+            os.environ.get("PADDLE_LOCAL_RANK",
+                           rank % max(torch.cuda.device_count(), 1)))
         torch.cuda.set_device(local)
     kw = {} if timeout is None else {"timeout": timeout}
     dist.init_process_group(backend, init_method=init_method, store=store,

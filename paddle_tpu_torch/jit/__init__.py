@@ -105,6 +105,7 @@ import torch.distributed as dist
 from .. import flags
 from ..core.state import STATE
 from ..core.tensor import unwrap
+from ..distributed.elastic import heartbeat
 from ..distributed.env import rows_split_over, sequence_split_over
 from ..io import Window
 from ..kernels import count_launch, launch_counted
@@ -265,6 +266,9 @@ class CompiledTrainStep:
     # -- dispatch ----------------------------------------------------------
     def __call__(self, *args):
         self._dirty = True
+        # the elastic agent's watchdog: one beat a call, a single step or
+        # a window (a no-op outside an elastic run)
+        heartbeat()
         rows = (self._mesh.rows if self._mesh is not None
                 else lambda a, stacked: a)
         if len(args) == 1 and isinstance(args[0], Window):

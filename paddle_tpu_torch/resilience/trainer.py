@@ -29,9 +29,12 @@ the same step on every rank; a non-finite loss is the mean over the
 ranks, so every rank sees it.  Every rank restores the step rank 0
 chose (``CheckpointManager.restore``), and the manager's saves and
 restores are collective, so the ranks stay in step.  A rank process
-that dies (a crash, a lost card) is not recovered here: the others wait
-in their next collective until its timeout; elastic training is
-ROADMAP.md A7h.
+that dies (a crash, a lost card) is not recovered here, where the
+others would wait in their next collective until its timeout: under
+the elastic agent (``python -m paddle_tpu_torch.distributed.launch
+--elastic``, ``distributed.elastic``) the agent ends the whole world and
+launches it again, and every rank's trainer resumes from the newest
+checkpoint at its start (resharded when the world shrank).
 """
 
 from __future__ import annotations

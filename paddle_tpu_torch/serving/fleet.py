@@ -65,8 +65,11 @@ health checks and fault-driven drain and respawn.
   engine built and warmed on every rank in the same order) and its
   requests replayed at most once, as without a mesh.  A rank that
   raises inside a collective of a step, or whose process dies, is not
-  covered: the other ranks wait in that collective until its timeout
-  (elastic serving, ROADMAP.md A7h).
+  covered here: the other ranks wait in that collective until its
+  timeout.  Under the elastic agent (``distributed.elastic``) such a
+  mesh fleet restarts whole, every rank's process launched again and
+  its requests lost with it; the JAX fleet, one process over every
+  device, has no counterpart to copy (ROADMAP.md, limits of the port).
 
 Every replica shares the model's weights; only the pools are per
 replica.  All replicas queue their work on the device's current stream

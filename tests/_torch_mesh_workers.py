@@ -4,8 +4,10 @@
 ``test_torch_mesh_serving_extras.py``, ``test_torch_mesh_train.py``, ``test_torch_moe_mesh.py``,
 ``test_torch_ring_attention.py``, ``test_torch_sequence_parallel.py``,
 ``test_torch_cp_train.py``, ``test_torch_pp_train.py``,
-``test_torch_gpt_train.py``, ``test_torch_mesh_checkpoint.py`` and
-``test_torch_mesh_fleet_control.py`` run the JAX package in the pytest
+``test_torch_gpt_train.py``, ``test_torch_mesh_checkpoint.py``,
+``test_torch_mesh_fleet_control.py``, ``test_torch_auto_parallel.py`` and
+``test_torch_launch_elastic.py`` (its ``spawn`` children) run the JAX
+package in the pytest
 process and the port's ranks in processes spawned here: each child
 imports ``torch`` and ``paddle_tpu_torch`` only (the test files import
 JAX, so the ranks' code lives in this module), joins a gloo group
@@ -1271,6 +1273,46 @@ def api_dp2mp2(rank, world, pl):
     out["hybrid_weight"] = _np(gather_shard(col.weight._data,
                                             col.weight._data.placements,
                                             mesh))
+    # -- fleet's UtilBase over the world, then group_sharded_parallel's
+    # annotations at sharding 2 x mp 2
+    u = fleet.UtilBase()
+    out["util"] = {mode: u.all_reduce(np.array([rank + 1.0, -rank]),
+                                      mode).tolist()
+                   for mode in ("sum", "max", "min")}
+    out["util"]["shard"] = u.get_file_shard(list("abcdefg"))
+    D.set_mesh(None)
+    D.build_mesh({"sharding": 2, "mp": 2})
+    out["group_sharded"] = {level: group_sharded_annotations(
+        paddle, D.sharding.group_sharded_parallel, level)
+        for level in ("os", "os_g", "p_g_os")}
+    return out
+
+
+def group_sharded_model(pkg):
+    """The model whose ZeRO annotations both packages compare: two
+    linears of 2048 and 1280 weights (above the 1024-element floor) and
+    their biases (below it)."""
+    class Two(pkg.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.l0 = pkg.nn.Linear(64, 32)
+            self.l1 = pkg.nn.Linear(32, 40)
+    return Two()
+
+
+def group_sharded_annotations(pkg, group_sharded_parallel, level):
+    """``{name: (placements, _opt_state_spec)}`` after
+    ``group_sharded_parallel`` at ``level`` (specs as tuples)."""
+    from paddle_tpu_torch.core.tensor import unwrap
+    model = group_sharded_model(pkg)
+    group_sharded_parallel(model, None, level=level)
+    out = {}
+    for name, p in model.named_parameters():
+        t = unwrap(p) if "paddle_tpu_torch" in pkg.__name__ else p
+        spec = getattr(t, "placements", None)
+        opt = getattr(t, "_opt_state_spec", None)
+        out[name] = (None if spec is None else tuple(spec),
+                     None if opt is None else tuple(opt))
     return out
 
 
@@ -1990,3 +2032,116 @@ def ck_pp_moe_2ranks(rank, world, pl):
         out[name] = _ck_gpt_leg(pl, degrees, os.path.join(root, name),
                                 over, state)
     return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_auto_parallel.py
+# ---------------------------------------------------------------------------
+
+#: the JAX GPT's placements of its weights (``gpt.py`` ``mk``), as
+#: auto-parallel placements on a one-axis ``mp`` mesh
+GPT_MP_PLACEMENTS = {"wte": 0, "qkv_w": 2, "qkv_b": 1, "proj_w": 1,
+                     "fc1_w": 2, "fc1_b": 1, "fc2_w": 1}
+
+
+def gpt_shard_fn(pkg_ap):
+    """A ``shard_layer`` ``shard_fn`` placing the GPT's weights as the
+    tensor-parallel layers split them (``GPT_MP_PLACEMENTS``), the rest
+    replicated."""
+    def fn(name, layer, mesh):
+        for pname, p in layer.named_parameters(include_sublayers=False):
+            dim = GPT_MP_PLACEMENTS.get(pname)
+            pl = [pkg_ap.Replicate() if dim is None else pkg_ap.Shard(dim)]
+            pkg_ap.shard_tensor(p, mesh, pl)
+    return fn
+
+
+def _ap_moves(pl, rank):
+    """The four moves of ``reshard`` on ``pl["x"]`` over mp2, with the
+    local pieces and the whole values they give."""
+    import paddle_tpu_torch.distributed as D
+    from paddle_tpu_torch.distributed import auto_parallel as ap
+    mesh = ap.ProcessMesh([0, 1], ["mp"])
+    out = {}
+    moves = {"s0_r": ([ap.Shard(0)], [ap.Replicate()]),
+             "r_s1": ([ap.Replicate()], [ap.Shard(1)]),
+             "s0_s1": ([ap.Shard(0)], [ap.Shard(1)])}
+    for name, (src, dst) in moves.items():
+        a = ap.shard_tensor(pl["x"], mesh, src)
+        b = ap.reshard(a, mesh, dst)
+        out[name] = {"src_local": _np(ap.dtensor_to_local(a)),
+                     "dst_local": _np(ap.dtensor_to_local(b)),
+                     "whole": _np(D.unshard_dtensor(b)),
+                     "spec": tuple(b.placements)}
+    part = ap.dtensor_from_local(pl["x"] * (rank + 1), mesh, [ap.Partial()])
+    rep = ap.reshard(part, mesh, [ap.Replicate()])
+    out["p_r"] = {"dst_local": _np(ap.dtensor_to_local(rep))}
+    # Partial from a whole tensor: the summand on the axis' first rank
+    pz = ap.shard_tensor(pl["x"], mesh, [ap.Partial()])
+    out["p_from_whole"] = {"local": _np(ap.dtensor_to_local(pz)),
+                           "whole": _np(D.unshard_dtensor(pz))}
+    return out
+
+
+def _ap_compat(rank, world):
+    import paddle_tpu_torch.distributed as D
+    out = {}
+    ins = [torch.full((2,), float(10 * rank + i)) for i in range(world)]
+    outs = []
+    D.alltoall(outs, ins)
+    out["alltoall"] = [_np(t) for t in outs]
+    single = torch.empty(4)
+    D.alltoall_single(single, torch.arange(4.0) + 10 * rank)
+    out["alltoall_single"] = _np(single)
+    got = D.gather(torch.full((3,), float(rank)), dst=1)
+    out["gather"] = None if got is None else [_np(t) for t in got]
+    objs = [{"rank": rank}, f"from {rank}"]
+    D.broadcast_object_list(objs, src=1)
+    out["broadcast_object_list"] = objs
+    mine = []
+    D.scatter_object_list(mine, [f"to {r}" for r in range(world)]
+                          if rank == 0 else None, src=0)
+    out["scatter_object_list"] = mine
+    return out
+
+
+def _ap_train(pl):
+    """The plain GPT of ``pl``, placed by :func:`gpt_shard_fn` on
+    ``ProcessMesh([0, 1], ["mp"])`` and trained through ``to_static``
+    with AdamW: (losses, gathered state, the optimizer's moment shape of
+    ``qkv_w``)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import auto_parallel as ap
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    D.set_mesh(None)
+    model = _gpt(pl["cfg"], pl["state"])
+    mesh = ap.ProcessMesh([0, 1], ["mp"])
+    ap.shard_layer(model, mesh, gpt_shard_fn(ap))
+    opt = ap.shard_optimizer(AdamW(pl["lr"], parameters=model.parameters()))
+    step = ap.to_static(model, loss=GPTPretrainingCriterion(),
+                        optimizer=opt)
+    losses = [float(step(torch.from_numpy(x), torch.from_numpy(y)))
+              for x, y in zip(pl["ids"], pl["labels"])]
+    moment = opt._accumulators["moment1"][id(model._parameters["qkv_w"])]
+    return {"losses": losses, "state": model.gather_numpy_state(),
+            "qkv_w_moment": tuple(moment.shape),
+            "step_type": type(step).__name__,
+            "placements": {n: tuple(getattr(p, "placements", ()) or ())
+                           for n, p in torch.nn.Module.named_parameters(
+                               model)}}
+
+
+def auto_parallel_2ranks(rank, world, pl):
+    return {"moves": _ap_moves(pl, rank), "compat": _ap_compat(rank, world),
+            "train": _ap_train(pl)}
+
+
+def spawn_env(path):
+    """A child of ``distributed.spawn``: write the launcher variables it
+    was given to ``path`` + its PID."""
+    import json
+    keys = ("PADDLE_TRAINER_ID", "PADDLE_TRAINERS_NUM", "PADDLE_MASTER",
+            "PADDLE_LOCAL_RANK")
+    with open(f"{path}.{os.getpid()}", "w") as f:
+        json.dump({k: os.environ.get(k) for k in keys}, f)

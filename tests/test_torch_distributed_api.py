@@ -368,3 +368,124 @@ def test_local_shard_and_gather_roundtrip_in_one_process():
     back = torch.cat([p.reshape(2, 3, 2) for p in parts], -1).reshape(2, 12)
     assert torch.equal(back, x)
     assert torch.equal(parts[0], x[:, [0, 1, 4, 5, 8, 9]])
+
+
+# -- utils, io, sharding and fleet's parameter-server surface ----------------
+
+def test_utils_timers_and_logger_match_jax():
+    """``get_timers``/``TimerHub`` and ``get_logger`` behave as the JAX
+    package's: the same timers, the same log line's shape."""
+    import logging
+    from paddle_tpu.distributed import utils as jutils
+    from paddle_tpu_torch.distributed import utils
+    for mod in (jutils, utils):
+        hub = mod.TimerHub()
+        hub("fwd").start()
+        hub("fwd").stop()
+        assert hub("fwd").elapsed(reset=False) >= 0
+        assert hub("fwd").elapsed() >= 0 and hub("fwd").elapsed_ == 0
+        assert isinstance(mod.get_timers(), mod.TimerHub)
+        assert set(hub.timers) == {"fwd"}
+    log = utils.get_logger("WARNING")
+    assert log.name == "paddle_tpu_torch.distributed"
+    assert log.level == logging.WARNING
+    assert utils.get_logger(name="x").name == \
+        jutils.get_logger(name="x").name
+
+
+def test_io_raises_pointing_at_the_checkpoint():
+    from paddle_tpu.distributed import io as jio
+    from paddle_tpu_torch.distributed import io
+    for fn in ("save_persistables", "load_persistables"):
+        with pytest.raises(NotImplementedError, match="checkpoint"):
+            getattr(jio, fn)()
+        with pytest.raises(NotImplementedError,
+                           match="save_state_dict|load_state_dict"):
+            getattr(io, fn)()
+
+    class V:
+        persistable = True
+    assert io.is_persistable(V()) == jio.is_persistable(V()) is True
+    assert io.is_persistable(object()) is False
+
+
+def test_group_sharded_annotations_match_jax(api):
+    """``sharding.group_sharded_parallel`` at each level records the
+    annotations the JAX package's ``apply_fsdp_annotations`` records on
+    the same model at sharding 2 x mp 2 (stage 1/2: the optimizer
+    state's spec beside a replicated placement; stage 3: the
+    placement); ``save_group_sharded_model`` names ROADMAP A10."""
+    import jax
+    import paddle_tpu as jp
+    from paddle_tpu.distributed import env as jenv
+    from paddle_tpu.distributed import sharding as jsharding
+    from paddle_tpu_torch.distributed import sharding
+    _, _, res = api
+    try:
+        jenv.build_mesh({"sharding": 2, "mp": 2},
+                        devices=np.asarray(jax.devices()[:WORLD]))
+        want = {level: W.group_sharded_annotations(
+            jp, jsharding.group_sharded_parallel, level)
+            for level in ("os", "os_g", "p_g_os")}
+    finally:
+        jenv.reset_parallel_env()
+    for out in res:
+        for level, specs in want.items():
+            got = out["group_sharded"][level]
+            assert set(got) == set(specs)
+            for name, (place, opt) in specs.items():
+                assert got[name][1] == opt, (level, name)
+                assert (got[name][0] or ()) == (place or ()), (level, name)
+    with pytest.raises(NotImplementedError, match="A10"):
+        sharding.save_group_sharded_model(None, "out")
+
+
+def test_fleet_util_over_the_world(api):
+    """``fleet.UtilBase``: the reduction the mode names over the four
+    ranks, and each rank's share of a file list."""
+    _, _, res = api
+    for r, out in enumerate(res):
+        u = out["util"]
+        assert u["sum"] == [10.0, -6.0]
+        assert u["max"] == [4.0, 0.0]
+        assert u["min"] == [1.0, -3.0]
+        assert u["shard"] == list("abcdefg")[r::WORLD]
+
+
+@pytest.mark.parametrize("backend,want", [("nccl", "cuda:1"),
+                                           ("gloo", "cpu")])
+def test_fleet_util_reduces_on_the_backends_device(monkeypatch, backend,
+                                                    want):
+    """``UtilBase.all_reduce`` hands NCCL a tensor on this rank's card
+    (NCCL refuses host tensors) and gloo one on the host."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: backend)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert fleet._collective_device() == torch.device(want)
+
+
+def test_fleet_data_generators_match_jax():
+    """The multi-slot text of ``MultiSlotDataGenerator`` equals the JAX
+    package's for the same samples."""
+    from paddle_tpu.distributed import fleet as jfleet
+    from paddle_tpu_torch.distributed import fleet
+
+    def gen(base):
+        class G(base):
+            def generate_sample(self, line):
+                def it():
+                    ids = [int(x) for x in line.split()]
+                    yield [("click", [ids[0] % 2]), ("ids", ids)]
+                    yield [("click", [1]), ("ids", ids[::-1][:2])]
+                return it
+        return G()
+
+    lines = ["3 1 4 1 5", "9 2 6", "5"]
+    for base in ("MultiSlotDataGenerator", "MultiSlotStringDataGenerator"):
+        assert gen(getattr(fleet, base)).run_from_memory(lines) == \
+            gen(getattr(jfleet, base)).run_from_memory(lines)
+    assert fleet.Role.SERVER == jfleet.Role.SERVER == 2
+    assert isinstance(fleet.Fleet().util, fleet.UtilBase)
+    assert fleet.Fleet().is_first_worker is fleet.is_first_worker
